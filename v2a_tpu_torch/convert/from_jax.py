@@ -1,0 +1,86 @@
+"""Carries the JAX package's parameters into the port.
+
+Each function takes a JAX parameter tree as nested dicts of numpy arrays
+(with or without the outer 'params' key) and returns the port model's
+`state_dict` (float32 tensors). One set of weights then makes both packages
+compute the same function.
+
+Layout changes:
+- flax Dense kernel (in, out) -> torch Linear weight (out, in);
+- flax Embed `embedding` -> torch Embedding `weight`;
+- video U-Net convs keep the flax layouts: spatial kernels (kh, kw, C, D)
+  HWIO (what K1 reads as a (9C, D) matrix) and temporal kernels
+  (k, C_in, C_out) (what K2 reads as (3C, C));
+- policy convs become torch layouts: Conv2d (D, C, kh, kw), Conv1d
+  (D, C, k), and the transposed up-conv (C_in, C_out, k) flipped along k
+  (flax's ConvTranspose correlates with the unflipped kernel);
+- GroupNorm `scale` -> `weight` in the policy (torch GroupNorm modules).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = np.asarray(v, np.float32)
+    return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def video_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """One video-side module's JAX tree -> its port state dict."""
+    sd = {}
+    for name, a in _flatten(tree).items():
+        if name.endswith(".kernel") and a.ndim == 2:
+            name, a = name[: -len("kernel")] + "weight", a.T
+        elif name.endswith(".embedding"):
+            name = name[: -len("embedding")] + "weight"
+        sd[prefix + name] = _tensor(a)
+    return sd
+
+
+def video_model_from_jax(unet_params: Mapping, text_params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `VideoPredModel.params['unet']` / `['text']` -> state dict of the
+    port's `VideoPredModel.nets` (`unet.*`, `text.*`)."""
+    sd = video_tree(unet_params, "unet.")
+    sd.update(video_tree(text_params, "text."))
+    return sd
+
+
+def policy_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `DiffusionPolicy.init` params -> state dict of the port's
+    `PolicyNets`."""
+    sd = {}
+    for name, a in _flatten(params).items():
+        stem, leaf = name.rsplit(".", 1)
+        if stem.endswith("_downsample.conv") or stem.endswith("_upsample.conv"):
+            stem = stem[: -len(".conv")]
+        if leaf == "kernel":
+            leaf = "weight"
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif stem.endswith("_upsample"):
+                a = a[::-1].transpose(1, 2, 0)
+            else:
+                a = a.transpose(2, 1, 0)
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[f"{stem}.{leaf}"] = _tensor(a)
+    return sd

@@ -1,0 +1,141 @@
+// K2: y = temporal_conv3(x) + bias [+ emb] [+ residual] on (B, F, S, C),
+// optionally with per-(B, F, C) sum / sum of squares of y over S.
+//
+// Replaces the TPU kernel `temporal_conv_fused`
+// (v2a_tpu/ops/resblock_kernels.py:177, body `_tconv_kernel` :95).
+//
+// y[b, f, s] = sum_t x[b, f + t - 1, s] @ W[t] with frames zero-padded on
+// BOTH sides (the conv is not causal), then + bias + emb[b] + residual in
+// float32 and rounded to the input type. The statistics are taken from the
+// rounded values, as the TPU kernel takes them.
+//
+// What bounds it on the H100: memory. At the first level (S = 128^2,
+// C = 128, B*F = 56) it moves ~0.35 GB (x, residual, y) for 1.6e10 FLOP.
+// Design: an implicit GEMM over rows (b, f, s) with K = 3*C (tap-major);
+// a block owns 64 positions of ONE (b, f) slab x 64 channels, so x is read
+// three times from L2 at most and written once, and emb / residual / the
+// statistics ride the same epilogue. The TPU accumulated the statistics
+// across a sequential grid axis; blocks here run in no order, so each block
+// writes its per-tile column sums and a second pass reduces them in a fixed
+// order (deterministic, no atomics).
+#include "common.cuh"
+
+namespace v2a {
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+temporal_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const float* __restrict__ bias, const float* __restrict__ emb,
+                     const T* __restrict__ res, T* __restrict__ y, float* __restrict__ partial,
+                     int F, int S, int C, int tiles) {
+  __shared__ __align__(128) T As[BM][Lds<T>::A];
+  __shared__ __align__(128) T Bs[BK][Lds<T>::B];
+  __shared__ __align__(128) float Cs[BM][C_LD];
+
+  const int bf = blockIdx.x / tiles;  // (b, f) slab
+  const int tile = blockIdx.x % tiles;
+  const int b = bf / F, f = bf % F;
+  const int s0 = tile * BM;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+
+  Accum<T> acc;
+  acc.zero();
+  for (int t = 0; t < 3; ++t) {
+    const int ff = f + t - 1;
+    const bool frame_ok = ff >= 0 && ff < F;
+    for (int c0 = 0; c0 < C; c0 += BK) {
+#pragma unroll
+      for (int k = 0; k < (BM * BK) / (THREADS * 8); ++k) {
+        const int idx = tid + k * THREADS;
+        const int r = idx / (BK / 8), cg = (idx % (BK / 8)) * 8;
+        const int s = s0 + r;
+        if (frame_ok && s < S)
+          copy8(&As[r][cg], x + (((long)b * F + ff) * S + s) * C + c0 + cg);
+        else
+          zero8(&As[r][cg]);  // the frame padding
+      }
+      load_b_tile<T>(Bs, w, (long)t * C + c0, C, n0);
+      __syncthreads();
+      acc.step(As, Bs);
+      __syncthreads();
+    }
+  }
+  acc.store(Cs);
+  __syncthreads();
+  for (int idx = tid; idx < BM * BN; idx += THREADS) {
+    const int r = idx / BN, c = idx % BN;
+    const int s = s0 + r;
+    float q = 0.f;
+    if (s < S) {
+      const long o = ((long)bf * S + s) * C + n0 + c;
+      float off = bias[n0 + c];
+      if (emb) off += emb[(long)b * C + n0 + c];
+      float v = Cs[r][c] + off;
+      if (res) v += to_f(res[o]);
+      const T rounded = from_f<T>(v);
+      y[o] = rounded;
+      q = to_f(rounded);
+    }
+    Cs[r][c] = q;  // rows past S count as zero in the statistics
+  }
+  if (!partial) return;
+  __syncthreads();
+  const int col = tid % BN, which = tid / BN;  // 0: sum, 1: sum of squares
+  float sum = 0.f;
+  for (int r = 0; r < BM; ++r) {
+    const float v = Cs[r][col];
+    sum += which ? v * v : v;
+  }
+  partial[(((long)bf * tiles + tile) * 2 + which) * C + n0 + col] = sum;
+}
+
+// stats[bf, w, c] = sum over tiles of partial[bf, tile, w, c], in tile order
+__global__ void reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ stats,
+                                    long n_out, int C, int tiles) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const long bf = i / (2 * C);
+  const long wc = i % (2 * C);
+  float sum = 0.f;
+  for (int t = 0; t < tiles; ++t) sum += partial[(bf * tiles + t) * 2 * C + wc];
+  stats[i] = sum;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* bias, const void* emb,
+                   const void* res, void* y, void* partial, void* stats, int B, int F, int S,
+                   int C, cudaStream_t stream) {
+  const int tiles = (S + BM - 1) / BM;
+  dim3 grid((unsigned)(B * F * tiles), (unsigned)(C / BN));
+  temporal_conv_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(emb), static_cast<const T*>(res), static_cast<T*>(y),
+      static_cast<float*>(partial), F, S, C, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !partial) return err;
+  const long n_out = (long)B * F * 2 * C;
+  reduce_tiles_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(stats), n_out, C, tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace v2a
+
+// dtype: 0 = float32, 1 = bfloat16. emb, res, partial/stats may be null.
+// partial holds B*F*ceil(S/64)*2*C floats; stats B*F*2*C. Needs C % 64 == 0.
+extern "C" int v2a_temporal_conv3(const void* x, const void* w, const void* bias,
+                                  const void* emb, const void* res, void* y, void* partial,
+                                  void* stats, int B, int F, int S, int C, int dtype,
+                                  void* stream) {
+  if (C % v2a::BN || C % v2a::BK) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)v2a::launch<__nv_bfloat16>(x, w, bias, emb, res, y, partial, stats, B, F, S, C,
+                                           s);
+  if (dtype == 0)
+    return (int)v2a::launch<float>(x, w, bias, emb, res, y, partial, stats, B, F, S, C, s);
+  return (int)cudaErrorInvalidValue;
+}

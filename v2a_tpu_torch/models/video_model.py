@@ -1,0 +1,139 @@
+"""Frozen video-prediction model: CLIP text encode -> diffusion sample.
+
+Counterpart of `v2a_tpu/models/video_model.py` (the reference's
+`Video_PredModel`, `diffuser/models/video_model.py:9-85`). Videos are
+(B, F, H, W, 3) channels-last; the conditioning frame is tiled over F on the
+channel axis. The sampler runs on the card by default; `device="cpu"` is
+for tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from v2a_tpu_torch.device import DeviceLike, dtype_of, resolve_device
+from v2a_tpu_torch.models.clip_text import ClipTextEncoder, HashTokenizer, sanitize_task_strings
+from v2a_tpu_torch.models.init import init_params
+from v2a_tpu_torch.models.video_unet import VideoUNet
+from v2a_tpu_torch.ops.gaussian_diffusion import GaussianDiffusion
+from v2a_tpu_torch.ops.schedules import DiffusionSchedule
+
+
+def quantize_u8(x01: torch.Tensor) -> torch.Tensor:
+    """float [0, 1] -> uint8, truncating like numpy's astype."""
+    return (x01.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoModelConfig:
+    """`lb_get_video_model_gcp_v2` + the `vid_diffusion` config
+    (`config/libero/lb_tk8_65to72.py:40-62`); the release run uses
+    dtype 'bfloat16'."""
+
+    image_size: Tuple[int, int] = (128, 128)
+    sample_per_seq: int = 8  # frames incl. the conditioning frame
+    channels: int = 3
+    timesteps: int = 100
+    sampling_timesteps: int = 100
+    objective: str = "pred_v"
+    beta_schedule: str = "cosine"
+    guidance_weight: float = 0.0
+    var_temp: float = 1.0
+    model_channels: int = 128
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4, 5)
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (8, 16)
+    num_head_channels: int = 32
+    text_dim: int = 512
+    dtype: str = "float32"
+    # fused kernel routing; None = on when the device is cuda
+    fused: Optional[bool] = None
+
+    @property
+    def video_future_horizon(self) -> int:
+        return self.sample_per_seq - 1
+
+
+class VideoNets(nn.Module):
+    """The two networks under one state dict: `unet.*` and `text.*`."""
+
+    def __init__(self, unet: VideoUNet, text: ClipTextEncoder):
+        super().__init__()
+        self.unet = unet
+        self.text = text
+
+
+class VideoPredModel:
+    """U-Net + text tower with the diffusion sampler."""
+
+    def __init__(self, config: Optional[VideoModelConfig] = None,
+                 tokenizer: Optional[HashTokenizer] = None, device: DeviceLike = None):
+        self.config = cfg = config or VideoModelConfig()
+        self.device = resolve_device(device)
+        dt = dtype_of(cfg.dtype)
+        fused = cfg.fused if cfg.fused is not None else self.device.type == "cuda"
+        unet = VideoUNet(
+            in_channels=2 * cfg.channels, model_channels=cfg.model_channels,
+            out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
+            attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
+            num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
+            dtype=dt, fused=fused,
+        )
+        text = ClipTextEncoder(width=cfg.text_dim, mlp_dim=cfg.text_dim * 4, dtype=dt)
+        self.nets = VideoNets(unet, text).to(self.device).eval().requires_grad_(False)
+        self.tokenizer = tokenizer or HashTokenizer()
+        self.diffusion = GaussianDiffusion(
+            schedule=DiffusionSchedule.create(cfg.timesteps, cfg.beta_schedule,
+                                              device=self.device),
+            objective=cfg.objective,
+            sampling_timesteps=cfg.sampling_timesteps,
+            guidance_weight=cfg.guidance_weight,
+            var_temp=cfg.var_temp,
+        )
+
+    @property
+    def unet(self) -> VideoUNet:
+        return self.nets.unet
+
+    def init(self, seed: int = 0) -> "VideoPredModel":
+        """Random weights from one seeded generator on the model's device."""
+        init_params(self.nets, torch.Generator(device=self.device).manual_seed(seed))
+        return self
+
+    def load_state_dict(self, state_dict) -> "VideoPredModel":
+        """Weights as `convert/from_jax.py::video_model_from_jax` returns them."""
+        sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+        self.nets.load_state_dict(sd, strict=True)
+        return self
+
+    @torch.no_grad()
+    def encode_batch_text(self, tasks: List[str]) -> torch.Tensor:
+        """CLIP last hidden state of the sanitized task strings (float32)."""
+        ids, mask = self.tokenizer(sanitize_task_strings(list(tasks)))
+        return self.nets.text(torch.as_tensor(ids, device=self.device),
+                              torch.as_tensor(mask, device=self.device))
+
+    @torch.no_grad()
+    def sample(self, x_conds, tasks: List[str], generator: Optional[torch.Generator] = None,
+               init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x_conds float [0, 1] (B, H, W, 3); returns (B, F, H, W, 3) in [0, 1].
+        `init_noise` overrides x_T (reproducible sampling, tests)."""
+        x = torch.as_tensor(x_conds, dtype=torch.float32, device=self.device)
+        if x.shape[0] != len(tasks):
+            raise ValueError("batch size mismatch between frames and tasks")
+        cfg = self.config
+        task_embed = self.encode_batch_text(tasks)
+        h, w = cfg.image_size
+        shape = (x.shape[0], cfg.video_future_horizon, h, w, cfg.channels)
+        x_cond_n = (x * 2.0 - 1.0)[:, None]
+        return self.diffusion.sample(self.unet, shape, x_cond_n, task_embed,
+                                     generator=generator, init_noise=init_noise)
+
+    def sample_u8(self, x_conds, tasks: List[str],
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`sample()` quantized to uint8 on the device (truncating)."""
+        return quantize_u8(self.sample(x_conds, tasks, generator))

@@ -1,0 +1,461 @@
+"""3D video diffusion U-Net (channels-last), with the unpadded fused routing.
+
+Counterpart of `v2a_tpu/models/video_unet.py` (the guided-diffusion
+`UNetModel` as configured by `Unet_Libero`): model_channels 128,
+channel_mult (1,2,3,4,5), 2 res blocks per level, spatial attention at
+downsample rates 8 and 16, head width 32, factorized pseudo-3D convs,
+Perceiver-pooled CLIP text conditioning.
+
+- Activations are (B, F, H, W, C); spatial convs fold F into the batch.
+- The temporal conv is a 3-tap identity-initialized conv over F, zero-padded
+  on both sides (not causal, as in the reference).
+- GroupNorm(32) statistics and softmax run in float32; convs and matmuls in
+  the compute dtype.
+- `fused=True` is the JAX package's fused routing with the padded stream
+  off: 3x3 stride-1 convs whose channels are multiples of 128 run through
+  K1 (`fused_affine_conv3x3`, the GroupNorm collapsed to a per-(B, C)
+  affine applied inside the conv), temporal convs with 128-multiple
+  features through K2 (`temporal_conv_fused`, which also adds the
+  embedding / residual and emits the next GroupNorm's statistics). Each
+  (activation, statistics) pair travels together through the network.
+  The routing rules are fixed: the JAX defaults (MIN_CH 128, MAX_S 16384).
+
+Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
+temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from v2a_tpu_torch.models.perceiver import PerceiverResampler, _linear
+from v2a_tpu_torch.ops import resblock_kernels as rk
+
+# K1 routing: 3x3 stride-1 convs with 128-multiple channels, H*W <= MAX_S
+SPATIAL2_MIN_CH = 128
+SPATIAL2_MAX_S = 16384
+
+
+def spatial2_eligible(features: int, cins, hw: int, k: int, stride: int) -> bool:
+    """Shape gate for K1 (`v2a_tpu/models/video_unet.py:206`)."""
+    if k != 3 or stride != 1:
+        return False
+    if features % 128 or features < SPATIAL2_MIN_CH or hw > SPATIAL2_MAX_S:
+        return False
+    return all(c % 128 == 0 for c in cins)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """[cos | sin] with `arange(half)/half` frequencies (`nn.py:171-189`)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def _channel_stats(x: torch.Tensor) -> torch.Tensor:
+    """(B, 2, C) float32 sum / sum of squares over every non-batch axis."""
+    xf = x.float().reshape(x.shape[0], -1, x.shape[-1])
+    return torch.stack([xf.sum(1), (xf * xf).sum(1)], dim=1)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm(32) with float32 statistics, E[x^2] - mean^2, eps 1e-5
+    (`nn.py:26-28`). `stats` (B, 2, C) forwarded from the producer of x
+    replaces the statistics read; `return_affine` hands back the collapsed
+    per-(B, C) scale / shift instead of applying it."""
+
+    def __init__(self, channels: int, with_silu: bool = False, num_groups: int = 32):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"channels {channels} not divisible by groups {num_groups}")
+        self.with_silu, self.num_groups = with_silu, num_groups
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, stats: Optional[torch.Tensor] = None, return_affine: bool = False):
+        b, c = x.shape[0], x.shape[-1]
+        n_pc = x[0, ..., 0].numel()
+        if return_affine or stats is not None:
+            st = stats if stats is not None else _channel_stats(x)
+            a, shift = rk.stats_to_group_affine(st, self.scale, self.bias, n_pc, self.num_groups)
+            if return_affine:
+                return a, shift
+            bc = (b,) + (1,) * (x.ndim - 2) + (c,)
+            y = x.float() * a.reshape(bc) + shift.reshape(bc)
+            return F.silu(y) if self.with_silu else y
+        g = self.num_groups
+        gw = c // g
+        xf = x.float().reshape(b, -1, c)
+        n = float(xf.shape[1] * gw)
+        mean_g = xf.sum(1).reshape(b, g, gw).sum(-1) / n
+        var_g = torch.clamp((xf * xf).sum(1).reshape(b, g, gw).sum(-1) / n - mean_g**2, min=0.0)
+        rstd_g = torch.rsqrt(var_g + 1e-5)
+        mean_c = mean_g.repeat_interleave(gw, dim=1)[:, None, :]
+        rstd_c = rstd_g.repeat_interleave(gw, dim=1)[:, None, :]
+        y = (xf - mean_c) * rstd_c * self.scale + self.bias
+        if self.with_silu:
+            y = F.silu(y)
+        return y.reshape(x.shape)
+
+
+class _Conv(nn.Module):
+    """A flax Conv's {kernel (k, k, C, D), bias} pair."""
+
+    def __init__(self, k: int, cin: int, cout: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(k, k, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.init_std = {"kernel": 1.0 / math.sqrt(k * k * cin)}
+
+
+class _TemporalConv(nn.Module):
+    """{kernel (k, C, C), bias}: identity-initialized (`nn.py:48-50` dirac_)."""
+
+    def __init__(self, c: int, k: int = 3):
+        super().__init__()
+        w = torch.zeros(k, c, c)
+        w[k // 2] = torch.eye(c)
+        self.kernel = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(c))
+
+
+class PseudoConv3d(nn.Module):
+    """Factorized space-time conv (`nn.py:30-88`): a 2D conv per frame, then
+    (kernel_size > 1) a temporal conv over F. Takes a tensor or a tuple of
+    channel parts (conv of their concatenation as a sum of per-part convs);
+    `emb` / `residual` / `want_stats` ride the temporal conv."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, fused: bool = False):
+        super().__init__()
+        self.features, self.k, self.stride = features, kernel_size, stride
+        self.dtype, self.fused = dtype, fused
+        self.spatial_conv = _Conv(kernel_size, cin, features)
+        if kernel_size > 1:
+            self.temporal_conv = _TemporalConv(features, kernel_size)
+
+    def forward(self, x, emb=None, residual=None, want_stats: bool = False, pre_affine=None):
+        parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        if pre_affine is not None and not isinstance(x, (tuple, list)):
+            pre_affine = [pre_affine]
+        b, f, h, w = parts[0].shape[:4]
+        dt, k, feat = self.dtype, self.k, self.features
+        kernel, kbias = self.spatial_conv.kernel, self.spatial_conv.bias
+        use_k1 = self.fused and spatial2_eligible(
+            feat, [p.shape[-1] for p in parts], h * w, k, self.stride
+        )
+        if pre_affine is not None and not use_k1:
+            raise ValueError("pre_affine requires the K1-eligible fused path")
+        y, off = None, 0
+        for pi, p in enumerate(parts):
+            pc = p.shape[-1]
+            wpart = kernel[:, :, off:off + pc]
+            x4 = p.reshape(b * f, h, w, pc).to(dt)
+            if use_k1:
+                af = bf_ = None
+                if pre_affine is not None:
+                    a0, b0 = pre_affine[pi]  # (B, pc) float32
+                    af = a0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
+                    bf_ = b0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
+                # only the first part carries the bias; parts sum in dtype
+                yp = rk.fused_affine_conv3x3(
+                    x4.contiguous(), wpart, kbias if y is None else torch.zeros_like(kbias),
+                    af, bf_, silu=pre_affine is not None,
+                )
+            elif k == 1 and self.stride == 1:
+                yp = x4 @ wpart.reshape(pc, feat).to(dt)
+            else:
+                yp = F.conv2d(
+                    x4.permute(0, 3, 1, 2), wpart.to(dt).permute(3, 2, 0, 1),
+                    stride=self.stride, padding=k // 2,
+                ).permute(0, 2, 3, 1)
+            y = yp if y is None else y + yp
+            off += pc
+        if not use_k1:
+            y = y + kbias.to(dt)
+        y = y.reshape(b, f, y.shape[1], y.shape[2], feat)
+        if k > 1:
+            tk, tb = self.temporal_conv.kernel, self.temporal_conv.bias
+            if self.fused and feat % 128 == 0:
+                return rk.temporal_conv_fused(
+                    y.to(dt).contiguous(), tk, tb, emb=emb, residual=residual,
+                    want_stats=want_stats,
+                )
+            # zero-padded frames, the three taps as one (3C, C) product
+            yp = F.pad(y, (0, 0, 0, 0, 0, 0, 1, 1))
+            cat = torch.cat([yp[:, 0:f], yp[:, 1:f + 1], yp[:, 2:f + 2]], dim=-1)
+            y = cat @ tk.to(dt).reshape(3 * feat, feat) + tb.to(dt)
+        if emb is not None:
+            y = y + emb.reshape(b, 1, 1, 1, feat).to(y.dtype)
+        if residual is not None:
+            y = y + residual.to(y.dtype)
+        if want_stats:
+            yf = y.float()
+            return y, torch.stack([yf.sum((2, 3)), (yf * yf).sum((2, 3))], dim=2)
+        return y
+
+
+class ResBlock3D(nn.Module):
+    """`ResBlock` (`unet.py:148-262`), plain-norm and dropout-free as the
+    release config runs it. The fused form returns (out, out_stats) and takes
+    the (h, skip) pair of the up path unconcatenated."""
+
+    def __init__(self, cin: int, out_channels: int, emb_dim: int,
+                 dtype: torch.dtype = torch.float32, fused: bool = False):
+        super().__init__()
+        self.cin, self.out_channels, self.dtype, self.fused = cin, out_channels, dtype, fused
+        self.in_norm = GroupNorm32(cin, with_silu=True)
+        self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused)
+        self.emb_proj = nn.Linear(emb_dim, out_channels)
+        self.out_norm = GroupNorm32(out_channels, with_silu=True)
+        self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused)
+        if cin != out_channels:
+            self.skip_conv = PseudoConv3d(cin, out_channels, 1, dtype=dtype)
+
+    def _emb_out(self, emb):
+        return _linear(F.silu(emb.to(self.dtype)), self.emb_proj, self.dtype)
+
+    def forward(self, x, emb: torch.Tensor, stats=None):
+        if self.fused:
+            if isinstance(x, tuple):
+                return self._fused_split(x, emb, stats)
+            return self._fused(x, emb, stats)
+        dt = self.dtype
+        h = self.in_conv(self.in_norm(x).to(dt))
+        h = h + self._emb_out(emb)[:, None, None, None, :]
+        h = self.out_conv(self.out_norm(h).to(dt))
+        if self.cin != self.out_channels:
+            x = self.skip_conv(x)
+        return x + h
+
+    def _sp2(self, cins, hw):
+        return spatial2_eligible(self.out_channels, list(cins) + [self.out_channels], hw, 3, 1)
+
+    def _second_half(self, h, h_stats, sp2, x_skip):
+        st2 = h_stats.sum(1)  # (B, 2, C) over frames
+        pre2 = None
+        if sp2:
+            pre2 = self.out_norm(h, stats=st2, return_affine=True)
+        else:
+            h = self.out_norm(h, stats=st2).to(self.dtype)
+        return self.out_conv(h, residual=x_skip, want_stats=True, pre_affine=pre2)
+
+    def _fused(self, x, emb, stats):
+        c = x.shape[-1]
+        st_in = stats.sum(1) if stats is not None else None
+        sp2 = self._sp2([c], x.shape[2] * x.shape[3])
+        if sp2:
+            pre1, h = self.in_norm(x, stats=st_in, return_affine=True), x
+        else:
+            pre1, h = None, self.in_norm(x, stats=st_in).to(self.dtype)
+        h, h_stats = self.in_conv(h, emb=self._emb_out(emb), want_stats=True, pre_affine=pre1)
+        if c != self.out_channels:
+            x = self.skip_conv(x)
+        return self._second_half(h, h_stats, sp2, x)
+
+    def _fused_split(self, parts, emb, part_stats):
+        """GroupNorm collapses to per-channel affines applied per part; the
+        in / skip convs run as channel-split sums, so the concatenation is
+        never built."""
+        if part_stats is None:
+            part_stats = (None,) * len(parts)
+        if sum(p.shape[-1] for p in parts) == self.out_channels:
+            raise ValueError("split path expects a channel-changing block")
+        sts = [st.sum(1) if st is not None else _channel_stats(p)
+               for p, st in zip(parts, part_stats)]
+        n_pc = parts[0][0, ..., 0].numel()
+        a, shift = rk.stats_to_group_affine(
+            torch.cat(sts, dim=-1), self.in_norm.scale, self.in_norm.bias, n_pc, 32
+        )
+        sp2 = self._sp2([p.shape[-1] for p in parts], parts[0].shape[2] * parts[0].shape[3])
+        pre1, conv_in, off = [], [], 0
+        for p in parts:
+            pc = p.shape[-1]
+            ai, bi = a[:, off:off + pc], shift[:, off:off + pc]
+            if sp2:
+                pre1.append((ai, bi))
+            else:
+                bc = (p.shape[0],) + (1,) * (p.ndim - 2) + (pc,)
+                conv_in.append(F.silu(p.float() * ai.reshape(bc) + bi.reshape(bc)).to(self.dtype))
+            off += pc
+        h, h_stats = self.in_conv(
+            parts if sp2 else tuple(conv_in), emb=self._emb_out(emb), want_stats=True,
+            pre_affine=pre1 if sp2 else None,
+        )
+        return self._second_half(h, h_stats, sp2, self.skip_conv(parts))
+
+
+class SpatialAttentionBlock(nn.Module):
+    """Per-frame spatial self-attention (`unet.py:263-330`) with the legacy
+    layout: qkv reshaped to heads BEFORE the q/k/v split, q and k each
+    scaled by ch^-1/4, softmax in float32."""
+
+    def __init__(self, channels: int, num_head_channels: int = 32,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ch, self.dtype = num_head_channels, dtype
+        self.norm = GroupNorm32(channels)
+        self.qkv = nn.Linear(channels, 3 * channels)
+        self.proj_out = nn.Linear(channels, channels)
+
+    def forward(self, x, stats=None, want_stats: bool = False):
+        b, f, h, w, c = x.shape
+        ch, dt = self.ch, self.dtype
+        y = x.reshape(b * f, h * w, c)
+        # the norm is per (batch, frame) sample, so per-frame stats fit it
+        st = stats.reshape(b * f, 2, c) if stats is not None else None
+        qkv = _linear(self.norm(y, stats=st).to(dt), self.qkv, dt)
+        qkv = qkv.reshape(b * f, h * w, c // ch, 3 * ch)
+        q, k, v = qkv.chunk(3, dim=-1)
+        scale = 1.0 / math.sqrt(math.sqrt(ch))
+        logits = torch.einsum("bthc,bshc->bhts", (q * scale).float(), (k * scale).float())
+        weights = torch.softmax(logits, dim=-1).to(dt)
+        out = torch.einsum("bhts,bshc->bthc", weights, v).reshape(b * f, h * w, c)
+        res = y + _linear(out, self.proj_out, dt)
+        result = res.reshape(b, f, h, w, c)
+        if want_stats:
+            of = res.float().reshape(b, f, h * w, c)
+            return result, torch.stack([of.sum(2), (of * of).sum(2)], dim=2)
+        return result
+
+
+class Downsample3D(nn.Module):
+    """Stride-2 pseudo-3D conv (`unet.py:119-145`)."""
+
+    def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False):
+        super().__init__()
+        self.conv = PseudoConv3d(c, c, 3, stride=2, dtype=dtype, fused=fused)
+
+    def forward(self, x, want_stats: bool = False):
+        return self.conv(x, want_stats=want_stats)
+
+
+class Upsample3D(nn.Module):
+    """Nearest 2x spatial upsample + pseudo-3D conv (`unet.py:86-116`)."""
+
+    def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False):
+        super().__init__()
+        self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused)
+
+    def forward(self, x, want_stats: bool = False):
+        b, f, h, w, c = x.shape
+        x = x[:, :, :, None, :, None, :].expand(b, f, h, 2, w, 2, c).reshape(b, f, 2 * h, 2 * w, c)
+        return self.conv(x, want_stats=want_stats)
+
+
+class VideoUNet(nn.Module):
+    """Input (B, F, H, W, in_channels) with the conditioning frame already on
+    the channel axis; output (B, F, H, W, out_channels) float32."""
+
+    def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
+                 num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
+                 channel_mult: Sequence[int] = (1, 2, 3, 4, 5), num_head_channels: int = 32,
+                 task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
+                 fused: bool = False):
+        super().__init__()
+        mc = model_channels
+        ted = mc * 4
+        self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.channel_mult = tuple(channel_mult)
+        self.time_dense0 = nn.Linear(mc, ted)
+        self.time_dense1 = nn.Linear(ted, ted)
+        self.task_attnpool = PerceiverResampler(dim=task_token_dim, depth=2, dtype=dtype)
+        self.task_proj = nn.Linear(task_token_dim, ted)
+        self.in_conv = PseudoConv3d(in_channels, mc, 3, dtype=dtype, fused=fused)
+
+        def res(name, cin, cout):
+            self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused))
+
+        def attn(name, c):
+            self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype))
+
+        skips, cur, ds, bi = [mc], mc, 1, 0
+        for level, mult in enumerate(self.channel_mult):
+            ch = mult * mc
+            for _ in range(num_res_blocks):
+                res(f"down_res_{bi}", cur, ch)
+                cur = ch
+                if ds in self.attention_resolutions:
+                    attn(f"down_attn_{bi}", ch)
+                skips.append(ch)
+                bi += 1
+            if level != len(self.channel_mult) - 1:
+                self.add_module(f"downsample_{level}", Downsample3D(ch, dtype, fused))
+                skips.append(ch)
+                ds *= 2
+        res("mid_res0", cur, cur)
+        attn("mid_attn", cur)
+        res("mid_res1", cur, cur)
+        bi = 0
+        for level, mult in reversed(list(enumerate(self.channel_mult))):
+            ch = mult * mc
+            for i in range(num_res_blocks + 1):
+                res(f"up_res_{bi}", cur + skips.pop(), ch)
+                cur = ch
+                if ds in self.attention_resolutions:
+                    attn(f"up_attn_{bi}", ch)
+                if level and i == num_res_blocks:
+                    self.add_module(f"upsample_{level}", Upsample3D(ch, dtype, fused))
+                    ds //= 2
+                bi += 1
+        self.out_norm = GroupNorm32(cur, with_silu=True)
+        self.out_conv = PseudoConv3d(cur, out_channels, 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                task_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt, fused = self.dtype, self.fused
+        emb = _linear(timestep_embedding(timesteps, self.mc).to(dt), self.time_dense0, dt)
+        emb = _linear(F.silu(emb), self.time_dense1, dt)
+        if task_embed is not None:
+            latents = self.task_attnpool(task_embed)
+            emb = emb + _linear(latents, self.task_proj, dt).mean(dim=1)
+
+        def step(out):  # fused blocks return (activation, stats)
+            return out if fused else (out, None)
+
+        h, st = step(self.in_conv(x.to(dt), want_stats=fused))
+        hs = [(h, st)]
+        ds, bi = 1, 0
+        for level, _ in enumerate(self.channel_mult):
+            for _ in range(self.nrb):
+                h, st = step(getattr(self, f"down_res_{bi}")(h, emb, st))
+                if ds in self.attention_resolutions:
+                    h, st = step(getattr(self, f"down_attn_{bi}")(h, st, fused))
+                hs.append((h, st))
+                bi += 1
+            if level != len(self.channel_mult) - 1:
+                h, st = step(getattr(self, f"downsample_{level}")(h, want_stats=fused))
+                hs.append((h, st))
+                ds *= 2
+        h, st = step(self.mid_res0(h, emb, st))
+        h, st = step(self.mid_attn(h, st, fused))
+        h, st = step(self.mid_res1(h, emb, st))
+        bi = 0
+        for level, _ in reversed(list(enumerate(self.channel_mult))):
+            for i in range(self.nrb + 1):
+                skip, skip_st = hs.pop()
+                if fused:  # the pair travels unconcatenated
+                    h, st = getattr(self, f"up_res_{bi}")((h, skip), emb, (st, skip_st))
+                else:
+                    h = getattr(self, f"up_res_{bi}")(torch.cat([h, skip], dim=-1), emb)
+                if ds in self.attention_resolutions:
+                    h, st = step(getattr(self, f"up_attn_{bi}")(h, st, fused))
+                if level and i == self.nrb:
+                    h, st = step(getattr(self, f"upsample_{level}")(h, want_stats=fused))
+                    ds //= 2
+                bi += 1
+        st2 = st.sum(1) if st is not None else None
+        h = self.out_conv(self.out_norm(h, stats=st2).to(dt))
+        return h.float()

@@ -1,0 +1,247 @@
+"""Video-family Gaussian diffusion samplers: ancestral (DDPM) and DDIM, with
+classifier-free guidance and low-temperature noise.
+
+Counterpart of `v2a_tpu/ops/gaussian_diffusion.py` (the reference's
+`GoalGaussianDiffusion`, `goal_diffusion.py:346-733`). The `lax.scan` over
+timesteps becomes a Python loop; randomness comes from an explicit
+`torch.Generator`. Loop math is float32 whatever the model's compute dtype.
+
+`model_fn(x, t, task_embed) -> out` takes x with the conditioning frame
+already appended on the channel axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from v2a_tpu_torch.ops.schedules import DiffusionSchedule, extract
+
+ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _concat_cond(x: torch.Tensor, x_cond: torch.Tensor) -> torch.Tensor:
+    """Append the (broadcast) conditioning frame on the channel axis."""
+    x_cond = x_cond.expand(tuple(x.shape[:-1]) + (x_cond.shape[-1],))
+    return torch.cat([x, x_cond.to(x.dtype)], dim=-1)
+
+
+class ModelPrediction(NamedTuple):
+    pred_noise: torch.Tensor
+    pred_x_start: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianDiffusion:
+    """Sampler configuration bound to a schedule (`goal_diffusion.py:346-464`)."""
+
+    schedule: DiffusionSchedule
+    objective: str = "pred_v"
+    sampling_timesteps: Optional[int] = None
+    ddim_sampling_eta: float = 0.0
+    guidance_weight: float = 0.0
+    var_temp: float = 1.0
+    auto_normalize: bool = True
+
+    def __post_init__(self):
+        if self.objective not in ("pred_noise", "pred_x0", "pred_v"):
+            raise ValueError(f"unknown objective {self.objective!r}")
+        s = self.sampling_timesteps
+        if s is not None and s > self.schedule.num_timesteps:
+            raise ValueError("sampling_timesteps must be <= num_timesteps")
+
+    @property
+    def num_timesteps(self) -> int:
+        return self.schedule.num_timesteps
+
+    @property
+    def effective_sampling_timesteps(self) -> int:
+        return self.sampling_timesteps or self.num_timesteps
+
+    @property
+    def is_ddim_sampling(self) -> bool:
+        # DDIM only when strictly fewer sampling steps (`goal_diffusion.py:419`)
+        return self.effective_sampling_timesteps < self.num_timesteps
+
+    # -- parameterization conversions (goal_diffusion.py:466-489) -------------
+
+    def predict_start_from_noise(self, x_t, t, noise):
+        s, nd = self.schedule, x_t.ndim
+        return (
+            extract(s.sqrt_recip_alphas_cumprod, t, nd) * x_t
+            - extract(s.sqrt_recipm1_alphas_cumprod, t, nd) * noise
+        )
+
+    def predict_noise_from_start(self, x_t, t, x0):
+        s, nd = self.schedule, x_t.ndim
+        return (extract(s.sqrt_recip_alphas_cumprod, t, nd) * x_t - x0) / extract(
+            s.sqrt_recipm1_alphas_cumprod, t, nd
+        )
+
+    def predict_start_from_v(self, x_t, t, v):
+        s, nd = self.schedule, x_t.ndim
+        return (
+            extract(s.sqrt_alphas_cumprod, t, nd) * x_t
+            - extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * v
+        )
+
+    def q_posterior(self, x_start, x_t, t):
+        s, nd = self.schedule, x_t.ndim
+        mean = (
+            extract(s.posterior_mean_coef1, t, nd) * x_start
+            + extract(s.posterior_mean_coef2, t, nd) * x_t
+        )
+        return mean, extract(s.posterior_log_variance_clipped, t, nd)
+
+    # -- the denoiser, with classifier-free guidance (goal_diffusion.py:499-558)
+
+    def model_predictions(
+        self,
+        model_fn: ModelFn,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        x_cond: torch.Tensor,
+        task_embed: torch.Tensor,
+        clip_x_start: bool = False,
+        rederive_pred_noise: bool = False,
+    ) -> ModelPrediction:
+        gw = self.guidance_weight
+        x_in = _concat_cond(x, x_cond)
+
+        def maybe_clip(z):
+            return z.clamp(-1.0, 1.0) if clip_x_start else z
+
+        if gw <= 0.0:
+            out = model_fn(x_in, t, task_embed)
+            if self.objective == "pred_noise":
+                pred_noise = out
+                x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
+                if clip_x_start and rederive_pred_noise:
+                    pred_noise = self.predict_noise_from_start(x, t, x_start)
+            elif self.objective == "pred_x0":
+                x_start = maybe_clip(out)
+                pred_noise = self.predict_noise_from_start(x, t, x_start)
+            else:
+                x_start = maybe_clip(self.predict_start_from_v(x, t, out))
+                pred_noise = self.predict_noise_from_start(x, t, x_start)
+            return ModelPrediction(pred_noise, x_start)
+
+        # batch-doubled single forward; the second half is unconditioned
+        out2 = model_fn(
+            torch.cat([x_in, x_in], 0),
+            torch.cat([t, t], 0),
+            torch.cat([task_embed, torch.zeros_like(task_embed)], 0),
+        )
+        b = x.shape[0]
+        out_c, out_u = out2[:b], out2[b:]
+        if self.objective == "pred_noise":
+            pred_noise = (1 + gw) * out_c - gw * out_u
+            x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
+            if clip_x_start and rederive_pred_noise:
+                pred_noise = self.predict_noise_from_start(x, t, x_start)
+        elif self.objective == "pred_x0":
+            x_start = maybe_clip((1 + gw) * out_c - gw * out_u)
+            pred_noise = self.predict_noise_from_start(x, t, x_start)
+        else:  # pred_v: guidance in epsilon space (goal_diffusion.py:536-548)
+            cond_x0 = maybe_clip(self.predict_start_from_v(x, t, out_c))
+            uncond_x0 = self.predict_start_from_v(x, t, out_u)
+            pred_noise = (1 + gw) * self.predict_noise_from_start(x, t, cond_x0) - (
+                gw * self.predict_noise_from_start(x, t, uncond_x0)
+            )
+            x_start = self.predict_start_from_noise(x, t, pred_noise)
+        return ModelPrediction(pred_noise, x_start)
+
+    # -- samplers --------------------------------------------------------------
+
+    @staticmethod
+    def _randn(shape, generator, device):
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+    def p_step(self, model_fn, img, t_scalar: int, x_cond, task_embed, noise):
+        """One ancestral step x_t -> x_{t-1} with clipped x0
+        (`goal_diffusion.py:560-580`); `noise` is standard normal."""
+        t = torch.full((img.shape[0],), t_scalar, dtype=torch.long, device=img.device)
+        preds = self.model_predictions(model_fn, img, t, x_cond, task_embed)
+        x_start = preds.pred_x_start.clamp(-1.0, 1.0)
+        mean, log_var = self.q_posterior(x_start, img, t)
+        if t_scalar == 0:
+            return mean
+        return mean + torch.exp(0.5 * log_var) * (noise * self.var_temp)
+
+    @torch.no_grad()
+    def p_sample_loop(
+        self,
+        model_fn: ModelFn,
+        shape: Tuple[int, ...],
+        x_cond: torch.Tensor,
+        task_embed: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        init_noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Full ancestral chain over t = T-1..0; returns samples in [0, 1]
+        units (unclamped). `init_noise` overrides x_T."""
+        dev = x_cond.device
+        img = init_noise if init_noise is not None else self._randn(shape, generator, dev)
+        for t in range(self.num_timesteps - 1, -1, -1):
+            noise = self._randn(shape, generator, dev) if t > 0 else None
+            img = self.p_step(model_fn, img, t, x_cond, task_embed, noise)
+        return self._unnormalize(img)
+
+    def ddim_time_pairs(self) -> np.ndarray:
+        """(S, 2) (t, t_next) pairs, t_next possibly -1 (`goal_diffusion.py:604-606`)."""
+        total, s = self.num_timesteps, self.effective_sampling_timesteps
+        times = list(reversed(np.linspace(-1, total - 1, s + 1).astype(int).tolist()))
+        return np.asarray(list(zip(times[:-1], times[1:])), dtype=np.int64)
+
+    @torch.no_grad()
+    def ddim_sample(
+        self,
+        model_fn: ModelFn,
+        shape: Tuple[int, ...],
+        x_cond: torch.Tensor,
+        task_embed: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        init_noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """DDIM chain (`goal_diffusion.py:601-641`)."""
+        dev = x_cond.device
+        acp = self.schedule.alphas_cumprod
+        eta = self.ddim_sampling_eta
+        img = init_noise if init_noise is not None else self._randn(shape, generator, dev)
+        for time, time_next in self.ddim_time_pairs().tolist():
+            t = torch.full((img.shape[0],), time, dtype=torch.long, device=dev)
+            pred_noise, x_start = self.model_predictions(
+                model_fn, img, t, x_cond, task_embed,
+                clip_x_start=False, rederive_pred_noise=True,
+            )
+            if time_next < 0:  # the reference returns x_start at the last pair
+                img = x_start
+                continue
+            alpha, alpha_next = acp[time], acp[time_next]
+            sigma = eta * torch.sqrt(
+                (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha)
+            )
+            c = torch.sqrt(torch.clamp(1.0 - alpha_next - sigma**2, min=0.0))
+            img = x_start * torch.sqrt(alpha_next) + c * pred_noise
+            if eta > 0.0:
+                img = img + sigma * self._randn(shape, generator, dev)
+        return self._unnormalize(img)
+
+    def sample(
+        self,
+        model_fn: ModelFn,
+        shape: Tuple[int, ...],
+        x_cond: torch.Tensor,
+        task_embed: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        init_noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Sampler dispatch + clamp to [0, 1] (`goal_diffusion.py:644-650`)."""
+        fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
+        return fn(model_fn, shape, x_cond, task_embed, generator, init_noise).clamp(0.0, 1.0)
+
+    def _unnormalize(self, x):
+        return (x + 1.0) * 0.5 if self.auto_normalize else x
