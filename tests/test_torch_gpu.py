@@ -122,18 +122,20 @@ def test_plain_versions_agree_with_numpy(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-4)
 
 
-def test_fused_unet_matches_plain_on_the_card(cuda):
-    """The fused routing (K1/K2 float32 kernels inside the network) against
-    the plain path with the same weights, at the JAX package's own
-    fused-vs-plain tolerance; the default device resolves to the card."""
+def _fused_vs_plain(cuda, padded_stream):
+    """A small U-Net (mc 128, mult (1, 2), 32x32, F=2) with the fused float32
+    kernels against the plain path with the same weights, at the JAX
+    package's own fused-vs-plain tolerance; the default device resolves to
+    the card. Returns the launches of the fused forward."""
     from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
     from v2a_tpu_torch.models.video_unet import VideoUNet
 
     cfg = VideoModelConfig(image_size=(32, 32), sample_per_seq=3, model_channels=128,
                            channel_mult=(1, 2), num_res_blocks=1, attention_resolutions=(2,),
-                           text_dim=64)
+                           text_dim=64, padded_stream=padded_stream)
     model = VideoPredModel(cfg).init(0)
     assert model.device.type == "cuda" and model.unet.fused
+    assert model.unet.padded_stream == padded_stream
     plain = VideoUNet(model_channels=128, channel_mult=(1, 2), num_res_blocks=1,
                       attention_resolutions=(2,), task_token_dim=64).to(cuda).eval()
     plain.load_state_dict(model.unet.state_dict())
@@ -144,6 +146,173 @@ def test_fused_unet_matches_plain_on_the_card(cuda):
     before = dict(rk.launches)
     with torch.no_grad():
         got, want = model.unet(x, t, te), plain(x, t, te)
-    assert rk.launches["fused_affine_conv3x3"] - before["fused_affine_conv3x3"] == 21
-    assert rk.launches["temporal_conv_fused"] - before["temporal_conv_fused"] == 19
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+    return {k: v - before[k] for k, v in rk.launches.items() if v != before[k]}
+
+
+def test_fused_unet_matches_plain_on_the_card(cuda):
+    """The unpadded fused routing: K1 / K2 only."""
+    made = _fused_vs_plain(cuda, padded_stream=False)
+    assert made == {"fused_affine_conv3x3": 21, "temporal_conv_fused": 19}
+
+
+def test_padded_unet_matches_plain_on_the_card(cuda):
+    """The padded-stream routing (the default): the 32x32 level runs K3 and
+    K5, the 16x16 level K1 / K2, as the JAX package launches them."""
+    made = _fused_vs_plain(cuda, padded_stream=True)
+    assert made == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
+                    "fused_conv_tconv_padded": 6, "temporal_conv_padded": 1,
+                    "fused_upconv3x3_padded": 1}
+
+
+# -- the padded-stream kernels: NaN in the input pad rows, zero output pad cols --
+
+
+def _stream(gen, dev, dtype, lead, hw, c):
+    """A padded stream with a random interior, zero pad cols, NaN pad rows."""
+    inner = torch.randn(*lead, *hw, c, generator=gen, device=dev)
+    return rk._place(inner, *rk.padded_hw(*hw)).to(dtype)
+
+
+def _check_padded(got, want, hw, dtype):
+    """Interior within one ulp of the plain version; pad cols exactly zero."""
+    h, w = hw
+    gi, wi = got[..., 1:h + 1, :, :], want[..., 1:h + 1, :, :]
+    assert torch.equal(gi[..., 0, :], torch.zeros_like(gi[..., 0, :]))
+    assert torch.equal(gi[..., w + 1:, :], torch.zeros_like(gi[..., w + 1:, :]))
+    ok, rel = _within_ulp(gi[..., 1:w + 1, :], wi[..., 1:w + 1, :], dtype)
+    assert ok, f"max err / std {rel}"
+
+
+def _stats_close(got, want):
+    for i in range(2):
+        scale = want[:, :, i].abs().max()
+        assert float((got[:, :, i] - want[:, :, i]).abs().max() / scale) < 1e-3
+
+
+def _conv_parts(gen, dev, dtype, lead, hw, cins, d):
+    rows = 1
+    for v in lead:
+        rows *= v
+    parts = []
+    for c in cins:
+        parts.append((_stream(gen, dev, dtype, lead, hw, c),
+                      torch.randn(3, 3, c, d, generator=gen, device=dev) / (9 * sum(cins)) ** 0.5,
+                      1 + 0.1 * torch.randn(rows, c, generator=gen, device=dev),
+                      0.1 * torch.randn(rows, c, generator=gen, device=dev)))
+    return parts
+
+
+def _tconv_extras(gen, dev, dtype, b, f, hw, d, emb, res, skip_cins):
+    bias = torch.randn(d, generator=gen, device=dev) * 0.1
+    e = torch.randn(b, d, generator=gen, device=dev).to(dtype) if emb else None
+    r = _stream(gen, dev, dtype, (b, f), hw, d) if res else None
+    skips = [(_stream(gen, dev, dtype, (b, f), hw, c),
+              torch.randn(c, d, generator=gen, device=dev) / c ** 0.5) for c in skip_cins]
+    sb = torch.randn(d, generator=gen, device=dev) * 0.1 if skip_cins else None
+    return bias, e, r, skips or None, sb
+
+
+PADDED_SHAPES = [(2, 3, (8, 8), (64,), 64), (1, 7, (12, 20), (128, 64), 128),
+                 (1, 2, (32, 32), (256, 128), 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("b,f,hw,cins,d", PADDED_SHAPES)
+def test_affine_conv3x3_padded_kernel_matches_plain(cuda, dtype, silu, b, f, hw, cins, d):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    parts = _conv_parts(gen, cuda, dtype, (b * f,), hw, cins, d)
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    before = rk.launches["fused_affine_conv3x3_padded"]
+    got = rk.fused_affine_conv3x3_padded(parts, bias, hw, silu)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_affine_conv3x3_padded"] == before + 1
+    _check_padded(got, rk.fused_affine_conv3x3_padded_plain(parts, bias, hw, silu), hw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("emb,res,skip_cins,stats", [(True, True, (), True), (False, False, (), False),
+                                                     (True, False, (128,), True),
+                                                     (False, False, (64, 128), True)])
+@pytest.mark.parametrize("b,f,hw,d", [(2, 3, (8, 8), 64), (1, 7, (12, 20), 128)])
+def test_temporal_conv_padded_kernel_matches_plain(cuda, dtype, emb, res, skip_cins, stats, b, f,
+                                                   hw, d):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _stream(gen, cuda, dtype, (b, f), hw, d)
+    k = torch.randn(3, d, d, generator=gen, device=cuda) / (3 * d) ** 0.5
+    bias, e, r, skips, sb = _tconv_extras(gen, cuda, dtype, b, f, hw, d, emb, res, skip_cins)
+    got = rk.temporal_conv_padded(x, k, bias, hw, e, r, skips, sb, stats)
+    want = rk.temporal_conv_padded_plain(x, k, bias, hw, e, r, skips, sb, stats)
+    torch.cuda.synchronize()
+    if stats:
+        (got, gst), (want, wst) = got, want
+        _stats_close(gst, wst)
+    _check_padded(got, want, hw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("emb,res,skip_cins", [(True, True, ()), (True, False, (128, 64)),
+                                               (False, False, ())])
+@pytest.mark.parametrize("b,f,hw,cins,d", PADDED_SHAPES)
+def test_conv_tconv_padded_kernel_matches_plain(cuda, dtype, emb, res, skip_cins, b, f, hw, cins,
+                                                d):
+    """K3 against the two kernels K4a -> K4b, and against its plain version
+    one rounding at a time: its conv half (which K4a computes bit for bit)
+    within one ulp of the plain conv, its output within one ulp of the plain
+    temporal conv of that conv output. (End to end, a one-ulp difference of
+    a conv output in bf16 moves the small outputs it feeds by |W| times
+    that ulp, which can exceed one ulp of those outputs.)"""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    parts = _conv_parts(gen, cuda, dtype, (b, f), hw, cins, d)
+    kbias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    tk = torch.randn(3, d, d, generator=gen, device=cuda) / (3 * d) ** 0.5
+    tb, e, r, skips, sb = _tconv_extras(gen, cuda, dtype, b, f, hw, d, emb, res, skip_cins)
+    args = (parts, kbias, tk, tb, hw, e, r, skips, sb, True, True)
+    before = rk.launches["fused_conv_tconv_padded"]
+    got, gst = rk.fused_conv_tconv_padded(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_conv_tconv_padded"] == before + 1
+    _, wst = rk.fused_conv_tconv_padded_plain(*args)
+    _stats_close(gst, wst)
+    hp, wp = rk.padded_hw(*hw)
+    flat = [(x.reshape(b * f, hp, wp, -1), kk, a, bb) for x, kk, a, bb in parts]
+    y = rk.fused_affine_conv3x3_padded(flat, kbias, hw, True)
+    _check_padded(y, rk.fused_affine_conv3x3_padded_plain(flat, kbias, hw, True), hw, dtype)
+    y = y.reshape(b, f, hp, wp, d)
+    half, _ = rk.temporal_conv_padded_plain(y, tk, tb, hw, e, r, skips, sb, True)
+    _check_padded(got, half, hw, dtype)
+    two, tst = rk.temporal_conv_padded(y, tk, tb, hw, e, r, skips, sb, True)
+    _stats_close(gst, tst)
+    _check_padded(got, two, hw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["plain", "affine", "silu"])
+@pytest.mark.parametrize("n,hw,c,d", [(3, (8, 8), 64, 64), (2, (12, 20), 128, 128),
+                                      (4, (16, 16), 512, 512)])
+def test_upconv3x3_padded_kernel_matches_plain(cuda, dtype, mode, n, hw, c, d):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _stream(gen, cuda, dtype, (n,), hw, c)
+    k = torch.randn(3, 3, c, d, generator=gen, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    a = b = None
+    if mode != "plain":
+        a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    got = rk.fused_upconv3x3_padded(x, k, bias, hw, a, b, mode == "silu")
+    torch.cuda.synchronize()
+    want = rk.fused_upconv3x3_padded_plain(x, k, bias, hw, a, b, mode == "silu")
+    _check_padded(got, want, (2 * hw[0], 2 * hw[1]), dtype)
+
+
+def test_padded_stats_are_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    hw, d = (32, 32), 128
+    parts = _conv_parts(gen, cuda, torch.bfloat16, (2, 7), hw, (128,), d)
+    kb = torch.zeros(d, device=cuda)
+    tk = torch.randn(3, d, d, generator=gen, device=cuda) / 20
+    x = _stream(gen, cuda, torch.bfloat16, (2, 7), hw, d)
+    k3 = [rk.fused_conv_tconv_padded(parts, kb, tk, kb, hw, want_stats=True)[1] for _ in range(2)]
+    k4b = [rk.temporal_conv_padded(x, tk, kb, hw, want_stats=True)[1] for _ in range(2)]
+    assert torch.equal(*k3) and torch.equal(*k4b)

@@ -1,0 +1,306 @@
+"""The port's padded-stream routing against the JAX package, on the CPU.
+
+On the CPU the K3 / K4a / K4b / K5 wrappers run their plain PyTorch
+versions. These are held against the JAX Pallas kernels in interpret mode,
+in float32 at tiny shapes, atol 1e-4: the JAX side gets finite garbage in
+every input pad position, the port side NaN, and the interiors must agree
+(the contract: pad values are removed by selection, never by arithmetic).
+Then the padded U-Net against JAX `fused=True` with its default flags,
+with the same launches per kernel; a routing that reaches K4a against the
+port's own plain path; one state dict for both routings; and the release
+forward's launch counts, traced on the meta device.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package's models need it
+import jax.numpy as jnp  # noqa: E402
+
+from test_torch_video import UNET_TOL, _load, _unet_inputs, japply, random_params  # noqa: E402
+from v2a_tpu.models import video_unet as jvu  # noqa: E402
+from v2a_tpu.ops import resblock_kernels as jrk  # noqa: E402
+from v2a_tpu_torch.ops import resblock_kernels as trk  # noqa: E402
+from v2a_tpu_torch.models import video_unet as tvu  # noqa: E402
+
+KTOL = dict(atol=1e-4, rtol=1e-5)
+STATS_TOL = dict(atol=1e-3, rtol=1e-5)
+HW = (8, 8)
+PADDED = ("fused_conv_tconv_padded", "fused_affine_conv3x3_padded", "temporal_conv_padded",
+          "fused_upconv3x3_padded")
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _streams(rs, lead, hw, c):
+    """One random interior as two padded streams: (JAX, garbage pads; port,
+    NaN pads)."""
+    h, w = hw
+    hp, wp = trk.padded_hw(h, w)
+    jx = rs.uniform(-9, 9, lead + (hp, wp, c)).astype(np.float32)
+    tx = np.full(lead + (hp, wp, c), np.nan, np.float32)
+    inner = rs.randn(*lead, h, w, c).astype(np.float32)
+    jx[..., 1:h + 1, 1:w + 1, :] = inner
+    tx[..., 1:h + 1, 1:w + 1, :] = inner
+    return jnp.asarray(jx), torch.from_numpy(tx)
+
+
+def _same_stream(got, want, hw):
+    """Port interior == JAX interior; port pad cols exactly zero."""
+    h, w = hw
+    got = got.numpy()
+    np.testing.assert_allclose(got[..., 1:h + 1, 1:w + 1, :],
+                               np.asarray(want)[..., 1:h + 1, 1:w + 1, :], **KTOL)
+    assert not np.any(got[..., 1:h + 1, 0, :]) and not np.any(got[..., 1:h + 1, w + 1:, :])
+
+
+def _conv_parts(rs, lead, rows, cins, d):
+    jparts, tparts = [], []
+    for c in cins:
+        jx, tx = _streams(rs, lead, HW, c)
+        k = (rs.randn(3, 3, c, d) * 0.1).astype(np.float32)
+        a = (1 + 0.1 * rs.randn(rows, c)).astype(np.float32)
+        b = (0.1 * rs.randn(rows, c)).astype(np.float32)
+        jparts.append((jx, jnp.asarray(k), jnp.asarray(a), jnp.asarray(b)))
+        tparts.append((tx, _t(k), _t(a), _t(b)))
+    return jparts, tparts
+
+
+def _tconv_extras(rs, b, f, d, emb, res, skip_cins):
+    """(JAX kwargs, port kwargs) for the temporal half."""
+    e = (0.5 * rs.randn(b, d)).astype(np.float32) if emb else None
+    jr = tr = None
+    if res:
+        jr, tr = _streams(rs, (b, f), HW, d)
+    jsk, tsk = [], []
+    for c in skip_cins:
+        jx, tx = _streams(rs, (b, f), HW, c)
+        k = (rs.randn(c, d) * 0.2).astype(np.float32)
+        jsk.append((jx, jnp.asarray(k)))
+        tsk.append((tx, _t(k)))
+    sb = (0.1 * rs.randn(d)).astype(np.float32) if skip_cins else None
+    jkw = dict(emb=None if e is None else jnp.asarray(e), residual=jr, skip_parts=jsk or None,
+               skip_bias=None if sb is None else jnp.asarray(sb), want_stats=True)
+    tkw = dict(emb=_t(e), residual=tr, skip_parts=tsk or None, skip_bias=_t(sb), want_stats=True)
+    return jkw, tkw
+
+
+def _no_launch():
+    return {k: trk.launches[k] for k in PADDED}
+
+
+@pytest.mark.parametrize("silu", [True, False])
+def test_affine_conv3x3_padded_matches_pallas(silu):
+    rs = np.random.RandomState(1)
+    jparts, tparts = _conv_parts(rs, (2,), 2, (8, 16), 16)
+    bias = (0.1 * rs.randn(16)).astype(np.float32)
+    want = jrk.fused_affine_conv3x3_padded(jparts, jnp.asarray(bias), HW, silu=silu, tile_h=4,
+                                           interpret=True)
+    before = _no_launch()
+    got = trk.fused_affine_conv3x3_padded(tparts, _t(bias), HW, silu=silu)
+    assert _no_launch() == before  # CPU: the plain version, no launch
+    _same_stream(got, want, HW)
+
+
+@pytest.mark.parametrize("emb,res,skip_cins", [(True, True, ()), (True, False, (8, 16))],
+                         ids=["emb_residual", "skip_fold"])
+def test_temporal_conv_padded_matches_pallas(emb, res, skip_cins):
+    rs = np.random.RandomState(2)
+    b, f, c = 2, 3, 8
+    jx, tx = _streams(rs, (b, f), HW, c)
+    k = (rs.randn(3, c, c) * 0.2).astype(np.float32)
+    bias = (0.1 * rs.randn(c)).astype(np.float32)
+    jkw, tkw = _tconv_extras(rs, b, f, c, emb, res, skip_cins)
+    want, wst = jrk.temporal_conv_padded(jx, jnp.asarray(k), jnp.asarray(bias), HW,
+                                         interpret=True, tile_r=4, **jkw)
+    got, gst = trk.temporal_conv_padded(tx, _t(k), _t(bias), HW, **tkw)
+    _same_stream(got, want, HW)
+    np.testing.assert_allclose(gst.numpy(), np.asarray(wst), **STATS_TOL)
+
+
+@pytest.mark.parametrize("res,skip_cins", [(False, (8, 16)), (True, ())],
+                         ids=["skip_fold", "residual"])
+def test_conv_tconv_padded_matches_pallas(res, skip_cins):
+    rs = np.random.RandomState(3)
+    b, f, d = 2, 3, 16
+    jparts, tparts = _conv_parts(rs, (b, f), b * f, (8, 16), d)
+    kbias = (0.1 * rs.randn(d)).astype(np.float32)
+    tk = (rs.randn(3, d, d) * 0.2).astype(np.float32)
+    tb = (0.1 * rs.randn(d)).astype(np.float32)
+    jkw, tkw = _tconv_extras(rs, b, f, d, True, res, skip_cins)
+    want, wst = jrk.fused_conv_tconv_padded(jparts, jnp.asarray(kbias), jnp.asarray(tk),
+                                            jnp.asarray(tb), HW, silu=True, tile_h=4,
+                                            interpret=True, **jkw)
+    args = (tparts, _t(kbias), _t(tk), _t(tb), HW)
+    got, gst = trk.fused_conv_tconv_padded(*args, silu=True, **tkw)
+    _same_stream(got, want, HW)
+    np.testing.assert_allclose(gst.numpy(), np.asarray(wst), **STATS_TOL)
+    # K3's definition: K4a, rounded, then K4b
+    hp, wp = trk.padded_hw(*HW)
+    flat = [(x.reshape(b * f, hp, wp, -1), k, a, bb) for x, k, a, bb in tparts]
+    y = trk.fused_affine_conv3x3_padded_plain(flat, _t(kbias), HW, True)
+    two, tst = trk.temporal_conv_padded_plain(y.reshape(b, f, hp, wp, d), _t(tk), _t(tb), HW,
+                                              **tkw)
+    assert torch.equal(got[:, :, 1:-1], two[:, :, 1:-1]) and torch.equal(gst, tst)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_upconv3x3_padded_matches_pallas(affine):
+    rs = np.random.RandomState(4)
+    n, c, d = 3, 8, 16
+    jx, tx = _streams(rs, (n,), HW, c)
+    k = (rs.randn(3, 3, c, d) * 0.1).astype(np.float32)
+    bias = (0.1 * rs.randn(d)).astype(np.float32)
+    a = b = None
+    if affine:
+        a = (1 + 0.1 * rs.randn(n, c)).astype(np.float32)
+        b = (0.1 * rs.randn(n, c)).astype(np.float32)
+    want = jrk.fused_upconv3x3_padded(jx, jnp.asarray(k), jnp.asarray(bias), HW,
+                                      a=None if a is None else jnp.asarray(a),
+                                      b=None if b is None else jnp.asarray(b), silu=affine,
+                                      tile_h=4, interpret=True)
+    got = trk.fused_upconv3x3_padded(tx, _t(k), _t(bias), HW, _t(a), _t(b), silu=affine)
+    _same_stream(got, want, (16, 16))
+
+
+def test_upconv3x3_padded_rounds_the_collapsed_weights_like_jax():
+    """bf16: the 2x2 parity weights are summed in float32 and then rounded,
+    as the JAX package does; the outputs agree within one bf16 ulp."""
+    rs = np.random.RandomState(5)
+    n, c, d = 2, 32, 32
+    jx, tx = _streams(rs, (n,), HW, c)
+    k = (rs.randn(3, 3, c, d) / np.sqrt(9 * c)).astype(np.float32)
+    bias = (0.1 * rs.randn(d)).astype(np.float32)
+    want = jrk.fused_upconv3x3_padded(jx.astype(jnp.bfloat16), jnp.asarray(k), jnp.asarray(bias),
+                                      HW, tile_h=4, interpret=True)
+    got = trk.fused_upconv3x3_padded(tx.bfloat16(), _t(k), _t(bias), HW)
+    assert got.dtype == torch.bfloat16
+    g = got.float().numpy()[:, 1:17, 1:17]
+    w = np.asarray(want.astype(jnp.float32))[:, 1:17, 1:17]
+    assert np.all(np.abs(g - w) <= np.abs(w) * 2.0 ** -7 + 1e-3 * w.std())
+
+
+# -- the U-Net ---------------------------------------------------------------------
+
+
+def test_attention_and_downsample_take_the_interior_of_a_stream():
+    """Neither block is reached on a padded stream at the release widths,
+    but both must take one: the interior in (NaN pad rows never read); the
+    attention block hands back a padded stream, the downsample a tensor."""
+    rs = np.random.RandomState(6)
+    x = _t(rs.randn(1, 2, 8, 8, 64))
+    st = torch.stack([x.sum((2, 3)), (x * x).sum((2, 3))], 2)
+    nan_pads = tvu.PaddedStream(trk._place(x, *trk.padded_hw(8, 8)), (8, 8))
+    with torch.no_grad():
+        attn = tvu.SpatialAttentionBlock(64, 32)
+        got, gst = attn(nan_pads, st, True)
+        want, wst = attn(x, st, True)
+        assert isinstance(got, tvu.PaddedStream) and got.hw == (8, 8)
+        assert torch.equal(tvu.unpad_stream(got), want) and torch.equal(gst, wst)
+        down = tvu.Downsample3D(64)
+        torch.nn.init.normal_(down.conv.spatial_conv.kernel)
+        assert torch.equal(down(nan_pads), down(x))
+
+
+def _counting(monkeypatch, module, names, via_plain=False):
+    """Counts calls of module.<name> for each name; `via_plain` calls the
+    port's plain version instead (for tensors on the meta device)."""
+    calls = {}
+
+    def wrap(name):
+        fn = getattr(module, name + "_plain" if via_plain else name)
+
+        def counted(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    for name in names:
+        monkeypatch.setattr(module, name, wrap(name))
+    return calls
+
+
+def _jax_defaults(monkeypatch):
+    """The JAX package's shipped flags, pinned."""
+    for flag, value in (("PERF_PADDED_STREAM", True), ("PERF_MEGA_KERNEL", True),
+                        ("PERF_UPCONV", True), ("PERF_STREAM_KERNEL", False),
+                        ("PERF_DOWNCONV", False), ("PERF_ENTRY_PAD", False),
+                        ("PERF_PALLAS_ATTN", False), ("PERF_PALLAS_SPATIAL2_MIN_CH", 128),
+                        ("PERF_PALLAS_SPATIAL2_MAX_S", 16384)):
+        monkeypatch.setattr(jvu, flag, value)
+    monkeypatch.setattr(jrk, "TAPJOIN", "")
+    monkeypatch.setattr(jrk, "MEGA_MIN_M", 256)
+
+
+def test_padded_unet_matches_jax_default_routing(monkeypatch):
+    """mc 128, mult (1, 2), attention at ds 2, 32x32, F=2: the 32x32 level
+    runs the padded stream (K3 in every ResBlock conv, K5 + K4b for the
+    upsample), the 16x16 level K1 / K2, exactly as the JAX package."""
+    _jax_defaults(monkeypatch)
+    kw = dict(in_channels=6, model_channels=128, out_channels=3, num_res_blocks=1,
+              attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=32,
+              task_token_dim=64)
+    x, t, tok = _unet_inputs(32, seed=13)
+    params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=13)
+    jcalls = _counting(monkeypatch, jrk, trk.KERNELS)
+    want = japply(jvu.VideoUNet(fused=True, **kw), params, x, t, tok)
+    tcalls = _counting(monkeypatch, trk, trk.KERNELS)
+    padded = _load(tvu.VideoUNet(fused=True, **kw), params)
+    got = padded(_t(x), torch.from_numpy(t), _t(tok))
+    assert jcalls == tcalls == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
+                                "fused_conv_tconv_padded": 6, "temporal_conv_padded": 1,
+                                "fused_upconv3x3_padded": 1}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
+    # one converted state dict drives both routings
+    unpadded = _load(tvu.VideoUNet(fused=True, padded_stream=False, **kw), params)
+    assert padded.state_dict().keys() == unpadded.state_dict().keys()
+    np.testing.assert_allclose(unpadded(_t(x), torch.from_numpy(t), _t(tok)).numpy(),
+                               got.numpy(), **UNET_TOL)
+
+
+def test_padded_unet_reaches_k4a(monkeypatch):
+    """mc 128, mult (3, 4), 32x32, F=4: the JAX rule sends three of the
+    level-0 convs to K4a + K4b. Counts from the JAX package by
+    `jax.eval_shape` (its forward at this width is slow on the CPU); the
+    port's output against its own plain path."""
+    _jax_defaults(monkeypatch)
+    kw = dict(in_channels=6, model_channels=128, out_channels=3, num_res_blocks=1,
+              attention_resolutions=(), channel_mult=(3, 4), num_head_channels=32,
+              task_token_dim=64)
+    rs = np.random.RandomState(17)
+    x = rs.randn(1, 4, 32, 32, 6).astype(np.float32)
+    t, tok = np.array([7]), rs.randn(1, 4, 64).astype(np.float32)
+    params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=17)
+    jcalls = _counting(monkeypatch, jrk, trk.KERNELS)
+    jax.eval_shape(jvu.VideoUNet(fused=True, **kw).apply, params, x, t, tok)
+    tcalls = _counting(monkeypatch, trk, trk.KERNELS)
+    got = _load(tvu.VideoUNet(fused=True, **kw), params)(_t(x), torch.from_numpy(t), _t(tok))
+    want = _load(tvu.VideoUNet(**kw), params)(_t(x), torch.from_numpy(t), _t(tok))
+    assert jcalls == tcalls == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
+                                "fused_conv_tconv_padded": 3, "fused_affine_conv3x3_padded": 3,
+                                "temporal_conv_padded": 4, "fused_upconv3x3_padded": 1}
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **UNET_TOL)
+
+
+@pytest.mark.parametrize("padded,counts", [
+    (True, {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_padded": 16,
+            "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 17,
+            "fused_upconv3x3_padded": 3}),
+    (False, {"fused_affine_conv3x3": 73, "temporal_conv_fused": 63}),
+], ids=["padded", "unpadded"])
+def test_release_forward_launch_counts(monkeypatch, padded, counts):
+    """The release U-Net (128^2, F=7, mc 128, mult (1,2,3,4,5), 2 res blocks,
+    attention at ds 8 / 16, bf16) traced on the meta device: the kernels
+    each routing calls per forward, the counts `chip_smoke.py` holds the
+    card to."""
+    calls = _counting(monkeypatch, trk, trk.KERNELS, via_plain=True)
+    with torch.device("meta"), torch.no_grad():
+        net = tvu.VideoUNet(dtype=torch.bfloat16, fused=True, padded_stream=padded)
+        out = net(torch.randn(1, 7, 128, 128, 6), torch.zeros(1, dtype=torch.long),
+                  torch.randn(1, 77, 512))
+    assert tuple(out.shape) == (1, 7, 128, 128, 3)
+    assert calls == counts

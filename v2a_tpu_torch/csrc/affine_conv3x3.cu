@@ -77,19 +77,10 @@ affine_conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ a,
           copy8(dst, x + off);
           continue;
         }
-        float v[8], av[8], bv[8];
+        float v[8];
         load8(x + off, v);
         const long aoff = (long)rn[s] * C + c0 + rcg[s];
-        load8(a + aoff, av);
-        load8(b + aoff, bv);
-        // rounded as the plain version rounds it (no fused multiply-add;
-        // silu as t * (1 / (1 + exp(-t)))), so both see the same operand
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float t = __fadd_rn(__fmul_rn(v[i], av[i]), bv[i]);
-          if (mode == 2) t = __fmul_rn(t, 1.f / (1.f + expf(-t)));
-          v[i] = t;
-        }
+        affine8(v, a + aoff, b + aoff, mode == 2);
         store8(dst, v);  // rounded to T before the product
       }
       load_b_tile<T>(Bs, w, (long)tap * C + c0, D, n0);

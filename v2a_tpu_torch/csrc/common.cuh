@@ -81,6 +81,58 @@ __device__ __forceinline__ void zero8(T* dst) {
     reinterpret_cast<uint4*>(dst)[i] = make_uint4(0, 0, 0, 0);
 }
 
+// One channel part of a padded-stream conv input: x (..., C) with its
+// per-row float32 affine a, b (rows, C) and its (9 C, D) weights. C = 0
+// marks an absent part.
+template <typename T>
+struct Part {
+  const T* x;
+  const float* a;
+  const float* b;
+  const T* w;
+  int C;
+};
+
+// One part of a folded 1x1 skip projection: x (..., C) and k (C, D). C = 0
+// marks an absent part.
+template <typename T>
+struct Skip {
+  const T* x;
+  const T* k;
+  int C;
+};
+
+// Two parts from the C interface's pointer list {x0, a0, b0, w0, x1, ...}.
+template <typename T>
+inline void parts_from(const void* const* pa, const int* C, Part<T> p[2]) {
+  for (int i = 0; i < 2; ++i)
+    p[i] = Part<T>{static_cast<const T*>(pa[4 * i]), static_cast<const float*>(pa[4 * i + 1]),
+                   static_cast<const float*>(pa[4 * i + 2]), static_cast<const T*>(pa[4 * i + 3]),
+                   C[i]};
+}
+
+// Two skip parts from the C interface's pointer list {x0, k0, x1, k1}.
+template <typename T>
+inline void skips_from(const void* const* sk, const int* C, Skip<T> q[2]) {
+  for (int i = 0; i < 2; ++i)
+    q[i] = Skip<T>{static_cast<const T*>(sk[2 * i]), static_cast<const T*>(sk[2 * i + 1]), C[i]};
+}
+
+// v[i] = silu(a[i] * v[i] + b[i]) (or the affine alone) on 8 channels, in
+// float32 and rounded as the plain versions round it: no fused multiply-add,
+// silu as t * (1 / (1 + exp(-t))). a, b: 16-byte aligned float32.
+__device__ __forceinline__ void affine8(float v[8], const float* a, const float* b, bool silu) {
+  float av[8], bv[8];
+  load8(a, av);
+  load8(b, bv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float t = __fadd_rn(__fmul_rn(v[i], av[i]), bv[i]);
+    if (silu) t = __fmul_rn(t, 1.f / (1.f + expf(-t)));
+    v[i] = t;
+  }
+}
+
 // Loads the BK x BN slab of a row-major (K, ldb) weight matrix starting at
 // row k0, column n0 into Bs. Needs ldb % 8 == 0.
 template <typename T>
@@ -168,5 +220,40 @@ template <> struct Accum<float> {
       for (int j = 0; j < 4; ++j) Cs[ty * 8 + i][tx * 4 + j] = c[i][j];
   }
 };
+
+// The statistics of the temporal-conv kernels: each block writes the column
+// sums of its tile, partial[(slab * tiles + tile) * 2 + which][C], and this
+// second pass adds the tiles in tile order (deterministic, no atomics):
+// stats[slab][which][c] = sum over tiles.
+namespace {
+__global__ void reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ stats,
+                                    long n_out, int C, int tiles) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const long slab = i / (2 * C);
+  const long wc = i % (2 * C);
+  float sum = 0.f;
+  for (int t = 0; t < tiles; ++t) sum += partial[(slab * tiles + t) * 2 * C + wc];
+  stats[i] = sum;
+}
+}  // namespace
+
+inline cudaError_t reduce_tiles(const float* partial, float* stats, long slabs, int C, int tiles,
+                                cudaStream_t stream) {
+  const long n_out = slabs * 2 * C;
+  reduce_tiles_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(partial, stats, n_out,
+                                                                           C, tiles);
+  return cudaGetLastError();
+}
+
+// Zeroes the pad cols of one interior row of a padded stream, given the
+// offset o of the element at interior col w (padded col w + 1) of channel
+// c: col 0 when w == 0, cols W+1 .. Wp-1 when w == W-1. ld: channels.
+template <typename T>
+__device__ __forceinline__ void zero_pad_cols(T* y, long o, int w, int W, int Wp, int ld) {
+  if (w == 0) y[o - ld] = from_f<T>(0.f);
+  if (w == W - 1)
+    for (int k = 1; k < Wp - W; ++k) y[o + (long)k * ld] = from_f<T>(0.f);
+}
 
 }  // namespace v2a

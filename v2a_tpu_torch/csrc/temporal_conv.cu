@@ -91,18 +91,6 @@ temporal_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   partial[(((long)bf * tiles + tile) * 2 + which) * C + n0 + col] = sum;
 }
 
-// stats[bf, w, c] = sum over tiles of partial[bf, tile, w, c], in tile order
-__global__ void reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ stats,
-                                    long n_out, int C, int tiles) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const long bf = i / (2 * C);
-  const long wc = i % (2 * C);
-  float sum = 0.f;
-  for (int t = 0; t < tiles; ++t) sum += partial[(bf * tiles + t) * 2 * C + wc];
-  stats[i] = sum;
-}
-
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* emb,
                    const void* res, void* y, void* partial, void* stats, int B, int F, int S,
@@ -115,10 +103,8 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* e
       static_cast<float*>(partial), F, S, C, tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !partial) return err;
-  const long n_out = (long)B * F * 2 * C;
-  reduce_tiles_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(stats), n_out, C, tiles);
-  return cudaGetLastError();
+  return reduce_tiles(static_cast<const float*>(partial), static_cast<float*>(stats),
+                      (long)B * F, C, tiles, stream);
 }
 
 }  // namespace

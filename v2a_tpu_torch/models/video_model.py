@@ -52,6 +52,9 @@ class VideoModelConfig:
     dtype: str = "float32"
     # fused kernel routing; None = on when the device is cuda
     fused: Optional[bool] = None
+    # with `fused`: the padded-stream routing (K3 / K4 / K5 at the levels
+    # with H*W > 512), the JAX package's default; False = K1 / K2 only
+    padded_stream: bool = True
 
     @property
     def video_future_horizon(self) -> int:
@@ -81,7 +84,7 @@ class VideoPredModel:
             out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
             attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
             num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
-            dtype=dt, fused=fused,
+            dtype=dt, fused=fused, padded_stream=cfg.padded_stream,
         )
         text = ClipTextEncoder(width=cfg.text_dim, mlp_dim=cfg.text_dim * 4, dtype=dt)
         self.nets = VideoNets(unet, text).to(self.device).eval().requires_grad_(False)

@@ -1,4 +1,4 @@
-"""3D video diffusion U-Net (channels-last), with the unpadded fused routing.
+"""3D video diffusion U-Net (channels-last), with the fused routings.
 
 Counterpart of `v2a_tpu/models/video_unet.py` (the guided-diffusion
 `UNetModel` as configured by `Unet_Libero`): model_channels 128,
@@ -11,17 +11,25 @@ Perceiver-pooled CLIP text conditioning.
   on both sides (not causal, as in the reference).
 - GroupNorm(32) statistics and softmax run in float32; convs and matmuls in
   the compute dtype.
-- `fused=True` is the JAX package's fused routing with the padded stream
-  off: 3x3 stride-1 convs whose channels are multiples of 128 run through
-  K1 (`fused_affine_conv3x3`, the GroupNorm collapsed to a per-(B, C)
-  affine applied inside the conv), temporal convs with 128-multiple
-  features through K2 (`temporal_conv_fused`, which also adds the
-  embedding / residual and emits the next GroupNorm's statistics). Each
-  (activation, statistics) pair travels together through the network.
-  The routing rules are fixed: the JAX defaults (MIN_CH 128, MAX_S 16384).
+- `fused=True` routes through the kernels of `ops/resblock_kernels.py`, as
+  the JAX package's fused forward does with its default flags. 3x3
+  stride-1 convs whose channels are multiples of 128 run through K1
+  (`fused_affine_conv3x3`, the GroupNorm collapsed to a per-(B, C) affine
+  applied inside the conv), temporal convs with 128-multiple features
+  through K2 (`temporal_conv_fused`, which also adds the embedding /
+  residual and emits the next GroupNorm's statistics). Each (activation,
+  statistics) pair travels together through the network. The routing
+  rules are fixed: the JAX defaults (MIN_CH 128, MAX_S 16384).
+- `padded_stream=True` (the default, used only with `fused`) keeps the
+  levels with H*W > 512 in the `PaddedStream` layout: their convs run K3
+  (`fused_conv_tconv_padded`) or K4a + K4b where the JAX package's rule
+  says K3 does not fit, the upsample convs into them run K5, and the
+  ResBlocks' 1x1 skip projections fold into K3 / K4b. `padded_stream=False`
+  is the unpadded routing (K1 / K2 only).
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
-temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`.
+temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
+routings take the same parameters.
 """
 
 from __future__ import annotations
@@ -48,6 +56,38 @@ def spatial2_eligible(features: int, cins, hw: int, k: int, stride: int) -> bool
     if features % 128 or features < SPATIAL2_MIN_CH or hw > SPATIAL2_MAX_S:
         return False
     return all(c % 128 == 0 for c in cins)
+
+
+def padded_eligible(features: int, cins, hw: int) -> bool:
+    """Gate of the padded-stream layout (`v2a_tpu/models/video_unet.py:197`):
+    the K1 gate and H*W > 512, i.e. the 128^2 .. 32^2 levels."""
+    return spatial2_eligible(features, cins, hw, 3, 1) and hw > 512
+
+
+class PaddedStream:
+    """A (B, F, Hp, Wp, C) activation in the padded-stream layout of
+    `rk.padded_hw`: the interior at rows 1..H, cols 1..W. Pad cols are zero
+    in the output of every conv / temporal-conv producer; pad rows hold
+    anything (NaN included), so every consumer takes the interior by
+    selection, and statistics are interior sums (`video_unet.py:164-173`)."""
+
+    __slots__ = ("x", "hw")
+
+    def __init__(self, x: torch.Tensor, hw):
+        self.x, self.hw = x, tuple(hw)
+
+
+def pad_stream(h: torch.Tensor) -> PaddedStream:
+    """(B, F, H, W, C) -> PaddedStream with zero pads."""
+    hh, ww = h.shape[2], h.shape[3]
+    hp, wp = rk.padded_hw(hh, ww)
+    return PaddedStream(F.pad(h, (0, 0, 1, wp - ww - 1, 1, hp - hh - 1)), (hh, ww))
+
+
+def unpad_stream(ps: PaddedStream) -> torch.Tensor:
+    """The interior view (B, F, H, W, C)."""
+    hh, ww = ps.hw
+    return ps.x[:, :, 1:hh + 1, 1:ww + 1, :]
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -134,7 +174,8 @@ class PseudoConv3d(nn.Module):
     """Factorized space-time conv (`nn.py:30-88`): a 2D conv per frame, then
     (kernel_size > 1) a temporal conv over F. Takes a tensor or a tuple of
     channel parts (conv of their concatenation as a sum of per-part convs);
-    `emb` / `residual` / `want_stats` ride the temporal conv."""
+    `emb` / `residual` / `want_stats` ride the temporal conv. `PaddedStream`
+    inputs take the padded-stream kernels (`_padded`)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
                  dtype: torch.dtype = torch.float32, fused: bool = False):
@@ -145,8 +186,13 @@ class PseudoConv3d(nn.Module):
         if kernel_size > 1:
             self.temporal_conv = _TemporalConv(features, kernel_size)
 
-    def forward(self, x, emb=None, residual=None, want_stats: bool = False, pre_affine=None):
+    def forward(self, x, emb=None, residual=None, want_stats: bool = False, pre_affine=None,
+                upsample2x: bool = False, skip=None):
         parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        if isinstance(parts[0], PaddedStream):
+            return self._padded(parts, emb, residual, want_stats, pre_affine, upsample2x, skip)
+        if upsample2x or skip is not None:
+            raise ValueError("upsample2x and the skip fold need a PaddedStream input")
         if pre_affine is not None and not isinstance(x, (tuple, list)):
             pre_affine = [pre_affine]
         b, f, h, w = parts[0].shape[:4]
@@ -205,6 +251,68 @@ class PseudoConv3d(nn.Module):
             return y, torch.stack([yf.sum((2, 3)), (yf * yf).sum((2, 3))], dim=2)
         return y
 
+    def _padded(self, parts, emb, residual, want_stats, pre_affine, upsample2x, skip):
+        """The padded-stream conv (`v2a_tpu/models/video_unet.py:806-1032`),
+        3x3 stride 1 only. `upsample2x`: K5 from the low-res stream, then K4b
+        at the doubled size. Otherwise K3 where the JAX package's rule
+        (`rk.conv_tconv_band_rows`) admits it, else K4a then K4b. `skip` is
+        (streams, kernel (C_in, D), bias): the ResBlock's 1x1 skip
+        projection, folded into the temporal conv. Returns a PaddedStream
+        [, stats (B, F, 2, D)]."""
+        if self.k != 3 or self.stride != 1:
+            raise ValueError("the padded stream takes 3x3 stride-1 convs")
+        dt, feat, hw = self.dtype, self.features, parts[0].hw
+        b, f, hp, wp = parts[0].x.shape[:4]
+        kernel, kbias = self.spatial_conv.kernel, self.spatial_conv.bias
+        tk, tb = self.temporal_conv.kernel, self.temporal_conv.bias
+        if upsample2x:
+            if len(parts) != 1 or pre_affine is not None or skip is not None:
+                raise ValueError("the upsample conv is single-part, without affine or skip")
+            y = rk.fused_upconv3x3_padded(parts[0].x.reshape(b * f, hp, wp, -1).to(dt),
+                                          kernel, kbias, hw)
+            hw = (2 * hw[0], 2 * hw[1])
+            hp, wp = rk.padded_hw(*hw)
+            out = rk.temporal_conv_padded(y.reshape(b, f, hp, wp, feat), tk, tb, hw, emb=emb,
+                                          want_stats=want_stats)
+        else:
+            if pre_affine is None:
+                raise ValueError("the padded 3x3 conv takes its GroupNorm as an affine")
+            pre = pre_affine
+            if not isinstance(pre[0], (tuple, list)):
+                pre = [pre]
+            mparts, off = [], 0
+            for (a0, b0), p in zip(pre, parts):
+                pc = p.x.shape[-1]
+                mparts.append((p.x.to(dt), kernel[:, :, off:off + pc],
+                               a0[:, None, :].expand(b, f, pc).reshape(b * f, pc),
+                               b0[:, None, :].expand(b, f, pc).reshape(b * f, pc)))
+                off += pc
+            skip_parts = s_bias = None
+            if skip is not None:
+                streams, s_kernel, s_bias = skip
+                skip_parts, off = [], 0
+                for p in streams:
+                    pc = p.x.shape[-1]
+                    skip_parts.append((p.x.to(dt), s_kernel[off:off + pc]))
+                    off += pc
+            res = residual.x if residual is not None else None
+            mega = rk.conv_tconv_band_rows(
+                hw[0], hw[1], wp, [p.x.shape[-1] for p in parts], feat, f,
+                has_res=res is not None, skip_cins=[p[0].shape[-1] for p in skip_parts or ()],
+            ) > 0
+            if mega:
+                out = rk.fused_conv_tconv_padded(mparts, kbias, tk, tb, hw, emb, res, skip_parts,
+                                                 s_bias, silu=True, want_stats=want_stats)
+            else:
+                flat = [(x.reshape(b * f, hp, wp, x.shape[-1]), kk, a, bb)
+                        for x, kk, a, bb in mparts]
+                y = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu=True)
+                out = rk.temporal_conv_padded(y.reshape(b, f, hp, wp, feat), tk, tb, hw, emb, res,
+                                              skip_parts, s_bias, want_stats)
+        if want_stats:
+            return PaddedStream(out[0], hw), out[1]
+        return PaddedStream(out, hw)
+
 
 class ResBlock3D(nn.Module):
     """`ResBlock` (`unet.py:148-262`), plain-norm and dropout-free as the
@@ -229,7 +337,11 @@ class ResBlock3D(nn.Module):
     def forward(self, x, emb: torch.Tensor, stats=None):
         if self.fused:
             if isinstance(x, tuple):
+                if isinstance(x[0], PaddedStream):
+                    return self._fused_split_padded(x, emb, stats)
                 return self._fused_split(x, emb, stats)
+            if isinstance(x, PaddedStream):
+                return self._fused_padded(x, emb, stats)
             return self._fused(x, emb, stats)
         dt = self.dtype
         h = self.in_conv(self.in_norm(x).to(dt))
@@ -295,6 +407,50 @@ class ResBlock3D(nn.Module):
         )
         return self._second_half(h, h_stats, sp2, self.skip_conv(parts))
 
+    # -- the padded stream: both norms collapse to affines from exact interior
+    # statistics (n_pc = F*H*W of the interior, never of the padded tensor),
+    # the convs run K3 or K4a -> K4b, and the residual add or the 1x1 skip
+    # projection rides the second temporal conv.
+
+    def _skip_fold(self, streams, cin: int):
+        sc = self.skip_conv.spatial_conv
+        return tuple(streams), sc.kernel.reshape(cin, self.out_channels), sc.bias
+
+    def _fused_padded(self, x: PaddedStream, emb, stats):
+        """`_fused` on a padded stream (`v2a_tpu/models/video_unet.py:1217`)."""
+        f, c = x.x.shape[1], x.x.shape[-1]
+        n_pc = f * x.hw[0] * x.hw[1]
+        st_in = stats.sum(1) if stats is not None else _channel_stats(unpad_stream(x))
+        pre1 = rk.stats_to_group_affine(st_in, self.in_norm.scale, self.in_norm.bias, n_pc)
+        h, h_stats = self.in_conv(x, emb=self._emb_out(emb), want_stats=True, pre_affine=pre1)
+        pre2 = rk.stats_to_group_affine(h_stats.sum(1), self.out_norm.scale, self.out_norm.bias,
+                                        n_pc)
+        if c == self.out_channels:
+            return self.out_conv(h, residual=x, want_stats=True, pre_affine=pre2)
+        return self.out_conv(h, want_stats=True, pre_affine=pre2, skip=self._skip_fold((x,), c))
+
+    def _fused_split_padded(self, parts, emb, part_stats):
+        """`_fused_split` on padded streams (`v2a_tpu/models/video_unet.py:1268`):
+        the (h, skip) pair goes into one conv call as two parts."""
+        if part_stats is None:
+            part_stats = (None,) * len(parts)
+        f = parts[0].x.shape[1]
+        n_pc = f * parts[0].hw[0] * parts[0].hw[1]
+        sts = [st.sum(1) if st is not None else _channel_stats(unpad_stream(p))
+               for p, st in zip(parts, part_stats)]
+        a, shift = rk.stats_to_group_affine(torch.cat(sts, dim=-1), self.in_norm.scale,
+                                            self.in_norm.bias, n_pc)
+        pre1, off = [], 0
+        for p in parts:
+            pc = p.x.shape[-1]
+            pre1.append((a[:, off:off + pc], shift[:, off:off + pc]))
+            off += pc
+        h, h_stats = self.in_conv(parts, emb=self._emb_out(emb), want_stats=True,
+                                  pre_affine=pre1)
+        pre2 = rk.stats_to_group_affine(h_stats.sum(1), self.out_norm.scale, self.out_norm.bias,
+                                        n_pc)
+        return self.out_conv(h, want_stats=True, pre_affine=pre2, skip=self._skip_fold(parts, off))
+
 
 class SpatialAttentionBlock(nn.Module):
     """Per-frame spatial self-attention (`unet.py:263-330`) with the legacy
@@ -310,6 +466,13 @@ class SpatialAttentionBlock(nn.Module):
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x, stats=None, want_stats: bool = False):
+        if isinstance(x, PaddedStream):
+            # attention needs the exact token set: the interior in, the
+            # padded layout back out (the stats describe the interior)
+            out = self.forward(unpad_stream(x), stats, want_stats)
+            if want_stats:
+                return pad_stream(out[0]), out[1]
+            return pad_stream(out)
         b, f, h, w, c = x.shape
         ch, dt = self.ch, self.dtype
         y = x.reshape(b * f, h * w, c)
@@ -338,17 +501,28 @@ class Downsample3D(nn.Module):
         self.conv = PseudoConv3d(c, c, 3, stride=2, dtype=dtype, fused=fused)
 
     def forward(self, x, want_stats: bool = False):
+        if isinstance(x, PaddedStream):
+            # the stride-2 conv's SAME halo must be zeros: take the interior
+            x = unpad_stream(x)
         return self.conv(x, want_stats=want_stats)
 
 
 class Upsample3D(nn.Module):
-    """Nearest 2x spatial upsample + pseudo-3D conv (`unet.py:86-116`)."""
+    """Nearest 2x spatial upsample + pseudo-3D conv (`unet.py:86-116`).
+    `padded_out`: K5 from the low-res stream into a PaddedStream at twice
+    the size (`v2a_tpu/models/video_unet.py:1592-1599`)."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False):
         super().__init__()
         self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused)
 
-    def forward(self, x, want_stats: bool = False):
+    def forward(self, x, want_stats: bool = False, padded_out: bool = False):
+        if padded_out:
+            if not isinstance(x, PaddedStream):
+                x = pad_stream(x)
+            return self.conv(x, want_stats=want_stats, upsample2x=True)
+        if isinstance(x, PaddedStream):
+            x = unpad_stream(x)
         b, f, h, w, c = x.shape
         x = x[:, :, :, None, :, None, :].expand(b, f, h, 2, w, 2, c).reshape(b, f, 2 * h, 2 * w, c)
         return self.conv(x, want_stats=want_stats)
@@ -362,11 +536,12 @@ class VideoUNet(nn.Module):
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
                  channel_mult: Sequence[int] = (1, 2, 3, 4, 5), num_head_channels: int = 32,
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
-                 fused: bool = False):
+                 fused: bool = False, padded_stream: bool = True):
         super().__init__()
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
+        self.padded_stream = padded_stream
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
         self.time_dense0 = nn.Linear(mc, ted)
@@ -425,10 +600,16 @@ class VideoUNet(nn.Module):
         def step(out):  # fused blocks return (activation, stats)
             return out if fused else (out, None)
 
+        # the padded-stream layout where `padded_eligible` holds
+        # (`v2a_tpu/models/video_unet.py:1736-1886`)
+        padded = fused and self.padded_stream
+        hh, ww = x.shape[2], x.shape[3]
         h, st = step(self.in_conv(x.to(dt), want_stats=fused))
+        if padded and padded_eligible(self.mc, [self.mc], hh * ww):
+            h = pad_stream(h)
         hs = [(h, st)]
         ds, bi = 1, 0
-        for level, _ in enumerate(self.channel_mult):
+        for level, mult in enumerate(self.channel_mult):
             for _ in range(self.nrb):
                 h, st = step(getattr(self, f"down_res_{bi}")(h, emb, st))
                 if ds in self.attention_resolutions:
@@ -437,25 +618,40 @@ class VideoUNet(nn.Module):
                 bi += 1
             if level != len(self.channel_mult) - 1:
                 h, st = step(getattr(self, f"downsample_{level}")(h, want_stats=fused))
+                hh, ww = hh // 2, ww // 2
+                ch, next_ch = mult * self.mc, self.channel_mult[level + 1] * self.mc
+                if padded and padded_eligible(next_ch, [ch, next_ch], hh * ww):
+                    h = pad_stream(h)
                 hs.append((h, st))
                 ds *= 2
         h, st = step(self.mid_res0(h, emb, st))
         h, st = step(self.mid_attn(h, st, fused))
         h, st = step(self.mid_res1(h, emb, st))
         bi = 0
-        for level, _ in reversed(list(enumerate(self.channel_mult))):
+        for level, mult in reversed(list(enumerate(self.channel_mult))):
             for i in range(self.nrb + 1):
                 skip, skip_st = hs.pop()
-                if fused:  # the pair travels unconcatenated
+                if fused:  # the pair travels unconcatenated, in one layout
+                    if isinstance(h, PaddedStream) != isinstance(skip, PaddedStream):
+                        if isinstance(h, PaddedStream):
+                            skip = pad_stream(skip)
+                        else:
+                            h = pad_stream(h)
                     h, st = getattr(self, f"up_res_{bi}")((h, skip), emb, (st, skip_st))
                 else:
                     h = getattr(self, f"up_res_{bi}")(torch.cat([h, skip], dim=-1), emb)
                 if ds in self.attention_resolutions:
                     h, st = step(getattr(self, f"up_attn_{bi}")(h, st, fused))
                 if level and i == self.nrb:
-                    h, st = step(getattr(self, f"upsample_{level}")(h, want_stats=fused))
+                    ch = mult * self.mc
+                    padded_out = padded and padded_eligible(ch, [ch], hh * ww * 4)
+                    h, st = step(getattr(self, f"upsample_{level}")(h, want_stats=fused,
+                                                                    padded_out=padded_out))
+                    hh, ww = hh * 2, ww * 2
                     ds //= 2
                 bi += 1
+        if isinstance(h, PaddedStream):
+            h = unpad_stream(h)
         st2 = st.sum(1) if st is not None else None
         h = self.out_conv(self.out_norm(h, stats=st2).to(dt))
         return h.float()

@@ -1,8 +1,8 @@
 """The video U-Net's ResBlock-interior kernels: wrappers, plain versions and
 the GroupNorm statistics fold.
 
-Counterpart of `v2a_tpu/ops/resblock_kernels.py` for the unpadded fused
-routing:
+Counterpart of `v2a_tpu/ops/resblock_kernels.py`. The unpadded fused
+routing runs:
 
 - `fused_affine_conv3x3` (K1): y = conv3x3_same(act(x)) + bias with
   act = silu(a*x + b) per (N, C), or the plain conv. CUDA source
@@ -10,6 +10,25 @@ routing:
 - `temporal_conv_fused` (K2): the 3-tap C x C conv over frames + bias
   [+ emb] [+ residual], optionally with per-(B, F, C) sum / sum of squares
   of the rounded output. CUDA source `csrc/temporal_conv.cu`.
+
+The padded-stream routing (the JAX package's default) keeps the levels
+with H*W > 512 in the (.., Hp, Wp, C) layout of `padded_hw` and runs:
+
+- `fused_affine_conv3x3_padded` (K4a): K1 over a multi-part padded stream,
+  all parts in one float32 accumulator. `csrc/affine_conv3x3_padded.cu`.
+- `temporal_conv_padded` (K4b): K2 over a padded stream, with the ResBlock's
+  1x1 skip projection folded in. `csrc/temporal_conv_padded.cu`.
+- `fused_conv_tconv_padded` (K3): K4a then K4b in one pass; the conv output
+  never reaches device memory. `csrc/conv_tconv_padded.cu`.
+- `fused_upconv3x3_padded` (K5): conv3x3_same(nearest_2x(x)) as four
+  parity convs over the low-res stream. `csrc/upconv3x3_padded.cu`.
+
+The padded-stream contract: pad COLS are zero in the output of every conv
+and temporal-conv producer; pad ROWS (0 and Hp-1) hold arbitrary values
+(the kernels leave them unwritten, the plain versions write NaN there).
+Every consumer removes pad values by selection (index ranges or a skipped
+load), never by multiplying with a mask, and the statistics are exact
+interior sums.
 
 Each wrapper runs its kernel's plain PyTorch version (`*_plain`, beside it)
 for a tensor on the CPU. For a CUDA tensor it launches the kernel on the
@@ -39,6 +58,22 @@ KERNELS = {
     "temporal_conv_fused": dict(
         source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:177",
+    ),
+    "fused_affine_conv3x3_padded": dict(
+        source="v2a_tpu_torch/csrc/affine_conv3x3_padded.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:902",
+    ),
+    "temporal_conv_padded": dict(
+        source="v2a_tpu_torch/csrc/temporal_conv_padded.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:1090",
+    ),
+    "fused_conv_tconv_padded": dict(
+        source="v2a_tpu_torch/csrc/conv_tconv_padded.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:1978",
+    ),
+    "fused_upconv3x3_padded": dict(
+        source="v2a_tpu_torch/csrc/upconv3x3_padded.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:1314",
     ),
 }
 
@@ -82,7 +117,32 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _stats_buffers(x: torch.Tensor, rows: int, tiles: int, c: int, want: bool):
+    """(per-tile partial sums, statistics) for a kernel that reduces its
+    tiles in a second, fixed-order pass; (None, None) without statistics."""
+    if not want:
+        return None, None
+    partial = torch.empty((rows * tiles * 2 * c,), dtype=torch.float32, device=x.device)
+    return partial, torch.empty((rows, 2, c), dtype=torch.float32, device=x.device)
+
+
 # -- K1: fused affine (+SiLU) 3x3 conv -----------------------------------------
+
+
+def _act(x: torch.Tensor, a, b, silu: bool) -> torch.Tensor:
+    """silu(a*x + b) in float32 (or the affine alone), rounded to x.dtype;
+    x (N, ..., C), a / b (N, C)."""
+    if a is None:
+        return x
+    bc = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    xf = x.float() * a.float().reshape(bc) + b.float().reshape(bc)
+    if silu:
+        xf = xf * torch.sigmoid(xf)
+    return xf.to(x.dtype)
 
 
 def fused_affine_conv3x3_plain(
@@ -95,15 +155,8 @@ def fused_affine_conv3x3_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of K1: the activation in float32, rounded to
     x.dtype, zero-padded AFTER the activation, conv summed in float32."""
-    if a is not None:
-        xf = x.float() * a[:, None, None, :].float() + b[:, None, None, :].float()
-        if silu:
-            xf = xf * torch.sigmoid(xf)
-        xa = xf.to(x.dtype)
-    else:
-        xa = x
     w = kernel.to(x.dtype).float().permute(3, 2, 0, 1)  # (D, C, 3, 3)
-    y = F.conv2d(xa.float().permute(0, 3, 1, 2), w, padding=1)
+    y = F.conv2d(_act(x, a, b, silu).float().permute(0, 3, 1, 2), w, padding=1)
     y = y.permute(0, 2, 3, 1) + bias.float()
     return y.to(x.dtype).contiguous()
 
@@ -154,8 +207,7 @@ def fused_affine_conv3x3(
     with torch.cuda.device(x.device):
         rc = fn(
             _ptr(x), _ptr(a32), _ptr(b32), _ptr(w2d), _ptr(bias32), _ptr(y),
-            n, h, w, c, d, mode, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            n, h, w, c, d, mode, _DTYPE_CODE[x.dtype], _stream(x),
         )
     _raise_on(rc, "fused_affine_conv3x3")
     launches["fused_affine_conv3x3"] += 1
@@ -241,21 +293,16 @@ def temporal_conv_fused(
         res = residual.expand(x.shape).to(x.dtype).contiguous()
     _check_cuda(x, w2d, bias32, emb32, res)
     y = torch.empty_like(x)
-    stats = partial = None
-    if want_stats:
-        tiles = -(-s // 64)
-        partial = torch.empty((b * f * tiles * 2 * c,), dtype=torch.float32, device=x.device)
-        stats = torch.empty((b, f, 2, c), dtype=torch.float32, device=x.device)
+    partial, stats = _stats_buffers(x, b * f, -(-s // 64), c, want_stats)
     fn = _lib("temporal_conv", "v2a_temporal_conv3", 8, 5)
     with torch.cuda.device(x.device):
         rc = fn(
             _ptr(x), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(res), _ptr(y),
-            _ptr(partial), _ptr(stats), b, f, s, c, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            _ptr(partial), _ptr(stats), b, f, s, c, _DTYPE_CODE[x.dtype], _stream(x),
         )
     _raise_on(rc, "temporal_conv_fused")
     launches["temporal_conv_fused"] += 1
-    return (y, stats) if want_stats else y
+    return (y, stats.reshape(b, f, 2, c)) if want_stats else y
 
 
 def temporal_conv_reference(
@@ -277,6 +324,433 @@ def temporal_conv_reference(
     if residual is not None:
         y = y + residual.expand(x.shape).reshape(b, f, s, c).float()
     return y.reshape(x.shape).to(x.dtype)
+
+
+# -- the padded stream ------------------------------------------------------------
+
+
+def padded_hw(h: int, w: int) -> Tuple[int, int]:
+    """(Hp, Wp) of the padded-stream layout for an (H, W) interior: one halo
+    row each side, the width rounded up to a multiple of 8 (16-byte rows in
+    bf16) (`v2a_tpu/ops/resblock_kernels.py:784`)."""
+    return h + 2, ((w + 2 + 7) // 8) * 8
+
+
+# The JAX package's rule for where it runs K3 and where K4a + K4b
+# (`v2a_tpu/ops/resblock_kernels.py:1890`, with its defaults MEGA_MIN_M 256
+# and no tap join). Its budget is the TPU's VMEM, not anything on the H100:
+# the port keeps the rule only so that it launches what the JAX package
+# launches. The CUDA kernels pick their own tiles.
+MEGA_MIN_M = 256
+MEGA_VMEM_BUDGET = 13 * 1024 * 1024
+
+
+def conv_tconv_band_rows(h: int, w: int, wp: int, cins, d: int, frames: int,
+                         has_res: bool = True, skip_cins=()) -> int:
+    """The TPU mega-kernel's band height at this shape, or 0 where the JAX
+    package runs K4a + K4b instead of K3."""
+    weights = (sum(9 * c * d * 2 for c in cins) + 3 * d * d * 2
+               + sum(c * d * 2 for c in skip_cins))
+
+    def cost(t):
+        win = sum(2 * frames * (t + 2) * wp * c * 2 for c in cins)
+        out = 2 * frames * t * wp * d * 2
+        res = out if has_res else 0
+        skip = sum(2 * frames * t * wp * c * 2 for c in skip_cins)
+        yc = frames * t * w * d * 2
+        acc = frames * t * w * d * 4
+        ftmp = (t + 2) * wp * max(cins) * 4 + t * w * d * 4
+        return weights + win + out + res + skip + yc + acc + ftmp
+
+    best = 0
+    for t in range(1, h + 1):
+        if h % t == 0 and cost(t) <= MEGA_VMEM_BUDGET:
+            best = t
+    return 0 if best * w < MEGA_MIN_M else best
+
+
+def _place(y: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """(..., H, W, D) interior -> (..., Hp, Wp, D) padded stream with zero pad
+    cols and NaN pad rows (the contract lets pad rows hold anything; NaN
+    makes a consumer that reads them show)."""
+    h, w = y.shape[-3], y.shape[-2]
+    out = y.new_zeros(y.shape[:-3] + (hp, wp, y.shape[-1]))
+    out[..., 1:h + 1, 1:w + 1, :] = y
+    out[..., 0, :, :] = float("nan")
+    out[..., h + 1:, :, :] = float("nan")
+    return out
+
+
+def _interior(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """The interior of a padded stream (..., Hp, Wp, C), by index ranges."""
+    h, w = hw
+    return x[..., 1:h + 1, 1:w + 1, :]
+
+
+def _affine32(a, b, rows: int, c: int):
+    if a is None or b is None:
+        raise ValueError("the padded-stream conv needs the affine a and b")
+    if tuple(a.shape) != (rows, c) or tuple(b.shape) != (rows, c):
+        raise ValueError(f"affine must be {(rows, c)}, got {tuple(a.shape)}, {tuple(b.shape)}")
+    return a.float().contiguous(), b.float().contiguous()
+
+
+# -- K4a: fused affine (+SiLU) 3x3 conv over a padded stream -------------------
+
+
+def fused_affine_conv3x3_padded_plain(parts, bias: torch.Tensor, hw: Tuple[int, int],
+                                      silu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K4a: per part the activation of the interior
+    in float32, rounded to x.dtype, zero halo after it; every part's conv in
+    one float32 sum, + bias, rounded once."""
+    x0 = parts[0][0]
+    hp, wp = x0.shape[1], x0.shape[2]
+    acc = None
+    for x, kernel, a, b in parts:
+        xa = _act(_interior(x, hw), a, b, silu).float().permute(0, 3, 1, 2)
+        wk = kernel.to(x.dtype).float().permute(3, 2, 0, 1)
+        y = F.conv2d(xa, wk, padding=1)
+        acc = y if acc is None else acc + y
+    y = (acc.permute(0, 2, 3, 1) + bias.float()).to(x0.dtype)
+    return _place(y, hp, wp)
+
+
+def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
+                                silu: bool = True) -> torch.Tensor:
+    """y = sum_i conv3x3_same(mask(silu(a_i*x_i + b_i))) + bias over a padded
+    stream (`v2a_tpu/ops/resblock_kernels.py:902`).
+
+    parts: one or two (x (N, Hp, Wp, C_i), kernel (3, 3, C_i, D), a, b
+    (N, C_i) float32) tuples, the channel parts of the up path's
+    unconcatenated (h, skip) pair; silu=False applies the affine alone.
+    hw: the interior (H, W). Returns (N, Hp, Wp, D) in x.dtype: the interior
+    and zero pad cols; pad rows are left unwritten.
+
+    Kernel note (csrc/affine_conv3x3_padded.cu): bound by operations at the
+    path's shapes; K1's implicit GEMM with the padded row stride, the
+    interior taken by skipping the loads of halo taps (pad values are never
+    read), and the parts' K loops feeding one float32 accumulator.
+    """
+    x0 = parts[0][0]
+    if x0.device.type == "cpu":
+        return fused_affine_conv3x3_padded_plain(parts, bias, hw, silu)
+    h, w = hw
+    hp, wp = padded_hw(h, w)
+    n, d = x0.shape[0], parts[0][1].shape[-1]
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"K4a takes one or two parts, got {len(parts)}")
+    if d % 64:
+        raise ValueError(f"K4a needs D % 64 == 0, got {d}")
+    args, cins = [], []
+    for x, kernel, a, b in parts:
+        c = x.shape[-1]
+        if tuple(x.shape) != (n, hp, wp, c) or x.dtype != x0.dtype:
+            raise ValueError(f"part {tuple(x.shape)} {x.dtype} vs padded {(n, hp, wp)}")
+        if tuple(kernel.shape) != (3, 3, c, d) or c % 32:
+            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c} (C % 32 == 0)")
+        a32, b32 = _affine32(a, b, n, c)
+        w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
+        _check_cuda(x, w2d, a32, b32)
+        args += [x, a32, b32, w2d]
+        cins.append(c)
+    if len(parts) == 1:
+        args += [None] * 4
+        cins.append(0)
+    bias32 = bias.float().contiguous()
+    _check_cuda(x0, bias32)
+    y = torch.empty((n, hp, wp, d), dtype=x0.dtype, device=x0.device)
+    fn = _lib("affine_conv3x3_padded", "v2a_affine_conv3x3_padded", 10, 9)
+    with torch.cuda.device(x0.device):
+        rc = fn(*[_ptr(t) for t in args], _ptr(bias32), _ptr(y), n, h, w, wp, cins[0],
+                cins[1], d, int(silu), _DTYPE_CODE[x0.dtype], _stream(x0))
+    _raise_on(rc, "fused_affine_conv3x3_padded")
+    launches["fused_affine_conv3x3_padded"] += 1
+    return y
+
+
+# -- K4b: temporal conv over a padded stream, with the skip fold ------------------
+
+
+def temporal_conv_padded_plain(x, kernel, bias, hw, emb=None, residual=None,
+                               skip_parts=None, skip_bias=None, want_stats=False):
+    """Plain PyTorch version of K4b on the interior: the taps in float32 from
+    x.dtype operands, + (bias + emb), + the skip parts' 1x1 products,
+    + skip bias, + residual, rounded once; stats from the rounded interior."""
+    h, w = hw
+    b, f, hp, wp, c = x.shape
+    dt = x.dtype
+    wt = kernel.to(dt).float()
+    xp = F.pad(_interior(x, hw).float().reshape(b, f, h * w, c), (0, 0, 0, 0, 1, 1))
+    y = xp[:, 1:f + 1] @ wt[1] + xp[:, 0:f] @ wt[0] + xp[:, 2:f + 2] @ wt[2]
+    off = bias.float()
+    if emb is not None:
+        off = off + emb.reshape(b, 1, 1, c).float()
+    y = y + off
+    for xs, ks in skip_parts or ():
+        cs = xs.shape[-1]
+        xi = _interior(xs, hw).float().reshape(b, f, h * w, cs)
+        y = y + xi @ ks.reshape(cs, c).to(dt).float()
+    if skip_parts:
+        y = y + skip_bias.float()
+    if residual is not None:
+        y = y + _interior(residual, hw).to(dt).float().reshape(b, f, h * w, c)
+    yr = y.to(dt)
+    out = _place(yr.reshape(b, f, h, w, c), hp, wp)
+    if want_stats:
+        yf = yr.float()
+        return out, torch.stack([yf.sum(2), (yf * yf).sum(2)], dim=2)
+    return out
+
+
+def _skip_args(skip_parts, skip_bias, lead, c: int, dt):
+    """[(xs, k2d, C_s)] * 2 (missing parts as (None, None, 0)) and the
+    float32 skip bias, checked."""
+    skip_parts = list(skip_parts or ())
+    if len(skip_parts) > 2:
+        raise ValueError(f"the skip fold takes at most two parts, got {len(skip_parts)}")
+    if skip_parts and skip_bias is None:
+        raise ValueError("the skip fold needs its bias")
+    out = []
+    for xs, ks in skip_parts:
+        cs = xs.shape[-1]
+        if tuple(xs.shape[:-1]) != tuple(lead) or xs.dtype != dt or cs % 32:
+            raise ValueError(f"skip part {tuple(xs.shape)} {xs.dtype} vs {tuple(lead)} {dt}")
+        if ks.numel() != cs * c:
+            raise ValueError(f"skip kernel {tuple(ks.shape)} vs ({cs}, {c})")
+        out.append((xs, ks.reshape(cs, c).to(dt).contiguous(), cs))
+    out += [(None, None, 0)] * (2 - len(out))
+    sb32 = skip_bias.float().contiguous() if skip_parts else None
+    return out, sb32
+
+
+def temporal_conv_padded(x, kernel, bias, hw, emb=None, residual=None, skip_parts=None,
+                         skip_bias=None, want_stats=False):
+    """The 3-tap temporal conv on a padded stream
+    (`v2a_tpu/ops/resblock_kernels.py:1090`): y = taps(x) + bias [+ emb]
+    [+ sum_s x_s @ K_s + skip_bias] [+ residual] on the interior, pad cols
+    zero, pad rows unwritten.
+
+    x: (B, F, Hp, Wp, C); kernel (3, C, C); bias (C,); emb optional (B, C);
+    residual optional, a padded stream like x; skip_parts optional, up to
+    two (x_s (B, F, Hp, Wp, C_s), kernel (C_s, C) or (1, 1, C_s, C)) pairs:
+    the ResBlock's 1x1 skip projection, folded in so that the projected
+    residual never reaches device memory. Returns y [, stats (B, F, 2, C)
+    float32, the exact interior sum / sum of squares of the rounded y].
+
+    Kernel note (csrc/temporal_conv_padded.cu): bound by operations, narrowly
+    (from C = 256 on); K2's implicit GEMM over interior positions with the
+    padded address map, the skip parts as further K segments of the same
+    accumulator, and K2's deterministic two-pass statistics.
+    """
+    if x.device.type == "cpu":
+        return temporal_conv_padded_plain(x, kernel, bias, hw, emb, residual, skip_parts,
+                                          skip_bias, want_stats)
+    h, w = hw
+    b, f, hp, wp, c = x.shape
+    if (hp, wp) != padded_hw(h, w):
+        raise ValueError(f"stream {tuple(x.shape)} vs interior {hw}")
+    if tuple(kernel.shape) != (3, c, c) or c % 64:
+        raise ValueError(f"temporal kernel {tuple(kernel.shape)} vs C={c} (C % 64 == 0)")
+    w2d = kernel.to(x.dtype).reshape(3 * c, c).contiguous()
+    bias32 = bias.float().contiguous()
+    emb32 = None if emb is None else emb.reshape(b, c).float().contiguous()
+    if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype):
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} vs {tuple(x.shape)}")
+    skips, sb32 = _skip_args(skip_parts, skip_bias, x.shape[:4], c, x.dtype)
+    _check_cuda(x, w2d, bias32, emb32, residual, sb32, *[t for s in skips for t in s[:2]])
+    y = torch.empty_like(x)
+    tiles = -(-h * w // 64)
+    partial, stats = _stats_buffers(x, b * f, tiles, c, want_stats)
+    fn = _lib("temporal_conv_padded", "v2a_temporal_conv_padded", 13, 9)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(residual),
+                _ptr(skips[0][0]), _ptr(skips[0][1]), _ptr(skips[1][0]), _ptr(skips[1][1]),
+                _ptr(sb32), _ptr(y), _ptr(partial), _ptr(stats), b, f, h, w, wp, c,
+                skips[0][2], skips[1][2], _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(rc, "temporal_conv_padded")
+    launches["temporal_conv_padded"] += 1
+    return (y, stats.reshape(b, f, 2, c)) if want_stats else y
+
+
+# -- K3: K4a then K4b in one pass --------------------------------------------------
+
+
+def fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
+                                  skip_parts=None, skip_bias=None, silu=True, want_stats=False):
+    """Plain PyTorch version of K3: K4a's plain version, then K4b's, which is
+    the JAX package's own definition of what K3 computes (the conv output is
+    rounded to x.dtype before the temporal taps)."""
+    b, f, hp, wp = parts[0][0].shape[:4]
+    flat = [(x.reshape(b * f, hp, wp, x.shape[-1]), k, a, bb) for x, k, a, bb in parts]
+    y = fused_affine_conv3x3_padded_plain(flat, kbias, hw, silu)
+    return temporal_conv_padded_plain(y.reshape(b, f, hp, wp, y.shape[-1]), tkernel, tbias, hw,
+                                      emb, residual, skip_parts, skip_bias, want_stats)
+
+
+def _k3_pixels(frames: int, d: int, itemsize: int) -> int:
+    """Pixels per K3 block: the block holds the rounded conv output of every
+    frame of its pixels at all D channels in shared memory; 64 KiB of it
+    leaves room for two blocks on an SM."""
+    p = 64
+    while p > 8 and frames * p * d * itemsize > 64 * 1024:
+        p //= 2
+    return p
+
+
+def fused_conv_tconv_padded(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
+                            skip_parts=None, skip_bias=None, silu=True, want_stats=False):
+    """The whole padded-stream PseudoConv3d in one kernel
+    (`v2a_tpu/ops/resblock_kernels.py:1978`): K4a over one or two parts
+    (x (B, F, Hp, Wp, C_i), kernel (3, 3, C_i, D), a, b (B*F, C_i)), its
+    output rounded to x.dtype, then K4b with the same emb / residual / skip
+    fold / statistics. Returns (B, F, Hp, Wp, D) [, stats (B, F, 2, D)].
+
+    Kernel note (csrc/conv_tconv_padded.cu): bound by operations. The
+    temporal taps mix all D channels of three frames, so a block owns a few
+    pixels of one sample for ALL frames: it computes their conv output at
+    all D channels into shared memory (rounded, never stored to device
+    memory), then runs the temporal GEMM (K = 3D + the skip channels) out of
+    shared memory. Shared memory bounds the pixel tile (`_k3_pixels`), so the
+    tensor cores get small tiles; statistics as K4b.
+    """
+    x0 = parts[0][0]
+    if x0.device.type == "cpu":
+        return fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
+                                             skip_parts, skip_bias, silu, want_stats)
+    h, w = hw
+    hp, wp = padded_hw(h, w)
+    b, f = x0.shape[:2]
+    d = parts[0][1].shape[-1]
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"K3 takes one or two parts, got {len(parts)}")
+    if d % 64 or tuple(tkernel.shape) != (3, d, d):
+        raise ValueError(f"K3 needs D % 64 == 0 and a (3, D, D) temporal kernel, got D={d}")
+    args, cins = [], []
+    for x, kernel, a, bb in parts:
+        c = x.shape[-1]
+        if tuple(x.shape) != (b, f, hp, wp, c) or x.dtype != x0.dtype:
+            raise ValueError(f"part {tuple(x.shape)} {x.dtype} vs padded {(b, f, hp, wp)}")
+        if tuple(kernel.shape) != (3, 3, c, d) or c % 32:
+            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c} (C % 32 == 0)")
+        a32, b32 = _affine32(a, bb, b * f, c)
+        w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
+        _check_cuda(x, w2d, a32, b32)
+        args += [x, a32, b32, w2d]
+        cins.append(c)
+    if len(parts) == 1:
+        args += [None] * 4
+        cins.append(0)
+    dt = x0.dtype
+    kb32, tb32 = kbias.float().contiguous(), tbias.float().contiguous()
+    tw = tkernel.to(dt).reshape(3 * d, d).contiguous()
+    emb32 = None if emb is None else emb.reshape(b, d).float().contiguous()
+    out_shape = (b, f, hp, wp, d)
+    if residual is not None and (tuple(residual.shape) != out_shape or residual.dtype != dt):
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} vs {out_shape}")
+    skips, sb32 = _skip_args(skip_parts, skip_bias, out_shape[:4], d, dt)
+    _check_cuda(x0, kb32, tb32, tw, emb32, residual, sb32,
+                *[t for s in skips for t in s[:2]])
+    y = torch.empty(out_shape, dtype=dt, device=x0.device)
+    pix = _k3_pixels(f, d, x0.element_size())
+    tiles = -(-h * w // pix)
+    partial, stats = _stats_buffers(x0, b * f, tiles, d, want_stats)
+    fn = _lib("conv_tconv_padded", "v2a_conv_tconv_padded", 21, 13)
+    with torch.cuda.device(x0.device):
+        rc = fn(*[_ptr(t) for t in args], _ptr(kb32), _ptr(tw), _ptr(tb32), _ptr(emb32),
+                _ptr(residual), _ptr(skips[0][0]), _ptr(skips[0][1]), _ptr(skips[1][0]),
+                _ptr(skips[1][1]), _ptr(sb32), _ptr(y), _ptr(partial), _ptr(stats),
+                b, f, h, w, wp, cins[0], cins[1], d, skips[0][2], skips[1][2], pix, int(silu),
+                _DTYPE_CODE[dt], _stream(x0))
+    _raise_on(rc, "fused_conv_tconv_padded")
+    launches["fused_conv_tconv_padded"] += 1
+    return (y, stats.reshape(b, f, 2, d)) if want_stats else y
+
+
+# -- K5: 2x nearest upsample + 3x3 conv as four low-res parity convs -------------
+
+# for output parity p, the 3x3 rows di that land on low-res offset a
+_UP_ROWS = (((0,), (1, 2)), ((0, 1), (2,)))
+
+
+def upconv_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, D) -> the collapsed (2, 2, 2, 2, C, D) parity kernels
+    [p][p'][a][b], each the sum of the 3x3 taps that land on low-res offset
+    (a, b) for output parity (p, p'), summed in the kernel's own dtype in
+    the JAX package's order (`v2a_tpu/ops/resblock_kernels.py:1345-1359`)."""
+    blocks = []
+    for p in range(2):
+        for pp in range(2):
+            for a in range(2):
+                for b in range(2):
+                    kk = None
+                    for di in _UP_ROWS[p][a]:
+                        for dj in _UP_ROWS[pp][b]:
+                            kk = kernel[di, dj] if kk is None else kk + kernel[di, dj]
+                    blocks.append(kk)
+    return torch.stack(blocks).reshape((2, 2, 2, 2) + tuple(kernel.shape[2:]))
+
+
+def fused_upconv3x3_padded_plain(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
+    """Plain PyTorch version of K5: the optional activation of the low-res
+    interior, rounded to x.dtype, zero halo; per output parity a 2x2 conv with
+    the collapsed weights (cast to x.dtype after the collapse) in float32,
+    + bias, rounded once."""
+    h, w = hw_lo
+    n, c = x.shape[0], x.shape[-1]
+    d = kernel.shape[-1]
+    dt = x.dtype
+    xz = F.pad(_act(_interior(x, hw_lo), a, b, silu).float(), (0, 0, 1, 1, 1, 1))
+    xz = xz.permute(0, 3, 1, 2)
+    wk = upconv_weights(kernel).to(dt).float()
+    y = torch.empty((n, 2 * h, 2 * w, d), dtype=torch.float32, device=x.device)
+    for p in range(2):
+        for pp in range(2):
+            yp = F.conv2d(xz[:, :, p:p + h + 1, pp:pp + w + 1], wk[p, pp].permute(3, 2, 0, 1))
+            y[:, p::2, pp::2, :] = yp.permute(0, 2, 3, 1)
+    return _place((y + bias.float()).to(dt), *padded_hw(2 * h, 2 * w))
+
+
+def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
+    """y = conv3x3_same(nearest_2x(act(x))) + bias from a low-res padded
+    stream (`v2a_tpu/ops/resblock_kernels.py:1314`).
+
+    x: (N, Hp_lo, Wp_lo, C); kernel (3, 3, C, D); bias (D,); a / b optional
+    per-(N, C) affine (+ SiLU with `silu`). Returns the (N, Hp_hi, Wp_hi, D)
+    padded stream at (2 H_lo, 2 W_lo): interior and zero pad cols written,
+    pad rows not. The collapsed weights are summed in the kernel's dtype and
+    then cast to x.dtype, as the JAX package does.
+
+    Kernel note (csrc/upconv3x3_padded.cu): bound by operations; one
+    implicit GEMM per output parity (grid z) with K = 4 C over the low-res
+    window: 16/36 of the upsampled conv's products, and the upsampled input
+    never exists.
+    """
+    if x.device.type == "cpu":
+        return fused_upconv3x3_padded_plain(x, kernel, bias, hw_lo, a, b, silu)
+    h, w = hw_lo
+    hp, wp = padded_hw(h, w)
+    hph, wph = padded_hw(2 * h, 2 * w)
+    n, c = x.shape[0], x.shape[-1]
+    d = kernel.shape[-1]
+    if tuple(x.shape) != (n, hp, wp, c):
+        raise ValueError(f"stream {tuple(x.shape)} vs interior {hw_lo}")
+    if tuple(kernel.shape) != (3, 3, c, d) or c % 32 or d % 64:
+        raise ValueError(f"kernel {tuple(kernel.shape)}: K5 needs C % 32 == 0, D % 64 == 0")
+    a32 = b32 = None
+    if a is not None or b is not None:
+        a32, b32 = _affine32(a, b, n, c)
+    w16 = upconv_weights(kernel).to(x.dtype).reshape(16 * c, d).contiguous()
+    bias32 = bias.float().contiguous()
+    _check_cuda(x, w16, bias32, a32, b32)
+    y = torch.empty((n, hph, wph, d), dtype=x.dtype, device=x.device)
+    mode = 0 if a32 is None else (2 if silu else 1)
+    fn = _lib("upconv3x3_padded", "v2a_upconv3x3_padded", 6, 9)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(w16), _ptr(bias32), _ptr(y), n, h, w, wp,
+                wph, c, d, mode, _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(rc, "fused_upconv3x3_padded")
+    launches["fused_upconv3x3_padded"] += 1
+    return y
 
 
 # -- GroupNorm statistics fold --------------------------------------------------
