@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port (`v2a_tpu_torch`) through its serving path on
-one NVIDIA card and holds its hand-written kernels against their plain
-PyTorch versions.
+"""Drives the PyTorch/CUDA port (`v2a_tpu_torch`) through its serving path and
+its video-model train step on one NVIDIA card and holds its hand-written
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -25,20 +25,34 @@ Phases (any failure exits non-zero):
      predict_action` (DDIM-8) on (current frame, first goal frame); checks
      shapes, range, finiteness and launch counts, then holds every kernel
      against its plain version at the shapes this serving run gave it;
-  6. prints the `kernels` JSON line, then the device line last.
+  6. trains: a release-width bf16 `VideoModelTrainer` at B=4 on synthetic
+     uint8 clips, through `train()`, in three routings: train_fused with K6
+     as the wgrad (K1 forward, K1 dgrad, K6), train_fused with the library
+     wgrad (the JAX default), and the plain path. Per routing: one
+     gradient on a fixed batch and noise, held against a float32 plain
+     step (each routing's relative error, whole vector and worst leaf, at
+     most twice the bf16 plain path's), then a warm-up and timed steps (ms
+     per step by CUDA events, launches per step, finite loss and weights).
+     Then K1 and K6 against their plain versions at every shape one train
+     step gave them, and K6 at two small shapes; K6 two launches bit-equal;
+  7. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
-Per-shape results go to `chiprun_out/chip_smoke_shapes.json`.
+Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainer
+writes its checkpoints under `logs/chip_smoke_train/` and the script removes
+them.
 """
 
 import contextlib
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,6 +72,22 @@ EXPECTED_PER_FORWARD = {
                "temporal_conv_padded": 17, "fused_upconv3x3_padded": 3},
     "unpadded": {"fused_affine_conv3x3": 73, "temporal_conv_fused": 63},
 }
+TRAIN_B, TRAIN_STEPS = 4, 3  # timed steps after one warm-up step
+TRAIN_ROUTINGS = {
+    "k6": dict(train_fused=True, wgrad_kernel=True),
+    "library_wgrad": dict(train_fused=True, wgrad_kernel=False),
+    "plain": dict(train_fused=False),
+}
+# launches per B=4 release train step: 58 convs take the train_fused routing
+# (tests/test_torch_train.py traces the same counts on the meta device)
+EXPECTED_PER_TRAIN_STEP = {
+    "k6": {"fused_affine_conv3x3": 116, "wgrad_conv3x3": 58},
+    "library_wgrad": {"fused_affine_conv3x3": 116},
+    "plain": {},
+}
+# K6 also at two small shapes, where a lost pixel or a wrong border tap
+# shows above its gate: (N, H, W, C), D, affine, silu
+K6_SMALL = [((2, 8, 8, 128), 128, False, False), ((2, 8, 8, 128), 128, True, True)]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -408,6 +438,46 @@ def check_k5(rk, key, inp, timed):
     return ok, abs_err, rel, None, times, flops, nbytes, label
 
 
+def check_k6(rk, key, inp, timed):
+    """K6 at one recorded signature. Gate, per element: |err| <= 1e-4 *
+    (|s|^T |g|), the float32 sum of absolute products, which bounds what any
+    summation order (tensor-core accumulation included) can change; and two
+    launches bit-equal. Returns as `check_k1`, the error over std."""
+    _, (n, h, w, c), d, affine, silu = key
+    x = inp.randn(n, h, w, c).bfloat16()
+    g = inp.randn(n, h, w, d).bfloat16()
+    a = b = None
+    if affine:
+        a = 1 + inp.randn(n, c, scale=0.1)
+        b = inp.randn(n, c, scale=0.1)
+    got = rk.wgrad_conv3x3(x, g, a, b, silu)
+    again = rk.wgrad_conv3x3(x, g, a, b, silu)
+    want = rk.wgrad_conv3x3_plain(x, g, a, b, silu)
+    s = rk._act(x, a, b, silu)
+    gate = 1e-4 * rk.wgrad_conv3x3_plain(s.abs(), g.abs())
+    err = (got - want).abs()
+    bit_equal = torch.equal(got, again)
+    ratio = float((err / gate.clamp_min(1e-30)).max())
+    ok = bool((err <= gate).all()) and bit_equal
+    log(f"[kernels] K6 {n}x{h}x{w}x{c}->{d}: max |err| / gate {ratio:.3g}, "
+        f"two launches bit-equal: {bit_equal}")
+    times = None
+    if timed:
+        times = dict(ms=time_ms(lambda: rk.wgrad_conv3x3(x, g, a, b, silu)),
+                     plain_ms=time_ms(lambda: rk.wgrad_conv3x3_plain(x, g, a, b, silu), 3, 1))
+        # yardstick: the library's conv weight gradient on the materialised
+        # activation, NCHW views of channels_last bf16 data
+        sl, gl = s.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        times["library_ms"] = time_ms(
+            lambda: torch.nn.grad.conv2d_weight(sl, (d, c, 3, 3), gl, padding=1))
+    # only taps inside the frame, as K1
+    flops = 2.0 * n * (3 * h - 2) * (3 * w - 2) * c * d
+    nbytes = 2 * n * h * w * (c + d) + 4 * 9 * c * d + (8 * n * c if affine else 0)
+    mode = "affine+silu" if silu else "affine" if affine else "plain-conv"
+    return (ok, float(err.max()), float(err.max() / want.std()), None, times, flops, nbytes,
+            f"K6 {n}x{h}x{w}x{c}->{d} {mode}")
+
+
 # wrapper name -> (tag, signature from the bound call arguments, check)
 KERNEL_CHECKS = {
     "fused_affine_conv3x3": ("k1", lambda a: (
@@ -432,6 +502,8 @@ KERNEL_CHECKS = {
     "fused_upconv3x3_padded": ("k5", lambda a: (
         a["x"].shape[0], tuple(a["hw_lo"]), a["x"].shape[-1], a["kernel"].shape[-1],
         a["a"] is not None, bool(a["silu"])), check_k5),
+    "wgrad_conv3x3": ("k6", lambda a: (
+        tuple(a["x"].shape), a["g"].shape[-1], a["a"] is not None, bool(a["silu"])), check_k6),
 }
 TAG_NAME = {tag: name for name, (tag, _, _) in KERNEL_CHECKS.items()}
 
@@ -472,9 +544,9 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
     the path never asks for) is added, each shape is timed, and per routing
     the per-kernel sums weight each shape by its calls in that routing."""
     keys = sorted({k for calls in routing_calls.values() for k in calls}, key=str)
-    if timed:
-        no_stats = next(k for k in keys if k[0] == "k2" and not k[2] and not k[3])
-        keys.append(("k2", no_stats[1], False, False, False))
+    no_stats = [k for k in keys if k[0] == "k2" and not k[2] and not k[3]]
+    if timed and no_stats:
+        keys.append(("k2", no_stats[0][1], False, False, False))
     rows = []
     agg = {r: {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_s=0.0,
                           bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0) for name in rk.KERNELS}
@@ -510,6 +582,13 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
     return rows, agg
 
 
+def _unet_kw(vcfg):
+    return dict(model_channels=vcfg.model_channels, channel_mult=vcfg.channel_mult,
+                num_res_blocks=vcfg.num_res_blocks,
+                attention_resolutions=vcfg.attention_resolutions,
+                num_head_channels=vcfg.num_head_channels, task_token_dim=vcfg.text_dim)
+
+
 def check_forward(rk, nets, inputs, vcfg, dev):
     """Phase 4: launch counts, each routing vs plain vs float32, times in
     turns. `nets`: {routing: U-Net}."""
@@ -529,10 +608,7 @@ def check_forward(rk, nets, inputs, vcfg, dev):
         log(f"[forward] {routing} routing, launches per forward: {per_fwd}")
         if per_fwd != EXPECTED_PER_FORWARD[routing]:
             fail(f"{routing} launch counts {per_fwd} != {EXPECTED_PER_FORWARD[routing]}")
-    kw = dict(model_channels=vcfg.model_channels, channel_mult=vcfg.channel_mult,
-              num_res_blocks=vcfg.num_res_blocks,
-              attention_resolutions=vcfg.attention_resolutions,
-              num_head_channels=vcfg.num_head_channels, task_token_dim=vcfg.text_dim)
+    kw = _unet_kw(vcfg)
     state = nets["padded"].state_dict()
     plain16 = VideoUNet(dtype=torch.bfloat16, **kw).to(dev).eval()
     plain16.load_state_dict(state)
@@ -620,6 +696,166 @@ def _requests(model, policy, frames, vcfg, gen):
     return req
 
 
+class SyntheticClips:
+    """`VideoClipDataset.sample_batch`'s interface on uint8 episodes made from
+    the seed: the LIBERO clips are not in the repository and the card
+    machine has no h5py. A random episode, a random start, the next F frames
+    at stride 4, frames / 255."""
+
+    def __init__(self, frames, hw, seed, episodes=2, stride=4):
+        rng = np.random.default_rng(seed)
+        length = frames * stride + 9
+        self.frames, self.stride = frames, stride
+        self.episodes = rng.integers(0, 256, size=(episodes, length) + tuple(hw) + (3,),
+                                     dtype=np.uint8)
+
+    def sample_batch(self, batch, rng):
+        f, s = self.frames, self.stride
+        conds, vids, tasks = [], [], []
+        for _ in range(batch):
+            e = int(rng.integers(len(self.episodes)))
+            imgs = self.episodes[e]
+            start = int(rng.integers(0, len(imgs) - f * s))
+            conds.append(imgs[start])
+            vids.append(imgs[start + s:start + s * (f + 1):s][:f])
+            tasks.append(TASKS[e % len(TASKS)])
+        return (np.stack(conds).astype(np.float32) / 255.0,
+                np.stack(vids).astype(np.float32) / 255.0, tasks)
+
+
+def _grad_rel(grads, ref):
+    """(whole gradient vector, worst leaf) relative L2 error against `ref`."""
+    num = den = worst = 0.0
+    for k, r in ref.items():
+        d = float((grads[k].float() - r.float()).square().sum())
+        n = float(r.float().square().sum())
+        num, den = num + d, den + n
+        worst = max(worst, (d / n) ** 0.5 if n > 0 else (0.0 if d == 0 else float("inf")))
+    return (num / den) ** 0.5, worst
+
+
+def train(rk, model, vcfg, dev):
+    """Phase 6: the video-model train step through `VideoModelTrainer.train`
+    in each routing. Returns the report, the kernels' {signature: calls} of
+    one K6-routing gradient step, and the launches of the K6 routing's run."""
+    from v2a_tpu_torch.models.video_unet import VideoUNet
+    from v2a_tpu_torch.train import checkpoint as ckpt
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    clips = SyntheticClips(vcfg.video_future_horizon, vcfg.image_size, SEED + 2)
+    init = {k: v.clone() for k, v in model.unet.state_dict().items()}
+    # one batch and one noise draw for the gradient comparison
+    rng = np.random.default_rng(SEED + 3)
+    x_cond, video, tasks = clips.sample_batch(TRAIN_B, rng)
+    batch = (torch.as_tensor(video, device=dev),
+             (torch.as_tensor(x_cond, device=dev) * 2.0 - 1.0)[:, None],
+             model.encode_batch_text(tasks),
+             torch.as_tensor(rng.integers(0, vcfg.timesteps, TRAIN_B), device=dev),
+             torch.ones(TRAIN_B, device=dev))
+    noise = torch.randn(batch[0].shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 4))
+
+    # the float32 plain step: the reference for every routing's gradient
+    torch.cuda.reset_peak_memory_stats()
+    ref = VideoUNet(dtype=torch.float32, **_unet_kw(vcfg)).to(dev)
+    ref.load_state_dict(init)
+    loss32 = model.diffusion.p_losses(ref, *batch[:3], t=batch[3], sample_weights=batch[4],
+                                      noise=noise)
+    loss32.backward()
+    grads32 = {k: p.grad for k, p in ref.named_parameters()}
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] float32 plain step at B={TRAIN_B}: loss {loss32.item():.6f}, "
+        f"peak memory {peak32:.1f} GiB")
+    del ref, loss32
+    torch.cuda.empty_cache()
+
+    report = dict(batch=TRAIN_B, steps_timed=TRAIN_STEPS, float32_peak_gib=peak32,
+                  ms_per_step={}, wall_s={}, launches_per_step={}, grad_rel_err={},
+                  loss={}, peak_gib={})
+    grads, calls, k6_launches = {}, {}, {}
+    for name, flags in TRAIN_ROUTINGS.items():
+        model.unet.load_state_dict(init)
+        workdir = os.path.join(ROOT, "logs", "chip_smoke_train", name)
+        cfg = VideoTrainerConfig(batch_size=TRAIN_B, n_train_steps=1 + TRAIN_STEPS,
+                                 save_freq=10 ** 9, log_freq=1, **flags)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = VideoModelTrainer(model, clips, cfg, workdir=workdir, seed=SEED)
+        if trainer.train_unet.train_fused != flags["train_fused"]:
+            fail(f"{name}: the trainer resolved train_fused={trainer.train_unet.train_fused}")
+        with recording(rk) as step_calls:
+            trainer.loss_and_grads(*batch, noise=noise)
+        if name == "k6":
+            calls = step_calls
+        grads[name] = {k: p.grad.detach().clone()
+                       for k, p in trainer.train_unet.named_parameters()}
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        # the user's entry point; a shim on train_step times each step by CUDA
+        # events and takes the launches each step made
+        steps, inner = [], trainer.train_step
+
+        def timed_step(*a, **k):
+            before = dict(rk.launches)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner(*a, **k)
+            e1.record()
+            steps.append((e0, e1, {n: v - before[n] for n, v in rk.launches.items()
+                                   if v != before[n]}, out[0]))
+            return out
+
+        trainer.train_step = timed_step
+        for k in rk.launches:
+            rk.launches[k] = 0
+        t0 = time.perf_counter()
+        trainer.train(1 + TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in rk.launches.items() if v}
+        if name == "k6":
+            k6_launches = dict(rk.launches)
+        want = EXPECTED_PER_TRAIN_STEP[name]
+        per_step = [st[2] for st in steps]
+        if len(steps) != 1 + TRAIN_STEPS or any(ps != want for ps in per_step):
+            fail(f"{name}: launches per train step {per_step}, expected {want}")
+        if launches != {k: (1 + TRAIN_STEPS) * v for k, v in want.items()}:
+            fail(f"{name}: launches over the run {launches}")
+        losses = [float(st[3]) for st in steps]
+        if not all(np.isfinite(losses)):
+            fail(f"{name}: non-finite loss {losses}")
+        if not all(bool(torch.isfinite(p).all()) for p in trainer.train_unet.parameters()):
+            fail(f"{name}: non-finite parameters after training")
+        if not all(bool(torch.isfinite(p).all()) for p in model.unet.parameters()):
+            fail(f"{name}: non-finite EMA weights published into the model")
+        if ckpt.latest_label(workdir) is None:
+            fail(f"{name}: train() saved no checkpoint")
+        ms = [st[0].elapsed_time(st[1]) for st in steps]
+        report["ms_per_step"][name] = ms[1:]
+        report["wall_s"][name] = wall
+        report["launches_per_step"][name] = want
+        report["loss"][name] = losses
+        report["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[train] {name}: ms per B={TRAIN_B} step {[round(v, 1) for v in ms[1:]]} "
+            f"(warm-up {ms[0]:.1f}), launches per step {want or 'none'}, losses "
+            f"{[round(v, 4) for v in losses]}, train({1 + TRAIN_STEPS}) {wall:.1f} s incl. "
+            f"its checkpoint, peak {report['peak_gib'][name]:.1f} GiB")
+        trainer.close()
+        del trainer, inner, steps
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(ROOT, "logs", "chip_smoke_train"), ignore_errors=True)
+    rel = {name: _grad_rel(g, grads32) for name, g in grads.items()}
+    report["grad_rel_err"] = rel
+    log("[train] gradient rel. error vs the float32 plain step (whole vector, worst leaf): "
+        + "; ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in rel.items()))
+    for name, (whole, worst) in rel.items():
+        if whole > 2 * rel["plain"][0] or worst > 2 * rel["plain"][1]:
+            fail(f"{name} gradient strays further from float32 than twice the bf16 plain path")
+    model.unet.load_state_dict(init)
+    for key in K6_SMALL:
+        calls.setdefault(("k6",) + key, 0)
+    return report, calls, k6_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -698,27 +934,36 @@ def main():
     launches, req, serve_calls = serve(rk, model, vcfg, dev)
     serve_rows, serve_agg = check_kernels(rk, {"serve": serve_calls}, dev, timed=False,
                                           tag="serve-shapes")
+    # 6. the train step, then K1 and K6 at the shapes one step gave them
+    train_report, train_calls, train_launches = train(rk, model, vcfg, dev)
+    train_rows, train_agg = check_kernels(rk, {"train": train_calls}, dev, timed=True,
+                                          tag="train-shapes")
 
-    # 6. report: sums over one B=8 forward of the shipped routing
-    main_agg = agg["padded"]
-    kernels = [
-        dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-             launches=launches[name],
-             max_abs_err=max(main_agg[name]["max_abs_err"], serve_agg["serve"][name]["max_abs_err"]),
-             ms=main_agg[name]["ms"], plain_ms=main_agg[name]["plain_ms"],
-             bound_ms=main_agg[name]["bound_ms"],
-             bound_by="operations" if main_agg[name]["ops_s"] >= main_agg[name]["bytes_s"]
-             else "bytes",
-             library_ms=main_agg[name]["library_ms"])
-        for name, meta in rk.KERNELS.items()
-    ]
+    # 7. report: K1-K5 sums over one B=8 forward of the shipped routing, K6
+    # sums over one B=4 train step; launches over the serving run and the K6
+    # routing's train() run
+    def entry(name, meta):
+        src = train_agg["train"][name] if name == "wgrad_conv3x3" else agg["padded"][name]
+        return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+                    launches=launches[name] + train_launches[name],
+                    max_abs_err=max(src["max_abs_err"], serve_agg["serve"][name]["max_abs_err"],
+                                    train_agg["train"][name]["max_abs_err"]),
+                    ms=src["ms"], plain_ms=src["plain_ms"], bound_ms=src["bound_ms"],
+                    bound_by="operations" if src["ops_s"] >= src["bytes_s"] else "bytes",
+                    library_ms=src["library_ms"])
+
+    kernels = [entry(name, meta) for name, meta in rk.KERNELS.items()]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_shapes.json"), "w") as fh:
         json.dump(dict(card=smi, per_shape=rows, per_forward=agg, serve_shapes=serve_rows,
-                       requests_s=req, kernels=kernels, **forward), fh, indent=1)
-    log("[report] kernel ms / plain_ms / bound_ms / library_ms are sums over one B=8 "
-        "release forward of the padded-stream routing (per-shape time x calls per forward); "
-        "the unpadded routing's sums are in chiprun_out/chip_smoke_shapes.json")
+                       requests_s=req, serve_launches=launches, train=train_report,
+                       train_launches=train_launches, train_shapes=train_rows,
+                       per_train_step=train_agg, kernels=kernels, **forward), fh, indent=1)
+    log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
+        "forward of the padded-stream routing (per-shape time x calls per forward); K6's are "
+        "sums over one B=4 release train step (K1's per train step are in "
+        "chiprun_out/chip_smoke_shapes.json, per_train_step); launches are those of the "
+        "served requests plus the K6 routing's train() run")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

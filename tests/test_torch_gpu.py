@@ -1,5 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the wrappers' refusal of what the kernels do not take.
+version, the wrappers' refusal of what the kernels do not take, and the
+training path (the autograd Functions of `ops/conv_vjp.py`, a small
+`train_fused` U-Net's gradients).
 
 Marked `gpu`; each test decides inside a fixture whether there is a card
 and skips without one. This file imports no JAX, so it runs on a machine
@@ -316,3 +318,117 @@ def test_padded_stats_are_deterministic(cuda):
     k3 = [rk.fused_conv_tconv_padded(parts, kb, tk, kb, hw, want_stats=True)[1] for _ in range(2)]
     k4b = [rk.temporal_conv_padded(x, tk, kb, hw, want_stats=True)[1] for _ in range(2)]
     assert torch.equal(*k3) and torch.equal(*k4b)
+
+
+# -- the training path: K6, the autograd Functions, a train_fused U-Net ----------
+
+
+def _wgrad_ok(got, x, g, a, b, silu):
+    """K6's gate: |err| <= 1e-4 * (|s|^T |g|), the float32 sum of absolute
+    products, which bounds what any summation order can change."""
+    want = rk.wgrad_conv3x3_plain(x, g, a, b, silu)
+    bound = rk.wgrad_conv3x3_plain(rk._act(x, a, b, silu).abs(), g.abs())
+    return bool(((got - want).abs() <= 1e-4 * bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["plain", "silu"])
+@pytest.mark.parametrize("n,h,w,c,d", [(2, 8, 8, 128, 128), (3, 5, 7, 64, 192)])
+def test_wgrad_kernel_matches_plain(cuda, dtype, mode, n, h, w, c, d):
+    """At small shapes a lost pixel or a wrong border tap shows above the
+    gate; two launches are bit-equal (no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(n, h, w, d, generator=gen, device=cuda).to(dtype)
+    a = b = None
+    if mode == "silu":
+        a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    before = rk.launches["wgrad_conv3x3"]
+    got = rk.wgrad_conv3x3(x, g, a, b, mode == "silu")
+    again = rk.wgrad_conv3x3(x, g, a, b, mode == "silu")
+    torch.cuda.synchronize()
+    assert rk.launches["wgrad_conv3x3"] == before + 2
+    assert torch.equal(got, again)
+    assert _wgrad_ok(got, x, g, a, b, mode == "silu")
+
+
+def test_wgrad_kernel_at_a_chunked_shape(cuda):
+    """A shape that splits the pixels into several chunks (the second,
+    fixed-order pass) with a ragged last chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n, h, w, c, d = 5, 48, 40, 128, 128
+    assert rk.wgrad_chunks(n * h * w, c, d)[0] > 1
+    x = torch.randn(n, h, w, c, generator=gen, device=cuda).bfloat16()
+    g = torch.randn(n, h, w, d, generator=gen, device=cuda).bfloat16()
+    a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    b = 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    got = rk.wgrad_conv3x3(x, g, a, b, True)
+    assert torch.equal(got, rk.wgrad_conv3x3(x, g, a, b, True))
+    assert _wgrad_ok(got, x, g, a, b, True)
+
+
+@pytest.mark.parametrize("form", ["affine_silu", "plain"])
+def test_conv_functions_on_the_card(cuda, form):
+    """The autograd Functions with K1 forward, K1 dgrad and K6 on the card
+    against the same Functions on CPU copies (the plain versions), float32:
+    value and every gradient of sum(sin(y)) within rtol 2e-4 / atol 2e-4
+    (tests/test_conv_vjp.py:48-55)."""
+    from v2a_tpu_torch.ops import conv_vjp
+
+    rs = np.random.RandomState(12)
+    n, h, w, c, d = 3, 16, 16, 128, 128
+    vals = [rs.randn(n, h, w, c), 0.05 * rs.randn(3, 3, c, d), 0.1 * rs.randn(d),
+            1 + 0.3 * rs.randn(n, c), 0.2 * rs.randn(n, c)]
+    if form == "plain":
+        vals, fn = vals[:3], conv_vjp.plain_conv3x3
+    else:
+        fn = conv_vjp.affine_silu_conv3x3
+    out = {}
+    for dev in ("cpu", cuda):
+        args = [torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
+                for v in vals]
+        before = rk.launches["wgrad_conv3x3"]
+        value = torch.sin(fn(*args, wgrad_kernel=True)).sum()
+        value.backward()
+        out[str(dev)] = (value.item(), [t.grad.cpu() for t in args])
+        assert rk.launches["wgrad_conv3x3"] == before + (0 if dev == "cpu" else 1)
+    (v0, g0), (v1, g1) = out.values()
+    np.testing.assert_allclose(v1, v0, rtol=2e-5, atol=2e-5)
+    for want, got in zip(g0, g1):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_train_fused_unet_matches_plain_on_the_card(cuda):
+    """A small U-Net (mc 128, mult (1, 2), 16x16, F=2), float32, K6 on: loss
+    and every parameter gradient of the train_fused routing against the
+    plain path with the same weights, at the JAX package's train_fused-vs-
+    plain tolerance (rtol 5e-4 / atol 5e-5); 17 convs, each one K1 forward,
+    one K1 dgrad and one K6 launch."""
+    from v2a_tpu_torch.models.init import init_params
+    from v2a_tpu_torch.models.video_unet import VideoUNet
+
+    kw = dict(model_channels=128, channel_mult=(1, 2), num_res_blocks=1,
+              attention_resolutions=(), task_token_dim=64)
+    plain = VideoUNet(**kw).to(cuda)
+    init_params(plain, torch.Generator(device=cuda).manual_seed(13))
+    tf = VideoUNet(train_fused=True, wgrad_kernel=True, **kw).to(cuda)
+    tf.load_state_dict(plain.state_dict())
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(2, 2, 16, 16, 6, generator=gen, device=cuda)
+    t = torch.tensor([3, 70], device=cuda)
+    te = torch.randn(2, 4, 64, generator=gen, device=cuda)
+    losses = []
+    for net in (plain, tf):
+        before = dict(rk.launches)
+        loss = (net(x, t, te) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        made = {k: v - before[k] for k, v in rk.launches.items() if v != before[k]}
+        assert made == ({} if net is plain else
+                        {"fused_affine_conv3x3": 34, "wgrad_conv3x3": 17})
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5, atol=1e-6)
+    for (k, p0), p1 in zip(plain.named_parameters(), tf.parameters()):
+        np.testing.assert_allclose(p1.grad.cpu().numpy(), p0.grad.cpu().numpy(), rtol=5e-4,
+                                   atol=5e-5, err_msg=k)

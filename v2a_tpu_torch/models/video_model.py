@@ -4,7 +4,8 @@ Counterpart of `v2a_tpu/models/video_model.py` (the reference's
 `Video_PredModel`, `diffuser/models/video_model.py:9-85`). Videos are
 (B, F, H, W, 3) channels-last; the conditioning frame is tiled over F on the
 channel axis. The sampler runs on the card by default; `device="cpu"` is
-for tests.
+for tests. `loss` is the training objective; `train/video_trainer.py` trains
+the U-Net.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ class VideoModelConfig:
     sampling_timesteps: int = 100
     objective: str = "pred_v"
     beta_schedule: str = "cosine"
+    loss_type: str = "l2"
+    min_snr_loss_weight: bool = True
     guidance_weight: float = 0.0
     var_temp: float = 1.0
     model_channels: int = 128
@@ -79,13 +82,7 @@ class VideoPredModel:
         self.device = resolve_device(device)
         dt = dtype_of(cfg.dtype)
         fused = cfg.fused if cfg.fused is not None else self.device.type == "cuda"
-        unet = VideoUNet(
-            in_channels=2 * cfg.channels, model_channels=cfg.model_channels,
-            out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
-            attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
-            num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
-            dtype=dt, fused=fused, padded_stream=cfg.padded_stream,
-        )
+        unet = self.build_unet(fused=fused)
         text = ClipTextEncoder(width=cfg.text_dim, mlp_dim=cfg.text_dim * 4, dtype=dt)
         self.nets = VideoNets(unet, text).to(self.device).eval().requires_grad_(False)
         self.tokenizer = tokenizer or HashTokenizer()
@@ -96,11 +93,28 @@ class VideoPredModel:
             sampling_timesteps=cfg.sampling_timesteps,
             guidance_weight=cfg.guidance_weight,
             var_temp=cfg.var_temp,
+            loss_type=cfg.loss_type,
+            min_snr_loss_weight=cfg.min_snr_loss_weight,
         )
 
     @property
     def unet(self) -> VideoUNet:
         return self.nets.unet
+
+    def build_unet(self, fused: bool = False, train_fused: bool = False,
+                   wgrad_kernel: bool = False) -> VideoUNet:
+        """A new U-Net of this config with the given routing (parameters
+        uninitialized, on the current default device); every routing takes
+        the same state dict."""
+        cfg = self.config
+        return VideoUNet(
+            in_channels=2 * cfg.channels, model_channels=cfg.model_channels,
+            out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
+            attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
+            num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
+            dtype=dtype_of(cfg.dtype), fused=fused, padded_stream=cfg.padded_stream,
+            train_fused=train_fused, wgrad_kernel=wgrad_kernel,
+        )
 
     def init(self, seed: int = 0) -> "VideoPredModel":
         """Random weights from one seeded generator on the model's device."""
@@ -135,6 +149,20 @@ class VideoPredModel:
         x_cond_n = (x * 2.0 - 1.0)[:, None]
         return self.diffusion.sample(self.unet, shape, x_cond_n, task_embed,
                                      generator=generator, init_noise=init_noise)
+
+    def loss(self, video01: torch.Tensor, x_cond01: torch.Tensor, task_embed: torch.Tensor,
+             t: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoising loss (`goal_diffusion.py:690-733`) of target frames
+        video01 (B, F, H, W, 3) in [0, 1] given x_cond01 (B, H, W, 3), the
+        value through the model's frozen U-Net. Gradients come from a
+        trainable U-Net of `build_unet(fused=False)` holding the weights, as
+        `VideoModelTrainer` builds (the JAX package's
+        `_model_fn(for_training=True)`): the fused routing's kernels have no
+        backward, and their wrappers raise when asked for one."""
+        x_cond_n = (x_cond01 * 2.0 - 1.0)[:, None]
+        return self.diffusion.p_losses(self.unet, video01, x_cond_n, task_embed, t=t,
+                                       generator=generator, noise=noise)
 
     def sample_u8(self, x_conds, tasks: List[str],
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:

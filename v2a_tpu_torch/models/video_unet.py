@@ -26,6 +26,13 @@ Perceiver-pooled CLIP text conditioning.
   says K3 does not fit, the upsample convs into them run K5, and the
   ResBlocks' 1x1 skip projections fold into K3 / K4b. `padded_stream=False`
   is the unpadded routing (K1 / K2 only).
+- `train_fused=True` (without `fused`) is the training routing of the JAX
+  package: every ResBlock GN -> SiLU -> conv3x3 half and every upsample
+  conv whose channels pass K1's gate runs through the autograd Functions of
+  `ops/conv_vjp.py` (K1 forward, K1 dgrad, and K6 as the wgrad with
+  `wgrad_kernel=True`); the GroupNorm reaches them as a per-(B, C) affine.
+  Everything else is the plain path. The fused forward kernels have no
+  backward; training never takes `fused`.
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
 temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from v2a_tpu_torch.models.perceiver import PerceiverResampler, _linear
+from v2a_tpu_torch.ops import conv_vjp
 from v2a_tpu_torch.ops import resblock_kernels as rk
 
 # K1 routing: 3x3 stride-1 convs with 128-multiple channels, H*W <= MAX_S
@@ -175,19 +183,23 @@ class PseudoConv3d(nn.Module):
     (kernel_size > 1) a temporal conv over F. Takes a tensor or a tuple of
     channel parts (conv of their concatenation as a sum of per-part convs);
     `emb` / `residual` / `want_stats` ride the temporal conv. `PaddedStream`
-    inputs take the padded-stream kernels (`_padded`)."""
+    inputs take the padded-stream kernels (`_padded`). `train_fused` at the
+    call (a single tensor, not `fused`) sends a K1-eligible spatial conv
+    through `ops/conv_vjp.py`, with K6 as its wgrad when `wgrad_kernel`
+    (`v2a_tpu/models/video_unet.py:613-657`)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, fused: bool = False):
+                 dtype: torch.dtype = torch.float32, fused: bool = False,
+                 wgrad_kernel: bool = False):
         super().__init__()
         self.features, self.k, self.stride = features, kernel_size, stride
-        self.dtype, self.fused = dtype, fused
+        self.dtype, self.fused, self.wgrad_kernel = dtype, fused, wgrad_kernel
         self.spatial_conv = _Conv(kernel_size, cin, features)
         if kernel_size > 1:
             self.temporal_conv = _TemporalConv(features, kernel_size)
 
     def forward(self, x, emb=None, residual=None, want_stats: bool = False, pre_affine=None,
-                upsample2x: bool = False, skip=None):
+                upsample2x: bool = False, skip=None, train_fused: bool = False):
         parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
         if isinstance(parts[0], PaddedStream):
             return self._padded(parts, emb, residual, want_stats, pre_affine, upsample2x, skip)
@@ -198,22 +210,28 @@ class PseudoConv3d(nn.Module):
         b, f, h, w = parts[0].shape[:4]
         dt, k, feat = self.dtype, self.k, self.features
         kernel, kbias = self.spatial_conv.kernel, self.spatial_conv.bias
-        use_k1 = self.fused and spatial2_eligible(
-            feat, [p.shape[-1] for p in parts], h * w, k, self.stride
-        )
-        if pre_affine is not None and not use_k1:
+        eligible = spatial2_eligible(feat, [p.shape[-1] for p in parts], h * w, k, self.stride)
+        use_k1 = self.fused and eligible
+        use_tf = train_fused and not self.fused and len(parts) == 1 and eligible
+        if pre_affine is not None and not (use_k1 or use_tf):
             raise ValueError("pre_affine requires the K1-eligible fused path")
         y, off = None, 0
         for pi, p in enumerate(parts):
             pc = p.shape[-1]
             wpart = kernel[:, :, off:off + pc]
             x4 = p.reshape(b * f, h, w, pc).to(dt)
-            if use_k1:
-                af = bf_ = None
-                if pre_affine is not None:
-                    a0, b0 = pre_affine[pi]  # (B, pc) float32
-                    af = a0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
-                    bf_ = b0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
+            af = bf_ = None
+            if pre_affine is not None:
+                a0, b0 = pre_affine[pi]  # (B, pc) float32
+                af = a0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
+                bf_ = b0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
+            if use_tf:
+                if af is not None:
+                    yp = conv_vjp.affine_silu_conv3x3(x4, wpart, kbias, af, bf_,
+                                                      wgrad_kernel=self.wgrad_kernel)
+                else:
+                    yp = conv_vjp.plain_conv3x3(x4, wpart, kbias, wgrad_kernel=self.wgrad_kernel)
+            elif use_k1:
                 # only the first part carries the bias; parts sum in dtype
                 yp = rk.fused_affine_conv3x3(
                     x4.contiguous(), wpart, kbias if y is None else torch.zeros_like(kbias),
@@ -228,7 +246,7 @@ class PseudoConv3d(nn.Module):
                 ).permute(0, 2, 3, 1)
             y = yp if y is None else y + yp
             off += pc
-        if not use_k1:
+        if not (use_k1 or use_tf):
             y = y + kbias.to(dt)
         y = y.reshape(b, f, y.shape[1], y.shape[2], feat)
         if k > 1:
@@ -317,17 +335,24 @@ class PseudoConv3d(nn.Module):
 class ResBlock3D(nn.Module):
     """`ResBlock` (`unet.py:148-262`), plain-norm and dropout-free as the
     release config runs it. The fused form returns (out, out_stats) and takes
-    the (h, skip) pair of the up path unconcatenated."""
+    the (h, skip) pair of the up path unconcatenated. `train_fused` (without
+    `fused`): where C and out_channels pass K1's gate, both GroupNorms hand
+    their affine to the differentiable convs of `ops/conv_vjp.py`
+    (`v2a_tpu/models/video_unet.py:1077-1133`)."""
 
     def __init__(self, cin: int, out_channels: int, emb_dim: int,
-                 dtype: torch.dtype = torch.float32, fused: bool = False):
+                 dtype: torch.dtype = torch.float32, fused: bool = False,
+                 train_fused: bool = False, wgrad_kernel: bool = False):
         super().__init__()
         self.cin, self.out_channels, self.dtype, self.fused = cin, out_channels, dtype, fused
+        self.train_fused = train_fused
         self.in_norm = GroupNorm32(cin, with_silu=True)
-        self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused)
+        self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused,
+                                    wgrad_kernel=wgrad_kernel)
         self.emb_proj = nn.Linear(emb_dim, out_channels)
         self.out_norm = GroupNorm32(out_channels, with_silu=True)
-        self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused)
+        self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused,
+                                     wgrad_kernel=wgrad_kernel)
         if cin != out_channels:
             self.skip_conv = PseudoConv3d(cin, out_channels, 1, dtype=dtype)
 
@@ -344,9 +369,16 @@ class ResBlock3D(nn.Module):
                 return self._fused_padded(x, emb, stats)
             return self._fused(x, emb, stats)
         dt = self.dtype
-        h = self.in_conv(self.in_norm(x).to(dt))
+        tf = self.train_fused and self._sp2([x.shape[-1]], x.shape[2] * x.shape[3])
+        if tf:  # the normed tensor is never built: the conv applies the affine
+            h = self.in_conv(x, pre_affine=self.in_norm(x, return_affine=True), train_fused=True)
+        else:
+            h = self.in_conv(self.in_norm(x).to(dt))
         h = h + self._emb_out(emb)[:, None, None, None, :]
-        h = self.out_conv(self.out_norm(h).to(dt))
+        if tf:
+            h = self.out_conv(h, pre_affine=self.out_norm(h, return_affine=True), train_fused=True)
+        else:
+            h = self.out_conv(self.out_norm(h).to(dt))
         if self.cin != self.out_channels:
             x = self.skip_conv(x)
         return x + h
@@ -510,11 +542,14 @@ class Downsample3D(nn.Module):
 class Upsample3D(nn.Module):
     """Nearest 2x spatial upsample + pseudo-3D conv (`unet.py:86-116`).
     `padded_out`: K5 from the low-res stream into a PaddedStream at twice
-    the size (`v2a_tpu/models/video_unet.py:1592-1599`)."""
+    the size (`v2a_tpu/models/video_unet.py:1592-1599`); `train_fused`: the
+    conv through `conv_vjp.plain_conv3x3` (:1614-1617)."""
 
-    def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False):
+    def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False,
+                 train_fused: bool = False, wgrad_kernel: bool = False):
         super().__init__()
-        self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused)
+        self.train_fused = train_fused
+        self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused, wgrad_kernel=wgrad_kernel)
 
     def forward(self, x, want_stats: bool = False, padded_out: bool = False):
         if padded_out:
@@ -525,23 +560,31 @@ class Upsample3D(nn.Module):
             x = unpad_stream(x)
         b, f, h, w, c = x.shape
         x = x[:, :, :, None, :, None, :].expand(b, f, h, 2, w, 2, c).reshape(b, f, 2 * h, 2 * w, c)
-        return self.conv(x, want_stats=want_stats)
+        return self.conv(x, want_stats=want_stats, train_fused=self.train_fused)
 
 
 class VideoUNet(nn.Module):
     """Input (B, F, H, W, in_channels) with the conditioning frame already on
-    the channel axis; output (B, F, H, W, out_channels) float32."""
+    the channel axis; output (B, F, H, W, out_channels) float32.
+
+    `train_fused` is the training routing (ignored with `fused`, as in the
+    JAX package: `tfused = train_fused and not fused`, :1718);
+    `wgrad_kernel` makes its convs' weight gradient K6, as the JAX package's
+    `V2A_TRAIN_WGRAD_PALLAS=1` (an argument here, not an environment
+    variable; off by default, as there)."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
                  channel_mult: Sequence[int] = (1, 2, 3, 4, 5), num_head_channels: int = 32,
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
-                 fused: bool = False, padded_stream: bool = True):
+                 fused: bool = False, padded_stream: bool = True, train_fused: bool = False,
+                 wgrad_kernel: bool = False):
         super().__init__()
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
         self.padded_stream = padded_stream
+        self.train_fused = tfused = train_fused and not fused
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
         self.time_dense0 = nn.Linear(mc, ted)
@@ -551,7 +594,7 @@ class VideoUNet(nn.Module):
         self.in_conv = PseudoConv3d(in_channels, mc, 3, dtype=dtype, fused=fused)
 
         def res(name, cin, cout):
-            self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused))
+            self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused, tfused, wgrad_kernel))
 
         def attn(name, c):
             self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype))
@@ -582,7 +625,8 @@ class VideoUNet(nn.Module):
                 if ds in self.attention_resolutions:
                     attn(f"up_attn_{bi}", ch)
                 if level and i == num_res_blocks:
-                    self.add_module(f"upsample_{level}", Upsample3D(ch, dtype, fused))
+                    self.add_module(f"upsample_{level}",
+                                    Upsample3D(ch, dtype, fused, tfused, wgrad_kernel))
                     ds //= 2
                 bi += 1
         self.out_norm = GroupNorm32(cur, with_silu=True)

@@ -1,5 +1,6 @@
-"""Video-family Gaussian diffusion samplers: ancestral (DDPM) and DDIM, with
-classifier-free guidance and low-temperature noise.
+"""Video-family Gaussian diffusion: the training loss and the samplers,
+ancestral (DDPM) and DDIM, with classifier-free guidance and low-temperature
+noise.
 
 Counterpart of `v2a_tpu/ops/gaussian_diffusion.py` (the reference's
 `GoalGaussianDiffusion`, `goal_diffusion.py:346-733`). The `lax.scan` over
@@ -44,6 +45,9 @@ class GaussianDiffusion:
     ddim_sampling_eta: float = 0.0
     guidance_weight: float = 0.0
     var_temp: float = 1.0
+    loss_type: str = "l2"
+    min_snr_loss_weight: bool = False
+    min_snr_gamma: float = 5.0
     auto_normalize: bool = True
 
     def __post_init__(self):
@@ -81,6 +85,13 @@ class GaussianDiffusion:
             s.sqrt_recipm1_alphas_cumprod, t, nd
         )
 
+    def predict_v(self, x_start, t, noise):
+        s, nd = self.schedule, x_start.ndim
+        return (
+            extract(s.sqrt_alphas_cumprod, t, nd) * noise
+            - extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * x_start
+        )
+
     def predict_start_from_v(self, x_t, t, v):
         s, nd = self.schedule, x_t.ndim
         return (
@@ -95,6 +106,13 @@ class GaussianDiffusion:
             + extract(s.posterior_mean_coef2, t, nd) * x_t
         )
         return mean, extract(s.posterior_log_variance_clipped, t, nd)
+
+    def q_sample(self, x_start, t, noise):
+        s, nd = self.schedule, x_start.ndim
+        return (
+            extract(s.sqrt_alphas_cumprod, t, nd) * x_start
+            + extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+        )
 
     # -- the denoiser, with classifier-free guidance (goal_diffusion.py:499-558)
 
@@ -242,6 +260,60 @@ class GaussianDiffusion:
         """Sampler dispatch + clamp to [0, 1] (`goal_diffusion.py:644-650`)."""
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
         return fn(model_fn, shape, x_cond, task_embed, generator, init_noise).clamp(0.0, 1.0)
+
+    # -- training (goal_diffusion.py:690-733) -----------------------------------
+
+    def p_losses(
+        self,
+        model_fn: ModelFn,
+        x_start: torch.Tensor,
+        x_cond: torch.Tensor,
+        task_embed: torch.Tensor,
+        t: Optional[torch.Tensor] = None,
+        sample_weights: Optional[torch.Tensor] = None,
+        return_per_sample: bool = False,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ):
+        """Weighted denoising loss. `x_start` in [0, 1], mapped to [-1, 1]
+        when `auto_normalize` (`goal_diffusion.py:718-724`). `t` (B,) is drawn
+        uniformly from `generator` when None, then the noise; `noise`
+        overrides it (the tests pass the JAX package's). `sample_weights` (B,)
+        multiplies the per-sample losses (a resampler's importance weights);
+        `return_per_sample` also returns the unweighted per-sample losses."""
+        b, dev = x_start.shape[0], x_start.device
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,), generator=generator, device=dev)
+        x_start = self._normalize(x_start)
+        if noise is None:
+            noise = self._randn(tuple(x_start.shape), generator, dev)
+        x = self.q_sample(x_start, t, noise)
+        model_out = model_fn(_concat_cond(x, x_cond), t, task_embed)
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+        if self.loss_type == "l2":
+            loss = (model_out - target) ** 2
+        elif self.loss_type == "l1":
+            loss = (model_out - target).abs()
+        else:
+            raise ValueError(f"invalid loss type {self.loss_type!r}")
+        loss = loss.reshape(b, -1).mean(1)
+        weight = self.schedule.loss_weight(
+            self.objective, self.min_snr_loss_weight, self.min_snr_gamma
+        )[t]
+        weighted = loss * weight
+        if sample_weights is not None:
+            weighted = weighted * sample_weights
+        if return_per_sample:
+            return weighted.mean(), loss
+        return weighted.mean()
+
+    def _normalize(self, x):
+        return x * 2.0 - 1.0 if self.auto_normalize else x
 
     def _unnormalize(self, x):
         return (x + 1.0) * 0.5 if self.auto_normalize else x

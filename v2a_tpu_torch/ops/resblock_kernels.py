@@ -30,10 +30,20 @@ Every consumer removes pad values by selection (index ranges or a skipped
 load), never by multiplying with a mask, and the statistics are exact
 interior sums.
 
+The training path adds:
+
+- `wgrad_conv3x3` (K6): dW (3, 3, C, D) float32 of conv3x3_same(act(x))
+  from the raw input and the output cotangent. `csrc/wgrad_conv3x3.cu`.
+  `ops/conv_vjp.py` makes K1 differentiable with K1 as its dgrad and K6 as
+  its wgrad.
+
 Each wrapper runs its kernel's plain PyTorch version (`*_plain`, beside it)
 for a tensor on the CPU. For a CUDA tensor it launches the kernel on the
 current stream or raises; there is no fallback. `launches[<wrapper name>]`
-counts kernel launches.
+counts kernel launches. No wrapper has a backward: each raises when grad
+mode is on and an input requires grad (on both devices, so the CPU tests see
+what the card would do); training goes through `ops/conv_vjp.py`, and a
+test that wants the plain versions' gradients calls `*_plain` directly.
 """
 
 from __future__ import annotations
@@ -75,6 +85,10 @@ KERNELS = {
         source="v2a_tpu_torch/csrc/upconv3x3_padded.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1314",
     ),
+    "wgrad_conv3x3": dict(
+        source="v2a_tpu_torch/csrc/wgrad_conv3x3.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:3329",
+    ),
 }
 
 # kernel launches per wrapper; each wrapper adds one where it launches
@@ -110,6 +124,20 @@ def _check_cuda(x: torch.Tensor, *others: Optional[torch.Tensor]) -> None:
             raise ValueError("kernel inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("kernel inputs must be 16-byte aligned")
+
+
+def _no_grad_inputs(what: str, *tensors) -> None:
+    """Refuses a call that autograd would try to differentiate: the kernels'
+    outputs have no grad_fn, so every gradient below them would be lost."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() with frozen inputs, train "
+            "through v2a_tpu_torch.ops.conv_vjp, or differentiate its *_plain version"
+        )
+
+
+def _parts_tensors(parts):
+    return [t for part in parts for t in part]
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -182,6 +210,7 @@ def fused_affine_conv3x3(
     the activation recomputed per tap in the gather, so the normed tensor
     never reaches device memory.
     """
+    _no_grad_inputs("fused_affine_conv3x3", x, kernel, bias, a, b)
     if x.device.type == "cpu":
         return fused_affine_conv3x3_plain(x, kernel, bias, a, b, silu)
     n, h, w, c = x.shape
@@ -276,6 +305,7 @@ def temporal_conv_fused(
     epilogue, then a small deterministic second pass sums the per-tile
     statistics.
     """
+    _no_grad_inputs("temporal_conv_fused", x, kernel, bias, emb, residual)
     if x.device.type == "cpu":
         return temporal_conv_fused_plain(x, kernel, bias, emb, residual, want_stats)
     b, f, s, c = _fold(x)
@@ -431,6 +461,7 @@ def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
     interior taken by skipping the loads of halo taps (pad values are never
     read), and the parts' K loops feeding one float32 accumulator.
     """
+    _no_grad_inputs("fused_affine_conv3x3_padded", bias, *_parts_tensors(parts))
     x0 = parts[0][0]
     if x0.device.type == "cpu":
         return fused_affine_conv3x3_padded_plain(parts, bias, hw, silu)
@@ -542,6 +573,8 @@ def temporal_conv_padded(x, kernel, bias, hw, emb=None, residual=None, skip_part
     padded address map, the skip parts as further K segments of the same
     accumulator, and K2's deterministic two-pass statistics.
     """
+    _no_grad_inputs("temporal_conv_padded", x, kernel, bias, emb, residual, skip_bias,
+                    *_parts_tensors(skip_parts or ()))
     if x.device.type == "cpu":
         return temporal_conv_padded_plain(x, kernel, bias, hw, emb, residual, skip_parts,
                                           skip_bias, want_stats)
@@ -613,6 +646,8 @@ def fused_conv_tconv_padded(parts, kbias, tkernel, tbias, hw, emb=None, residual
     shared memory. Shared memory bounds the pixel tile (`_k3_pixels`), so the
     tensor cores get small tiles; statistics as K4b.
     """
+    _no_grad_inputs("fused_conv_tconv_padded", kbias, tkernel, tbias, emb, residual, skip_bias,
+                    *_parts_tensors(parts), *_parts_tensors(skip_parts or ()))
     x0 = parts[0][0]
     if x0.device.type == "cpu":
         return fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
@@ -725,6 +760,7 @@ def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
     window: 16/36 of the upsampled conv's products, and the upsampled input
     never exists.
     """
+    _no_grad_inputs("fused_upconv3x3_padded", x, kernel, bias, a, b)
     if x.device.type == "cpu":
         return fused_upconv3x3_padded_plain(x, kernel, bias, hw_lo, a, b, silu)
     h, w = hw_lo
@@ -751,6 +787,111 @@ def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
     _raise_on(rc, "fused_upconv3x3_padded")
     launches["fused_upconv3x3_padded"] += 1
     return y
+
+
+# -- K6: the weight gradient of the (affine+SiLU+) 3x3 conv --------------------
+
+# blocks the K6 launch aims for: about eight per SM of the H100's 132
+_WGRAD_BLOCKS = 132 * 8
+
+
+def _wgrad_checks(x: torch.Tensor, g: torch.Tensor, a, b, silu: bool) -> None:
+    """The JAX wrapper's guards (`v2a_tpu/ops/resblock_kernels.py:3346-3356`)."""
+    if tuple(g.shape[:3]) != tuple(x.shape[:3]):
+        raise ValueError(f"g {tuple(g.shape)} vs x {tuple(x.shape)}")
+    if silu and a is None:
+        # a silu-without-affine call would return the plain-conv wgrad, the
+        # gradient of the wrong function
+        raise NotImplementedError(
+            "wgrad_conv3x3: silu=True requires the (a, b) affine; pass a=ones, b=zeros for a "
+            "bare-SiLU operand")
+    if (a is None) != (b is None):
+        raise ValueError("pass both a and b, or neither")
+
+
+def wgrad_conv3x3_plain(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    a: Optional[torch.Tensor] = None,
+    b: Optional[torch.Tensor] = None,
+    silu: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6: the activation as `_act` computes it (float32,
+    rounded to x.dtype), zero-padded AFTER the activation, then per tap the
+    (C, D) product of the shifted activation with g, summed in float32."""
+    _wgrad_checks(x, g, a, b, silu)
+    n, h, w, c = x.shape
+    d = g.shape[-1]
+    s = F.pad(_act(x, a, b, silu).float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(n * h * w, d)
+    taps = [s[:, di:di + h, dj:dj + w, :].reshape(n * h * w, c).t() @ gf
+            for di in range(3) for dj in range(3)]
+    return torch.stack(taps).reshape(3, 3, c, d)
+
+
+def wgrad_chunks(pixels: int, c: int, d: int) -> Tuple[int, int]:
+    """(chunks, pixels per chunk) of a K6 launch: the pixel axis is split so
+    that (9C/64) x (D/64) output tiles x chunks is about `_WGRAD_BLOCKS`, each
+    chunk a multiple of the kernel's 32-pixel step. Depends on the shape only,
+    so two launches sum in the same order."""
+    tiles = (9 * c // 64) * (d // 64)
+    steps = -(-pixels // 32)
+    chunks = max(1, min(steps, -(-_WGRAD_BLOCKS // tiles)))
+    chunk_len = -(-steps // chunks) * 32
+    return -(-pixels // chunk_len), chunk_len
+
+
+def wgrad_conv3x3(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    a: Optional[torch.Tensor] = None,
+    b: Optional[torch.Tensor] = None,
+    silu: bool = False,
+) -> torch.Tensor:
+    """dW of y = conv3x3_same(act(x)) with respect to its (3, 3, C, D) kernel
+    (`v2a_tpu/ops/resblock_kernels.py:3329`).
+
+    x: (N, H, W, C), the raw pre-norm input, bf16 or float32; g: (N, H, W, D)
+    output cotangent in x's dtype; a, b: optional per-(N, C) float32 affine
+    (None: the plain conv's wgrad); `silu` applies SiLU after it. Returns
+    (3, 3, C, D) float32, HWIO, tap order di*3+dj.
+
+    Kernel note (csrc/wgrad_conv3x3.cu): bound by operations; a GEMM with
+    M = 9C, N = D and K = N*H*W pixels, the activation recomputed in the
+    gather. The TPU kernel's sequential accumulation across the grid becomes
+    pixel chunks that write float32 partial sums, added in a fixed-order
+    second pass (deterministic, no atomics).
+    """
+    _no_grad_inputs("wgrad_conv3x3", x, g, a, b)
+    if x.device.type == "cpu":
+        return wgrad_conv3x3_plain(x, g, a, b, silu)
+    _wgrad_checks(x, g, a, b, silu)
+    n, h, w, c = x.shape
+    d = g.shape[-1]
+    if c % 64 or d % 64:
+        raise ValueError(f"K6 needs C % 64 == 0 and D % 64 == 0, got C={c} D={d}")
+    if g.dtype != x.dtype:
+        raise TypeError(f"g is {g.dtype}, x is {x.dtype}")
+    a32 = b32 = None
+    if a is not None:
+        if tuple(a.shape) != (n, c) or tuple(b.shape) != (n, c):
+            raise ValueError(f"affine must be (N, C) = {(n, c)}")
+        a32 = a.float().contiguous()
+        b32 = b.float().contiguous()
+    _check_cuda(x, g, a32, b32)
+    chunks, chunk_len = wgrad_chunks(n * h * w, c, d)
+    out = torch.empty((3, 3, c, d), dtype=torch.float32, device=x.device)
+    partial = None
+    if chunks > 1:
+        partial = torch.empty((chunks * 9 * c * d,), dtype=torch.float32, device=x.device)
+    mode = 0 if a is None else (2 if silu else 1)
+    fn = _lib("wgrad_conv3x3", "v2a_wgrad_conv3x3", 6, 9)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(g), _ptr(partial), _ptr(out), n, h, w, c, d,
+                chunks, chunk_len, mode, _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(rc, "wgrad_conv3x3")
+    launches["wgrad_conv3x3"] += 1
+    return out
 
 
 # -- GroupNorm statistics fold --------------------------------------------------
