@@ -10,21 +10,28 @@ Phases (any failure exits non-zero):
   2. builds every kernel in `v2a_tpu_torch/csrc/` with nvcc (sm_90a), one
      nvcc per source, all started together;
   3. every kernel against its plain version in bf16 at every shape the
-     release-width U-Net forward (B=8) gives it, under the shipped
-     padded-stream routing (K1, K2, K3, K4a, K4b, K5) and the unpadded one
-     (K1, K2), recorded from one forward of each. Padded-stream inputs carry
-     NaN in their pad rows and outputs must have exactly zero pad cols; K3
-     is also held against K4a -> K4b. Each shape is timed: kernel, plain
-     version and one-call PyTorch yardstick (`library_ms`); at K3's shapes
-     also the same work as K4a -> K4b;
+     release-width U-Net forward (B=8) gives it, under four routings,
+     recorded from one forward of each: the shipped padded-stream routing
+     (K1, K2, K3, K4a, K4b, K5), the unpadded one (K1, K2), `padded_k8_k9`
+     (the padded routing with K8 at the downsamples into a padded level and
+     K9 in every attention block) and `plain_k7` (the non-fused forward with
+     K7 in its GroupNorms). Padded-stream inputs carry NaN in their pad rows
+     and outputs must have exactly zero pad cols (K9's: every pad
+     position); K3 is also held against K4a -> K4b; K6-K9 two launches
+     bit-equal. Each shape is timed: kernel, plain version and PyTorch
+     yardstick (`library_ms`); at K3's shapes also the same work as K4a ->
+     K4b;
   4. one release-width U-Net forward (B=8, F=7, 128^2, bf16) per routing:
      launch counts per kernel, each against the port's bf16 plain path and
-     a float32 plain reference, and the three paths' times in turns;
+     a float32 plain reference, and the five paths' times in turns;
   5. serves requests through the shipped routing: `VideoPredModel.sample`
      (100-step ancestral chain) per task, then `DiffusionPolicy.
-     predict_action` (DDIM-8) on (current frame, first goal frame); checks
-     shapes, range, finiteness and launch counts, then holds every kernel
-     against its plain version at the shapes this serving run gave it;
+     predict_action` (DDIM-8) on (current frame, first goal frame); then one
+     goal-video request through each of `padded_k8_k9` and `plain_k7`
+     (`VideoModelConfig(downconv=True, attn_kernel=True)`,
+     `VideoModelConfig(fused=False, use_pallas_gn=True)`); checks shapes,
+     range, finiteness and each run's launch counts, then holds every kernel
+     against its plain version at the shapes these serving runs gave it;
   6. trains: a release-width bf16 `VideoModelTrainer` at B=4 on synthetic
      uint8 clips, through `train()`, in three routings: train_fused with K6
      as the wgrad (K1 forward, K1 dgrad, K6), train_fused with the library
@@ -44,6 +51,7 @@ them.
 """
 
 import contextlib
+import dataclasses
 import inspect
 import json
 import os
@@ -64,14 +72,31 @@ TASKS = [
 ]
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PEAK_F32 = 67e12  # H100 SXM float32 rate outside the tensor cores (K7's operations)
+# the U-Net routings of phases 3-5: VideoModelConfig / VideoUNet arguments
+ROUTINGS = {
+    "padded": dict(fused=True),
+    "unpadded": dict(fused=True, padded_stream=False),
+    "padded_k8_k9": dict(fused=True, downconv=True, attn_kernel=True),
+    "plain_k7": dict(fused=False, use_pallas_gn=True),
+}
 # launches per release forward of each routing (tests/test_torch_padded.py
-# traces the same counts on the meta device and the JAX package's)
+# traces the same counts on the meta device, tests/test_torch_serving_routes.py
+# the JAX package's)
 EXPECTED_PER_FORWARD = {
     "padded": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30,
                "fused_conv_tconv_padded": 16, "fused_affine_conv3x3_padded": 14,
                "temporal_conv_padded": 17, "fused_upconv3x3_padded": 3},
     "unpadded": {"fused_affine_conv3x3": 73, "temporal_conv_fused": 63},
+    "padded_k8_k9": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 28,
+                     "fused_conv_tconv_padded": 16, "fused_affine_conv3x3_padded": 14,
+                     "temporal_conv_padded": 19, "fused_upconv3x3_padded": 3,
+                     "fused_downconv3x3_padded": 2, "fused_spatial_attention_padded": 11},
+    "plain_k7": {"fused_group_norm_silu": 66},
 }
+# the routings served one goal-video request each in phase 5, beside the
+# shipped one
+NEW_SERVED = ("padded_k8_k9", "plain_k7")
 TRAIN_B, TRAIN_STEPS = 4, 3  # timed steps after one warm-up step
 TRAIN_ROUTINGS = {
     "k6": dict(train_fused=True, wgrad_kernel=True),
@@ -89,6 +114,23 @@ EXPECTED_PER_TRAIN_STEP = {
 # shows above its gate: (N, H, W, C), D, affine, silu
 K6_SMALL = [((2, 8, 8, 128), 128, False, False), ((2, 8, 8, 128), 128, True, True)]
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _rk():
+    """The port's kernel registry and launch counts, K1-K9 (imported once
+    main() has checked for the card and the checkout)."""
+    from v2a_tpu_torch.ops import resblock_kernels as rk
+    return rk
+
+
+def launch_counts():
+    return dict(_rk().launches)
+
+
+def zero_launches():
+    counts = _rk().launches
+    for name in counts:
+        counts[name] = 0
 
 
 def log(*a):
@@ -478,6 +520,126 @@ def check_k6(rk, key, inp, timed):
             f"K6 {n}x{h}x{w}x{c}->{d} {mode}")
 
 
+def check_k7(rk, key, inp, timed):
+    """K7 at one recorded signature: within one ulp of its plain version,
+    two launches bit-equal (fixed-order statistics)."""
+    from v2a_tpu_torch.ops import group_norm as gn
+
+    _, shape, groups, silu = key
+    c = shape[-1]
+    x = (inp.randn(*shape) * 2 + 0.5).bfloat16()
+    scale, bias = 1 + inp.randn(c, scale=0.2), inp.randn(c, scale=0.2)
+    got = gn.fused_group_norm_silu(x, scale, bias, groups, with_silu=silu)
+    again = gn.fused_group_norm_silu(x, scale, bias, groups, with_silu=silu)
+    want = gn.fused_group_norm_silu_plain(x, scale, bias, groups, with_silu=silu)
+    ok, abs_err, rel, _ = within_one_ulp(got, want)
+    ok = ok and torch.equal(got, again)
+    times = None
+    if timed:
+        times = dict(ms=time_ms(lambda: gn.fused_group_norm_silu(x, scale, bias, groups,
+                                                                 with_silu=silu)),
+                     plain_ms=time_ms(lambda: gn.fused_group_norm_silu_plain(
+                         x, scale, bias, groups, with_silu=silu), 3, 1))
+        # yardstick: F.group_norm on the channels-first view, then F.silu
+        xc = x.reshape(shape[0], -1, c).transpose(1, 2)
+        sb, bb = scale.bfloat16(), bias.bfloat16()
+        times["library_ms"] = time_ms(
+            lambda: (F.silu if silu else (lambda v: v))(F.group_norm(xc, groups, sb, bb, 1e-5)))
+    numel = x.numel()
+    # float32 operations outside the tensor cores: 3 per element for the
+    # statistics, 4 for the affine, 5 for the SiLU
+    flops = numel * (7 + 5 * silu)
+    nbytes = 2 * 2 * numel + 8 * c
+    label = f"K7 {'x'.join(map(str, shape))} silu={int(silu)}"
+    return ok, abs_err, rel, None, times, flops, nbytes, label
+
+
+def check_k8(rk, key, inp, timed):
+    """K8 at one recorded signature: NaN pad rows in, exactly zero pad cols
+    out, the interior within one ulp; two launches bit-equal."""
+    _, n, hw, c, d, affine, silu = key
+    h, w = hw
+    x = inp.stream((n,), hw, c)
+    kern = inp.randn(3, 3, c, d, scale=(9 * c) ** -0.5)
+    bias = inp.randn(d, scale=0.1)
+    a = b = None
+    if affine:
+        a, b = 1 + inp.randn(n, c, scale=0.1), inp.randn(n, c, scale=0.1)
+    args = (x, kern, bias, hw, a, b, silu)
+    got, again = rk.fused_downconv3x3_padded(*args), rk.fused_downconv3x3_padded(*args)
+    ok, abs_err, rel, _ = check_stream(got, rk.fused_downconv3x3_padded_plain(*args),
+                                       (h // 2, w // 2))
+    ok = ok and torch.equal(got[:, 1:-1], again[:, 1:-1])  # pad rows are not written
+    times = None
+    if timed:
+        times = dict(ms=time_ms(lambda: rk.fused_downconv3x3_padded(*args)),
+                     plain_ms=time_ms(lambda: rk.fused_downconv3x3_padded_plain(*args), 3, 1))
+        # yardstick: cuDNN's stride-2 conv on the (activated) interior,
+        # channels_last bf16
+        xa = rk._act(rk._interior(x, hw), a, b, silu).contiguous().permute(0, 3, 1, 2)
+        wl, bl = _cl_weight([kern]), bias.bfloat16()
+        times["library_ms"] = time_ms(lambda: F.conv2d(xa, wl, bl, stride=2, padding=1))
+    h2, w2 = h // 2, w // 2
+    # only taps inside the frame: 3 H/2 - 1 rows and 3 W/2 - 1 cols of them
+    flops = 2.0 * n * (3 * h2 - 1) * (3 * w2 - 1) * c * d
+    nbytes = (2 * n * h * w * c + 18 * c * d + 4 * d + (8 * n * c if affine else 0)
+              + 2 * n * h2 * rk.padded_hw(h2, w2)[1] * d)
+    mode = "affine+silu" if silu else "affine" if affine else "bare"
+    return ok, abs_err, rel, None, times, flops, nbytes, f"K8 {n}x{h}x{w}x{c}->{d} {mode}"
+
+
+def check_k9(rk, key, inp, timed):
+    """K9 at one recorded signature: NaN pad rows in, EVERY pad position of
+    the output exactly zero, the interior within one ulp of the plain
+    version, statistics within 1e-3, two launches bit-equal."""
+    _, n, hw, c, stats = key
+    h, w = hw
+    x = inp.stream((n,), hw, c)
+    a, b = 1 + inp.randn(n, c, scale=0.1), inp.randn(n, c, scale=0.1)
+    wts = (inp.randn(c, 3 * c, scale=c ** -0.5), inp.randn(3 * c, scale=0.1),
+           inp.randn(c, c, scale=c ** -0.5), inp.randn(c, scale=0.1))
+    args = (x, hw, a, b, *wts, 32)
+    got, gst = rk.fused_spatial_attention_padded(*args, want_stats=True)
+    again = rk.fused_spatial_attention_padded(*args, want_stats=stats)
+    want, wst = rk.fused_spatial_attention_padded_plain(*args, want_stats=True)
+    again = again[0] if stats else again
+    pads = got.clone()
+    pads[:, 1:h + 1, 1:w + 1] = 0
+    ok_pads = not bool(pads.any())
+    st_err = stats_rel_err(gst, wst)
+    ok, abs_err, rel, strict = within_one_ulp(rk._interior(got, hw), rk._interior(want, hw))
+    log(f"[kernels] K9 {n}x{h}x{w}x{c}: {strict} elements beyond one ulp; "
+        f"pads zero: {ok_pads}; two launches bit-equal: {torch.equal(got, again)}")
+    ok = ok and ok_pads and torch.equal(got, again) and st_err <= 1e-3
+    times = None
+    if timed:
+        times = dict(ms=time_ms(lambda: rk.fused_spatial_attention_padded(*args,
+                                                                          want_stats=stats)),
+                     plain_ms=time_ms(lambda: rk.fused_spatial_attention_padded_plain(
+                         *args, want_stats=stats), 3, 1))
+        # yardstick: the QKV and projection matmuls around
+        # F.scaled_dot_product_attention, on the normed interior tokens (its
+        # scale 1/sqrt(ch) is the block's ch^-1/4 on q and on k)
+        s, heads = h * w, c // 32
+        xn = rk._act(rk._interior(x, hw).reshape(n, s, c), a, b, False).reshape(n * s, c)
+        wq, wo = wts[0].bfloat16(), wts[2].bfloat16()
+        bq, bo = wts[1].bfloat16(), wts[3].bfloat16()
+
+        def library():
+            qkv = torch.matmul(xn, wq) + bq
+            q, k, v = qkv.view(n, s, heads, 3, 32).permute(3, 0, 2, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v)
+            return torch.matmul(o.transpose(1, 2).reshape(n * s, c), wo) + bo
+
+        times["library_ms"] = time_ms(library)
+    s = h * w
+    flops = 2.0 * n * s * c * 4 * c + 4.0 * n * s * s * c
+    hp, wp = rk.padded_hw(h, w)
+    nbytes = 2 * n * s * c + 2 * n * hp * wp * c + 8 * c * c + 16 * c + 8 * n * c * (1 + stats)
+    label = f"K9 {n}x{h}x{w}x{c} heads={c // 32} stats={int(stats)}"
+    return ok, abs_err, rel, st_err, times, flops, nbytes, label
+
+
 # wrapper name -> (tag, signature from the bound call arguments, check)
 KERNEL_CHECKS = {
     "fused_affine_conv3x3": ("k1", lambda a: (
@@ -504,17 +666,25 @@ KERNEL_CHECKS = {
         a["a"] is not None, bool(a["silu"])), check_k5),
     "wgrad_conv3x3": ("k6", lambda a: (
         tuple(a["x"].shape), a["g"].shape[-1], a["a"] is not None, bool(a["silu"])), check_k6),
+    "fused_downconv3x3_padded": ("k8", lambda a: (
+        a["x"].shape[0], tuple(a["hw"]), a["x"].shape[-1], a["kernel"].shape[-1],
+        a["a"] is not None, bool(a["silu"])), check_k8),
+    "fused_spatial_attention_padded": ("k9", lambda a: (
+        a["x"].shape[0], tuple(a["hw"]), a["x"].shape[-1], bool(a["want_stats"])), check_k9),
+    "fused_group_norm_silu": ("k7", lambda a: (
+        tuple(a["x"].shape), a["groups"], bool(a["with_silu"])), check_k7),
 }
 TAG_NAME = {tag: name for name, (tag, _, _) in KERNEL_CHECKS.items()}
 
 
 @contextlib.contextmanager
-def recording(rk):
+def recording():
     """Yields {signature: calls} of every kernel wrapper called inside the
     block. The shims only record and pass on; the wrappers still count their
     launches."""
     calls = {}
-    originals = {name: getattr(rk, name) for name in KERNEL_CHECKS}
+    modules = {name: _rk().wrapper_module(name) for name in KERNEL_CHECKS}
+    originals = {name: getattr(modules[name], name) for name in KERNEL_CHECKS}
 
     def shim(name):
         tag, signature, _ = KERNEL_CHECKS[name]
@@ -530,12 +700,12 @@ def recording(rk):
         return recorded
 
     for name in KERNEL_CHECKS:
-        setattr(rk, name, shim(name))
+        setattr(modules[name], name, shim(name))
     try:
         yield calls
     finally:
         for name, fn in originals.items():
-            setattr(rk, name, fn)
+            setattr(modules[name], name, fn)
 
 
 def check_kernels(rk, routing_calls, dev, timed, tag):
@@ -557,7 +727,8 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
             inp = Inputs(rk, torch.Generator(device=dev).manual_seed(SEED + idx), dev)
             check = KERNEL_CHECKS[TAG_NAME[key[0]]][2]
             ok, abs_err, rel, st_err, times, flops, nbytes, label = check(rk, key, inp, timed)
-            ops_s, bytes_s = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+            ops_s = flops / (PEAK_F32 if key[0] == "k7" else PEAK_FLOPS)
+            bytes_s = nbytes / PEAK_BYTES
             bound_ms = max(ops_s, bytes_s) * 1e3
             rows.append(dict(shape=label, calls=counts, ok=ok, max_abs_err=abs_err,
                              max_err_over_std=rel, stats_rel_err=st_err, bound_ms=bound_ms,
@@ -600,11 +771,10 @@ def check_forward(rk, nets, inputs, vcfg, dev):
 
     outs = {}
     for routing, net in nets.items():
-        for k in rk.launches:
-            rk.launches[k] = 0
+        zero_launches()
         outs[routing] = fwd(net)
         torch.cuda.synchronize()
-        per_fwd = {k: v for k, v in rk.launches.items() if v}
+        per_fwd = {k: v for k, v in launch_counts().items() if v}
         log(f"[forward] {routing} routing, launches per forward: {per_fwd}")
         if per_fwd != EXPECTED_PER_FORWARD[routing]:
             fail(f"{routing} launch counts {per_fwd} != {EXPECTED_PER_FORWARD[routing]}")
@@ -653,11 +823,10 @@ def serve(rk, model, vcfg, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     h, w = vcfg.image_size
     frames = torch.rand(N_REQUESTS, h, w, 3, generator=gen, device=dev)
-    for k in rk.launches:
-        rk.launches[k] = 0
-    with recording(rk) as calls:
+    zero_launches()
+    with recording() as calls:
         req = _requests(model, policy, frames, vcfg, gen)
-    launches = dict(rk.launches)
+    launches = launch_counts()
     n_fwd = N_REQUESTS * vcfg.sampling_timesteps
     log(f"[serve] {N_REQUESTS} requests (reduced from the 8 release tasks to keep the run "
         f"short; width and step count unchanged): launches {launches} over {n_fwd} forwards")
@@ -668,6 +837,47 @@ def serve(rk, model, vcfg, dev):
             fail(f"{name}: {made} calls and {launches[name]} launches on the serving path, "
                  f"expected {want}")
     return launches, req, calls
+
+
+def serve_routing(routing, model, vcfg, dev):
+    """Phase 5, a further routing's main path: one goal-video request
+    (`VideoPredModel.sample`, B=1, the 100-step chain) through a model of
+    that `VideoModelConfig` holding the shipped model's weights; the launch
+    counts are read from this run only. Returns the launches, the request's
+    seconds and the kernels' {signature: calls} on this path."""
+    from v2a_tpu_torch.models.video_model import VideoPredModel
+
+    vm = VideoPredModel(dataclasses.replace(vcfg, **ROUTINGS[routing]), device=dev)
+    vm.nets.load_state_dict(model.nets.state_dict())
+    if vm.unet.fused != ROUTINGS[routing]["fused"]:
+        fail(f"{routing}: the model resolved fused={vm.unet.fused}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    h, w = vcfg.image_size
+    frame = torch.rand(1, h, w, 3, generator=gen, device=dev)
+    zero_launches()
+    with recording() as calls:
+        t0 = time.perf_counter()
+        video = vm.sample(frame, [TASKS[0]], generator=gen)
+        torch.cuda.synchronize()
+        t_video = time.perf_counter() - t0
+    launches = launch_counts()
+    if video.shape != (1, vcfg.video_future_horizon, h, w, 3):
+        fail(f"{routing}: sampled video has shape {tuple(video.shape)}")
+    if not bool(torch.isfinite(video).all()) or video.min() < 0 or video.max() > 1:
+        fail(f"{routing}: sampled video is not finite in [0, 1]")
+    n_fwd = vcfg.sampling_timesteps
+    for name, (tag, _, _) in KERNEL_CHECKS.items():
+        want = n_fwd * EXPECTED_PER_FORWARD[routing].get(name, 0)
+        made = sum(v for key, v in calls.items() if key[0] == tag)
+        if launches[name] != want or made != want:
+            fail(f"{routing}: {name}: {made} calls and {launches[name]} launches on the "
+                 f"serving path, expected {want}")
+    log(f"[serve] {routing}: one request, video {t_video:.2f} s (100-step ancestral, B=1), "
+        f"video mean {float(video.mean()):.4f}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del vm
+    torch.cuda.empty_cache()
+    return launches, t_video, calls
 
 
 def _requests(model, policy, frames, vcfg, gen):
@@ -782,7 +992,7 @@ def train(rk, model, vcfg, dev):
         trainer = VideoModelTrainer(model, clips, cfg, workdir=workdir, seed=SEED)
         if trainer.train_unet.train_fused != flags["train_fused"]:
             fail(f"{name}: the trainer resolved train_fused={trainer.train_unet.train_fused}")
-        with recording(rk) as step_calls:
+        with recording() as step_calls:
             trainer.loss_and_grads(*batch, noise=noise)
         if name == "k6":
             calls = step_calls
@@ -794,25 +1004,24 @@ def train(rk, model, vcfg, dev):
         steps, inner = [], trainer.train_step
 
         def timed_step(*a, **k):
-            before = dict(rk.launches)
+            before = launch_counts()
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             out = inner(*a, **k)
             e1.record()
-            steps.append((e0, e1, {n: v - before[n] for n, v in rk.launches.items()
+            steps.append((e0, e1, {n: v - before[n] for n, v in launch_counts().items()
                                    if v != before[n]}, out[0]))
             return out
 
         trainer.train_step = timed_step
-        for k in rk.launches:
-            rk.launches[k] = 0
+        zero_launches()
         t0 = time.perf_counter()
         trainer.train(1 + TRAIN_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: v for k, v in rk.launches.items() if v}
+        launches = {k: v for k, v in launch_counts().items() if v}
         if name == "k6":
-            k6_launches = dict(rk.launches)
+            k6_launches = launch_counts()
         want = EXPECTED_PER_TRAIN_STEP[name]
         per_step = [st[2] for st in steps]
         if len(steps) != 1 + TRAIN_STEPS or any(ps != want for ps in per_step):
@@ -896,19 +1105,18 @@ def main():
     vcfg = VideoModelConfig(dtype="bfloat16")
     model = VideoPredModel(vcfg, device=dev).init(SEED)
     unet = model.unet
-    if not (unet.fused and unet.padded_stream):
+    if not (unet.fused and unet.padded_stream) or unet.train_fused:
         fail("the video U-Net did not resolve to the padded-stream fused routing on cuda")
-    unpadded = VideoUNet(
-        in_channels=2 * vcfg.channels, model_channels=vcfg.model_channels,
-        out_channels=vcfg.channels, num_res_blocks=vcfg.num_res_blocks,
-        attention_resolutions=vcfg.attention_resolutions, channel_mult=vcfg.channel_mult,
-        num_head_channels=vcfg.num_head_channels, task_token_dim=vcfg.text_dim,
-        dtype=torch.bfloat16, fused=True, padded_stream=False,
-    ).to(dev).eval().requires_grad_(False)
-    unpadded.load_state_dict(unet.state_dict())
-    nets = {"padded": unet, "unpadded": unpadded}
+    nets = {"padded": unet}
+    for routing, flags in ROUTINGS.items():
+        if routing != "padded":
+            net = VideoUNet(in_channels=2 * vcfg.channels, out_channels=vcfg.channels,
+                            dtype=torch.bfloat16, **_unet_kw(vcfg), **flags)
+            net = net.to(dev).eval().requires_grad_(False)
+            net.load_state_dict(unet.state_dict())
+            nets[routing] = net
     log(f"[model] video U-Net {sum(p.numel() for p in unet.parameters()) / 1e6:.1f} M params, "
-        "release width, bf16; routings: padded stream (shipped), unpadded")
+        f"release width, bf16; routings: padded stream (shipped), {', '.join(list(nets)[1:])}")
     b, (h, w) = 8, vcfg.image_size
     gen = torch.Generator(device=dev).manual_seed(SEED)
     inputs = (
@@ -922,33 +1130,47 @@ def main():
     # forward of each routing gives them, timed; 4. those forwards
     routing_calls = {}
     for routing, net in nets.items():
-        with recording(rk) as calls, torch.no_grad():
+        with recording() as calls, torch.no_grad():
             net(*inputs)
         routing_calls[routing] = calls
     torch.cuda.synchronize()
     rows, agg = check_kernels(rk, routing_calls, dev, timed=True, tag="kernels")
     forward = check_forward(rk, nets, inputs, vcfg, dev)
-    del unpadded, nets
+    del nets, net
     torch.cuda.empty_cache()
-    # 5. the main path, then the kernels at the shapes it gave them
+    # 5. the main paths, then the kernels at the shapes they gave them
     launches, req, serve_calls = serve(rk, model, vcfg, dev)
-    serve_rows, serve_agg = check_kernels(rk, {"serve": serve_calls}, dev, timed=False,
-                                          tag="serve-shapes")
+    served = {"serve": serve_calls}
+    new_launches, new_req = {}, {}
+    for routing in NEW_SERVED:
+        new_launches[routing], new_req[routing], served[f"serve_{routing}"] = serve_routing(
+            routing, model, vcfg, dev)
+    serve_rows, serve_agg = check_kernels(rk, served, dev, timed=False, tag="serve-shapes")
     # 6. the train step, then K1 and K6 at the shapes one step gave them
     train_report, train_calls, train_launches = train(rk, model, vcfg, dev)
     train_rows, train_agg = check_kernels(rk, {"train": train_calls}, dev, timed=True,
                                           tag="train-shapes")
 
-    # 7. report: K1-K5 sums over one B=8 forward of the shipped routing, K6
-    # sums over one B=4 train step; launches over the serving run and the K6
-    # routing's train() run
+    # 7. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K6 over one B=4 train step;
+    # launches over every main-path run (the served requests of all three
+    # routings and the K6 routing's train() run)
     def entry(name, meta):
-        src = train_agg["train"][name] if name == "wgrad_conv3x3" else agg["padded"][name]
+        if name == "wgrad_conv3x3":
+            src = train_agg["train"][name]
+        elif name == "fused_group_norm_silu":
+            src = agg["plain_k7"][name]
+        elif name in ("fused_downconv3x3_padded", "fused_spatial_attention_padded"):
+            src = agg["padded_k8_k9"][name]
+        else:
+            src = agg["padded"][name]
+        errs = [src["max_abs_err"], train_agg["train"][name]["max_abs_err"]]
+        errs += [a[name]["max_abs_err"] for a in serve_agg.values()]
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-                    launches=launches[name] + train_launches[name],
-                    max_abs_err=max(src["max_abs_err"], serve_agg["serve"][name]["max_abs_err"],
-                                    train_agg["train"][name]["max_abs_err"]),
-                    ms=src["ms"], plain_ms=src["plain_ms"], bound_ms=src["bound_ms"],
+                    launches=launches[name] + train_launches[name]
+                    + sum(nl[name] for nl in new_launches.values()),
+                    max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
+                    bound_ms=src["bound_ms"],
                     bound_by="operations" if src["ops_s"] >= src["bytes_s"] else "bytes",
                     library_ms=src["library_ms"])
 
@@ -956,14 +1178,16 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_shapes.json"), "w") as fh:
         json.dump(dict(card=smi, per_shape=rows, per_forward=agg, serve_shapes=serve_rows,
-                       requests_s=req, serve_launches=launches, train=train_report,
+                       requests_s=req, serve_launches=launches, new_routing_request_s=new_req,
+                       new_routing_launches=new_launches, train=train_report,
                        train_launches=train_launches, train_shapes=train_rows,
                        per_train_step=train_agg, kernels=kernels, **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
-        "forward of the padded-stream routing (per-shape time x calls per forward); K6's are "
-        "sums over one B=4 release train step (K1's per train step are in "
-        "chiprun_out/chip_smoke_shapes.json, per_train_step); launches are those of the "
-        "served requests plus the K6 routing's train() run")
+        "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "
+        "over one of padded_k8_k9, K7 over one of plain_k7; K6's are sums over one B=4 "
+        "release train step (K1's per train step are in chiprun_out/chip_smoke_shapes.json, "
+        "per_train_step); launches are those of the served requests of the three routings "
+        "plus the K6 routing's train() run")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the wrappers' refusal of what the kernels do not take, and the
-training path (the autograd Functions of `ops/conv_vjp.py`, a small
-`train_fused` U-Net's gradients).
+version, the wrappers' refusal of what the kernels do not take, small
+U-Nets of each fused routing against the plain path, and the training path
+(the autograd Functions of `ops/conv_vjp.py`, a small `train_fused`
+U-Net's gradients).
 
 Marked `gpu`; each test decides inside a fixture whether there is a card
 and skips without one. This file imports no JAX, so it runs on a machine
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from v2a_tpu_torch.ops import group_norm as gn
 from v2a_tpu_torch.ops import resblock_kernels as rk
 
 pytestmark = pytest.mark.gpu
@@ -432,3 +434,129 @@ def test_train_fused_unet_matches_plain_on_the_card(cuda):
     for (k, p0), p1 in zip(plain.named_parameters(), tf.parameters()):
         np.testing.assert_allclose(p1.grad.cpu().numpy(), p0.grad.cpu().numpy(), rtol=5e-4,
                                    atol=5e-5, err_msg=k)
+
+
+# -- the further serving routings: K7, K8, K9 and their small U-Nets -------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 4, 64), (3, 1000, 128), (2, 7, 16, 16, 640),
+                                   (1, 5, 8, 1280)])
+def test_group_norm_silu_kernel_matches_plain(cuda, dtype, silu, shape):
+    """K7 within one ulp of its plain version (float32: 1e-5 relative); two
+    launches bit-equal (fixed-order statistics)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    scale = 1 + 0.2 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.2 * torch.randn(c, generator=gen, device=cuda)
+    before = rk.launches["fused_group_norm_silu"]
+    got = gn.fused_group_norm_silu(x, scale, bias, 32, with_silu=silu)
+    again = gn.fused_group_norm_silu(x, scale, bias, 32, with_silu=silu)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_group_norm_silu"] == before + 2
+    assert got.dtype == dtype and got.shape == x.shape and torch.equal(got, again)
+    ok, rel = _within_ulp(got, gn.fused_group_norm_silu_plain(x, scale, bias, 32, with_silu=silu),
+                          dtype)
+    assert ok, f"max err / std {rel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["plain", "affine", "silu"])
+@pytest.mark.parametrize("n,hw,c,d", [(3, (8, 8), 64, 64), (2, (12, 20), 128, 128),
+                                      (2, (32, 32), 256, 256)])
+def test_downconv3x3_padded_kernel_matches_plain(cuda, dtype, mode, n, hw, c, d):
+    """K8 from a stream with NaN pad rows: the half-size interior within one
+    ulp, pad cols exactly zero."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = _stream(gen, cuda, dtype, (n,), hw, c)
+    k = torch.randn(3, 3, c, d, generator=gen, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    a = b = None
+    if mode != "plain":
+        a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    before = rk.launches["fused_downconv3x3_padded"]
+    got = rk.fused_downconv3x3_padded(x, k, bias, hw, a, b, mode == "silu")
+    torch.cuda.synchronize()
+    assert rk.launches["fused_downconv3x3_padded"] == before + 1
+    want = rk.fused_downconv3x3_padded_plain(x, k, bias, hw, a, b, mode == "silu")
+    _check_padded(got, want, (hw[0] // 2, hw[1] // 2), dtype)
+
+
+def _attn_args(gen, dev, dtype, n, hw, c):
+    x = _stream(gen, dev, dtype, (n,), hw, c)
+    a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(n, c, generator=gen, device=dev)
+    w = [torch.randn(c, 3 * c, generator=gen, device=dev) / c ** 0.5,
+         0.1 * torch.randn(3 * c, generator=gen, device=dev),
+         torch.randn(c, c, generator=gen, device=dev) / c ** 0.5,
+         0.1 * torch.randn(c, generator=gen, device=dev)]
+    return x, a, b, w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,hw,c", [(3, (8, 8), 64), (2, (6, 10), 128), (4, (16, 16), 512),
+                                    (2, (8, 8), 640), (1, (24, 30), 64)])
+def test_spatial_attention_padded_kernel_matches_plain(cuda, dtype, n, hw, c):
+    """K9 from a stream with NaN pad rows: every pad position of the output
+    exactly zero, the interior within one ulp of the plain version, the
+    statistics within 1e-3 of their scale; two launches bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x, a, b, w = _attn_args(gen, cuda, dtype, n, hw, c)
+    before = rk.launches["fused_spatial_attention_padded"]
+    got, gst = rk.fused_spatial_attention_padded(x, hw, a, b, *w, 32, want_stats=True)
+    again = rk.fused_spatial_attention_padded(x, hw, a, b, *w, 32)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_spatial_attention_padded"] == before + 2
+    assert torch.equal(got, again)
+    want, wst = rk.fused_spatial_attention_padded_plain(x, hw, a, b, *w, 32, want_stats=True)
+    assert not bool(got[:, 0].any()) and not bool(got[:, hw[0] + 1:].any())  # pad rows
+    _stats_close(gst, wst)
+    _check_padded(got, want, hw, dtype)
+
+
+def _routing_vs_plain(cuda, hw, routing, counts, **kw):
+    """A small U-Net of one routing, float32, against the plain path with the
+    same weights at the JAX package's fused-vs-plain tolerance; the launches
+    of its forward across both kernel registries."""
+    from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
+    from v2a_tpu_torch.models.video_unet import VideoUNet
+
+    cfg = VideoModelConfig(image_size=(hw, hw), sample_per_seq=3, model_channels=128,
+                           text_dim=64, num_res_blocks=1, **kw, **routing)
+    model = VideoPredModel(cfg).init(0)
+    plain = VideoUNet(model_channels=128, num_res_blocks=1, task_token_dim=64,
+                      **kw).to(cuda).eval()
+    plain.load_state_dict(model.unet.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn(2, 2, hw, hw, 6, generator=g, device=cuda)
+    t = torch.tensor([5, 60], device=cuda)
+    te = model.encode_batch_text(["open the drawer", "pick up the bowl"])
+    before = dict(rk.launches)
+    with torch.no_grad():
+        got, want = model.unet(x, t, te), plain(x, t, te)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+    after = dict(rk.launches)
+    assert {k: v - before[k] for k, v in after.items() if v != before[k]} == counts
+
+
+def test_padded_k8_k9_unet_matches_plain_on_the_card(cuda):
+    """64x64, mult (1, 2, 2), attention at ds 4: K8 into the padded 32x32
+    level, K9 entered at 16x16."""
+    _routing_vs_plain(cuda, 64, dict(downconv=True, attn_kernel=True),
+                      {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
+                       "fused_conv_tconv_padded": 12, "temporal_conv_padded": 3,
+                       "fused_upconv3x3_padded": 2, "fused_downconv3x3_padded": 1,
+                       "fused_spatial_attention_padded": 4},
+                      channel_mult=(1, 2, 2), attention_resolutions=(4,))
+
+
+def test_plain_k7_unet_matches_plain_on_the_card(cuda):
+    """32x32, mult (1, 2), attention at ds 2, the non-fused forward: K7 in
+    every GroupNorm without forwarded statistics (8 x 2 + 4 + 1)."""
+    _routing_vs_plain(cuda, 32, dict(fused=False, use_pallas_gn=True),
+                      {"fused_group_norm_silu": 21},
+                      channel_mult=(1, 2), attention_resolutions=(2,))

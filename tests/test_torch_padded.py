@@ -11,6 +11,8 @@ port's own plain path; one state dict for both routings; and the release
 forward's launch counts, traced on the meta device.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -206,13 +208,23 @@ def test_attention_and_downsample_take_the_interior_of_a_stream():
         assert torch.equal(down(nan_pads), down(x))
 
 
+def _jax_module(name):
+    """The JAX package's module that holds the Pallas wrapper `name`, as the
+    port's registry entry names it in `replaces`."""
+    return importlib.import_module(trk.KERNELS[name]["replaces"].split(".py:")[0]
+                                   .replace("/", "."))
+
+
 def _counting(monkeypatch, module, names, via_plain=False):
-    """Counts calls of module.<name> for each name; `via_plain` calls the
-    port's plain version instead (for tensors on the meta device)."""
+    """Counts calls of module.<name> for each name; `module` may instead be a
+    function of the name (`trk.wrapper_module`, `_jax_module`). `via_plain`
+    calls the port's plain version instead (for tensors on the meta
+    device)."""
     calls = {}
+    module_of = module if callable(module) else (lambda name: module)
 
     def wrap(name):
-        fn = getattr(module, name + "_plain" if via_plain else name)
+        fn = getattr(module_of(name), name + "_plain" if via_plain else name)
 
         def counted(*a, **k):
             calls[name] = calls.get(name, 0) + 1
@@ -220,7 +232,7 @@ def _counting(monkeypatch, module, names, via_plain=False):
         return counted
 
     for name in names:
-        monkeypatch.setattr(module, name, wrap(name))
+        monkeypatch.setattr(module_of(name), name, wrap(name))
     return calls
 
 
@@ -246,9 +258,9 @@ def test_padded_unet_matches_jax_default_routing(monkeypatch):
               task_token_dim=64)
     x, t, tok = _unet_inputs(32, seed=13)
     params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=13)
-    jcalls = _counting(monkeypatch, jrk, trk.KERNELS)
+    jcalls = _counting(monkeypatch, _jax_module, trk.KERNELS)
     want = japply(jvu.VideoUNet(fused=True, **kw), params, x, t, tok)
-    tcalls = _counting(monkeypatch, trk, trk.KERNELS)
+    tcalls = _counting(monkeypatch, trk.wrapper_module, trk.KERNELS)
     padded = _load(tvu.VideoUNet(fused=True, **kw), params)
     got = padded(_t(x), torch.from_numpy(t), _t(tok))
     assert jcalls == tcalls == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
@@ -275,9 +287,9 @@ def test_padded_unet_reaches_k4a(monkeypatch):
     x = rs.randn(1, 4, 32, 32, 6).astype(np.float32)
     t, tok = np.array([7]), rs.randn(1, 4, 64).astype(np.float32)
     params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=17)
-    jcalls = _counting(monkeypatch, jrk, trk.KERNELS)
+    jcalls = _counting(monkeypatch, _jax_module, trk.KERNELS)
     jax.eval_shape(jvu.VideoUNet(fused=True, **kw).apply, params, x, t, tok)
-    tcalls = _counting(monkeypatch, trk, trk.KERNELS)
+    tcalls = _counting(monkeypatch, trk.wrapper_module, trk.KERNELS)
     got = _load(tvu.VideoUNet(fused=True, **kw), params)(_t(x), torch.from_numpy(t), _t(tok))
     want = _load(tvu.VideoUNet(**kw), params)(_t(x), torch.from_numpy(t), _t(tok))
     assert jcalls == tcalls == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
@@ -286,20 +298,30 @@ def test_padded_unet_reaches_k4a(monkeypatch):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **UNET_TOL)
 
 
-@pytest.mark.parametrize("padded,counts", [
-    (True, {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_padded": 16,
-            "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 17,
-            "fused_upconv3x3_padded": 3}),
-    (False, {"fused_affine_conv3x3": 73, "temporal_conv_fused": 63}),
-], ids=["padded", "unpadded"])
-def test_release_forward_launch_counts(monkeypatch, padded, counts):
+@pytest.mark.parametrize("routing,counts", [
+    (dict(fused=True), {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30,
+                        "fused_conv_tconv_padded": 16, "fused_affine_conv3x3_padded": 14,
+                        "temporal_conv_padded": 17, "fused_upconv3x3_padded": 3}),
+    (dict(fused=True, padded_stream=False), {"fused_affine_conv3x3": 73,
+                                             "temporal_conv_fused": 63}),
+    # K8 at the two downsamples into a padded level, whose temporal convs
+    # move from K2 to K4b; K9 at the 5 attention blocks at 16^2, 6 at 8^2
+    (dict(fused=True, downconv=True, attn_kernel=True),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 28, "fused_conv_tconv_padded": 16,
+      "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 19,
+      "fused_upconv3x3_padded": 3, "fused_downconv3x3_padded": 2,
+      "fused_spatial_attention_padded": 11}),
+    # K7: 27 ResBlocks x 2, 11 attention norms, the output norm
+    (dict(use_pallas_gn=True), {"fused_group_norm_silu": 66}),
+], ids=["padded", "unpadded", "padded_k8_k9", "plain_k7"])
+def test_release_forward_launch_counts(monkeypatch, routing, counts):
     """The release U-Net (128^2, F=7, mc 128, mult (1,2,3,4,5), 2 res blocks,
     attention at ds 8 / 16, bf16) traced on the meta device: the kernels
     each routing calls per forward, the counts `chip_smoke.py` holds the
     card to."""
-    calls = _counting(monkeypatch, trk, trk.KERNELS, via_plain=True)
+    calls = _counting(monkeypatch, trk.wrapper_module, trk.KERNELS, via_plain=True)
     with torch.device("meta"), torch.no_grad():
-        net = tvu.VideoUNet(dtype=torch.bfloat16, fused=True, padded_stream=padded)
+        net = tvu.VideoUNet(dtype=torch.bfloat16, **routing)
         out = net(torch.randn(1, 7, 128, 128, 6), torch.zeros(1, dtype=torch.long),
                   torch.randn(1, 77, 512))
     assert tuple(out.shape) == (1, 7, 128, 128, 3)

@@ -1,0 +1,273 @@
+// K9: spatial self-attention of a (B*F)-folded padded stream,
+// x (N, H+2, Wp, C) -> y (N, H+2, Wp, C) with every pad position zero, and the
+// per-sample interior sum / sum of squares of the unrounded output.
+//
+// Replaces the TPU kernel `fused_spatial_attention_padded`
+// (v2a_tpu/ops/resblock_kernels.py:2962, body `_attn_padded_kernel` :2855).
+//
+// Rounding, as the TPU body rounds (T = the stream's type):
+//   xn = T(x * a + b)                       per (sample, channel) affine
+//   qkv = T(xn @ Wqkv + bqkv)               float32 sum, + float32 bias
+//   per head h (legacy layout, q / k / v at 96 h + 0 / 32 / 64):
+//     l = dot(q, k) * s2, s2 = float(ch^-1/2) applied AFTER the dot
+//     p = T(exp(l - max_k l) / sum_k exp(l - max_k l))
+//     o = T(p @ v)
+//   y = T(x + (o @ Wproj + bproj))          residual added in float32, once
+//   stats: sums of the float32 y before that rounding.
+// The TPU kernel masks pad keys with an additive -1e30: their weight is
+// exactly zero, so they are left out here, and so are the pad queries, whose
+// outputs the TPU kernel zeroes. Only interior tokens are read (pad values,
+// NaN included, never reach y).
+//
+// What bounds it on the H100: operations (at 16^2 x 512, N = 56: 38 GFLOP,
+// 80% of it in the two GEMMs, against 50 MB of stream in and out). Design,
+// four launches and the statistics pass:
+//   1. zero the pad positions of y;
+//   2. QKV: the tile GEMM of common.cuh over (interior tokens, C) x (C, 3C),
+//      the affine applied in the gather, into a (N * S, 3C) scratch;
+//   3. attention: a block per (64 queries, head, sample) holds that head's
+//      K and V of all S keys in shared memory (float32), a warp per query
+//      row: logits, the row max and the row sum over all keys first, then
+//      the probabilities ex / sum rounded to T (an online-softmax rescale
+//      would round differently), then P @ V, into a (N * S, C) scratch;
+//   4. projection: the tile GEMM over (tokens, C) x (C, C) whose epilogue adds
+//      the bias and the residual in float32, writes y and the tile's column
+//      sums of y and y^2 (tiles never straddle two samples);
+//   5. `reduce_tiles` adds the tiles in order (deterministic, no atomics).
+#include <cmath>
+
+#include "common.cuh"
+
+namespace v2a {
+namespace {
+
+constexpr int CH = 32;         // channels per head
+constexpr int QB = 64;         // query rows per attention block
+constexpr int ATT_WARPS = 8;   // warps per attention block
+constexpr int K_LD = CH + 1;   // K rows padded: lane j reads row j, bank (j + c) % 32
+
+template <typename T>
+__global__ void zero_pads_kernel(T* __restrict__ y, long n_vec, int H, int W, int Hp, int Wp,
+                                 int C) {
+  const int c8 = C / 8;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
+       i += (long)gridDim.x * blockDim.x) {
+    const long pos = i / c8;
+    const int rc = (int)(pos % ((long)Hp * Wp));
+    const int r = rc / Wp, col = rc % Wp;
+    if (r >= 1 && r <= H && col >= 1 && col <= W) continue;
+    zero8(y + pos * C + (i % c8) * 8);
+  }
+}
+
+// The two GEMMs over the interior tokens of each sample: block (sample *
+// tiles + tile, column tile). PROJ = false: A = T(x * a + b) gathered from the
+// padded x, out = qkv (N * S, ldw). PROJ = true: A = att (N * S, C), out = y
+// (padded) = T(x + A @ w + bias), and the tile's column sums into partial.
+template <typename T, bool PROJ>
+__global__ void __launch_bounds__(THREADS)
+attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
+                 const float* __restrict__ b, const T* __restrict__ w,
+                 const float* __restrict__ bias, const T* __restrict__ x, T* __restrict__ out,
+                 float* __restrict__ partial, int S, int W, int Hp, int Wp, int C, int ldw,
+                 int tiles) {
+  __shared__ __align__(128) T As[BM][Lds<T>::A];
+  __shared__ __align__(128) T Bs[BK][Lds<T>::B];
+  __shared__ __align__(128) float Cs[BM][C_LD];
+
+  const int n = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int s0 = tile * BM;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+
+  constexpr int SLOTS = (BM * BK) / (THREADS * 8);
+  int rrow[SLOTS], rcg[SLOTS];
+  long roff[SLOTS];
+  bool rvalid[SLOTS];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int idx = tid + s * THREADS;
+    rrow[s] = idx / (BK / 8);
+    rcg[s] = (idx % (BK / 8)) * 8;
+    const int tok = s0 + rrow[s];
+    rvalid[s] = tok < S;
+    const int t = rvalid[s] ? tok : 0;
+    roff[s] = PROJ ? ((long)n * S + t) * C
+                   : (((long)n * Hp + 1 + t / W) * Wp + 1 + t % W) * C;
+  }
+
+  Accum<T> acc;
+  acc.zero();
+  for (int c0 = 0; c0 < C; c0 += BK) {
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      T* dst = &As[rrow[s]][rcg[s]];
+      if (!rvalid[s]) {
+        zero8(dst);
+        continue;
+      }
+      if (PROJ) {
+        copy8(dst, src + roff[s] + c0 + rcg[s]);
+        continue;
+      }
+      float v[8];
+      load8(src + roff[s] + c0 + rcg[s], v);
+      const long aoff = (long)n * C + c0 + rcg[s];
+      affine8(v, a + aoff, b + aoff, false);
+      store8(dst, v);  // xn, rounded to T before the product
+    }
+    load_b_tile<T>(Bs, w, c0, ldw, n0);
+    __syncthreads();
+    acc.step(As, Bs);
+    __syncthreads();
+  }
+  acc.store(Cs);
+  __syncthreads();
+  for (int idx = tid; idx < BM * BN; idx += THREADS) {
+    const int r = idx / BN, c = idx % BN;
+    const int tok = s0 + r;
+    if (tok >= S) continue;
+    const float p = __fadd_rn(Cs[r][c], bias[n0 + c]);
+    if (!PROJ) {
+      out[((long)n * S + tok) * ldw + n0 + c] = from_f<T>(p);
+      continue;
+    }
+    const long o = (((long)n * Hp + 1 + tok / W) * Wp + 1 + tok % W) * C + n0 + c;
+    const float yv = __fadd_rn(to_f(x[o]), p);
+    out[o] = from_f<T>(yv);
+    Cs[r][c] = yv;  // the unrounded output, for the statistics
+  }
+  if (!PROJ || partial == nullptr) return;
+  __syncthreads();
+  if (tid < 2 * BN) {
+    const int c = tid % BN, which = tid / BN;
+    float sum = 0.f;
+    for (int r = 0; r < BM && s0 + r < S; ++r) {
+      const float v = Cs[r][c];
+      sum = __fadd_rn(sum, which ? __fmul_rn(v, v) : v);
+    }
+    partial[(((long)n * tiles + tile) * 2 + which) * C + n0 + c] = sum;
+  }
+}
+
+// Block (query tile, head, sample); qkv (N * S, 3C) -> att (N * S, C).
+template <typename T>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ att, int S, int C, float s2) {
+  extern __shared__ float smem[];
+  float* Ks = smem;                   // [S][K_LD]
+  float* Vs = Ks + (long)S * K_LD;    // [S][CH]
+  float* P = Vs + (long)S * CH;       // [ATT_WARPS][S]
+  const int q0 = blockIdx.x * QB, hd = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long ld = 3L * C;
+  const T* base = qkv + (long)n * S * ld + (long)hd * 3 * CH;
+
+  for (int i = threadIdx.x; i < S * CH; i += blockDim.x) {
+    const int j = i / CH, c = i % CH;
+    Ks[j * K_LD + c] = to_f(base[j * ld + CH + c]);
+    Vs[j * CH + c] = to_f(base[j * ld + 2 * CH + c]);
+  }
+  __syncthreads();
+
+  float* row = P + (long)warp * S;
+  for (int qi = q0 + warp; qi < min(S, q0 + QB); qi += ATT_WARPS) {
+    float q[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) q[c] = to_f(base[qi * ld + c]);
+    float mx = -INFINITY;
+    for (int j = lane; j < S; j += 32) {
+      const float* k = Ks + j * K_LD;
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) dot = __fadd_rn(dot, __fmul_rn(q[c], k[c]));
+      const float l = __fmul_rn(dot, s2);
+      row[j] = l;
+      mx = fmaxf(mx, l);
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(__fsub_rn(row[j], mx));
+      row[j] = e;
+      sum = __fadd_rn(sum, e);
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+    for (int j = lane; j < S; j += 32) row[j] = to_f(from_f<T>(__fdiv_rn(row[j], sum)));
+    __syncwarp();
+    float o = 0.f;  // lane = the output channel
+    for (int j = 0; j < S; ++j) o = __fadd_rn(o, __fmul_rn(row[j], Vs[j * CH + lane]));
+    att[((long)n * S + qi) * C + hd * CH + lane] = from_f<T>(o);
+    __syncwarp();
+  }
+}
+
+size_t attention_smem(int S) { return (size_t)S * (K_LD + CH + ATT_WARPS) * sizeof(float); }
+
+template <typename T>
+cudaError_t launch(const void* x, const void* a, const void* b, const void* wqkv,
+                   const void* bqkv, const void* wproj, const void* bproj, void* y, void* qkv,
+                   void* att, void* partial, void* stats, int N, int H, int W, int Wp, int C,
+                   float s2, cudaStream_t stream) {
+  const int Hp = H + 2, S = H * W, tiles = (S + BM - 1) / BM;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const long n_vec = (long)N * Hp * Wp * (C / 8);
+  const long zb = (n_vec + 255) / 256;
+  zero_pads_kernel<T><<<(unsigned)(zb < 132 * 8 ? zb : 132 * 8), 256, 0, stream>>>(
+      yt, n_vec, H, W, Hp, Wp, C);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_gemm_kernel<T, false><<<dim3(N * tiles, 3 * C / BN), THREADS, 0, stream>>>(
+      xt, static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), nullptr,
+      static_cast<T*>(qkv), nullptr, S, W, Hp, Wp, C, 3 * C, tiles);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const size_t smem = attention_smem(S);
+  if ((e = cudaFuncSetAttribute(attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess)
+    return e;
+  attention_kernel<T><<<dim3((S + QB - 1) / QB, C / CH, N), ATT_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(att), S, C, s2);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attn_gemm_kernel<T, true><<<dim3(N * tiles, C / BN), THREADS, 0, stream>>>(
+      static_cast<const T*>(att), nullptr, nullptr, static_cast<const T*>(wproj),
+      static_cast<const float*>(bproj), xt, yt, static_cast<float*>(partial), S, W, Hp, Wp, C, C,
+      tiles);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (stats == nullptr) return cudaSuccess;
+  return reduce_tiles(static_cast<const float*>(partial), static_cast<float*>(stats), N, C, tiles,
+                      stream);
+}
+
+}  // namespace
+}  // namespace v2a
+
+// dtype: 0 = float32, 1 = bfloat16. x, y (N, H+2, Wp, C); a, b (N, C) float32;
+// wqkv (C, 3C), wproj (C, C) in x's type; bqkv (3C,), bproj (C,) float32;
+// qkv (N * H * W, 3C) and att (N * H * W, C) scratch in x's type; partial
+// (N * tiles * 2 * C) float32 and stats (N, 2, C) float32, both null without
+// statistics. Heads of 32 channels; needs C % 64 == 0, H * W <= 768,
+// 16-byte aligned contiguous buffers.
+extern "C" int v2a_spatial_attention_padded(const void* x, const void* a, const void* b,
+                                            const void* wqkv, const void* bqkv, const void* wproj,
+                                            const void* bproj, void* y, void* qkv, void* att,
+                                            void* partial, void* stats, int N, int H, int W,
+                                            int Wp, int C, int dtype, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C % v2a::BN || Wp < W + 2 || Wp % 8 || H * W > 768 ||
+      (partial == nullptr) != (stats == nullptr) || a == nullptr || b == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // the TPU body's logit scale: (ch^-1/4)^2 in double, then float
+  const double sc = 1.0 / sqrt(sqrt((double)v2a::CH));
+  const float s2 = (float)(sc * sc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)v2a::launch<__nv_bfloat16>(x, a, b, wqkv, bqkv, wproj, bproj, y, qkv, att,
+                                           partial, stats, N, H, W, Wp, C, s2, s);
+  if (dtype == 0)
+    return (int)v2a::launch<float>(x, a, b, wqkv, bqkv, wproj, bproj, y, qkv, att, partial,
+                                   stats, N, H, W, Wp, C, s2, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -58,6 +58,13 @@ class VideoModelConfig:
     # with `fused`: the padded-stream routing (K3 / K4 / K5 at the levels
     # with H*W > 512), the JAX package's default; False = K1 / K2 only
     padded_stream: bool = True
+    # with `fused` and the padded stream: the downsamples into a padded level
+    # through K8 (the JAX package's V2A_DOWNCONV=1)
+    downconv: bool = False
+    # with `fused`: the attention blocks through K9 (V2A_PALLAS_ATTN=1)
+    attn_kernel: bool = False
+    # without `fused`: the GroupNorms through K7 (the JAX config field)
+    use_pallas_gn: bool = False
 
     @property
     def video_future_horizon(self) -> int:
@@ -85,6 +92,7 @@ class VideoPredModel:
         unet = self.build_unet(fused=fused)
         text = ClipTextEncoder(width=cfg.text_dim, mlp_dim=cfg.text_dim * 4, dtype=dt)
         self.nets = VideoNets(unet, text).to(self.device).eval().requires_grad_(False)
+        self._loss_unet: Optional[VideoUNet] = None
         self.tokenizer = tokenizer or HashTokenizer()
         self.diffusion = GaussianDiffusion(
             schedule=DiffusionSchedule.create(cfg.timesteps, cfg.beta_schedule,
@@ -113,8 +121,28 @@ class VideoPredModel:
             attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
             num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
             dtype=dtype_of(cfg.dtype), fused=fused, padded_stream=cfg.padded_stream,
-            train_fused=train_fused, wgrad_kernel=wgrad_kernel,
+            train_fused=train_fused, wgrad_kernel=wgrad_kernel, downconv=cfg.downconv,
+            attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn,
         )
+
+    @property
+    def loss_unet(self) -> VideoUNet:
+        """The U-Net `loss` evaluates: the non-fused routing on the frozen
+        weights, as the JAX package's `_model_fn(for_training=True)` clones
+        the U-Net with `fused=False`. Built once, on the meta device, then
+        given `unet`'s own Parameter objects (shared, never copied); `unet`
+        itself when that is already non-fused."""
+        if not self.unet.fused:
+            return self.unet
+        if self._loss_unet is None:
+            with torch.device("meta"):
+                net = self.build_unet(fused=False)
+            modules = dict(self.unet.named_modules())
+            for name, mod in net.named_modules():
+                for pname, p in modules[name].named_parameters(recurse=False):
+                    setattr(mod, pname, p)
+            self._loss_unet = net.eval()
+        return self._loss_unet
 
     def init(self, seed: int = 0) -> "VideoPredModel":
         """Random weights from one seeded generator on the model's device."""
@@ -155,13 +183,13 @@ class VideoPredModel:
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The denoising loss (`goal_diffusion.py:690-733`) of target frames
         video01 (B, F, H, W, 3) in [0, 1] given x_cond01 (B, H, W, 3), the
-        value through the model's frozen U-Net. Gradients come from a
-        trainable U-Net of `build_unet(fused=False)` holding the weights, as
-        `VideoModelTrainer` builds (the JAX package's
-        `_model_fn(for_training=True)`): the fused routing's kernels have no
-        backward, and their wrappers raise when asked for one."""
+        value through `loss_unet`: the frozen weights on the non-fused
+        routing, as the JAX package's `_model_fn(for_training=True)` (the
+        fused routing would round as its kernels do, a different function).
+        Gradients come from a trainable U-Net of `build_unet(fused=False)`,
+        as `VideoModelTrainer` builds."""
         x_cond_n = (x_cond01 * 2.0 - 1.0)[:, None]
-        return self.diffusion.p_losses(self.unet, video01, x_cond_n, task_embed, t=t,
+        return self.diffusion.p_losses(self.loss_unet, video01, x_cond_n, task_embed, t=t,
                                        generator=generator, noise=noise)
 
     def sample_u8(self, x_conds, tasks: List[str],

@@ -33,6 +33,12 @@ Perceiver-pooled CLIP text conditioning.
   `wgrad_kernel=True`); the GroupNorm reaches them as a per-(B, C) affine.
   Everything else is the plain path. The fused forward kernels have no
   backward; training never takes `fused`.
+- Three more serving routings, each an argument off by default as its JAX
+  flag is: `downconv` (the padded downsamples through K8,
+  `fused_downconv3x3_padded`), `attn_kernel` (the attention blocks through
+  K9, `fused_spatial_attention_padded`), both with `fused`; and
+  `use_pallas_gn` (the non-fused forward's GroupNorms without forwarded
+  statistics through K7, `ops/group_norm.py`).
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
 temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
@@ -50,6 +56,7 @@ from torch import nn
 
 from v2a_tpu_torch.models.perceiver import PerceiverResampler, _linear
 from v2a_tpu_torch.ops import conv_vjp
+from v2a_tpu_torch.ops import group_norm as gn
 from v2a_tpu_torch.ops import resblock_kernels as rk
 
 # K1 routing: 3x3 stride-1 convs with 128-multiple channels, H*W <= MAX_S
@@ -121,13 +128,16 @@ class GroupNorm32(nn.Module):
     """GroupNorm(32) with float32 statistics, E[x^2] - mean^2, eps 1e-5
     (`nn.py:26-28`). `stats` (B, 2, C) forwarded from the producer of x
     replaces the statistics read; `return_affine` hands back the collapsed
-    per-(B, C) scale / shift instead of applying it."""
+    per-(B, C) scale / shift instead of applying it. `use_pallas`: with
+    neither, K7 (`ops/group_norm.py`, output in x.dtype) normalises
+    (`v2a_tpu/models/video_unet.py:297-303`)."""
 
-    def __init__(self, channels: int, with_silu: bool = False, num_groups: int = 32):
+    def __init__(self, channels: int, with_silu: bool = False, num_groups: int = 32,
+                 use_pallas: bool = False):
         super().__init__()
         if channels % num_groups:
             raise ValueError(f"channels {channels} not divisible by groups {num_groups}")
-        self.with_silu, self.num_groups = with_silu, num_groups
+        self.with_silu, self.num_groups, self.use_pallas = with_silu, num_groups, use_pallas
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -142,6 +152,9 @@ class GroupNorm32(nn.Module):
             bc = (b,) + (1,) * (x.ndim - 2) + (c,)
             y = x.float() * a.reshape(bc) + shift.reshape(bc)
             return F.silu(y) if self.with_silu else y
+        if self.use_pallas:
+            return gn.fused_group_norm_silu(x, self.scale, self.bias, self.num_groups,
+                                            with_silu=self.with_silu)
         g = self.num_groups
         gw = c // g
         xf = x.float().reshape(b, -1, c)
@@ -271,19 +284,30 @@ class PseudoConv3d(nn.Module):
 
     def _padded(self, parts, emb, residual, want_stats, pre_affine, upsample2x, skip):
         """The padded-stream conv (`v2a_tpu/models/video_unet.py:806-1032`),
-        3x3 stride 1 only. `upsample2x`: K5 from the low-res stream, then K4b
-        at the doubled size. Otherwise K3 where the JAX package's rule
+        3x3 only. Stride 2 (the Downsample's): K8 to the halved size, then
+        K4b there. `upsample2x`: K5 from the low-res stream, then K4b at the
+        doubled size. Otherwise K3 where the JAX package's rule
         (`rk.conv_tconv_band_rows`) admits it, else K4a then K4b. `skip` is
         (streams, kernel (C_in, D), bias): the ResBlock's 1x1 skip
         projection, folded into the temporal conv. Returns a PaddedStream
         [, stats (B, F, 2, D)]."""
-        if self.k != 3 or self.stride != 1:
-            raise ValueError("the padded stream takes 3x3 stride-1 convs")
+        if self.k != 3 or self.stride not in (1, 2):
+            raise ValueError("the padded stream takes 3x3 stride-1 or stride-2 convs")
         dt, feat, hw = self.dtype, self.features, parts[0].hw
         b, f, hp, wp = parts[0].x.shape[:4]
         kernel, kbias = self.spatial_conv.kernel, self.spatial_conv.bias
         tk, tb = self.temporal_conv.kernel, self.temporal_conv.bias
-        if upsample2x:
+        if self.stride == 2:
+            if (len(parts) != 1 or pre_affine is not None or residual is not None
+                    or skip is not None):
+                raise ValueError("the padded stride-2 conv is the bare Downsample conv")
+            y = rk.fused_downconv3x3_padded(parts[0].x.reshape(b * f, hp, wp, -1).to(dt),
+                                            kernel, kbias, hw)
+            hw = (hw[0] // 2, hw[1] // 2)
+            hp, wp = rk.padded_hw(*hw)
+            out = rk.temporal_conv_padded(y.reshape(b, f, hp, wp, feat), tk, tb, hw, emb=emb,
+                                          want_stats=want_stats)
+        elif upsample2x:
             if len(parts) != 1 or pre_affine is not None or skip is not None:
                 raise ValueError("the upsample conv is single-part, without affine or skip")
             y = rk.fused_upconv3x3_padded(parts[0].x.reshape(b * f, hp, wp, -1).to(dt),
@@ -342,15 +366,19 @@ class ResBlock3D(nn.Module):
 
     def __init__(self, cin: int, out_channels: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
-                 train_fused: bool = False, wgrad_kernel: bool = False):
+                 train_fused: bool = False, wgrad_kernel: bool = False,
+                 use_pallas_gn: bool = False):
         super().__init__()
         self.cin, self.out_channels, self.dtype, self.fused = cin, out_channels, dtype, fused
         self.train_fused = train_fused
-        self.in_norm = GroupNorm32(cin, with_silu=True)
+        # K7 only on the non-fused path, as the JAX block (its fused norms
+        # pass use_pallas=False, :1168-1176)
+        k7 = use_pallas_gn and not fused
+        self.in_norm = GroupNorm32(cin, with_silu=True, use_pallas=k7)
         self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused,
                                     wgrad_kernel=wgrad_kernel)
         self.emb_proj = nn.Linear(emb_dim, out_channels)
-        self.out_norm = GroupNorm32(out_channels, with_silu=True)
+        self.out_norm = GroupNorm32(out_channels, with_silu=True, use_pallas=k7)
         self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused,
                                      wgrad_kernel=wgrad_kernel)
         if cin != out_channels:
@@ -487,17 +515,44 @@ class ResBlock3D(nn.Module):
 class SpatialAttentionBlock(nn.Module):
     """Per-frame spatial self-attention (`unet.py:263-330`) with the legacy
     layout: qkv reshaped to heads BEFORE the q/k/v split, q and k each
-    scaled by ch^-1/4, softmax in float32."""
+    scaled by ch^-1/4, softmax in float32.
+
+    `attn_kernel` (the JAX package's `V2A_PALLAS_ATTN=1`,
+    `v2a_tpu/models/video_unet.py:1441-1483`): with forwarded `stats` the
+    whole block is K9 (`rk.fused_spatial_attention_padded`), which rounds as
+    the TPU kernel does, not as this block's plain path. A PaddedStream
+    stays padded (every pad zero); a plain tensor enters the padded layout
+    for the call and leaves it after. `use_pallas_gn`: the norm without
+    forwarded stats is K7."""
 
     def __init__(self, channels: int, num_head_channels: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_kernel: bool = False,
+                 use_pallas_gn: bool = False):
         super().__init__()
-        self.ch, self.dtype = num_head_channels, dtype
-        self.norm = GroupNorm32(channels)
+        self.ch, self.dtype, self.attn_kernel = num_head_channels, dtype, attn_kernel
+        self.norm = GroupNorm32(channels, use_pallas=use_pallas_gn)
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj_out = nn.Linear(channels, channels)
 
+    def _kernel(self, x, stats, want_stats: bool):
+        entered = not isinstance(x, PaddedStream)
+        ps = pad_stream(x.to(self.dtype)) if entered else x
+        (hh, ww), (b, f, hp, wp, c) = ps.hw, ps.x.shape
+        a, shift = rk.stats_to_group_affine(stats.reshape(b * f, 2, c), self.norm.scale,
+                                            self.norm.bias, hh * ww)
+        out = rk.fused_spatial_attention_padded(
+            ps.x.reshape(b * f, hp, wp, c), (hh, ww), a, shift, self.qkv.weight.t(),
+            self.qkv.bias, self.proj_out.weight.t(), self.proj_out.bias, self.ch,
+            want_stats=want_stats)
+        y, st = out if want_stats else (out, None)
+        y = PaddedStream(y.reshape(b, f, hp, wp, c), (hh, ww))
+        if entered:
+            y = unpad_stream(y)
+        return (y, st.reshape(b, f, 2, c)) if want_stats else y
+
     def forward(self, x, stats=None, want_stats: bool = False):
+        if self.attn_kernel and stats is not None:
+            return self._kernel(x, stats, want_stats)
         if isinstance(x, PaddedStream):
             # attention needs the exact token set: the interior in, the
             # padded layout back out (the stats describe the interior)
@@ -526,13 +581,22 @@ class SpatialAttentionBlock(nn.Module):
 
 
 class Downsample3D(nn.Module):
-    """Stride-2 pseudo-3D conv (`unet.py:119-145`)."""
+    """Stride-2 pseudo-3D conv (`unet.py:119-145`). `downconv` (the JAX
+    package's `V2A_DOWNCONV=1`) with `padded_out`: K8 from the full-size
+    padded stream into one at half the size, then K4b there
+    (`v2a_tpu/models/video_unet.py:1558-1567`)."""
 
-    def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False):
+    def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False,
+                 downconv: bool = False):
         super().__init__()
+        self.downconv = downconv
         self.conv = PseudoConv3d(c, c, 3, stride=2, dtype=dtype, fused=fused)
 
-    def forward(self, x, want_stats: bool = False):
+    def forward(self, x, want_stats: bool = False, padded_out: bool = False):
+        if padded_out and self.downconv:
+            if not isinstance(x, PaddedStream):
+                x = pad_stream(x)
+            return self.conv(x, want_stats=want_stats)
         if isinstance(x, PaddedStream):
             # the stride-2 conv's SAME halo must be zeros: take the interior
             x = unpad_stream(x)
@@ -571,14 +635,20 @@ class VideoUNet(nn.Module):
     JAX package: `tfused = train_fused and not fused`, :1718);
     `wgrad_kernel` makes its convs' weight gradient K6, as the JAX package's
     `V2A_TRAIN_WGRAD_PALLAS=1` (an argument here, not an environment
-    variable; off by default, as there)."""
+    variable; off by default, as there). Likewise, each off by default as
+    in the JAX package: `downconv` (`V2A_DOWNCONV=1`: with `fused` and the
+    padded stream, the downsamples into a padded level run K8),
+    `attn_kernel` (`V2A_PALLAS_ATTN=1`: with `fused`, every attention block
+    runs K9) and `use_pallas_gn` (the JAX field: without `fused`, every
+    GroupNorm that has no forwarded statistics runs K7)."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
                  channel_mult: Sequence[int] = (1, 2, 3, 4, 5), num_head_channels: int = 32,
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
                  fused: bool = False, padded_stream: bool = True, train_fused: bool = False,
-                 wgrad_kernel: bool = False):
+                 wgrad_kernel: bool = False, downconv: bool = False, attn_kernel: bool = False,
+                 use_pallas_gn: bool = False):
         super().__init__()
         mc = model_channels
         ted = mc * 4
@@ -594,10 +664,12 @@ class VideoUNet(nn.Module):
         self.in_conv = PseudoConv3d(in_channels, mc, 3, dtype=dtype, fused=fused)
 
         def res(name, cin, cout):
-            self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused, tfused, wgrad_kernel))
+            self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused, tfused, wgrad_kernel,
+                                             use_pallas_gn))
 
         def attn(name, c):
-            self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype))
+            self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype, attn_kernel,
+                                                        use_pallas_gn))
 
         skips, cur, ds, bi = [mc], mc, 1, 0
         for level, mult in enumerate(self.channel_mult):
@@ -610,7 +682,7 @@ class VideoUNet(nn.Module):
                 skips.append(ch)
                 bi += 1
             if level != len(self.channel_mult) - 1:
-                self.add_module(f"downsample_{level}", Downsample3D(ch, dtype, fused))
+                self.add_module(f"downsample_{level}", Downsample3D(ch, dtype, fused, downconv))
                 skips.append(ch)
                 ds *= 2
         res("mid_res0", cur, cur)
@@ -629,7 +701,7 @@ class VideoUNet(nn.Module):
                                     Upsample3D(ch, dtype, fused, tfused, wgrad_kernel))
                     ds //= 2
                 bi += 1
-        self.out_norm = GroupNorm32(cur, with_silu=True)
+        self.out_norm = GroupNorm32(cur, with_silu=True, use_pallas=use_pallas_gn and not fused)
         self.out_conv = PseudoConv3d(cur, out_channels, 3, dtype=dtype)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
@@ -661,10 +733,13 @@ class VideoUNet(nn.Module):
                 hs.append((h, st))
                 bi += 1
             if level != len(self.channel_mult) - 1:
-                h, st = step(getattr(self, f"downsample_{level}")(h, want_stats=fused))
-                hh, ww = hh // 2, ww // 2
                 ch, next_ch = mult * self.mc, self.channel_mult[level + 1] * self.mc
-                if padded and padded_eligible(next_ch, [ch, next_ch], hh * ww):
+                next_padded = padded and padded_eligible(next_ch, [ch, next_ch],
+                                                         (hh // 2) * (ww // 2))
+                h, st = step(getattr(self, f"downsample_{level}")(h, want_stats=fused,
+                                                                  padded_out=next_padded))
+                hh, ww = hh // 2, ww // 2
+                if next_padded and not isinstance(h, PaddedStream):
                     h = pad_stream(h)
                 hs.append((h, st))
                 ds *= 2

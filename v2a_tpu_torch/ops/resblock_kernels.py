@@ -23,6 +23,19 @@ with H*W > 512 in the (.., Hp, Wp, C) layout of `padded_hw` and runs:
 - `fused_upconv3x3_padded` (K5): conv3x3_same(nearest_2x(x)) as four
   parity convs over the low-res stream. `csrc/upconv3x3_padded.cu`.
 
+Two further serving routings of the JAX package add:
+
+- `fused_downconv3x3_padded` (K8): the stride-2 3x3 conv of the Downsample
+  from a padded stream into one at half the size (`V2A_DOWNCONV=1` there,
+  `VideoUNet(downconv=True)` here). `csrc/downconv3x3_padded.cu`.
+- `fused_spatial_attention_padded` (K9): GroupNorm affine, QKV, the legacy
+  masked attention, projection and residual in one call, with the output's
+  statistics (`V2A_PALLAS_ATTN=1` there, `VideoUNet(attn_kernel=True)`
+  here). `csrc/spatial_attention_padded.cu`.
+
+K7, the GroupNorm(+SiLU) of the non-fused forward, has its wrapper in
+`ops/group_norm.py` and its entry and count here.
+
 The padded-stream contract: pad COLS are zero in the output of every conv
 and temporal-conv producer; pad ROWS (0 and Hp-1) hold arbitrary values
 (the kernels leave them unwritten, the plain versions write NaN there).
@@ -50,6 +63,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import importlib
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -89,19 +104,40 @@ KERNELS = {
         source="v2a_tpu_torch/csrc/wgrad_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:3329",
     ),
+    "fused_downconv3x3_padded": dict(
+        source="v2a_tpu_torch/csrc/downconv3x3_padded.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:1514",
+    ),
+    "fused_spatial_attention_padded": dict(
+        source="v2a_tpu_torch/csrc/spatial_attention_padded.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:2962",
+    ),
+    "fused_group_norm_silu": dict(
+        source="v2a_tpu_torch/csrc/group_norm_silu.cu",
+        replaces="v2a_tpu/ops/pallas_kernels.py:111",
+        module="v2a_tpu_torch.ops.group_norm",
+    ),
 }
 
 # kernel launches per wrapper; each wrapper adds one where it launches
 launches = {name: 0 for name in KERNELS}
+
+
+def wrapper_module(name: str):
+    """The module that holds wrapper `name`: this one unless its `KERNELS`
+    entry names another."""
+    return importlib.import_module(KERNELS[name].get("module", __name__))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(name: str, fn: str, nargs_ptr: int, nargs_int: int):
+def _lib(name: str, fn: str, nargs_ptr: int, nargs_int: int, nargs_float: int = 0):
+    """The C entry point `fn` of `csrc/<name>.cu`: pointers, ints, C floats,
+    then the stream; returns the CUDA error code."""
     f = getattr(_build.load(name), fn)
-    f.argtypes = [_P] * nargs_ptr + [_I] * nargs_int + [_P]
+    f.argtypes = [_P] * nargs_ptr + [_I] * nargs_int + [ctypes.c_float] * nargs_float + [_P]
     f.restype = _I
     return f
 
@@ -789,6 +825,83 @@ def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
     return y
 
 
+# -- K8: stride-2 3x3 conv from a padded stream to one at half the size ---------
+
+
+def _downconv_checks(x: torch.Tensor, hw: Tuple[int, int]) -> None:
+    """The JAX wrapper's guards (`v2a_tpu/ops/resblock_kernels.py:1540-1546`)."""
+    h, w = hw
+    hp, wp = padded_hw(h, w)
+    if x.shape[1] != hp or x.shape[2] != wp:
+        raise ValueError(f"x {tuple(x.shape)} vs padded ({hp},{wp})")
+    if h % 2 or w % 2 or wp % 2:
+        raise ValueError("stride-2 conv needs even H, W, Wp")
+
+
+def fused_downconv3x3_padded_plain(x, kernel, bias, hw, a=None, b=None, silu=False):
+    """Plain PyTorch version of K8: the optional activation of the interior in
+    float32, rounded to x.dtype (`_act`), zero halo after it (pads selected
+    away, never read); then per tap the stride-2 product in float32, the
+    nine summed in tap order, + bias, rounded once."""
+    _downconv_checks(x, hw)
+    h, w = hw
+    dt = x.dtype
+    xz = F.pad(_act(_interior(x, hw), a, b, silu).float(), (0, 0, 1, 1, 1, 1))
+    wk = kernel.to(dt).float()
+    acc = None
+    for di in range(3):
+        for dj in range(3):
+            part = xz[:, di:di + h:2, dj:dj + w:2, :] @ wk[di, dj]
+            acc = part if acc is None else acc + part
+    return _place((acc + bias.float()).to(dt), *padded_hw(h // 2, w // 2))
+
+
+def fused_downconv3x3_padded(x, kernel, bias, hw, a=None, b=None, silu=False):
+    """y = conv3x3_stride2_same(act(x)) + bias between padded streams
+    (`v2a_tpu/ops/resblock_kernels.py:1514`).
+
+    x: (N, Hp, Wp, C) at the full resolution (pad rows may hold anything);
+    kernel (3, 3, C, D); bias (D,); a / b optional per-(N, C) affine (+ SiLU
+    with `silu`); hw: the full-size interior (H, W), both even. Returns the
+    (N, Hp2, Wp2, D) padded stream at (H/2, W/2): the interior and zero pad
+    cols written, pad rows not. The SAME halo is (1, 1) on both sides, as the
+    JAX module's explicit padding.
+
+    Kernel note (csrc/downconv3x3_padded.cu): bound by bytes at 128^2 (at
+    N = 56: 235 MB of interior in, 59 MB out, 67.6 GFLOP) and by operations at 64^2;
+    K4a's implicit
+    GEMM with a stride-2 gather: output pixel (i, j) takes padded (2i + di,
+    2j + dj), the halo taps are skipped (zero after the activation, pad
+    values never read), and the epilogue zeroes the half-size pad cols.
+    """
+    _no_grad_inputs("fused_downconv3x3_padded", x, kernel, bias, a, b)
+    if x.device.type == "cpu":
+        return fused_downconv3x3_padded_plain(x, kernel, bias, hw, a, b, silu)
+    _downconv_checks(x, hw)
+    h, w = hw
+    wp = x.shape[2]
+    hp2, wp2 = padded_hw(h // 2, w // 2)
+    n, c = x.shape[0], x.shape[-1]
+    d = kernel.shape[-1]
+    if tuple(kernel.shape) != (3, 3, c, d) or c % 32 or d % 64:
+        raise ValueError(f"kernel {tuple(kernel.shape)}: K8 needs C % 32 == 0, D % 64 == 0")
+    a32 = b32 = None
+    if a is not None or b is not None:
+        a32, b32 = _affine32(a, b, n, c)
+    w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
+    bias32 = bias.float().contiguous()
+    _check_cuda(x, w2d, bias32, a32, b32)
+    y = torch.empty((n, hp2, wp2, d), dtype=x.dtype, device=x.device)
+    mode = 0 if a32 is None else (2 if silu else 1)
+    fn = _lib("downconv3x3_padded", "v2a_downconv3x3_padded", 6, 9)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, wp,
+                wp2, c, d, mode, _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(rc, "fused_downconv3x3_padded")
+    launches["fused_downconv3x3_padded"] += 1
+    return y
+
+
 # -- K6: the weight gradient of the (affine+SiLU+) 3x3 conv --------------------
 
 # blocks the K6 launch aims for: about eight per SM of the H100's 132
@@ -892,6 +1005,127 @@ def wgrad_conv3x3(
     _raise_on(rc, "wgrad_conv3x3")
     launches["wgrad_conv3x3"] += 1
     return out
+
+
+# -- K9: fused spatial attention on a padded stream ---------------------------------
+
+# the interior tokens a K9 block holds in shared memory (each sample's K and V
+# of one head in float32, and one probability row per warp)
+ATTN_MAX_TOKENS = 768
+
+
+def _attn_checks(x: torch.Tensor, hw: Tuple[int, int], num_head_channels: int) -> int:
+    """The JAX wrapper's guards (`v2a_tpu/ops/resblock_kernels.py:2992-2999`);
+    returns the head count."""
+    hp, wp = padded_hw(*hw)
+    if tuple(x.shape[1:3]) != (hp, wp):
+        raise ValueError(f"x {tuple(x.shape)} vs padded ({hp},{wp})")
+    c = x.shape[-1]
+    if c % num_head_channels:
+        raise ValueError(f"C={c} not divisible by ch={num_head_channels}")
+    return c // num_head_channels
+
+
+def _interior_mask(hw: Tuple[int, int], device) -> torch.Tensor:
+    """(Hp*Wp,) bool: True at the interior token positions of a padded stream."""
+    h, w = hw
+    hp, wp = padded_hw(h, w)
+    m = torch.zeros(hp, wp, dtype=torch.bool, device=device)
+    m[1:h + 1, 1:w + 1] = True
+    return m.reshape(hp * wp)
+
+
+def fused_spatial_attention_padded_plain(x, hw, a, b, wqkv, bqkv, wproj, bproj,
+                                         num_head_channels: int, want_stats: bool = False):
+    """Plain PyTorch version of K9, rounding by rounding as the Pallas body
+    (`v2a_tpu/ops/resblock_kernels.py:2871-2959`), over all Hp*Wp tokens:
+    pads selected to zero; xn = x*a + b rounded; qkv = xn @ Wqkv + bqkv in
+    float32, rounded; per head (legacy layout, head base 3*ch*head) the
+    logits dot(q, k) in float32 times scale^2 AFTER the dot, pad keys masked
+    with an additive -1e30, probabilities ex / sum rounded before P @ V, each
+    head's output rounded; y = x + (att @ Wproj + bproj) in float32, pads
+    selected to zero, rounded ONCE; statistics from the unrounded float32 y.
+    (The port's `SpatialAttentionBlock` instead scales q and k in the compute
+    dtype, adds the residual in it, and takes statistics of the rounded sum.)"""
+    heads = _attn_checks(x, hw, num_head_channels)
+    n, hp, wp, c = x.shape
+    m, ch, dt = hp * wp, num_head_channels, x.dtype
+    inside = _interior_mask(hw, x.device)[None, :, None]
+    xs = torch.where(inside, x.reshape(n, m, c), torch.zeros((), dtype=dt, device=x.device))
+    xn = (xs.float() * a.float()[:, None, :] + b.float()[:, None, :]).to(dt)
+    qkv = (xn.float() @ wqkv.to(dt).float() + bqkv.float()).to(dt)
+    qkv = qkv.reshape(n, m, heads, 3 * ch).permute(0, 2, 1, 3).float()
+    q, k, v = qkv[..., :ch], qkv[..., ch:2 * ch], qkv[..., 2 * ch:]
+    scale = 1.0 / math.sqrt(math.sqrt(ch))
+    logits = (q @ k.transpose(-1, -2)) * (scale * scale)
+    logits = logits + torch.where(inside[0, :, 0], 0.0, -1e30)
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = (ex / ex.sum(-1, keepdim=True)).to(dt)
+    att = (probs.float() @ v).to(dt).permute(0, 2, 1, 3).reshape(n, m, c)
+    proj = att.float() @ wproj.to(dt).float() + bproj.float()
+    y = torch.where(inside, xs.float() + proj, 0.0)
+    out = y.to(dt).reshape(n, hp, wp, c)
+    if want_stats:
+        return out, torch.stack([y.sum(1), (y * y).sum(1)], dim=1)
+    return out
+
+
+def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
+                                   num_head_channels: int, want_stats: bool = False):
+    """Spatial self-attention of a (B*F)-folded padded stream in one call
+    (`v2a_tpu/ops/resblock_kernels.py:2962`): the collapsed GroupNorm affine,
+    QKV, the legacy-layout attention over the interior tokens, projection and
+    residual.
+
+    x: (N, Hp, Wp, C), N = B*F; hw: the interior (H, W); a, b: (N, C) float32
+    affine (`stats_to_group_affine` with n = H*W); wqkv (C, 3C), bqkv (3C,),
+    wproj (C, C), bproj (C,), the JAX Dense layout. Returns (N, Hp, Wp, C)
+    with EVERY pad position zero [, stats (N, 2, C) float32: the interior sum
+    / sum of squares of the unrounded output].
+
+    Kernel note (csrc/spatial_attention_padded.cu): bound by operations (at
+    16^2 x 512, N = 56: 38 GFLOP, 80% of it the two GEMMs, against 50 MB of
+    stream in and out). The TPU kernel holds one
+    whole sample per grid step; here four launches: a QKV GEMM with the
+    affine in its gather (interior tokens only: pad keys weigh exactly zero
+    after the -1e30 mask, so leaving them out changes no sum), the attention
+    with one (sample, head, 64-query) tile per block, K and V of that head in
+    shared memory and one warp per query row (row max and sum over all keys
+    first, then ex / sum rounded, as the TPU kernel rounds them), a
+    projection GEMM whose epilogue adds the bias and the residual in float32
+    and writes per-tile column sums, and a fixed-order pass over those
+    (deterministic); the pad positions are zeroed by a small fill.
+    """
+    _no_grad_inputs("fused_spatial_attention_padded", x, a, b, wqkv, bqkv, wproj, bproj)
+    if x.device.type == "cpu":
+        return fused_spatial_attention_padded_plain(x, hw, a, b, wqkv, bqkv, wproj, bproj,
+                                                    num_head_channels, want_stats)
+    _attn_checks(x, hw, num_head_channels)
+    h, w = hw
+    n, hp, wp, c = x.shape
+    s = h * w
+    if num_head_channels != 32 or c % 64:
+        raise ValueError(f"K9 needs 32-channel heads and C % 64 == 0, got {num_head_channels}, {c}")
+    if s > ATTN_MAX_TOKENS:
+        raise ValueError(f"K9 holds at most {ATTN_MAX_TOKENS} interior tokens, got {s}")
+    dt = x.dtype
+    a32, b32 = _affine32(a, b, n, c)
+    wq = wqkv.to(dt).reshape(c, 3 * c).contiguous()
+    wo = wproj.to(dt).reshape(c, c).contiguous()
+    bq, bo = bqkv.float().reshape(3 * c).contiguous(), bproj.float().reshape(c).contiguous()
+    _check_cuda(x, a32, b32, wq, bq, wo, bo)
+    y = torch.empty_like(x)
+    qkv = torch.empty((n * s, 3 * c), dtype=dt, device=x.device)
+    att = torch.empty((n * s, c), dtype=dt, device=x.device)
+    partial, stats = _stats_buffers(x, n, -(-s // 64), c, want_stats)
+    fn = _lib("spatial_attention_padded", "v2a_spatial_attention_padded", 12, 6)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(wq), _ptr(bq), _ptr(wo), _ptr(bo), _ptr(y),
+                _ptr(qkv), _ptr(att), _ptr(partial), _ptr(stats), n, h, w, wp, c,
+                _DTYPE_CODE[dt], _stream(x))
+    _raise_on(rc, "fused_spatial_attention_padded")
+    launches["fused_spatial_attention_padded"] += 1
+    return (y, stats) if want_stats else y
 
 
 # -- GroupNorm statistics fold --------------------------------------------------
