@@ -10,27 +10,32 @@ Phases (any failure exits non-zero):
   2. builds every kernel in `v2a_tpu_torch/csrc/` with nvcc (sm_90a), one
      nvcc per source, all started together;
   3. every kernel against its plain version in bf16 at every shape the
-     release-width U-Net forward (B=8) gives it, under four routings,
+     release-width U-Net forward (B=8) gives it, under six routings,
      recorded from one forward of each: the shipped padded-stream routing
      (K1, K2, K3, K4a, K4b, K5), the unpadded one (K1, K2), `padded_k8_k9`
      (the padded routing with K8 at the downsamples into a padded level and
-     K9 in every attention block) and `plain_k7` (the non-fused forward with
-     K7 in its GroupNorms). Padded-stream inputs carry NaN in their pad rows
-     and outputs must have exactly zero pad cols (K9's: every pad
-     position); K3 is also held against K4a -> K4b; K6-K9 two launches
-     bit-equal. Each shape is timed: kernel, plain version and PyTorch
-     yardstick (`library_ms`); at K3's shapes also the same work as K4a ->
-     K4b;
+     K9 in every attention block), `plain_k7` (the non-fused forward with
+     K7 in its GroupNorms), `spatial_k10_k11` (the K1 gate off: K10 at the
+     3x3 convs, K11 at the temporal convs) and `padded_k12` (the padded
+     routing with K12 in its convs without a skip fold). Padded-stream
+     inputs carry NaN in their pad rows and outputs must have exactly zero
+     pad cols (K9's: every pad position); K3 and K12 are also held against
+     K4a -> K4b; K6-K12 two launches bit-equal. Each shape is timed: kernel,
+     plain version and PyTorch yardstick (`library_ms`); at K3's and K12's
+     shapes also the same work as K4a -> K4b, at K11's its wrapper's copies;
   4. one release-width U-Net forward (B=8, F=7, 128^2, bf16) per routing:
      launch counts per kernel, each against the port's bf16 plain path and
-     a float32 plain reference, and the five paths' times in turns;
+     a float32 plain reference, and the seven paths' times in turns;
   5. serves requests through the shipped routing: `VideoPredModel.sample`
      (100-step ancestral chain) per task, then `DiffusionPolicy.
      predict_action` (DDIM-8) on (current frame, first goal frame); then one
-     goal-video request through each of `padded_k8_k9` and `plain_k7`
-     (`VideoModelConfig(downconv=True, attn_kernel=True)`,
-     `VideoModelConfig(fused=False, use_pallas_gn=True)`); checks shapes,
-     range, finiteness and each run's launch counts, then holds every kernel
+     goal-video request through each of `padded_k8_k9`, `plain_k7`,
+     `spatial_k10_k11` and `padded_k12` (`VideoModelConfig(downconv=True,
+     attn_kernel=True)`, `VideoModelConfig(fused=False,
+     use_pallas_gn=True)`, `VideoModelConfig(spatial2=False,
+     pallas_spatial=True, tconv_hw=True)`,
+     `VideoModelConfig(stream_kernel=True)`); checks shapes, range,
+     finiteness and each run's launch counts, then holds every kernel
      against its plain version at the shapes these serving runs gave it;
   6. trains: a release-width bf16 `VideoModelTrainer` at B=4 on synthetic
      uint8 clips, through `train()`, in three routings: train_fused with K6
@@ -42,7 +47,10 @@ Phases (any failure exits non-zero):
      per step by CUDA events, launches per step, finite loss and weights).
      Then K1 and K6 against their plain versions at every shape one train
      step gave them, and K6 at two small shapes; K6 two launches bit-equal;
-  7. prints the `kernels` JSON line, then the device line last.
+  7. trains the policy: `make_train_step(policy.loss, fused_clip_adamw,
+     EMAConfig())` at the release batch (64), bf16 compute, one warm-up and
+     three timed steps, the peak memory, finite loss and weights;
+  8. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
 Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainer
@@ -79,6 +87,8 @@ ROUTINGS = {
     "unpadded": dict(fused=True, padded_stream=False),
     "padded_k8_k9": dict(fused=True, downconv=True, attn_kernel=True),
     "plain_k7": dict(fused=False, use_pallas_gn=True),
+    "spatial_k10_k11": dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
+    "padded_k12": dict(fused=True, stream_kernel=True),
 }
 # launches per release forward of each routing (tests/test_torch_padded.py
 # traces the same counts on the meta device, tests/test_torch_serving_routes.py
@@ -93,10 +103,15 @@ EXPECTED_PER_FORWARD = {
                      "temporal_conv_padded": 19, "fused_upconv3x3_padded": 3,
                      "fused_downconv3x3_padded": 2, "fused_spatial_attention_padded": 11},
     "plain_k7": {"fused_group_norm_silu": 66},
+    "spatial_k10_k11": {"spatial_conv3x3": 73, "temporal_conv_fused_hw": 63},
+    "padded_k12": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30,
+                   "fused_conv_tconv_stream": 19, "fused_conv_tconv_padded": 5,
+                   "fused_affine_conv3x3_padded": 6, "temporal_conv_padded": 9,
+                   "fused_upconv3x3_padded": 3},
 }
 # the routings served one goal-video request each in phase 5, beside the
 # shipped one
-NEW_SERVED = ("padded_k8_k9", "plain_k7")
+NEW_SERVED = ("padded_k8_k9", "plain_k7", "spatial_k10_k11", "padded_k12")
 TRAIN_B, TRAIN_STEPS = 4, 3  # timed steps after one warm-up step
 TRAIN_ROUTINGS = {
     "k6": dict(train_fused=True, wgrad_kernel=True),
@@ -113,6 +128,9 @@ EXPECTED_PER_TRAIN_STEP = {
 # K6 also at two small shapes, where a lost pixel or a wrong border tap
 # shows above its gate: (N, H, W, C), D, affine, silu
 K6_SMALL = [((2, 8, 8, 128), 128, False, False), ((2, 8, 8, 128), 128, True, True)]
+# the policy train step: the release batch (`buf_sample_batch_size`) and the
+# timed steps after one warm-up step
+POLICY_B, POLICY_STEPS = 64, 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -191,6 +209,28 @@ def stats_rel_err(got, want):
         float((got[:, :, i] - want[:, :, i]).abs().max() / want[:, :, i].abs().max())
         for i in range(2)
     )
+
+
+def stats_ok(got, want, y_got, y_want):
+    """K11's and K12's statistics (B, F, 2, C), which each kernel takes of
+    its own rounded output y_got, against those its plain version takes of
+    y_want: within 1e-4 of the float32 sums of the kernel's own output (only
+    the summation order differs), and within 1e-3 of the plain statistics'
+    largest magnitude plus what the accepted output differences move the
+    sums by (sum_s |y_k - y_p| and sum_s |y_k^2 - y_p^2|). At S = 64 a few
+    one-ulp roundings of the output move a sum by more than 1e-3 of its
+    largest value (1.3e-3 seen for K11 at 64x8x7x640 with a residual, 1.1e-3
+    for K2 at the same shape with other inputs). Returns (ok, relative error
+    against the plain statistics)."""
+    yk = y_got.float().reshape(got.shape[0], got.shape[1], -1, got.shape[-1])
+    yp = y_want.float().reshape(yk.shape)
+    own = torch.stack([yk.sum(2), (yk * yk).sum(2)], 2)
+    slack = torch.stack([(yk - yp).abs().sum(2), (yk * yk - yp * yp).abs().sum(2)], 2)
+    ok = all(bool(((got[:, :, i] - want[:, :, i]).abs()
+                   <= 1e-3 * want[:, :, i].abs().max() + slack[:, :, i]).all())
+             for i in range(2))
+    return ok and stats_rel_err(got, own) <= 1e-4, stats_rel_err(got, want)
+
 
 
 class Inputs:
@@ -640,6 +680,136 @@ def check_k9(rk, key, inp, timed):
     return ok, abs_err, rel, st_err, times, flops, nbytes, label
 
 
+def check_k10(rk, key, inp, timed):
+    """K10 at one recorded signature: within one ulp of its plain version,
+    two launches bit-equal."""
+    _, (n, h, w, c), d = key
+    x = inp.randn(n, h, w, c).bfloat16()
+    kern = inp.randn(3, 3, c, d, scale=(9 * c) ** -0.5)
+    bias = inp.randn(d, scale=0.1)
+    got, again = rk.spatial_conv3x3(x, kern, bias), rk.spatial_conv3x3(x, kern, bias)
+    ok, abs_err, rel, _ = within_one_ulp(got, rk.spatial_conv3x3_plain(x, kern, bias))
+    ok = ok and torch.equal(got, again)
+    times = None
+    if timed:
+        times = dict(ms=time_ms(lambda: rk.spatial_conv3x3(x, kern, bias)),
+                     plain_ms=time_ms(lambda: rk.spatial_conv3x3_plain(x, kern, bias), 3, 1))
+        # yardstick: cuDNN on the same input, channels_last bf16
+        xl, wl, bl = x.permute(0, 3, 1, 2), _cl_weight([kern]), bias.bfloat16()
+        times["library_ms"] = time_ms(lambda: F.conv2d(xl, wl, bl, padding=1))
+    flops = 2.0 * n * (3 * h - 2) * (3 * w - 2) * c * d  # in-frame taps only
+    nbytes = 2 * (n * h * w * (c + d) + 9 * c * d) + 4 * d
+    return ok, abs_err, rel, None, times, flops, nbytes, f"K10 {n}x{h}x{w}x{c}->{d}"
+
+
+def check_k11(rk, key, inp, timed):
+    """K11 at one recorded signature (the wrapper: the copies into and out
+    of the (S, B, F, C) view and the kernel), as `check_k2`; two launches
+    bit-equal. Also times the copies alone (`copies_ms`): on the TPU they
+    were layout bitcasts."""
+    _, shape, has_emb, has_res, stats = key
+    b, f, c = shape[0], shape[1], shape[-1]
+    s = 1
+    for dim in shape[2:-1]:
+        s *= dim
+    x = inp.randn(*shape).bfloat16()
+    kern = inp.randn(3, c, c, scale=(3 * c) ** -0.5)
+    bias = inp.randn(c, scale=0.1)
+    emb = inp.randn(b, c).bfloat16() if has_emb else None
+    res = inp.randn(*shape).bfloat16() if has_res else None
+    args = (x, kern, bias, emb, res, stats)
+    got, again = rk.temporal_conv_fused_hw(*args), rk.temporal_conv_fused_hw(*args)
+    want = rk.temporal_conv_fused_hw_plain(*args)
+    st_ok, st_err = True, None
+    if stats:
+        (got, gst), (again, ast), (want, wst) = got, again, want
+        st_ok, st_err = stats_ok(gst, wst, got, want)
+        st_ok = st_ok and torch.equal(gst, ast)
+    ok, abs_err, rel, _ = within_one_ulp(got, want)
+    ok = ok and torch.equal(got, again) and st_ok
+    times = None
+    if timed:
+        yh = rk.hw_major(x)
+
+        def copies():  # the wrapper's copies into and out of the (S, B, F, C) view
+            rk.hw_major(x)
+            if res is not None:
+                rk.hw_major(res)
+            return yh.permute(1, 2, 0, 3).reshape(x.shape)
+
+        stacked, w2d = _stacked(x, b, f, c), kern.bfloat16().reshape(3 * c, c)
+        times = dict(ms=time_ms(lambda: rk.temporal_conv_fused_hw(*args)),
+                     plain_ms=time_ms(lambda: rk.temporal_conv_fused_hw_plain(*args), 3, 1),
+                     copies_ms=time_ms(copies),
+                     # yardstick: the permutes and one matmul of the
+                     # frame-stacked (B*F*S, 3C) x (3C, C) form
+                     library_ms=time_ms(lambda: (copies(), torch.matmul(stacked, w2d))))
+    flops = 2.0 * b * s * c * c * (3 * f - 2)  # the padded frame taps multiply zeros
+    nbytes = (2 * b * f * s * c * (2 + has_res) + 2 * 3 * c * c + 4 * c
+              + (4 * b * c if has_emb else 0) + (8 * b * f * c if stats else 0))
+    label = f"K11 {s}x{b}x{f}x{c} emb={int(has_emb)} res={int(has_res)} stats={int(stats)}"
+    return ok, abs_err, rel, st_err, times, flops, nbytes, label
+
+
+def check_k12(rk, key, inp, timed):
+    """K12 held as K3 (`check_k3`), without the skip fold: against K4a ->
+    K4b within one ulp, and against its plain chain within one ulp plus the
+    carried conv-output difference; statistics within 1e-3; two launches
+    bit-equal."""
+    _, (b, f), hw, cins, d, emb, res, silu, stats = key
+    h, w = hw
+    hp, wp = rk.padded_hw(h, w)
+    parts = inp.conv_parts((b, f), hw, cins, d)
+    kbias, tbias = inp.randn(d, scale=0.1), inp.randn(d, scale=0.1)
+    tk = inp.randn(3, d, d, scale=(3 * d) ** -0.5)
+    e, r, _, _ = inp.tconv_extras(b, f, hw, d, emb, res, ())
+    args = (parts, kbias, tk, tbias, hw, e, r, silu, stats)
+    got, again = rk.fused_conv_tconv_stream(*args), rk.fused_conv_tconv_stream(*args)
+    want = rk.fused_conv_tconv_stream_plain(*args)
+    flat = [(x.reshape(b * f, hp, wp, -1), k, a, bb) for x, k, a, bb in parts]
+    yk = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu)
+    yp = rk.fused_affine_conv3x3_padded_plain(flat, kbias, hw, silu)
+    two = rk.temporal_conv_padded(yk.reshape(b, f, hp, wp, d), tk, tbias, hw, e, r,
+                                  want_stats=stats)
+    st_ok, st_err = True, None
+    if stats:
+        (got, gst), (again, ast), (want, wst), (two, tst) = got, again, want, two
+        yg = rk._interior(got, hw)
+        st_ok, st_err = stats_ok(gst, wst, yg, rk._interior(want, hw))
+        st_ok = (st_ok and stats_ok(gst, tst, yg, rk._interior(two, hw))[0]
+                 and torch.equal(gst, ast))
+    ok_conv = check_stream(yk, yp, hw)[0]
+    ok_two, two_err, _, _ = check_stream(got, two, hw)
+    dy = (rk._interior(yk, hw).float() - rk._interior(yp, hw).float()).abs()
+    carried = _stacked(dy, b, f, d) @ tk.bfloat16().float().abs().reshape(3 * d, d)
+    ok, abs_err, rel, strict = check_stream(got, want, hw, carried.reshape(b, f, h, w, d))
+    bit_equal = torch.equal(got[:, :, 1:h + 1], again[:, :, 1:h + 1])
+    log(f"[kernels] K12 vs K4a->K4b max|err| {two_err:.3g}; vs its plain chain: {strict} "
+        f"elements beyond one ulp, all within the carried conv-output difference: {ok}; "
+        f"two launches bit-equal: {bit_equal}")
+    ok = ok and ok_conv and ok_two and bit_equal and st_ok
+    times = None
+    if timed:
+        times = dict(ms=time_ms(lambda: rk.fused_conv_tconv_stream(*args)),
+                     plain_ms=time_ms(lambda: rk.fused_conv_tconv_stream_plain(*args), 3, 1))
+        times["k4a_k4b_ms"] = time_ms(lambda: rk.temporal_conv_padded(
+            rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu).reshape(b, f, hp, wp, d),
+            tk, tbias, hw, e, r, want_stats=stats))
+        xa, wl = _activated(rk, parts, hw, silu), _cl_weight([p[1] for p in parts])
+        kb = kbias.bfloat16()
+        stacked = _stacked(F.conv2d(xa, wl, kb, padding=1).permute(0, 2, 3, 1), b, f, d)
+        w2d = tk.bfloat16().reshape(3 * d, d)
+        times["library_ms"] = time_ms(lambda: (
+            F.conv2d(xa, wl, kb, padding=1), torch.matmul(stacked, w2d)))
+    f1, b1 = _conv_cost(b * f, h, w, wp, cins, d)
+    f2, b2 = _tconv_cost(b, f, h, w, wp, d, emb, res, (), stats)
+    # the conv output stays on chip: neither its write nor its read counts
+    nbytes = b1 + b2 - 2 * b * f * h * wp * d - 2 * b * f * h * w * d
+    label = (f"K12 {b}x{f}x{h}x{w}x{'+'.join(map(str, cins))}->{d} emb={int(emb)} "
+             f"res={int(res)} silu={int(silu)}")
+    return ok, abs_err, rel, st_err, times, f1 + f2, nbytes, label
+
+
 # wrapper name -> (tag, signature from the bound call arguments, check)
 KERNEL_CHECKS = {
     "fused_affine_conv3x3": ("k1", lambda a: (
@@ -673,8 +843,22 @@ KERNEL_CHECKS = {
         a["x"].shape[0], tuple(a["hw"]), a["x"].shape[-1], bool(a["want_stats"])), check_k9),
     "fused_group_norm_silu": ("k7", lambda a: (
         tuple(a["x"].shape), a["groups"], bool(a["with_silu"])), check_k7),
+    "spatial_conv3x3": ("k10", lambda a: (tuple(a["x"].shape), a["kernel"].shape[-1]),
+                        check_k10),
+    "temporal_conv_fused_hw": ("k11", lambda a: (
+        tuple(a["x"].shape), a["emb"] is not None, a["residual"] is not None,
+        bool(a["want_stats"])), check_k11),
+    "fused_conv_tconv_stream": ("k12", lambda a: (
+        tuple(a["parts"][0][0].shape[:2]), tuple(a["hw"]),
+        tuple(p[0].shape[-1] for p in a["parts"]), a["parts"][0][1].shape[-1],
+        a["emb"] is not None, a["residual"] is not None, bool(a["silu"]),
+        bool(a["want_stats"])), check_k12),
 }
 TAG_NAME = {tag: name for name, (tag, _, _) in KERNEL_CHECKS.items()}
+# the kernels of the fifth slice: their shapes are checked after every
+# earlier kernel's, so that each earlier shape keeps its inputs (the seed of
+# a shape is SEED + its index in the list)
+LATER_TAGS = ("k10", "k11", "k12")
 
 
 @contextlib.contextmanager
@@ -713,13 +897,16 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
     {routing: {signature: calls}}. With `timed`, K2 without statistics (which
     the path never asks for) is added, each shape is timed, and per routing
     the per-kernel sums weight each shape by its calls in that routing."""
-    keys = sorted({k for calls in routing_calls.values() for k in calls}, key=str)
+    recorded = {k for calls in routing_calls.values() for k in calls}
+    keys = sorted((k for k in recorded if k[0] not in LATER_TAGS), key=str)
     no_stats = [k for k in keys if k[0] == "k2" and not k[2] and not k[3]]
     if timed and no_stats:
         keys.append(("k2", no_stats[0][1], False, False, False))
+    keys += sorted((k for k in recorded if k[0] in LATER_TAGS), key=str)
     rows = []
     agg = {r: {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_s=0.0,
-                          bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0) for name in rk.KERNELS}
+                          bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0, copies_ms=0.0)
+               for name in rk.KERNELS}
            for r in routing_calls}
     with torch.no_grad():
         for idx, key in enumerate(keys):
@@ -740,6 +927,7 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
                    f"lib={times['library_ms']:.3f} " if timed else "")
                 + (f"k4a+k4b={times['k4a_k4b_ms']:.3f} " if times and "k4a_k4b_ms" in times
                    else "")
+                + (f"copies={times['copies_ms']:.3f} " if times and "copies_ms" in times else "")
                 + f"bound={bound_ms:.3f}")
             if not ok:
                 fail(f"{label} disagrees with its plain version")
@@ -1065,6 +1253,65 @@ def train(rk, model, vcfg, dev):
     return report, calls, k6_launches
 
 
+def train_policy(dev):
+    """Phase 7: the policy train step at the release batch,
+    `make_train_step(policy.loss, fused_clip_adamw(cfg), EMAConfig())` on a
+    bf16-compute policy with float32 parameters and moments (the release
+    recipe: AdamW lr 1e-4, betas (0.95, 0.999), eps 1e-8, wd 1e-6, clip 1.0,
+    EMA power 0.75 every step), on a synthetic batch from the seed: one
+    warm-up step, then `POLICY_STEPS` steps timed by CUDA events; the peak
+    memory; finite loss, gradient norm, weights and EMA. It runs no kernel
+    of the port (plain PyTorch, as the JAX step runs plain XLA)."""
+    from v2a_tpu_torch.models.policy import DiffusionPolicy, PolicyConfig
+    from v2a_tpu_torch.train.train_state import (
+        EMAConfig, OptimizerConfig, PolicyTrainState, fused_clip_adamw, make_train_step)
+
+    policy = DiffusionPolicy.create(PolicyConfig(dtype="bfloat16"), device=dev).init(SEED)
+    policy.nets.requires_grad_(True)
+    cfg = policy.config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    h, w = cfg.image_size
+    batch = {"obs": {k: torch.rand(POLICY_B, h, w, 3, generator=gen, device=dev)
+                     for k in cfg.obs_keys},
+             "action": policy.action_norm.unnormalize(
+                 torch.rand(POLICY_B, cfg.horizon, cfg.action_dim, generator=gen, device=dev)
+                 * 2 - 1)}
+    torch.cuda.reset_peak_memory_stats()
+    tx = fused_clip_adamw(OptimizerConfig())
+    state = PolicyTrainState(policy.nets, tx)
+    step = make_train_step(policy.loss, tx, EMAConfig())
+    zero_launches()
+    events, outs = [], []
+    for _ in range(1 + POLICY_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs.append(step(state, batch, gen))
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    losses = [float(o.loss) for o in outs]
+    norms = [float(o.grad_norm) for o in outs]
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
+        fail(f"policy train step: non-finite loss {losses} or gradient norm {norms}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.params + state.ema_params):
+        fail("policy train step: non-finite weights or EMA")
+    if state.step != 1 + POLICY_STEPS or launches:
+        fail(f"policy train step: {state.step} steps, kernel launches {launches}")
+    report = dict(batch=POLICY_B, steps_timed=POLICY_STEPS, ms_per_step=ms[1:], warmup_ms=ms[0],
+                  loss=losses, grad_norm=norms,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  params_m=sum(p.numel() for p in state.params) / 1e6)
+    log(f"[policy-train] B={POLICY_B}, {report['params_m']:.1f} M params, bf16 compute: ms per "
+        f"step {[round(v, 2) for v in ms[1:]]} (warm-up {ms[0]:.1f}), losses "
+        f"{[round(v, 4) for v in losses]}, gradient norms {[round(v, 3) for v in norms]}, "
+        f"peak {report['peak_gib']:.2f} GiB")
+    del policy, state, step, batch, outs
+    torch.cuda.empty_cache()
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1150,20 +1397,26 @@ def main():
     train_report, train_calls, train_launches = train(rk, model, vcfg, dev)
     train_rows, train_agg = check_kernels(rk, {"train": train_calls}, dev, timed=True,
                                           tag="train-shapes")
+    # 7. the policy train step
+    policy_train = train_policy(dev)
 
-    # 7. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
-    # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K6 over one B=4 train step;
-    # launches over every main-path run (the served requests of all three
+    # 8. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
+    # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step;
+    # launches over every main-path run (the served requests of all five
     # routings and the K6 routing's train() run)
+    source_routing = {"fused_group_norm_silu": "plain_k7",
+                      "fused_downconv3x3_padded": "padded_k8_k9",
+                      "fused_spatial_attention_padded": "padded_k8_k9",
+                      "spatial_conv3x3": "spatial_k10_k11",
+                      "temporal_conv_fused_hw": "spatial_k10_k11",
+                      "fused_conv_tconv_stream": "padded_k12"}
+
     def entry(name, meta):
         if name == "wgrad_conv3x3":
             src = train_agg["train"][name]
-        elif name == "fused_group_norm_silu":
-            src = agg["plain_k7"][name]
-        elif name in ("fused_downconv3x3_padded", "fused_spatial_attention_padded"):
-            src = agg["padded_k8_k9"][name]
         else:
-            src = agg["padded"][name]
+            src = agg[source_routing.get(name, "padded")][name]
         errs = [src["max_abs_err"], train_agg["train"][name]["max_abs_err"]]
         errs += [a[name]["max_abs_err"] for a in serve_agg.values()]
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
@@ -1181,13 +1434,16 @@ def main():
                        requests_s=req, serve_launches=launches, new_routing_request_s=new_req,
                        new_routing_launches=new_launches, train=train_report,
                        train_launches=train_launches, train_shapes=train_rows,
-                       per_train_step=train_agg, kernels=kernels, **forward), fh, indent=1)
+                       per_train_step=train_agg, policy_train=policy_train, kernels=kernels,
+                       **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
         "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "
-        "over one of padded_k8_k9, K7 over one of plain_k7; K6's are sums over one B=4 "
-        "release train step (K1's per train step are in chiprun_out/chip_smoke_shapes.json, "
-        "per_train_step); launches are those of the served requests of the three routings "
-        "plus the K6 routing's train() run")
+        "over one of padded_k8_k9, K7 over one of plain_k7, K10 and K11 over one of "
+        "spatial_k10_k11 (K11's ms includes its wrapper's copies into and out of the "
+        "(S, B, F, C) view; copies alone in per_forward.spatial_k10_k11), K12 over one of "
+        "padded_k12; K6's are sums over one B=4 release train step (K1's per train step are "
+        "in chiprun_out/chip_smoke_shapes.json, per_train_step); launches are those of the "
+        "served requests of the five routings plus the K6 routing's train() run")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -560,3 +560,139 @@ def test_plain_k7_unet_matches_plain_on_the_card(cuda):
     _routing_vs_plain(cuda, 32, dict(fused=False, use_pallas_gn=True),
                       {"fused_group_norm_silu": 21},
                       channel_mult=(1, 2), attention_resolutions=(2,))
+
+
+# -- K10, K11, K12: the routings without the K1 gate, and the streaming kernel ----
+
+
+def _refuses_grad(fn, *args):
+    """A kernel wrapper given an input that requires grad, under grad mode."""
+    with pytest.raises(RuntimeError, match="has no backward"):
+        fn(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,w,c,d", [(3, 8, 8, 128, 128), (2, 5, 7, 32, 64),
+                                       (2, 12, 100, 64, 128), (2, 64, 64, 256, 256)])
+def test_spatial_conv3x3_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
+    """K10 within one ulp of its plain version, two launches bit-equal; the
+    64-pixel tiles cover a row segment (W >= 64), two rows (W = 100) or many
+    rows (W = 7) of the band."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype)
+    k = torch.randn(3, 3, c, d, generator=g, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=g, device=cuda) * 0.1
+    before = rk.launches["spatial_conv3x3"]
+    got, again = rk.spatial_conv3x3(x, k, bias), rk.spatial_conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert rk.launches["spatial_conv3x3"] == before + 2
+    assert torch.equal(got, again)
+    ok, rel = _within_ulp(got, rk.spatial_conv3x3_plain(x, k, bias), dtype)
+    assert ok, f"max err / std {rel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("extras", [(False, False, False), (True, True, True),
+                                    (True, False, True)])
+@pytest.mark.parametrize("b,f,s,c", [(2, 7, 64, 128), (1, 3, 1000, 256), (2, 2, 16, 64),
+                                     (8, 7, 4096, 256)])
+def test_temporal_conv_hw_kernel_matches_plain(cuda, dtype, extras, b, f, s, c):
+    """K11 (with the wrapper's copies into and out of the (S, B, F, C) view)
+    within one ulp of its plain version, statistics within 1e-3, two
+    launches bit-equal."""
+    has_emb, has_res, stats = extras
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(b, f, s, c, generator=g, device=cuda).to(dtype)
+    k = torch.randn(3, c, c, generator=g, device=cuda) / (3 * c) ** 0.5
+    bias = torch.randn(c, generator=g, device=cuda) * 0.1
+    emb = torch.randn(b, c, generator=g, device=cuda).to(dtype) if has_emb else None
+    res = torch.randn(b, f, s, c, generator=g, device=cuda).to(dtype) if has_res else None
+    before = rk.launches["temporal_conv_fused_hw"]
+    got = rk.temporal_conv_fused_hw(x, k, bias, emb, res, want_stats=stats)
+    again = rk.temporal_conv_fused_hw(x, k, bias, emb, res, want_stats=stats)
+    torch.cuda.synchronize()
+    assert rk.launches["temporal_conv_fused_hw"] == before + 2
+    want = rk.temporal_conv_fused_hw_plain(x, k, bias, emb, res, want_stats=stats)
+    if stats:
+        (got, gst), (again, ast), (want, wst) = got, again, want
+        assert torch.equal(gst, ast)
+        _stats_close(gst, wst)
+    assert got.shape == x.shape and torch.equal(got, again)
+    ok, rel = _within_ulp(got, want, dtype)
+    assert ok, f"max err / std {rel}"
+
+
+K12_SHAPES = PADDED_SHAPES + [(2, 7, (64, 64), (256,), 256), (2, 7, (32, 32), (384, 384), 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu,emb,res", [(True, True, True), (False, False, False),
+                                          (True, True, False)])
+@pytest.mark.parametrize("b,f,hw,cins,d", K12_SHAPES)
+def test_conv_tconv_stream_kernel_matches_plain(cuda, dtype, silu, emb, res, b, f, hw, cins, d):
+    """K12 from NaN-padded streams, held as K3 is: against K4a -> K4b within
+    one ulp, and against its plain version one rounding at a time (its conv
+    half, which K4a computes, within one ulp of the plain conv; its output
+    within one ulp of the plain temporal conv of that conv output);
+    statistics within 1e-3; pad cols exactly zero; two launches bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    parts = _conv_parts(gen, cuda, dtype, (b, f), hw, cins, d)
+    kbias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    tk = torch.randn(3, d, d, generator=gen, device=cuda) / (3 * d) ** 0.5
+    tb, e, r, _, _ = _tconv_extras(gen, cuda, dtype, b, f, hw, d, emb, res, ())
+    args = (parts, kbias, tk, tb, hw, e, r, silu, True)
+    before = rk.launches["fused_conv_tconv_stream"]
+    (got, gst), (again, ast) = rk.fused_conv_tconv_stream(*args), rk.fused_conv_tconv_stream(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_conv_tconv_stream"] == before + 2
+    h = hw[0]
+    assert torch.equal(got[:, :, 1:h + 1], again[:, :, 1:h + 1]) and torch.equal(gst, ast)
+    _, wst = rk.fused_conv_tconv_stream_plain(*args)
+    _stats_close(gst, wst)
+    hp, wp = rk.padded_hw(*hw)
+    flat = [(x.reshape(b * f, hp, wp, -1), kk, a, bb) for x, kk, a, bb in parts]
+    y = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu)
+    _check_padded(y, rk.fused_affine_conv3x3_padded_plain(flat, kbias, hw, silu), hw, dtype)
+    y = y.reshape(b, f, hp, wp, d)
+    half, _ = rk.temporal_conv_padded_plain(y, tk, tb, hw, e, r, want_stats=True)
+    _check_padded(got, half, hw, dtype)
+    two, tst = rk.temporal_conv_padded(y, tk, tb, hw, e, r, want_stats=True)
+    _stats_close(gst, tst)
+    _check_padded(got, two, hw, dtype)
+
+
+def test_new_wrappers_refuse_a_differentiated_call(cuda):
+    """K10-K12 have no backward, like K1-K9: an input that requires grad
+    under grad mode raises instead of losing the gradient."""
+    x = torch.zeros(1, 4, 4, 64, device=cuda, requires_grad=True)
+    _refuses_grad(rk.spatial_conv3x3, x, torch.zeros(3, 3, 64, 64, device=cuda),
+                  torch.zeros(64, device=cuda))
+    _refuses_grad(rk.temporal_conv_fused_hw, torch.zeros(1, 2, 16, 64, device=cuda),
+                  torch.zeros(3, 64, 64, device=cuda, requires_grad=True),
+                  torch.zeros(64, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    parts = _conv_parts(gen, cuda, torch.float32, (1, 2), (8, 8), (64,), 64)
+    kb = torch.zeros(64, device=cuda, requires_grad=True)
+    _refuses_grad(rk.fused_conv_tconv_stream, parts, kb, torch.zeros(3, 64, 64, device=cuda),
+                  torch.zeros(64, device=cuda), (8, 8))
+    with torch.no_grad():
+        rk.spatial_conv3x3(x, torch.zeros(3, 3, 64, 64, device=cuda), torch.zeros(64, device=cuda))
+
+
+def test_spatial_k10_k11_unet_matches_plain_on_the_card(cuda):
+    """32x32, mult (1, 2), attention at ds 2, the K1 gate off: K10 at every
+    3x3 stride-1 conv with 128-multiple channels (one launch per channel
+    part), K11 at every temporal conv."""
+    _routing_vs_plain(cuda, 32, dict(spatial2=False, pallas_spatial=True, tconv_hw=True),
+                      {"spatial_conv3x3": 21, "temporal_conv_fused_hw": 19},
+                      channel_mult=(1, 2), attention_resolutions=(2,))
+
+
+def test_padded_k12_unet_matches_plain_on_the_card(cuda):
+    """32x32, mult (1, 2), attention at ds 2, the padded routing with the
+    streaming kernel: K12 in the padded convs without a skip fold."""
+    _routing_vs_plain(cuda, 32, dict(stream_kernel=True),
+                      {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
+                       "fused_conv_tconv_stream": 4, "fused_conv_tconv_padded": 2,
+                       "temporal_conv_padded": 1, "fused_upconv3x3_padded": 1},
+                      channel_mult=(1, 2), attention_resolutions=(2,))

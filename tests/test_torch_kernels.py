@@ -24,6 +24,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=2e-4, rtol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for torch while a module of these tests runs.
+    The suite runs in several worker processes at once (pytest-xdist): with
+    a thread pool per core in every process, torch's threads oversubscribe
+    the cores and waiting for them took most of these tests' time. The
+    other `tests/test_torch_*.py` CPU files import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return None if a is None else torch.from_numpy(np.asarray(a, np.float32))
 

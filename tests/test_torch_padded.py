@@ -21,6 +21,7 @@ jax = pytest.importorskip("jax")
 pytest.importorskip("flax")  # the JAX package's models need it
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from test_torch_video import UNET_TOL, _load, _unet_inputs, japply, random_params  # noqa: E402
 from v2a_tpu.models import video_unet as jvu  # noqa: E402
 from v2a_tpu.ops import resblock_kernels as jrk  # noqa: E402
@@ -249,14 +250,15 @@ def _jax_defaults(monkeypatch):
 
 
 def test_padded_unet_matches_jax_default_routing(monkeypatch):
-    """mc 128, mult (1, 2), attention at ds 2, 32x32, F=2: the 32x32 level
+    """mc 128, mult (1, 2), attention at ds 2, 24x24 (576 interior pixels,
+    the smallest square level the padded stream takes), F=2: the 24x24 level
     runs the padded stream (K3 in every ResBlock conv, K5 + K4b for the
-    upsample), the 16x16 level K1 / K2, exactly as the JAX package."""
+    upsample), the 12x12 level K1 / K2, exactly as the JAX package."""
     _jax_defaults(monkeypatch)
     kw = dict(in_channels=6, model_channels=128, out_channels=3, num_res_blocks=1,
               attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=32,
               task_token_dim=64)
-    x, t, tok = _unet_inputs(32, seed=13)
+    x, t, tok = _unet_inputs(24, seed=13)
     params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=13)
     jcalls = _counting(monkeypatch, _jax_module, trk.KERNELS)
     want = japply(jvu.VideoUNet(fused=True, **kw), params, x, t, tok)
@@ -275,7 +277,7 @@ def test_padded_unet_matches_jax_default_routing(monkeypatch):
 
 
 def test_padded_unet_reaches_k4a(monkeypatch):
-    """mc 128, mult (3, 4), 32x32, F=4: the JAX rule sends three of the
+    """mc 128, mult (3, 4), 24x24, F=4: the JAX rule sends some of the
     level-0 convs to K4a + K4b. Counts from the JAX package by
     `jax.eval_shape` (its forward at this width is slow on the CPU); the
     port's output against its own plain path."""
@@ -284,7 +286,7 @@ def test_padded_unet_reaches_k4a(monkeypatch):
               attention_resolutions=(), channel_mult=(3, 4), num_head_channels=32,
               task_token_dim=64)
     rs = np.random.RandomState(17)
-    x = rs.randn(1, 4, 32, 32, 6).astype(np.float32)
+    x = rs.randn(1, 4, 24, 24, 6).astype(np.float32)
     t, tok = np.array([7]), rs.randn(1, 4, 64).astype(np.float32)
     params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=17)
     jcalls = _counting(monkeypatch, _jax_module, trk.KERNELS)
@@ -293,8 +295,8 @@ def test_padded_unet_reaches_k4a(monkeypatch):
     got = _load(tvu.VideoUNet(fused=True, **kw), params)(_t(x), torch.from_numpy(t), _t(tok))
     want = _load(tvu.VideoUNet(**kw), params)(_t(x), torch.from_numpy(t), _t(tok))
     assert jcalls == tcalls == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
-                                "fused_conv_tconv_padded": 3, "fused_affine_conv3x3_padded": 3,
-                                "temporal_conv_padded": 4, "fused_upconv3x3_padded": 1}
+                                "fused_conv_tconv_padded": 2, "fused_affine_conv3x3_padded": 4,
+                                "temporal_conv_padded": 5, "fused_upconv3x3_padded": 1}
     np.testing.assert_allclose(got.numpy(), want.numpy(), **UNET_TOL)
 
 
@@ -313,7 +315,17 @@ def test_padded_unet_reaches_k4a(monkeypatch):
       "fused_spatial_attention_padded": 11}),
     # K7: 27 ResBlocks x 2, 11 attention norms, the output norm
     (dict(use_pallas_gn=True), {"fused_group_norm_silu": 66}),
-], ids=["padded", "unpadded", "padded_k8_k9", "plain_k7"])
+    # the K1 gate off: K10 at every 3x3 stride-1 conv (a launch per part of
+    # the up path's pairs), K11 at every temporal conv
+    (dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
+     {"spatial_conv3x3": 73, "temporal_conv_fused_hw": 63}),
+    # K12 in the 19 padded convs without a skip fold, in place of 11 K3 and
+    # 8 K4a -> K4b
+    (dict(fused=True, stream_kernel=True),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_stream": 19,
+      "fused_conv_tconv_padded": 5, "fused_affine_conv3x3_padded": 6, "temporal_conv_padded": 9,
+      "fused_upconv3x3_padded": 3}),
+], ids=["padded", "unpadded", "padded_k8_k9", "plain_k7", "spatial_k10_k11", "padded_k12"])
 def test_release_forward_launch_counts(monkeypatch, routing, counts):
     """The release U-Net (128^2, F=7, mc 128, mult (1,2,3,4,5), 2 res blocks,
     attention at ds 8 / 16, bf16) traced on the meta device: the kernels

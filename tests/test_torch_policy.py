@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 pytest.importorskip("flax")  # the JAX package's models need it
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from v2a_tpu.models import normalizer as jnorm  # noqa: E402
 from v2a_tpu.models import policy as jpolicy  # noqa: E402
 from v2a_tpu.ops import action_scheduler as jsched  # noqa: E402

@@ -26,6 +26,7 @@ jax = pytest.importorskip("jax")
 pytest.importorskip("flax")  # the JAX package's models need it
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from test_torch_padded import _counting, _jax_defaults, _jax_module, _streams  # noqa: E402
 from test_torch_video import UNET_TOL, _load, _unet_inputs, japply, random_params  # noqa: E402
 from v2a_tpu.models import video_model as jvm  # noqa: E402
@@ -364,15 +365,16 @@ def test_attention_block_kernel_matches_jax(monkeypatch, padded):
 
 
 def test_attn_kernel_unet_matches_jax(monkeypatch):
-    """mc 128, mult (1, 2), attention at ds 2, 32x32, F=2: K9 enters the
-    padded layout at 16x16 in its four attention blocks, beside the padded
-    routing of the 32x32 level, as the JAX package with `PERF_PALLAS_ATTN`."""
+    """mc 128, mult (1, 2), attention at ds 2, 24x24 (576 interior pixels,
+    the smallest square level the padded stream takes), F=2: K9 enters the
+    padded layout at 12x12 in its four attention blocks, beside the padded
+    routing of the 24x24 level, as the JAX package with `PERF_PALLAS_ATTN`."""
     _jax_defaults(monkeypatch)
     monkeypatch.setattr(jvu, "PERF_PALLAS_ATTN", True)
     kw = dict(in_channels=6, model_channels=128, out_channels=3, num_res_blocks=1,
               attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=32,
               task_token_dim=64)
-    x, t, tok = _unet_inputs(32, seed=27)
+    x, t, tok = _unet_inputs(24, seed=27)
     params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=27)
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     want = japply(jvu.VideoUNet(fused=True, **kw), params, x, t, tok)
@@ -432,7 +434,13 @@ def test_downconv_unet_launches_and_output(monkeypatch):
 
 ROUTES = {"padded_k8_k9": (dict(PERF_DOWNCONV=True, PERF_PALLAS_ATTN=True), dict(fused=True),
                            dict(fused=True, downconv=True, attn_kernel=True)),
-          "plain_k7": (dict(), dict(use_pallas_gn=True), dict(use_pallas_gn=True))}
+          "plain_k7": (dict(), dict(use_pallas_gn=True), dict(use_pallas_gn=True)),
+          "spatial_k10_k11": (dict(PERF_PALLAS_SPATIAL2_MIN_CH=0, PERF_PALLAS_SPATIAL=True,
+                                   PERF_TCONV_HW=True), dict(fused=True),
+                              dict(fused=True, spatial2=False, pallas_spatial=True,
+                                   tconv_hw=True)),
+          "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True),
+                         dict(fused=True, stream_kernel=True))}
 
 
 @functools.lru_cache(maxsize=None)

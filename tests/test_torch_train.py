@@ -17,6 +17,7 @@ pytest.importorskip("flax")  # the JAX package's models need it
 pytest.importorskip("optax")  # the JAX trainer needs it
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from test_torch_padded import _counting  # noqa: E402
 from test_torch_video import _t, random_params  # noqa: E402
 from v2a_tpu.models import video_model as jvm  # noqa: E402
@@ -156,9 +157,12 @@ UNET_KW = dict(in_channels=6, model_channels=128, out_channels=3, num_res_blocks
                task_token_dim=64)  # tests/test_conv_vjp.py:94-107
 
 
+@functools.lru_cache(maxsize=None)
 def _unet_problem():
+    """8x8, F=2: the smallest input at which every conv of the small U-Net
+    still passes K1's gate (both levels, the upsample conv)."""
     rs = np.random.RandomState(21)
-    x = rs.randn(1, 2, 16, 16, 6).astype(np.float32)
+    x = rs.randn(1, 2, 8, 8, 6).astype(np.float32)
     t, tok = np.array([3]), rs.randn(1, 4, 64).astype(np.float32)
     params = random_params(jvu.VideoUNet(**UNET_KW), x, t, tok, seed=21)
     return x, t, tok, params
@@ -169,6 +173,14 @@ def _port_grads(net, params, x, t, tok):
     loss = (net(_t(x), torch.from_numpy(t), _t(tok)) ** 2).mean()
     loss.backward()
     return loss.item(), {k: p.grad for k, p in net.named_parameters()}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_grads():
+    """The port's plain-path loss and gradients on `_unet_problem`, once for
+    both wgrad routings."""
+    x, t, tok, params = _unet_problem()
+    return _port_grads(tvu.VideoUNet(**UNET_KW), params, x, t, tok)
 
 
 @pytest.mark.parametrize("wgrad", [False, True], ids=["xla_wgrad", "k6_wgrad"])
@@ -190,7 +202,7 @@ def test_train_fused_unet_matches_jax(monkeypatch, wgrad):
     v1, got = _port_grads(net, params, x, t, tok)
     assert calls == ({"fused_affine_conv3x3": 34, "wgrad_conv3x3": 17} if wgrad
                      else {"fused_affine_conv3x3": 34})
-    v2, plain = _port_grads(tvu.VideoUNet(**UNET_KW), params, x, t, tok)
+    v2, plain = _plain_grads()
     np.testing.assert_allclose(v1, float(v0), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(v1, v2, rtol=1e-5, atol=1e-6)
     assert got.keys() == want.keys() == plain.keys()

@@ -17,6 +17,7 @@ jax = pytest.importorskip("jax")
 pytest.importorskip("flax")  # the JAX package's models need it
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from v2a_tpu.models import clip_text as jclip  # noqa: E402
 from v2a_tpu.models import perceiver as jperc  # noqa: E402
 from v2a_tpu.models import video_model as jvm  # noqa: E402
@@ -178,13 +179,14 @@ def test_video_unet_plain_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
 
 
-@pytest.mark.parametrize("mc,hw,n_k1,n_k2", [(128, 8, 21, 19), (128, 32, 21, 19),
+@pytest.mark.parametrize("mc,hw,n_k1,n_k2", [(128, 8, 21, 19), (128, 24, 21, 19),
                                               (64, 8, 10, 11)])
 def test_video_unet_fused_routing_matches_jax(mc, hw, n_k1, n_k2, monkeypatch):
     """The unpadded fused routing (K1 at every 128-multiple 3x3 conv, incl.
     the split-skip up blocks and the upsample conv; K2 at every temporal
     conv; the statistics chain) against JAX fused=True with the padded
-    stream off. 32x32 engages the banded K1 body on the JAX side. At mc 64
+    stream off. 24x24 (576 pixels > 512) engages the banded K1 body on the
+    JAX side. At mc 64
     only the 128-channel level routes to the kernels; the 64-channel blocks
     take the fused branches that materialize the norm instead."""
     monkeypatch.setattr(jvu, "PERF_PADDED_STREAM", False)

@@ -1,9 +1,13 @@
-"""Goal-conditioned action-diffusion policy: action sampling.
+"""Goal-conditioned action-diffusion policy: the training loss and action
+sampling.
 
 Counterpart of `v2a_tpu/models/policy.py` (the reference's
 `DiffusionUnetImagePolicy`): the observation encoder runs once per
-prediction, then DDIM-8 (or DDPM) steps over the action U-Net. The policy
-runs on the card by default; `device="cpu"` is for tests.
+prediction, then DDIM-8 (or DDPM) steps over the action U-Net; `loss` is
+the denoising objective `train/train_state.py::make_train_step` trains. The
+policy runs on the card by default; `device="cpu"` is for tests. The
+encoder runs one trunk per image key; the JAX package's `PERF_VMAP_ENC`
+computes the same function through one vmapped trunk and is not ported.
 
 Batch convention (channels-last):
     obs:    {key: (B, H, W, 3)} float32 in [0, 1]
@@ -120,11 +124,44 @@ class DiffusionPolicy:
         self.nets.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
         return self
 
-    @torch.no_grad()
-    def encode_obs(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _encode(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         nobs = {k: self.image_norm.normalize(torch.as_tensor(v, device=self.device).float())
                 for k, v in obs.items()}
         return self.nets.obs_encoder(nobs)
+
+    @torch.no_grad()
+    def encode_obs(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self._encode(obs)
+
+    def loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
+             timesteps: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoising loss (`v2a_tpu/models/policy.py:231-254`): the
+        normalized observations through the encoder, the normalized actions
+        noised by DDPM at uniform timesteps, and the mean squared error of
+        the U-Net's prediction against the noise (epsilon) or the actions.
+
+        batch: {"obs": {key: (B, H, W, 3) in [0, 1]}, "action": (B, horizon,
+        Da) in action units}. `timesteps` (B,) and `noise` (B, horizon, Da)
+        replace the draws from `generator` (timesteps first, as the JAX
+        package draws them), so that a test can hand in the JAX draws.
+        Differentiable through `nets` once its parameters require grad."""
+        cfg = self.config
+        nactions = self.action_norm.normalize(
+            torch.as_tensor(batch["action"], device=self.device).float())
+        b = nactions.shape[0]
+        global_cond = self._encode(batch["obs"])
+        if timesteps is None:
+            timesteps = torch.randint(0, cfg.num_train_timesteps, (b,), generator=generator,
+                                      device=self.device)
+        if noise is None:
+            noise = torch.randn(nactions.shape, generator=generator, device=self.device)
+        timesteps = torch.as_tensor(timesteps, device=self.device)
+        noise = torch.as_tensor(noise, device=self.device).float()
+        noisy = self.ddpm.add_noise(nactions, noise, timesteps)
+        pred = self.nets.unet(noisy, timesteps, global_cond)
+        target = noise if cfg.prediction_type == "epsilon" else nactions
+        return ((pred - target) ** 2).mean()
 
     @torch.no_grad()
     def predict_action(self, obs: Dict[str, torch.Tensor], use_ddim: bool = True,

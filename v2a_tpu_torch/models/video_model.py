@@ -65,6 +65,15 @@ class VideoModelConfig:
     attn_kernel: bool = False
     # without `fused`: the GroupNorms through K7 (the JAX config field)
     use_pallas_gn: bool = False
+    # with `fused`, the conv switches of `video_unet.ConvRouting`: the K1
+    # gate (False: V2A_SPATIAL2_MIN_CH=0, and no padded stream), the convs
+    # it leaves through K10 (PERF_PALLAS_SPATIAL), the temporal convs
+    # through K11 (PERF_TCONV_HW), the padded convs without a skip fold
+    # through K12 (V2A_STREAM_KERNEL=1)
+    spatial2: bool = True
+    pallas_spatial: bool = False
+    tconv_hw: bool = False
+    stream_kernel: bool = False
 
     @property
     def video_future_horizon(self) -> int:
@@ -122,7 +131,9 @@ class VideoPredModel:
             num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
             dtype=dtype_of(cfg.dtype), fused=fused, padded_stream=cfg.padded_stream,
             train_fused=train_fused, wgrad_kernel=wgrad_kernel, downconv=cfg.downconv,
-            attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn,
+            attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn, spatial2=cfg.spatial2,
+            pallas_spatial=cfg.pallas_spatial, tconv_hw=cfg.tconv_hw,
+            stream_kernel=cfg.stream_kernel,
         )
 
     @property

@@ -39,6 +39,14 @@ Perceiver-pooled CLIP text conditioning.
   K9, `fused_spatial_attention_padded`), both with `fused`; and
   `use_pallas_gn` (the non-fused forward's GroupNorms without forwarded
   statistics through K7, `ops/group_norm.py`).
+- The conv switches of `ConvRouting`, with `fused`: `spatial2=False` (the
+  JAX package's `V2A_SPATIAL2_MIN_CH=0`) turns the K1 gate off, and with it
+  the padded stream; `pallas_spatial` then sends the 3x3 stride-1 convs
+  with 128-multiple channels to K10 (`spatial_conv3x3`, one launch per
+  channel part, the parts summed in the compute dtype); `tconv_hw` swaps K2
+  for K11 (`temporal_conv_fused_hw`); `stream_kernel` takes K12
+  (`fused_conv_tconv_stream`) before K3 in every padded conv without a skip
+  fold where `rk.stream_band_rows` admits it.
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
 temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
@@ -47,6 +55,7 @@ routings take the same parameters.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence
 
@@ -77,6 +86,25 @@ def padded_eligible(features: int, cins, hw: int) -> bool:
     """Gate of the padded-stream layout (`v2a_tpu/models/video_unet.py:197`):
     the K1 gate and H*W > 512, i.e. the 128^2 .. 32^2 levels."""
     return spatial2_eligible(features, cins, hw, 3, 1) and hw > 512
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvRouting:
+    """The fused forward's conv switches, each a module flag of the JAX
+    package (`v2a_tpu/models/video_unet.py:53-137`), each at its JAX default.
+
+    spatial2: the K1 gate (`spatial2_eligible`) and with it the padded
+        stream and `train_fused`; False is `V2A_SPATIAL2_MIN_CH=0`.
+    pallas_spatial: K10 for the 3x3 stride-1 convs the K1 gate leaves
+        (`PERF_PALLAS_SPATIAL`, :531-577, :679-694).
+    tconv_hw: K11 in place of K2 (`PERF_TCONV_HW`, :784).
+    stream_kernel: K12 before K3 in the padded conv (`V2A_STREAM_KERNEL=1`,
+        :945-979)."""
+
+    spatial2: bool = True
+    pallas_spatial: bool = False
+    tconv_hw: bool = False
+    stream_kernel: bool = False
 
 
 class PaddedStream:
@@ -199,14 +227,16 @@ class PseudoConv3d(nn.Module):
     inputs take the padded-stream kernels (`_padded`). `train_fused` at the
     call (a single tensor, not `fused`) sends a K1-eligible spatial conv
     through `ops/conv_vjp.py`, with K6 as its wgrad when `wgrad_kernel`
-    (`v2a_tpu/models/video_unet.py:613-657`)."""
+    (`v2a_tpu/models/video_unet.py:613-657`). `routing`: the K1 gate, K10,
+    K11 and K12 (`ConvRouting`)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
-                 wgrad_kernel: bool = False):
+                 wgrad_kernel: bool = False, routing: ConvRouting = ConvRouting()):
         super().__init__()
         self.features, self.k, self.stride = features, kernel_size, stride
         self.dtype, self.fused, self.wgrad_kernel = dtype, fused, wgrad_kernel
+        self.routing = routing
         self.spatial_conv = _Conv(kernel_size, cin, features)
         if kernel_size > 1:
             self.temporal_conv = _TemporalConv(features, kernel_size)
@@ -223,9 +253,14 @@ class PseudoConv3d(nn.Module):
         b, f, h, w = parts[0].shape[:4]
         dt, k, feat = self.dtype, self.k, self.features
         kernel, kbias = self.spatial_conv.kernel, self.spatial_conv.bias
-        eligible = spatial2_eligible(feat, [p.shape[-1] for p in parts], h * w, k, self.stride)
+        cins = [p.shape[-1] for p in parts]
+        eligible = self.routing.spatial2 and spatial2_eligible(feat, cins, h * w, k, self.stride)
         use_k1 = self.fused and eligible
         use_tf = train_fused and not self.fused and len(parts) == 1 and eligible
+        # K10: what the K1 gate leaves of the 3x3 stride-1 convs, channels in
+        # multiples of 128 (:531-545, :679-685)
+        use_k10 = (self.fused and not use_k1 and self.routing.pallas_spatial and k == 3
+                   and self.stride == 1 and feat % 128 == 0 and all(c % 128 == 0 for c in cins))
         if pre_affine is not None and not (use_k1 or use_tf):
             raise ValueError("pre_affine requires the K1-eligible fused path")
         y, off = None, 0
@@ -250,6 +285,11 @@ class PseudoConv3d(nn.Module):
                     x4.contiguous(), wpart, kbias if y is None else torch.zeros_like(kbias),
                     af, bf_, silu=pre_affine is not None,
                 )
+            elif use_k10:
+                # one launch per part, the bias with the first; the parts sum
+                # in dtype, rounded after each (:568-577, :599)
+                yp = rk.spatial_conv3x3(x4.contiguous(), wpart,
+                                        kbias if y is None else torch.zeros_like(kbias))
             elif k == 1 and self.stride == 1:
                 yp = x4 @ wpart.reshape(pc, feat).to(dt)
             else:
@@ -259,16 +299,16 @@ class PseudoConv3d(nn.Module):
                 ).permute(0, 2, 3, 1)
             y = yp if y is None else y + yp
             off += pc
-        if not (use_k1 or use_tf):
+        if not (use_k1 or use_tf or use_k10):
             y = y + kbias.to(dt)
         y = y.reshape(b, f, y.shape[1], y.shape[2], feat)
         if k > 1:
             tk, tb = self.temporal_conv.kernel, self.temporal_conv.bias
             if self.fused and feat % 128 == 0:
-                return rk.temporal_conv_fused(
-                    y.to(dt).contiguous(), tk, tb, emb=emb, residual=residual,
-                    want_stats=want_stats,
-                )
+                tconv = (rk.temporal_conv_fused_hw if self.routing.tconv_hw
+                         else rk.temporal_conv_fused)
+                return tconv(y.to(dt).contiguous(), tk, tb, emb=emb, residual=residual,
+                             want_stats=want_stats)
             # zero-padded frames, the three taps as one (3C, C) product
             yp = F.pad(y, (0, 0, 0, 0, 0, 0, 1, 1))
             cat = torch.cat([yp[:, 0:f], yp[:, 1:f + 1], yp[:, 2:f + 2]], dim=-1)
@@ -286,8 +326,10 @@ class PseudoConv3d(nn.Module):
         """The padded-stream conv (`v2a_tpu/models/video_unet.py:806-1032`),
         3x3 only. Stride 2 (the Downsample's): K8 to the halved size, then
         K4b there. `upsample2x`: K5 from the low-res stream, then K4b at the
-        doubled size. Otherwise K3 where the JAX package's rule
-        (`rk.conv_tconv_band_rows`) admits it, else K4a then K4b. `skip` is
+        doubled size. Otherwise, with `routing.stream_kernel` and no skip
+        fold, K12 where `rk.stream_band_rows` admits it; else K3 where the
+        JAX package's rule (`rk.conv_tconv_band_rows`) admits it, else K4a
+        then K4b. `skip` is
         (streams, kernel (C_in, D), bias): the ResBlock's 1x1 skip
         projection, folded into the temporal conv. Returns a PaddedStream
         [, stats (B, F, 2, D)]."""
@@ -338,11 +380,17 @@ class PseudoConv3d(nn.Module):
                     skip_parts.append((p.x.to(dt), s_kernel[off:off + pc]))
                     off += pc
             res = residual.x if residual is not None else None
-            mega = rk.conv_tconv_band_rows(
-                hw[0], hw[1], wp, [p.x.shape[-1] for p in parts], feat, f,
+            cins = [p.x.shape[-1] for p in parts]
+            stream = (self.routing.stream_kernel and skip is None
+                      and rk.stream_band_rows(hw[0], hw[1], wp, cins, feat) > 0)
+            mega = not stream and rk.conv_tconv_band_rows(
+                hw[0], hw[1], wp, cins, feat, f,
                 has_res=res is not None, skip_cins=[p[0].shape[-1] for p in skip_parts or ()],
             ) > 0
-            if mega:
+            if stream:
+                out = rk.fused_conv_tconv_stream(mparts, kbias, tk, tb, hw, emb, res, silu=True,
+                                                 want_stats=want_stats)
+            elif mega:
                 out = rk.fused_conv_tconv_padded(mparts, kbias, tk, tb, hw, emb, res, skip_parts,
                                                  s_bias, silu=True, want_stats=want_stats)
             else:
@@ -362,25 +410,27 @@ class ResBlock3D(nn.Module):
     the (h, skip) pair of the up path unconcatenated. `train_fused` (without
     `fused`): where C and out_channels pass K1's gate, both GroupNorms hand
     their affine to the differentiable convs of `ops/conv_vjp.py`
-    (`v2a_tpu/models/video_unet.py:1077-1133`)."""
+    (`v2a_tpu/models/video_unet.py:1077-1133`). Without the K1 gate
+    (`routing.spatial2` off) the fused norms run as tensor ops before the
+    convs (:1150-1190)."""
 
     def __init__(self, cin: int, out_channels: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
                  train_fused: bool = False, wgrad_kernel: bool = False,
-                 use_pallas_gn: bool = False):
+                 use_pallas_gn: bool = False, routing: ConvRouting = ConvRouting()):
         super().__init__()
         self.cin, self.out_channels, self.dtype, self.fused = cin, out_channels, dtype, fused
-        self.train_fused = train_fused
+        self.train_fused, self.routing = train_fused, routing
         # K7 only on the non-fused path, as the JAX block (its fused norms
         # pass use_pallas=False, :1168-1176)
         k7 = use_pallas_gn and not fused
         self.in_norm = GroupNorm32(cin, with_silu=True, use_pallas=k7)
         self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused,
-                                    wgrad_kernel=wgrad_kernel)
+                                    wgrad_kernel=wgrad_kernel, routing=routing)
         self.emb_proj = nn.Linear(emb_dim, out_channels)
         self.out_norm = GroupNorm32(out_channels, with_silu=True, use_pallas=k7)
         self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused,
-                                     wgrad_kernel=wgrad_kernel)
+                                     wgrad_kernel=wgrad_kernel, routing=routing)
         if cin != out_channels:
             self.skip_conv = PseudoConv3d(cin, out_channels, 1, dtype=dtype)
 
@@ -412,7 +462,8 @@ class ResBlock3D(nn.Module):
         return x + h
 
     def _sp2(self, cins, hw):
-        return spatial2_eligible(self.out_channels, list(cins) + [self.out_channels], hw, 3, 1)
+        return self.routing.spatial2 and spatial2_eligible(
+            self.out_channels, list(cins) + [self.out_channels], hw, 3, 1)
 
     def _second_half(self, h, h_stats, sp2, x_skip):
         st2 = h_stats.sum(1)  # (B, 2, C) over frames
@@ -587,10 +638,10 @@ class Downsample3D(nn.Module):
     (`v2a_tpu/models/video_unet.py:1558-1567`)."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False,
-                 downconv: bool = False):
+                 downconv: bool = False, routing: ConvRouting = ConvRouting()):
         super().__init__()
         self.downconv = downconv
-        self.conv = PseudoConv3d(c, c, 3, stride=2, dtype=dtype, fused=fused)
+        self.conv = PseudoConv3d(c, c, 3, stride=2, dtype=dtype, fused=fused, routing=routing)
 
     def forward(self, x, want_stats: bool = False, padded_out: bool = False):
         if padded_out and self.downconv:
@@ -610,10 +661,12 @@ class Upsample3D(nn.Module):
     conv through `conv_vjp.plain_conv3x3` (:1614-1617)."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False,
-                 train_fused: bool = False, wgrad_kernel: bool = False):
+                 train_fused: bool = False, wgrad_kernel: bool = False,
+                 routing: ConvRouting = ConvRouting()):
         super().__init__()
         self.train_fused = train_fused
-        self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused, wgrad_kernel=wgrad_kernel)
+        self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused, wgrad_kernel=wgrad_kernel,
+                                 routing=routing)
 
     def forward(self, x, want_stats: bool = False, padded_out: bool = False):
         if padded_out:
@@ -640,7 +693,9 @@ class VideoUNet(nn.Module):
     padded stream, the downsamples into a padded level run K8),
     `attn_kernel` (`V2A_PALLAS_ATTN=1`: with `fused`, every attention block
     runs K9) and `use_pallas_gn` (the JAX field: without `fused`, every
-    GroupNorm that has no forwarded statistics runs K7)."""
+    GroupNorm that has no forwarded statistics runs K7). `spatial2`,
+    `pallas_spatial`, `tconv_hw` and `stream_kernel` are the `ConvRouting`
+    switches (K1 gate, K10, K11, K12), each at its JAX default."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
@@ -648,12 +703,14 @@ class VideoUNet(nn.Module):
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
                  fused: bool = False, padded_stream: bool = True, train_fused: bool = False,
                  wgrad_kernel: bool = False, downconv: bool = False, attn_kernel: bool = False,
-                 use_pallas_gn: bool = False):
+                 use_pallas_gn: bool = False, spatial2: bool = True, pallas_spatial: bool = False,
+                 tconv_hw: bool = False, stream_kernel: bool = False):
         super().__init__()
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
         self.padded_stream = padded_stream
+        self.routing = routing = ConvRouting(spatial2, pallas_spatial, tconv_hw, stream_kernel)
         self.train_fused = tfused = train_fused and not fused
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
@@ -661,11 +718,11 @@ class VideoUNet(nn.Module):
         self.time_dense1 = nn.Linear(ted, ted)
         self.task_attnpool = PerceiverResampler(dim=task_token_dim, depth=2, dtype=dtype)
         self.task_proj = nn.Linear(task_token_dim, ted)
-        self.in_conv = PseudoConv3d(in_channels, mc, 3, dtype=dtype, fused=fused)
+        self.in_conv = PseudoConv3d(in_channels, mc, 3, dtype=dtype, fused=fused, routing=routing)
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused, tfused, wgrad_kernel,
-                                             use_pallas_gn))
+                                             use_pallas_gn, routing))
 
         def attn(name, c):
             self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype, attn_kernel,
@@ -682,7 +739,8 @@ class VideoUNet(nn.Module):
                 skips.append(ch)
                 bi += 1
             if level != len(self.channel_mult) - 1:
-                self.add_module(f"downsample_{level}", Downsample3D(ch, dtype, fused, downconv))
+                self.add_module(f"downsample_{level}",
+                                Downsample3D(ch, dtype, fused, downconv, routing))
                 skips.append(ch)
                 ds *= 2
         res("mid_res0", cur, cur)
@@ -698,7 +756,7 @@ class VideoUNet(nn.Module):
                     attn(f"up_attn_{bi}", ch)
                 if level and i == num_res_blocks:
                     self.add_module(f"upsample_{level}",
-                                    Upsample3D(ch, dtype, fused, tfused, wgrad_kernel))
+                                    Upsample3D(ch, dtype, fused, tfused, wgrad_kernel, routing))
                     ds //= 2
                 bi += 1
         self.out_norm = GroupNorm32(cur, with_silu=True, use_pallas=use_pallas_gn and not fused)
@@ -717,8 +775,8 @@ class VideoUNet(nn.Module):
             return out if fused else (out, None)
 
         # the padded-stream layout where `padded_eligible` holds
-        # (`v2a_tpu/models/video_unet.py:1736-1886`)
-        padded = fused and self.padded_stream
+        # (`v2a_tpu/models/video_unet.py:1736-1886`); it needs the K1 gate
+        padded = fused and self.padded_stream and self.routing.spatial2
         hh, ww = x.shape[2], x.shape[3]
         h, st = step(self.in_conv(x.to(dt), want_stats=fused))
         if padded and padded_eligible(self.mc, [self.mc], hh * ww):

@@ -87,6 +87,17 @@ class DDPMScheduler(_Scheduler):
     def timesteps(self, num_inference_steps: int) -> np.ndarray:
         return leading_timesteps(self.num_train_timesteps, num_inference_steps)
 
+    def add_noise(self, x_start: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """The forward process at per-example timesteps t (B,):
+        sqrt(acp[t]) x_start + sqrt(1 - acp[t]) noise, from the float32 table
+        (`v2a_tpu/ops/action_scheduler.py:125-129`)."""
+        acp = torch.as_tensor(self.alphas_cumprod, device=x_start.device)
+        shape = (-1,) + (1,) * (x_start.ndim - 1)
+        t = torch.as_tensor(t, device=x_start.device).long()
+        return (torch.sqrt(acp)[t].reshape(shape) * x_start
+                + torch.sqrt(1.0 - acp)[t].reshape(shape) * noise)
+
     def step(self, model_output: torch.Tensor, t: int, prev_t: int, sample: torch.Tensor,
              noise: Optional[torch.Tensor], var_temp: float = 1.0) -> torch.Tensor:
         """x_t -> x_{prev_t}; `noise` is standard normal (ignored at t == 0)."""

@@ -36,6 +36,20 @@ Two further serving routings of the JAX package add:
 K7, the GroupNorm(+SiLU) of the non-fused forward, has its wrapper in
 `ops/group_norm.py` and its entry and count here.
 
+Two more serving routings of the JAX package add:
+
+- `spatial_conv3x3` (K10): the plain 3x3 conv + bias of the routing
+  without the K1 gate (`V2A_SPATIAL2_MIN_CH=0` with `PERF_PALLAS_SPATIAL`
+  there, `VideoUNet(spatial2=False, pallas_spatial=True)` here).
+  `csrc/spatial_conv3x3.cu`.
+- `temporal_conv_fused_hw` (K11): K2's function on the (H*W, B, F, C) view
+  (`PERF_TCONV_HW` there, `VideoUNet(tconv_hw=True)` here).
+  `csrc/temporal_conv_hw.cu`.
+- `fused_conv_tconv_stream` (K12): K3's function without the skip fold,
+  frames streamed through a 3-slot ring of conv outputs
+  (`V2A_STREAM_KERNEL=1` there, `VideoUNet(stream_kernel=True)` here), taken
+  before K3 where `stream_band_rows` admits it. `csrc/conv_tconv_stream.cu`.
+
 The padded-stream contract: pad COLS are zero in the output of every conv
 and temporal-conv producer; pad ROWS (0 and Hp-1) hold arbitrary values
 (the kernels leave them unwritten, the plain versions write NaN there).
@@ -116,6 +130,18 @@ KERNELS = {
         source="v2a_tpu_torch/csrc/group_norm_silu.cu",
         replaces="v2a_tpu/ops/pallas_kernels.py:111",
         module="v2a_tpu_torch.ops.group_norm",
+    ),
+    "spatial_conv3x3": dict(
+        source="v2a_tpu_torch/csrc/spatial_conv3x3.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:2796",
+    ),
+    "temporal_conv_fused_hw": dict(
+        source="v2a_tpu_torch/csrc/temporal_conv_hw.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:340",
+    ),
+    "fused_conv_tconv_stream": dict(
+        source="v2a_tpu_torch/csrc/conv_tconv_stream.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:2656",
     ),
 }
 
@@ -1126,6 +1152,247 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     _raise_on(rc, "fused_spatial_attention_padded")
     launches["fused_spatial_attention_padded"] += 1
     return (y, stats) if want_stats else y
+
+
+# -- K10: the plain 3x3 conv over halo'd row bands -----------------------------------
+
+
+def spatial_conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K10: the nine tap products of x.dtype
+    operands summed in float32, + bias, rounded once (K1's plain version
+    without the activation)."""
+    return fused_affine_conv3x3_plain(x, kernel, bias)
+
+
+def spatial_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """y = conv3x3_same(x) + bias (`v2a_tpu/ops/resblock_kernels.py:2796`).
+
+    x: (N, H, W, C), already normed by the caller; kernel (3, 3, C, D) HWIO;
+    bias (D,). Returns (N, H, W, D) in x.dtype.
+
+    Kernel note (csrc/spatial_conv3x3.cu): bound by operations; a block owns
+    64 output pixels x 64 channels and per 32-channel step loads the band of
+    rows (and cols) those pixels need, with its one-pixel halo, into shared
+    memory once, then runs the nine shifted taps out of it on the tensor
+    cores. Out-of-frame taps are zero cells, never a padded copy of x.
+    """
+    _no_grad_inputs("spatial_conv3x3", x, kernel, bias)
+    n, h, w, c = x.shape
+    if tuple(kernel.shape[:3]) != (3, 3, c):
+        raise ValueError(f"kernel {tuple(kernel.shape)} vs input C={c}")
+    if x.device.type == "cpu":
+        return spatial_conv3x3_plain(x, kernel, bias)
+    d = kernel.shape[-1]
+    if c % 32 or d % 64:
+        raise ValueError(f"K10 needs C % 32 == 0 and D % 64 == 0, got C={c} D={d}")
+    w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
+    bias32 = bias.float().contiguous()
+    _check_cuda(x, w2d, bias32)
+    y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
+    fn = _lib("spatial_conv3x3", "v2a_spatial_conv3x3", 4, 6)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, c, d,
+                _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(rc, "spatial_conv3x3")
+    launches["spatial_conv3x3"] += 1
+    return y
+
+
+# -- K11: the temporal conv on the (H*W, B, F, C) view ------------------------------
+
+
+def temporal_conv_fused_hw_plain(x, kernel, bias, emb=None, residual=None, want_stats=False):
+    """Plain PyTorch version of K11, in the Pallas body's order
+    (`v2a_tpu/ops/resblock_kernels.py:288-309`): per frame the centre tap,
+    then the f-1 and f+1 taps, products of x.dtype operands in float32;
+    + bias, + emb, + residual in float32, rounded once; statistics from the
+    rounded values. The layout does not change the arithmetic, so this
+    works on the (B, F, S, C) tensor."""
+    b, f, s, c = _fold(x)
+    w = kernel.to(x.dtype).float()
+    xp = F.pad(x.reshape(b, f, s, c).float(), (0, 0, 0, 0, 1, 1))
+    y = xp[:, 1:f + 1] @ w[1] + xp[:, 0:f] @ w[0] + xp[:, 2:f + 2] @ w[2]
+    y = y + bias.float()
+    if emb is not None:
+        y = y + emb.reshape(b, 1, 1, c).float()
+    if residual is not None:
+        y = y + residual.expand(x.shape).to(x.dtype).reshape(b, f, s, c).float()
+    yr = y.to(x.dtype)
+    out = yr.reshape(x.shape)
+    if want_stats:
+        yf = yr.float()
+        return out, torch.stack([yf.sum(2), (yf * yf).sum(2)], dim=2)
+    return out
+
+
+def hw_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, ..., C) -> the (S, B, F, C) tensor K11 takes, S the folded
+    spatial size: a copy on the card (the TPU's layout bitcast,
+    `v2a_tpu/ops/resblock_kernels.py:364`)."""
+    b, f, s, c = _fold(x)
+    return x.reshape(b, f, s, c).permute(2, 0, 1, 3).contiguous()
+
+
+def temporal_conv_fused_hw(x, kernel, bias, emb=None, residual=None, want_stats=False):
+    """`temporal_conv_fused`'s contract with the kernel on the (H*W, B, F, C)
+    view (`v2a_tpu/ops/resblock_kernels.py:340`).
+
+    x: (B, F, H, W, C) or (B, F, S, C); kernel (3, C, C); bias (C,); emb
+    optional (B, C); residual optional, broadcastable to x. Returns y in
+    x.dtype with x's shape [, stats (B, F, 2, C) float32 of the rounded y].
+
+    Kernel note (csrc/temporal_conv_hw.cu): memory-bound; K2's implicit GEMM
+    with the HW-major address map, a block per (b, f) slab x 64 positions x
+    64 channels, emb / residual / statistics in the epilogue, the statistics
+    reduced by a fixed-order second pass. The wrapper copies x (and the
+    residual) into the (S, B, F, C) layout and y back, as the JAX wrapper
+    writes it (:364, :386, :412): on the TPU those were layout bitcasts, on
+    the H100 they are three more passes over the tensor.
+    """
+    _no_grad_inputs("temporal_conv_fused_hw", x, kernel, bias, emb, residual)
+    b, f, s, c = _fold(x)
+    if tuple(kernel.shape) != (3, c, c):
+        raise ValueError(f"temporal kernel must be (3, C, C), got {tuple(kernel.shape)}")
+    if x.device.type == "cpu":
+        return temporal_conv_fused_hw_plain(x, kernel, bias, emb, residual, want_stats)
+    if c % 64:
+        raise ValueError(f"K11 needs C % 64 == 0, got {c}")
+    xh = hw_major(x)
+    w2d = kernel.to(x.dtype).reshape(3 * c, c).contiguous()
+    bias32 = bias.float().contiguous()
+    emb32 = None if emb is None else emb.reshape(b, c).float().contiguous()
+    res = None if residual is None else hw_major(residual.expand(x.shape).to(x.dtype))
+    _check_cuda(xh, w2d, bias32, emb32, res)
+    yh = torch.empty_like(xh)
+    partial, stats = _stats_buffers(x, b * f, -(-s // 64), c, want_stats)
+    fn = _lib("temporal_conv_hw", "v2a_temporal_conv_hw", 8, 5)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(xh), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(res), _ptr(yh),
+                _ptr(partial), _ptr(stats), b, f, s, c, _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(rc, "temporal_conv_fused_hw")
+    launches["temporal_conv_fused_hw"] += 1
+    y = yh.permute(1, 2, 0, 3).reshape(x.shape)  # a copy: back to (B, F, ..., C)
+    return (y, stats.reshape(b, f, 2, c)) if want_stats else y
+
+
+# -- K12: K3's function with frames streamed through a 3-slot ring -------------------
+
+
+def stream_band_rows(h: int, w: int, wp: int, cins, d: int,
+                     budget_bytes: int = 11 * 1024 * 1024) -> int:
+    """The JAX package's gate of the frame-streaming kernel, copied as it
+    stands (`v2a_tpu/ops/resblock_kernels.py:2632`): the band height whose
+    ONE frame's window plus the 3-slot ring fit a TPU VMEM budget, or 0
+    where the JAX package does not stream. Like `conv_tconv_band_rows`, the
+    port keeps it only so that it launches what the JAX package launches."""
+    weights = sum(9 * c * d * 2 for c in cins) + 3 * d * d * 2
+
+    def cost(t):
+        win = sum(2 * (t + 2) * wp * c * 2 for c in cins)
+        ring3 = 3 * t * w * d * 2
+        out = 2 * t * wp * d * 2
+        res = out
+        acc = t * w * d * 4
+        ftmp = (t + 2) * wp * max(cins) * 4
+        return weights + win + ring3 + out + res + acc + ftmp
+
+    best = 0
+    for t in range(1, h + 1):
+        if h % t == 0 and cost(t) <= budget_bytes:
+            best = max(best, t)
+    if best * w < 256:
+        return 0
+    return best
+
+
+def fused_conv_tconv_stream_plain(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
+                                  silu=True, want_stats=False):
+    """Plain PyTorch version of K12: K3's plain chain without the skip fold
+    (K4a's plain version, its conv output rounded to x.dtype, then K4b's),
+    which is what the Pallas body computes frame by frame (:2540-2602)."""
+    return fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
+                                         None, None, silu, want_stats)
+
+
+# the ring of a K12 block: 3 frames x its pixels x all D channels, rounded
+_STREAM_RING_BYTES = 160 * 1024
+
+
+def _k12_pixels(d: int, itemsize: int) -> int:
+    """Pixels per K12 block: 64 (a full tensor-core tile) unless the 3-frame
+    ring of conv outputs would pass `_STREAM_RING_BYTES` of shared memory."""
+    p = 64
+    while p > 8 and 3 * p * (d + 16 // itemsize) * itemsize > _STREAM_RING_BYTES:
+        p //= 2
+    return p
+
+
+def fused_conv_tconv_stream(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
+                            silu=True, want_stats=False):
+    """The padded-stream PseudoConv3d without a skip fold, frames streamed
+    (`v2a_tpu/ops/resblock_kernels.py:2656`): per part x (B, F, Hp, Wp, C_i),
+    kernel (3, 3, C_i, D), a, b (B*F, C_i); the conv output of each frame
+    rounded to x.dtype, then the temporal taps + tbias [+ emb (B, D)]
+    [+ residual, a padded stream like y]. Returns (B, F, Hp, Wp, D) with its
+    interior and zero pad cols, pad rows unwritten [, stats (B, F, 2, D) of
+    the rounded interior].
+
+    Kernel note (csrc/conv_tconv_stream.cu): bound by operations. A block
+    owns `_k12_pixels` interior pixels of one sample and walks the frames:
+    frame f's conv at all D channels into a 3-slot ring in shared memory,
+    then frame f-1's temporal GEMM out of the ring (a missing neighbour
+    selected to zero). The ring holds 3 frames where K3 holds all F, so the
+    pixel tile stays 64 rows at D <= 256. Statistics as K3.
+    """
+    _no_grad_inputs("fused_conv_tconv_stream", kbias, tkernel, tbias, emb, residual,
+                    *_parts_tensors(parts))
+    x0 = parts[0][0]
+    if x0.device.type == "cpu":
+        return fused_conv_tconv_stream_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
+                                             silu, want_stats)
+    h, w = hw
+    hp, wp = padded_hw(h, w)
+    b, f = x0.shape[:2]
+    d = parts[0][1].shape[-1]
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"K12 takes one or two parts, got {len(parts)}")
+    if d % 64 or tuple(tkernel.shape) != (3, d, d):
+        raise ValueError(f"K12 needs D % 64 == 0 and a (3, D, D) temporal kernel, got D={d}")
+    args, cins = [], []
+    for x, kernel, a, bb in parts:
+        c = x.shape[-1]
+        if tuple(x.shape) != (b, f, hp, wp, c) or x.dtype != x0.dtype:
+            raise ValueError(f"part {tuple(x.shape)} {x.dtype} vs padded {(b, f, hp, wp)}")
+        if tuple(kernel.shape) != (3, 3, c, d) or c % 32:
+            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c} (C % 32 == 0)")
+        a32, b32 = _affine32(a, bb, b * f, c)
+        w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
+        _check_cuda(x, w2d, a32, b32)
+        args += [x, a32, b32, w2d]
+        cins.append(c)
+    if len(parts) == 1:
+        args += [None] * 4
+        cins.append(0)
+    dt = x0.dtype
+    kb32, tb32 = kbias.float().contiguous(), tbias.float().contiguous()
+    tw = tkernel.to(dt).reshape(3 * d, d).contiguous()
+    emb32 = None if emb is None else emb.reshape(b, d).float().contiguous()
+    out_shape = (b, f, hp, wp, d)
+    if residual is not None and (tuple(residual.shape) != out_shape or residual.dtype != dt):
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} vs {out_shape}")
+    _check_cuda(x0, kb32, tb32, tw, emb32, residual)
+    y = torch.empty(out_shape, dtype=dt, device=x0.device)
+    pix = _k12_pixels(d, x0.element_size())
+    partial, stats = _stats_buffers(x0, b * f, -(-h * w // pix), d, want_stats)
+    fn = _lib("conv_tconv_stream", "v2a_conv_tconv_stream", 16, 11)
+    with torch.cuda.device(x0.device):
+        rc = fn(*[_ptr(t) for t in args], _ptr(kb32), _ptr(tw), _ptr(tb32), _ptr(emb32),
+                _ptr(residual), _ptr(y), _ptr(partial), _ptr(stats), b, f, h, w, wp, cins[0],
+                cins[1], d, pix, int(silu), _DTYPE_CODE[dt], _stream(x0))
+    _raise_on(rc, "fused_conv_tconv_stream")
+    launches["fused_conv_tconv_stream"] += 1
+    return (y, stats.reshape(b, f, 2, d)) if want_stats else y
 
 
 # -- GroupNorm statistics fold --------------------------------------------------
