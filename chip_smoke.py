@@ -10,19 +10,26 @@ Phases (any failure exits non-zero):
   2. builds every kernel in `v2a_tpu_torch/csrc/` with nvcc (sm_90a), one
      nvcc per source, all started together;
   3. every kernel against its plain version in bf16 at every shape the
-     release-width U-Net forward (B=8) gives it, under six routings,
+     release-width U-Net forward (B=8) gives it, under seven routings,
      recorded from one forward of each: the shipped padded-stream routing
      (K1, K2, K3, K4a, K4b, K5), the unpadded one (K1, K2), `padded_k8_k9`
      (the padded routing with K8 at the downsamples into a padded level and
-     K9 in every attention block), `plain_k7` (the non-fused forward with
-     K7 in its GroupNorms), `spatial_k10_k11` (the K1 gate off: K10 at the
-     3x3 convs, K11 at the temporal convs) and `padded_k12` (the padded
-     routing with K12 in its convs without a skip fold). Padded-stream
-     inputs carry NaN in their pad rows and outputs must have exactly zero
-     pad cols (K9's: every pad position); K3 and K12 are also held against
-     K4a -> K4b; K6-K12 two launches bit-equal. Each shape is timed: kernel,
-     plain version and PyTorch yardstick (`library_ms`); at K3's and K12's
-     shapes also the same work as K4a -> K4b, at K11's its wrapper's copies;
+     K9 in every attention block), `padded_k8_k9_wide` (the same with
+     attention also at ds 4 and 64-channel heads: K9 at 32^2 with 1,024
+     tokens too), `plain_k7` (the non-fused forward with K7 in its
+     GroupNorms), `spatial_k10_k11` (the K1 gate off: K10 at the 3x3 convs,
+     K11 at the temporal convs) and `padded_k12` (the padded routing with K12
+     in its convs without a skip fold). Every shape on three input sets,
+     each seeded by a stable hash of the shape's signature (`seed_of`), the
+     worst case kept. Gates derived from the arithmetic: outputs within one
+     bf16 ulp (K3, K12: plus the carried conv-output difference; K9: plus
+     the carried head-output difference), statistics by `stats_ok`.
+     Padded-stream inputs carry NaN in their pad rows and outputs must have
+     exactly zero pad cols (K9's: every pad position); K3 and K12 are also
+     held against K4a -> K4b; K6-K12 two launches bit-equal. Each shape is
+     timed on its first input set: kernel, plain version and PyTorch
+     yardstick (`library_ms`); at K3's and K12's shapes also the same work
+     as K4a -> K4b, at K11's its wrapper's copies;
   4. one release-width U-Net forward (B=8, F=7, 128^2, bf16) per routing:
      launch counts per kernel, each against the port's bf16 plain path and
      a float32 plain reference, and the seven paths' times in turns;
@@ -50,7 +57,14 @@ Phases (any failure exits non-zero):
   7. trains the policy: `make_train_step(policy.loss, fused_clip_adamw,
      EMAConfig())` at the release batch (64), bf16 compute, one warm-up and
      three timed steps, the peak memory, finite loss and weights;
-  8. prints the `kernels` JSON line, then the device line last.
+  8. the lab kernels: the port's perf lab (`python -m
+     v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
+     launches K14 and K15; K13 bit-equal to K3 at every K3 signature of the
+     padded forward; then K13 (K3's gates, bit-equal to K3, timed against K3
+     and K4a -> K4b), K14 at every K10 signature of `spatial_k10_k11` and the
+     lab's (one ulp of its plain version; its difference from K10 reported)
+     and K15 at the lab's three shapes, each on three input sets;
+  9. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
 Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainer
@@ -67,6 +81,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -89,7 +104,14 @@ ROUTINGS = {
     "plain_k7": dict(fused=False, use_pallas_gn=True),
     "spatial_k10_k11": dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
     "padded_k12": dict(fused=True, stream_kernel=True),
+    # padded_k8_k9 with attention also at ds 4 and 64-channel heads: K9 at the
+    # padded 32^2 level (1,024 tokens, C 384, 6 heads), 16^2 (C 512, 8 heads)
+    # and 8^2 (C 640, 10 heads); its own weights (more attention blocks)
+    "padded_k8_k9_wide": dict(fused=True, downconv=True, attn_kernel=True,
+                              attention_resolutions=(4, 8, 16), num_head_channels=64),
 }
+# the routing arguments that change the U-Net's parameters
+ARCH = ("attention_resolutions", "num_head_channels")
 # launches per release forward of each routing (tests/test_torch_padded.py
 # traces the same counts on the meta device, tests/test_torch_serving_routes.py
 # the JAX package's)
@@ -108,6 +130,10 @@ EXPECTED_PER_FORWARD = {
                    "fused_conv_tconv_stream": 19, "fused_conv_tconv_padded": 5,
                    "fused_affine_conv3x3_padded": 6, "temporal_conv_padded": 9,
                    "fused_upconv3x3_padded": 3},
+    "padded_k8_k9_wide": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 28,
+                          "fused_conv_tconv_padded": 16, "fused_affine_conv3x3_padded": 14,
+                          "temporal_conv_padded": 19, "fused_upconv3x3_padded": 3,
+                          "fused_downconv3x3_padded": 2, "fused_spatial_attention_padded": 16},
 }
 # the routings served one goal-video request each in phase 5, beside the
 # shipped one
@@ -204,33 +230,45 @@ def check_stream(got, want, hw, extra=0.0):
 
 
 def stats_rel_err(got, want):
-    """Sum and sum of squares, each relative to its largest magnitude."""
-    return max(
-        float((got[:, :, i] - want[:, :, i]).abs().max() / want[:, :, i].abs().max())
-        for i in range(2)
-    )
+    """Sum and sum of squares (the second last axis), each relative to its
+    largest magnitude."""
+    return max(float((got[..., i, :] - want[..., i, :]).abs().max()
+                     / want[..., i, :].abs().max()) for i in range(2))
 
 
-def stats_ok(got, want, y_got, y_want):
-    """K11's and K12's statistics (B, F, 2, C), which each kernel takes of
-    its own rounded output y_got, against those its plain version takes of
-    y_want: within 1e-4 of the float32 sums of the kernel's own output (only
-    the summation order differs), and within 1e-3 of the plain statistics'
-    largest magnitude plus what the accepted output differences move the
-    sums by (sum_s |y_k - y_p| and sum_s |y_k^2 - y_p^2|). At S = 64 a few
-    one-ulp roundings of the output move a sum by more than 1e-3 of its
-    largest value (1.3e-3 seen for K11 at 64x8x7x640 with a residual, 1.1e-3
-    for K2 at the same shape with other inputs). Returns (ok, relative error
-    against the plain statistics)."""
-    yk = y_got.float().reshape(got.shape[0], got.shape[1], -1, got.shape[-1])
+def stats_ok(got, want, y_got, y_want, rounded=True):
+    """Statistics (B, F, 2, C) (or (N, 2, C)) that a kernel takes of its own
+    output y_got, against those its plain version takes of y_want. Only the
+    order of float32 sums and the accepted output differences separate them,
+    so the gate is derived from those: within 1e-4 of the largest float32
+    sum of the kernel's own output (only the summation order differs), and
+    within 1e-3 of the plain statistics' largest magnitude plus what the
+    output differences move the sums by (sum_s |y_k - y_p| and
+    sum_s |y_k^2 - y_p^2|). At S = 64 a few one-ulp roundings of the output
+    move a sum by more than 1e-3 of its largest value (1.3e-3 seen for K11
+    at 64x8x7x640 with a residual, 1.1e-3 for K2 at the same shape).
+    `rounded=False` (K9): the statistics are of the float32 output before
+    its one rounding, each element within half an ulp (2^-8 |y|) of the
+    rounded one, so both bounds also take those half-ulps. Returns (ok,
+    relative error against the plain statistics)."""
+    lead = got.shape[:-2]
+    yk = y_got.float().reshape(*lead, -1, got.shape[-1])
     yp = y_want.float().reshape(yk.shape)
-    own = torch.stack([yk.sum(2), (yk * yk).sum(2)], 2)
-    slack = torch.stack([(yk - yp).abs().sum(2), (yk * yk - yp * yp).abs().sum(2)], 2)
-    ok = all(bool(((got[:, :, i] - want[:, :, i]).abs()
-                   <= 1e-3 * want[:, :, i].abs().max() + slack[:, :, i]).all())
-             for i in range(2))
-    return ok and stats_rel_err(got, own) <= 1e-4, stats_rel_err(got, want)
-
+    s_ax = yk.dim() - 2
+    own = torch.stack([yk.sum(s_ax), (yk * yk).sum(s_ax)], -2)
+    slack = torch.stack([(yk - yp).abs().sum(s_ax), (yk * yk - yp * yp).abs().sum(s_ax)], -2)
+    own_slack = torch.zeros_like(own)
+    if not rounded:
+        half = yk.abs() * 2.0 ** -8
+        own_slack = torch.stack([half.sum(s_ax), (2 * yk.abs() * half + half * half).sum(s_ax)],
+                                -2)
+        slack = slack + 2 * own_slack
+    ok = True
+    for i in range(2):
+        g, w, o = got[..., i, :], want[..., i, :], own[..., i, :]
+        ok = ok and bool(((g - w).abs() <= 1e-3 * w.abs().max() + slack[..., i, :]).all())
+        ok = ok and bool(((g - o).abs() <= 1e-4 * o.abs().max() + own_slack[..., i, :]).all())
+    return ok, stats_rel_err(got, want)
 
 
 class Inputs:
@@ -335,12 +373,12 @@ def check_k2(rk, key, inp, timed):
     res = inp.randn(*shape).bfloat16() if has_res else None
     got = rk.temporal_conv_fused(x, kern, bias, emb, res, stats)
     want = rk.temporal_conv_fused_plain(x, kern, bias, emb, res, stats)
-    st_err = None
+    st_ok, st_err = True, None
     if stats:
         (got, gst), (want, wst) = got, want
-        st_err = stats_rel_err(gst, wst)
+        st_ok, st_err = stats_ok(gst, wst, got, want)
     ok, abs_err, rel, _ = within_one_ulp(got, want)
-    ok = ok and (st_err is None or st_err <= 1e-3)
+    ok = ok and st_ok
     times = None
     if timed:
         times = dict(
@@ -408,12 +446,12 @@ def check_k4b(rk, key, inp, timed):
     e, r, skips, sb = inp.tconv_extras(b, f, hw, c, emb, res, skip_cins)
     args = (x, kern, bias, hw, e, r, skips, sb, stats)
     got, want = rk.temporal_conv_padded(*args), rk.temporal_conv_padded_plain(*args)
-    st_err = None
+    st_ok, st_err = True, None
     if stats:
         (got, gst), (want, wst) = got, want
-        st_err = stats_rel_err(gst, wst)
+        st_ok, st_err = stats_ok(gst, wst, rk._interior(got, hw), rk._interior(want, hw))
     ok, abs_err, rel, _ = check_stream(got, want, hw)
-    ok = ok and (st_err is None or st_err <= 1e-3)
+    ok = ok and st_ok
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.temporal_conv_padded(*args)),
@@ -429,66 +467,130 @@ def check_k4b(rk, key, inp, timed):
     return ok, abs_err, rel, st_err, times, flops, nbytes, label
 
 
-def check_k3(rk, key, inp, timed):
-    """K3 against the two kernels K4a -> K4b (one ulp) and against its plain
-    version (K4a's plain, then K4b's). The plain chain rounds the conv output
-    to bf16 in the middle; where its float32 conv and the kernel's round one
-    conv output to neighbouring bf16 values (one ulp, as K4a's gate allows),
-    the temporal taps carry that difference into every output it feeds, by
-    |W_t| times the difference. So the gate against the plain chain is one
-    ulp plus exactly that carried difference: sum_t |W_t| |dY(f + t - 1)|,
-    with dY the kernel's conv output (K4a's, which K3's equals) minus the
-    plain one, itself held to one ulp here."""
+def _k3_args(key, inp):
+    """K3's arguments at one recorded signature (K13 takes the same)."""
     _, (b, f), hw, cins, d, emb, res, skip_cins, silu, stats = key
-    h, w = hw
-    hp, wp = rk.padded_hw(h, w)
     parts = inp.conv_parts((b, f), hw, cins, d)
     kbias, tbias = inp.randn(d, scale=0.1), inp.randn(d, scale=0.1)
     tk = inp.randn(3, d, d, scale=(3 * d) ** -0.5)
     e, r, skips, sb = inp.tconv_extras(b, f, hw, d, emb, res, skip_cins)
-    args = (parts, kbias, tk, tbias, hw, e, r, skips, sb, silu, stats)
-    got = rk.fused_conv_tconv_padded(*args)
-    want = rk.fused_conv_tconv_padded_plain(*args)
+    return (parts, kbias, tk, tbias, hw, e, r, skips, sb, silu, stats)
+
+
+def _k3_case(rk, key, inp):
+    """K3's arguments, the flat parts, the kernel's conv output (K4a's,
+    which K3's equals) and the plain one."""
+    _, (b, f), hw, cins, d, emb, res, skip_cins, silu, stats = key
+    hp, wp = rk.padded_hw(*hw)
+    args = _k3_args(key, inp)
+    parts, kbias = args[:2]
     flat = [(x.reshape(b * f, hp, wp, -1), k, a, bb) for x, k, a, bb in parts]
     yk = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu)
     yp = rk.fused_affine_conv3x3_padded_plain(flat, kbias, hw, silu)
+    return args, flat, yk, yp
+
+
+def _k3_gates(rk, key, args, got, yk, yp):
+    """K3's (and K13's) gates: against K4a -> K4b within one ulp, and
+    against the plain chain (K4a's plain, then K4b's) within one ulp plus
+    the carried conv-output difference. The plain chain rounds the conv
+    output to bf16 in the middle; where its float32 conv and the kernel's
+    round one conv output to neighbouring bf16 values (one ulp, as K4a's gate
+    allows), the temporal taps carry that difference into every output it
+    feeds, by |W_t| times the difference: sum_t |W_t| |dY(f + t - 1)|, with
+    dY the kernel's conv output minus the plain one, itself held to one ulp.
+    Statistics by `stats_ok` against both. Returns (ok, max|err|,
+    max|err|/std, stats error, |err| against K4a -> K4b, elements beyond
+    one ulp of the plain chain)."""
+    _, (b, f), hw, cins, d, emb, res, skip_cins, silu, stats = key
+    h, w = hw
+    hp, wp = rk.padded_hw(h, w)
+    tk, tbias, _, e, r, skips, sb = args[2:9]
+    want = rk.fused_conv_tconv_padded_plain(*args)
     two = rk.temporal_conv_padded(yk.reshape(b, f, hp, wp, d), tk, tbias, hw, e, r, skips, sb,
                                   stats)
-    st_err = None
+    st_ok, st_err = True, None
     if stats:
         (got, gst), (want, wst), (two, tst) = got, want, two
-        st_err = max(stats_rel_err(gst, wst), stats_rel_err(gst, tst))
+        yg = rk._interior(got, hw)
+        st_ok, st_err = stats_ok(gst, wst, yg, rk._interior(want, hw))
+        st_ok = st_ok and stats_ok(gst, tst, yg, rk._interior(two, hw))[0]
     ok_conv = check_stream(yk, yp, hw)[0]
     ok_two, two_err, _, _ = check_stream(got, two, hw)
     dy = (rk._interior(yk, hw).float() - rk._interior(yp, hw).float()).abs()
     carried = _stacked(dy, b, f, d) @ tk.bfloat16().float().abs().reshape(3 * d, d)
     ok, abs_err, rel, strict = check_stream(got, want, hw, carried.reshape(b, f, h, w, d))
-    log(f"[kernels] K3 vs K4a->K4b max|err| {two_err:.3g}; vs its plain chain: {strict} "
-        f"elements beyond one ulp, all within the carried conv-output difference: {ok}")
-    ok = ok and ok_conv and ok_two and (st_err is None or st_err <= 1e-3)
-    times = None
-    if timed:
-        times = dict(ms=time_ms(lambda: rk.fused_conv_tconv_padded(*args)),
-                     plain_ms=time_ms(lambda: rk.fused_conv_tconv_padded_plain(*args), 3, 1))
-        # the same work as two kernels, K4a -> K4b, for the K3 / K4 routing
-        times["k4a_k4b_ms"] = time_ms(lambda: rk.temporal_conv_padded(
-            rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu).reshape(b, f, hp, wp, d),
-            tk, tbias, hw, e, r, skips, sb, stats))
-        xa, wl = _activated(rk, parts, hw, silu), _cl_weight([p[1] for p in parts])
-        kb = kbias.bfloat16()
-        stacked = _stacked(F.conv2d(xa, wl, kb, padding=1).permute(0, 2, 3, 1), b, f, d)
-        w2d = tk.bfloat16().reshape(3 * d, d)
-        sx, sk = _skip_yardstick(rk, skips, hw)
-        times["library_ms"] = time_ms(lambda: (
-            F.conv2d(xa, wl, kb, padding=1), torch.matmul(stacked, w2d),
-            sk is not None and torch.matmul(sx, sk)))
+    return ok and ok_conv and ok_two and st_ok, abs_err, rel, st_err, two_err, strict
+
+
+def _k3_times(rk, key, args, flat, kernel):
+    """`kernel` timed at one K3 signature, with the plain chain, the same
+    work as K4a -> K4b and the PyTorch yardstick (cuDNN's conv, then the
+    temporal and skip matmuls)."""
+    _, (b, f), hw, cins, d, emb, res, skip_cins, silu, stats = key
+    hp, wp = rk.padded_hw(*hw)
+    parts, kbias, tk, tbias, _, e, r, skips, sb, _, _ = args
+    times = dict(ms=time_ms(lambda: kernel(*args)),
+                 plain_ms=time_ms(lambda: rk.fused_conv_tconv_padded_plain(*args), 3, 1))
+    times["k4a_k4b_ms"] = time_ms(lambda: rk.temporal_conv_padded(
+        rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu).reshape(b, f, hp, wp, d),
+        tk, tbias, hw, e, r, skips, sb, stats))
+    xa, wl = _activated(rk, parts, hw, silu), _cl_weight([p[1] for p in parts])
+    kb = kbias.bfloat16()
+    stacked = _stacked(F.conv2d(xa, wl, kb, padding=1).permute(0, 2, 3, 1), b, f, d)
+    w2d = tk.bfloat16().reshape(3 * d, d)
+    sx, sk = _skip_yardstick(rk, skips, hw)
+    times["library_ms"] = time_ms(lambda: (
+        F.conv2d(xa, wl, kb, padding=1), torch.matmul(stacked, w2d),
+        sk is not None and torch.matmul(sx, sk)))
+    return times
+
+
+def _k3_cost(rk, key):
+    _, (b, f), (h, w), cins, d, emb, res, skip_cins, silu, stats = key
+    wp = rk.padded_hw(h, w)[1]
     f1, b1 = _conv_cost(b * f, h, w, wp, cins, d)
     f2, b2 = _tconv_cost(b, f, h, w, wp, d, emb, res, skip_cins, stats)
     # the conv output stays on chip: neither its write nor its read counts
-    nbytes = b1 + b2 - 2 * b * f * h * wp * d - 2 * b * f * h * w * d
-    label = (f"K3 {b}x{f}x{h}x{w}x{'+'.join(map(str, cins))}->{d} emb={int(emb)} "
-             f"res={int(res)} skip={'+'.join(map(str, skip_cins)) or 0}")
-    return ok, abs_err, rel, st_err, times, f1 + f2, nbytes, label
+    return f1 + f2, b1 + b2 - 2 * b * f * h * wp * d - 2 * b * f * h * w * d
+
+
+def _k3_label(key):
+    _, (b, f), (h, w), cins, d, emb, res, skip_cins, _, _ = key
+    return (f"{b}x{f}x{h}x{w}x{'+'.join(map(str, cins))}->{d} emb={int(emb)} res={int(res)} "
+            f"skip={'+'.join(map(str, skip_cins)) or 0}")
+
+
+def check_k3(rk, key, inp, timed):
+    """K3 at one recorded signature (`_k3_gates`)."""
+    args, flat, yk, yp = _k3_case(rk, key, inp)
+    got = rk.fused_conv_tconv_padded(*args)
+    ok, abs_err, rel, st_err, two_err, strict = _k3_gates(rk, key, args, got, yk, yp)
+    log(f"[kernels] K3 vs K4a->K4b max|err| {two_err:.3g}; vs its plain chain: {strict} "
+        f"elements beyond one ulp, all within the carried conv-output difference: {ok}")
+    times = _k3_times(rk, key, args, flat, rk.fused_conv_tconv_padded) if timed else None
+    flops, nbytes = _k3_cost(rk, key)
+    return ok, abs_err, rel, st_err, times, flops, nbytes, "K3 " + _k3_label(key)
+
+
+def check_k13(rk, key, inp, timed):
+    """K13 at a K3 signature, on K3's inputs: bit-equal to K3 (output rows
+    and statistics), K3's gates (`_k3_gates`), two launches bit-equal; timed
+    against K3 and K4a -> K4b."""
+    args, flat, yk, yp = _k3_case(rk, key, inp)
+    got = rk.fused_conv_tconv_dma(*args)
+    again = rk.fused_conv_tconv_dma(*args)
+    same = (_same_k3(got, rk.fused_conv_tconv_padded(*args), key)
+            and _same_k3(got, again, key))
+    ok, abs_err, rel, st_err, two_err, strict = _k3_gates(rk, key, args, got, yk, yp)
+    log(f"[lab] K13 bit-equal to K3 and across two launches: {same}; vs its plain chain: "
+        f"{strict} elements beyond one ulp, all within the carried conv-output difference: {ok}")
+    times = None
+    if timed:
+        times = _k3_times(rk, key, args, flat, rk.fused_conv_tconv_dma)
+        times["k3_ms"] = time_ms(lambda: rk.fused_conv_tconv_padded(*args))
+    flops, nbytes = _k3_cost(rk, key)
+    return ok and same, abs_err, rel, st_err, times, flops, nbytes, "K13 " + _k3_label(key)
 
 
 def check_k5(rk, key, inp, timed):
@@ -630,15 +732,20 @@ def check_k8(rk, key, inp, timed):
 
 def check_k9(rk, key, inp, timed):
     """K9 at one recorded signature: NaN pad rows in, EVERY pad position of
-    the output exactly zero, the interior within one ulp of the plain
-    version, statistics within 1e-3, two launches bit-equal."""
-    _, n, hw, c, stats = key
+    the output exactly zero, two launches bit-equal. The interior within
+    one ulp of the plain version plus the carried difference of the heads'
+    outputs: kernel and plain version round each head output (the
+    projection's input) from float32 sums taken in other orders, so it may
+    differ by one ulp (2^-7 |att|), which the projection carries into the
+    output by |Wproj|: (|att| 2^-7) @ |Wproj|. Statistics (of the float32
+    output before its rounding) by `stats_ok`."""
+    _, n, hw, c, ch, stats = key
     h, w = hw
     x = inp.stream((n,), hw, c)
     a, b = 1 + inp.randn(n, c, scale=0.1), inp.randn(n, c, scale=0.1)
     wts = (inp.randn(c, 3 * c, scale=c ** -0.5), inp.randn(3 * c, scale=0.1),
            inp.randn(c, c, scale=c ** -0.5), inp.randn(c, scale=0.1))
-    args = (x, hw, a, b, *wts, 32)
+    args = (x, hw, a, b, *wts, ch)
     got, gst = rk.fused_spatial_attention_padded(*args, want_stats=True)
     again = rk.fused_spatial_attention_padded(*args, want_stats=stats)
     want, wst = rk.fused_spatial_attention_padded_plain(*args, want_stats=True)
@@ -646,11 +753,16 @@ def check_k9(rk, key, inp, timed):
     pads = got.clone()
     pads[:, 1:h + 1, 1:w + 1] = 0
     ok_pads = not bool(pads.any())
-    st_err = stats_rel_err(gst, wst)
-    ok, abs_err, rel, strict = within_one_ulp(rk._interior(got, hw), rk._interior(want, hw))
-    log(f"[kernels] K9 {n}x{h}x{w}x{c}: {strict} elements beyond one ulp; "
-        f"pads zero: {ok_pads}; two launches bit-equal: {torch.equal(got, again)}")
-    ok = ok and ok_pads and torch.equal(got, again) and st_err <= 1e-3
+    _, att = rk.spatial_attention_heads_plain(x, hw, a, b, wts[0], wts[1], ch)
+    carried = (att.float().abs() * 2.0 ** -7) @ wts[2].bfloat16().float().abs()
+    gi, wi = rk._interior(got, hw), rk._interior(want, hw)
+    st_ok, st_err = stats_ok(gst, wst, gi, wi, rounded=False)
+    ok, abs_err, rel, strict = within_one_ulp(gi, wi, rk._interior(carried.reshape(got.shape), hw))
+    bit_equal = torch.equal(got, again)
+    log(f"[kernels] K9 {n}x{h}x{w}x{c} head {ch}: {strict} elements beyond one ulp, all within "
+        f"the carried head-output difference: {ok}; pads zero: {ok_pads}; two launches "
+        f"bit-equal: {bit_equal}")
+    ok = ok and ok_pads and bit_equal and st_ok
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.fused_spatial_attention_padded(*args,
@@ -660,14 +772,14 @@ def check_k9(rk, key, inp, timed):
         # yardstick: the QKV and projection matmuls around
         # F.scaled_dot_product_attention, on the normed interior tokens (its
         # scale 1/sqrt(ch) is the block's ch^-1/4 on q and on k)
-        s, heads = h * w, c // 32
+        s, heads = h * w, c // ch
         xn = rk._act(rk._interior(x, hw).reshape(n, s, c), a, b, False).reshape(n * s, c)
         wq, wo = wts[0].bfloat16(), wts[2].bfloat16()
         bq, bo = wts[1].bfloat16(), wts[3].bfloat16()
 
         def library():
             qkv = torch.matmul(xn, wq) + bq
-            q, k, v = qkv.view(n, s, heads, 3, 32).permute(3, 0, 2, 1, 4)
+            q, k, v = qkv.view(n, s, heads, 3, ch).permute(3, 0, 2, 1, 4)
             o = F.scaled_dot_product_attention(q, k, v)
             return torch.matmul(o.transpose(1, 2).reshape(n * s, c), wo) + bo
 
@@ -676,7 +788,7 @@ def check_k9(rk, key, inp, timed):
     flops = 2.0 * n * s * c * 4 * c + 4.0 * n * s * s * c
     hp, wp = rk.padded_hw(h, w)
     nbytes = 2 * n * s * c + 2 * n * hp * wp * c + 8 * c * c + 16 * c + 8 * n * c * (1 + stats)
-    label = f"K9 {n}x{h}x{w}x{c} heads={c // 32} stats={int(stats)}"
+    label = f"K9 {n}x{h}x{w}x{c} heads={c // ch}x{ch} stats={int(stats)}"
     return ok, abs_err, rel, st_err, times, flops, nbytes, label
 
 
@@ -810,6 +922,77 @@ def check_k12(rk, key, inp, timed):
     return ok, abs_err, rel, st_err, times, f1 + f2, nbytes, label
 
 
+def check_k14(rk, key, inp, timed):
+    """K14 at a K10 signature, on K10's inputs: within one ulp of its plain
+    version (which rounds as the Winograd body does), two launches
+    bit-equal. Its difference from K10's output is reported, not gated:
+    Winograd's transforms round at other places than a direct conv."""
+    _, (n, h, w, c), d = key
+    x = inp.randn(n, h, w, c).bfloat16()
+    kern = inp.randn(3, 3, c, d, scale=(9 * c) ** -0.5)
+    bias = inp.randn(d, scale=0.1)
+    got, again = rk.winograd_conv3x3(x, kern, bias), rk.winograd_conv3x3(x, kern, bias)
+    ok, abs_err, rel, _ = within_one_ulp(got, rk.winograd_conv3x3_plain(x, kern, bias))
+    k10 = rk.spatial_conv3x3(x, kern, bias).float()
+    vs_k10 = float((got.float() - k10).abs().max() / k10.std())
+    log(f"[lab] K14 {n}x{h}x{w}x{c}->{d}: two launches bit-equal: {torch.equal(got, again)}; "
+        f"max |K14 - K10| / std {vs_k10:.3e} (reported, not gated)")
+    ok = ok and torch.equal(got, again)
+    times = None
+    if timed:
+        xl, wl, bl = x.permute(0, 3, 1, 2), _cl_weight([kern]), bias.bfloat16()
+        times = dict(ms=time_ms(lambda: rk.winograd_conv3x3(x, kern, bias)),
+                     plain_ms=time_ms(lambda: rk.winograd_conv3x3_plain(x, kern, bias), 3, 1),
+                     k10_ms=time_ms(lambda: rk.spatial_conv3x3(x, kern, bias)),
+                     library_ms=time_ms(lambda: F.conv2d(xl, wl, bl, padding=1)),
+                     err_vs_k10_over_std=vs_k10)
+    patches = n * h * w // 4
+    # the 16 transform-domain products on the tensor cores; the transforms in
+    # float32 outside them: 3 adds per input component (16 per patch and
+    # channel), 9 signed adds per output parity (4 per patch and channel)
+    # and the bias
+    flops = 2.0 * 16 * patches * c * d
+    f32_ops = patches * (48.0 * c + 40.0 * d)
+    nbytes = 2 * (n * h * w * (c + d) + 16 * c * d) + 4 * d
+    return ok, abs_err, rel, None, times, (flops, f32_ops), nbytes, f"K14 {n}x{h}x{w}x{c}->{d}"
+
+
+def check_k15(rk, key, inp, timed):
+    """K15 at one perf-lab shape: within one ulp of its plain version, two
+    launches bit-equal; timed against the lab's yardstick, three stacked
+    `torch.matmul`s summed in float32."""
+    from v2a_tpu_torch.scripts import perf_lab
+
+    _, (b, f, s, c) = key
+    x = inp.randn(b, f, s, c).bfloat16()
+    wt = inp.randn(3 * c, c, scale=(3 * c) ** -0.5)
+    got, again = perf_lab.temporal_conv_taps(x, wt), perf_lab.temporal_conv_taps(x, wt)
+    ok, abs_err, rel, _ = within_one_ulp(got, perf_lab.temporal_conv_taps_plain(x, wt))
+    ok = ok and torch.equal(got, again)
+    times = None
+    if timed:
+        taps = wt.bfloat16().reshape(3, c, c)
+
+        def library():
+            xp = F.pad(x, (0, 0, 0, 0, 1, 1))
+            return sum(torch.matmul(xp[:, t:t + f], taps[t]).float() for t in range(3))
+
+        times = dict(ms=time_ms(lambda: perf_lab.temporal_conv_taps(x, wt)),
+                     plain_ms=time_ms(lambda: perf_lab.temporal_conv_taps_plain(x, wt), 3, 1),
+                     library_ms=time_ms(library))
+    flops = 2.0 * b * s * c * c * (3 * f - 2)  # the padded frame taps multiply zeros
+    nbytes = 2 * 2 * b * f * s * c + 2 * 3 * c * c
+    return ok, abs_err, rel, None, times, flops, nbytes, f"K15 {b}x{f}x{s}x{c}"
+
+
+def _k3_signature(a):
+    return (tuple(a["parts"][0][0].shape[:2]), tuple(a["hw"]),
+            tuple(p[0].shape[-1] for p in a["parts"]), a["parts"][0][1].shape[-1],
+            a["emb"] is not None, a["residual"] is not None,
+            tuple(s[0].shape[-1] for s in a["skip_parts"] or ()), bool(a["silu"]),
+            bool(a["want_stats"]))
+
+
 # wrapper name -> (tag, signature from the bound call arguments, check)
 KERNEL_CHECKS = {
     "fused_affine_conv3x3": ("k1", lambda a: (
@@ -825,12 +1008,7 @@ KERNEL_CHECKS = {
         tuple(a["x"].shape[:2]), tuple(a["hw"]), a["x"].shape[-1], a["emb"] is not None,
         a["residual"] is not None, tuple(s[0].shape[-1] for s in a["skip_parts"] or ()),
         bool(a["want_stats"])), check_k4b),
-    "fused_conv_tconv_padded": ("k3", lambda a: (
-        tuple(a["parts"][0][0].shape[:2]), tuple(a["hw"]),
-        tuple(p[0].shape[-1] for p in a["parts"]), a["parts"][0][1].shape[-1],
-        a["emb"] is not None, a["residual"] is not None,
-        tuple(s[0].shape[-1] for s in a["skip_parts"] or ()), bool(a["silu"]),
-        bool(a["want_stats"])), check_k3),
+    "fused_conv_tconv_padded": ("k3", _k3_signature, check_k3),
     "fused_upconv3x3_padded": ("k5", lambda a: (
         a["x"].shape[0], tuple(a["hw_lo"]), a["x"].shape[-1], a["kernel"].shape[-1],
         a["a"] is not None, bool(a["silu"])), check_k5),
@@ -840,7 +1018,8 @@ KERNEL_CHECKS = {
         a["x"].shape[0], tuple(a["hw"]), a["x"].shape[-1], a["kernel"].shape[-1],
         a["a"] is not None, bool(a["silu"])), check_k8),
     "fused_spatial_attention_padded": ("k9", lambda a: (
-        a["x"].shape[0], tuple(a["hw"]), a["x"].shape[-1], bool(a["want_stats"])), check_k9),
+        a["x"].shape[0], tuple(a["hw"]), a["x"].shape[-1], a["num_head_channels"],
+        bool(a["want_stats"])), check_k9),
     "fused_group_norm_silu": ("k7", lambda a: (
         tuple(a["x"].shape), a["groups"], bool(a["with_silu"])), check_k7),
     "spatial_conv3x3": ("k10", lambda a: (tuple(a["x"].shape), a["kernel"].shape[-1]),
@@ -853,12 +1032,24 @@ KERNEL_CHECKS = {
         tuple(p[0].shape[-1] for p in a["parts"]), a["parts"][0][1].shape[-1],
         a["emb"] is not None, a["residual"] is not None, bool(a["silu"]),
         bool(a["want_stats"])), check_k12),
+    # the lab kernels: K13 at K3's signatures, K14 at K10's, K15 at the perf
+    # lab's shapes (`lab_kernels`)
+    "fused_conv_tconv_dma": ("k13", _k3_signature, check_k13),
+    "winograd_conv3x3": ("k14", lambda a: (tuple(a["x"].shape), a["kernel"].shape[-1]),
+                         check_k14),
+    "temporal_conv_taps": ("k15", lambda a: (tuple(a["x"].shape),), check_k15),
 }
 TAG_NAME = {tag: name for name, (tag, _, _) in KERNEL_CHECKS.items()}
-# the kernels of the fifth slice: their shapes are checked after every
-# earlier kernel's, so that each earlier shape keeps its inputs (the seed of
-# a shape is SEED + its index in the list)
-LATER_TAGS = ("k10", "k11", "k12")
+# K13 and K14 take the inputs of the kernel whose signatures they are held at
+SEED_AS = {"k13": "k3", "k14": "k10"}
+SEEDS = 3  # inputs per gated shape; the first is timed
+
+
+def seed_of(key, i):
+    """The seed of input set i at one signature: a stable hash of the
+    signature (never its position in a list, so adding shapes changes no
+    other shape's inputs)."""
+    return zlib.crc32(repr((SEED_AS.get(key[0], key[0]),) + key[1:] + (i,)).encode())
 
 
 @contextlib.contextmanager
@@ -893,51 +1084,66 @@ def recording():
 
 
 def check_kernels(rk, routing_calls, dev, timed, tag):
-    """Each recorded signature against the plain version. `routing_calls`:
-    {routing: {signature: calls}}. With `timed`, K2 without statistics (which
-    the path never asks for) is added, each shape is timed, and per routing
-    the per-kernel sums weight each shape by its calls in that routing."""
-    recorded = {k for calls in routing_calls.values() for k in calls}
-    keys = sorted((k for k in recorded if k[0] not in LATER_TAGS), key=str)
+    """Each recorded signature against the plain version, on `SEEDS` input
+    sets seeded by the signature (`seed_of`); the worst case per shape is
+    kept. `routing_calls`: {routing: {signature: calls}}. With `timed`, K2
+    without statistics (which the path never asks for) is added, each shape
+    is timed on its first input set, and per routing the per-kernel sums
+    weight each shape by its calls in that routing."""
+    keys = sorted({k for calls in routing_calls.values() for k in calls}, key=str)
     no_stats = [k for k in keys if k[0] == "k2" and not k[2] and not k[3]]
     if timed and no_stats:
         keys.append(("k2", no_stats[0][1], False, False, False))
-    keys += sorted((k for k in recorded if k[0] in LATER_TAGS), key=str)
-    rows = []
+    rows, failed = [], []
     agg = {r: {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_s=0.0,
-                          bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0, copies_ms=0.0)
+                          bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0, copies_ms=0.0,
+                          k3_ms=0.0, k10_ms=0.0)
                for name in rk.KERNELS}
            for r in routing_calls}
     with torch.no_grad():
-        for idx, key in enumerate(keys):
+        for key in keys:
             counts = {r: calls.get(key, 0) for r, calls in routing_calls.items()}
-            inp = Inputs(rk, torch.Generator(device=dev).manual_seed(SEED + idx), dev)
             check = KERNEL_CHECKS[TAG_NAME[key[0]]][2]
-            ok, abs_err, rel, st_err, times, flops, nbytes, label = check(rk, key, inp, timed)
-            ops_s = flops / (PEAK_F32 if key[0] == "k7" else PEAK_FLOPS)
+            ok, abs_err, rel, st_err, times = True, 0.0, 0.0, None, None
+            for i in range(SEEDS):
+                inp = Inputs(rk, torch.Generator(device=dev).manual_seed(seed_of(key, i)), dev)
+                res = check(rk, key, inp, timed and i == 0)
+                ok, abs_err, rel = ok and res[0], max(abs_err, res[1]), max(rel, res[2])
+                if res[3] is not None:
+                    st_err = max(st_err or 0.0, res[3])
+                times = times or res[4]
+                flops, nbytes, label = res[5:]
+                if not res[0]:
+                    log(f"[{tag}] {label}: input set {i} (seed {seed_of(key, i)}) fails its gate")
+            tensor_ops, f32_ops = flops if isinstance(flops, tuple) else (
+                (0.0, flops) if key[0] == "k7" else (flops, 0.0))
+            ops_s = tensor_ops / PEAK_FLOPS + f32_ops / PEAK_F32
             bytes_s = nbytes / PEAK_BYTES
             bound_ms = max(ops_s, bytes_s) * 1e3
-            rows.append(dict(shape=label, calls=counts, ok=ok, max_abs_err=abs_err,
+            rows.append(dict(shape=label, calls=counts, ok=ok, seeds=SEEDS, max_abs_err=abs_err,
                              max_err_over_std=rel, stats_rel_err=st_err, bound_ms=bound_ms,
                              bound_by="operations" if ops_s >= bytes_s else "bytes",
                              **(times or {})))
-            log(f"[{tag}] {label:56s} x{list(counts.values())} ok={ok} err/std={rel:.2e} "
-                + (f"stats_rel={st_err:.1e} " if st_err is not None else "")
+            extra = {k: v for k, v in (times or {}).items()
+                     if k in ("k4a_k4b_ms", "copies_ms", "k3_ms", "k10_ms")}
+            log(f"[{tag}] {label:56s} x{list(counts.values())} ok={ok} (worst of {SEEDS}) "
+                f"err/std={rel:.2e} " + (f"stats_rel={st_err:.1e} " if st_err is not None else "")
                 + (f"ms={times['ms']:.3f} plain={times['plain_ms']:.3f} "
-                   f"lib={times['library_ms']:.3f} " if timed else "")
-                + (f"k4a+k4b={times['k4a_k4b_ms']:.3f} " if times and "k4a_k4b_ms" in times
-                   else "")
-                + (f"copies={times['copies_ms']:.3f} " if times and "copies_ms" in times else "")
+                   f"lib={times['library_ms']:.3f} " if times else "")
+                + "".join(f"{k[:-3]}={v:.3f} " for k, v in extra.items())
                 + f"bound={bound_ms:.3f}")
             if not ok:
-                fail(f"{label} disagrees with its plain version")
+                failed.append(label)
             for r, count in counts.items():
                 a = agg[r][TAG_NAME[key[0]]]
                 a["max_abs_err"] = max(a["max_abs_err"], abs_err if count else 0.0)
                 for k, v in dict(times or {}, bound_ms=bound_ms, ops_s=ops_s,
                                  bytes_s=bytes_s).items():
-                    a[k] += count * v
+                    if k in a:
+                        a[k] += count * v
             torch.cuda.empty_cache()
+    if failed:
+        fail(f"{len(failed)} shapes disagree with their plain versions: {failed}")
     return rows, agg
 
 
@@ -948,9 +1154,16 @@ def _unet_kw(vcfg):
                 num_head_channels=vcfg.num_head_channels, task_token_dim=vcfg.text_dim)
 
 
+def _arch(routing):
+    """The U-Net arguments of a routing that change its parameters."""
+    return {k: v for k, v in ROUTINGS[routing].items() if k in ARCH}
+
+
 def check_forward(rk, nets, inputs, vcfg, dev):
     """Phase 4: launch counts, each routing vs plain vs float32, times in
-    turns. `nets`: {routing: U-Net}."""
+    turns. `nets`: {routing: U-Net}. A routing with its own architecture
+    (`padded_k8_k9_wide`) is held against plain paths of that architecture
+    with its own weights."""
     from v2a_tpu_torch.models.video_unet import VideoUNet
 
     def fwd(net):
@@ -966,34 +1179,44 @@ def check_forward(rk, nets, inputs, vcfg, dev):
         log(f"[forward] {routing} routing, launches per forward: {per_fwd}")
         if per_fwd != EXPECTED_PER_FORWARD[routing]:
             fail(f"{routing} launch counts {per_fwd} != {EXPECTED_PER_FORWARD[routing]}")
-    kw = _unet_kw(vcfg)
-    state = nets["padded"].state_dict()
-    plain16 = VideoUNet(dtype=torch.bfloat16, **kw).to(dev).eval()
-    plain16.load_state_dict(state)
-    ref32 = VideoUNet(dtype=torch.float32, **kw).to(dev).eval()
-    ref32.load_state_dict(state)
-    outs["plain_bf16"] = fwd(plain16)
-    out_ref = fwd(ref32)
-    for o in list(outs.values()) + [out_ref]:
+    # the plain bf16 path and the float32 reference of each architecture
+    refs, plain16 = {}, None
+    for routing in ("padded", "padded_k8_k9_wide"):
+        kw = dict(_unet_kw(vcfg), **_arch(routing))
+        state = nets[routing].state_dict()
+        p16 = VideoUNet(dtype=torch.bfloat16, **kw).to(dev).eval()
+        p16.load_state_dict(state)
+        r32 = VideoUNet(dtype=torch.float32, **kw).to(dev).eval()
+        r32.load_state_dict(state)
+        refs[routing] = (fwd(p16), fwd(r32))
+        plain16 = plain16 or p16
+        del r32
+    outs["plain_bf16"] = refs["padded"][0]
+    for o in list(outs.values()) + [r for pair in refs.values() for r in pair]:
         if o.shape != inputs[0].shape[:-1] + (vcfg.channels,) or not bool(torch.isfinite(o).all()):
             fail("forward output has the wrong shape or non-finite values")
-    std = float(out_ref.std())
+
+    def ref_of(routing):
+        return refs["padded_k8_k9_wide" if _arch(routing) else "padded"]
 
     def err(o, ref):
         d = (o - ref).abs()
+        std = float(ref.std())
         return float(d.max()) / std, float(d.mean()) / std
 
-    errs = {name: err(o, out_ref) for name, o in outs.items()}
-    errs.update({f"{r}_vs_plain_bf16": err(outs[r], outs["plain_bf16"]) for r in nets})
-    log("[forward] err/std (max, mean) vs the float32 plain reference: "
-        + "; ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in errs.items()))
+    errs = {name: err(o, ref_of(name)[1]) for name, o in outs.items() if name in nets}
+    errs["plain_bf16"] = err(refs["padded"][0], refs["padded"][1])
+    errs["plain_bf16_wide"] = err(*refs["padded_k8_k9_wide"])
+    errs.update({f"{r}_vs_plain_bf16": err(outs[r], ref_of(r)[0]) for r in nets})
+    log("[forward] err/std (max, mean) vs the float32 plain reference of the routing's "
+        "architecture: " + "; ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in errs.items()))
     # the fused routings round at other places than the plain bf16 path, but
     # in the same class: each may stray from float32 at most twice as far
-    e_plain = errs["plain_bf16"]
     for r in nets:
+        e_plain = errs["plain_bf16_wide" if _arch(r) else "plain_bf16"]
         if errs[r][0] > 2 * e_plain[0] or errs[r][1] > 2 * e_plain[1]:
             fail(f"{r} forward strays further from the float32 reference than the bf16 plain path")
-    fwd_ms = {name: [] for name in outs}
+    fwd_ms = {name: [] for name in list(nets) + ["plain_bf16"]}
     turns = list(nets.items()) + [("plain_bf16", plain16)]
     for label, net in turns + turns[::-1]:
         fwd_ms[label].append(time_ms(lambda: fwd(net), 2, 1))
@@ -1312,6 +1535,65 @@ def train_policy(dev):
     return report
 
 
+def _same_k3(got, want, key):
+    """K13's and K3's outputs bit-equal: the interior rows (pad rows are
+    unwritten) and the statistics."""
+    h = key[2][0]
+    if key[-1]:
+        (got, gst), (want, wst) = got, want
+        if not torch.equal(gst, wst):
+            return False
+    return torch.equal(got[:, :, 1:h + 1], want[:, :, 1:h + 1])
+
+
+def lab_kernels(rk, routing_calls, dev):
+    """Phase 8, the lab kernels' main paths, then their gates. The port's
+    perf lab (`winobench2`, `tconvbench2`), the path that launches K14 and
+    K15; K13 held against K3 at every K3 signature of the padded forward, on
+    K3's first input set, bit for bit (the JAX package's own caller of K13,
+    `tests/test_pallas_kernels.py:712`, holds it against K3). The counts are
+    zeroed before and read after each. Then every lab kernel against its
+    plain version on `SEEDS` input sets, timed: K13 at K3's signatures
+    (weighted by K3's calls per forward), K14 at K10's signatures of
+    `spatial_k10_k11` (weighted by K10's) and at the lab's, K15 at the lab's.
+    Returns (lab launches, lab rows, the perf lab's rows and seconds, per
+    shape rows, per-forward sums)."""
+    from v2a_tpu_torch.scripts import perf_lab
+
+    zero_launches()
+    with recording() as lab_calls:
+        t0 = time.perf_counter()
+        lab_rows = perf_lab.main(["winobench2", "tconvbench2"], device=dev)
+        torch.cuda.synchronize()
+        lab_s = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"[lab] perf lab winobench2 + tconvbench2: {lab_s:.1f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    k3_keys = sorted((k for k in routing_calls["padded"] if k[0] == "k3"), key=str)
+    zero_launches()
+    with torch.no_grad():
+        for key in k3_keys:
+            inp = Inputs(rk, torch.Generator(device=dev).manual_seed(seed_of(key, 0)), dev)
+            args = _k3_args(key, inp)
+            if not _same_k3(rk.fused_conv_tconv_dma(*args), rk.fused_conv_tconv_padded(*args),
+                            key):
+                fail(f"K13 differs from K3 at {_k3_label(key)}")
+    torch.cuda.synchronize()
+    launches["fused_conv_tconv_dma"] = launch_counts()["fused_conv_tconv_dma"]
+    log(f"[lab] K13 bit-equal to K3 at the {len(k3_keys)} K3 signatures of the padded forward")
+    for name in ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps"):
+        if not launches[name]:
+            fail(f"{name} was not launched on its path")
+    gated = {("k13",) + k[1:]: routing_calls["padded"][k] for k in k3_keys}
+    gated.update({("k14",) + k[1:]: v for k, v in routing_calls["spatial_k10_k11"].items()
+                  if k[0] == "k10"})
+    for k in lab_calls:
+        if k[0] in ("k14", "k15"):
+            gated.setdefault(k, 1 if k[0] == "k15" else 0)
+    rows, agg = check_kernels(rk, {"lab": gated}, dev, timed=True, tag="lab")
+    return launches, lab_rows, lab_s, rows, agg
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1335,6 +1617,7 @@ def main():
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # 2. build
+    from v2a_tpu_torch.models.init import init_params
     from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
     from v2a_tpu_torch.models.video_unet import VideoUNet
     from v2a_tpu_torch.ops import _build
@@ -1358,9 +1641,12 @@ def main():
     for routing, flags in ROUTINGS.items():
         if routing != "padded":
             net = VideoUNet(in_channels=2 * vcfg.channels, out_channels=vcfg.channels,
-                            dtype=torch.bfloat16, **_unet_kw(vcfg), **flags)
+                            dtype=torch.bfloat16, **dict(_unet_kw(vcfg), **flags))
             net = net.to(dev).eval().requires_grad_(False)
-            net.load_state_dict(unet.state_dict())
+            if _arch(routing):  # more attention blocks: its own weights from the seed
+                init_params(net, torch.Generator(device=dev).manual_seed(SEED))
+            else:
+                net.load_state_dict(unet.state_dict())
             nets[routing] = net
     log(f"[model] video U-Net {sum(p.numel() for p in unet.parameters()) / 1e6:.1f} M params, "
         f"release width, bf16; routings: padded stream (shipped), {', '.join(list(nets)[1:])}")
@@ -1399,12 +1685,17 @@ def main():
                                           tag="train-shapes")
     # 7. the policy train step
     policy_train = train_policy(dev)
+    # 8. the lab kernels' paths and gates
+    lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
 
-    # 8. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # 9. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
-    # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step;
+    # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step,
+    # K13 over K3's calls of one padded forward, K14 over K10's of one
+    # spatial_k10_k11 forward, K15 over the perf lab's three shapes;
     # launches over every main-path run (the served requests of all five
-    # routings and the K6 routing's train() run)
+    # routings and the K6 routing's train() run; K13-K15: their lab paths)
+    lab_names = ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps")
     source_routing = {"fused_group_norm_silu": "plain_k7",
                       "fused_downconv3x3_padded": "padded_k8_k9",
                       "fused_spatial_attention_padded": "padded_k8_k9",
@@ -1413,15 +1704,18 @@ def main():
                       "fused_conv_tconv_stream": "padded_k12"}
 
     def entry(name, meta):
-        if name == "wgrad_conv3x3":
+        if name in lab_names:
+            src = lab_agg["lab"][name]
+        elif name == "wgrad_conv3x3":
             src = train_agg["train"][name]
         else:
             src = agg[source_routing.get(name, "padded")][name]
         errs = [src["max_abs_err"], train_agg["train"][name]["max_abs_err"]]
         errs += [a[name]["max_abs_err"] for a in serve_agg.values()]
+        n_launch = (lab_launches[name] if name in lab_names else launches[name]
+                    + train_launches[name] + sum(nl[name] for nl in new_launches.values()))
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-                    launches=launches[name] + train_launches[name]
-                    + sum(nl[name] for nl in new_launches.values()),
+                    launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
                     bound_ms=src["bound_ms"],
                     bound_by="operations" if src["ops_s"] >= src["bytes_s"] else "bytes",
@@ -1434,7 +1728,9 @@ def main():
                        requests_s=req, serve_launches=launches, new_routing_request_s=new_req,
                        new_routing_launches=new_launches, train=train_report,
                        train_launches=train_launches, train_shapes=train_rows,
-                       per_train_step=train_agg, policy_train=policy_train, kernels=kernels,
+                       per_train_step=train_agg, policy_train=policy_train,
+                       lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
+                       lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
                        **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
         "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "
@@ -1442,8 +1738,11 @@ def main():
         "spatial_k10_k11 (K11's ms includes its wrapper's copies into and out of the "
         "(S, B, F, C) view; copies alone in per_forward.spatial_k10_k11), K12 over one of "
         "padded_k12; K6's are sums over one B=4 release train step (K1's per train step are "
-        "in chiprun_out/chip_smoke_shapes.json, per_train_step); launches are those of the "
-        "served requests of the five routings plus the K6 routing's train() run")
+        "in chiprun_out/chip_smoke_shapes.json, per_train_step); K13's over K3's calls in one "
+        "padded forward, K14's over K10's in one spatial_k10_k11 forward, K15's over the perf "
+        "lab's three shapes (per_lab); launches are those of the served requests of the five "
+        "routings plus the K6 routing's train() run, and for K13-K15 those of their lab paths "
+        "(the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

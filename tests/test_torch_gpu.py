@@ -496,25 +496,52 @@ def _attn_args(gen, dev, dtype, n, hw, c):
     return x, a, b, w
 
 
+def _check_attention(got, want, x, hw, a, b, w, ch, dtype):
+    """K9's interior against its plain version. bf16: one ulp plus what a
+    one-ulp difference of each head output (the projection's input, which
+    kernel and plain version round from float32 sums taken in other orders)
+    moves the output by through Wproj: (|att| 2^-7) @ |Wproj|. float32: as
+    `_check_padded`. Every pad position exactly zero."""
+    h, wd = hw
+    pads = got.clone()
+    pads[:, 1:h + 1, 1:wd + 1] = 0
+    assert not bool(pads.any())
+    gi, wi = rk._interior(got, hw).float(), rk._interior(want, hw).float()
+    if dtype != torch.bfloat16:
+        ok, rel = _within_ulp(gi, wi, dtype)
+        assert ok, f"max err / std {rel}"
+        return
+    _, att = rk.spatial_attention_heads_plain(x, hw, a, b, w[0], w[1], ch)
+    carried = (att.float().abs() * 2.0 ** -7) @ w[2].to(dtype).float().abs()
+    tol = wi.abs() * 2.0 ** -7 + 1e-3 * wi.std() + rk._interior(carried.reshape(got.shape), hw)
+    bad = int(((gi - wi).abs() > tol).sum())
+    assert not bad, f"{bad} elements beyond the gate"
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,hw,c", [(3, (8, 8), 64), (2, (6, 10), 128), (4, (16, 16), 512),
-                                    (2, (8, 8), 640), (1, (24, 30), 64)])
-def test_spatial_attention_padded_kernel_matches_plain(cuda, dtype, n, hw, c):
-    """K9 from a stream with NaN pad rows: every pad position of the output
-    exactly zero, the interior within one ulp of the plain version, the
-    statistics within 1e-3 of their scale; two launches bit-equal."""
+@pytest.mark.parametrize("n,hw,c,ch", [(3, (8, 8), 64, 32), (2, (6, 10), 128, 32),
+                                       (4, (16, 16), 512, 32), (2, (8, 8), 640, 32),
+                                       (1, (24, 30), 64, 32), (1, (32, 32), 128, 64),
+                                       (2, (6, 10), 96, 32), (2, (8, 8), 48, 16),
+                                       (1, (12, 12), 256, 128)])
+def test_spatial_attention_padded_kernel_matches_plain(cuda, dtype, n, hw, c, ch):
+    """K9 from a stream with NaN pad rows at every head width it is built for,
+    C no multiple of 64 (96, 48) and more than 768 tokens (1,024): every pad
+    position of the output exactly zero, the interior within one ulp of the
+    plain version plus the carried difference of its head outputs
+    (`_check_attention`), the statistics within 1e-3 of their scale; two
+    launches bit-equal."""
     gen = torch.Generator(device=cuda).manual_seed(17)
     x, a, b, w = _attn_args(gen, cuda, dtype, n, hw, c)
     before = rk.launches["fused_spatial_attention_padded"]
-    got, gst = rk.fused_spatial_attention_padded(x, hw, a, b, *w, 32, want_stats=True)
-    again = rk.fused_spatial_attention_padded(x, hw, a, b, *w, 32)
+    got, gst = rk.fused_spatial_attention_padded(x, hw, a, b, *w, ch, want_stats=True)
+    again = rk.fused_spatial_attention_padded(x, hw, a, b, *w, ch)
     torch.cuda.synchronize()
     assert rk.launches["fused_spatial_attention_padded"] == before + 2
     assert torch.equal(got, again)
-    want, wst = rk.fused_spatial_attention_padded_plain(x, hw, a, b, *w, 32, want_stats=True)
-    assert not bool(got[:, 0].any()) and not bool(got[:, hw[0] + 1:].any())  # pad rows
+    want, wst = rk.fused_spatial_attention_padded_plain(x, hw, a, b, *w, ch, want_stats=True)
     _stats_close(gst, wst)
-    _check_padded(got, want, hw, dtype)
+    _check_attention(got, want, x, hw, a, b, w, ch, dtype)
 
 
 def _routing_vs_plain(cuda, hw, routing, counts, **kw):
@@ -696,3 +723,86 @@ def test_padded_k12_unet_matches_plain_on_the_card(cuda):
                        "fused_conv_tconv_stream": 4, "fused_conv_tconv_padded": 2,
                        "temporal_conv_padded": 1, "fused_upconv3x3_padded": 1},
                       channel_mult=(1, 2), attention_resolutions=(2,))
+
+
+# -- the lab kernels: K13, K14, K15 ---------------------------------------------------
+
+
+@pytest.mark.parametrize("emb,res,skip_cins", [(True, True, ()), (True, False, (128, 64)),
+                                               (False, False, ())])
+@pytest.mark.parametrize("b,f,hw,cins,d", PADDED_SHAPES + [(2, 7, (128, 128), (128,), 128),
+                                                           (1, 7, (64, 64), (256, 256), 256)])
+def test_conv_tconv_dma_kernel_is_k3(cuda, emb, res, skip_cins, b, f, hw, cins, d):
+    """K13 bit-equal to K3 (bf16), output and statistics, at the small padded
+    shapes and one shape of each padded level of the release U-Net (128^2
+    and 64^2); two launches bit-equal."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    parts = _conv_parts(gen, cuda, dtype, (b, f), hw, cins, d)
+    kbias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    tk = torch.randn(3, d, d, generator=gen, device=cuda) / (3 * d) ** 0.5
+    tb, e, r, skips, sb = _tconv_extras(gen, cuda, dtype, b, f, hw, d, emb, res, skip_cins)
+    args = (parts, kbias, tk, tb, hw, e, r, skips, sb, True, True)
+    before = rk.launches["fused_conv_tconv_dma"]
+    got, gst = rk.fused_conv_tconv_dma(*args, tile_h=hw[0])
+    again, ast = rk.fused_conv_tconv_dma(*args, tile_h=hw[0])
+    want, wst = rk.fused_conv_tconv_padded(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_conv_tconv_dma"] == before + 2
+    rows = slice(1, hw[0] + 1)
+    assert torch.equal(got[:, :, rows], want[:, :, rows]) and torch.equal(gst, wst)
+    assert torch.equal(got[:, :, rows], again[:, :, rows]) and torch.equal(gst, ast)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,w,c,d", [(2, 8, 16, 128, 128), (1, 32, 32, 256, 128),
+                                       (3, 6, 10, 32, 64), (2, 128, 128, 128, 128)])
+def test_winograd_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
+    """K14 within one ulp of its plain version (float32: 1e-5 relative, the
+    Winograd transform's cancellation stays far inside it); two launches
+    bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(3, 3, c, d, generator=gen, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    before = rk.launches["winograd_conv3x3"]
+    got, again = rk.winograd_conv3x3(x, k, bias), rk.winograd_conv3x3(x, k, bias)
+    torch.cuda.synchronize()
+    assert rk.launches["winograd_conv3x3"] == before + 2
+    assert got.shape == (n, h, w, d) and torch.equal(got, again)
+    ok, rel = _within_ulp(got, rk.winograd_conv3x3_plain(x, k, bias), dtype)
+    assert ok, f"max err / std {rel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,s,c", [(2, 7, 64, 128), (1, 3, 1000, 256), (2, 2, 16, 64),
+                                     (8, 7, 64, 640)])
+def test_temporal_conv_taps_kernel_matches_plain(cuda, dtype, b, f, s, c):
+    """K15 within one ulp of its plain version; two launches bit-equal."""
+    from v2a_tpu_torch.scripts import perf_lab
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    x = torch.randn(b, f, s, c, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(3 * c, c, generator=gen, device=cuda) / (3 * c) ** 0.5
+    before = rk.launches["temporal_conv_taps"]
+    got, again = perf_lab.temporal_conv_taps(x, w), perf_lab.temporal_conv_taps(x, w)
+    torch.cuda.synchronize()
+    assert rk.launches["temporal_conv_taps"] == before + 2
+    assert torch.equal(got, again)
+    ok, rel = _within_ulp(got, perf_lab.temporal_conv_taps_plain(x, w), dtype)
+    assert ok, f"max err / std {rel}"
+
+
+def test_lab_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from v2a_tpu_torch.scripts import perf_lab
+
+    with pytest.raises(ValueError):  # a head width the kernel is not built for
+        x, a, b, w = _attn_args(torch.Generator(device=cuda).manual_seed(33), cuda,
+                                torch.bfloat16, 1, (8, 8), 96)
+        rk.fused_spatial_attention_padded(x, (8, 8), a, b, *w, 48)
+    with pytest.raises(ValueError):  # D % 64
+        rk.winograd_conv3x3(torch.zeros(1, 8, 8, 32, device=cuda),
+                            torch.zeros(3, 3, 32, 48, device=cuda), torch.zeros(48, device=cuda))
+    with pytest.raises(ValueError):  # C % 64
+        perf_lab.temporal_conv_taps(torch.zeros(1, 3, 8, 96, device=cuda),
+                                    torch.zeros(288, 96, device=cuda))

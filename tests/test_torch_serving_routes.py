@@ -27,7 +27,8 @@ pytest.importorskip("flax")  # the JAX package's models need it
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
-from test_torch_padded import _counting, _jax_defaults, _jax_module, _streams  # noqa: E402
+from test_torch_padded import (  # noqa: E402
+    PACKAGE_KERNELS, _counting, _jax_defaults, _jax_module, _streams)
 from test_torch_video import UNET_TOL, _load, _unet_inputs, japply, random_params  # noqa: E402
 from v2a_tpu.models import video_model as jvm  # noqa: E402
 from v2a_tpu.models import video_unet as jvu  # noqa: E402
@@ -40,7 +41,7 @@ from v2a_tpu_torch.ops import group_norm as tgn  # noqa: E402
 from v2a_tpu_torch.ops import resblock_kernels as trk  # noqa: E402
 from v2a_tpu_torch.train import video_trainer as tvt  # noqa: E402
 
-ALL = tuple(trk.KERNELS)
+ALL = PACKAGE_KERNELS
 
 
 def _t(a):
@@ -441,14 +442,22 @@ ROUTES = {"padded_k8_k9": (dict(PERF_DOWNCONV=True, PERF_PALLAS_ATTN=True), dict
                                    tconv_hw=True)),
           "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True),
                          dict(fused=True, stream_kernel=True))}
+# padded_k8_k9 on the release U-Net with attention at ds 4 / 8 / 16 and
+# 64-channel heads: K9 at the padded 32^2 level (1,024 tokens) too
+WIDE = dict(attention_resolutions=(4, 8, 16), num_head_channels=64)
+ROUTES["padded_k8_k9_wide"] = (ROUTES["padded_k8_k9"][0], dict(fused=True, **WIDE),
+                               dict(fused=True, downconv=True, attn_kernel=True, **WIDE))
+ARCH = ("attention_resolutions", "num_head_channels")
 
 
 @functools.lru_cache(maxsize=None)
-def _release_args():
-    """The release U-Net's parameter shapes and (x, t, tokens), abstract."""
+def _release_args(arch=()):
+    """The release U-Net's parameter shapes and (x, t, tokens), abstract;
+    `arch`: (name, value) pairs of U-Net arguments that change its
+    parameters."""
     x = jnp.zeros((1, 7, 128, 128, 6), jnp.bfloat16)
     t, tok = jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 512))
-    params = jax.eval_shape(lambda: jvu.VideoUNet(dtype=jnp.bfloat16).init(
+    params = jax.eval_shape(lambda: jvu.VideoUNet(dtype=jnp.bfloat16, **dict(arch)).init(
         jax.random.PRNGKey(0), x, t, tok))
     return params, x, t, tok
 
@@ -463,7 +472,7 @@ def test_release_counts_match_the_jax_trace(monkeypatch, route):
     flags, jkw, tkw = ROUTES[route]
     for flag, value in flags.items():
         monkeypatch.setattr(jvu, flag, value)
-    params, x, t, tok = _release_args()
+    params, x, t, tok = _release_args(tuple((k, v) for k, v in jkw.items() if k in ARCH))
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     jax.eval_shape(jvu.VideoUNet(dtype=jnp.bfloat16, **jkw).apply, params, x, t, tok)
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL, via_plain=True)

@@ -23,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from test_torch_padded import (  # noqa: E402
-    KTOL, STATS_TOL, _counting, _jax_defaults, _jax_module, _streams)
+    KTOL, PACKAGE_KERNELS, STATS_TOL, _counting, _jax_defaults, _jax_module, _streams)
 from test_torch_serving_routes import _interior, _np, _one_ulp, _t, _zero_pads  # noqa: E402
 from test_torch_video import UNET_TOL, _load, _unet_inputs, japply, random_params  # noqa: E402
 from v2a_tpu.models import video_unet as jvu  # noqa: E402
@@ -31,7 +31,7 @@ from v2a_tpu.ops import resblock_kernels as jrk  # noqa: E402
 from v2a_tpu_torch.models import video_unet as tvu  # noqa: E402
 from v2a_tpu_torch.ops import resblock_kernels as trk  # noqa: E402
 
-ALL = tuple(trk.KERNELS)
+ALL = PACKAGE_KERNELS
 # the JAX module flags of each routing, and the port's VideoUNet arguments
 ROUTES = {
     "spatial_k10_k11": (dict(PERF_PALLAS_SPATIAL2_MIN_CH=0, PERF_PALLAS_SPATIAL=True,

@@ -24,12 +24,18 @@
 // four launches and the statistics pass:
 //   1. zero the pad positions of y;
 //   2. QKV: the tile GEMM of common.cuh over (interior tokens, C) x (C, 3C),
-//      the affine applied in the gather, into a (N * S, 3C) scratch;
-//   3. attention: a block per (64 queries, head, sample) holds that head's
-//      K and V of all S keys in shared memory (float32), a warp per query
-//      row: logits, the row max and the row sum over all keys first, then
-//      the probabilities ex / sum rounded to T (an online-softmax rescale
-//      would round differently), then P @ V, into a (N * S, C) scratch;
+//      the affine applied in the gather, into a (N * S, 3C) scratch; tiles
+//      past C or 3C (C % 64 != 0) are masked;
+//   3. attention: a block per (64 queries, head, sample) holds its queries
+//      in shared memory and walks the keys in chunks of 64, K and V of a
+//      chunk in shared memory (float32), so any token count fits. Pass 1
+//      over the chunks: each lane's running row max and row sum over its
+//      keys, combined across the warp (the max is exact, the sum is summed
+//      in another order than the plain version's). Pass 2: the logits again,
+//      the probabilities ex / sum rounded to T (an online-softmax rescale of
+//      the output would round differently), P @ V summed in float32 and each
+//      head's output rounded once, into a (N * S, C) scratch. The head width
+//      CH (16, 32, 64 or 128) is a template parameter;
 //   4. projection: the tile GEMM over (tokens, C) x (C, C) whose epilogue adds
 //      the bias and the residual in float32, writes y and the tile's column
 //      sums of y and y^2 (tiles never straddle two samples);
@@ -41,10 +47,10 @@
 namespace v2a {
 namespace {
 
-constexpr int CH = 32;         // channels per head
 constexpr int QB = 64;         // query rows per attention block
+constexpr int KC = 64;         // keys per shared-memory chunk
 constexpr int ATT_WARPS = 8;   // warps per attention block
-constexpr int K_LD = CH + 1;   // K rows padded: lane j reads row j, bank (j + c) % 32
+constexpr int QPW = QB / ATT_WARPS;  // queries per warp
 
 template <typename T>
 __global__ void zero_pads_kernel(T* __restrict__ y, long n_vec, int H, int W, int Hp, int Wp,
@@ -60,10 +66,28 @@ __global__ void zero_pads_kernel(T* __restrict__ y, long n_vec, int H, int W, in
   }
 }
 
+// load_b_tile with the rows past K and the columns past ldw zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_b_tile_masked(T (*Bs)[Lds<T>::B], const T* __restrict__ w,
+                                                   int k0, int K, int ldw, int n0) {
+#pragma unroll
+  for (int s = 0; s < (BK * BN) / (THREADS * 8); ++s) {
+    const int idx = threadIdx.x + s * THREADS;
+    const int k = idx / (BN / 8);
+    const int jg = (idx % (BN / 8)) * 8;
+    if (k0 + k < K && n0 + jg < ldw)
+      copy8(&Bs[k][jg], w + (long)(k0 + k) * ldw + n0 + jg);
+    else
+      zero8(&Bs[k][jg]);
+  }
+}
+
 // The two GEMMs over the interior tokens of each sample: block (sample *
 // tiles + tile, column tile). PROJ = false: A = T(x * a + b) gathered from the
 // padded x, out = qkv (N * S, ldw). PROJ = true: A = att (N * S, C), out = y
 // (padded) = T(x + A @ w + bias), and the tile's column sums into partial.
+// C and ldw are multiples of 8; the K steps and column tiles past them are
+// zero-filled.
 template <typename T, bool PROJ>
 __global__ void __launch_bounds__(THREADS)
 attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
@@ -102,7 +126,7 @@ attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
       T* dst = &As[rrow[s]][rcg[s]];
-      if (!rvalid[s]) {
+      if (!rvalid[s] || c0 + rcg[s] >= C) {
         zero8(dst);
         continue;
       }
@@ -116,7 +140,7 @@ attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
       affine8(v, a + aoff, b + aoff, false);
       store8(dst, v);  // xn, rounded to T before the product
     }
-    load_b_tile<T>(Bs, w, c0, ldw, n0);
+    load_b_tile_masked<T>(Bs, w, c0, C, ldw, n0);
     __syncthreads();
     acc.step(As, Bs);
     __syncthreads();
@@ -126,7 +150,7 @@ attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
   for (int idx = tid; idx < BM * BN; idx += THREADS) {
     const int r = idx / BN, c = idx % BN;
     const int tok = s0 + r;
-    if (tok >= S) continue;
+    if (tok >= S || n0 + c >= ldw) continue;
     const float p = __fadd_rn(Cs[r][c], bias[n0 + c]);
     if (!PROJ) {
       out[((long)n * S + tok) * ldw + n0 + c] = from_f<T>(p);
@@ -141,6 +165,7 @@ attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
   __syncthreads();
   if (tid < 2 * BN) {
     const int c = tid % BN, which = tid / BN;
+    if (n0 + c >= C) return;
     float sum = 0.f;
     for (int r = 0; r < BM && s0 + r < S; ++r) {
       const float v = Cs[r][c];
@@ -150,67 +175,158 @@ attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
   }
 }
 
+// The lanes of a warp over one head's CH output channels: G lanes per key
+// group, KS key groups (CH < 32 splits the keys), CPL channels per lane.
+template <int CH>
+struct HeadLanes {
+  static constexpr int G = CH < 32 ? CH : 32;
+  static constexpr int KS = 32 / G;
+  static constexpr int CPL = CH / G;
+};
+
 // Block (query tile, head, sample); qkv (N * S, 3C) -> att (N * S, C).
-template <typename T>
+template <typename T, int CH>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_kernel(const T* __restrict__ qkv, T* __restrict__ att, int S, int C, float s2) {
+  using L = HeadLanes<CH>;
+  constexpr int K_LD = CH + 1;  // K rows padded: lane j reads row j, bank (j + c) % 32
   extern __shared__ float smem[];
-  float* Ks = smem;                   // [S][K_LD]
-  float* Vs = Ks + (long)S * K_LD;    // [S][CH]
-  float* P = Vs + (long)S * CH;       // [ATT_WARPS][S]
+  float* Qs = smem;                    // [QB][CH]
+  float* Ks = Qs + QB * CH;            // [KC][K_LD]
+  float* Vs = Ks + KC * K_LD;          // [KC][CH]
+  float* P = Vs + KC * CH;             // [ATT_WARPS][KC]
   const int q0 = blockIdx.x * QB, hd = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long ld = 3L * C;
   const T* base = qkv + (long)n * S * ld + (long)hd * 3 * CH;
 
-  for (int i = threadIdx.x; i < S * CH; i += blockDim.x) {
-    const int j = i / CH, c = i % CH;
-    Ks[j * K_LD + c] = to_f(base[j * ld + CH + c]);
-    Vs[j * CH + c] = to_f(base[j * ld + 2 * CH + c]);
+  for (int i = threadIdx.x; i < QB * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    Qs[i] = q0 + r < S ? to_f(base[(long)(q0 + r) * ld + c]) : 0.f;
   }
-  __syncthreads();
+  auto load_chunk = [&](int j0, bool with_v) {
+    __syncthreads();  // every read of the previous chunk is done
+    for (int i = threadIdx.x; i < KC * CH; i += blockDim.x) {
+      const int j = i / CH, c = i % CH;
+      const bool in = j0 + j < S;
+      Ks[j * K_LD + c] = in ? to_f(base[(long)(j0 + j) * ld + CH + c]) : 0.f;
+      if (with_v) Vs[j * CH + c] = in ? to_f(base[(long)(j0 + j) * ld + 2 * CH + c]) : 0.f;
+    }
+    __syncthreads();
+  };
+  auto logit = [&](int qr, int j) {
+    const float* q = Qs + qr * CH;
+    const float* k = Ks + j * K_LD;
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) dot = __fadd_rn(dot, __fmul_rn(q[c], k[c]));
+    return __fmul_rn(dot, s2);
+  };
 
-  float* row = P + (long)warp * S;
-  for (int qi = q0 + warp; qi < min(S, q0 + QB); qi += ATT_WARPS) {
-    float q[CH];
+  // pass 1: each lane's running max and sum of exp over its keys
+  float mx[QPW], sm[QPW];
 #pragma unroll
-    for (int c = 0; c < CH; ++c) q[c] = to_f(base[qi * ld + c]);
-    float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const float* k = Ks + j * K_LD;
-      float dot = 0.f;
+  for (int i = 0; i < QPW; ++i) {
+    mx[i] = -INFINITY;
+    sm[i] = 0.f;
+  }
+  for (int j0 = 0; j0 < S; j0 += KC) {
+    load_chunk(j0, false);
+    const int kc = min(KC, S - j0);
 #pragma unroll
-      for (int c = 0; c < CH; ++c) dot = __fadd_rn(dot, __fmul_rn(q[c], k[c]));
-      const float l = __fmul_rn(dot, s2);
-      row[j] = l;
-      mx = fmaxf(mx, l);
+    for (int i = 0; i < QPW; ++i) {
+      const int qr = warp + i * ATT_WARPS;
+      if (q0 + qr >= S) continue;
+      for (int j = lane; j < kc; j += 32) {
+        const float l = logit(qr, j);
+        if (l > mx[i]) {
+          sm[i] = __fadd_rn(__fmul_rn(sm[i], expf(__fsub_rn(mx[i], l))), 1.f);
+          mx[i] = l;
+        } else {
+          sm[i] = __fadd_rn(sm[i], expf(__fsub_rn(l, mx[i])));
+        }
+      }
     }
+  }
 #pragma unroll
-    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(__fsub_rn(row[j], mx));
-      row[j] = e;
-      sum = __fadd_rn(sum, e);
+  for (int i = 0; i < QPW; ++i) {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, mx[i], o);
+      const float s2v = __shfl_xor_sync(0xffffffffu, sm[i], o);
+      const float m = fmaxf(mx[i], m2);
+      const float a = mx[i] == -INFINITY ? 0.f : __fmul_rn(sm[i], expf(__fsub_rn(mx[i], m)));
+      const float b = m2 == -INFINITY ? 0.f : __fmul_rn(s2v, expf(__fsub_rn(m2, m)));
+      sm[i] = __fadd_rn(a, b);
+      mx[i] = m;
     }
+  }
+
+  // pass 2: p = T(ex / sum), o = sum_j p_j v_j in float32
+  float acc[QPW][L::CPL];
 #pragma unroll
-    for (int o = 16; o; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-    for (int j = lane; j < S; j += 32) row[j] = to_f(from_f<T>(__fdiv_rn(row[j], sum)));
-    __syncwarp();
-    float o = 0.f;  // lane = the output channel
-    for (int j = 0; j < S; ++j) o = __fadd_rn(o, __fmul_rn(row[j], Vs[j * CH + lane]));
-    att[((long)n * S + qi) * C + hd * CH + lane] = from_f<T>(o);
-    __syncwarp();
+  for (int i = 0; i < QPW; ++i)
+#pragma unroll
+    for (int u = 0; u < L::CPL; ++u) acc[i][u] = 0.f;
+  const int group = lane / L::G, slot = lane % L::G;
+  float* row = P + warp * KC;
+  for (int j0 = 0; j0 < S; j0 += KC) {
+    load_chunk(j0, true);
+    const int kc = min(KC, S - j0);
+#pragma unroll
+    for (int i = 0; i < QPW; ++i) {
+      const int qr = warp + i * ATT_WARPS;
+      if (q0 + qr >= S) continue;
+      for (int j = lane; j < kc; j += 32)
+        row[j] = to_f(from_f<T>(__fdiv_rn(expf(__fsub_rn(logit(qr, j), mx[i])), sm[i])));
+      __syncwarp();
+      for (int j = group; j < kc; j += L::KS) {
+        const float p = row[j];
+#pragma unroll
+        for (int u = 0; u < L::CPL; ++u)
+          acc[i][u] = __fadd_rn(acc[i][u], __fmul_rn(p, Vs[j * CH + slot + u * L::G]));
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < QPW; ++i) {
+#pragma unroll
+    for (int u = 0; u < L::CPL; ++u)
+#pragma unroll
+      for (int o = L::G; o < 32; o <<= 1)
+        acc[i][u] = __fadd_rn(acc[i][u], __shfl_xor_sync(0xffffffffu, acc[i][u], o));
+    const int qi = q0 + warp + i * ATT_WARPS;
+    if (qi < S && group == 0) {
+#pragma unroll
+      for (int u = 0; u < L::CPL; ++u)
+        att[((long)n * S + qi) * C + hd * CH + slot + u * L::G] = from_f<T>(acc[i][u]);
+    }
   }
 }
 
-size_t attention_smem(int S) { return (size_t)S * (K_LD + CH + ATT_WARPS) * sizeof(float); }
+template <int CH>
+size_t attention_smem() {
+  return (size_t)(QB * CH + KC * (CH + 1) + KC * CH + ATT_WARPS * KC) * sizeof(float);
+}
+
+template <typename T, int CH>
+cudaError_t launch_attention(const T* qkv, T* att, int N, int S, int C, float s2,
+                             cudaStream_t stream) {
+  const size_t smem = attention_smem<CH>();
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel<T, CH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  attention_kernel<T, CH><<<dim3((S + QB - 1) / QB, C / CH, N), ATT_WARPS * 32, smem, stream>>>(
+      qkv, att, S, C, s2);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t launch(const void* x, const void* a, const void* b, const void* wqkv,
                    const void* bqkv, const void* wproj, const void* bproj, void* y, void* qkv,
                    void* att, void* partial, void* stats, int N, int H, int W, int Wp, int C,
-                   float s2, cudaStream_t stream) {
+                   int ch, float s2, cudaStream_t stream) {
   const int Hp = H + 2, S = H * W, tiles = (S + BM - 1) / BM;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
@@ -220,19 +336,22 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* wqkv
       yt, n_vec, H, W, Hp, Wp, C);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_gemm_kernel<T, false><<<dim3(N * tiles, 3 * C / BN), THREADS, 0, stream>>>(
+  attn_gemm_kernel<T, false><<<dim3(N * tiles, (3 * C + BN - 1) / BN), THREADS, 0, stream>>>(
       xt, static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), nullptr,
       static_cast<T*>(qkv), nullptr, S, W, Hp, Wp, C, 3 * C, tiles);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t smem = attention_smem(S);
-  if ((e = cudaFuncSetAttribute(attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess)
-    return e;
-  attention_kernel<T><<<dim3((S + QB - 1) / QB, C / CH, N), ATT_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(att), S, C, s2);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attn_gemm_kernel<T, true><<<dim3(N * tiles, C / BN), THREADS, 0, stream>>>(
+  const T* q = static_cast<const T*>(qkv);
+  T* o = static_cast<T*>(att);
+  switch (ch) {
+    case 16: e = launch_attention<T, 16>(q, o, N, S, C, s2, stream); break;
+    case 32: e = launch_attention<T, 32>(q, o, N, S, C, s2, stream); break;
+    case 64: e = launch_attention<T, 64>(q, o, N, S, C, s2, stream); break;
+    case 128: e = launch_attention<T, 128>(q, o, N, S, C, s2, stream); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  attn_gemm_kernel<T, true><<<dim3(N * tiles, (C + BN - 1) / BN), THREADS, 0, stream>>>(
       static_cast<const T*>(att), nullptr, nullptr, static_cast<const T*>(wproj),
       static_cast<const float*>(bproj), xt, yt, static_cast<float*>(partial), S, W, Hp, Wp, C, C,
       tiles);
@@ -249,25 +368,26 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* wqkv
 // wqkv (C, 3C), wproj (C, C) in x's type; bqkv (3C,), bproj (C,) float32;
 // qkv (N * H * W, 3C) and att (N * H * W, C) scratch in x's type; partial
 // (N * tiles * 2 * C) float32 and stats (N, 2, C) float32, both null without
-// statistics. Heads of 32 channels; needs C % 64 == 0, H * W <= 768,
-// 16-byte aligned contiguous buffers.
+// statistics. ch: the head width, 16, 32, 64 or 128, dividing C; any token
+// count; 16-byte aligned contiguous buffers.
 extern "C" int v2a_spatial_attention_padded(const void* x, const void* a, const void* b,
                                             const void* wqkv, const void* bqkv, const void* wproj,
                                             const void* bproj, void* y, void* qkv, void* att,
                                             void* partial, void* stats, int N, int H, int W,
-                                            int Wp, int C, int dtype, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C % v2a::BN || Wp < W + 2 || Wp % 8 || H * W > 768 ||
+                                            int Wp, int C, int ch, int dtype, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Wp < W + 2 || Wp % 8 ||
+      (ch != 16 && ch != 32 && ch != 64 && ch != 128) || C % ch ||
       (partial == nullptr) != (stats == nullptr) || a == nullptr || b == nullptr)
     return (int)cudaErrorInvalidValue;
   // the TPU body's logit scale: (ch^-1/4)^2 in double, then float
-  const double sc = 1.0 / sqrt(sqrt((double)v2a::CH));
+  const double sc = 1.0 / sqrt(sqrt((double)ch));
   const float s2 = (float)(sc * sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return (int)v2a::launch<__nv_bfloat16>(x, a, b, wqkv, bqkv, wproj, bproj, y, qkv, att,
-                                           partial, stats, N, H, W, Wp, C, s2, s);
+                                           partial, stats, N, H, W, Wp, C, ch, s2, s);
   if (dtype == 0)
     return (int)v2a::launch<float>(x, a, b, wqkv, bqkv, wproj, bproj, y, qkv, att, partial,
-                                   stats, N, H, W, Wp, C, s2, s);
+                                   stats, N, H, W, Wp, C, ch, s2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -64,6 +64,17 @@ The training path adds:
   `ops/conv_vjp.py` makes K1 differentiable with K1 as its dgrad and K6 as
   its wgrad.
 
+Two kernels of the JAX package that its model never calls, reached through
+the port's perf lab (`v2a_tpu_torch/scripts/perf_lab.py`) and `chip_smoke.py`:
+
+- `fused_conv_tconv_dma` (K13): K3's contract with its copies overlapping
+  its compute; bit-equal to K3. `csrc/conv_tconv_dma.cu`.
+- `winograd_conv3x3` (K14): K10's function by Winograd F(2x2, 3x3), even H
+  and W. `csrc/winograd_conv3x3.cu`.
+
+The perf lab's own temporal conv (K15, `temporal_conv_taps`) has its wrapper
+in `scripts/perf_lab.py` and its entry and count here.
+
 Each wrapper runs its kernel's plain PyTorch version (`*_plain`, beside it)
 for a tensor on the CPU. For a CUDA tensor it launches the kernel on the
 current stream or raises; there is no fallback. `launches[<wrapper name>]`
@@ -142,6 +153,21 @@ KERNELS = {
     "fused_conv_tconv_stream": dict(
         source="v2a_tpu_torch/csrc/conv_tconv_stream.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:2656",
+    ),
+    "fused_conv_tconv_dma": dict(
+        source="v2a_tpu_torch/csrc/conv_tconv_dma.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:2377",
+    ),
+    "winograd_conv3x3": dict(
+        source="v2a_tpu_torch/csrc/winograd_conv3x3.cu",
+        replaces="v2a_tpu/ops/resblock_kernels.py:3163",
+    ),
+    # the perf lab's temporal conv (a closure there: `make_call` :627, its
+    # pallas_call :674)
+    "temporal_conv_taps": dict(
+        source="v2a_tpu_torch/csrc/tconv_variants.cu",
+        replaces="scripts/perf_lab.py:627",
+        module="v2a_tpu_torch.scripts.perf_lab",
     ),
 }
 
@@ -714,14 +740,24 @@ def fused_conv_tconv_padded(parts, kbias, tkernel, tbias, hw, emb=None, residual
     if x0.device.type == "cpu":
         return fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
                                              skip_parts, skip_bias, silu, want_stats)
+    return _conv_tconv_launch("conv_tconv_padded", "fused_conv_tconv_padded", parts, kbias,
+                              tkernel, tbias, hw, emb, residual, skip_parts, skip_bias, silu,
+                              want_stats)
+
+
+def _conv_tconv_launch(lib: str, what: str, parts, kbias, tkernel, tbias, hw, emb, residual,
+                       skip_parts, skip_bias, silu, want_stats):
+    """Checks K3's arguments and launches K3 or K13, which share one C
+    interface: `v2a_<lib>` of `csrc/<lib>.cu`, counted under `what`."""
+    x0 = parts[0][0]
     h, w = hw
     hp, wp = padded_hw(h, w)
     b, f = x0.shape[:2]
     d = parts[0][1].shape[-1]
     if not 1 <= len(parts) <= 2:
-        raise ValueError(f"K3 takes one or two parts, got {len(parts)}")
+        raise ValueError(f"{what} takes one or two parts, got {len(parts)}")
     if d % 64 or tuple(tkernel.shape) != (3, d, d):
-        raise ValueError(f"K3 needs D % 64 == 0 and a (3, D, D) temporal kernel, got D={d}")
+        raise ValueError(f"{what} needs D % 64 == 0 and a (3, D, D) temporal kernel, got D={d}")
     args, cins = [], []
     for x, kernel, a, bb in parts:
         c = x.shape[-1]
@@ -751,16 +787,69 @@ def fused_conv_tconv_padded(parts, kbias, tkernel, tbias, hw, emb=None, residual
     pix = _k3_pixels(f, d, x0.element_size())
     tiles = -(-h * w // pix)
     partial, stats = _stats_buffers(x0, b * f, tiles, d, want_stats)
-    fn = _lib("conv_tconv_padded", "v2a_conv_tconv_padded", 21, 13)
+    fn = _lib(lib, "v2a_" + lib, 21, 13)
     with torch.cuda.device(x0.device):
         rc = fn(*[_ptr(t) for t in args], _ptr(kb32), _ptr(tw), _ptr(tb32), _ptr(emb32),
                 _ptr(residual), _ptr(skips[0][0]), _ptr(skips[0][1]), _ptr(skips[1][0]),
                 _ptr(skips[1][1]), _ptr(sb32), _ptr(y), _ptr(partial), _ptr(stats),
                 b, f, h, w, wp, cins[0], cins[1], d, skips[0][2], skips[1][2], pix, int(silu),
                 _DTYPE_CODE[dt], _stream(x0))
-    _raise_on(rc, "fused_conv_tconv_padded")
-    launches["fused_conv_tconv_padded"] += 1
+    _raise_on(rc, what)
+    launches[what] += 1
     return (y, stats.reshape(b, f, 2, d)) if want_stats else y
+
+
+# -- K13: K3 with its copies overlapping its compute -------------------------------
+
+
+def fused_conv_tconv_dma_plain(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
+                               skip_parts=None, skip_bias=None, silu=True, want_stats=False,
+                               tile_h=None):
+    """Plain PyTorch version of K13: K3's (the contract is the same; the
+    band height `tile_h` does not change the result)."""
+    return fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
+                                         skip_parts, skip_bias, silu, want_stats)
+
+
+def _dma_checks(parts, hw, d: int, has_res: bool, skip_parts, tile_h) -> None:
+    """The JAX wrapper's guards (`v2a_tpu/ops/resblock_kernels.py:2400-2406`)."""
+    h, w = hw
+    wp = padded_hw(h, w)[1]
+    tp = tile_h or conv_tconv_band_rows(h, w, wp, [x.shape[-1] for x, *_ in parts], d,
+                                        parts[0][0].shape[1], has_res=has_res,
+                                        skip_cins=[x.shape[-1] for x, _ in skip_parts or ()])
+    if not tp:
+        raise ValueError("mega-kernel not viable at this shape")
+    if h % tp:
+        raise ValueError(f"tile_h {tp} must divide H={h}")
+
+
+def fused_conv_tconv_dma(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
+                         skip_parts=None, skip_bias=None, silu=True, want_stats=False,
+                         tile_h=None):
+    """`fused_conv_tconv_padded` (K3) with its copies overlapping its compute
+    (`v2a_tpu/ops/resblock_kernels.py:2377`): the same contract, arguments
+    and outputs as K3. Raises where the JAX wrapper raises: where
+    `conv_tconv_band_rows` admits no band (without `tile_h`), or where
+    `tile_h` does not divide H. `tile_h` is the TPU's band height; the
+    card's output does not depend on it.
+
+    Kernel note (csrc/conv_tconv_dma.cu): bound by operations, as K3, and
+    bit-equal to it: K3's tiles and order of sums, with every step's input
+    rows and weight slab copied by `cp.async` into a two-stage ring in
+    shared memory while the previous step runs on the tensor cores, and a
+    grid of (sample, group of tiles) sized to fill the card, each block
+    walking its sample's tiles in sequence.
+    """
+    _no_grad_inputs("fused_conv_tconv_dma", kbias, tkernel, tbias, emb, residual, skip_bias,
+                    *_parts_tensors(parts), *_parts_tensors(skip_parts or ()))
+    _dma_checks(parts, hw, parts[0][1].shape[-1], residual is not None, skip_parts, tile_h)
+    x0 = parts[0][0]
+    if x0.device.type == "cpu":
+        return fused_conv_tconv_dma_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
+                                          skip_parts, skip_bias, silu, want_stats)
+    return _conv_tconv_launch("conv_tconv_dma", "fused_conv_tconv_dma", parts, kbias, tkernel,
+                              tbias, hw, emb, residual, skip_parts, skip_bias, silu, want_stats)
 
 
 # -- K5: 2x nearest upsample + 3x3 conv as four low-res parity convs -------------
@@ -1035,9 +1124,8 @@ def wgrad_conv3x3(
 
 # -- K9: fused spatial attention on a padded stream ---------------------------------
 
-# the interior tokens a K9 block holds in shared memory (each sample's K and V
-# of one head in float32, and one probability row per warp)
-ATTN_MAX_TOKENS = 768
+# the head widths the attention kernel is built for (a template parameter)
+ATTN_HEAD_WIDTHS = (16, 32, 64, 128)
 
 
 def _attn_checks(x: torch.Tensor, hw: Tuple[int, int], num_head_channels: int) -> int:
@@ -1061,18 +1149,10 @@ def _interior_mask(hw: Tuple[int, int], device) -> torch.Tensor:
     return m.reshape(hp * wp)
 
 
-def fused_spatial_attention_padded_plain(x, hw, a, b, wqkv, bqkv, wproj, bproj,
-                                         num_head_channels: int, want_stats: bool = False):
-    """Plain PyTorch version of K9, rounding by rounding as the Pallas body
-    (`v2a_tpu/ops/resblock_kernels.py:2871-2959`), over all Hp*Wp tokens:
-    pads selected to zero; xn = x*a + b rounded; qkv = xn @ Wqkv + bqkv in
-    float32, rounded; per head (legacy layout, head base 3*ch*head) the
-    logits dot(q, k) in float32 times scale^2 AFTER the dot, pad keys masked
-    with an additive -1e30, probabilities ex / sum rounded before P @ V, each
-    head's output rounded; y = x + (att @ Wproj + bproj) in float32, pads
-    selected to zero, rounded ONCE; statistics from the unrounded float32 y.
-    (The port's `SpatialAttentionBlock` instead scales q and k in the compute
-    dtype, adds the residual in it, and takes statistics of the rounded sum.)"""
+def spatial_attention_heads_plain(x, hw, a, b, wqkv, bqkv, num_head_channels: int):
+    """The first half of K9's plain version: (xs, att), xs the stream with
+    its pads selected to zero (N, Hp*Wp, C) and att the heads' outputs
+    (N, Hp*Wp, C) in x.dtype, the projection's input."""
     heads = _attn_checks(x, hw, num_head_channels)
     n, hp, wp, c = x.shape
     m, ch, dt = hp * wp, num_head_channels, x.dtype
@@ -1087,10 +1167,29 @@ def fused_spatial_attention_padded_plain(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     logits = logits + torch.where(inside[0, :, 0], 0.0, -1e30)
     ex = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = (ex / ex.sum(-1, keepdim=True)).to(dt)
-    att = (probs.float() @ v).to(dt).permute(0, 2, 1, 3).reshape(n, m, c)
-    proj = att.float() @ wproj.to(dt).float() + bproj.float()
+    return xs, (probs.float() @ v).to(dt).permute(0, 2, 1, 3).reshape(n, m, c)
+
+
+def fused_spatial_attention_padded_plain(x, hw, a, b, wqkv, bqkv, wproj, bproj,
+                                         num_head_channels: int, want_stats: bool = False):
+    """Plain PyTorch version of K9, rounding by rounding as the Pallas body
+    (`v2a_tpu/ops/resblock_kernels.py:2871-2959`), over all Hp*Wp tokens:
+    pads selected to zero; xn = x*a + b rounded; qkv = xn @ Wqkv + bqkv in
+    float32, rounded; per head (legacy layout, head base 3*ch*head) the
+    logits dot(q, k) in float32 times scale^2 AFTER the dot, pad keys masked
+    with an additive -1e30, the row max and row sum over all keys, then the
+    probabilities ex / sum rounded before P @ V, each head's output rounded;
+    y = x + (att @ Wproj + bproj) in float32, pads selected to zero, rounded
+    ONCE; statistics from the unrounded float32 y. Any head width that
+    divides C and any token count, as the Pallas kernel.
+    (The port's `SpatialAttentionBlock` instead scales q and k in the compute
+    dtype, adds the residual in it, and takes statistics of the rounded sum.)"""
+    n, hp, wp, c = x.shape
+    xs, att = spatial_attention_heads_plain(x, hw, a, b, wqkv, bqkv, num_head_channels)
+    proj = att.float() @ wproj.to(x.dtype).float() + bproj.float()
+    inside = _interior_mask(hw, x.device)[None, :, None]
     y = torch.where(inside, xs.float() + proj, 0.0)
-    out = y.to(dt).reshape(n, hp, wp, c)
+    out = y.to(x.dtype).reshape(n, hp, wp, c)
     if want_stats:
         return out, torch.stack([y.sum(1), (y * y).sum(1)], dim=1)
     return out
@@ -1105,22 +1204,24 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
 
     x: (N, Hp, Wp, C), N = B*F; hw: the interior (H, W); a, b: (N, C) float32
     affine (`stats_to_group_affine` with n = H*W); wqkv (C, 3C), bqkv (3C,),
-    wproj (C, C), bproj (C,), the JAX Dense layout. Returns (N, Hp, Wp, C)
+    wproj (C, C), bproj (C,), the JAX Dense layout; num_head_channels: the
+    head width, one of `ATTN_HEAD_WIDTHS`, dividing C. Returns (N, Hp, Wp, C)
     with EVERY pad position zero [, stats (N, 2, C) float32: the interior sum
     / sum of squares of the unrounded output].
 
     Kernel note (csrc/spatial_attention_padded.cu): bound by operations (at
     16^2 x 512, N = 56: 38 GFLOP, 80% of it the two GEMMs, against 50 MB of
-    stream in and out). The TPU kernel holds one
-    whole sample per grid step; here four launches: a QKV GEMM with the
-    affine in its gather (interior tokens only: pad keys weigh exactly zero
-    after the -1e30 mask, so leaving them out changes no sum), the attention
-    with one (sample, head, 64-query) tile per block, K and V of that head in
-    shared memory and one warp per query row (row max and sum over all keys
-    first, then ex / sum rounded, as the TPU kernel rounds them), a
-    projection GEMM whose epilogue adds the bias and the residual in float32
-    and writes per-tile column sums, and a fixed-order pass over those
-    (deterministic); the pad positions are zeroed by a small fill.
+    stream in and out). The TPU kernel holds one whole sample per grid step;
+    here four launches: a QKV GEMM with the affine in its gather (interior
+    tokens only: pad keys weigh exactly zero after the -1e30 mask, so leaving
+    them out changes no sum), the attention with one (sample, head,
+    64-query) tile per block walking the keys in chunks of 64 through shared
+    memory (pass 1: row max and row sum over all keys; pass 2: ex / sum
+    rounded, as the TPU kernel rounds them, then P @ V), a projection GEMM
+    whose epilogue adds the bias and the residual in float32 and writes
+    per-tile column sums, and a fixed-order pass over those (deterministic);
+    the pad positions are zeroed by a small fill. The GEMM tiles are masked
+    where C % 64 != 0.
     """
     _no_grad_inputs("fused_spatial_attention_padded", x, a, b, wqkv, bqkv, wproj, bproj)
     if x.device.type == "cpu":
@@ -1130,10 +1231,9 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     h, w = hw
     n, hp, wp, c = x.shape
     s = h * w
-    if num_head_channels != 32 or c % 64:
-        raise ValueError(f"K9 needs 32-channel heads and C % 64 == 0, got {num_head_channels}, {c}")
-    if s > ATTN_MAX_TOKENS:
-        raise ValueError(f"K9 holds at most {ATTN_MAX_TOKENS} interior tokens, got {s}")
+    if num_head_channels not in ATTN_HEAD_WIDTHS:
+        raise ValueError(f"K9 is built for head widths {ATTN_HEAD_WIDTHS}, "
+                         f"got {num_head_channels}")
     dt = x.dtype
     a32, b32 = _affine32(a, b, n, c)
     wq = wqkv.to(dt).reshape(c, 3 * c).contiguous()
@@ -1144,11 +1244,11 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     qkv = torch.empty((n * s, 3 * c), dtype=dt, device=x.device)
     att = torch.empty((n * s, c), dtype=dt, device=x.device)
     partial, stats = _stats_buffers(x, n, -(-s // 64), c, want_stats)
-    fn = _lib("spatial_attention_padded", "v2a_spatial_attention_padded", 12, 6)
+    fn = _lib("spatial_attention_padded", "v2a_spatial_attention_padded", 12, 7)
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(wq), _ptr(bq), _ptr(wo), _ptr(bo), _ptr(y),
                 _ptr(qkv), _ptr(att), _ptr(partial), _ptr(stats), n, h, w, wp, c,
-                _DTYPE_CODE[dt], _stream(x))
+                num_head_channels, _DTYPE_CODE[dt], _stream(x))
     _raise_on(rc, "fused_spatial_attention_padded")
     launches["fused_spatial_attention_padded"] += 1
     return (y, stats) if want_stats else y
@@ -1196,6 +1296,115 @@ def spatial_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -
                 _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "spatial_conv3x3")
     launches["spatial_conv3x3"] += 1
+    return y
+
+
+# -- K14: the 3x3 conv by Winograd F(2x2, 3x3) ----------------------------------------
+
+# the F(2x2, 3x3) weight transform G and the input combos B^T by index: combo
+# k of a 4-vector is v[i1] + sign * v[i2] (rows d0 - d2, d1 + d2, d2 - d1,
+# d1 - d3, and the same over the cols), and the inverse transform's rows A^T
+_WINO_G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
+_WINO_COMBOS = ((0, 2, -1.0), (1, 2, 1.0), (2, 1, -1.0), (1, 3, -1.0))
+_WINO_AT = ((1.0, 1.0, 1.0, 0.0), (0.0, 1.0, -1.0, -1.0))
+
+
+def winograd_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, D) kernel -> the 16 transform-domain matrices (16, C, D) in
+    float32: W_ab = (G g G^T)[a, b] per channel pair
+    (`v2a_tpu/ops/resblock_kernels.py:3044`), G over the first spatial axis,
+    then over the second, each a sum of the three taps in order."""
+    k = kernel.float()
+
+    def g_times(rows):  # rows: 3 tensors indexed by the contracted axis
+        return [rows[0] * g[0] + rows[1] * g[1] + rows[2] * g[2] for g in _WINO_G]
+
+    t = g_times([k[i] for i in range(3)])  # t[a]: (3, C, D) over the second axis
+    out = [g_times([ta[j] for j in range(3)]) for ta in t]
+    return torch.stack([o for row in out for o in row]).contiguous()
+
+
+def _wino_combo(v, k):
+    i1, i2, sign = _WINO_COMBOS[k]
+    return v[i1] + v[i2] if sign > 0 else v[i1] - v[i2]
+
+
+def winograd_conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                           tile_h: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K14, rounding by rounding as the Pallas body
+    (`v2a_tpu/ops/resblock_kernels.py:3062-3160`): the input transform in
+    float32 (row combos, then col combos), rounded to x.dtype; the weights
+    rounded to x.dtype; the 16 products summed in float32; the inverse
+    transform in float32, each output parity summing its +-M_ab in (a, b)
+    order; + bias, rounded once. `tile_h` is the TPU's band height and does
+    not change the result."""
+    n, h, w, c = x.shape
+    d = kernel.shape[-1]
+    if h % 2 or w % 2:
+        raise ValueError("winograd_conv3x3 needs even H and W")
+    dt = x.dtype
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))  # zero halo, float32
+    # d[i][j]: the (N, H/2, W/2, C) grid of patch element (i, j)
+    dpatch = [[xp[:, i:i + h:2, j:j + w:2] for j in range(4)] for i in range(4)]
+    rows = [[_wino_combo([dpatch[i][j] for i in range(4)], a) for j in range(4)]
+            for a in range(4)]
+    wt = winograd_weights(kernel).to(dt).float()
+    m = n * (h // 2) * (w // 2)
+    y = [[None, None], [None, None]]
+    for a in range(4):
+        for b in range(4):
+            u = _wino_combo(rows[a], b).to(dt).float().reshape(m, c)
+            mab = u @ wt[4 * a + b]
+            for pr in range(2):
+                for pc in range(2):
+                    sign = _WINO_AT[pr][a] * _WINO_AT[pc][b]
+                    if sign == 0.0:
+                        continue
+                    contrib = mab if sign > 0 else -mab
+                    y[pr][pc] = contrib if y[pr][pc] is None else y[pr][pc] + contrib
+    out = torch.stack([torch.stack([y[pr][pc] + bias.float() for pc in range(2)], -2)
+                       for pr in range(2)], -3)  # (M, 2, 2, D)
+    out = out.reshape(n, h // 2, w // 2, 2, 2, d).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(n, h, w, d).to(dt)
+
+
+def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                     tile_h: Optional[int] = None) -> torch.Tensor:
+    """y = conv3x3_same(x) + bias by Winograd F(2x2, 3x3)
+    (`v2a_tpu/ops/resblock_kernels.py:3163`), K10's interface: x (N, H, W,
+    C) with even H and W, kernel (3, 3, C, D) HWIO, bias (D,). Returns
+    (N, H, W, D) in x.dtype. `tile_h`, the TPU kernel's band height, is
+    accepted and ignored: the card's tiling does not depend on it.
+
+    Kernel note (csrc/winograd_conv3x3.cu): bound by operations from 64^2 x
+    256 on, by bytes at 128^2 x 128; a block owns 64 2x2 output patches x
+    64 channels and runs the 16 transform-domain products one after another
+    on the tensor cores, each step's A tile gathered and transformed in
+    float32 from device memory, each product added with its sign into four
+    float32 output-parity tiles in shared memory in the TPU body's order;
+    bias and one rounding at the end.
+    """
+    _no_grad_inputs("winograd_conv3x3", x, kernel, bias)
+    n, h, w, c = x.shape
+    if tuple(kernel.shape[:3]) != (3, 3, c):
+        raise ValueError(f"kernel {tuple(kernel.shape)} vs input C={c}")
+    if h % 2 or w % 2:
+        raise ValueError("winograd_conv3x3 needs even H and W")
+    if x.device.type == "cpu":
+        return winograd_conv3x3_plain(x, kernel, bias, tile_h)
+    d = kernel.shape[-1]
+    if c % 32 or d % 64:
+        raise ValueError(f"K14 needs C % 32 == 0 and D % 64 == 0, got C={c} D={d}")
+    wt = winograd_weights(kernel).to(x.dtype).reshape(16 * c, d).contiguous()
+    bias32 = bias.float().contiguous()
+    _check_cuda(x, wt, bias32)
+    y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
+    fn = _lib("winograd_conv3x3", "v2a_winograd_conv3x3", 4, 6)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(wt), _ptr(bias32), _ptr(y), n, h, w, c, d, _DTYPE_CODE[x.dtype],
+                _stream(x))
+    _raise_on(rc, "winograd_conv3x3")
+    launches["winograd_conv3x3"] += 1
     return y
 
 
