@@ -338,8 +338,13 @@ def test_padded_unet_reaches_k4a(monkeypatch):
       "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 19,
       "fused_upconv3x3_padded": 3, "fused_downconv3x3_padded": 2,
       "fused_spatial_attention_padded": 16}),
+    # the padded routing with the mega-kernel switch off (`V2A_MEGA_KERNEL=0`):
+    # K4a -> K4b take K3's 16 calls
+    (dict(fused=True, mega_kernel=False),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_affine_conv3x3_padded": 30,
+      "temporal_conv_padded": 33, "fused_upconv3x3_padded": 3}),
 ], ids=["padded", "unpadded", "padded_k8_k9", "plain_k7", "spatial_k10_k11", "padded_k12",
-        "padded_k8_k9_wide"])
+        "padded_k8_k9_wide", "padded_mega_off"])
 def test_release_forward_launch_counts(monkeypatch, routing, counts):
     """The release U-Net (128^2, F=7, mc 128, mult (1,2,3,4,5), 2 res blocks,
     attention at ds 8 / 16, bf16) traced on the meta device: the kernels
@@ -352,3 +357,72 @@ def test_release_forward_launch_counts(monkeypatch, routing, counts):
                   torch.randn(1, 77, 512))
     assert tuple(out.shape) == (1, 7, 128, 128, 3)
     assert calls == counts
+
+
+def _release_calls(monkeypatch, name, **routing):
+    """The (B, F, H, W, D) of every call of wrapper `name` in a B=1 release
+    forward traced on the meta device."""
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    calls = []
+    plain = getattr(trk, name + "_plain")
+
+    def record(parts, kbias, tkernel, tbias, hw, *a, **k):
+        b, f = parts[0][0].shape[:2]
+        calls.append((b, f, hw[0], hw[1], parts[0][1].shape[-1]))
+        return plain(parts, kbias, tkernel, tbias, hw, *a, **k)
+
+    monkeypatch.setattr(trk, name, record)
+    with torch.device("meta"), torch.no_grad():
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, **routing)(
+            torch.randn(1, 7, 128, 128, 6), torch.zeros(1, dtype=torch.long),
+            torch.randn(1, 77, 512))
+    return sorted(set(calls))
+
+
+def test_conv_tconv_plan_fits_every_release_call(monkeypatch):
+    """The tile plan of K3 and K12 (`trk.conv_tconv_plan`) at every signature
+    of the release forward (B=8) and of a served request (B=1), from the
+    meta-device trace: shared memory within a CTA's 227 KB, the cluster
+    along D dividing the grid, full 64-pixel tiles at B=8, a CTA per SM
+    (132) for K12 at B=1; and D=64 (the card tests' width) admitted."""
+    k3 = _release_calls(monkeypatch, "fused_conv_tconv_padded")
+    k12 = _release_calls(monkeypatch, "fused_conv_tconv_stream", stream_kernel=True)
+    # the JAX gates: K3 at 128^2 and 64^2 (K4a -> K4b at 32^2), K12 at all three
+    assert {(h, d) for *_, h, _, d in k3} == {(128, 128), (64, 256)}
+    assert {(h, d) for *_, h, _, d in k12} == {(128, 128), (64, 256), (32, 384)}
+    for ring, calls in ((False, k3), (True, k12)):
+        for _, f, h, w, d in calls:
+            for b in (1, 8):
+                plan = trk.conv_tconv_plan(b, f, h, w, d, ring=ring)
+                assert plan.smem <= 227 * 1024 and plan.grid % plan.cluster == 0
+                assert plan.cluster == d // 128 and plan.stages == 3
+                if b == 8:
+                    assert plan.pixels == 64
+                if ring and b == 1:
+                    assert plan.grid >= trk.HOPPER_SMS, (h, w, d, plan)
+    for ring in (False, True):
+        plan = trk.conv_tconv_plan(2, 3, 8, 8, 64, ring=ring)
+        assert plan.cluster == 1 and plan.smem <= 227 * 1024
+    with pytest.raises(ValueError):
+        trk.conv_tconv_plan(1, 7, 32, 32, 96)
+
+
+def test_conv_out_receives_the_conv_half_on_the_cpu():
+    """`conv_out` of K3 and K12 on CPU tensors: K4a's plain conv half in its
+    interior, pads untouched; the output is the plain chain's either way."""
+    rs = np.random.RandomState(41)
+    hw, d = (6, 10), 64
+    hp, wp = trk.padded_hw(*hw)
+    x = torch.from_numpy(rs.randn(1, 2, hp, wp, 32).astype(np.float32))
+    parts = [(x, torch.from_numpy(0.1 * rs.randn(3, 3, 32, d).astype(np.float32)),
+              torch.ones(2, 32), torch.zeros(2, 32))]
+    kb, tb = torch.zeros(d), torch.zeros(d)
+    tk = torch.from_numpy(0.1 * rs.randn(3, d, d).astype(np.float32))
+    want = trk.fused_affine_conv3x3_padded_plain(
+        [(x.reshape(2, hp, wp, 32),) + parts[0][1:]], kb, hw).reshape(1, 2, hp, wp, d)
+    for fn in (trk.fused_conv_tconv_padded, trk.fused_conv_tconv_stream):
+        conv = torch.full((1, 2, hp, wp, d), 7.0)
+        y = fn(parts, kb, tk, tb, hw, conv_out=conv)
+        assert torch.equal(trk._interior(conv, hw), trk._interior(want, hw))
+        assert bool((conv[:, :, 0] == 7.0).all()) and bool((conv[..., 0, :] == 7.0).all())
+        _same_stream(y, fn(parts, kb, tk, tb, hw), hw)

@@ -207,15 +207,19 @@ def _run_k9(jx, tx, hw, params, dtype, want_stats, ch=32):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("want_stats", [True, False])
-@pytest.mark.parametrize("hw", [(8, 8), (6, 10)], ids=["8x8", "6x10"])
-def test_spatial_attention_padded_plain_matches_pallas(dtype, want_stats, hw):
+@pytest.mark.parametrize("hw,c,ch", [((8, 8), 64, 32), ((6, 10), 64, 32), ((4, 4), 160, 8),
+                                     ((4, 4), 160, 40)],
+                         ids=["8x8", "6x10", "4x4-c160-ch8", "4x4-c160-ch40"])
+def test_spatial_attention_padded_plain_matches_pallas(dtype, want_stats, hw, c, ch):
     """f32: atol / rtol 2e-4, statistics atol 5e-3 / rtol 5e-4
     (`tests/test_pallas_kernels.py:1067, 1076`); bf16: one ulp, statistics
-    rtol 1e-4 of their scale. Every pad position of the output is zero."""
+    rtol 1e-4 of their scale. Every pad position of the output is zero.
+    Head widths 8 and 40 (C 160, 16 tokens): widths the card kernel runs in
+    masked 16- and 64-lane slices."""
     rs = np.random.RandomState(23)
-    jx, tx, params = _attn_inputs(rs, 3, hw, 64)
+    jx, tx, params = _attn_inputs(rs, 3, hw, c)
     before = dict(trk.launches)
-    got, want = _run_k9(jx, tx, hw, params, dtype, want_stats)
+    got, want = _run_k9(jx, tx, hw, params, dtype, want_stats, ch)
     assert trk.launches == before
     if want_stats:
         (got, gst), (want, wst) = got, want
@@ -441,7 +445,10 @@ ROUTES = {"padded_k8_k9": (dict(PERF_DOWNCONV=True, PERF_PALLAS_ATTN=True), dict
                               dict(fused=True, spatial2=False, pallas_spatial=True,
                                    tconv_hw=True)),
           "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True),
-                         dict(fused=True, stream_kernel=True))}
+                         dict(fused=True, stream_kernel=True)),
+          # the shipped routing with the mega-kernel off: K4a -> K4b where K3 was
+          "padded_mega_off": (dict(PERF_MEGA_KERNEL=False), dict(fused=True),
+                              dict(fused=True, mega_kernel=False))}
 # padded_k8_k9 on the release U-Net with attention at ds 4 / 8 / 16 and
 # 64-channel heads: K9 at the padded 32^2 level (1,024 tokens) too
 WIDE = dict(attention_resolutions=(4, 8, 16), num_head_channels=64)

@@ -9,14 +9,18 @@
 // :2152), which is K3 with hand-made double-buffered DMA: band i+1's windows
 // load while band i computes, band i's output stores while band i+1 computes.
 //
-// Same arithmetic as K3 (csrc/conv_tconv_padded.cu), step for step: every
-// accumulator sees the same 32-deep tensor-core steps in the same order
-// (conv: part, tap, channel step; temporal: tap, channel step, then the skip
-// parts), the conv output is rounded into shared memory as K3 rounds it, the
-// pixel tile P is K3's (the wrapper's `_k3_pixels`) and the statistics are
-// K3's per-tile partials added in tile order. So K13 is bit-equal to K3.
+// The arithmetic of K3's wmma schedule before K3's Hopper redesign
+// (conv_tconv_hopper.cuh), step for step: every accumulator sees 32-deep
+// tensor-core steps in one fixed order (conv: part, tap, channel step;
+// temporal: tap, channel step, then the skip parts), the conv output is
+// rounded into shared memory before the temporal taps, the pixel tile P is
+// the wrapper's `_dma_pixels` and the statistics are per-tile partials
+// added in tile order. So two launches are bit-equal, and K13 agrees with
+// K3 to one ulp plus the carried difference of their conv halves (their
+// float32 sums run in other orders).
 //
-// What bounds it on the H100: operations, as K3. What differs from K3:
+// What bounds it on the H100: operations, as K3. What differs from that
+// schedule:
 //   * the copies: every step's operands come through a two-stage ring in
 //     shared memory filled by `cp.async` (16 bytes a thread, no registers):
 //     while the tensor cores run step k, step k+1's raw input rows (64 rows x

@@ -34,8 +34,12 @@
 //      in another order than the plain version's). Pass 2: the logits again,
 //      the probabilities ex / sum rounded to T (an online-softmax rescale of
 //      the output would round differently), P @ V summed in float32 and each
-//      head's output rounded once, into a (N * S, C) scratch. The head width
-//      CH (16, 32, 64 or 128) is a template parameter;
+//      head's output rounded once, into a (N * S, C) scratch. Any head width
+//      ch that divides C: its channels pass through shared memory in slices
+//      of a template width CS (16, 32, 64 or 128, the next one up from ch;
+//      128-wide slices past 128), the lanes past ch masked out of every
+//      sum; the logits add q . k over the slices in channel order, and
+//      P @ V is written per slice (one more logits pass per extra slice);
 //   4. projection: the tile GEMM over (tokens, C) x (C, C) whose epilogue adds
 //      the bias and the residual in float32, writes y and the tile's column
 //      sums of y and y^2 (tiles never straddle two samples);
@@ -175,52 +179,84 @@ attn_gemm_kernel(const T* __restrict__ src, const float* __restrict__ a,
   }
 }
 
-// The lanes of a warp over one head's CH output channels: G lanes per key
-// group, KS key groups (CH < 32 splits the keys), CPL channels per lane.
-template <int CH>
+// The lanes of a warp over a slice of CS output channels: G lanes per key
+// group, KS key groups (CS < 32 splits the keys), CPL channels per lane.
+template <int CS>
 struct HeadLanes {
-  static constexpr int G = CH < 32 ? CH : 32;
+  static constexpr int G = CS < 32 ? CS : 32;
   static constexpr int KS = 32 / G;
-  static constexpr int CPL = CH / G;
+  static constexpr int CPL = CS / G;
 };
 
-// Block (query tile, head, sample); qkv (N * S, 3C) -> att (N * S, C).
-template <typename T, int CH>
+// Block (query tile, head, sample); qkv (N * S, 3C) -> att (N * S, C). The
+// head's ch channels pass through shared memory in slices of CS (the
+// template width: the next of 16, 32, 64, 128 up from ch, or 128-wide
+// slices past 128); lanes past the slice's last channel hold zeros and take
+// no part in a sum. The logits sum q . k over the channels in order, slice
+// after slice, so any ch gives the single pass's float32 sum.
+template <typename T, int CS>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ att, int S, int C, float s2) {
-  using L = HeadLanes<CH>;
-  constexpr int K_LD = CH + 1;  // K rows padded: lane j reads row j, bank (j + c) % 32
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ att, int S, int C, int ch,
+                 float s2) {
+  using L = HeadLanes<CS>;
+  constexpr int K_LD = CS + 1;  // K rows padded: lane j reads row j, bank (j + c) % 32
+  constexpr int JL = KC / 32;   // keys of a chunk per lane
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [QB][CH]
-  float* Ks = Qs + QB * CH;            // [KC][K_LD]
-  float* Vs = Ks + KC * K_LD;          // [KC][CH]
-  float* P = Vs + KC * CH;             // [ATT_WARPS][KC]
+  float* Qs = smem;                    // [QB][CS]
+  float* Ks = Qs + QB * CS;            // [KC][K_LD]
+  float* Vs = Ks + KC * K_LD;          // [KC][CS]
+  float* P = Vs + KC * CS;             // [ATT_WARPS][KC]
   const int q0 = blockIdx.x * QB, hd = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long ld = 3L * C;
-  const T* base = qkv + (long)n * S * ld + (long)hd * 3 * CH;
+  const T* base = qkv + (long)n * S * ld + (long)hd * 3 * ch;
+  const int slices = (ch + CS - 1) / CS;
 
-  for (int i = threadIdx.x; i < QB * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    Qs[i] = q0 + r < S ? to_f(base[(long)(q0 + r) * ld + c]) : 0.f;
-  }
-  auto load_chunk = [&](int j0, bool with_v) {
-    __syncthreads();  // every read of the previous chunk is done
-    for (int i = threadIdx.x; i < KC * CH; i += blockDim.x) {
-      const int j = i / CH, c = i % CH;
-      const bool in = j0 + j < S;
-      Ks[j * K_LD + c] = in ? to_f(base[(long)(j0 + j) * ld + CH + c]) : 0.f;
-      if (with_v) Vs[j * CH + c] = in ? to_f(base[(long)(j0 + j) * ld + 2 * CH + c]) : 0.f;
+  // slice sl of q (at 0), k (at ch) or v (at 2 ch) of rows r0.. into dst
+  auto load = [&](float* dst, int dst_ld, int r0, int rows, int at, int sl) {
+    for (int i = threadIdx.x; i < rows * CS; i += blockDim.x) {
+      const int r = i / CS, c = i % CS, cc = sl * CS + c;
+      dst[r * dst_ld + c] = r0 + r < S && cc < ch ? to_f(base[(long)(r0 + r) * ld + at + cc]) : 0.f;
     }
-    __syncthreads();
   };
-  auto logit = [&](int qr, int j) {
-    const float* q = Qs + qr * CH;
-    const float* k = Ks + j * K_LD;
-    float dot = 0.f;
+  if (slices == 1) load(Qs, CS, q0, QB, 0, 0);
+
+  // this warp's logits against the keys j0 + lane + 32 u of a chunk; with
+  // vsl >= 0 the chunk's V slice vsl is loaded beside the last K slice
+  float lg[QPW][JL];
+  auto logits = [&](int j0, int vsl) {
 #pragma unroll
-    for (int c = 0; c < CH; ++c) dot = __fadd_rn(dot, __fmul_rn(q[c], k[c]));
-    return __fmul_rn(dot, s2);
+    for (int i = 0; i < QPW; ++i)
+#pragma unroll
+      for (int u = 0; u < JL; ++u) lg[i][u] = 0.f;
+    for (int sl = 0; sl < slices; ++sl) {
+      __syncthreads();  // every read of the previous slice or chunk is done
+      if (slices > 1) load(Qs, CS, q0, QB, 0, sl);
+      load(Ks, K_LD, j0, KC, ch, sl);
+      if (vsl >= 0 && sl == slices - 1) load(Vs, CS, j0, KC, 2 * ch, vsl);
+      __syncthreads();
+      const int cn = min(CS, ch - sl * CS);
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) {
+        const float* q = Qs + (warp + i * ATT_WARPS) * CS;
+#pragma unroll
+        for (int u = 0; u < JL; ++u) {
+          const float* k = Ks + (lane + 32 * u) * K_LD;
+          float dot = lg[i][u];
+          if (cn == CS) {
+#pragma unroll
+            for (int c = 0; c < CS; ++c) dot = __fadd_rn(dot, __fmul_rn(q[c], k[c]));
+          } else {
+            for (int c = 0; c < cn; ++c) dot = __fadd_rn(dot, __fmul_rn(q[c], k[c]));
+          }
+          lg[i][u] = dot;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QPW; ++i)
+#pragma unroll
+      for (int u = 0; u < JL; ++u) lg[i][u] = __fmul_rn(lg[i][u], s2);
   };
 
   // pass 1: each lane's running max and sum of exp over its keys
@@ -231,14 +267,15 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ att, int S, int C, f
     sm[i] = 0.f;
   }
   for (int j0 = 0; j0 < S; j0 += KC) {
-    load_chunk(j0, false);
+    logits(j0, -1);
     const int kc = min(KC, S - j0);
 #pragma unroll
     for (int i = 0; i < QPW; ++i) {
-      const int qr = warp + i * ATT_WARPS;
-      if (q0 + qr >= S) continue;
-      for (int j = lane; j < kc; j += 32) {
-        const float l = logit(qr, j);
+      if (q0 + warp + i * ATT_WARPS >= S) continue;
+#pragma unroll
+      for (int u = 0; u < JL; ++u) {
+        if (lane + 32 * u >= kc) continue;
+        const float l = lg[i][u];
         if (l > mx[i]) {
           sm[i] = __fadd_rn(__fmul_rn(sm[i], expf(__fsub_rn(mx[i], l))), 1.f);
           mx[i] = l;
@@ -262,63 +299,71 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ att, int S, int C, f
     }
   }
 
-  // pass 2: p = T(ex / sum), o = sum_j p_j v_j in float32
-  float acc[QPW][L::CPL];
-#pragma unroll
-  for (int i = 0; i < QPW; ++i)
-#pragma unroll
-    for (int u = 0; u < L::CPL; ++u) acc[i][u] = 0.f;
+  // pass 2, per output slice: p = T(ex / sum), o = sum_j p_j v_j in float32
   const int group = lane / L::G, slot = lane % L::G;
   float* row = P + warp * KC;
-  for (int j0 = 0; j0 < S; j0 += KC) {
-    load_chunk(j0, true);
-    const int kc = min(KC, S - j0);
+  for (int osl = 0; osl < slices; ++osl) {
+    float acc[QPW][L::CPL];
+#pragma unroll
+    for (int i = 0; i < QPW; ++i)
+#pragma unroll
+      for (int u = 0; u < L::CPL; ++u) acc[i][u] = 0.f;
+    for (int j0 = 0; j0 < S; j0 += KC) {
+      logits(j0, osl);  // its first barrier also closes the previous chunk's V reads
+      const int kc = min(KC, S - j0);
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) {
+        if (q0 + warp + i * ATT_WARPS >= S) continue;
+#pragma unroll
+        for (int u = 0; u < JL; ++u)
+          if (lane + 32 * u < kc)
+            row[lane + 32 * u] =
+                to_f(from_f<T>(__fdiv_rn(expf(__fsub_rn(lg[i][u], mx[i])), sm[i])));
+        __syncwarp();
+        for (int j = group; j < kc; j += L::KS) {
+          const float p = row[j];
+#pragma unroll
+          for (int u = 0; u < L::CPL; ++u)
+            acc[i][u] = __fadd_rn(acc[i][u], __fmul_rn(p, Vs[j * CS + slot + u * L::G]));
+        }
+        __syncwarp();
+      }
+    }
+    const int cn = min(CS, ch - osl * CS);
 #pragma unroll
     for (int i = 0; i < QPW; ++i) {
-      const int qr = warp + i * ATT_WARPS;
-      if (q0 + qr >= S) continue;
-      for (int j = lane; j < kc; j += 32)
-        row[j] = to_f(from_f<T>(__fdiv_rn(expf(__fsub_rn(logit(qr, j), mx[i])), sm[i])));
-      __syncwarp();
-      for (int j = group; j < kc; j += L::KS) {
-        const float p = row[j];
-#pragma unroll
-        for (int u = 0; u < L::CPL; ++u)
-          acc[i][u] = __fadd_rn(acc[i][u], __fmul_rn(p, Vs[j * CH + slot + u * L::G]));
-      }
-      __syncwarp();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) {
-#pragma unroll
-    for (int u = 0; u < L::CPL; ++u)
-#pragma unroll
-      for (int o = L::G; o < 32; o <<= 1)
-        acc[i][u] = __fadd_rn(acc[i][u], __shfl_xor_sync(0xffffffffu, acc[i][u], o));
-    const int qi = q0 + warp + i * ATT_WARPS;
-    if (qi < S && group == 0) {
 #pragma unroll
       for (int u = 0; u < L::CPL; ++u)
-        att[((long)n * S + qi) * C + hd * CH + slot + u * L::G] = from_f<T>(acc[i][u]);
+#pragma unroll
+        for (int o = L::G; o < 32; o <<= 1)
+          acc[i][u] = __fadd_rn(acc[i][u], __shfl_xor_sync(0xffffffffu, acc[i][u], o));
+      const int qi = q0 + warp + i * ATT_WARPS;
+      if (qi < S && group == 0) {
+#pragma unroll
+        for (int u = 0; u < L::CPL; ++u) {
+          const int cc = slot + u * L::G;
+          if (cc < cn)
+            att[((long)n * S + qi) * C + (long)hd * ch + osl * CS + cc] = from_f<T>(acc[i][u]);
+        }
+      }
     }
   }
 }
 
-template <int CH>
+template <int CS>
 size_t attention_smem() {
-  return (size_t)(QB * CH + KC * (CH + 1) + KC * CH + ATT_WARPS * KC) * sizeof(float);
+  return (size_t)(QB * CS + KC * (CS + 1) + KC * CS + ATT_WARPS * KC) * sizeof(float);
 }
 
-template <typename T, int CH>
-cudaError_t launch_attention(const T* qkv, T* att, int N, int S, int C, float s2,
+template <typename T, int CS>
+cudaError_t launch_attention(const T* qkv, T* att, int N, int S, int C, int ch, float s2,
                              cudaStream_t stream) {
-  const size_t smem = attention_smem<CH>();
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel<T, CH>,
+  const size_t smem = attention_smem<CS>();
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel<T, CS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  attention_kernel<T, CH><<<dim3((S + QB - 1) / QB, C / CH, N), ATT_WARPS * 32, smem, stream>>>(
-      qkv, att, S, C, s2);
+  attention_kernel<T, CS><<<dim3((S + QB - 1) / QB, C / ch, N), ATT_WARPS * 32, smem, stream>>>(
+      qkv, att, S, C, ch, s2);
   return cudaGetLastError();
 }
 
@@ -343,13 +388,14 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* wqkv
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const T* q = static_cast<const T*>(qkv);
   T* o = static_cast<T*>(att);
-  switch (ch) {
-    case 16: e = launch_attention<T, 16>(q, o, N, S, C, s2, stream); break;
-    case 32: e = launch_attention<T, 32>(q, o, N, S, C, s2, stream); break;
-    case 64: e = launch_attention<T, 64>(q, o, N, S, C, s2, stream); break;
-    case 128: e = launch_attention<T, 128>(q, o, N, S, C, s2, stream); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  if (ch <= 16)
+    e = launch_attention<T, 16>(q, o, N, S, C, ch, s2, stream);
+  else if (ch <= 32)
+    e = launch_attention<T, 32>(q, o, N, S, C, ch, s2, stream);
+  else if (ch <= 64)
+    e = launch_attention<T, 64>(q, o, N, S, C, ch, s2, stream);
+  else
+    e = launch_attention<T, 128>(q, o, N, S, C, ch, s2, stream);
   if (e != cudaSuccess) return e;
   attn_gemm_kernel<T, true><<<dim3(N * tiles, (C + BN - 1) / BN), THREADS, 0, stream>>>(
       static_cast<const T*>(att), nullptr, nullptr, static_cast<const T*>(wproj),
@@ -368,15 +414,15 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* wqkv
 // wqkv (C, 3C), wproj (C, C) in x's type; bqkv (3C,), bproj (C,) float32;
 // qkv (N * H * W, 3C) and att (N * H * W, C) scratch in x's type; partial
 // (N * tiles * 2 * C) float32 and stats (N, 2, C) float32, both null without
-// statistics. ch: the head width, 16, 32, 64 or 128, dividing C; any token
-// count; 16-byte aligned contiguous buffers.
+// statistics. ch: the head width, any that divides C (C % 8 == 0); any
+// token count; 16-byte aligned contiguous buffers.
 extern "C" int v2a_spatial_attention_padded(const void* x, const void* a, const void* b,
                                             const void* wqkv, const void* bqkv, const void* wproj,
                                             const void* bproj, void* y, void* qkv, void* att,
                                             void* partial, void* stats, int N, int H, int W,
                                             int Wp, int C, int ch, int dtype, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Wp < W + 2 || Wp % 8 ||
-      (ch != 16 && ch != 32 && ch != 64 && ch != 128) || C % ch ||
+      ch <= 0 || C % ch || C % 8 ||
       (partial == nullptr) != (stats == nullptr) || a == nullptr || b == nullptr)
     return (int)cudaErrorInvalidValue;
   // the TPU body's logit scale: (ch^-1/4)^2 in double, then float

@@ -69,11 +69,13 @@ class VideoModelConfig:
     # gate (False: V2A_SPATIAL2_MIN_CH=0, and no padded stream), the convs
     # it leaves through K10 (PERF_PALLAS_SPATIAL), the temporal convs
     # through K11 (PERF_TCONV_HW), the padded convs without a skip fold
-    # through K12 (V2A_STREAM_KERNEL=1)
+    # through K12 (V2A_STREAM_KERNEL=1), and K3 where the JAX rule admits it
+    # (False: K4a then K4b there, V2A_MEGA_KERNEL=0)
     spatial2: bool = True
     pallas_spatial: bool = False
     tconv_hw: bool = False
     stream_kernel: bool = False
+    mega_kernel: bool = True
 
     @property
     def video_future_horizon(self) -> int:
@@ -133,7 +135,7 @@ class VideoPredModel:
             train_fused=train_fused, wgrad_kernel=wgrad_kernel, downconv=cfg.downconv,
             attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn, spatial2=cfg.spatial2,
             pallas_spatial=cfg.pallas_spatial, tconv_hw=cfg.tconv_hw,
-            stream_kernel=cfg.stream_kernel,
+            stream_kernel=cfg.stream_kernel, mega_kernel=cfg.mega_kernel,
         )
 
     @property

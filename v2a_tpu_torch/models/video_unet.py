@@ -46,7 +46,8 @@ Perceiver-pooled CLIP text conditioning.
   channel part, the parts summed in the compute dtype); `tconv_hw` swaps K2
   for K11 (`temporal_conv_fused_hw`); `stream_kernel` takes K12
   (`fused_conv_tconv_stream`) before K3 in every padded conv without a skip
-  fold where `rk.stream_band_rows` admits it.
+  fold where `rk.stream_band_rows` admits it; `mega_kernel=False`
+  (`V2A_MEGA_KERNEL=0`) runs K4a then K4b where K3 would run.
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
 temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
@@ -99,12 +100,15 @@ class ConvRouting:
         (`PERF_PALLAS_SPATIAL`, :531-577, :679-694).
     tconv_hw: K11 in place of K2 (`PERF_TCONV_HW`, :784).
     stream_kernel: K12 before K3 in the padded conv (`V2A_STREAM_KERNEL=1`,
-        :945-979)."""
+        :945-979).
+    mega_kernel: K3 where `rk.conv_tconv_band_rows` admits it; False runs
+        K4a then K4b there (`PERF_MEGA_KERNEL`, `V2A_MEGA_KERNEL=0`, :981)."""
 
     spatial2: bool = True
     pallas_spatial: bool = False
     tconv_hw: bool = False
     stream_kernel: bool = False
+    mega_kernel: bool = True
 
 
 class PaddedStream:
@@ -327,9 +331,9 @@ class PseudoConv3d(nn.Module):
         3x3 only. Stride 2 (the Downsample's): K8 to the halved size, then
         K4b there. `upsample2x`: K5 from the low-res stream, then K4b at the
         doubled size. Otherwise, with `routing.stream_kernel` and no skip
-        fold, K12 where `rk.stream_band_rows` admits it; else K3 where the
-        JAX package's rule (`rk.conv_tconv_band_rows`) admits it, else K4a
-        then K4b. `skip` is
+        fold, K12 where `rk.stream_band_rows` admits it; else, with
+        `routing.mega_kernel`, K3 where the JAX package's rule
+        (`rk.conv_tconv_band_rows`) admits it; else K4a then K4b. `skip` is
         (streams, kernel (C_in, D), bias): the ResBlock's 1x1 skip
         projection, folded into the temporal conv. Returns a PaddedStream
         [, stats (B, F, 2, D)]."""
@@ -383,7 +387,7 @@ class PseudoConv3d(nn.Module):
             cins = [p.x.shape[-1] for p in parts]
             stream = (self.routing.stream_kernel and skip is None
                       and rk.stream_band_rows(hw[0], hw[1], wp, cins, feat) > 0)
-            mega = not stream and rk.conv_tconv_band_rows(
+            mega = not stream and self.routing.mega_kernel and rk.conv_tconv_band_rows(
                 hw[0], hw[1], wp, cins, feat, f,
                 has_res=res is not None, skip_cins=[p[0].shape[-1] for p in skip_parts or ()],
             ) > 0
@@ -694,8 +698,9 @@ class VideoUNet(nn.Module):
     `attn_kernel` (`V2A_PALLAS_ATTN=1`: with `fused`, every attention block
     runs K9) and `use_pallas_gn` (the JAX field: without `fused`, every
     GroupNorm that has no forwarded statistics runs K7). `spatial2`,
-    `pallas_spatial`, `tconv_hw` and `stream_kernel` are the `ConvRouting`
-    switches (K1 gate, K10, K11, K12), each at its JAX default."""
+    `pallas_spatial`, `tconv_hw`, `stream_kernel` and `mega_kernel` are the
+    `ConvRouting` switches (K1 gate, K10, K11, K12, K3), each at its JAX
+    default."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
@@ -704,13 +709,15 @@ class VideoUNet(nn.Module):
                  fused: bool = False, padded_stream: bool = True, train_fused: bool = False,
                  wgrad_kernel: bool = False, downconv: bool = False, attn_kernel: bool = False,
                  use_pallas_gn: bool = False, spatial2: bool = True, pallas_spatial: bool = False,
-                 tconv_hw: bool = False, stream_kernel: bool = False):
+                 tconv_hw: bool = False, stream_kernel: bool = False,
+                 mega_kernel: bool = True):
         super().__init__()
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
         self.padded_stream = padded_stream
-        self.routing = routing = ConvRouting(spatial2, pallas_spatial, tconv_hw, stream_kernel)
+        self.routing = routing = ConvRouting(spatial2, pallas_spatial, tconv_hw, stream_kernel,
+                                             mega_kernel)
         self.train_fused = tfused = train_fused and not fused
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)

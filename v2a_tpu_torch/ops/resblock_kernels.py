@@ -90,7 +90,7 @@ import ctypes
 import functools
 import importlib
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -708,47 +708,136 @@ def fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb=None, re
                                       emb, residual, skip_parts, skip_bias, want_stats)
 
 
-def _k3_pixels(frames: int, d: int, itemsize: int) -> int:
-    """Pixels per K3 block: the block holds the rounded conv output of every
-    frame of its pixels at all D channels in shared memory; 64 KiB of it
-    leaves room for two blocks on an SM."""
-    p = 64
-    while p > 8 and frames * p * d * itemsize > 64 * 1024:
-        p //= 2
-    return p
+# -- the tile plan of K3 and K12's shared mainloop (csrc/conv_tconv_hopper.cuh) --
+
+HOPPER_SMS = 132  # the H100 SXM's streaming multiprocessors
+HOPPER_SMEM = 232448  # shared memory a CTA can use
+_HOP_STAGES = 3  # the weight-slab ring (the window ring has 3 too)
+_HOP_SUBS = 3  # 32-deep products per pipeline step
+_HOP_KSTEP = 32  # channels per product
+_HOP_MAX_CLUSTER = 8
+
+
+class ConvTconvPlan(NamedTuple):
+    """One launch of K3 or K12: pixels per tile, CTAs per cluster (along D),
+    weight-ring stages, CTAs in the grid, pixel tiles per sample-frame and
+    shared memory per CTA in bytes."""
+    pixels: int
+    cluster: int
+    stages: int
+    grid: int
+    tiles: int
+    smem: int
+
+
+def _hop_tile(h: int, w: int, p: int) -> Tuple[int, int, int]:
+    """(rows, cols, tiles) of a P-pixel tile over an (H, W) interior, as
+    `hop::tile_of`: 8 cols (4 at P=16, W where narrower), P // cols rows."""
+    tw = min(w, 8 if p >= 32 else 4)
+    th = p // tw
+    return th, tw, -(-h // th) * -(-w // tw)
+
+
+def conv_tconv_plan(b: int, f: int, h: int, w: int, d: int, ring: bool = False) -> ConvTconvPlan:
+    """The launch K3 (`ring=False`: the conv output of all F frames held) or
+    K12 (`ring=True`: a 3-frame ring) makes at this shape. The cluster splits
+    D into slices of 128 channels (64 where 128 does not divide D); of the
+    pixel tiles 64, 32 and 16 whose shared memory fits a CTA, the largest
+    whose grid has a CTA per SM, else the smallest (the most CTAs)."""
+    nc = 128 if d % 128 == 0 else 64
+    cluster = d // nc
+    if d % 64 or cluster > _HOP_MAX_CLUSTER:
+        raise ValueError(f"K3 / K12 need D % 64 == 0 and D / {nc} <= {_HOP_MAX_CLUSTER}, got D={d}")
+    slots = 3 if ring else f
+    fits = []
+    for p in (64, 32, 16):
+        th, tw, tiles = _hop_tile(h, w, p)
+        # 3 windows with their chunk's a and b, or 2 steps of temporal A tiles
+        window = max(3 * ((th + 2) * (tw + 2) * _HOP_KSTEP * 2 + 2 * _HOP_KSTEP * 4),
+                     2 * _HOP_SUBS * p * _HOP_KSTEP * 2)
+        smem = (slots * p * nc * 2 + _HOP_STAGES * _HOP_SUBS * _HOP_KSTEP * nc * 2 + window
+                + (2 if p >= 32 else 1) * 2 * nc * 4)
+        if smem <= HOPPER_SMEM:
+            fits.append(ConvTconvPlan(p, cluster, _HOP_STAGES, b * tiles * cluster, tiles, smem))
+    if not fits:
+        raise ValueError(f"no pixel tile of K3 / K12 fits shared memory at F={f}, D={d}")
+    return next((pl for pl in fits if pl.grid >= HOPPER_SMS), fits[-1])
 
 
 def fused_conv_tconv_padded(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
-                            skip_parts=None, skip_bias=None, silu=True, want_stats=False):
+                            skip_parts=None, skip_bias=None, silu=True, want_stats=False,
+                            conv_out=None):
     """The whole padded-stream PseudoConv3d in one kernel
     (`v2a_tpu/ops/resblock_kernels.py:1978`): K4a over one or two parts
     (x (B, F, Hp, Wp, C_i), kernel (3, 3, C_i, D), a, b (B*F, C_i)), its
     output rounded to x.dtype, then K4b with the same emb / residual / skip
     fold / statistics. Returns (B, F, Hp, Wp, D) [, stats (B, F, 2, D)].
+    `conv_out` (optional, a (B, F, Hp, Wp, D) tensor of x.dtype): receives
+    the kernel's own rounded conv half in its interior, so that a check can
+    hold each rounding on its own.
 
-    Kernel note (csrc/conv_tconv_padded.cu): bound by operations. The
-    temporal taps mix all D channels of three frames, so a block owns a few
-    pixels of one sample for ALL frames: it computes their conv output at
-    all D channels into shared memory (rounded, never stored to device
-    memory), then runs the temporal GEMM (K = 3D + the skip channels) out of
-    shared memory. Shared memory bounds the pixel tile (`_k3_pixels`), so the
-    tensor cores get small tiles; statistics as K4b.
+    Kernel note (csrc/conv_tconv_padded.cu, csrc/conv_tconv_hopper.cuh):
+    bound by operations (6.99 ms of bound per B=8 release forward). The
+    temporal taps mix all D channels of three frames, so a cluster of D/128
+    CTAs owns a pixel tile of one sample for ALL frames, each CTA its 128
+    conv channels of every frame in shared memory (rounded, never stored to
+    device memory); the temporal GEMM reads the other ranks' slices through
+    distributed shared memory. Tensor-core products (mma.sync) fed by
+    cp.async rings, the activation applied once per element of a staged
+    window and read by the nine taps at shifted rows; the tile plan
+    (`conv_tconv_plan`) keeps 64-row tiles and fills the card at B=1.
     """
     _no_grad_inputs("fused_conv_tconv_padded", kbias, tkernel, tbias, emb, residual, skip_bias,
                     *_parts_tensors(parts), *_parts_tensors(skip_parts or ()))
     x0 = parts[0][0]
     if x0.device.type == "cpu":
+        _plain_conv_out(conv_out, parts, kbias, hw, silu)
         return fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
                                              skip_parts, skip_bias, silu, want_stats)
-    return _conv_tconv_launch("conv_tconv_padded", "fused_conv_tconv_padded", parts, kbias,
-                              tkernel, tbias, hw, emb, residual, skip_parts, skip_bias, silu,
-                              want_stats)
+    a = _conv_tconv_args("fused_conv_tconv_padded", parts, kbias, tkernel, tbias, hw, emb,
+                         residual, skip_parts, skip_bias)
+    b, f, _, _, d = a["out_shape"]
+    plan = conv_tconv_plan(b, f, hw[0], hw[1], d)
+    scratch = _conv_out_buffer(conv_out, a)
+    partial, stats = _stats_buffers(x0, b * f, plan.tiles, d, want_stats)
+    fn = _lib("conv_tconv_padded", "v2a_conv_tconv_padded", 22, 13)
+    with torch.cuda.device(x0.device):
+        rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(scratch), _ptr(partial), _ptr(stats),
+                *a["ints"], plan.pixels, int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
+    _raise_on(rc, "fused_conv_tconv_padded")
+    launches["fused_conv_tconv_padded"] += 1
+    return (a["y"], stats.reshape(b, f, 2, d)) if want_stats else a["y"]
 
 
-def _conv_tconv_launch(lib: str, what: str, parts, kbias, tkernel, tbias, hw, emb, residual,
-                       skip_parts, skip_bias, silu, want_stats):
-    """Checks K3's arguments and launches K3 or K13, which share one C
-    interface: `v2a_<lib>` of `csrc/<lib>.cu`, counted under `what`."""
+def _plain_conv_out(conv_out, parts, kbias, hw, silu) -> None:
+    """On the CPU: K4a's plain conv half into conv_out's interior."""
+    if conv_out is None:
+        return
+    b, f, hp, wp = parts[0][0].shape[:4]
+    flat = [(x.reshape(b * f, hp, wp, x.shape[-1]), k, a, bb) for x, k, a, bb in parts]
+    y = fused_affine_conv3x3_padded_plain(flat, kbias, hw, silu)
+    _interior(conv_out, hw).copy_(_interior(y, hw).reshape(_interior(conv_out, hw).shape))
+
+
+def _conv_out_buffer(conv_out, a):
+    """conv_out checked, or (float32, whose conv half goes through device
+    memory) a scratch stream; None on the bf16 path without one."""
+    if conv_out is not None:
+        if tuple(conv_out.shape) != a["out_shape"] or conv_out.dtype != a["dt"]:
+            raise ValueError(f"conv_out {tuple(conv_out.shape)} {conv_out.dtype} vs "
+                             f"{a['out_shape']} {a['dt']}")
+        _check_cuda(conv_out)
+        return conv_out
+    if a["dt"] == torch.float32:
+        return torch.empty(a["out_shape"], dtype=a["dt"], device=a["y"].device)
+    return None
+
+
+def _conv_tconv_args(what: str, parts, kbias, tkernel, tbias, hw, emb, residual, skip_parts,
+                     skip_bias, skips_allowed: bool = True):
+    """Checks the arguments K3, K12 and K13 share and prepares them: the
+    pointers up to `sbias` (K12: up to `res`) with the tensors behind them,
+    a fresh y, the ints from B to the skip widths (K12: to D)."""
     x0 = parts[0][0]
     h, w = hw
     hp, wp = padded_hw(h, w)
@@ -780,23 +869,29 @@ def _conv_tconv_launch(lib: str, what: str, parts, kbias, tkernel, tbias, hw, em
     out_shape = (b, f, hp, wp, d)
     if residual is not None and (tuple(residual.shape) != out_shape or residual.dtype != dt):
         raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} vs {out_shape}")
-    skips, sb32 = _skip_args(skip_parts, skip_bias, out_shape[:4], d, dt)
-    _check_cuda(x0, kb32, tb32, tw, emb32, residual, sb32,
-                *[t for s in skips for t in s[:2]])
+    args += [kb32, tw, tb32, emb32, residual]
+    ints = [b, f, h, w, wp, cins[0], cins[1], d]
+    if skips_allowed:
+        skips, sb32 = _skip_args(skip_parts, skip_bias, out_shape[:4], d, dt)
+        args += [skips[0][0], skips[0][1], skips[1][0], skips[1][1], sb32]
+        ints += [skips[0][2], skips[1][2]]
+    _check_cuda(x0, *[t for t in args[8:] if t is not None])
     y = torch.empty(out_shape, dtype=dt, device=x0.device)
-    pix = _k3_pixels(f, d, x0.element_size())
-    tiles = -(-h * w // pix)
-    partial, stats = _stats_buffers(x0, b * f, tiles, d, want_stats)
-    fn = _lib(lib, "v2a_" + lib, 21, 13)
-    with torch.cuda.device(x0.device):
-        rc = fn(*[_ptr(t) for t in args], _ptr(kb32), _ptr(tw), _ptr(tb32), _ptr(emb32),
-                _ptr(residual), _ptr(skips[0][0]), _ptr(skips[0][1]), _ptr(skips[1][0]),
-                _ptr(skips[1][1]), _ptr(sb32), _ptr(y), _ptr(partial), _ptr(stats),
-                b, f, h, w, wp, cins[0], cins[1], d, skips[0][2], skips[1][2], pix, int(silu),
-                _DTYPE_CODE[dt], _stream(x0))
-    _raise_on(rc, what)
-    launches[what] += 1
-    return (y, stats.reshape(b, f, 2, d)) if want_stats else y
+    # `tensors` keeps the converted weights alive until the launch: freed
+    # earlier, their memory would go to the launch's own buffers
+    return dict(ptrs=[_ptr(t) for t in args], tensors=args, ints=ints, y=y, dt=dt,
+                out_shape=out_shape)
+
+
+def _dma_pixels(frames: int, d: int, itemsize: int) -> int:
+    """Pixels per K13 block (the rule of K3's earlier wmma schedule, which
+    K13 keeps): the block holds
+    the rounded conv output of every frame of its pixels at all D channels
+    in shared memory; 64 KiB of it leaves room for two blocks on an SM."""
+    p = 64
+    while p > 8 and frames * p * d * itemsize > 64 * 1024:
+        p //= 2
+    return p
 
 
 # -- K13: K3 with its copies overlapping its compute -------------------------------
@@ -834,12 +929,15 @@ def fused_conv_tconv_dma(parts, kbias, tkernel, tbias, hw, emb=None, residual=No
     `tile_h` does not divide H. `tile_h` is the TPU's band height; the
     card's output does not depend on it.
 
-    Kernel note (csrc/conv_tconv_dma.cu): bound by operations, as K3, and
-    bit-equal to it: K3's tiles and order of sums, with every step's input
-    rows and weight slab copied by `cp.async` into a two-stage ring in
-    shared memory while the previous step runs on the tensor cores, and a
-    grid of (sample, group of tiles) sized to fill the card, each block
-    walking its sample's tiles in sequence.
+    Kernel note (csrc/conv_tconv_dma.cu): bound by operations, as K3. The
+    wmma schedule K3 had before its Hopper redesign (`_dma_pixels` pixels
+    per block, steps in (part, tap, channel) order, then the temporal taps
+    and the skip parts), with every step's input rows and weight slab
+    copied by `cp.async` into a two-stage ring in shared memory while the
+    previous step runs on the tensor cores, and a grid of (sample, group of
+    tiles) sized to fill the card, each block walking its sample's tiles in
+    sequence. Its float32 sums run in another order than K3's, so the two
+    agree to one ulp plus the carried difference of their conv halves.
     """
     _no_grad_inputs("fused_conv_tconv_dma", kbias, tkernel, tbias, emb, residual, skip_bias,
                     *_parts_tensors(parts), *_parts_tensors(skip_parts or ()))
@@ -848,8 +946,18 @@ def fused_conv_tconv_dma(parts, kbias, tkernel, tbias, hw, emb=None, residual=No
     if x0.device.type == "cpu":
         return fused_conv_tconv_dma_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
                                           skip_parts, skip_bias, silu, want_stats)
-    return _conv_tconv_launch("conv_tconv_dma", "fused_conv_tconv_dma", parts, kbias, tkernel,
-                              tbias, hw, emb, residual, skip_parts, skip_bias, silu, want_stats)
+    a = _conv_tconv_args("fused_conv_tconv_dma", parts, kbias, tkernel, tbias, hw, emb, residual,
+                         skip_parts, skip_bias)
+    b, f, _, _, d = a["out_shape"]
+    pix = _dma_pixels(f, d, x0.element_size())
+    partial, stats = _stats_buffers(x0, b * f, -(-hw[0] * hw[1] // pix), d, want_stats)
+    fn = _lib("conv_tconv_dma", "v2a_conv_tconv_dma", 21, 13)
+    with torch.cuda.device(x0.device):
+        rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(partial), _ptr(stats), *a["ints"], pix,
+                int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
+    _raise_on(rc, "fused_conv_tconv_dma")
+    launches["fused_conv_tconv_dma"] += 1
+    return (a["y"], stats.reshape(b, f, 2, d)) if want_stats else a["y"]
 
 
 # -- K5: 2x nearest upsample + 3x3 conv as four low-res parity convs -------------
@@ -1124,10 +1232,6 @@ def wgrad_conv3x3(
 
 # -- K9: fused spatial attention on a padded stream ---------------------------------
 
-# the head widths the attention kernel is built for (a template parameter)
-ATTN_HEAD_WIDTHS = (16, 32, 64, 128)
-
-
 def _attn_checks(x: torch.Tensor, hw: Tuple[int, int], num_head_channels: int) -> int:
     """The JAX wrapper's guards (`v2a_tpu/ops/resblock_kernels.py:2992-2999`);
     returns the head count."""
@@ -1205,7 +1309,7 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     x: (N, Hp, Wp, C), N = B*F; hw: the interior (H, W); a, b: (N, C) float32
     affine (`stats_to_group_affine` with n = H*W); wqkv (C, 3C), bqkv (3C,),
     wproj (C, C), bproj (C,), the JAX Dense layout; num_head_channels: the
-    head width, one of `ATTN_HEAD_WIDTHS`, dividing C. Returns (N, Hp, Wp, C)
+    head width, any that divides C, as the JAX kernel. Returns (N, Hp, Wp, C)
     with EVERY pad position zero [, stats (N, 2, C) float32: the interior sum
     / sum of squares of the unrounded output].
 
@@ -1217,7 +1321,8 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     them out changes no sum), the attention with one (sample, head,
     64-query) tile per block walking the keys in chunks of 64 through shared
     memory (pass 1: row max and row sum over all keys; pass 2: ex / sum
-    rounded, as the TPU kernel rounds them, then P @ V), a projection GEMM
+    rounded, as the TPU kernel rounds them, then P @ V; a head's channels
+    in slices of 16-128 lanes, those past the width masked), a projection GEMM
     whose epilogue adds the bias and the residual in float32 and writes
     per-tile column sums, and a fixed-order pass over those (deterministic);
     the pad positions are zeroed by a small fill. The GEMM tiles are masked
@@ -1231,9 +1336,6 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     h, w = hw
     n, hp, wp, c = x.shape
     s = h * w
-    if num_head_channels not in ATTN_HEAD_WIDTHS:
-        raise ValueError(f"K9 is built for head widths {ATTN_HEAD_WIDTHS}, "
-                         f"got {num_head_channels}")
     dt = x.dtype
     a32, b32 = _affine32(a, b, n, c)
     wq = wqkv.to(dt).reshape(c, 3 * c).contiguous()
@@ -1524,84 +1626,47 @@ def fused_conv_tconv_stream_plain(parts, kbias, tkernel, tbias, hw, emb=None, re
                                          None, None, silu, want_stats)
 
 
-# the ring of a K12 block: 3 frames x its pixels x all D channels, rounded
-_STREAM_RING_BYTES = 160 * 1024
-
-
-def _k12_pixels(d: int, itemsize: int) -> int:
-    """Pixels per K12 block: 64 (a full tensor-core tile) unless the 3-frame
-    ring of conv outputs would pass `_STREAM_RING_BYTES` of shared memory."""
-    p = 64
-    while p > 8 and 3 * p * (d + 16 // itemsize) * itemsize > _STREAM_RING_BYTES:
-        p //= 2
-    return p
-
-
 def fused_conv_tconv_stream(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
-                            silu=True, want_stats=False):
+                            silu=True, want_stats=False, conv_out=None):
     """The padded-stream PseudoConv3d without a skip fold, frames streamed
     (`v2a_tpu/ops/resblock_kernels.py:2656`): per part x (B, F, Hp, Wp, C_i),
     kernel (3, 3, C_i, D), a, b (B*F, C_i); the conv output of each frame
     rounded to x.dtype, then the temporal taps + tbias [+ emb (B, D)]
     [+ residual, a padded stream like y]. Returns (B, F, Hp, Wp, D) with its
     interior and zero pad cols, pad rows unwritten [, stats (B, F, 2, D) of
-    the rounded interior].
+    the rounded interior]. `conv_out` as K3's.
 
-    Kernel note (csrc/conv_tconv_stream.cu): bound by operations. A block
-    owns `_k12_pixels` interior pixels of one sample and walks the frames:
-    frame f's conv at all D channels into a 3-slot ring in shared memory,
-    then frame f-1's temporal GEMM out of the ring (a missing neighbour
-    selected to zero). The ring holds 3 frames where K3 holds all F, so the
-    pixel tile stays 64 rows at D <= 256. Statistics as K3.
+    Kernel note (csrc/conv_tconv_stream.cu, csrc/conv_tconv_hopper.cuh):
+    bound by operations (7.89 ms of bound per B=8 release forward). K3's
+    Hopper mainloop with the TPU kernel's frame order: a cluster of D/128
+    CTAs owns a pixel tile of one sample and walks the frames, frame f's
+    conv (each CTA its 128 channels) into a 3-slot ring in shared memory,
+    then frame f-1's temporal GEMM out of every rank's ring (a missing
+    neighbour selected to zero), cluster barriers between. The ring holds 3
+    frames where K3 holds all F, so the tile plan (`conv_tconv_plan`,
+    `ring=True`) can shrink the pixel tile until a B=1 grid fills the card.
+    Statistics as K3.
     """
     _no_grad_inputs("fused_conv_tconv_stream", kbias, tkernel, tbias, emb, residual,
                     *_parts_tensors(parts))
     x0 = parts[0][0]
     if x0.device.type == "cpu":
+        _plain_conv_out(conv_out, parts, kbias, hw, silu)
         return fused_conv_tconv_stream_plain(parts, kbias, tkernel, tbias, hw, emb, residual,
                                              silu, want_stats)
-    h, w = hw
-    hp, wp = padded_hw(h, w)
-    b, f = x0.shape[:2]
-    d = parts[0][1].shape[-1]
-    if not 1 <= len(parts) <= 2:
-        raise ValueError(f"K12 takes one or two parts, got {len(parts)}")
-    if d % 64 or tuple(tkernel.shape) != (3, d, d):
-        raise ValueError(f"K12 needs D % 64 == 0 and a (3, D, D) temporal kernel, got D={d}")
-    args, cins = [], []
-    for x, kernel, a, bb in parts:
-        c = x.shape[-1]
-        if tuple(x.shape) != (b, f, hp, wp, c) or x.dtype != x0.dtype:
-            raise ValueError(f"part {tuple(x.shape)} {x.dtype} vs padded {(b, f, hp, wp)}")
-        if tuple(kernel.shape) != (3, 3, c, d) or c % 32:
-            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c} (C % 32 == 0)")
-        a32, b32 = _affine32(a, bb, b * f, c)
-        w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
-        _check_cuda(x, w2d, a32, b32)
-        args += [x, a32, b32, w2d]
-        cins.append(c)
-    if len(parts) == 1:
-        args += [None] * 4
-        cins.append(0)
-    dt = x0.dtype
-    kb32, tb32 = kbias.float().contiguous(), tbias.float().contiguous()
-    tw = tkernel.to(dt).reshape(3 * d, d).contiguous()
-    emb32 = None if emb is None else emb.reshape(b, d).float().contiguous()
-    out_shape = (b, f, hp, wp, d)
-    if residual is not None and (tuple(residual.shape) != out_shape or residual.dtype != dt):
-        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} vs {out_shape}")
-    _check_cuda(x0, kb32, tb32, tw, emb32, residual)
-    y = torch.empty(out_shape, dtype=dt, device=x0.device)
-    pix = _k12_pixels(d, x0.element_size())
-    partial, stats = _stats_buffers(x0, b * f, -(-h * w // pix), d, want_stats)
-    fn = _lib("conv_tconv_stream", "v2a_conv_tconv_stream", 16, 11)
+    a = _conv_tconv_args("fused_conv_tconv_stream", parts, kbias, tkernel, tbias, hw, emb,
+                         residual, None, None, skips_allowed=False)
+    b, f, _, _, d = a["out_shape"]
+    plan = conv_tconv_plan(b, f, hw[0], hw[1], d, ring=True)
+    scratch = _conv_out_buffer(conv_out, a)
+    partial, stats = _stats_buffers(x0, b * f, plan.tiles, d, want_stats)
+    fn = _lib("conv_tconv_stream", "v2a_conv_tconv_stream", 17, 11)
     with torch.cuda.device(x0.device):
-        rc = fn(*[_ptr(t) for t in args], _ptr(kb32), _ptr(tw), _ptr(tb32), _ptr(emb32),
-                _ptr(residual), _ptr(y), _ptr(partial), _ptr(stats), b, f, h, w, wp, cins[0],
-                cins[1], d, pix, int(silu), _DTYPE_CODE[dt], _stream(x0))
+        rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(scratch), _ptr(partial), _ptr(stats),
+                *a["ints"], plan.pixels, int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
     _raise_on(rc, "fused_conv_tconv_stream")
     launches["fused_conv_tconv_stream"] += 1
-    return (y, stats.reshape(b, f, 2, d)) if want_stats else y
+    return (a["y"], stats.reshape(b, f, 2, d)) if want_stats else a["y"]
 
 
 # -- GroupNorm statistics fold --------------------------------------------------
