@@ -62,17 +62,20 @@ Phases (any failure exits non-zero):
      most twice the bf16 plain path's), then a warm-up and timed steps (ms
      per step by CUDA events, launches per step, finite loss and weights).
      Then K1 and K6 against their plain versions at every shape one train
-     step gave them, and K6 at two small shapes; K6 two launches bit-equal;
+     step gave them, and K6 at six small and edge shapes (`K6_SMALL`); K6
+     two launches bit-equal;
+     each K6 row logs its `wgrad_plan` (pixel tile, chunks, grid) and its
+     time beside `conv2d_weight`'s and its bound;
   7. trains the policy: `make_train_step(policy.loss, fused_clip_adamw,
      EMAConfig())` at the release batch (64), bf16 compute, one warm-up and
      three timed steps, the peak memory, finite loss and weights;
   8. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
-     padded forward (one ulp plus the carried difference of their conv
-     halves: K13 keeps the wmma schedule, K3 sums in its own order); then
-     K13 (its own gates, against K3, two launches bit-equal, timed against
-     K3 and K4a -> K4b), K14 at every K10 signature of `spatial_k10_k11` and
+     padded forward, bit for bit (K3's mainloop, its copies by TMA); then
+     K13 (bit-equal to K3, K3's gates through K3's conv half, two launches
+     bit-equal, timed in turns with K3, and against K4a -> K4b, its copy
+     route logged), K14 at every K10 signature of `spatial_k10_k11` and
      the lab's (one ulp of its plain version; its difference from K10
      reported), K15 at the lab's three shapes and K9 at head widths 8, 40,
      80 and 160 (C 640), each on three input sets;
@@ -171,9 +174,14 @@ EXPECTED_PER_TRAIN_STEP = {
 }
 # K9's head widths off the release routings, held in the lab phase
 K9_WIDTHS = (8, 40, 80, 160)
-# K6 also at two small shapes, where a lost pixel or a wrong border tap
-# shows above its gate: (N, H, W, C), D, affine, silu
-K6_SMALL = [((2, 8, 8, 128), 128, False, False), ((2, 8, 8, 128), 128, True, True)]
+# K6 also at small shapes, where a lost pixel or a wrong border tap shows
+# above its gate, and at the edges of its tiling and plan: W below the 8x8
+# tile, H and W not multiples of it, chunk boundaries mid-sample and a
+# ragged last chunk (with 128- and 64-wide output blocks):
+# (N, H, W, C), D, affine, silu
+K6_SMALL = [((2, 8, 8, 128), 128, False, False), ((2, 8, 8, 128), 128, True, True),
+            ((2, 4, 5, 64), 64, True, True), ((3, 5, 7, 64), 192, False, False),
+            ((5, 48, 40, 128), 128, True, True), ((4, 40, 48, 128), 192, True, True)]
 # the policy train step: the release batch (`buf_sample_batch_size`) and the
 # timed steps after one warm-up step
 POLICY_B, POLICY_STEPS = 64, 3
@@ -528,8 +536,8 @@ def _carried(rk, dy, tk, hw):
 
 def _k3_gates(rk, key, args, got, conv, yk, yp):
     """K3's, K12's and K13's gates, one rounding at a time against the
-    kernel's own conv half `conv` (K3, K12: its `conv_out`; K13: K4a's, which
-    its wmma schedule computes bit for bit): the conv half within one ulp of
+    kernel's own conv half `conv` (K3, K12: its `conv_out`; K13: K3's, which
+    its products equal bit for bit): the conv half within one ulp of
     the plain conv; the output within one ulp of the plain temporal conv of
     that conv half and of K4b of it; against K4a -> K4b within one ulp plus
     the carried difference of the two conv halves, sum_t |W_t| |dY(f+t-1)|
@@ -635,40 +643,38 @@ def check_k3(rk, key, inp, timed):
     return ok and same, abs_err, rel, st_err, times, flops, nbytes, "K3 " + _k3_label(key)
 
 
-def _k13_vs_k3(rk, key, args, got, yk):
-    """K13 against K3 as the JAX package's test relates the two
-    (`tests/test_pallas_kernels.py:712-760`, assert_allclose): K13 keeps the
-    wmma schedule whose conv half is K4a's, K3's Hopper mainloop sums in its
-    own order, so within one ulp plus the carried difference of their conv
-    halves (the same derived gate K3 has against K4a -> K4b), statistics by
-    `stats_ok`. Returns (ok, max|err| against K3)."""
-    hw, tk = key[2], args[2]
+# how K13 (`csrc/conv_tconv_dma.cu`) issues its window and weight-slab copies
+K13_COPIES = "tma"
+
+
+def _k13_vs_k3(rk, key, args, got):
+    """K13 against K3, which the JAX package's test relates it to
+    (`tests/test_pallas_kernels.py:712-760`): K13 is K3's mainloop with its
+    copies issued by TMA, the same products in the same order, so its
+    output's interior rows and its statistics are bit-equal to K3's.
+    Returns (bit-equal, K3's output, K3's rounded conv half)."""
     y3, conv = _conv_half(rk, rk.fused_conv_tconv_padded, args)
-    ok = True
-    if key[-1]:
-        (got, gst), (y3, st3) = got, y3
-        ok = stats_ok(gst, st3, rk._interior(got, hw), rk._interior(y3, hw))[0]
-    carried = _carried(rk, rk._interior(conv, hw).float() - rk._interior(yk, hw).float(), tk, hw)
-    ok_y, err, _, _ = check_stream(got, y3, hw, carried)
-    return ok and ok_y, err
+    return _same(got, y3, key), y3, conv
 
 
 def check_k13(rk, key, inp, timed):
-    """K13 at a K3 signature, on K3's inputs: its own gates (`_k3_gates`, its
-    conv half being K4a's), against K3 (`_k13_vs_k3`), two launches
-    bit-equal; timed against K3 and K4a -> K4b."""
+    """K13 at a K3 signature, on K3's inputs: bit-equal to K3
+    (`_k13_vs_k3`), then K3's gates (`_k3_gates`) through K3's conv half,
+    which K13's products equal; two launches bit-equal; timed against K3 and
+    K4a -> K4b."""
     args, flat, yk, yp = _k3_case(rk, key, inp)
     got = rk.fused_conv_tconv_dma(*args)
     same = _same(got, rk.fused_conv_tconv_dma(*args), key)
-    vs_k3, k3_err = _k13_vs_k3(rk, key, args, got, yk)
-    ok, abs_err, rel, st_err, two_err, strict = _k3_gates(rk, key, args, got, yk, yk, yp)
-    log(f"[lab] K13 two launches bit-equal: {same}; vs K3 max|err| {k3_err:.3g}, within one ulp "
-        f"plus the carried conv-half difference: {vs_k3}; vs its plain chain: {strict} elements "
-        f"beyond one ulp, all within the carried conv-output difference: {ok}")
+    vs_k3, _, conv = _k13_vs_k3(rk, key, args, got)
+    ok, abs_err, rel, st_err, two_err, strict = _k3_gates(rk, key, args, got, conv, yk, yp)
+    log(f"[lab] K13 ({K13_COPIES} copies) two launches bit-equal: {same}; bit-equal to K3: "
+        f"{vs_k3}; vs its plain chain: {strict} elements beyond one ulp, all within the carried "
+        f"conv-output difference: {ok}")
     times = None
     if timed:
         times = _k3_times(rk, key, args, flat, rk.fused_conv_tconv_dma)
         times["k3_ms"] = time_ms(lambda: rk.fused_conv_tconv_padded(*args))
+        times["ms"] = (times["ms"] + time_ms(lambda: rk.fused_conv_tconv_dma(*args))) / 2
     flops, nbytes = _k3_cost(rk, key)
     return ok and same and vs_k3, abs_err, rel, st_err, times, flops, nbytes, "K13 " + _k3_label(key)
 
@@ -1149,14 +1155,21 @@ def recording():
 
 
 def _plan_row(rk, key):
-    """The tile plan of a K3 / K12 launch at this signature (pixels per tile,
-    CTAs per cluster along D, CTAs in the grid, shared memory per CTA);
-    {} for the other kernels."""
-    if key[0] not in ("k3", "k12"):
+    """The plan of a launch at this signature: K3 / K12 / K13's tile plan
+    (pixels per tile, CTAs per cluster along D, CTAs in the grid, shared
+    memory per CTA; K13 takes K3's, and its copy route), K6's `wgrad_plan`
+    (pixel tile, chunks of tiles, tiles per chunk, grid, shared memory); {}
+    for the other kernels."""
+    if key[0] == "k6":
+        plan = rk.wgrad_plan(*key[1], key[2])
+        return dict(tile=f"{plan.tile_h}x{plan.tile_w}", chunks=plan.chunks,
+                    per_chunk=plan.per_chunk, grid=plan.grid, smem=plan.smem)
+    if key[0] not in ("k3", "k12", "k13"):
         return {}
     (b, f), (h, w), d = key[1], key[2], key[4]
-    plan = rk.conv_tconv_plan(b, f, h, w, d, ring=key[0] == "k12")
-    return dict(pixels=plan.pixels, cluster=plan.cluster, grid=plan.grid, smem=plan.smem)
+    plan = rk.conv_tconv_plan(b, f, h, w, d, ring=key[0] == "k12", tma=key[0] == "k13")
+    row = dict(pixels=plan.pixels, cluster=plan.cluster, grid=plan.grid, smem=plan.smem)
+    return dict(row, copies=K13_COPIES) if key[0] == "k13" else row
 
 
 def check_kernels(rk, routing_calls, dev, timed, tag):
@@ -1644,14 +1657,13 @@ def lab_kernels(rk, routing_calls, dev):
     with torch.no_grad():
         for key in k3_keys:
             inp = Inputs(rk, torch.Generator(device=dev).manual_seed(seed_of(key, 0)), dev)
-            args, _, yk, _ = _k3_case(rk, key, inp)
-            ok, err = _k13_vs_k3(rk, key, args, rk.fused_conv_tconv_dma(*args), yk)
-            if not ok:
-                fail(f"K13 differs from K3 beyond its gate at {_k3_label(key)} (max|err| {err})")
+            args = _k3_args(key, inp)
+            if not _k13_vs_k3(rk, key, args, rk.fused_conv_tconv_dma(*args))[0]:
+                fail(f"K13 is not bit-equal to K3 at {_k3_label(key)}")
     torch.cuda.synchronize()
     launches["fused_conv_tconv_dma"] = launch_counts()["fused_conv_tconv_dma"]
-    log(f"[lab] K13 against K3 (one ulp plus the carried conv-half difference) at the "
-        f"{len(k3_keys)} K3 signatures of the padded forward")
+    log(f"[lab] K13 ({K13_COPIES} copies) bit-equal to K3 (output interior and statistics) at "
+        f"the {len(k3_keys)} K3 signatures of the padded forward")
     for name in ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps"):
         if not launches[name]:
             fail(f"{name} was not launched on its path")

@@ -412,10 +412,15 @@ def _wgrad_ok(got, x, g, a, b, silu):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode", ["plain", "silu"])
-@pytest.mark.parametrize("n,h,w,c,d", [(2, 8, 8, 128, 128), (3, 5, 7, 64, 192)])
+@pytest.mark.parametrize("n,h,w,c,d", [(2, 8, 8, 128, 128), (3, 5, 7, 64, 192),
+                                       (2, 4, 5, 64, 64), (28, 8, 8, 1280, 640)],
+                         ids=["8x8", "ragged", "narrow", "release_8"])
 def test_wgrad_kernel_matches_plain(cuda, dtype, mode, n, h, w, c, d):
     """At small shapes a lost pixel or a wrong border tap shows above the
-    gate; two launches are bit-equal (no atomics)."""
+    gate: H and W not multiples of the 8x8 tile, W below it (the tile is
+    then 5 pixels wide) and the release U-Net's 8^2 level (28 x 8 x 8 x
+    1280 -> 640, one chunk, 400 CTAs); two launches are bit-equal (no
+    atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
     g = torch.randn(n, h, w, d, generator=gen, device=cuda).to(dtype)
@@ -432,12 +437,16 @@ def test_wgrad_kernel_matches_plain(cuda, dtype, mode, n, h, w, c, d):
     assert _wgrad_ok(got, x, g, a, b, mode == "silu")
 
 
-def test_wgrad_kernel_at_a_chunked_shape(cuda):
-    """A shape that splits the pixels into several chunks (the second,
-    fixed-order pass) with a ragged last chunk."""
+@pytest.mark.parametrize("n,h,w,c,d", [(5, 48, 40, 128, 128), (4, 40, 48, 128, 192)])
+def test_wgrad_kernel_at_a_chunked_shape(cuda, n, h, w, c, d):
+    """Shapes that split the pixels into several chunks (the second,
+    fixed-order pass), with chunk boundaries in the middle of a sample and a
+    ragged last chunk, with 128-wide output blocks and with 64-wide ones
+    (D = 192)."""
     gen = torch.Generator(device=cuda).manual_seed(11)
-    n, h, w, c, d = 5, 48, 40, 128, 128
-    assert rk.wgrad_chunks(n * h * w, c, d)[0] > 1
+    plan = rk.wgrad_plan(n, h, w, c, d)
+    per_image = plan.tiles // n
+    assert plan.chunks > 1 and plan.per_chunk % per_image and plan.tiles % plan.per_chunk
     x = torch.randn(n, h, w, c, generator=gen, device=cuda).bfloat16()
     g = torch.randn(n, h, w, d, generator=gen, device=cuda).bfloat16()
     a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
@@ -804,10 +813,10 @@ def test_padded_k12_unet_matches_plain_on_the_card(cuda):
 def test_conv_tconv_dma_kernel_is_k3(cuda, emb, res, skip_cins, b, f, hw, cins, d):
     """K13 against K3 (bf16) at the small padded shapes and one shape of each
     padded level of the release U-Net (128^2 and 64^2), as the JAX tests
-    relate the two (`tests/test_pallas_kernels.py:712-760`): K13 keeps the
-    wmma schedule K3 had (its conv half is K4a's, bit for bit), K3 sums in
-    its own order, so within one ulp plus the carried difference of their
-    conv halves, statistics within 1e-3; two K13 launches bit-equal."""
+    relate the two (`tests/test_pallas_kernels.py:712-760`): K13 is K3's
+    mainloop with its copies issued by TMA, the same products in the same
+    order, so y and the statistics are bit-equal to K3's; two K13 launches
+    bit-equal."""
     dtype = torch.bfloat16
     gen = torch.Generator(device=cuda).manual_seed(30)
     parts = _conv_parts(gen, cuda, dtype, (b, f), hw, cins, d)
@@ -815,21 +824,15 @@ def test_conv_tconv_dma_kernel_is_k3(cuda, emb, res, skip_cins, b, f, hw, cins, 
     tk = torch.randn(3, d, d, generator=gen, device=cuda) / (3 * d) ** 0.5
     tb, e, r, skips, sb = _tconv_extras(gen, cuda, dtype, b, f, hw, d, emb, res, skip_cins)
     args = (parts, kbias, tk, tb, hw, e, r, skips, sb, True, True)
-    conv = torch.zeros(parts[0][0].shape[:4] + (d,), dtype=dtype, device=cuda)
     before = rk.launches["fused_conv_tconv_dma"]
     got, gst = rk.fused_conv_tconv_dma(*args, tile_h=hw[0])
     again, ast = rk.fused_conv_tconv_dma(*args, tile_h=hw[0])
-    want, wst = rk.fused_conv_tconv_padded(*args, conv_out=conv)
+    want, wst = rk.fused_conv_tconv_padded(*args)
     torch.cuda.synchronize()
     assert rk.launches["fused_conv_tconv_dma"] == before + 2
     rows = slice(1, hw[0] + 1)
     assert torch.equal(got[:, :, rows], again[:, :, rows]) and torch.equal(gst, ast)
-    hp, wp = rk.padded_hw(*hw)
-    flat = [(x.reshape(b * f, hp, wp, -1), kk, a, bb) for x, kk, a, bb in parts]
-    yk = rk.fused_affine_conv3x3_padded(flat, kbias, hw, True).reshape(conv.shape)
-    extra = _carried(rk._interior(conv, hw).float() - rk._interior(yk, hw).float(), tk, dtype)
-    _check_padded(got, want, hw, dtype, extra, what="K13 vs K3:")
-    _stats_close(gst, wst, got, want)
+    assert torch.equal(got[:, :, rows], want[:, :, rows]) and torch.equal(gst, wst)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

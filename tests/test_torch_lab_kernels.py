@@ -117,6 +117,50 @@ def test_conv_tconv_dma_keeps_the_jax_guards():
         trk.fused_conv_tconv_dma(*targs, **tkw)
 
 
+@pytest.mark.parametrize("b,f,hw,cins,d,skip_cins", [
+    (8, 7, (128, 128), (128,), 128, ()), (8, 7, (128, 128), (128, 128), 128, (128, 128)),
+    (1, 7, (64, 64), (256, 128), 256, ()), (8, 7, (64, 64), (256,), 256, (256, 128)),
+    (1, 7, (32, 32), (384, 384), 384, ())])
+def test_conv_tconv_dma_launches_k3s_plan(monkeypatch, b, f, hw, cins, d, skip_cins):
+    """K13's wrapper, driven to its launch with tensors on the meta device
+    (the device checks, the library and the stream stubbed), hands its C
+    entry point exactly the integers K3's wrapper hands K3's: the tile plan
+    of `conv_tconv_plan` (pixels per tile; its TMA variant, with K13's
+    larger shared memory, plans the same launch) and the shapes; its
+    statistics buffers have K3's tiles."""
+    import contextlib
+
+    seen = {}
+
+    def fake_lib(name, fn, nptr, nint):
+        def launch(*args):
+            seen[name] = (args[nptr:nptr + nint], args[nptr - 2].shape if args[nptr - 2] is not None
+                          else None)
+            return 0
+        return launch
+
+    monkeypatch.setattr(trk, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(trk, "_stream", lambda x: 0)
+    monkeypatch.setattr(trk, "_ptr", lambda t: t)
+    monkeypatch.setattr(trk, "_lib", fake_lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    hp, wp = trk.padded_hw(*hw)
+    with torch.device("meta"):
+        parts = [(torch.empty(b, f, hp, wp, c, dtype=torch.bfloat16), torch.empty(3, 3, c, d),
+                  torch.empty(b * f, c), torch.empty(b * f, c)) for c in cins]
+        skips = [(torch.empty(b, f, hp, wp, c, dtype=torch.bfloat16), torch.empty(c, d))
+                 for c in skip_cins] or None
+        args = (parts, torch.empty(d), torch.empty(3, d, d), torch.empty(d), hw,
+                torch.empty(b, d), None, skips, torch.empty(d) if skips else None, True, True)
+        trk.fused_conv_tconv_padded(*args)
+        trk.fused_conv_tconv_dma(*args, tile_h=hw[0])
+    k3, k13 = seen["conv_tconv_padded"], seen["conv_tconv_dma"]
+    plan = trk.conv_tconv_plan(b, f, hw[0], hw[1], d)
+    assert trk.conv_tconv_plan(b, f, hw[0], hw[1], d, tma=True)[:5] == plan[:5]
+    assert k13 == k3 and k3[0][-3] == plan.pixels
+    assert k3[1] == (b * f * plan.tiles * 2 * d,)
+
+
 # -- K14: Winograd F(2x2, 3x3) ------------------------------------------------------
 
 

@@ -80,10 +80,71 @@ def test_wgrad_keeps_the_jax_guards():
         trk.wgrad_conv3x3(x, torch.zeros(1, 4, 5, 64))
 
 
-def test_wgrad_chunks_cover_the_pixels():
-    for pixels, c, d in [(28 * 128 * 128, 128, 128), (28 * 64, 1280, 640), (37, 64, 64)]:
-        chunks, chunk_len = trk.wgrad_chunks(pixels, c, d)
-        assert chunk_len % 32 == 0 and (chunks - 1) * chunk_len < pixels <= chunks * chunk_len
+# K6's 26 signatures (N, H, W, C, D) in a B=4 release train step (N = B x F),
+# each once (`test_release_train_step_k6_shapes` traces them)
+RELEASE_K6 = [
+    (28, 128, 128, 128, 128), (28, 128, 128, 256, 128), (28, 128, 128, 256, 256),
+    (28, 128, 128, 384, 128), (28, 64, 64, 128, 256), (28, 64, 64, 256, 256),
+    (28, 64, 64, 384, 256), (28, 64, 64, 384, 384), (28, 64, 64, 512, 256),
+    (28, 64, 64, 640, 256), (28, 32, 32, 256, 384), (28, 32, 32, 384, 384),
+    (28, 32, 32, 512, 512), (28, 32, 32, 640, 384), (28, 32, 32, 768, 384),
+    (28, 32, 32, 896, 384), (28, 16, 16, 384, 512), (28, 16, 16, 512, 512),
+    (28, 16, 16, 640, 640), (28, 16, 16, 896, 512), (28, 16, 16, 1024, 512),
+    (28, 16, 16, 1152, 512), (28, 8, 8, 512, 640), (28, 8, 8, 640, 640),
+    (28, 8, 8, 1152, 640), (28, 8, 8, 1280, 640)]
+# shapes off the release path: W below the 8-pixel tile, H and W not
+# multiples of it, one-pixel columns, a chunk boundary mid-sample
+RAGGED_K6 = [(2, 4, 5, 64, 64), (3, 5, 7, 64, 192), (5, 48, 40, 128, 128), (1, 1, 1, 64, 64),
+             (2, 3, 1, 64, 64), (1, 130, 9, 64, 64)]
+
+
+@pytest.mark.parametrize("n,h,w,c,d", RELEASE_K6 + RAGGED_K6)
+def test_wgrad_chunks_cover_the_pixels(n, h, w, c, d):
+    """K6's plan (`trk.wgrad_plan`): its tiles, walked in chunk order as the
+    kernel walks them ((sample, tile row, tile col) from the chunk's first
+    tile), cover each pixel exactly once; the chunks are contiguous, in
+    order and none empty; the shared memory fits a CTA; the grid has a CTA
+    per SM where the tiles allow; two calls give the same plan."""
+    plan = trk.wgrad_plan(n, h, w, c, d)
+    assert plan == trk.wgrad_plan(n, h, w, c, d)
+    th, tw = plan.tile_h, plan.tile_w
+    tiles_w = -(-w // tw)
+    per_image = -(-h // th) * tiles_w
+    assert plan.tiles == n * per_image and th * tw <= 64
+    starts = [k * plan.per_chunk for k in range(plan.chunks)]
+    ends = [min(s + plan.per_chunk, plan.tiles) for s in starts]
+    assert starts[0] == 0 and ends[-1] == plan.tiles and all(e > s for s, e in zip(starts, ends))
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    covered = np.zeros((n, h, w), np.int32)
+    for s, e in zip(starts, ends):
+        for t in range(s, e):
+            i, r = divmod(t, per_image)
+            h0, w0 = (r // tiles_w) * th, (r % tiles_w) * tw
+            covered[i, h0:h0 + th, w0:w0 + tw] += 1
+    assert (covered == 1).all()
+    assert plan.smem <= trk.HOPPER_SMEM
+    blocks = (c // 32) * (d // (128 if d % 128 == 0 else 64))
+    assert plan.grid == blocks * plan.chunks
+    assert plan.grid >= min(trk.HOPPER_SMS, blocks * plan.tiles)
+
+
+def test_release_train_step_k6_shapes(monkeypatch):
+    """The B=4 release train step, traced on the meta device, calls K6 at
+    exactly the 26 signatures `RELEASE_K6` lists (the plan test's cases)."""
+    _counting(monkeypatch, trk, K1_NAMES, via_plain=True)
+    shapes = set()
+
+    def record(x, g, *a, **k):
+        shapes.add(tuple(x.shape) + (g.shape[-1],))
+        return trk.wgrad_conv3x3_plain(x, g, *a, **k)
+
+    monkeypatch.setattr(trk, "wgrad_conv3x3", record)
+    with torch.device("meta"):
+        net = tvu.VideoUNet(dtype=torch.bfloat16, train_fused=True, wgrad_kernel=True)
+        y = net(torch.randn(4, 7, 128, 128, 6), torch.zeros(4, dtype=torch.long),
+                torch.randn(4, 77, 512))
+        y.float().square().mean().backward()
+    assert shapes == set(RELEASE_K6)
 
 
 # -- the autograd Functions against the JAX custom_vjp's -------------------------

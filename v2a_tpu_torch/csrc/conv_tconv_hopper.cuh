@@ -1,8 +1,9 @@
-// The conv mainloop that K3 (conv_tconv_padded.cu) and K12
-// (conv_tconv_stream.cu) share: a padded-stream PseudoConv3d, the parts'
-// affine(+SiLU) 3x3 conv rounded to bf16 and then the 3-tap temporal conv,
-// for one tile of P interior pixels of one sample and one cluster rank's
-// slice of NC output channels.
+// The conv mainloop that K3 (conv_tconv_padded.cu), K12
+// (conv_tconv_stream.cu) and K13 (conv_tconv_dma.cu) share: a padded-stream
+// PseudoConv3d, the parts' affine(+SiLU) 3x3 conv rounded to bf16 and then
+// the 3-tap temporal conv, for one tile of P interior pixels of one sample
+// and one cluster rank's slice of NC output channels. The primitives
+// (cp.async, TMA, ldmatrix, mma.sync, `row64`, `tile_of`) are hopper.cuh's.
 //
 // What bounds both on the H100: operations (PERF.md: 6.99 ms of bound per
 // B=8 forward for K3's 16 calls, 7.89 for K12's 19). What this design does
@@ -14,16 +15,24 @@
 //   affine8's arithmetic (no FMA, t * (1 / (1 + e^-t))) runs once per
 //   element there, in place, spread over the three steps of the chunk
 //   before it, and rounds to bf16. Window positions outside the interior
-//   (pad rows that may hold NaN, pad cols, rows past the image) are never
-//   loaded and are written as zero by selection while staging. The nine
+//   (pad rows that may hold NaN, pad cols, rows past the image; cp.async
+//   loads none of them, TMA's box brings them) are written as zero by
+//   selection while staging. The nine
 //   taps read the one window through ldmatrix at shifted row addresses
 //   (any pixel shift is a 64-byte row).
 // - Tensor-core tiles fed asynchronously. mma.sync m16n8k16 (bf16 in,
 //   float32 sums) by eight warps, A and B by ldmatrix from XOR-swizzled
 //   shared memory (no bank conflicts); a pipeline step is three 32-deep
 //   products (one tap row, or three temporal taps) with its three weight
-//   slabs copied by cp.async through a 3-stage ring, one barrier a step.
-//   (`wgmma` with TMA and warp-specialised producers is the next step.)
+//   slabs copied through a 3-stage ring, one barrier a step. The copies
+//   follow the copy policy (`Copy`): cp.async by every thread (K3, K12),
+//   or TMA (K13), one thread issuing each window as a 4-D box (64-byte
+//   swizzle, which is `row64`) with its a, b as bulk copies and each weight
+//   slab as 2-D boxes of 64 columns (128-byte swizzle: a slab is stored as
+//   64-column halves of 128-byte rows for both policies), each ring stage
+//   completing on its own mbarrier. The products and their order do not
+//   depend on the policy, so K13 is bit-equal to K3. (`wgmma` with
+//   warp-specialised producers is the next step.)
 // - Full 64-row tiles through a cluster along D. The tile's rounded conv
 //   output (K3: every frame; K12: a 3-frame ring) is split over a cluster
 //   of D / NC CTAs (NC = 128, or 64 where 128 does not divide D), each
@@ -53,14 +62,15 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <string.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace v2a {
 namespace hop {
 
 namespace cg = cooperative_groups;
-using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;   // eight warps
 constexpr int KSTEP = 32;      // channels per sub-step (a 32-deep product)
@@ -86,101 +96,66 @@ struct Args {
   int B, F, H, W, Wp, D, silu;
 };
 
-// A pixel tile: th rows of tw interior pixels, as square as 16-byte rows
-// allow (8 x 8, 8 x 4, 4 x 4; tw = W where W is narrower), so that its
-// window of (th + 2) x (tw + 2) pixels activates each input element about
-// 1.6 times where a 1 x 64 strip would 3.1 times; tiles in row-major order
-// over the interior.
-struct Tile {
-  int th, tw, tiles_w, tiles;
-};
-__host__ __device__ inline Tile tile_of(int H, int W, int P) {
-  Tile t;
-  const int side = P >= 32 ? 8 : 4;
-  t.tw = W < side ? W : side;
-  t.th = P / t.tw;
-  t.tiles_w = (W + t.tw - 1) / t.tw;
-  t.tiles = ((H + t.th - 1) / t.th) * t.tiles_w;
-  return t;
-}
 inline int slice_of(int D) { return D % 128 == 0 ? 128 : 64; }
 
-// shared memory: [slots][P][NC] conv output, [STAGES][SUBS][KSTEP][NC]
-// weights, [WSTAGES] windows of (th+2)(tw+2) 64-byte rows with the chunk's
-// 32 a and 32 b (aliased by the [2][SUBS][P] temporal A tiles), [WM][2][NC]
-// float32 statistics
-__host__ __device__ inline int window_bytes(const Tile& t) {
-  return (t.th + 2) * (t.tw + 2) * KSTEP * 2 + 2 * KSTEP * 4;
+// How the window and weight-slab copies are issued: cp.async by every
+// thread into commit groups (K3, K12), or TMA by one thread, each ring
+// stage completing on its own mbarrier (K13). The products, their order
+// and the shared-memory layout they read are the same.
+enum class Copy { cp_async, tma };
+
+// K13's tensor maps: each part's padded stream (C, Wp, Hp, B*F) in boxes of
+// one window (32 channels, 64-byte swizzle: `row64`), each part's (9 C, D)
+// weights, the (3 D, D) temporal weights and each skip part's (Cs, D)
+// projection in boxes of 32 rows x 64 columns (128-byte swizzle); absent
+// parts' maps unused
+struct Maps {
+  CUtensorMap x[2], w[2], tw, k[2];
+};
+
+// shared memory: [slots][P][NC] conv output, [STAGES][SUBS] weight slabs
+// of [NC / 64][KSTEP][64] (128-byte rows, chunks ^ (row & 7)), [WSTAGES]
+// windows of (th+2)(tw+2) 64-byte rows with the chunk's 32 a and 32 b
+// (aliased by the [2][SUBS][P] temporal A tiles), [WM][2][NC] float32
+// statistics; TMA: its swizzles need 1024-byte-aligned slabs and 512-byte
+// windows, and 6 mbarriers follow
+constexpr int HALF = KSTEP * 128;  // bytes of one 64-column half of a weight slab
+__host__ __device__ inline int window_bytes(const Tile& t, Copy cp) {
+  const int b = (t.th + 2) * (t.tw + 2) * KSTEP * 2 + 2 * KSTEP * 4;
+  return cp == Copy::tma ? (b + 511) / 512 * 512 : b;
 }
-inline int ring_bytes(const Tile& t, int P) {
-  const int w = WSTAGES * window_bytes(t), a = 2 * SUBS * P * KSTEP * 2;
+inline int ring_bytes(const Tile& t, int P, Copy cp) {
+  const int w = WSTAGES * window_bytes(t, cp), a = 2 * SUBS * P * KSTEP * 2;
   return w > a ? w : a;
 }
-inline size_t smem_bytes(int P, int NC, const Tile& t, int slots) {
+inline size_t smem_bytes(int P, int NC, const Tile& t, int slots, Copy cp) {
   const int wm = P >= 32 ? 2 : 1;
   return (size_t)slots * P * NC * 2 + (size_t)STAGES * SUBS * KSTEP * NC * 2 +
-         ring_bytes(t, P) + (size_t)wm * 2 * NC * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t r[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64-byte rows of 32 channels (windows, temporal A tiles): 16-byte chunk ch
-// of row r sits at chunk ch ^ ((r >> 1) & 3), so eight consecutive rows
-// read by one ldmatrix hit eight different bank groups.
-__device__ __forceinline__ uint32_t row64(int r, int ch) {
-  return (uint32_t)(r * 64 + ((ch ^ ((r >> 1) & 3)) << 4));
+         ring_bytes(t, P, cp) + (size_t)wm * 2 * NC * 4 +
+         (cp == Copy::tma ? 1024 + 8 * (STAGES + WSTAGES) : 0);
 }
 
 // One CTA's state: tile, cluster rank, shared memory and accumulators.
-template <int P, int NC>
+// CP: how its copies are issued (`Copy`); TMA takes the kernel's `Maps`.
+template <int P, int NC, Copy CP = Copy::cp_async>
 struct Mainloop {
   static constexpr int WM = P >= 32 ? 2 : 1, WN = THREADS / 32 / WM;  // warps over rows, cols
   static constexpr int MT = P / 16 / WM, NT = NC / 8 / WN;  // m16 and n8 tiles a warp
-  static constexpr int RB = NC * 2;                         // bytes per conv / weight row
+  static constexpr int RB = NC * 2;                         // bytes per conv row
   static constexpr int SLAB = KSTEP * RB;                   // bytes per 32-row weight slab
   static constexpr int CPR = NC / KSTEP;                    // 32-channel chunks a rank holds
   static constexpr int AT = P * 64;                         // bytes per temporal A tile
   static constexpr int VPT = (SUBS * P * 4 + THREADS - 1) / THREADS;  // A vectors a thread
 
   const Args<bf16>& A;
+  const Maps* mp;  // TMA's maps, or null
   cg::cluster_group cl;
   unsigned char* ys;   // [slots][P][NC] conv output, rounded, row chunks ^ (row & 7)
   unsigned char* win;  // window ring / temporal A tiles
   float* red;          // [WM][2][NC]
   uint32_t y_s, b_s, w_s;  // conv slots, weight ring, window ring (shared addresses)
+  uint32_t bar_s;          // TMA: [WSTAGES] window and [STAGES] weight-stage mbarriers
+  uint32_t wph = 0, bph = 0;  // TMA: parity of each window / weight stage's next phase
   int wbytes, R, R4;
   int nch0, nch, Hp;
   int b, tile, rank, n0, h0, w0, tiles;
@@ -193,8 +168,9 @@ struct Mainloop {
   // the sample], sbias; read once per CTA
   float kb[NT][2], off[NT][2], sbv[NT][2];
 
-  __device__ Mainloop(const Args<bf16>& args, unsigned char* smem, int slots)
-      : A(args), cl(cg::this_cluster()) {
+  __device__ Mainloop(const Args<bf16>& args, unsigned char* smem, int slots,
+                      const Maps* maps = nullptr)
+      : A(args), mp(maps), cl(cg::this_cluster()) {
     tid = threadIdx.x;
     lane = tid & 31;
     wm = (tid >> 5) / WN;
@@ -206,7 +182,7 @@ struct Mainloop {
     tiles = t.tiles;
     R = (t.th + 2) * (t.tw + 2);
     R4 = R * 4;
-    wbytes = window_bytes(t);
+    wbytes = window_bytes(t, CP);
     const int cid = blockIdx.x / (int)cl.num_blocks();
     b = cid / t.tiles;
     tile = cid % t.tiles;
@@ -214,6 +190,7 @@ struct Mainloop {
     w0 = (tile % t.tiles_w) * t.tw;
     rank = (int)cl.block_rank();
     n0 = rank * NC;
+    if constexpr (CP == Copy::tma) smem += (1024 - (smem_u32(smem) & 1023)) & 1023;
     ys = smem;
     unsigned char* bring = ys + (size_t)slots * P * RB;
     win = bring + STAGES * SUBS * SLAB;
@@ -222,6 +199,7 @@ struct Mainloop {
     y_s = smem_u32(ys);
     b_s = smem_u32(bring);
     w_s = smem_u32(win);
+    bar_s = smem_u32(red + WM * 2 * NC);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int m = wm * (P / WM) + mt * 16 + (lane & 15);
@@ -239,6 +217,46 @@ struct Mainloop {
         off[nt][j] = o;
         sbv[nt][j] = A.sbias ? A.sbias[e] : 0.f;
       }
+    if constexpr (CP == Copy::tma) {
+      if (tid == 0) {
+        for (int i = 0; i < WSTAGES + STAGES; ++i) mbar_init(bar_s + 8 * i, 1);
+        fence_mbar_init();
+      }
+      __syncthreads();
+    }
+  }
+
+  // -- the copy policy: the barrier of a pipeline step, and the end of a phase --
+
+  __device__ __forceinline__ uint32_t wbar(int ws) const { return bar_s + 8 * ws; }
+  __device__ __forceinline__ uint32_t bbar(int st) const { return bar_s + 8 * (WSTAGES + st); }
+  // TMA: waits for the next phase of window stage ws
+  __device__ __forceinline__ void wait_window(int ws) {
+    mbar_wait(wbar(ws), (wph >> ws) & 1);
+    wph ^= 1u << ws;
+  }
+  __device__ __forceinline__ void commit() {
+    if constexpr (CP == Copy::cp_async) cp_commit();
+  }
+  // the top of pipeline step j: its weight stage landed (and, TMA, window
+  // stage `ws` where ws >= 0; cp.async lands every window a chunk before
+  // it is activated), then one CTA barrier, after which the stage the last
+  // step read may be overwritten
+  __device__ __forceinline__ void step_barrier(int stage, int ws) {
+    if constexpr (CP == Copy::cp_async) {
+      cp_wait<STAGES - 2>();
+    } else {
+      mbar_wait(bbar(stage), (bph >> stage) & 1);
+      bph ^= 1u << stage;
+      if (ws >= 0) wait_window(ws);
+      fence_proxy_async();  // this thread's writes to a ring stage before TMA refills it
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ void phase_end() {
+    if constexpr (CP == Copy::cp_async) cp_wait<0>();
+    else fence_proxy_async();
+    __syncthreads();
   }
 
   __device__ void zero() {
@@ -257,16 +275,27 @@ struct Mainloop {
     return m < t.th * t.tw && h < A.H && w < A.W;
   }
 
-  // `nsub` slabs of KSTEP rows of a row-major (K, D) matrix, slab s from
-  // src + s * step (row k0 of each, column n0), into weight stage `stage`;
-  // rows' chunks ^ (k & 7)
-  __device__ void issue_b(const bf16* src, long step, int nsub, int stage) {
+  // `nsub` slabs of KSTEP rows of a row-major (K, D) matrix w (TMA: its
+  // map), slab s from row row0 + s * step, columns n0 .. n0 + NC, into
+  // weight stage `stage`: 64-column halves of 128-byte rows, chunks ^ (k & 7)
+  __device__ void issue_b(const CUtensorMap* map, const bf16* w, long row0, long step, int nsub,
+                          int stage) {
     const uint32_t base = b_s + stage * (SUBS * SLAB);
-    for (int v = tid; v < nsub * KSTEP * (NC / 8); v += THREADS) {
-      const int s = v / (KSTEP * (NC / 8)), r = v % (KSTEP * (NC / 8));
-      const int k = r / (NC / 8), ch = r % (NC / 8);
-      cp_async16(base + s * SLAB + k * RB + ((ch ^ (k & 7)) << 4),
-                 src + s * step + (long)k * A.D + ch * 8);
+    if constexpr (CP == Copy::tma) {
+      if (tid == 0) {
+        mbar_expect(bbar(stage), nsub * SLAB);
+        for (int s = 0; s < nsub; ++s)
+          for (int h = 0; h < NC / 64; ++h)
+            tma_load_2d(base + s * SLAB + h * HALF, map, n0 + 64 * h, (int)(row0 + s * step),
+                        bbar(stage));
+      }
+    } else {
+      for (int v = tid; v < nsub * KSTEP * (NC / 8); v += THREADS) {
+        const int s = v / (KSTEP * (NC / 8)), r = v % (KSTEP * (NC / 8));
+        const int k = r / (NC / 8), ch = r % (NC / 8);
+        cp_async16(base + s * SLAB + (ch >> 3) * HALF + k * 128 + (((ch & 7) ^ (k & 7)) << 4),
+                   w + (row0 + s * step + k) * A.D + n0 + ch * 8);
+      }
     }
   }
 
@@ -275,7 +304,8 @@ struct Mainloop {
     const int k = kk * 16 + (lane & 15);
     if constexpr (NT == 1) {
       uint32_t q[2];
-      ldsm_x2_t(bb + k * RB + (((wn * (NC / WN)) >> 3 ^ (k & 7)) << 4), q);
+      const int n = wn * (NC / WN);
+      ldsm_x2_t(bb + (n >> 6) * HALF + k * 128 + ((((n >> 3) & 7) ^ (k & 7)) << 4), q);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) mma16816(acc[mt][0], a[mt], q[0], q[1]);
     } else {
@@ -283,7 +313,7 @@ struct Mainloop {
       for (int np = 0; np < NT / 2; ++np) {
         const int n = wn * (NC / WN) + np * 16 + (lane >> 4) * 8;
         uint32_t q[4];
-        ldsm_x4_t(bb + k * RB + (((n >> 3) ^ (k & 7)) << 4), q);
+        ldsm_x4_t(bb + (n >> 6) * HALF + k * 128 + ((((n >> 3) & 7) ^ (k & 7)) << 4), q);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma16816(acc[mt][2 * np], a[mt], q[0], q[1]);
@@ -296,28 +326,42 @@ struct Mainloop {
   // -- the conv half: a step is (chunk g, tap row di), its sub-steps the
   // three taps (di, dj) --
 
-  __device__ void chunk_of(int k, const Part<bf16>*& Q, int& c0) const {
+  // the part of channel chunk k (returned), and the chunk's first channel
+  __device__ int chunk_of(int k, const Part<bf16>*& Q, int& c0) const {
     Q = k < nch0 ? &A.p[0] : &A.p[1];
     c0 = (k < nch0 ? k : k - nch0) * KSTEP;
+    return k < nch0 ? 0 : 1;
   }
 
   // the raw window of (frame, chunk k) and the chunk's a, b into window
-  // stage ws; positions outside the interior are not loaded
+  // stage ws; cp.async loads no position outside the interior, TMA loads
+  // the whole box (pad rows and cols too, zero past the stream's end)
   __device__ void issue_window(int frame, int k, int ws) {
     const Part<bf16>* Q;
     int c0;
-    chunk_of(k, Q, c0);
+    const int part = chunk_of(k, Q, c0);
     const long n = (long)b * A.F + frame;
     const uint32_t base = w_s + ws * wbytes;
-    const int tw2 = t.tw + 2;
-    for (int v = tid; v < R4; v += THREADS) {
-      const int pix = v >> 2, ch = v & 3;
-      const int pr = h0 + pix / tw2, pc = w0 + pix % tw2;  // padded coordinates
-      if (pr < 1 || pr > A.H || pc < 1 || pc > A.W) continue;
-      cp_async16(base + row64(pix, ch), Q->x + ((n * Hp + pr) * A.Wp + pc) * Q->C + c0 + ch * 8);
+    if constexpr (CP == Copy::tma) {
+      if (tid == 0) {
+        mbar_expect(wbar(ws), R * 64 + 2 * KSTEP * 4);
+        tma_load_4d(base, &mp->x[part], c0, w0, h0, (int)n, wbar(ws));
+        bulk_load(base + R * 64, Q->a + n * Q->C + c0, KSTEP * 4, wbar(ws));
+        bulk_load(base + R * 64 + KSTEP * 4, Q->b + n * Q->C + c0, KSTEP * 4, wbar(ws));
+      }
+    } else {
+      const int tw2 = t.tw + 2;
+      for (int v = tid; v < R4; v += THREADS) {
+        const int pix = v >> 2, ch = v & 3;
+        const int pr = h0 + pix / tw2, pc = w0 + pix % tw2;  // padded coordinates
+        if (pr < 1 || pr > A.H || pc < 1 || pc > A.W) continue;
+        cp_async16(base + row64(pix, ch),
+                   Q->x + ((n * Hp + pr) * A.Wp + pc) * Q->C + c0 + ch * 8);
+      }
+      if (tid < 16)
+        cp_async16(base + R * 64 + tid * 16,
+                   (tid < 8 ? Q->a : Q->b) + n * Q->C + c0 + (tid & 7) * 4);
     }
-    if (tid < 16)
-      cp_async16(base + R * 64 + tid * 16, (tid < 8 ? Q->a : Q->b) + n * Q->C + c0 + (tid & 7) * 4);
   }
 
   // affine8 in place on vectors [lo, hi) of window stage ws, rounded to
@@ -391,29 +435,32 @@ struct Mainloop {
     auto issue_bs = [&](int j) {
       const Part<bf16>* Q;
       int c0;
-      chunk_of((j / 3) % nch, Q, c0);
-      issue_b(Q->w + ((long)(j % 3) * 3 * Q->C + c0) * A.D + n0, (long)Q->C * A.D, 3,
+      const int part = chunk_of((j / 3) % nch, Q, c0);
+      issue_b(mp ? &mp->w[part] : nullptr, Q->w, (long)(j % 3) * 3 * Q->C + c0, Q->C, 3,
               j % STAGES);
     };
     issue_w(0);
     if (nchunk > 1) issue_w(1);
     issue_bs(0);
-    cp_commit();
+    commit();
     for (int s = 1; s < STAGES - 1; ++s) {
       if (s < nsteps) issue_bs(s);
-      cp_commit();
+      commit();
     }
-    cp_wait<STAGES - 2>();
-    __syncthreads();
+    if constexpr (CP == Copy::tma) {
+      wait_window(0);
+    } else {
+      cp_wait<STAGES - 2>();
+      __syncthreads();
+    }
     activate(0, 0, R4);
     zero();
     for (int j = 0; j < nsteps; ++j) {
-      cp_wait<STAGES - 2>();
-      __syncthreads();
       const int g = j / 3, di = j % 3;
+      step_barrier(j % STAGES, di == 0 && g + 1 < nchunk ? (g + 1) % WSTAGES : -1);
       if (j + STAGES - 1 < nsteps) issue_bs(j + STAGES - 1);
       if (di == 0 && g + 2 < nchunk) issue_w(g + 2);
-      cp_commit();
+      commit();
       // the next chunk's window, a third at a time (its raw copy landed a
       // chunk ago)
       if (g + 1 < nchunk) activate((g + 1) % WSTAGES, di * R4 / 3, (di + 1) * R4 / 3);
@@ -424,8 +471,7 @@ struct Mainloop {
         zero();
       }
     }
-    cp_wait<0>();
-    __syncthreads();
+    phase_end();
   }
 
   // -- the temporal half: a step is three 32-deep products, the taps
@@ -627,11 +673,12 @@ struct Mainloop {
     auto issue_bs = [&](int j) {
       const int r = j % mid;
       if (r < dch) {
-        issue_b(A.tw + ((long)r * KSTEP) * D + n0, (long)D * D, SUBS, j % STAGES);
+        issue_b(mp ? &mp->tw : nullptr, A.tw, (long)r * KSTEP, D, SUBS, j % STAGES);
       } else {
         int part, c, ns;
         skip_of(r - dch, part, c, ns);
-        issue_b(A.q[part].k + ((long)c * KSTEP) * D + n0, (long)KSTEP * D, ns, j % STAGES);
+        issue_b(mp ? &mp->k[part] : nullptr, A.q[part].k, (long)c * KSTEP, KSTEP, ns,
+                j % STAGES);
       }
     };
     auto fetch = [&](int j, uint4 r[VPT]) {
@@ -647,7 +694,7 @@ struct Mainloop {
     };
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < nsteps) issue_bs(s);
-      cp_commit();
+      commit();
     }
     uint4 r[VPT];
     if (!local(0)) {
@@ -656,10 +703,9 @@ struct Mainloop {
     }
     zero();
     for (int j = 0; j < nsteps; ++j) {
-      cp_wait<STAGES - 2>();
-      __syncthreads();
+      step_barrier(j % STAGES, -1);
       if (j + STAGES - 1 < nsteps) issue_bs(j + STAGES - 1);
-      cp_commit();
+      commit();
       const bool stage_next = j + 1 < nsteps && !local(j + 1);
       if (stage_next) fetch(j + 1, r);
       const int g = g0 + j / mid, rr = j % mid, stage = j % STAGES;
@@ -687,8 +733,7 @@ struct Mainloop {
         zero();
       }
     }
-    cp_wait<0>();
-    __syncthreads();
+    phase_end();
   }
 };
 
@@ -779,13 +824,39 @@ inline cudaError_t launch_f32(const Args<float>& a, int P, float* stats, cudaStr
   return reduce_tiles(a.partial, stats, (long)a.B * a.F, a.D, t.tiles, stream);
 }
 
-// bf16: one kernel Kern<P, NC> (K::fn) on a grid of B * tiles * (D / NC)
-// CTAs in clusters of D / NC along D, then the statistics pass
-template <int P, int NC>
-cudaError_t launch_one(void (*kernel)(Args<bf16>), const Args<bf16>& a, int slots, float* stats,
+// K13's maps of the tensors in `a`, the window boxes those of tile t
+inline int encode_maps(Maps& m, const Args<bf16>& a, const Tile& t) {
+  memset(&m, 0, sizeof(m));
+  const uint64_t D = a.D, Hp = a.H + 2;
+  const uint32_t wbox[4] = {KSTEP, (uint32_t)t.tw + 2, (uint32_t)t.th + 2, 1};
+  const uint32_t bbox[2] = {64, KSTEP};
+  auto weights = [&](CUtensorMap* map, const bf16* w, uint64_t rows) {
+    const uint64_t dims[2] = {D, rows}, strides[1] = {D * 2};
+    return encode_tiled(map, w, 2, dims, strides, bbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  int bad = weights(&m.tw, a.tw, 3 * D);
+  for (int i = 0; i < 2 && !bad; ++i) {
+    const Part<bf16>& Q = a.p[i];
+    if (Q.C) {
+      const uint64_t C = Q.C;
+      const uint64_t dims[4] = {C, (uint64_t)a.Wp, Hp, (uint64_t)a.B * a.F};
+      const uint64_t strides[3] = {C * 2, C * 2 * a.Wp, C * 2 * a.Wp * Hp};
+      bad = encode_tiled(&m.x[i], Q.x, 4, dims, strides, wbox, CU_TENSOR_MAP_SWIZZLE_64B);
+      if (!bad) bad = weights(&m.w[i], Q.w, 9 * C);
+    }
+    if (!bad && a.q[i].C) bad = weights(&m.k[i], a.q[i].k, a.q[i].C);
+  }
+  return bad;
+}
+
+// bf16: one kernel (K::fn<P, NC>, which takes `Maps` too where CP is TMA)
+// on a grid of B * tiles * (D / NC) CTAs in clusters of D / NC along D,
+// then the statistics pass
+template <int P, int NC, Copy CP, class Kern>
+cudaError_t launch_one(Kern kernel, const Args<bf16>& a, int slots, float* stats,
                        cudaStream_t stream) {
   const Tile t = tile_of(a.H, a.W, P);
-  const size_t smem = smem_bytes(P, NC, t, slots);
+  const size_t smem = smem_bytes(P, NC, t, slots, CP);
   const int cluster = a.D / NC;
   if (smem > (size_t)MAX_SMEM || cluster > MAX_CLUSTER) return cudaErrorInvalidValue;
   cudaError_t err =
@@ -803,24 +874,30 @@ cudaError_t launch_one(void (*kernel)(Args<bf16>), const Args<bf16>& a, int slot
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if constexpr (CP == Copy::tma) {
+    Maps maps;
+    if (encode_maps(maps, a, t)) return cudaErrorInvalidValue;
+    err = cudaLaunchKernelEx(&cfg, kernel, a, maps);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+  }
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess || !a.partial) return err;
   return reduce_tiles(a.partial, stats, (long)a.B * a.F, a.D, t.tiles, stream);
 }
 
-// K provides `template <int P, int NC> static void (*fn())(Args<bf16>)`
-template <class K>
+// K provides `template <int P, int NC> static auto fn()`, its kernel
+template <class K, Copy CP = Copy::cp_async>
 cudaError_t launch_bf16(const Args<bf16>& a, int P, int slots, float* stats, cudaStream_t s) {
   if (slice_of(a.D) == 128) {
-    if (P == 64) return launch_one<64, 128>(K::template fn<64, 128>(), a, slots, stats, s);
-    if (P == 32) return launch_one<32, 128>(K::template fn<32, 128>(), a, slots, stats, s);
-    if (P == 16) return launch_one<16, 128>(K::template fn<16, 128>(), a, slots, stats, s);
+    if (P == 64) return launch_one<64, 128, CP>(K::template fn<64, 128>(), a, slots, stats, s);
+    if (P == 32) return launch_one<32, 128, CP>(K::template fn<32, 128>(), a, slots, stats, s);
+    if (P == 16) return launch_one<16, 128, CP>(K::template fn<16, 128>(), a, slots, stats, s);
   } else {
-    if (P == 64) return launch_one<64, 64>(K::template fn<64, 64>(), a, slots, stats, s);
-    if (P == 32) return launch_one<32, 64>(K::template fn<32, 64>(), a, slots, stats, s);
-    if (P == 16) return launch_one<16, 64>(K::template fn<16, 64>(), a, slots, stats, s);
+    if (P == 64) return launch_one<64, 64, CP>(K::template fn<64, 64>(), a, slots, stats, s);
+    if (P == 32) return launch_one<32, 64, CP>(K::template fn<32, 64>(), a, slots, stats, s);
+    if (P == 16) return launch_one<16, 64, CP>(K::template fn<16, 64>(), a, slots, stats, s);
   }
   return cudaErrorInvalidValue;
 }

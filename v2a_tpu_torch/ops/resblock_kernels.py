@@ -67,8 +67,8 @@ The training path adds:
 Two kernels of the JAX package that its model never calls, reached through
 the port's perf lab (`v2a_tpu_torch/scripts/perf_lab.py`) and `chip_smoke.py`:
 
-- `fused_conv_tconv_dma` (K13): K3's contract with its copies overlapping
-  its compute; bit-equal to K3. `csrc/conv_tconv_dma.cu`.
+- `fused_conv_tconv_dma` (K13): K3's contract and kernel with its copies
+  issued by TMA; bit-equal to K3. `csrc/conv_tconv_dma.cu`.
 - `winograd_conv3x3` (K14): K10's function by Winograd F(2x2, 3x3), even H
   and W. `csrc/winograd_conv3x3.cu`.
 
@@ -708,7 +708,7 @@ def fused_conv_tconv_padded_plain(parts, kbias, tkernel, tbias, hw, emb=None, re
                                       emb, residual, skip_parts, skip_bias, want_stats)
 
 
-# -- the tile plan of K3 and K12's shared mainloop (csrc/conv_tconv_hopper.cuh) --
+# -- the tile plan of K3, K12 and K13's shared mainloop (csrc/conv_tconv_hopper.cuh) --
 
 HOPPER_SMS = 132  # the H100 SXM's streaming multiprocessors
 HOPPER_SMEM = 232448  # shared memory a CTA can use
@@ -719,7 +719,7 @@ _HOP_MAX_CLUSTER = 8
 
 
 class ConvTconvPlan(NamedTuple):
-    """One launch of K3 or K12: pixels per tile, CTAs per cluster (along D),
+    """One launch of K3, K12 or K13: pixels per tile, CTAs per cluster (along D),
     weight-ring stages, CTAs in the grid, pixel tiles per sample-frame and
     shared memory per CTA in bytes."""
     pixels: int
@@ -738,9 +738,13 @@ def _hop_tile(h: int, w: int, p: int) -> Tuple[int, int, int]:
     return th, tw, -(-h // th) * -(-w // tw)
 
 
-def conv_tconv_plan(b: int, f: int, h: int, w: int, d: int, ring: bool = False) -> ConvTconvPlan:
-    """The launch K3 (`ring=False`: the conv output of all F frames held) or
-    K12 (`ring=True`: a 3-frame ring) makes at this shape. The cluster splits
+def conv_tconv_plan(b: int, f: int, h: int, w: int, d: int, ring: bool = False,
+                    tma: bool = False) -> ConvTconvPlan:
+    """The launch K3 and K13 (`ring=False`: the conv output of all F frames
+    held) or K12 (`ring=True`: a 3-frame ring) make at this shape; `tma`
+    (K13): its copies by TMA, whose ring stages align to the swizzles and
+    whose mbarriers take up to 2.6 KB more (the same plan at every release
+    shape). The cluster splits
     D into slices of 128 channels (64 where 128 does not divide D); of the
     pixel tiles 64, 32 and 16 whose shared memory fits a CTA, the largest
     whose grid has a CTA per SM, else the smallest (the most CTAs)."""
@@ -752,11 +756,16 @@ def conv_tconv_plan(b: int, f: int, h: int, w: int, d: int, ring: bool = False) 
     fits = []
     for p in (64, 32, 16):
         th, tw, tiles = _hop_tile(h, w, p)
-        # 3 windows with their chunk's a and b, or 2 steps of temporal A tiles
-        window = max(3 * ((th + 2) * (tw + 2) * _HOP_KSTEP * 2 + 2 * _HOP_KSTEP * 4),
-                     2 * _HOP_SUBS * p * _HOP_KSTEP * 2)
+        # 3 windows with their chunk's a and b (TMA: 512-byte aligned), or 2
+        # steps of temporal A tiles
+        stage = (th + 2) * (tw + 2) * _HOP_KSTEP * 2 + 2 * _HOP_KSTEP * 4
+        if tma:
+            stage = -(-stage // 512) * 512
+        window = max(3 * stage, 2 * _HOP_SUBS * p * _HOP_KSTEP * 2)
         smem = (slots * p * nc * 2 + _HOP_STAGES * _HOP_SUBS * _HOP_KSTEP * nc * 2 + window
                 + (2 if p >= 32 else 1) * 2 * nc * 4)
+        if tma:  # the base aligned to 1024 bytes, then 6 mbarriers
+            smem += 1024 + 8 * 6
         if smem <= HOPPER_SMEM:
             fits.append(ConvTconvPlan(p, cluster, _HOP_STAGES, b * tiles * cluster, tiles, smem))
     if not fits:
@@ -883,18 +892,7 @@ def _conv_tconv_args(what: str, parts, kbias, tkernel, tbias, hw, emb, residual,
                 out_shape=out_shape)
 
 
-def _dma_pixels(frames: int, d: int, itemsize: int) -> int:
-    """Pixels per K13 block (the rule of K3's earlier wmma schedule, which
-    K13 keeps): the block holds
-    the rounded conv output of every frame of its pixels at all D channels
-    in shared memory; 64 KiB of it leaves room for two blocks on an SM."""
-    p = 64
-    while p > 8 and frames * p * d * itemsize > 64 * 1024:
-        p //= 2
-    return p
-
-
-# -- K13: K3 with its copies overlapping its compute -------------------------------
+# -- K13: K3 with its copies issued by TMA ----------------------------------------
 
 
 def fused_conv_tconv_dma_plain(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
@@ -922,22 +920,22 @@ def _dma_checks(parts, hw, d: int, has_res: bool, skip_parts, tile_h) -> None:
 def fused_conv_tconv_dma(parts, kbias, tkernel, tbias, hw, emb=None, residual=None,
                          skip_parts=None, skip_bias=None, silu=True, want_stats=False,
                          tile_h=None):
-    """`fused_conv_tconv_padded` (K3) with its copies overlapping its compute
-    (`v2a_tpu/ops/resblock_kernels.py:2377`): the same contract, arguments
-    and outputs as K3. Raises where the JAX wrapper raises: where
+    """`fused_conv_tconv_padded` (K3) with its copies issued by the Tensor
+    Memory Accelerator (`v2a_tpu/ops/resblock_kernels.py:2377`): the same
+    contract, arguments and outputs as K3, and K3's tile plan
+    (`conv_tconv_plan(..., tma=True)`, the same at every release shape).
+    Raises where the JAX wrapper raises: where
     `conv_tconv_band_rows` admits no band (without `tile_h`), or where
     `tile_h` does not divide H. `tile_h` is the TPU's band height; the
     card's output does not depend on it.
 
-    Kernel note (csrc/conv_tconv_dma.cu): bound by operations, as K3. The
-    wmma schedule K3 had before its Hopper redesign (`_dma_pixels` pixels
-    per block, steps in (part, tap, channel) order, then the temporal taps
-    and the skip parts), with every step's input rows and weight slab
-    copied by `cp.async` into a two-stage ring in shared memory while the
-    previous step runs on the tensor cores, and a grid of (sample, group of
-    tiles) sized to fill the card, each block walking its sample's tiles in
-    sequence. Its float32 sums run in another order than K3's, so the two
-    agree to one ulp plus the carried difference of their conv halves.
+    Kernel note (csrc/conv_tconv_dma.cu, csrc/conv_tconv_hopper.cuh): bound
+    by operations, as K3. K3's mainloop with the copy policy `Copy::tma`:
+    one thread issues each window (a 4-D TMA box of the padded stream, its
+    a and b by bulk copies) and each weight slab (2-D boxes), each ring
+    stage completing on an mbarrier, where K3's threads issue cp.async; the
+    swizzles TMA writes are the ones the mainloop reads. The products and
+    their order are K3's, so K13 is bit-equal to K3.
     """
     _no_grad_inputs("fused_conv_tconv_dma", kbias, tkernel, tbias, emb, residual, skip_bias,
                     *_parts_tensors(parts), *_parts_tensors(skip_parts or ()))
@@ -949,12 +947,13 @@ def fused_conv_tconv_dma(parts, kbias, tkernel, tbias, hw, emb=None, residual=No
     a = _conv_tconv_args("fused_conv_tconv_dma", parts, kbias, tkernel, tbias, hw, emb, residual,
                          skip_parts, skip_bias)
     b, f, _, _, d = a["out_shape"]
-    pix = _dma_pixels(f, d, x0.element_size())
-    partial, stats = _stats_buffers(x0, b * f, -(-hw[0] * hw[1] // pix), d, want_stats)
-    fn = _lib("conv_tconv_dma", "v2a_conv_tconv_dma", 21, 13)
+    plan = conv_tconv_plan(b, f, hw[0], hw[1], d, tma=True)
+    scratch = _conv_out_buffer(None, a)
+    partial, stats = _stats_buffers(x0, b * f, plan.tiles, d, want_stats)
+    fn = _lib("conv_tconv_dma", "v2a_conv_tconv_dma", 22, 13)
     with torch.cuda.device(x0.device):
-        rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(partial), _ptr(stats), *a["ints"], pix,
-                int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
+        rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(scratch), _ptr(partial), _ptr(stats),
+                *a["ints"], plan.pixels, int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
     _raise_on(rc, "fused_conv_tconv_dma")
     launches["fused_conv_tconv_dma"] += 1
     return (a["y"], stats.reshape(b, f, 2, d)) if want_stats else a["y"]
@@ -1127,10 +1126,6 @@ def fused_downconv3x3_padded(x, kernel, bias, hw, a=None, b=None, silu=False):
 
 # -- K6: the weight gradient of the (affine+SiLU+) 3x3 conv --------------------
 
-# blocks the K6 launch aims for: about eight per SM of the H100's 132
-_WGRAD_BLOCKS = 132 * 8
-
-
 def _wgrad_checks(x: torch.Tensor, g: torch.Tensor, a, b, silu: bool) -> None:
     """The JAX wrapper's guards (`v2a_tpu/ops/resblock_kernels.py:3346-3356`)."""
     if tuple(g.shape[:3]) != tuple(x.shape[:3]):
@@ -1165,16 +1160,62 @@ def wgrad_conv3x3_plain(
     return torch.stack(taps).reshape(3, 3, c, d)
 
 
-def wgrad_chunks(pixels: int, c: int, d: int) -> Tuple[int, int]:
-    """(chunks, pixels per chunk) of a K6 launch: the pixel axis is split so
-    that (9C/64) x (D/64) output tiles x chunks is about `_WGRAD_BLOCKS`, each
-    chunk a multiple of the kernel's 32-pixel step. Depends on the shape only,
-    so two launches sum in the same order."""
-    tiles = (9 * c // 64) * (d // 64)
-    steps = -(-pixels // 32)
-    chunks = max(1, min(steps, -(-_WGRAD_BLOCKS // tiles)))
-    chunk_len = -(-steps // chunks) * 32
-    return -(-pixels // chunk_len), chunk_len
+# csrc/wgrad_conv3x3.cu's CTA: 32 input x 128 output channels (64 where 128
+# does not divide D), a 4-stage ring of (64-pixel g tile, window, a, b)
+_WGRAD_CB, _WGRAD_STAGES = 32, 4
+_HOPPER_BF16 = 989e12  # the H100 SXM's dense bf16 tensor-core rate, FLOP/s
+_HOPPER_BYTES = 3.35e12  # its memory rate, bytes/s
+
+
+class WgradPlan(NamedTuple):
+    """One K6 launch: the pixel tile (rows, cols) of `hop::tile_of(H, W, 64)`,
+    tiles over (N, H, W), chunks of `per_chunk` consecutive tiles (the last
+    may be shorter), CTAs in the grid and shared memory per CTA in bytes."""
+    tile_h: int
+    tile_w: int
+    tiles: int
+    chunks: int
+    per_chunk: int
+    grid: int
+    smem: int
+
+
+def wgrad_plan(n: int, h: int, w: int, c: int, d: int) -> WgradPlan:
+    """The launch K6 makes at this shape; it depends on the shape only, so
+    two launches add the same partial sums in the same order. A CTA per (32
+    input channels, 128 output channels (64 where 128 does not divide D),
+    chunk of consecutive tiles). Of the chunk counts from the least that
+    gives the grid a CTA per SM (`HOPPER_SMS`; fewer where there are fewer
+    tiles) up to eight times it, whose grid still has a CTA per SM once the
+    tiles are dealt out with no chunk empty, the one with the least
+    modelled time, the fewest on a tie: whole waves of one CTA per SM times
+    the tiles a chunk holds, at the card's bf16 peak per SM, plus the
+    float32 partials written and read back by the second pass at its memory
+    rate (one chunk writes dW directly). The products taken at the peak
+    overstate the partials' share; the card's times are in PERF.md."""
+    th, tw, per_image = _hop_tile(h, w, 64)
+    tiles = n * per_image
+    db = 128 if d % 128 == 0 else 64
+    blocks = (c // _WGRAD_CB) * (d // db)
+    stage = -(-(2 * 64 * db + (th + 2) * (tw + 2) * 64 + 8 * _WGRAD_CB) // 128) * 128
+    tile_s = 2.0 * 64 * 9 * _WGRAD_CB * db * HOPPER_SMS / _HOPPER_BF16
+    slab_s = 2 * 9 * c * d * 4 / _HOPPER_BYTES
+
+    def chunked(k):  # (chunks, tiles per chunk), no chunk empty
+        per = -(-tiles // k)
+        return -(-tiles // per), per
+
+    def modelled_s(k):
+        chunks, per = chunked(k)
+        waves = -(-blocks * chunks // HOPPER_SMS)
+        return waves * per * tile_s + (chunks * slab_s if chunks > 1 else 0.0)
+
+    lo = min(tiles, -(-HOPPER_SMS // blocks))
+    full = min(HOPPER_SMS, blocks * tiles)  # the CTAs the grid needs (fewer tiles: all)
+    ks = [k for k in range(lo, min(tiles, 8 * lo) + 1) if blocks * chunked(k)[0] >= full]
+    k = min(ks or [tiles], key=lambda k: (modelled_s(k), k))
+    chunks, per = chunked(k)
+    return WgradPlan(th, tw, tiles, chunks, per, blocks * chunks, _WGRAD_STAGES * stage)
 
 
 def wgrad_conv3x3(
@@ -1193,10 +1234,17 @@ def wgrad_conv3x3(
     (3, 3, C, D) float32, HWIO, tap order di*3+dj.
 
     Kernel note (csrc/wgrad_conv3x3.cu): bound by operations; a GEMM with
-    M = 9C, N = D and K = N*H*W pixels, the activation recomputed in the
-    gather. The TPU kernel's sequential accumulation across the grid becomes
-    pixel chunks that write float32 partial sums, added in a fixed-order
-    second pass (deterministic, no atomics).
+    M = 9C, N = D and K = N*H*W pixels. A CTA of twelve warps owns all nine
+    taps x 32 input x 128 output channels (64 where 128 does not divide D)
+    and walks a chunk of 8x8 pixel tiles: per tile the raw window (with its
+    one-pixel halo), a, b and the g tile come by cp.async into a 4-stage
+    ring, the window is activated in place once (about 1.6 visits per
+    element and 128 outputs, against 9 per 64 in the kernel this replaced)
+    and the nine taps read it by ldmatrix at shifted rows into mma.sync
+    m16n8k16. The TPU kernel's sequential
+    accumulation across the grid becomes chunks of tiles (`wgrad_plan`)
+    that write float32 partial sums, added in a fixed-order second pass
+    (deterministic, no atomics).
     """
     _no_grad_inputs("wgrad_conv3x3", x, g, a, b)
     if x.device.type == "cpu":
@@ -1215,16 +1263,16 @@ def wgrad_conv3x3(
         a32 = a.float().contiguous()
         b32 = b.float().contiguous()
     _check_cuda(x, g, a32, b32)
-    chunks, chunk_len = wgrad_chunks(n * h * w, c, d)
+    plan = wgrad_plan(n, h, w, c, d)
     out = torch.empty((3, 3, c, d), dtype=torch.float32, device=x.device)
     partial = None
-    if chunks > 1:
-        partial = torch.empty((chunks * 9 * c * d,), dtype=torch.float32, device=x.device)
+    if plan.chunks > 1:
+        partial = torch.empty((plan.chunks * 9 * c * d,), dtype=torch.float32, device=x.device)
     mode = 0 if a is None else (2 if silu else 1)
     fn = _lib("wgrad_conv3x3", "v2a_wgrad_conv3x3", 6, 9)
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(g), _ptr(partial), _ptr(out), n, h, w, c, d,
-                chunks, chunk_len, mode, _DTYPE_CODE[x.dtype], _stream(x))
+                plan.chunks, plan.per_chunk, mode, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "wgrad_conv3x3")
     launches["wgrad_conv3x3"] += 1
     return out

@@ -1,17 +1,22 @@
-"""Where K3's and K12's time goes, on the card.
+"""Where the shared Hopper mainloop's kernels and K6 spend their time, on the card.
 
-    python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate]
+    python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] [--kernels k3,k12,k13,k6]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
-as K4a -> K4b, ms by CUDA events over chained calls, with each launch's tile
-plan. `--ablate` also times copies of the shared mainloop
-(`csrc/conv_tconv_hopper.cuh`) with one part cut out: the activation, the
-conv products, the temporal epilogue or the whole temporal phase. The cut
-copies compute wrong outputs by design; only their times mean anything.
-Cutting the epilogue leaves the temporal products unused, so the compiler
-drops them too: that cut times the epilogue and the products together.
-They are built from copies of `csrc/` under `_build/variants/`.
+as K4a -> K4b, K13 (`fused_conv_tconv_dma`, K3's mainloop with TMA copies)
+beside K3 at K3's shapes, and K6 (`wgrad_conv3x3`) at release train-step
+shapes against the library's `conv2d_weight` on the materialised
+activation; ms by CUDA events over chained calls, with each launch's plan.
+`--ablate` also times copies of the kernels with one part cut out: for
+K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation, the conv products,
+the temporal epilogue or the whole temporal phase; for K6
+(`csrc/wgrad_conv3x3.cu`) the activation, the products or the refill of the
+copy ring. The cut copies compute wrong outputs by design; only their
+times mean anything. Cutting the epilogue leaves the temporal products
+unused, so the compiler drops them too: that cut times the epilogue and
+the products together. They are built from copies of `csrc/` under
+`_build/variants/`.
 """
 
 from __future__ import annotations
@@ -28,15 +33,26 @@ from v2a_tpu_torch.ops import resblock_kernels as rk
 
 # (kernel, B, (H, W), input channel parts, D)
 CASES = [("k3", 8, (128, 128), (128,), 128), ("k3", 8, (32, 32), (384, 384), 384),
-         ("k12", 8, (64, 64), (256,), 256), ("k12", 1, (32, 32), (384,), 384)]
+         ("k12", 8, (64, 64), (256,), 256), ("k12", 1, (32, 32), (384,), 384),
+         ("k13", 8, (128, 128), (128,), 128), ("k13", 8, (64, 64), (256,), 256)]
+# K6 at the B=4 release train step (N = B x F = 28): (N, H, W, C, D, calls per step)
+K6_CASES = [(28, 128, 128, 128, 128, 7), (28, 64, 64, 256, 256, 6), (28, 32, 32, 384, 384, 6),
+            (28, 16, 16, 512, 512, 6), (28, 8, 8, 640, 640, 10)]
 
-# variant -> [(text in a csrc/ file, its replacement)]
-CUTS: Dict[str, List[Tuple[str, str]]] = {
-    "no_activation": [("      if (g + 1 < nchunk) activate(", "      if (false) activate(")],
-    "no_conv_products": [("      mma_taps(g % WSTAGES, j % STAGES, di);", "")],
-    "no_epilogue": [("        store_out(g0 + j / mid);", "")],
-    "no_temporal_phase": [("    m.tconv_frames(f - 1, 1, 3);", ""),
-                          ("  m.tconv_frames(0, a.F, 0);", "")],
+# variant -> (the kernels it cuts, [(text in a csrc/ file, its replacement)])
+CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
+    "no_activation": (("k3", "k12"), [("      if (g + 1 < nchunk) activate(",
+                                       "      if (false) activate(")]),
+    "no_conv_products": (("k3", "k12"), [("      mma_taps(g % WSTAGES, j % STAGES, di);", "")]),
+    "no_epilogue": (("k3", "k12"), [("        store_out(g0 + j / mid);", "")]),
+    "no_temporal_phase": (("k3", "k12"), [("    m.tconv_frames(f - 1, 1, 3);", ""),
+                                          ("  m.tconv_frames(0, a.F, 0);", "")]),
+    "k6_no_activation": (("k6",), [("      if (kk == act_kk && j + 1 < ntile)\n"
+                                    "        activate((j + 1) % WSTAGES, ac);\n", "")]),
+    "k6_no_products": (("k6",), [(
+        "          hop::mma16816(acc[dj][2 * np], af[dj], q[0], q[1]);\n"
+        "          hop::mma16816(acc[dj][2 * np + 1], af[dj], q[2], q[3]);\n", "")]),
+    "k6_no_refill": (("k6",), [("      issue((j + WSTAGES - 1) % WSTAGES, ic);\n", "")]),
 }
 
 
@@ -69,20 +85,41 @@ def _case_args(b, hw, cins, d, dev, f=7):
 
 
 def _runs(kernel, args):
+    """(the kernel's call, the same work as K4a -> K4b; K13: as K3)"""
     parts, kbias, tk, tbias, hw, emb, res = args
     b, f, hp, wp = parts[0][0].shape[:4]
     d = tk.shape[-1]
     flat = [(x.reshape(b * f, hp, wp, -1), k, a, bb) for x, k, a, bb in parts]
-    if kernel == "k3":
-        fused = lambda: rk.fused_conv_tconv_padded(parts, kbias, tk, tbias, hw, emb, res,
-                                                   want_stats=True)
-    else:
-        fused = lambda: rk.fused_conv_tconv_stream(parts, kbias, tk, tbias, hw, emb, res,
-                                                   want_stats=True)
+    fn = {"k3": rk.fused_conv_tconv_padded, "k12": rk.fused_conv_tconv_stream,
+          "k13": rk.fused_conv_tconv_dma}[kernel]
+    fused = lambda: fn(parts, kbias, tk, tbias, hw, emb, res, want_stats=True)
+    if kernel == "k13":
+        return fused, lambda: rk.fused_conv_tconv_padded(parts, kbias, tk, tbias, hw, emb, res,
+                                                         want_stats=True)
     split = lambda: rk.temporal_conv_padded(
         rk.fused_affine_conv3x3_padded(flat, kbias, hw).reshape(b, f, hp, wp, d), tk, tbias,
         hw, emb, res, want_stats=True)
     return fused, split
+
+
+def _k6_args(n, h, w, c, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
+    g = torch.randn(n, h, w, d, generator=gen, device=dev).bfloat16()
+    a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(n, c, generator=gen, device=dev)
+    return x, g, a, b
+
+
+def _k6_runs(args):
+    """(K6's call, the library's conv2d_weight on the materialised activation)"""
+    x, g, a, b = args
+    n, h, w, c = x.shape
+    d = g.shape[-1]
+    sl = rk._act(x, a, b, True).permute(0, 3, 1, 2)
+    gl = g.permute(0, 3, 1, 2)
+    return (lambda: rk.wgrad_conv3x3(x, g, a, b, True),
+            lambda: torch.nn.grad.conv2d_weight(sl, (d, c, 3, 3), gl, padding=1))
 
 
 def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
@@ -101,7 +138,7 @@ def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
                 with open(path, "w") as fh:
                     fh.write(src.replace(old, new))
         if not hits:
-            raise RuntimeError(f"{name}: the mainloop no longer has {old.strip()!r}")
+            raise RuntimeError(f"{name}: the kernel no longer has {old.strip()!r}")
     return root
 
 
@@ -114,31 +151,49 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
+    ap.add_argument("--kernels", default="k3,k12,k13,k6", help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("conv_tconv_probe: needs a CUDA card")
     dev = torch.device("cuda")
+    kernels = opts.kernels.split(",")
     rows = []
-    cases = [(c, _case_args(*c[1:], dev)) for c in CASES]
+    cases = [(c, _case_args(*c[1:], dev)) for c in CASES if c[0] in kernels]
+    k6 = [(c, _k6_args(*c[:5], dev)) for c in K6_CASES] if "k6" in kernels else []
     with torch.no_grad():
         for case, args in cases:
             kernel, b, hw, cins, d = case
-            fused, split = _runs(kernel, args)
+            fused, other = _runs(kernel, args)
             plan = rk.conv_tconv_plan(b, 7, *hw, d, ring=kernel == "k12")
             row = dict(kernel=kernel, b=b, hw=hw, cins=cins, d=d, ms=time_ms(fused),
-                       k4a_k4b_ms=time_ms(split), pixels=plan.pixels, cluster=plan.cluster,
-                       grid=plan.grid)
+                       pixels=plan.pixels, cluster=plan.cluster, grid=plan.grid)
+            row["k3_ms" if kernel == "k13" else "k4a_k4b_ms"] = time_ms(other)
+            rows.append(row)
+            print(row, flush=True)
+        for case, args in k6:
+            kernel_fn, library = _k6_runs(args)
+            plan = rk.wgrad_plan(*case[:5])
+            row = dict(kernel="k6", shape=case[:5], calls=case[5], ms=time_ms(kernel_fn),
+                       library_ms=time_ms(library), chunks=plan.chunks, grid=plan.grid)
             rows.append(row)
             print(row, flush=True)
         if opts.ablate:
             csrc, build_dir = _build.CSRC, _build.BUILD_DIR
             try:
-                for name, cuts in CUTS.items():
+                for name, (cut_kernels, cuts) in CUTS.items():
+                    if not set(cut_kernels) & set(kernels):
+                        continue
                     root = _variant_dir(csrc, build_dir, name, cuts)
                     _use_sources(root, root + "_build")
                     for case, args in cases:
-                        row = dict(variant=name, kernel=case[0], b=case[1], hw=case[2],
-                                   ms=time_ms(_runs(case[0], args)[0]))
+                        if case[0] in cut_kernels:
+                            row = dict(variant=name, kernel=case[0], b=case[1], hw=case[2],
+                                       ms=time_ms(_runs(case[0], args)[0]))
+                            rows.append(row)
+                            print(row, flush=True)
+                    for case, args in k6 if "k6" in cut_kernels else ():
+                        row = dict(variant=name, kernel="k6", shape=case[:5],
+                                   ms=time_ms(_k6_runs(args)[0]))
                         rows.append(row)
                         print(row, flush=True)
             finally:
