@@ -31,9 +31,10 @@ Phases (any failure exits non-zero):
      rounding at a time against their own conv half (`conv_out`: one ulp of
      the plain conv; the output one ulp of the plain temporal conv of it and
      of K4b of it), and against K4a -> K4b within one ulp plus the carried
-     conv-half difference; K3-K12 two launches bit-equal; each K3 / K12 row
-     logs its tile plan (pixels, cluster along D, grid), and a B=1 K12 grid
-     below one CTA per SM fails. Each shape is
+     conv-half difference; K1-K12 two launches bit-equal; each K3 / K12 row
+     logs its tile plan (pixels, cluster along D, grid), each K1 row its
+     `affine_conv_plan`, and a B=1 K12 grid below one CTA per SM fails.
+     Each shape is
      timed on its first input set: kernel, plain version and PyTorch
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
      as K4a -> K4b, at K11's its wrapper's copies;
@@ -62,10 +63,12 @@ Phases (any failure exits non-zero):
      most twice the bf16 plain path's), then a warm-up and timed steps (ms
      per step by CUDA events, launches per step, finite loss and weights).
      Then K1 and K6 against their plain versions at every shape one train
-     step gave them, and K6 at six small and edge shapes (`K6_SMALL`); K6
+     step gave them, and K6 at six small and edge shapes (`K6_SMALL`); both
      two launches bit-equal;
      each K6 row logs its `wgrad_plan` (pixel tile, chunks, grid) and its
-     time beside `conv2d_weight`'s and its bound;
+     time beside `conv2d_weight`'s and its bound, each K1 row its
+     `affine_conv_plan` (pixels, output channels per CTA, grid) and its
+     forward and dgrad calls apart;
   7. trains the policy: `make_train_step(policy.loss, fused_clip_adamw,
      EMAConfig())` at the release batch (64), bf16 compute, one warm-up and
      three timed steps, the peak memory, finite loss and weights;
@@ -356,8 +359,9 @@ def _skip_yardstick(rk, skips, hw):
 
 
 def check_k1(rk, key, inp, timed):
-    """K1 at one recorded signature: (ok, max|err|, max|err|/std, None,
-    times or None, flops, bytes, label)."""
+    """K1 at one recorded signature, within one ulp of its plain version and
+    two launches bit-equal: (ok, max|err|, max|err|/std, None, times or
+    None, flops, bytes, label)."""
     _, (n, h, w, c), d, affine, silu = key
     x = inp.randn(n, h, w, c).bfloat16()
     kern = inp.randn(3, 3, c, d, scale=(9 * c) ** -0.5)
@@ -367,8 +371,12 @@ def check_k1(rk, key, inp, timed):
         a = 1 + inp.randn(n, c, scale=0.1)
         b = inp.randn(n, c, scale=0.1)
     got = rk.fused_affine_conv3x3(x, kern, bias, a, b, silu)
+    same = torch.equal(got, rk.fused_affine_conv3x3(x, kern, bias, a, b, silu))
     want = rk.fused_affine_conv3x3_plain(x, kern, bias, a, b, silu)
     ok, abs_err, rel, _ = within_one_ulp(got, want)
+    if not same:
+        log(f"[kernels] K1 {n}x{h}x{w}x{c}->{d}: two launches differ")
+    ok = ok and same
     times = None
     if timed:
         times = dict(
@@ -997,12 +1005,16 @@ def check_k14(rk, key, inp, timed):
     """K14 at a K10 signature, on K10's inputs: within one ulp of its plain
     version (which rounds as the Winograd body does), two launches
     bit-equal. Its difference from K10's output is reported, not gated:
-    Winograd's transforms round at other places than a direct conv."""
+    Winograd's transforms round at other places than a direct conv. Timed
+    as it is called (`ms`, the weight transform included, as the JAX body
+    makes it on every call); the transform alone, a part of `ms`, beside it
+    (`weights_ms`)."""
     _, (n, h, w, c), d = key
     x = inp.randn(n, h, w, c).bfloat16()
     kern = inp.randn(3, 3, c, d, scale=(9 * c) ** -0.5)
     bias = inp.randn(d, scale=0.1)
-    got, again = rk.winograd_conv3x3(x, kern, bias), rk.winograd_conv3x3(x, kern, bias)
+    got = rk.winograd_conv3x3(x, kern, bias)
+    again = rk.winograd_conv3x3(x, kern, bias)
     ok, abs_err, rel, _ = within_one_ulp(got, rk.winograd_conv3x3_plain(x, kern, bias))
     k10 = rk.spatial_conv3x3(x, kern, bias).float()
     vs_k10 = float((got.float() - k10).abs().max() / k10.std())
@@ -1013,6 +1025,7 @@ def check_k14(rk, key, inp, timed):
     if timed:
         xl, wl, bl = x.permute(0, 3, 1, 2), _cl_weight([kern]), bias.bfloat16()
         times = dict(ms=time_ms(lambda: rk.winograd_conv3x3(x, kern, bias)),
+                     weights_ms=time_ms(lambda: rk.winograd_weights(kern).bfloat16()),
                      plain_ms=time_ms(lambda: rk.winograd_conv3x3_plain(x, kern, bias), 3, 1),
                      k10_ms=time_ms(lambda: rk.spatial_conv3x3(x, kern, bias)),
                      library_ms=time_ms(lambda: F.conv2d(xl, wl, bl, padding=1)),
@@ -1024,7 +1037,8 @@ def check_k14(rk, key, inp, timed):
     # and the bias
     flops = 2.0 * 16 * patches * c * d
     f32_ops = patches * (48.0 * c + 40.0 * d)
-    nbytes = 2 * (n * h * w * (c + d) + 16 * c * d) + 4 * d
+    # x and y in bf16, the (3, 3, C, D) kernel as it is passed, the bias
+    nbytes = 2 * n * h * w * (c + d) + kern.element_size() * 9 * c * d + 4 * d
     return ok, abs_err, rel, None, times, (flops, f32_ops), nbytes, f"K14 {n}x{h}x{w}x{c}->{d}"
 
 
@@ -1124,6 +1138,27 @@ def seed_of(key, i):
 
 
 @contextlib.contextmanager
+def dgrad_calls():
+    """Yields {K1 signature: calls} of the K1 launches that `ops/conv_vjp.py`
+    makes as dgrads (plain-conv mode on the cotangent, the flipped and
+    transposed kernel) inside the block."""
+    from v2a_tpu_torch.ops import conv_vjp
+
+    calls, inner = {}, conv_vjp._dgrad_kernel
+
+    def recorded(g, kernel):
+        key = ("k1", tuple(g.shape), kernel.shape[2], False, False)
+        calls[key] = calls.get(key, 0) + 1
+        return inner(g, kernel)
+
+    conv_vjp._dgrad_kernel = recorded
+    try:
+        yield calls
+    finally:
+        conv_vjp._dgrad_kernel = inner
+
+
+@contextlib.contextmanager
 def recording():
     """Yields {signature: calls} of every kernel wrapper called inside the
     block. The shims only record and pass on; the wrappers still count their
@@ -1158,12 +1193,23 @@ def _plan_row(rk, key):
     """The plan of a launch at this signature: K3 / K12 / K13's tile plan
     (pixels per tile, CTAs per cluster along D, CTAs in the grid, shared
     memory per CTA; K13 takes K3's, and its copy route), K6's `wgrad_plan`
-    (pixel tile, chunks of tiles, tiles per chunk, grid, shared memory); {}
+    (pixel tile, chunks of tiles, tiles per chunk, grid, shared memory),
+    K1's `affine_conv_plan` (pixels per tile, output channels per CTA, grid,
+    shared memory) and K14's `winograd_plan` (patches per tile, output
+    channels per CTA, window resident or streamed, grid, shared memory); {}
     for the other kernels."""
     if key[0] == "k6":
         plan = rk.wgrad_plan(*key[1], key[2])
         return dict(tile=f"{plan.tile_h}x{plan.tile_w}", chunks=plan.chunks,
                     per_chunk=plan.per_chunk, grid=plan.grid, smem=plan.smem)
+    if key[0] == "k1":
+        plan = rk.affine_conv_plan(*key[1], key[2])
+        return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
+    if key[0] == "k14":
+        plan = rk.winograd_plan(*key[1], key[2])
+        return dict(patches=f"{plan.patches} ({plan.tile_h}x{plan.tile_w})", nc=plan.nc,
+                    window="resident" if plan.resident else "streamed", grid=plan.grid,
+                    smem=plan.smem)
     if key[0] not in ("k3", "k12", "k13"):
         return {}
     (b, f), (h, w), d = key[1], key[2], key[4]
@@ -1172,13 +1218,16 @@ def _plan_row(rk, key):
     return dict(row, copies=K13_COPIES) if key[0] == "k13" else row
 
 
-def check_kernels(rk, routing_calls, dev, timed, tag):
+def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
     """Each recorded signature against the plain version, on `SEEDS` input
     sets seeded by the signature (`seed_of`); the worst case per shape is
     kept. `routing_calls`: {routing: {signature: calls}}. With `timed`, K2
     without statistics (which the path never asks for) is added, each shape
     is timed on its first input set, and per routing the per-kernel sums
-    weight each shape by its calls in that routing."""
+    weight each shape by its calls in that routing. `roles`: {signature:
+    {role: calls}} added to a shape's row and log line (K1's forwards and
+    dgrads in the train step)."""
+    roles = roles or {}
     keys = sorted({k for calls in routing_calls.values() for k in calls}, key=str)
     no_stats = [k for k in keys if k[0] == "k2" and not k[2] and not k[3]]
     if timed and no_stats:
@@ -1186,7 +1235,7 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
     rows, failed = [], []
     agg = {r: {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_s=0.0,
                           bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0, copies_ms=0.0,
-                          k3_ms=0.0, k10_ms=0.0)
+                          k3_ms=0.0, k10_ms=0.0, weights_ms=0.0)
                for name in rk.KERNELS}
            for r in routing_calls}
     with torch.no_grad():
@@ -1216,16 +1265,16 @@ def check_kernels(rk, routing_calls, dev, timed, tag):
             rows.append(dict(shape=label, calls=counts, ok=ok, seeds=SEEDS, max_abs_err=abs_err,
                              max_err_over_std=rel, stats_rel_err=st_err, bound_ms=bound_ms,
                              bound_by="operations" if ops_s >= bytes_s else "bytes",
-                             **plan, **(times or {})))
+                             **roles.get(key, {}), **plan, **(times or {})))
             extra = {k: v for k, v in (times or {}).items()
-                     if k in ("k4a_k4b_ms", "copies_ms", "k3_ms", "k10_ms")}
+                     if k in ("k4a_k4b_ms", "copies_ms", "k3_ms", "k10_ms", "weights_ms")}
             log(f"[{tag}] {label:56s} x{list(counts.values())} ok={ok} (worst of {SEEDS}) "
                 f"err/std={rel:.2e} " + (f"stats_rel={st_err:.1e} " if st_err is not None else "")
                 + (f"ms={times['ms']:.3f} plain={times['plain_ms']:.3f} "
                    f"lib={times['library_ms']:.3f} " if times else "")
                 + "".join(f"{k[:-3]}={v:.3f} " for k, v in extra.items())
                 + f"bound={bound_ms:.3f}"
-                + "".join(f" {k}={v}" for k, v in plan.items()))
+                + "".join(f" {k}={v}" for k, v in dict(roles.get(key, {}), **plan).items()))
             if not ok:
                 failed.append(label)
             for r, count in counts.items():
@@ -1452,7 +1501,8 @@ def _grad_rel(grads, ref):
 def train(rk, model, vcfg, dev):
     """Phase 6: the video-model train step through `VideoModelTrainer.train`
     in each routing. Returns the report, the kernels' {signature: calls} of
-    one K6-routing gradient step, and the launches of the K6 routing's run."""
+    one K6-routing gradient step, the launches of the K6 routing's run, and
+    {K1 signature: its forward and dgrad calls} of that step."""
     from v2a_tpu_torch.models.video_unet import VideoUNet
     from v2a_tpu_torch.train import checkpoint as ckpt
     from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
@@ -1487,7 +1537,7 @@ def train(rk, model, vcfg, dev):
     report = dict(batch=TRAIN_B, steps_timed=TRAIN_STEPS, float32_peak_gib=peak32,
                   ms_per_step={}, wall_s={}, launches_per_step={}, grad_rel_err={},
                   loss={}, peak_gib={})
-    grads, calls, k6_launches = {}, {}, {}
+    grads, calls, k6_launches, roles = {}, {}, {}, {}
     for name, flags in TRAIN_ROUTINGS.items():
         model.unet.load_state_dict(init)
         workdir = os.path.join(ROOT, "logs", "chip_smoke_train", name)
@@ -1497,10 +1547,12 @@ def train(rk, model, vcfg, dev):
         trainer = VideoModelTrainer(model, clips, cfg, workdir=workdir, seed=SEED)
         if trainer.train_unet.train_fused != flags["train_fused"]:
             fail(f"{name}: the trainer resolved train_fused={trainer.train_unet.train_fused}")
-        with recording() as step_calls:
+        with recording() as step_calls, dgrad_calls() as dgrads:
             trainer.loss_and_grads(*batch, noise=noise)
         if name == "k6":
             calls = step_calls
+            roles = {key: dict(forward_calls=n - dgrads.get(key, 0), dgrad_calls=dgrads.get(key, 0))
+                     for key, n in step_calls.items() if key[0] == "k1"}
         grads[name] = {k: p.grad.detach().clone()
                        for k, p in trainer.train_unet.named_parameters()}
         trainer.state.optimizer.zero_grad(set_to_none=True)
@@ -1567,7 +1619,7 @@ def train(rk, model, vcfg, dev):
     model.unet.load_state_dict(init)
     for key in K6_SMALL:
         calls.setdefault(("k6",) + key, 0)
-    return report, calls, k6_launches
+    return report, calls, k6_launches, roles
 
 
 def train_policy(dev):
@@ -1767,9 +1819,9 @@ def main():
             routing, model, vcfg, dev)
     serve_rows, serve_agg = check_kernels(rk, served, dev, timed=False, tag="serve-shapes")
     # 6. the train step, then K1 and K6 at the shapes one step gave them
-    train_report, train_calls, train_launches = train(rk, model, vcfg, dev)
+    train_report, train_calls, train_launches, k1_roles = train(rk, model, vcfg, dev)
     train_rows, train_agg = check_kernels(rk, {"train": train_calls}, dev, timed=True,
-                                          tag="train-shapes")
+                                          tag="train-shapes", roles=k1_roles)
     # 7. the policy train step
     policy_train = train_policy(dev)
     # 8. the lab kernels' paths and gates

@@ -1,0 +1,206 @@
+"""The launch plans of K1 (`affine_conv_plan`) and K14 (`winograd_plan`), on
+the CPU: at every shape the release paths give the kernels (traced on the
+`meta` device, no memory) and at ragged shapes off them, each plan's tiles
+cover every pixel (K14: every 2x2 patch) exactly once, its shared memory
+fits a CTA, and its grid has a CTA per SM wherever its smallest tile
+allows. The card checks the kernels themselves (`tests/test_torch_gpu.py`,
+`chip_smoke.py`), and that K14's C side plans the same.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_padded import PACKAGE_KERNELS, _counting
+from v2a_tpu_torch.models import video_unet as tvu
+from v2a_tpu_torch.ops import conv_vjp as tcv
+from v2a_tpu_torch.ops import resblock_kernels as trk
+
+SMEM_227_KIB = 227 * 1024
+
+
+def _k1_calls(monkeypatch, path):
+    """{(N, H, W, C, D): calls} of K1 on one release path traced on the meta
+    device: "serve_b8" / "serve_b1" (the shipped padded routing's forward at
+    B=8, and at B=1 as a served request runs it), "forward" / "dgrad" (the
+    B=4 train step's K1 forwards, and its dgrads: K1 in plain-conv mode on
+    the flipped, transposed kernel)."""
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    calls, role = {}, ["forward"]
+
+    def record(x, kernel, bias, a=None, b=None, silu=False):
+        if path in ("serve_b8", "serve_b1") or role[0] == path:
+            key = tuple(x.shape) + (kernel.shape[-1],)
+            calls[key] = calls.get(key, 0) + 1
+        return trk.fused_affine_conv3x3_plain(x, kernel, bias, a, b, silu)
+
+    dgrad = tcv._dgrad_kernel
+
+    def dgrad_recorded(g, kernel):
+        role[0] = "dgrad"
+        try:
+            return dgrad(g, kernel)
+        finally:
+            role[0] = "forward"
+
+    monkeypatch.setattr(trk, "fused_affine_conv3x3", record)
+    monkeypatch.setattr(tcv, "_dgrad_kernel", dgrad_recorded)
+    text = torch.randn
+    with torch.device("meta"):
+        if path.startswith("serve"):
+            b = 8 if path == "serve_b8" else 1
+            with torch.no_grad():
+                tvu.VideoUNet(dtype=torch.bfloat16, fused=True)(
+                    text(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long), text(b, 77, 512))
+        else:
+            net = tvu.VideoUNet(dtype=torch.bfloat16, train_fused=True, wgrad_kernel=True)
+            y = net(text(4, 7, 128, 128, 6), torch.zeros(4, dtype=torch.long), text(4, 77, 512))
+            y.float().square().mean().backward()
+    return calls
+
+
+def _covered_once(h, w, th, tw, tiles):
+    """Tiles of th x tw over an (h, w) grid in row-major order, as
+    `hop::tile_of` deals them out, each covering its cells; all once?"""
+    tiles_w = -(-w // tw)
+    covered = np.zeros((h, w), np.int32)
+    for t in range(tiles):
+        h0, w0 = (t // tiles_w) * th, (t % tiles_w) * tw
+        covered[h0:h0 + th, w0:w0 + tw] += 1
+    return bool((covered == 1).all())
+
+
+def _check_k1_plan(n, h, w, c, d):
+    plan = trk.affine_conv_plan(n, h, w, c, d)
+    assert plan == trk.affine_conv_plan(n, h, w, c, d)
+    nc = 128 if d % 128 == 0 else 64
+    th, tw, per_image = trk._hop_tile(h, w, plan.pixels)
+    assert plan.nc == nc and th * tw <= plan.pixels and plan.tiles == n * per_image
+    assert _covered_once(h, w, th, tw, per_image)
+    assert plan.grid == plan.tiles * (d // nc) and plan.smem <= SMEM_227_KIB
+    # the tiles the plan may take: 16, and each larger one that needs fewer
+    # tiles than the next smaller
+    tiles = {p: trk._hop_tile(h, w, p)[2] for p in (128, 64, 32, 16)}
+    grids = {p: n * t * (d // nc) for p, t in tiles.items() if p == 16 or t < tiles[p // 2]}
+    if grids[16] >= trk.HOPPER_SMS:  # a CTA per SM, at the largest tile that gives one
+        assert plan.grid >= trk.HOPPER_SMS
+        assert plan.pixels == max(p for p, g in grids.items() if g >= trk.HOPPER_SMS)
+    else:
+        assert plan.pixels == 16
+    return plan
+
+
+# the K1 signatures of each release path: (N, H, W, C, D) and calls
+RELEASE_K1_CALLS = {"serve_b8": 31, "serve_b1": 31, "forward": 58, "dgrad": 58}
+
+
+@pytest.mark.parametrize("path", list(RELEASE_K1_CALLS))
+def test_affine_conv_plan_fits_every_release_call(monkeypatch, path):
+    """`trk.affine_conv_plan` at every K1 call of the served forward (B=8,
+    and a B=1 request, whose 8^2 x 640 -> 640 calls take 16-pixel tiles: 28
+    x 5 = 140 CTAs) and of the B=4 train step's forwards and dgrads."""
+    calls = _k1_calls(monkeypatch, path)
+    assert sum(calls.values()) == RELEASE_K1_CALLS[path]
+    plans = {key: _check_k1_plan(*key) for key in calls}
+    assert all(p.grid >= trk.HOPPER_SMS for p in plans.values())
+    if path == "serve_b1":
+        plan = plans[(7, 8, 8, 640, 640)]
+        assert (plan.pixels, plan.nc, plan.grid) == (16, 128, 140)
+    if path == "dgrad":  # the dgrad's C is the forward's D
+        assert (28, 128, 128, 128, 384) in calls and (28, 8, 8, 640, 1280) in calls
+
+
+@pytest.mark.parametrize("n,h,w,c,d", [(2, 5, 7, 32, 64), (3, 8, 8, 128, 192), (1, 1, 1, 32, 64),
+                                       (2, 130, 9, 64, 64), (7, 8, 8, 640, 192),
+                                       (28, 16, 16, 512, 384)])
+def test_affine_conv_plan_at_ragged_shapes(n, h, w, c, d):
+    """Off the release path: W narrower than a tile, H and W no tile
+    divides, one pixel, D = 192 (64-wide slices), the card tests' shapes."""
+    _check_k1_plan(n, h, w, c, d)
+
+
+def _k10_signatures(monkeypatch):
+    """K10's 17 (N, H, W, C, D) of a B=8 spatial_k10_k11 forward, traced on
+    the meta device with every kernel's plain version."""
+    sigs = set()
+
+    def record(x, kernel, bias):
+        sigs.add(tuple(x.shape) + (kernel.shape[-1],))
+        return trk.spatial_conv3x3_plain(x, kernel, bias)
+
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    monkeypatch.setattr(trk, "spatial_conv3x3", record)
+    with torch.device("meta"), torch.no_grad():
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2=False, pallas_spatial=True,
+                      tconv_hw=True)(torch.randn(8, 7, 128, 128, 6),
+                                     torch.zeros(8, dtype=torch.long), torch.randn(8, 77, 512))
+    return sorted(sigs)
+
+
+# the perf lab's level shapes (`scripts/perf_lab.py` WINO_SHAPES), K10's 17
+# signatures of a B=8 spatial_k10_k11 forward (`test_k10_signatures`), and
+# shapes off both: the card tests', one that streams its window, one patch
+LAB_K14 = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (56, 32, 32, 384, 384)]
+K10_K14 = [
+    (56, 8, 8, 512, 640), (56, 8, 8, 640, 640), (56, 16, 16, 384, 512), (56, 16, 16, 512, 512),
+    (56, 16, 16, 640, 512), (56, 16, 16, 640, 640), (56, 32, 32, 256, 384),
+    (56, 32, 32, 384, 384), (56, 32, 32, 512, 384), (56, 32, 32, 512, 512),
+    (56, 64, 64, 128, 256), (56, 64, 64, 256, 256), (56, 64, 64, 384, 256),
+    (56, 64, 64, 384, 384), (56, 128, 128, 128, 128), (56, 128, 128, 256, 128),
+    (56, 128, 128, 256, 256)]
+RAGGED_K14 = [(3, 6, 10, 32, 64), (1, 32, 32, 384, 384), (2, 8, 8, 1280, 128), (1, 2, 2, 32, 64),
+              (2, 8, 16, 128, 128)]
+
+
+def test_k10_signatures(monkeypatch):
+    """The K10 signatures `K10_K14` lists are the release forward's."""
+    assert _k10_signatures(monkeypatch) == sorted(K10_K14)
+
+
+@pytest.mark.parametrize("n,h,w,c,d", LAB_K14 + K10_K14 + RAGGED_K14)
+def test_winograd_plan_fits(n, h, w, c, d):
+    """`trk.winograd_plan`: its patch tiles cover the (H/2, W/2) patch grid
+    once, its shared memory fits a CTA, the window of all of C is resident
+    exactly where that fits (else streamed, 3 slices), and the grid has a
+    CTA per SM wherever a fitting tile gives one."""
+    plan = trk.winograd_plan(n, h, w, c, d)
+    assert plan == trk.winograd_plan(n, h, w, c, d)
+    nc = 128 if d % 128 == 0 else 64
+    ph, pw = h // 2, w // 2
+    th, tw, per_image = trk._hop_tile(ph, pw, plan.patches)
+    assert (plan.tile_h, plan.tile_w) == (th, tw) and th * tw <= plan.patches
+    assert plan.tiles == n * per_image and _covered_once(ph, pw, th, tw, per_image)
+    assert plan.nc == nc and plan.grid == plan.tiles * (d // nc)
+    assert plan.smem <= SMEM_227_KIB
+    slices = -(-c // 64)
+    window = (slices if plan.resident else 3) * (2 * th + 2) * (2 * tw + 2) * 128
+    assert plan.smem >= window
+    if not plan.resident:  # all of C fits at no tile the plan takes
+        for p in (64, 32, 16):
+            a, b, tiles = trk._hop_tile(ph, pw, p)
+            if p == 16 or tiles < trk._hop_tile(ph, pw, p // 2)[2]:
+                rest = SMEM_227_KIB - 3 * 2 * 32 * nc * 2 - 4 * p * 64
+                assert slices * (2 * a + 2) * (2 * b + 2) * 128 > rest
+    grids = [n * trk._hop_tile(ph, pw, p)[2] * (d // nc) for p in (64, 32, 16)]
+    if max(grids) >= trk.HOPPER_SMS and plan.resident:
+        assert plan.grid >= trk.HOPPER_SMS
+    if (n, h, w, c, d) in LAB_K14 + K10_K14:
+        assert plan.grid >= trk.HOPPER_SMS and plan.resident
+    if (n, h, w, c, d) == (2, 8, 8, 1280, 128):
+        assert not plan.resident
+
+
+def test_probe_cuts_match_the_sources():
+    """Every cut of `scripts/conv_tconv_probe.py --ablate` finds its text in
+    `csrc/` (the probe refuses a cut that no longer matches, on the card)."""
+    import glob
+    import os
+
+    from v2a_tpu_torch.ops import _build
+    from v2a_tpu_torch.scripts import conv_tconv_probe as probe
+
+    text = "".join(open(p).read() for p in glob.glob(os.path.join(_build.CSRC, "*.cu*")))
+    for name, (_, cuts) in probe.CUTS.items():
+        for old, _ in cuts:
+            assert old in text, (name, old)

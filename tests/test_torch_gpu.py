@@ -66,6 +66,44 @@ def test_affine_conv3x3_kernel_matches_plain(cuda, dtype, mode, n, h, w, c, d):
     assert ok, f"max err / std {rel}"
 
 
+@pytest.mark.parametrize("n,h,w,c,d,mode", [
+    (7, 8, 8, 640, 640, "silu"),    # a served request's 8^2 calls: 16-pixel tiles, 140 CTAs
+    (3, 8, 8, 128, 192, "silu"),    # 64-wide output slices
+    (2, 5, 7, 32, 64, "affine"),    # ragged tiles, one channel chunk
+    (4, 16, 16, 512, 384, "dgrad"),  # the train step's dgrad: mode 0 on the flipped kernel
+    (28, 32, 32, 384, 384, "silu"),  # 128-pixel tiles, sixteen warps
+    (2, 64, 64, 64, 192, "affine"),  # 128-pixel tiles, 64-wide output slices
+    (56, 8, 8, 640, 640, "silu")])   # 64-pixel tiles
+def test_affine_conv3x3_kernel_at_plan_edges(cuda, n, h, w, c, d, mode):
+    """K1's bf16 body at the edges of `rk.affine_conv_plan` within one ulp of
+    its plain version; two launches bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).bfloat16()
+    k = torch.randn(3, 3, c, d, generator=g, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=g, device=cuda) * 0.1
+    a = b = None
+    if mode in ("silu", "affine"):
+        a = 1 + 0.1 * torch.randn(n, c, generator=g, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=g, device=cuda)
+    before = rk.launches["fused_affine_conv3x3"]
+    if mode == "dgrad":  # x is the cotangent, k the forward's (3, 3, D, C) kernel
+        from v2a_tpu_torch.ops import conv_vjp
+
+        fk = k.permute(0, 1, 3, 2).contiguous()
+        got, again = conv_vjp._dgrad_kernel(x, fk), conv_vjp._dgrad_kernel(x, fk)
+        want = rk.fused_affine_conv3x3_plain(x, fk.flip(0, 1).permute(0, 1, 3, 2),
+                                             torch.zeros(d, device=cuda))
+    else:
+        got = rk.fused_affine_conv3x3(x, k, bias, a, b, silu=mode == "silu")
+        again = rk.fused_affine_conv3x3(x, k, bias, a, b, silu=mode == "silu")
+        want = rk.fused_affine_conv3x3_plain(x, k, bias, a, b, silu=mode == "silu")
+    torch.cuda.synchronize()
+    assert rk.launches["fused_affine_conv3x3"] == before + 2
+    assert got.shape == (n, h, w, d) and torch.equal(got, again)
+    ok, rel = _within_ulp(got, want, torch.bfloat16)
+    assert ok, f"max err / std {rel}"
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("extras", [(False, False, False), (True, True, True),
                                     (False, True, True), (True, False, False)])
@@ -837,11 +875,15 @@ def test_conv_tconv_dma_kernel_is_k3(cuda, emb, res, skip_cins, b, f, hw, cins, 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,h,w,c,d", [(2, 8, 16, 128, 128), (1, 32, 32, 256, 128),
-                                       (3, 6, 10, 32, 64), (2, 128, 128, 128, 128)])
+                                       (3, 6, 10, 32, 64), (2, 128, 128, 128, 128),
+                                       (1, 32, 32, 384, 384), (56, 32, 32, 384, 384),
+                                       (2, 8, 8, 1280, 128), (8, 64, 64, 64, 192)])
 def test_winograd_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
     """K14 within one ulp of its plain version (float32: 1e-5 relative, the
     Winograd transform's cancellation stays far inside it); two launches
-    bit-equal."""
+    bit-equal. The bf16 shapes reach every tile of `rk.winograd_plan`: 64
+    patches (sixteen warps, and eight at 64-wide slices), 32, 16, and a
+    streamed window (C = 1280 at 8^2)."""
     gen = torch.Generator(device=cuda).manual_seed(31)
     x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
     k = torch.randn(3, 3, c, d, generator=gen, device=cuda) / (9 * c) ** 0.5
@@ -853,6 +895,18 @@ def test_winograd_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
     assert got.shape == (n, h, w, d) and torch.equal(got, again)
     ok, rel = _within_ulp(got, rk.winograd_conv3x3_plain(x, k, bias), dtype)
     assert ok, f"max err / std {rel}"
+
+
+def test_winograd_plan_is_the_kernels(cuda):
+    """K14's C side (`plan_of`, read through `v2a_winograd_plan`) launches
+    the plan `rk.winograd_plan` logs, at the lab's, K10's and ragged shapes
+    (resident 32- and 16-patch tiles, a streamed window)."""
+    shapes = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (56, 32, 32, 384, 384),
+              (56, 8, 8, 512, 640), (56, 8, 8, 640, 640), (56, 16, 16, 640, 512),
+              (56, 32, 32, 512, 512), (56, 64, 64, 384, 384), (56, 128, 128, 256, 256),
+              (3, 6, 10, 32, 64), (1, 32, 32, 384, 384), (2, 8, 8, 1280, 128), (1, 2, 2, 32, 64)]
+    for shape in shapes:
+        assert rk.winograd_plan_of_kernel(*shape) == rk.winograd_plan(*shape), shape
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -41,12 +41,18 @@ def _t(a):
     return None if a is None else torch.from_numpy(np.asarray(a, np.float32))
 
 
-@pytest.mark.parametrize("hw", [8, 32], ids=["whole-frame", "banded"])
+@pytest.mark.parametrize("hw", [8, 32, (5, 7)], ids=["whole-frame", "banded", "ragged"])
 @pytest.mark.parametrize("mode", ["plain", "affine_silu", "affine"])
 def test_affine_conv3x3_matches_pallas(hw, mode):
-    rs = np.random.RandomState(hw)
-    n, c, d = 2, 128, 128
-    x = rs.randn(n, hw, hw, c).astype(np.float32)
+    """K1's plain version against the Pallas kernel; "ragged": H and W that
+    no 8x8, 8x4 or 4x4 pixel tile of the card's plan divides, C = 32 (one
+    channel chunk) and D = 64 (the 64-wide output slice)."""
+    if isinstance(hw, tuple):
+        (h, w), (c, d), rs = hw, (32, 64), np.random.RandomState(57)
+    else:
+        (h, w), (c, d), rs = (hw, hw), (128, 128), np.random.RandomState(hw)
+    n = 2
+    x = rs.randn(n, h, w, c).astype(np.float32)
     k = (rs.randn(3, 3, c, d) / np.sqrt(9 * c)).astype(np.float32)
     bias = (0.1 * rs.randn(d)).astype(np.float32)
     a = b = None

@@ -5,33 +5,258 @@
 // `_affine_conv_banded_kernel` :554).
 //
 // act(x) = silu(a[n, c] * x + b[n, c]) (mode 2), a[n, c] * x + b[n, c]
-// (mode 1) or x (mode 0, plain conv), computed in float32 and rounded to the
-// input type before the product, as the TPU kernel does. The SAME halo is
-// zero AFTER the activation: the gather writes 0 for every tap that falls
-// outside the frame instead of activating a zero pad.
+// (mode 1) or x (mode 0, plain conv: the forward's plain convs and every
+// dgrad, whose (9 C, D) weights are the flipped, transposed kernel), in
+// float32 with `affine8`'s arithmetic (no FMA, t * (1 / (1 + e^-t)) with
+// __frcp_rn) and rounded to bf16 before the product, as the TPU kernel
+// does. The SAME halo is zero AFTER the activation: set by selection, since
+// act(0) = silu(b) is not zero.
 //
-// What bounds it on the H100: at the release shapes it is compute-bound
-// (128^2 x 128 -> 128 at N = 56 is 2.7e11 FLOP against ~0.24 GB of traffic).
-// Design: an implicit GEMM, M = N*H*W pixels, K = 9*C (tap-major, the
-// TPU's di*3+dj order), N = D. A block owns a 64-pixel x 64-channel output
-// tile; per (tap, 32-channel) step it gathers the shifted, activated input
-// rows into shared memory and multiplies them with the matching weight slab
-// on the tensor cores (wmma bf16, float32 accumulators). The activation is
-// recomputed per tap instead of being stored, so the normed tensor never
-// reaches device memory. One kernel covers both TPU bodies: the whole-frame
-// / row-band split there is a VMEM tiling, and 64-pixel tiles fit shared
-// memory at every level.
+// What bounds it on the H100: operations (128^2 x 128 -> 128 at N = 28 is
+// 1.1e11 FLOP against ~0.12 GB). The bf16 body is the conv half of the
+// shared mainloop (conv_tconv_hopper.cuh) on the unpadded layout, without
+// the temporal phase, on hopper.cuh's primitives:
+//
+// - A CTA owns a tile of P pixels (`hop::tile_of`: 16 x 8 with sixteen
+//   warps; 8 x 8, 8 x 4 or 4 x 4 with eight) of one sample x NC output
+//   channels (128, or 64 where 128 does not divide D). The launch plan
+//   (`affine_conv_plan` in ops/resblock_kernels.py) picks P in
+//   {128, 64, 32, 16}: the largest whose grid has a CTA per SM, so a B = 1
+//   request fills the card too.
+// - The activation once per element. Per 32-channel chunk, the tile's raw
+//   (th+2) x (tw+2) window (64-byte rows, `row64`) and the chunk's a, b come
+//   by cp.async into a 3-stage ring, positions outside the image
+//   zero-filled by the copy; affine8 runs once per element there, in place,
+//   spread over the three steps of the chunk before it, and rounds to bf16.
+//   Positions outside the image keep the copy's zeros: they are never
+//   activated (selection). Mode 0 needs no pass at all. The nine taps read
+//   the one window through ldmatrix at shifted row addresses.
+// - A pipeline step is one tap row of one chunk: three 32-deep products,
+//   their three (32 x NC) weight slabs copied by TMA (one thread, 2-D boxes,
+//   128-byte swizzle) through a 3-stage ring whose stages complete on
+//   mbarriers, one CTA barrier a step; mma.sync m16n8k16 (bf16 in, float32
+//   sums). TMA took 8-25% off the cp.async ring's times (PERF.md, section 6).
+// - The epilogue adds the bias in float32 to the float32 sum, rounds once,
+//   stages the tile in shared memory (rows' chunks ^ (row & 7)) and writes
+//   it with 16-byte stores.
+//
+// The float32 body (tests only) stays the plain CUDA-core implicit GEMM of
+// common.cuh (`Accum<float>`): per (tap, 32-channel) step it gathers the
+// shifted, activated rows of a 64-pixel x 64-channel tile.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace v2a {
 namespace {
 
-template <typename T>
+using hop::bf16;
+
+// warps a CTA: sixteen at 128-pixel tiles, else eight
+__host__ __device__ constexpr int warps_of(int P) { return P == 128 ? 16 : 8; }
+constexpr int K1_STAGES = 3;     // weight ring: one tap row's three slabs a stage (4 and 5: no faster)
+constexpr int K1_WSTAGES = 3;    // window ring: a chunk multiplied, one activated, one in flight
+
+// one window stage: (th+2)(tw+2) 64-byte rows, then the chunk's a[32], b[32]
+__host__ __device__ inline int window_bytes(const hop::Tile& t) {
+  return (t.th + 2) * (t.tw + 2) * 64 + 2 * 32 * 4;
+}
+// the weight ring (TMA: aligned to its swizzle's period), the window ring
+// and the weight ring's mbarriers; the epilogue's P x NC tile aliases them
+inline size_t smem_bytes(int P, int NC, const hop::Tile& t) {
+  const size_t ring = (size_t)K1_STAGES * 3 * hop::SLAB_ROWS * NC * 2 +
+                      (size_t)K1_WSTAGES * window_bytes(t) + 8 * K1_STAGES;
+  const size_t out = (size_t)P * NC * 2;
+  return hop::ALIGN_PAD + (ring > out ? ring : out);
+}
+
+// grid: N * tiles * (D / NC) CTAs, the D slices of one tile adjacent
+template <int P, int NC>
+__global__ void __launch_bounds__(warps_of(P) * 32, P == 128 ? 1 : 2)
+affine_conv3x3_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
+                    const float* __restrict__ b, const bf16* __restrict__ w,
+                    const float* __restrict__ bias, bf16* __restrict__ y, int H, int W, int C,
+                    int D, int mode, const __grid_constant__ CUtensorMap wmap) {
+  constexpr int NTHR = warps_of(P) * 32;
+  constexpr int WM = P == 128 ? 4 : P >= 32 ? 2 : 1, WN = warps_of(P) / WM;  // warps over rows, cols
+  constexpr int MT = P / 16 / WM, NT = NC / 8 / WN;  // m16 and n8 tiles a warp
+  constexpr int SLAB = hop::slab_bytes<NC>(), RB = NC * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+
+  const hop::Tile t = hop::tile_of(H, W, P);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int slices = D / NC;
+  const int cid = blockIdx.x / slices, n0 = (blockIdx.x % slices) * NC;
+  const int n = cid / t.tiles, tile = cid % t.tiles;
+  const int h0 = (tile / t.tiles_w) * t.th, w0 = (tile % t.tiles_w) * t.tw;
+  const int tw2 = t.tw + 2, R = (t.th + 2) * tw2, R4 = R * 4;
+  const int wbytes = window_bytes(t);
+  const int nch = C / 32, nsteps = nch * 3;
+  const uint32_t b_s = hop::smem_u32(smem);
+  const uint32_t w_s = b_s + K1_STAGES * 3 * SLAB;
+  unsigned char* win = smem + K1_STAGES * 3 * SLAB;
+  // the weight ring's mbarriers, one a stage, and each one's next phase
+  const uint32_t bar_s = w_s + K1_WSTAGES * wbytes;
+  uint32_t bph = 0;
+  const bf16* xn = x + (long)n * H * W * C;
+
+  // the raw window of chunk g (zero outside the image) and its a, b into
+  // window stage ws
+  auto issue_window = [&](int g, int ws) {
+    const uint32_t base = w_s + ws * wbytes;
+    const int c0 = g * 32;
+    for (int v = tid; v < R4; v += NTHR) {
+      const int pix = v >> 2, ch = v & 3;
+      const int hh = h0 - 1 + pix / tw2, ww = w0 - 1 + pix % tw2;
+      const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
+      hop::cp_async16_or_zero(base + hop::row64(pix, ch),
+                              in ? xn + ((long)hh * W + ww) * C + c0 + ch * 8 : x, in);
+    }
+    if (mode && tid < 16)
+      hop::cp_async16(base + R * 64 + tid * 16,
+                      (tid < 8 ? a : b) + (long)n * C + c0 + (tid & 7) * 4);
+  };
+  // affine8 in place on vectors [lo, hi) of window stage ws, rounded to
+  // bf16; positions outside the image are selected out and keep their zeros
+  auto activate = [&](int ws, int lo, int hi) {
+    unsigned char* base = win + ws * wbytes;
+    const float* ab = reinterpret_cast<const float*>(base + R * 64);
+    for (int v = lo + tid; v < hi; v += NTHR) {
+      const int pix = v >> 2, ch = v & 3;
+      const int hh = h0 - 1 + pix / tw2, ww = w0 - 1 + pix % tw2;
+      if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
+      bf16* p = reinterpret_cast<bf16*>(base + hop::row64(pix, ch));
+      float v8[8];
+      load8(p, v8);
+      affine8(v8, ab + ch * 8, ab + 32 + ch * 8, mode == 2);
+      store8(p, v8);
+    }
+  };
+  // step j's three weight slabs: taps (di, 0..2) of chunk g, rows
+  // (di * 3 + dj) * C + 32 g .. + 32 of the tap-major (9 C, D) weights, by
+  // TMA from one thread, completing on the stage's mbarrier
+  auto issue_b = [&](int j) {
+    if (tid == 0)
+      hop::tma_slabs<NC>(b_s + (j % K1_STAGES) * 3 * SLAB, &wmap, (j % 3) * 3 * C + (j / 3) * 32,
+                         C, 3, n0, bar_s + 8 * (j % K1_STAGES));
+  };
+
+  // this lane's ldmatrix row of each m16 tile: its window pixel at tap (0, 0)
+  int apix[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int m = wm * (P / WM) + mt * 16 + (lane & 15);
+    apix[mt] = m < t.th * t.tw ? (m / t.tw) * tw2 + m % t.tw : 0;
+  }
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  if (tid == 0) {
+    for (int i = 0; i < K1_STAGES; ++i) hop::mbar_init(bar_s + 8 * i, 1);
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+  issue_window(0, 0);
+  if (nch > 1) issue_window(1, 1);
+  hop::cp_commit();
+  for (int j = 0; j < K1_STAGES - 1 && j < nsteps; ++j) issue_b(j);
+  hop::cp_wait<0>();
+  __syncthreads();
+  if (mode) activate(0, 0, R4);
+  for (int j = 0; j < nsteps; ++j) {
+    const int g = j / 3, di = j % 3;
+    // step j's slabs and chunk g's activated window are in place, and the
+    // window a chunk ahead has landed (issued at least two steps ago); the
+    // stages step j - 1 read may be refilled (each thread's reads ordered
+    // before the TMA writes)
+    hop::mbar_wait(bar_s + 8 * (j % K1_STAGES), (bph >> (j % K1_STAGES)) & 1);
+    bph ^= 1u << (j % K1_STAGES);
+    hop::cp_wait<1>();
+    hop::fence_proxy_async();
+    __syncthreads();
+    if (j + K1_STAGES - 1 < nsteps) issue_b(j + K1_STAGES - 1);
+    if (di == 0 && g + 2 < nch) issue_window(g + 2, (g + 2) % K1_WSTAGES);
+    hop::cp_commit();
+    // the next chunk's window, a third a step (its raw copy landed a chunk ago)
+    if (mode && g + 1 < nch) activate((g + 1) % K1_WSTAGES, di * R4 / 3, (di + 1) * R4 / 3);
+    const uint32_t wb = w_s + (g % K1_WSTAGES) * wbytes;
+    const uint32_t bb = b_s + (j % K1_STAGES) * 3 * SLAB;
+#pragma unroll
+    for (int dj = 0; dj < 3; ++dj) {
+      const int off = di * tw2 + dj;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          hop::ldsm_x4(wb + hop::row64(apix[mt] + off, 2 * kk + (lane >> 4)), af[mt]);
+        hop::mma_slab<MT, NT>(acc, bb + dj * SLAB, kk, af, wn * (NC / WN), lane);
+      }
+    }
+  }
+  hop::cp_wait<0>();
+  __syncthreads();
+
+  // + bias in float32, one rounding, staged as P rows of NC (chunks ^ (row & 7))
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = wn * (NC / WN) + nt * 8 + (lane & 3) * 2;
+    const float b0 = bias[n0 + col], b1 = bias[n0 + col + 1];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = wm * (P / WM) + mt * 16 + (lane >> 2) + hh * 8;
+        *reinterpret_cast<__nv_bfloat162*>(smem + m * RB + (((col >> 3) ^ (m & 7)) << 4) +
+                                           (col & 7) * 2) =
+            __floats2bfloat162_rn(acc[mt][nt][2 * hh] + b0, acc[mt][nt][2 * hh + 1] + b1);
+      }
+  }
+  __syncthreads();
+  for (int v = tid; v < P * (NC / 8); v += NTHR) {
+    const int m = v / (NC / 8), ch = v % (NC / 8);
+    const int hh = h0 + m / t.tw, ww = w0 + m % t.tw;
+    if (m >= t.th * t.tw || hh >= H || ww >= W) continue;
+    *reinterpret_cast<uint4*>(y + (((long)n * H + hh) * W + ww) * D + n0 + ch * 8) =
+        *reinterpret_cast<const uint4*>(smem + m * RB + ((ch ^ (m & 7)) << 4));
+  }
+}
+
+template <int P, int NC>
+cudaError_t launch_bf16(const void* x, const void* a, const void* b, const void* w,
+                        const void* bias, void* y, int N, int H, int W, int C, int D, int mode,
+                        cudaStream_t stream) {
+  const hop::Tile t = hop::tile_of(H, W, P);
+  const size_t smem = smem_bytes(P, NC, t);
+  const long grid = (long)N * t.tiles * (D / NC);
+  if (smem > 232448 || grid > 0x7fffffffL) return cudaErrorInvalidValue;
+  auto kernel = affine_conv3x3_bf16<P, NC>;
+  CUtensorMap wmap;
+  if (hop::encode_slabs(&wmap, w, (uint64_t)9 * C, (uint64_t)D)) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)grid, warps_of(P) * 32, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const bf16*>(w), static_cast<const float*>(bias), static_cast<bf16*>(y), H, W,
+      C, D, mode, wmap);
+  return cudaGetLastError();
+}
+
+// -- float32 (tests only): a plain CUDA-core implicit GEMM --
+
 __global__ void __launch_bounds__(THREADS)
-affine_conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                      const float* __restrict__ b, const T* __restrict__ w,
-                      const float* __restrict__ bias, T* __restrict__ y, int N, int H,
-                      int W, int C, int D, int mode) {
+affine_conv3x3_f32(const float* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ b, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ y, int N, int H, int W,
+                   int C, int D, int mode) {
+  using T = float;
   __shared__ __align__(128) T As[BM][Lds<T>::A];
   __shared__ __align__(128) T Bs[BK][Lds<T>::B];
   __shared__ __align__(128) float Cs[BM][C_LD];
@@ -81,7 +306,7 @@ affine_conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ a,
         load8(x + off, v);
         const long aoff = (long)rn[s] * C + c0 + rcg[s];
         affine8(v, a + aoff, b + aoff, mode == 2);
-        store8(dst, v);  // rounded to T before the product
+        store8(dst, v);
       }
       load_b_tile<T>(Bs, w, (long)tap * C + c0, D, n0);
       __syncthreads();
@@ -94,34 +319,49 @@ affine_conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ a,
   for (int idx = tid; idx < BM * BN; idx += THREADS) {
     const int r = idx / BN, c = idx % BN;
     const long m = m0 + r;
-    if (m < M) y[m * D + n0 + c] = from_f<T>(Cs[r][c] + bias[n0 + c]);
+    if (m < M) y[m * D + n0 + c] = Cs[r][c] + bias[n0 + c];
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* a, const void* b, const void* w, const void* bias,
-                   void* y, int N, int H, int W, int C, int D, int mode, cudaStream_t stream) {
+cudaError_t launch_f32(const void* x, const void* a, const void* b, const void* w,
+                       const void* bias, void* y, int N, int H, int W, int C, int D, int mode,
+                       cudaStream_t stream) {
   const long M = (long)N * H * W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(D / BN));
-  affine_conv3x3_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const T*>(w), static_cast<const float*>(bias), static_cast<T*>(y), N, H, W,
-      C, D, mode);
+  affine_conv3x3_f32<<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<float*>(y), N,
+      H, W, C, D, mode);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace v2a
 
-// dtype: 0 = float32, 1 = bfloat16. mode: 0 plain conv, 1 affine, 2 affine+SiLU.
-// Needs C % 32 == 0, D % 64 == 0, 16-byte aligned contiguous buffers.
+// dtype: 0 = float32, 1 = bfloat16. mode: 0 plain conv, 1 affine, 2
+// affine+SiLU (a, b null in mode 0). P: pixels per tile of the bf16 body
+// (64, 32 or 16, from `affine_conv_plan`; float32 ignores it). Needs
+// C % 32 == 0, D % 64 == 0, 16-byte aligned contiguous buffers.
 extern "C" int v2a_affine_conv3x3(const void* x, const void* a, const void* b, const void* w,
                                   const void* bias, void* y, int N, int H, int W, int C, int D,
-                                  int mode, int dtype, void* stream) {
-  if (C % v2a::BK || D % v2a::BN) return (int)cudaErrorInvalidValue;
+                                  int mode, int P, int dtype, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || C % 32 || D % 64 || mode < 0 ||
+      mode > 2 || (mode && (!a || !b)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)v2a::launch<__nv_bfloat16>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-  if (dtype == 0) return (int)v2a::launch<float>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+  if (dtype == 0) return (int)v2a::launch_f32(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  using namespace v2a;
+  if (D % 128 == 0) {
+    if (P == 128) return (int)launch_bf16<128, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+    if (P == 64) return (int)launch_bf16<64, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+    if (P == 32) return (int)launch_bf16<32, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+    if (P == 16) return (int)launch_bf16<16, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+  } else {
+    if (P == 128) return (int)launch_bf16<128, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+    if (P == 64) return (int)launch_bf16<64, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+    if (P == 32) return (int)launch_bf16<32, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+    if (P == 16) return (int)launch_bf16<16, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

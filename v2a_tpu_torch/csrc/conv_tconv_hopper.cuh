@@ -300,27 +300,8 @@ struct Mainloop {
   }
 
   // B fragments of k16 step kk of slab `bb`, the products with a
-  __device__ __forceinline__ void mma_b(uint32_t bb, int kk, uint32_t a[MT][4]) {
-    const int k = kk * 16 + (lane & 15);
-    if constexpr (NT == 1) {
-      uint32_t q[2];
-      const int n = wn * (NC / WN);
-      ldsm_x2_t(bb + (n >> 6) * HALF + k * 128 + ((((n >> 3) & 7) ^ (k & 7)) << 4), q);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma16816(acc[mt][0], a[mt], q[0], q[1]);
-    } else {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        const int n = wn * (NC / WN) + np * 16 + (lane >> 4) * 8;
-        uint32_t q[4];
-        ldsm_x4_t(bb + (n >> 6) * HALF + k * 128 + ((((n >> 3) & 7) ^ (k & 7)) << 4), q);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma16816(acc[mt][2 * np], a[mt], q[0], q[1]);
-          mma16816(acc[mt][2 * np + 1], a[mt], q[2], q[3]);
-        }
-      }
-    }
+  __device__ __forceinline__ void mma_b(uint32_t bb, int kk, const uint32_t (&a)[MT][4]) {
+    mma_slab<MT, NT>(acc, bb, kk, a, wn * (NC / WN), lane);
   }
 
   // -- the conv half: a step is (chunk g, tap row di), its sub-steps the

@@ -1,7 +1,9 @@
 // The Hopper primitives the hand-written tensor-core kernels share (K3, K12
-// and K13's mainloop in conv_tconv_hopper.cuh, K6 in wgrad_conv3x3.cu):
-// cp.async and TMA copies into shared memory, ldmatrix, mma.sync m16n8k16
-// (bf16 in, float32 sums), the 64-byte-row XOR swizzle and the pixel tiling.
+// and K13's mainloop in conv_tconv_hopper.cuh, K6 in wgrad_conv3x3.cu, K1 in
+// affine_conv3x3.cu, K14 in winograd_conv3x3.cu): cp.async and TMA copies
+// into shared memory, ldmatrix, mma.sync m16n8k16 (bf16 in, float32 sums),
+// the 64-byte-row XOR swizzle, weight slabs as mma's B operand and the
+// pixel tiling.
 #pragma once
 
 #include <cuda.h>
@@ -160,6 +162,83 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32
 // swizzle of rows that start at a 512-byte boundary.
 __device__ __forceinline__ uint32_t row64(int r, int ch) {
   return (uint32_t)(r * 64 + ((ch ^ ((r >> 1) & 3)) << 4));
+}
+
+// -- weight slabs as mma's B operand (K1, K14) --
+//
+// A slab is 32 rows (a 32-deep product) x NC columns of a row-major (K, ld)
+// bf16 matrix, stored as 64-column halves of 128-byte rows with 16-byte
+// chunk ch of row k at chunk ch ^ (k & 7) (TMA's 128-byte swizzle), so
+// ldmatrix.trans reads eight rows from eight bank groups. The layout of
+// the shared conv mainloop's slabs (conv_tconv_hopper.cuh); K1 and K14 copy
+// theirs by TMA into a ring whose stages complete on mbarriers.
+
+constexpr int SLAB_ROWS = 32;
+constexpr int SLAB_HALF = SLAB_ROWS * 128;  // bytes of one 64-column half
+template <int NC>
+__host__ __device__ constexpr int slab_bytes() {
+  return SLAB_ROWS * NC * 2;
+}
+
+// The map of a row-major (rows, cols) bf16 matrix in boxes of one slab's
+// 64-column half (64 x 32, 128-byte swizzle: the slab layout above)
+inline int encode_slabs(CUtensorMap* map, const void* w, uint64_t rows, uint64_t cols) {
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {cols * 2};
+  const uint32_t box[2] = {64, SLAB_ROWS};
+  return encode_tiled(map, w, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A kernel's dynamic shared memory, 128-byte aligned, moved up to the
+// 128-byte swizzle's period of 1024 bytes (at most ALIGN_PAD bytes, which
+// the launch adds to its request); traps on a base that is not 128-byte
+// aligned
+constexpr int ALIGN_PAD = 1024 - 128;
+__device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
+  const uint32_t a = smem_u32(smem);
+  if (a & 127) __trap();
+  return smem + ((1024 - (a & 1023)) & 1023);
+}
+
+// TMA of `nsub` slabs, issued by one thread: slab s holds rows row0 + s *
+// step .. + 32, columns n0 .. n0 + NC of the matrix of `map`
+// (`encode_slabs`), each 64-column half one 2-D box, and lands at dst + s *
+// slab_bytes<NC>(); all complete on mbarrier bar. dst 1024-byte aligned
+// (the 128-byte swizzle's period: `align1024`).
+template <int NC>
+__device__ __forceinline__ void tma_slabs(uint32_t dst, const CUtensorMap* map, int row0,
+                                          int step, int nsub, int n0, uint32_t bar) {
+  mbar_expect(bar, (uint32_t)(nsub * slab_bytes<NC>()));
+  for (int s = 0; s < nsub; ++s)
+#pragma unroll
+    for (int h = 0; h < NC / 64; ++h)
+      tma_load_2d(dst + s * slab_bytes<NC>() + h * SLAB_HALF, map, n0 + 64 * h, row0 + s * step,
+                  bar);
+}
+
+// k16 step kk of the slab at bb times the A fragments a[MT] of this warp,
+// into its NT n8 tiles from column nw of the slab
+template <int MT, int NT>
+__device__ __forceinline__ void mma_slab(float (&acc)[MT][NT][4], uint32_t bb, int kk,
+                                         const uint32_t (&a)[MT][4], int nw, int lane) {
+  const int k = kk * 16 + (lane & 15);
+  if constexpr (NT == 1) {
+    uint32_t q[2];
+    ldsm_x2_t(bb + (nw >> 6) * SLAB_HALF + k * 128 + ((((nw >> 3) & 7) ^ (k & 7)) << 4), q);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma16816(acc[mt][0], a[mt], q[0], q[1]);
+  } else {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      const int n = nw + np * 16 + (lane >> 4) * 8;
+      uint32_t q[4];
+      ldsm_x4_t(bb + (n >> 6) * SLAB_HALF + k * 128 + ((((n >> 3) & 7) ^ (k & 7)) << 4), q);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(acc[mt][2 * np], a[mt], q[0], q[1]);
+        mma16816(acc[mt][2 * np + 1], a[mt], q[2], q[3]);
+      }
+    }
+  }
 }
 
 // A pixel tile: th rows of tw pixels, as square as 16-byte rows allow

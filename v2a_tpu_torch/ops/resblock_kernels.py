@@ -277,6 +277,42 @@ def fused_affine_conv3x3_plain(
     return y.to(x.dtype).contiguous()
 
 
+class AffineConvPlan(NamedTuple):
+    """One bf16 K1 launch: pixels per tile (`hop::tile_of`; 128 with sixteen
+    warps, else eight), output channels
+    per CTA, pixel tiles over (N, H, W), CTAs in the grid and shared memory
+    per CTA in bytes."""
+    pixels: int
+    nc: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def affine_conv_plan(n: int, h: int, w: int, c: int, d: int) -> AffineConvPlan:
+    """The launch K1's bf16 body makes at this shape (csrc/affine_conv3x3.cu);
+    it depends on the shape only. A CTA owns P pixels of one sample x NC
+    output channels (128, or 64 where 128 does not divide D); its shared
+    memory holds a 3-stage ring of a tap row's three (32 x NC) weight slabs
+    and a 3-stage ring of (th+2) x (tw+2) x 32 windows with their a, b (the
+    epilogue's P x NC tile aliases them). Of P = 128 (sixteen warps), 64, 32,
+    16 (eight) whose shared memory fits, a larger one only where it needs
+    fewer tiles than the next smaller, the largest whose grid has a CTA per
+    SM (`HOPPER_SMS`), else 16 (the most CTAs)."""
+    if c % 32 or d % 64:
+        raise ValueError(f"K1 needs C % 32 == 0 and D % 64 == 0, got C={c} D={d}")
+    nc = 128 if d % 128 == 0 else 64
+    fits = []
+    for p in (128, 64, 32, 16):
+        th, tw, tiles = _hop_tile(h, w, p)
+        ring = (_HOP_STAGES * 3 * _HOP_KSTEP * nc * 2 + 3 * ((th + 2) * (tw + 2) * 64 + 256)
+                + 8 * _HOP_STAGES)
+        smem = _TMA_ALIGN_PAD + max(ring, p * nc * 2)
+        if smem <= HOPPER_SMEM and (p == 16 or tiles < _hop_tile(h, w, p // 2)[2]):
+            fits.append(AffineConvPlan(p, nc, n * tiles, n * tiles * (d // nc), smem))
+    return next((pl for pl in fits if pl.grid >= HOPPER_SMS), fits[-1])
+
+
 def fused_affine_conv3x3(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -293,10 +329,15 @@ def fused_affine_conv3x3(
     `silu` applies SiLU after it. Without a/b it is the plain conv. Returns
     (N, H, W, D) in x.dtype.
 
-    Kernel note (csrc/affine_conv3x3.cu): compute-bound at the release
-    shapes; an implicit GEMM over (pixels, 9*C, D) on the tensor cores with
-    the activation recomputed per tap in the gather, so the normed tensor
-    never reaches device memory.
+    Kernel note (csrc/affine_conv3x3.cu): bound by operations. The conv half
+    of K3's mainloop on the unpadded layout: a CTA of sixteen (P = 128) or
+    eight warps owns a tile of P pixels x 128 output channels (64 where 128
+    does not divide D; `affine_conv_plan`); per 32-channel chunk the raw
+    window with its halo comes by cp.async into a 3-stage ring and is
+    activated once in place (positions outside the image selected out), the
+    nine taps read it at shifted ldmatrix rows into mma.sync m16n8k16, the
+    weight slabs come by TMA through their own 3-stage ring; bias, one
+    rounding, 16-byte stores.
     """
     _no_grad_inputs("fused_affine_conv3x3", x, kernel, bias, a, b)
     if x.device.type == "cpu":
@@ -318,13 +359,14 @@ def fused_affine_conv3x3(
         a32 = a.float().contiguous()
         b32 = b.float().contiguous()
     _check_cuda(x, w2d, bias32, a32, b32)
+    plan = affine_conv_plan(n, h, w, c, d)
     y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
     mode = 0 if a is None else (2 if silu else 1)
-    fn = _lib("affine_conv3x3", "v2a_affine_conv3x3", 6, 7)
+    fn = _lib("affine_conv3x3", "v2a_affine_conv3x3", 6, 8)
     with torch.cuda.device(x.device):
         rc = fn(
             _ptr(x), _ptr(a32), _ptr(b32), _ptr(w2d), _ptr(bias32), _ptr(y),
-            n, h, w, c, d, mode, _DTYPE_CODE[x.dtype], _stream(x),
+            n, h, w, c, d, mode, plan.pixels, _DTYPE_CODE[x.dtype], _stream(x),
         )
     _raise_on(rc, "fused_affine_conv3x3")
     launches["fused_affine_conv3x3"] += 1
@@ -716,6 +758,10 @@ _HOP_STAGES = 3  # the weight-slab ring (the window ring has 3 too)
 _HOP_SUBS = 3  # 32-deep products per pipeline step
 _HOP_KSTEP = 32  # channels per product
 _HOP_MAX_CLUSTER = 8
+# what a kernel with a TMA weight ring (K1, K14) adds to its shared memory to
+# align a 128-byte aligned base to the 128-byte swizzle's period
+# (`hop::ALIGN_PAD`)
+_TMA_ALIGN_PAD = 1024 - 128
 
 
 class ConvTconvPlan(NamedTuple):
@@ -1459,19 +1505,26 @@ _WINO_COMBOS = ((0, 2, -1.0), (1, 2, 1.0), (2, 1, -1.0), (1, 3, -1.0))
 _WINO_AT = ((1.0, 1.0, 1.0, 0.0), (0.0, 1.0, -1.0, -1.0))
 
 
+@functools.lru_cache(maxsize=None)
+def _wino_g(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_WINO_G, dtype=torch.float32, device=device)
+
+
 def winograd_weights(kernel: torch.Tensor) -> torch.Tensor:
     """(3, 3, C, D) kernel -> the 16 transform-domain matrices (16, C, D) in
     float32: W_ab = (G g G^T)[a, b] per channel pair
     (`v2a_tpu/ops/resblock_kernels.py:3044`), G over the first spatial axis,
-    then over the second, each a sum of the three taps in order."""
+    then over the second, each a sum of the three taps in order (ten
+    elementwise ops over all components at once)."""
     k = kernel.float()
-
-    def g_times(rows):  # rows: 3 tensors indexed by the contracted axis
-        return [rows[0] * g[0] + rows[1] * g[1] + rows[2] * g[2] for g in _WINO_G]
-
-    t = g_times([k[i] for i in range(3)])  # t[a]: (3, C, D) over the second axis
-    out = [g_times([ta[j] for j in range(3)]) for ta in t]
-    return torch.stack([o for row in out for o in row]).contiguous()
+    g = _wino_g(k.device)  # (4, 3)
+    # t[a] = k[0] g[a, 0] + k[1] g[a, 1] + k[2] g[a, 2]: (4, 3, C, D)
+    t = (k[0][None] * g[:, 0, None, None, None] + k[1][None] * g[:, 1, None, None, None]
+         + k[2][None] * g[:, 2, None, None, None])
+    # out[a, b] = t[a, 0] g[b, 0] + t[a, 1] g[b, 1] + t[a, 2] g[b, 2]: (4, 4, C, D)
+    gb = g[None, :, :, None, None]
+    out = t[:, None, 0] * gb[:, :, 0] + t[:, None, 1] * gb[:, :, 1] + t[:, None, 2] * gb[:, :, 2]
+    return out.reshape(16, *kernel.shape[2:]).contiguous()
 
 
 def _wino_combo(v, k):
@@ -1518,21 +1571,93 @@ def winograd_conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Te
     return out.reshape(n, h, w, d).to(dt)
 
 
+class WinogradPlan(NamedTuple):
+    """One bf16 K14 launch: 2x2-output patches per tile (`hop::tile_of` over
+    the (H/2, W/2) patch grid: `tile_h` x `tile_w` patches), output channels
+    per CTA, whether the tile's window of all of C stays resident in shared
+    memory (else its 64-channel slices stream through a 3-slice ring once per
+    component), CTAs in the grid and shared memory per CTA in bytes."""
+    patches: int
+    nc: int
+    resident: bool
+    tile_h: int
+    tile_w: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+_WINO_KC = 64  # channels per K14 step: a window slice, two 32-deep products
+
+
+def winograd_plan(n: int, h: int, w: int, c: int, d: int) -> WinogradPlan:
+    """The launch K14's bf16 body makes at this shape (csrc/winograd_conv3x3.cu,
+    whose `plan_of` computes the same; the card tests compare the two). Shared
+    memory: a 3-stage ring of a step's two (32 x NC) W_ab slabs, two buffers of
+    the step's (patches x 64) U tile, the (2 th + 2) x (2 tw + 2) window in
+    64-channel slices (all of C where resident, 3 slices where streamed) and
+    the ring's three mbarriers, after the alignment of the TMA ring; the
+    epilogue's 4 x patches x NC tile aliases them. Of 64, 32 and 16 patches
+    a tile with the window resident, then the same streamed, that fit (a
+    larger tile only where it needs fewer tiles than the next smaller one),
+    the first whose grid has a CTA per SM (`HOPPER_SMS`), else the one with
+    the largest grid."""
+    if h % 2 or w % 2 or c % 32 or d % 64:
+        raise ValueError(f"K14 needs even H, W, C % 32 == 0 and D % 64 == 0, got "
+                         f"{h}x{w} C={c} D={d}")
+    nc = 128 if d % 128 == 0 else 64
+    nq = -(-c // _WINO_KC)
+    best = None
+    for resident in (True, False):
+        for pt in (64, 32, 16):
+            th, tw, tiles = _hop_tile(h // 2, w // 2, pt)
+            window = (nq if resident else 3) * (2 * th + 2) * (2 * tw + 2) * _WINO_KC * 2
+            smem = _TMA_ALIGN_PAD + max(3 * 2 * _HOP_KSTEP * nc * 2 + 2 * 2 * pt * 64 + window
+                                        + 8 * 3, 4 * pt * nc * 2)
+            if smem > HOPPER_SMEM or (pt > 16 and tiles >= _hop_tile(h // 2, w // 2, pt // 2)[2]):
+                continue
+            plan = WinogradPlan(pt, nc, resident, th, tw, n * tiles, n * tiles * (d // nc), smem)
+            if plan.grid >= HOPPER_SMS:
+                return plan
+            if best is None or plan.grid > best.grid:
+                best = plan
+    if best is None:
+        raise ValueError(f"no K14 tile fits shared memory at {h}x{w} C={c} D={d}")
+    return best
+
+
+def winograd_plan_of_kernel(n: int, h: int, w: int, c: int, d: int) -> WinogradPlan:
+    """The plan csrc/winograd_conv3x3.cu's own `plan_of` makes (needs the
+    built library, so the card), as a `WinogradPlan`."""
+    fn = _build.load("winograd_conv3x3").v2a_winograd_plan
+    fn.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = _I
+    out = (ctypes.c_longlong * 7)()
+    _raise_on(fn(n, h, w, c, d, out), "v2a_winograd_plan")
+    pt, nc, resident, grid, smem, th, tw = out
+    return WinogradPlan(pt, nc, bool(resident), th, tw, grid // (d // nc), grid, smem)
+
+
 def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                      tile_h: Optional[int] = None) -> torch.Tensor:
     """y = conv3x3_same(x) + bias by Winograd F(2x2, 3x3)
     (`v2a_tpu/ops/resblock_kernels.py:3163`), K10's interface: x (N, H, W,
     C) with even H and W, kernel (3, 3, C, D) HWIO, bias (D,). Returns
     (N, H, W, D) in x.dtype. `tile_h`, the TPU kernel's band height, is
-    accepted and ignored: the card's tiling does not depend on it.
+    accepted and ignored: the card's tiling does not depend on it. The
+    transform-domain weights `winograd_weights(kernel)` are made on every
+    call, as the JAX body makes them.
 
     Kernel note (csrc/winograd_conv3x3.cu): bound by operations from 64^2 x
-    256 on, by bytes at 128^2 x 128; a block owns 64 2x2 output patches x
-    64 channels and runs the 16 transform-domain products one after another
-    on the tensor cores, each step's A tile gathered and transformed in
-    float32 from device memory, each product added with its sign into four
-    float32 output-parity tiles in shared memory in the TPU body's order;
-    bias and one rounding at the end.
+    256 on, by bytes at 128^2 x 128. A CTA owns 64 (sixteen warps), 32 or
+    16 (eight) 2x2 output patches x 128 (or 64) channels (`winograd_plan`);
+    the tile's raw window comes by cp.async into shared memory once (or,
+    where all of C does not fit, in 64-channel slices once per component);
+    in component order all threads form each step's U_ab tile from it in
+    float32, rounded to bf16, a step ahead of its mma.sync products, the
+    W_ab slabs by TMA through a 3-stage ring; each thread adds +-M_ab into
+    four output-parity accumulators in registers in the TPU body's order;
+    bias and one rounding at the end, 16-byte stores.
     """
     _no_grad_inputs("winograd_conv3x3", x, kernel, bias)
     n, h, w, c = x.shape

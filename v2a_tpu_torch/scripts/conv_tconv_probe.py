@@ -1,18 +1,25 @@
-"""Where the shared Hopper mainloop's kernels and K6 spend their time, on the card.
+"""Where the hand-written Hopper kernels spend their time, on the card.
 
-    python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] [--kernels k3,k12,k13,k6]
+    python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] [--kernels k3,k12,k13,k6,k1,k14]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
 as K4a -> K4b, K13 (`fused_conv_tconv_dma`, K3's mainloop with TMA copies)
 beside K3 at K3's shapes, and K6 (`wgrad_conv3x3`) at release train-step
 shapes against the library's `conv2d_weight` on the materialised
-activation; ms by CUDA events over chained calls, with each launch's plan.
-`--ablate` also times copies of the kernels with one part cut out: for
-K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation, the conv products,
-the temporal epilogue or the whole temporal phase; for K6
-(`csrc/wgrad_conv3x3.cu`) the activation, the products or the refill of the
-copy ring. The cut copies compute wrong outputs by design; only their
+activation, K1 (`fused_affine_conv3x3`) at the release serving (B=8 and
+B=1) and train-step (forward and dgrad) shapes against `F.conv2d` on the
+materialised activation, and K14 (`winograd_conv3x3`) at the perf lab's
+three level shapes against K10 and `F.conv2d`; ms by CUDA events over
+chained calls, with each launch's plan. `--ablate` also times copies of the
+kernels with one part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`)
+the activation, the conv products, the temporal epilogue or the whole
+temporal phase; for K6 (`csrc/wgrad_conv3x3.cu`) the activation, the
+products or the refill of the copy ring; for K1 (`csrc/affine_conv3x3.cu`)
+the activation, the products, the refill of the weight ring or of both
+rings; for K14 (`csrc/winograd_conv3x3.cu`) the component transform, the
+products, the refill of the weight ring or all parity adds but one a
+component. The cut copies compute wrong outputs by design; only their
 times mean anything. Cutting the epilogue leaves the temporal products
 unused, so the compiler drops them too: that cut times the epilogue and
 the products together. They are built from copies of `csrc/` under
@@ -38,6 +45,26 @@ CASES = [("k3", 8, (128, 128), (128,), 128), ("k3", 8, (32, 32), (384, 384), 384
 # K6 at the B=4 release train step (N = B x F = 28): (N, H, W, C, D, calls per step)
 K6_CASES = [(28, 128, 128, 128, 128, 7), (28, 64, 64, 256, 256, 6), (28, 32, 32, 384, 384, 6),
             (28, 16, 16, 512, 512, 6), (28, 8, 8, 640, 640, 10)]
+# K1: (N, H, W, C, D, silu affine or plain conv, role, calls): the B=8 and B=1
+# serving shapes' largest, the B=4 train step's forwards and dgrads
+K1_CASES = [(56, 16, 16, 512, 512, True, "serve", 10), (56, 8, 8, 640, 640, True, "serve", 15),
+            (7, 16, 16, 512, 512, True, "request", 10), (7, 8, 8, 640, 640, True, "request", 15),
+            (28, 128, 128, 128, 128, True, "forward", 7), (28, 64, 64, 256, 256, True, "forward", 6),
+            (28, 32, 32, 384, 384, True, "forward", 6), (28, 8, 8, 640, 640, True, "forward", 10),
+            (28, 128, 128, 128, 128, False, "dgrad", 7), (28, 64, 64, 256, 256, False, "dgrad", 6),
+            (28, 8, 8, 640, 640, False, "dgrad", 10)]
+# K14 at the perf lab's level shapes and K10's most called 16^2 and 8^2 ones (N, H, W, C, D)
+K14_CASES = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (56, 32, 32, 384, 384),
+             (56, 16, 16, 512, 512), (56, 8, 8, 640, 640)]
+
+# K1's and K14's weight slabs come by TMA, each stage completing on an
+# mbarrier: a cut of their refill also waits on the first stages alone (a
+# wait on a stage never refilled would trap)
+_K1_FIRST_WAITS = (
+    "    hop::mbar_wait(bar_s + 8 * (j % K1_STAGES), (bph >> (j % K1_STAGES)) & 1);",
+    "    if (j < K1_STAGES - 1)\n"
+    "      hop::mbar_wait(bar_s + 8 * (j % K1_STAGES), (bph >> (j % K1_STAGES)) & 1);")
+_K1_WEIGHT_REFILL = ("    if (j + K1_STAGES - 1 < nsteps) issue_b(j + K1_STAGES - 1);\n", "")
 
 # variant -> (the kernels it cuts, [(text in a csrc/ file, its replacement)])
 CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
@@ -53,6 +80,27 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
         "          hop::mma16816(acc[dj][2 * np], af[dj], q[0], q[1]);\n"
         "          hop::mma16816(acc[dj][2 * np + 1], af[dj], q[2], q[3]);\n", "")]),
     "k6_no_refill": (("k6",), [("      issue((j + WSTAGES - 1) % WSTAGES, ic);\n", "")]),
+    "k1_no_activation": (("k1",), [("    if (mode && g + 1 < nch) activate(", "    if (false) activate(")]),
+    "k1_no_products": (("k1",), [(
+        "        hop::mma_slab<MT, NT>(acc, bb + dj * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
+    "k1_no_weight_refill": (("k1",), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
+    "k1_no_refill": (("k1",), [
+        _K1_FIRST_WAITS, _K1_WEIGHT_REFILL,
+        ("    if (di == 0 && g + 2 < nch) issue_window(g + 2, (g + 2) % K1_WSTAGES);\n", "")]),
+    "k14_no_transform": (("k14",), [("      if (foff[i] >= 0) {", "      if (false) {")]),
+    "k14_no_products": (("k14",), [(
+        "        hop::mma_slab<1, NT>(mab, bb + u * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
+    "k14_no_weight_refill": (("k14",), [
+        ("    hop::mbar_wait(bar_s + 8 * (s % BSTAGES), (bph >> (s % BSTAGES)) & 1);",
+         "    if (s < BSTAGES - 1)\n"
+         "      hop::mbar_wait(bar_s + 8 * (s % BSTAGES), (bph >> (s % BSTAGES)) & 1);"),
+        ("    if (s + BSTAGES - 1 < nsteps) issue_b(s + BSTAGES - 1);\n", "")]),
+    "k14_one_parity": (("k14",), [(
+        "        add_parity<at_sign(0, ca) * at_sign(0, cb)>(yp[0], mab[0]);\n"
+        "        add_parity<at_sign(0, ca) * at_sign(1, cb)>(yp[1], mab[0]);\n"
+        "        add_parity<at_sign(1, ca) * at_sign(0, cb)>(yp[2], mab[0]);\n"
+        "        add_parity<at_sign(1, ca) * at_sign(1, cb)>(yp[3], mab[0]);\n",
+        "        add_parity<1>(yp[0], mab[0]);\n")]),
 }
 
 
@@ -122,6 +170,46 @@ def _k6_runs(args):
             lambda: torch.nn.grad.conv2d_weight(sl, (d, c, 3, 3), gl, padding=1))
 
 
+def _k1_args(n, h, w, c, d, silu, dev):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
+    k = torch.randn(3, 3, c, d, generator=gen, device=dev) * (9 * c) ** -0.5
+    bias = 0.1 * torch.randn(d, generator=gen, device=dev)
+    a = b = None
+    if silu:
+        a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(n, c, generator=gen, device=dev)
+    return x, k, bias, a, b, silu
+
+
+def _k1_runs(args):
+    """(K1's call, `F.conv2d` on the materialised activation, channels_last bf16)"""
+    x, k, bias, a, b, silu = args
+    xa = rk._act(x, a, b, silu).permute(0, 3, 1, 2)
+    wl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bl = bias.bfloat16()
+    return (lambda: rk.fused_affine_conv3x3(*args),
+            lambda: torch.nn.functional.conv2d(xa, wl, bl, padding=1))
+
+
+def _k14_args(n, h, w, c, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
+    k = torch.randn(3, 3, c, d, generator=gen, device=dev) * (9 * c) ** -0.5
+    return x, k, 0.1 * torch.randn(d, generator=gen, device=dev)
+
+
+def _k14_runs(args):
+    """(K14's call, its weight transform included, K10's, `F.conv2d`, the
+    weight transform alone)"""
+    x, k, bias = args
+    wl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    xl, bl = x.permute(0, 3, 1, 2), bias.bfloat16()
+    return (lambda: rk.winograd_conv3x3(*args), lambda: rk.spatial_conv3x3(*args),
+            lambda: torch.nn.functional.conv2d(xl, wl, bl, padding=1),
+            lambda: rk.winograd_weights(k).to(x.dtype))
+
+
 def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
     """A copy of `csrc` with `cuts` applied, under `build_dir`."""
     root = os.path.join(build_dir, "variants", name)
@@ -151,7 +239,7 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
-    ap.add_argument("--kernels", default="k3,k12,k13,k6", help="comma-separated kernels")
+    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14", help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("conv_tconv_probe: needs a CUDA card")
@@ -160,6 +248,8 @@ def main(argv=None) -> List[dict]:
     rows = []
     cases = [(c, _case_args(*c[1:], dev)) for c in CASES if c[0] in kernels]
     k6 = [(c, _k6_args(*c[:5], dev)) for c in K6_CASES] if "k6" in kernels else []
+    k1 = [(c, _k1_args(*c[:6], dev)) for c in K1_CASES] if "k1" in kernels else []
+    k14 = [(c, _k14_args(*c, dev)) for c in K14_CASES] if "k14" in kernels else []
     with torch.no_grad():
         for case, args in cases:
             kernel, b, hw, cins, d = case
@@ -177,6 +267,22 @@ def main(argv=None) -> List[dict]:
                        library_ms=time_ms(library), chunks=plan.chunks, grid=plan.grid)
             rows.append(row)
             print(row, flush=True)
+        for case, args in k1:
+            kernel_fn, library = _k1_runs(args)
+            plan = rk.affine_conv_plan(*case[:5])
+            row = dict(kernel="k1", shape=case[:5], silu=case[5], role=case[6], calls=case[7],
+                       ms=time_ms(kernel_fn), library_ms=time_ms(library), pixels=plan.pixels,
+                       nc=plan.nc, grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
+        for case, args in k14:
+            kernel_fn, k10, library, weights = _k14_runs(args)
+            plan = rk.winograd_plan(*case)
+            row = dict(kernel="k14", shape=case, ms=time_ms(kernel_fn), k10_ms=time_ms(k10),
+                       library_ms=time_ms(library), weights_ms=time_ms(weights),
+                       patches=plan.patches, nc=plan.nc, resident=plan.resident, grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
         if opts.ablate:
             csrc, build_dir = _build.CSRC, _build.BUILD_DIR
             try:
@@ -191,11 +297,13 @@ def main(argv=None) -> List[dict]:
                                        ms=time_ms(_runs(case[0], args)[0]))
                             rows.append(row)
                             print(row, flush=True)
-                    for case, args in k6 if "k6" in cut_kernels else ():
-                        row = dict(variant=name, kernel="k6", shape=case[:5],
-                                   ms=time_ms(_k6_runs(args)[0]))
-                        rows.append(row)
-                        print(row, flush=True)
+                    for kernel, cases_k, runs in (("k6", k6, _k6_runs), ("k1", k1, _k1_runs),
+                                                  ("k14", k14, _k14_runs)):
+                        for case, args in cases_k if kernel in cut_kernels else ():
+                            row = dict(variant=name, kernel=kernel, shape=case[:5],
+                                       ms=time_ms(runs(args)[0]))
+                            rows.append(row)
+                            print(row, flush=True)
             finally:
                 _use_sources(csrc, build_dir)
     return rows
