@@ -31,9 +31,11 @@ Phases (any failure exits non-zero):
      rounding at a time against their own conv half (`conv_out`: one ulp of
      the plain conv; the output one ulp of the plain temporal conv of it and
      of K4b of it), and against K4a -> K4b within one ulp plus the carried
-     conv-half difference; K1-K12 two launches bit-equal; each K3 / K12 row
-     logs its tile plan (pixels, cluster along D, grid), each K1 row its
-     `affine_conv_plan`, and a B=1 K12 grid below one CTA per SM fails.
+     conv-half difference; K1-K12 two launches bit-equal; K4a with one part
+     bit-equal to K1 on the interior (it runs K1's body); each K3 / K12 row
+     logs its tile plan (pixels, cluster along D, grid), each K1 and K4a
+     row its `affine_conv_plan`, each K9 row its `attention_plan`, and a
+     B=1 grid of K12, K4a or K9 below one CTA per SM fails.
      Each shape is
      timed on its first input set: kernel, plain version and PyTorch
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
@@ -453,13 +455,27 @@ def _tconv_cost(b, f, h, w, wp, c, emb, res, skip_cins, stats):
 
 
 def check_k4a(rk, key, inp, timed):
+    """K4a at one recorded signature: NaN pad rows in, zero pad cols out,
+    the interior within one ulp of its plain version, two launches
+    bit-equal; with one part, bit-equal to K1 on the interior (K4a runs
+    K1's body: the same chunks in the same order)."""
     _, n, hw, cins, d, silu = key
     h, w = hw
     parts = inp.conv_parts((n,), hw, cins, d)
     bias = inp.randn(d, scale=0.1)
     got = rk.fused_affine_conv3x3_padded(parts, bias, hw, silu)
+    again = rk.fused_affine_conv3x3_padded(parts, bias, hw, silu)
     want = rk.fused_affine_conv3x3_padded_plain(parts, bias, hw, silu)
     ok, abs_err, rel, _ = check_stream(got, want, hw)
+    same = torch.equal(got[:, 1:h + 1], again[:, 1:h + 1])  # pad rows are not written
+    vs_k1 = None
+    if len(cins) == 1:
+        x, k, a, b = parts[0]
+        k1 = rk.fused_affine_conv3x3(rk._interior(x, hw).contiguous(), k, bias, a, b, silu)
+        vs_k1 = torch.equal(rk._interior(got, hw), k1)
+    log(f"[kernels] K4a {n}x{h}x{w}x{'+'.join(map(str, cins))}->{d}: two launches bit-equal: "
+        f"{same}" + ("" if vs_k1 is None else f"; bit-equal to K1: {vs_k1}"))
+    ok = ok and same and vs_k1 is not False
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.fused_affine_conv3x3_padded(parts, bias, hw, silu)),
@@ -1194,8 +1210,11 @@ def _plan_row(rk, key):
     (pixels per tile, CTAs per cluster along D, CTAs in the grid, shared
     memory per CTA; K13 takes K3's, and its copy route), K6's `wgrad_plan`
     (pixel tile, chunks of tiles, tiles per chunk, grid, shared memory),
-    K1's `affine_conv_plan` (pixels per tile, output channels per CTA, grid,
-    shared memory) and K14's `winograd_plan` (patches per tile, output
+    K1's and K4a's `affine_conv_plan` (pixels per tile, output channels per
+    CTA, grid, shared memory; K4a over its parts' summed C), K9's
+    `attention_plan` (per phase: token tile x columns, warps, grid, shared
+    memory; the attention's queries a CTA and lane slices; `grid` the
+    smallest phase's) and K14's `winograd_plan` (patches per tile, output
     channels per CTA, window resident or streamed, grid, shared memory); {}
     for the other kernels."""
     if key[0] == "k6":
@@ -1205,6 +1224,19 @@ def _plan_row(rk, key):
     if key[0] == "k1":
         plan = rk.affine_conv_plan(*key[1], key[2])
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
+    if key[0] == "k4a":
+        _, n, (h, w), cins, d, _ = key
+        plan = rk.affine_conv_plan(n, h, w, sum(cins), d)
+        return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
+    if key[0] == "k9":
+        _, n, (h, w), c, ch, _ = key
+        plan = rk.attention_plan(n, h, w, c, ch)
+        q, p = plan.qkv, plan.proj
+        return dict(qkv=f"{q.tokens}x{q.nc} w{q.warps} grid {q.grid} smem {q.smem}",
+                    attention=f"{plan.queries}q x {plan.slices}x{plan.slice} lanes w{plan.warps} "
+                              f"grid {plan.grid} smem {plan.smem}",
+                    proj=f"{p.tokens}x{p.nc} w{p.warps} grid {p.grid} smem {p.smem}",
+                    grid=min(q.grid, plan.grid, p.grid))
     if key[0] == "k14":
         plan = rk.winograd_plan(*key[1], key[2])
         return dict(patches=f"{plan.patches} ({plan.tile_h}x{plan.tile_w})", nc=plan.nc,
@@ -1259,7 +1291,8 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
             bytes_s = nbytes / PEAK_BYTES
             bound_ms = max(ops_s, bytes_s) * 1e3
             plan = _plan_row(rk, key)
-            if key[0] == "k12" and key[1][0] == 1 and plan["grid"] < rk.HOPPER_SMS:
+            served_b1 = key[1][0] == 1 if key[0] == "k12" else key[1] == 7
+            if key[0] in ("k12", "k4a", "k9") and served_b1 and plan["grid"] < rk.HOPPER_SMS:
                 log(f"[{tag}] {label}: a B=1 grid of {plan['grid']} CTAs leaves SMs idle")
                 ok = False
             rows.append(dict(shape=label, calls=counts, ok=ok, seeds=SEEDS, max_abs_err=abs_err,

@@ -1,10 +1,12 @@
-"""The launch plans of K1 (`affine_conv_plan`) and K14 (`winograd_plan`), on
-the CPU: at every shape the release paths give the kernels (traced on the
-`meta` device, no memory) and at ragged shapes off them, each plan's tiles
-cover every pixel (K14: every 2x2 patch) exactly once, its shared memory
-fits a CTA, and its grid has a CTA per SM wherever its smallest tile
-allows. The card checks the kernels themselves (`tests/test_torch_gpu.py`,
-`chip_smoke.py`), and that K14's C side plans the same.
+"""The launch plans of K1 and K4a (`affine_conv_plan`), K9
+(`attention_plan`) and K14 (`winograd_plan`), on the CPU: at every shape
+the release paths give the kernels (traced on the `meta` device, no
+memory) and at ragged shapes off them, each plan's tiles cover every pixel
+(K14: every 2x2 patch; K9: every token, column and (sample, head, query))
+exactly once, its shared memory fits a CTA, and its grid has a CTA per SM
+wherever its smallest tile allows. The card checks the kernels themselves
+(`tests/test_torch_gpu.py`, `chip_smoke.py`), and that K14's C side plans
+the same.
 """
 
 import numpy as np
@@ -118,6 +120,139 @@ def test_affine_conv_plan_at_ragged_shapes(n, h, w, c, d):
     """Off the release path: W narrower than a tile, H and W no tile
     divides, one pixel, D = 192 (64-wide slices), the card tests' shapes."""
     _check_k1_plan(n, h, w, c, d)
+
+
+def _padded_calls(monkeypatch, name, b, **routing):
+    """{signature: calls} of wrapper `name` (K4a: (N, H, W, C0 + C1, D); K9:
+    (N, H, W, C, head width)) in one B-sample release forward of a routing,
+    traced on the meta device with every kernel's plain version."""
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    calls, plain = {}, getattr(trk, name + "_plain")
+
+    def k4a(parts, bias, hw, silu=True):
+        key = (parts[0][0].shape[0],) + tuple(hw) + (sum(p[0].shape[-1] for p in parts),
+                                                    parts[0][1].shape[-1])
+        calls[key] = calls.get(key, 0) + 1
+        return plain(parts, bias, hw, silu)
+
+    def k9(x, hw, a, b, wqkv, bqkv, wproj, bproj, num_head_channels, want_stats=False):
+        key = (x.shape[0],) + tuple(hw) + (x.shape[-1], num_head_channels)
+        calls[key] = calls.get(key, 0) + 1
+        return plain(x, hw, a, b, wqkv, bqkv, wproj, bproj, num_head_channels, want_stats)
+
+    monkeypatch.setattr(trk, name, k4a if name == "fused_affine_conv3x3_padded" else k9)
+    with torch.device("meta"), torch.no_grad():
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, **routing)(
+            torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
+            torch.randn(b, 77, 512))
+    return calls
+
+
+# K4a's calls per release forward: the shipped padded routing at B=8 and at
+# a B=1 request, and padded_mega_off (K4a -> K4b where K3 would run)
+K4A_PATHS = {"padded_b8": (8, {}, 14), "padded_b1": (1, {}, 14),
+             "mega_off_b8": (8, dict(mega_kernel=False), 30),
+             "mega_off_b1": (1, dict(mega_kernel=False), 30)}
+
+
+@pytest.mark.parametrize("path", list(K4A_PATHS))
+def test_k4a_plan_fits_every_release_call(monkeypatch, path):
+    """K4a takes K1's plan over its parts' summed channels at every call:
+    its tiles cover every interior pixel once, its shared memory (which
+    does not depend on C) fits, and its grid has a CTA per SM, a served
+    request's (N = 7) included; padded_mega_off's two-part 128^2 calls
+    (128 + 128 -> 128, 256 + 128 -> 128) take the 128-pixel tile."""
+    b, routing, total = K4A_PATHS[path]
+    calls = _padded_calls(monkeypatch, "fused_affine_conv3x3_padded", b, **routing)
+    assert sum(calls.values()) == total
+    plans = {key: _check_k1_plan(*key) for key in calls}
+    assert all(p.grid >= trk.HOPPER_SMS for p in plans.values())
+    if path == "mega_off_b8":
+        assert plans[(56, 128, 128, 256, 128)].pixels == 128
+        assert plans[(56, 128, 128, 384, 128)].pixels == 128
+
+
+def _check_attention_plan(n, h, w, c, ch):
+    """K9's plan: the GEMMs' token tiles cover each sample's tokens once and
+    their column slices the 3C / C columns once; the attention's CTAs cover
+    every (sample, head, query) once; every phase's shared memory fits."""
+    plan = trk.attention_plan(n, h, w, c, ch)
+    assert plan == trk.attention_plan(n, h, w, c, ch)
+    s = h * w
+    for g, ldw in ((plan.qkv, 3 * c), (plan.proj, c)):
+        assert g.nc == (128 if ldw % 128 == 0 else 64) and g.warps == 8 and g.tokens <= 64
+        assert g.tiles == -(-s // g.tokens) and g.smem <= SMEM_227_KIB
+        covered = np.zeros(s, np.int32)
+        for t in range(g.tiles):
+            covered[t * g.tokens:(t + 1) * g.tokens] += 1
+        cols = np.zeros(ldw, np.int32)
+        for sl in range(-(-ldw // g.nc)):
+            cols[sl * g.nc:(sl + 1) * g.nc] += 1
+        assert (covered == 1).all() and (cols == 1).all()
+        assert g.grid == n * g.tiles * -(-ldw // g.nc)
+        # a CTA per SM at the largest token tile that gives one
+        grids = {p: n * -(-s // p) * -(-ldw // g.nc) for p in (64, 32, 16)}
+        if grids[16] >= trk.HOPPER_SMS:
+            assert g.grid >= trk.HOPPER_SMS
+    assert plan.slice == (32 if ch <= 32 else 64 if ch <= 64 else 128)
+    assert plan.slices * plan.slice >= ch > (plan.slices - 1) * plan.slice
+    assert plan.smem <= SMEM_227_KIB and plan.warps * 16 == plan.queries
+    assert plan.smem == (plan.slices * plan.queries + 4 * plan.keys) * plan.slice * 2
+    # the query tiles the plan may take: 16, and each larger one that needs
+    # fewer tiles than the next smaller; the most with a CTA per SM
+    tiles = {q: -(-s // q) for q in (128, 64, 32, 16)}
+    grids = {q: t * (c // ch) * n for q, t in tiles.items() if q == 16 or t < tiles[q // 2]}
+    if grids[16] >= trk.HOPPER_SMS:
+        assert plan.grid >= trk.HOPPER_SMS
+        assert plan.queries == max(q for q, g in grids.items() if g >= trk.HOPPER_SMS)
+    seen = np.zeros((n, c // ch, s), np.int32)
+    q_tiles = -(-s // plan.queries)
+    assert plan.grid == q_tiles * (c // ch) * n
+    for q in range(q_tiles):
+        seen[:, :, q * plan.queries:(q + 1) * plan.queries] += 1
+    assert (seen == 1).all()
+    return plan
+
+
+# K9's calls per release forward of padded_k8_k9 (head 32) and
+# padded_k8_k9_wide (head 64, attention also at 32^2)
+K9_PATHS = {"k8_k9_b8": (8, {}, 11), "k8_k9_b1": (1, {}, 11),
+            "wide_b8": (8, dict(attention_resolutions=(4, 8, 16), num_head_channels=64), 16),
+            "wide_b1": (1, dict(attention_resolutions=(4, 8, 16), num_head_channels=64), 16)}
+
+
+@pytest.mark.parametrize("path", list(K9_PATHS))
+def test_attention_plan_fits_every_release_call(monkeypatch, path):
+    """`trk.attention_plan` at every K9 call of the two routings at B=8 and
+    at a B=1 request: each phase's grid has a CTA per SM (the QKV and
+    projection GEMMs take smaller token tiles at N = 7)."""
+    b, arch, total = K9_PATHS[path]
+    calls = _padded_calls(monkeypatch, "fused_spatial_attention_padded", b, downconv=True,
+                          attn_kernel=True, **arch)
+    assert sum(calls.values()) == total
+    for key in calls:
+        plan = _check_attention_plan(*key)
+        assert min(plan.qkv.grid, plan.grid, plan.proj.grid) >= trk.HOPPER_SMS, (key, plan)
+    if path == "k8_k9_b1":  # 8^2 x 640, 20 heads of 32: 140 attention CTAs
+        plan = trk.attention_plan(7, 8, 8, 640, 32)
+        assert (plan.queries, plan.grid, plan.proj.tokens) == (64, 140, 16)
+    if path == "wide_b8":  # 1,024 tokens: 128-query tiles
+        assert trk.attention_plan(56, 32, 32, 384, 64).queries == 128
+    if path == "wide_b1":  # 10 heads of 64 at 8^2: 32-query tiles, 140 CTAs
+        plan = trk.attention_plan(7, 8, 8, 640, 64)
+        assert (plan.queries, plan.grid) == (32, 140)
+
+
+@pytest.mark.parametrize("n,h,w,c,ch", [
+    (2, 16, 16, 640, 8), (2, 16, 16, 640, 40), (2, 16, 16, 640, 80), (2, 8, 8, 640, 160),
+    (2, 6, 10, 128, 32), (1, 32, 32, 128, 64), (2, 8, 8, 48, 16), (2, 6, 10, 96, 32),
+    (1, 12, 12, 256, 128), (1, 1, 1, 64, 64), (3, 5, 7, 640, 320), (1, 4, 4, 1280, 1280)])
+def test_attention_plan_at_ragged_shapes(n, h, w, c, ch):
+    """Off the release paths: head widths 8, 40, 80, 160, 320 and 1,280
+    (zero lanes; 128-wide slices past 128), 60 and 1,024 tokens, C = 48 and
+    96 (3C and C no multiple of 64: 64-wide column slices past the end),
+    one token."""
+    _check_attention_plan(n, h, w, c, ch)
 
 
 def _k10_signatures(monkeypatch):

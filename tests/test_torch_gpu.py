@@ -283,6 +283,41 @@ def test_affine_conv3x3_padded_kernel_matches_plain(cuda, dtype, silu, b, f, hw,
     _check_padded(got, rk.fused_affine_conv3x3_padded_plain(parts, bias, hw, silu), hw, dtype)
 
 
+# K4a at the edges of its plan (`rk.affine_conv_plan` over C0 + C1): each
+# tile size, W that no tile divides, C0 != C1, a served request's N = 7
+K4A_EDGES = [
+    (2, (64, 64), (64, 32), 192, True),     # 128-pixel tiles, 64-wide output slices, C0 != C1
+    (56, (8, 8), (512, 128), 640, True),    # 64-pixel tiles, two parts
+    (7, (16, 16), (512,), 512, True),       # 32-pixel tiles at N = 7
+    (7, (8, 8), (640,), 640, False),        # 16-pixel tiles at N = 7: 140 CTAs
+    (2, (12, 20), (128, 64), 128, True),    # W = 20: no tile divides it
+    (3, (5, 7), (32,), 64, False),          # W = 7 below the tile's 8 cols, one chunk
+    (28, (32, 32), (384,), 384, True)]      # 128-pixel tiles, sixteen warps
+
+
+@pytest.mark.parametrize("n,hw,cins,d,silu", K4A_EDGES)
+def test_affine_conv3x3_padded_kernel_at_plan_edges(cuda, n, hw, cins, d, silu):
+    """K4a's bf16 body (K1's) at its plan's edges, from streams with NaN pad
+    rows: the interior within one ulp of its plain version, zero pad cols,
+    two launches bit-equal; with one part, bit-equal to K1 on the interior
+    (the same chunks in the same order: an addressing slip shows here
+    before it shows above one ulp)."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    parts = _conv_parts(gen, cuda, torch.bfloat16, (n,), hw, cins, d)
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    got = rk.fused_affine_conv3x3_padded(parts, bias, hw, silu)
+    again = rk.fused_affine_conv3x3_padded(parts, bias, hw, silu)
+    torch.cuda.synchronize()
+    h = hw[0]
+    assert torch.equal(got[:, 1:h + 1], again[:, 1:h + 1])  # pad rows are not written
+    _check_padded(got, rk.fused_affine_conv3x3_padded_plain(parts, bias, hw, silu), hw,
+                  torch.bfloat16)
+    if len(cins) == 1:
+        x, k, a, b = parts[0]
+        k1 = rk.fused_affine_conv3x3(rk._interior(x, hw).contiguous(), k, bias, a, b, silu)
+        assert torch.equal(rk._interior(got, hw), k1)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("emb,res,skip_cins,stats", [(True, True, (), True), (False, False, (), False),
                                                      (True, False, (128,), True),
@@ -651,11 +686,16 @@ def _check_attention(got, want, x, hw, a, b, w, ch, dtype):
                                        (2, (16, 16), 640, 8), (2, (16, 16), 640, 40),
                                        (2, (16, 16), 640, 80), (2, (16, 16), 640, 160),
                                        (2, (8, 8), 640, 8), (2, (8, 8), 640, 40),
-                                       (2, (8, 8), 640, 80), (2, (8, 8), 640, 160)])
+                                       (2, (8, 8), 640, 80), (2, (8, 8), 640, 160),
+                                       (2, (32, 32), 384, 64), (7, (8, 8), 640, 32),
+                                       (2, (6, 10), 96, 12)])
 def test_spatial_attention_padded_kernel_matches_plain(cuda, dtype, n, hw, c, ch):
     """K9 from a stream with NaN pad rows at head widths from 8 to 160 (any
-    width that divides C: 8, 40, 80 and 160 need masked lanes or 128-wide
-    slices), C no multiple of 64 (96, 48) and more than 768 tokens (1,024): every pad
+    width that divides C: 8, 40, 80 and 160 need zero lanes or 128-wide
+    slices; 12, no multiple of 8, is copied element by element), C no
+    multiple of 64 (96, 48), 1,024 tokens (a wide forward's 32^2 level,
+    head 64) and a served request's N = 7 (16-token projection tiles,
+    `rk.attention_plan`): every pad
     position of the output exactly zero, the interior within one ulp of the
     plain version plus the carried difference of its head outputs
     (`_check_attention`), the statistics within 1e-3 of their scale; two

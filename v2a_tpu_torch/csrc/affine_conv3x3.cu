@@ -1,28 +1,31 @@
-// K1: y = conv3x3_same(act(x)) + bias on (N, H, W, C) -> (N, H, W, D).
+// K1: y = conv3x3_same(act(x)) + bias on (N, H, W, C) -> (N, H, W, D), and
+// K4a: y = sum_i conv3x3_same(act_i(x_i)) + bias over a padded stream,
+// x_i (N, H+2, Wp, C_i) -> y (N, H+2, Wp, D), one or two channel parts.
 //
-// Replaces the TPU kernel `fused_affine_conv3x3`
+// Replaces the TPU kernels `fused_affine_conv3x3`
 // (v2a_tpu/ops/resblock_kernels.py:662, bodies `_affine_conv_kernel` :489 and
-// `_affine_conv_banded_kernel` :554).
+// `_affine_conv_banded_kernel` :554) and `fused_affine_conv3x3_padded`
+// (:902, body `_padded_conv_kernel` :815).
 //
 // act(x) = silu(a[n, c] * x + b[n, c]) (mode 2), a[n, c] * x + b[n, c]
 // (mode 1) or x (mode 0, plain conv: the forward's plain convs and every
 // dgrad, whose (9 C, D) weights are the flipped, transposed kernel), in
 // float32 with `affine8`'s arithmetic (no FMA, t * (1 / (1 + e^-t)) with
-// __frcp_rn) and rounded to bf16 before the product, as the TPU kernel
-// does. The SAME halo is zero AFTER the activation: set by selection, since
-// act(0) = silu(b) is not zero.
+// __frcp_rn) and rounded to bf16 before the product, as the TPU kernels
+// do. The SAME halo is zero AFTER the activation: set by selection, since
+// act(0) = silu(b) is not zero. K4a runs modes 1 and 2.
 //
 // What bounds it on the H100: operations (128^2 x 128 -> 128 at N = 28 is
-// 1.1e11 FLOP against ~0.12 GB). The bf16 body is the conv half of the
-// shared mainloop (conv_tconv_hopper.cuh) on the unpadded layout, without
-// the temporal phase, on hopper.cuh's primitives:
+// 1.1e11 FLOP against ~0.12 GB). One bf16 body serves both: the conv half
+// of the shared mainloop (conv_tconv_hopper.cuh) without the temporal
+// phase, on hopper.cuh's primitives:
 //
 // - A CTA owns a tile of P pixels (`hop::tile_of`: 16 x 8 with sixteen
 //   warps; 8 x 8, 8 x 4 or 4 x 4 with eight) of one sample x NC output
 //   channels (128, or 64 where 128 does not divide D). The launch plan
-//   (`affine_conv_plan` in ops/resblock_kernels.py) picks P in
-//   {128, 64, 32, 16}: the largest whose grid has a CTA per SM, so a B = 1
-//   request fills the card too.
+//   (`affine_conv_plan` in ops/resblock_kernels.py, over the parts' summed
+//   C for K4a) picks P in {128, 64, 32, 16}: the largest whose grid has a
+//   CTA per SM, so a B = 1 request fills the card too.
 // - The activation once per element. Per 32-channel chunk, the tile's raw
 //   (th+2) x (tw+2) window (64-byte rows, `row64`) and the chunk's a, b come
 //   by cp.async into a 3-stage ring, positions outside the image
@@ -40,9 +43,24 @@
 //   stages the tile in shared memory (rows' chunks ^ (row & 7)) and writes
 //   it with 16-byte stores.
 //
+// K4a is the same body with three differences (`Wp` > 0):
+// - padded addressing: window position (hh, ww) of the interior reads
+//   padded (hh + 1, ww + 1). The copy's image-bounds test is exactly the
+//   interior: padded rows 0 and H + 1 and the pad cols are never loaded,
+//   so whatever they hold (NaN included) cannot reach y;
+// - two parts: the step loop walks part 0's chunks, then part 1's, as
+//   further steps of the one float32 accumulator, each part with its own
+//   a, b and tensor map over its (9 C_i, D) weights; the bias is added
+//   once and the sum rounded once. With one part the chunks, their order
+//   and the products are K1's, so K4a on a padded copy of an image is
+//   bit-equal to K1 on the image;
+// - padded output: the interior at padded (h + 1, w + 1), and the tiles at
+//   w = 0 and w = W - 1 also write the zero pad cols (col 0, cols W + 1 ..
+//   Wp - 1); pad rows are left unwritten.
+//
 // The float32 body (tests only) stays the plain CUDA-core implicit GEMM of
-// common.cuh (`Accum<float>`): per (tap, 32-channel) step it gathers the
-// shifted, activated rows of a 64-pixel x 64-channel tile.
+// common.cuh (`Accum<float>`), for both: per (part, tap, 32-channel) step
+// it gathers the shifted, activated rows of a 64-pixel x 64-channel tile.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -69,13 +87,20 @@ inline size_t smem_bytes(int P, int NC, const hop::Tile& t) {
   return hop::ALIGN_PAD + (ring > out ? ring : out);
 }
 
-// grid: N * tiles * (D / NC) CTAs, the D slices of one tile adjacent
+// each part's (9 C_i, D) weights in slab boxes (`hop::encode_slabs`)
+struct WeightMaps {
+  CUtensorMap w[2];
+};
+
+// Parts p0, p1 (p1.C = 0: one part; their `w` unused, the maps carry the
+// weights). Wp = 0: K1's unpadded (N, H, W, C) layout; Wp > 0: K4a's padded
+// stream (N, H+2, Wp, C_i) in and out. Grid: N * tiles * (D / NC) CTAs,
+// the D slices of one tile adjacent.
 template <int P, int NC>
 __global__ void __launch_bounds__(warps_of(P) * 32, P == 128 ? 1 : 2)
-affine_conv3x3_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
-                    const float* __restrict__ b, const bf16* __restrict__ w,
-                    const float* __restrict__ bias, bf16* __restrict__ y, int H, int W, int C,
-                    int D, int mode, const __grid_constant__ CUtensorMap wmap) {
+affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __restrict__ bias,
+                    bf16* __restrict__ y, int H, int W, int Wp, int D, int mode,
+                    const __grid_constant__ WeightMaps maps) {
   constexpr int NTHR = warps_of(P) * 32;
   constexpr int WM = P == 128 ? 4 : P >= 32 ? 2 : 1, WN = warps_of(P) / WM;  // warps over rows, cols
   constexpr int MT = P / 16 / WM, NT = NC / 8 / WN;  // m16 and n8 tiles a warp
@@ -92,30 +117,35 @@ affine_conv3x3_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
   const int h0 = (tile / t.tiles_w) * t.th, w0 = (tile % t.tiles_w) * t.tw;
   const int tw2 = t.tw + 2, R = (t.th + 2) * tw2, R4 = R * 4;
   const int wbytes = window_bytes(t);
-  const int nch = C / 32, nsteps = nch * 3;
+  // the layout: pixel (hh, ww) of sample n at row (n * XH + hh + pad) * XW + ww + pad
+  const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
+  const int nch0 = p0.C / 32, nch = nch0 + p1.C / 32, nsteps = nch * 3;
   const uint32_t b_s = hop::smem_u32(smem);
   const uint32_t w_s = b_s + K1_STAGES * 3 * SLAB;
   unsigned char* win = smem + K1_STAGES * 3 * SLAB;
   // the weight ring's mbarriers, one a stage, and each one's next phase
   const uint32_t bar_s = w_s + K1_WSTAGES * wbytes;
   uint32_t bph = 0;
-  const bf16* xn = x + (long)n * H * W * C;
 
   // the raw window of chunk g (zero outside the image) and its a, b into
-  // window stage ws
+  // window stage ws; chunks past part 0's are part 1's
   auto issue_window = [&](int g, int ws) {
+    const bool second = g >= nch0;
+    const Part<bf16> q = second ? p1 : p0;
+    const int C = q.C, c0 = (second ? g - nch0 : g) * 32;
+    const bf16* xn = q.x + (long)n * XH * XW * C;
     const uint32_t base = w_s + ws * wbytes;
-    const int c0 = g * 32;
     for (int v = tid; v < R4; v += NTHR) {
       const int pix = v >> 2, ch = v & 3;
       const int hh = h0 - 1 + pix / tw2, ww = w0 - 1 + pix % tw2;
       const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
       hop::cp_async16_or_zero(base + hop::row64(pix, ch),
-                              in ? xn + ((long)hh * W + ww) * C + c0 + ch * 8 : x, in);
+                              in ? xn + ((long)(hh + pad) * XW + ww + pad) * C + c0 + ch * 8 : xn,
+                              in);
     }
     if (mode && tid < 16)
       hop::cp_async16(base + R * 64 + tid * 16,
-                      (tid < 8 ? a : b) + (long)n * C + c0 + (tid & 7) * 4);
+                      (tid < 8 ? q.a : q.b) + (long)n * C + c0 + (tid & 7) * 4);
   };
   // affine8 in place on vectors [lo, hi) of window stage ws, rounded to
   // bf16; positions outside the image are selected out and keep their zeros
@@ -134,12 +164,15 @@ affine_conv3x3_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
     }
   };
   // step j's three weight slabs: taps (di, 0..2) of chunk g, rows
-  // (di * 3 + dj) * C + 32 g .. + 32 of the tap-major (9 C, D) weights, by
-  // TMA from one thread, completing on the stage's mbarrier
+  // (di * 3 + dj) * C + 32 g .. + 32 of its part's tap-major (9 C, D)
+  // weights, by TMA from one thread, completing on the stage's mbarrier
   auto issue_b = [&](int j) {
-    if (tid == 0)
-      hop::tma_slabs<NC>(b_s + (j % K1_STAGES) * 3 * SLAB, &wmap, (j % 3) * 3 * C + (j / 3) * 32,
-                         C, 3, n0, bar_s + 8 * (j % K1_STAGES));
+    if (tid == 0) {
+      const int g = j / 3, second = g >= nch0, C = second ? p1.C : p0.C;
+      hop::tma_slabs<NC>(b_s + (j % K1_STAGES) * 3 * SLAB, &maps.w[second],
+                         (j % 3) * 3 * C + (second ? g - nch0 : g) * 32, C, 3, n0,
+                         bar_s + 8 * (j % K1_STAGES));
+    }
   };
 
   // this lane's ldmatrix row of each m16 tile: its window pixel at tap (0, 0)
@@ -219,43 +252,64 @@ affine_conv3x3_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
       }
   }
   __syncthreads();
+  // padded: the tiles at the image's first and last col also zero the pad cols
+  const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int v = tid; v < P * (NC / 8); v += NTHR) {
     const int m = v / (NC / 8), ch = v % (NC / 8);
     const int hh = h0 + m / t.tw, ww = w0 + m % t.tw;
     if (m >= t.th * t.tw || hh >= H || ww >= W) continue;
-    *reinterpret_cast<uint4*>(y + (((long)n * H + hh) * W + ww) * D + n0 + ch * 8) =
+    bf16* o = y + (((long)n * XH + hh + pad) * XW + ww + pad) * D + n0 + ch * 8;
+    *reinterpret_cast<uint4*>(o) =
         *reinterpret_cast<const uint4*>(smem + m * RB + ((ch ^ (m & 7)) << 4));
+    if (pad && ww == 0) *reinterpret_cast<uint4*>(o - D) = zero;
+    if (pad && ww == W - 1)
+      for (int k = 1; k < Wp - W; ++k) *reinterpret_cast<uint4*>(o + (long)k * D) = zero;
   }
 }
 
 template <int P, int NC>
-cudaError_t launch_bf16(const void* x, const void* a, const void* b, const void* w,
-                        const void* bias, void* y, int N, int H, int W, int C, int D, int mode,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
+                        int Wp, int D, int mode, cudaStream_t stream) {
   const hop::Tile t = hop::tile_of(H, W, P);
   const size_t smem = smem_bytes(P, NC, t);
   const long grid = (long)N * t.tiles * (D / NC);
   if (smem > 232448 || grid > 0x7fffffffL) return cudaErrorInvalidValue;
   auto kernel = affine_conv3x3_bf16<P, NC>;
-  CUtensorMap wmap;
-  if (hop::encode_slabs(&wmap, w, (uint64_t)9 * C, (uint64_t)D)) return cudaErrorInvalidValue;
+  WeightMaps maps = {};
+  for (int i = 0; i < 2; ++i)
+    if (p[i].C && hop::encode_slabs(&maps.w[i], p[i].w, (uint64_t)9 * p[i].C, (uint64_t)D))
+      return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)grid, warps_of(P) * 32, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const bf16*>(w), static_cast<const float*>(bias), static_cast<bf16*>(y), H, W,
-      C, D, mode, wmap);
+      p[0], p[1], static_cast<const float*>(bias), static_cast<bf16*>(y), H, W, Wp, D, mode, maps);
   return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
+                        int Wp, int D, int mode, int P, cudaStream_t s) {
+  if (D % 128 == 0) {
+    if (P == 128) return launch_bf16<128, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 64) return launch_bf16<64, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 32) return launch_bf16<32, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 16) return launch_bf16<16, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
+  } else {
+    if (P == 128) return launch_bf16<128, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 64) return launch_bf16<64, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 32) return launch_bf16<32, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 16) return launch_bf16<16, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // -- float32 (tests only): a plain CUDA-core implicit GEMM --
 
+// The same parts and layouts as the bf16 body; parts, then taps, then
+// 32-channel chunks, into one accumulator.
 __global__ void __launch_bounds__(THREADS)
-affine_conv3x3_f32(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ b, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ y, int N, int H, int W,
-                   int C, int D, int mode) {
+affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __restrict__ bias,
+                   float* __restrict__ y, int N, int H, int W, int Wp, int D, int mode) {
   using T = float;
   __shared__ __align__(128) T As[BM][Lds<T>::A];
   __shared__ __align__(128) T Bs[BK][Lds<T>::B];
@@ -265,6 +319,7 @@ affine_conv3x3_f32(const float* __restrict__ x, const float* __restrict__ a,
   const long m0 = (long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
+  const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
 
   // each thread gathers the same two output rows for the whole K loop
   constexpr int SLOTS = (BM * BK) / (THREADS * 8);
@@ -286,32 +341,36 @@ affine_conv3x3_f32(const float* __restrict__ x, const float* __restrict__ a,
 
   Accum<T> acc;
   acc.zero();
-  for (int tap = 0; tap < 9; ++tap) {
-    const int di = tap / 3 - 1, dj = tap % 3 - 1;
-    for (int c0 = 0; c0 < C; c0 += BK) {
+  for (int part = 0; part < 2; ++part) {
+    const Part<T> q = part ? p1 : p0;
+    for (int tap = 0; tap < 9 && q.C; ++tap) {
+      const int di = tap / 3 - 1, dj = tap % 3 - 1;
+      for (int c0 = 0; c0 < q.C; c0 += BK) {
 #pragma unroll
-      for (int s = 0; s < SLOTS; ++s) {
-        const int hh = rh[s] + di, ww = rw[s] + dj;
-        T* dst = &As[rrow[s]][rcg[s]];
-        if (!rvalid[s] || hh < 0 || hh >= H || ww < 0 || ww >= W) {
-          zero8(dst);  // the halo is zero after the activation
-          continue;
+        for (int s = 0; s < SLOTS; ++s) {
+          const int hh = rh[s] + di, ww = rw[s] + dj;
+          T* dst = &As[rrow[s]][rcg[s]];
+          if (!rvalid[s] || hh < 0 || hh >= H || ww < 0 || ww >= W) {
+            zero8(dst);  // the halo is zero after the activation
+            continue;
+          }
+          const long off =
+              (((long)rn[s] * XH + hh + pad) * XW + ww + pad) * q.C + c0 + rcg[s];
+          if (mode == 0) {
+            copy8(dst, q.x + off);
+            continue;
+          }
+          float v[8];
+          load8(q.x + off, v);
+          const long aoff = (long)rn[s] * q.C + c0 + rcg[s];
+          affine8(v, q.a + aoff, q.b + aoff, mode == 2);
+          store8(dst, v);
         }
-        const long off = (((long)rn[s] * H + hh) * W + ww) * C + c0 + rcg[s];
-        if (mode == 0) {
-          copy8(dst, x + off);
-          continue;
-        }
-        float v[8];
-        load8(x + off, v);
-        const long aoff = (long)rn[s] * C + c0 + rcg[s];
-        affine8(v, a + aoff, b + aoff, mode == 2);
-        store8(dst, v);
+        load_b_tile<T>(Bs, q.w, (long)tap * q.C + c0, D, n0);
+        __syncthreads();
+        acc.step(As, Bs);
+        __syncthreads();
       }
-      load_b_tile<T>(Bs, w, (long)tap * C + c0, D, n0);
-      __syncthreads();
-      acc.step(As, Bs);
-      __syncthreads();
     }
   }
   acc.store(Cs);
@@ -319,28 +378,46 @@ affine_conv3x3_f32(const float* __restrict__ x, const float* __restrict__ a,
   for (int idx = tid; idx < BM * BN; idx += THREADS) {
     const int r = idx / BN, c = idx % BN;
     const long m = m0 + r;
-    if (m < M) y[m * D + n0 + c] = Cs[r][c] + bias[n0 + c];
+    if (m >= M) continue;
+    const long n = m / ((long)H * W);
+    const int rem = (int)(m % ((long)H * W));
+    const int h = rem / W, w = rem % W;
+    const long o = ((n * XH + h + pad) * XW + w + pad) * D + n0 + c;
+    y[o] = Cs[r][c] + bias[n0 + c];
+    if (pad) zero_pad_cols(y, o, w, W, Wp, D);
   }
 }
 
-cudaError_t launch_f32(const void* x, const void* a, const void* b, const void* w,
-                       const void* bias, void* y, int N, int H, int W, int C, int D, int mode,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(const Part<float>* p, const void* bias, void* y, int N, int H, int W,
+                       int Wp, int D, int mode, cudaStream_t stream) {
   const long M = (long)N * H * W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(D / BN));
-  affine_conv3x3_f32<<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<float*>(y), N,
-      H, W, C, D, mode);
+  affine_conv3x3_f32<<<grid, THREADS, 0, stream>>>(p[0], p[1], static_cast<const float*>(bias),
+                                                   static_cast<float*>(y), N, H, W, Wp, D, mode);
   return cudaGetLastError();
+}
+
+// both entries: two parts from {x0, a0, b0, w0, x1, a1, b1, w1}
+int launch(const void* const* pa, const int* C, const void* bias, void* y, int N, int H, int W,
+           int Wp, int D, int mode, int P, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    Part<float> p[2];
+    parts_from(pa, C, p);
+    return (int)launch_f32(p, bias, y, N, H, W, Wp, D, mode, s);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  Part<bf16> p[2];
+  parts_from(pa, C, p);
+  return (int)launch_bf16(p, bias, y, N, H, W, Wp, D, mode, P, s);
 }
 
 }  // namespace
 }  // namespace v2a
 
-// dtype: 0 = float32, 1 = bfloat16. mode: 0 plain conv, 1 affine, 2
+// K1. dtype: 0 = float32, 1 = bfloat16. mode: 0 plain conv, 1 affine, 2
 // affine+SiLU (a, b null in mode 0). P: pixels per tile of the bf16 body
-// (64, 32 or 16, from `affine_conv_plan`; float32 ignores it). Needs
+// (128, 64, 32 or 16, from `affine_conv_plan`; float32 ignores it). Needs
 // C % 32 == 0, D % 64 == 0, 16-byte aligned contiguous buffers.
 extern "C" int v2a_affine_conv3x3(const void* x, const void* a, const void* b, const void* w,
                                   const void* bias, void* y, int N, int H, int W, int C, int D,
@@ -348,20 +425,25 @@ extern "C" int v2a_affine_conv3x3(const void* x, const void* a, const void* b, c
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || D <= 0 || C % 32 || D % 64 || mode < 0 ||
       mode > 2 || (mode && (!a || !b)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)v2a::launch_f32(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  using namespace v2a;
-  if (D % 128 == 0) {
-    if (P == 128) return (int)launch_bf16<128, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-    if (P == 64) return (int)launch_bf16<64, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-    if (P == 32) return (int)launch_bf16<32, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-    if (P == 16) return (int)launch_bf16<16, 128>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-  } else {
-    if (P == 128) return (int)launch_bf16<128, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-    if (P == 64) return (int)launch_bf16<64, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-    if (P == 32) return (int)launch_bf16<32, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-    if (P == 16) return (int)launch_bf16<16, 64>(x, a, b, w, bias, y, N, H, W, C, D, mode, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const void* pa[8] = {x, a, b, w, nullptr, nullptr, nullptr, nullptr};
+  const int Cs[2] = {C, 0};
+  return v2a::launch(pa, Cs, bias, y, N, H, W, 0, D, mode, P, dtype, stream);
+}
+
+// K4a. dtype as K1's. Part i: x_i (N, H+2, Wp, C_i), a_i / b_i (N, C_i)
+// float32, w_i (9 C_i, D); C1 = 0 (and null pointers) for one part. silu:
+// mode 2, else 1. P: pixels per tile, from `affine_conv_plan(N, H, W,
+// C0 + C1, D)`. Needs C_i % 32 == 0, D % 64 == 0, Wp % 8 == 0, Wp >= W + 2,
+// 16-byte aligned contiguous buffers.
+extern "C" int v2a_affine_conv3x3_padded(const void* x0, const void* a0, const void* b0,
+                                         const void* w0, const void* x1, const void* a1,
+                                         const void* b1, const void* w1, const void* bias,
+                                         void* y, int N, int H, int W, int Wp, int C0, int C1,
+                                         int D, int silu, int P, int dtype, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C0 <= 0 || C0 % 32 || C1 < 0 || C1 % 32 || D <= 0 ||
+      D % 64 || Wp % 8 || Wp < W + 2 || !a0 || !b0 || (C1 && (!x1 || !a1 || !b1 || !w1)))
+    return (int)cudaErrorInvalidValue;
+  const void* pa[8] = {x0, a0, b0, w0, x1, a1, b1, w1};
+  const int Cs[2] = {C0, C1};
+  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, D, silu ? 2 : 1, P, dtype, stream);
 }

@@ -15,7 +15,8 @@ The padded-stream routing (the JAX package's default) keeps the levels
 with H*W > 512 in the (.., Hp, Wp, C) layout of `padded_hw` and runs:
 
 - `fused_affine_conv3x3_padded` (K4a): K1 over a multi-part padded stream,
-  all parts in one float32 accumulator. `csrc/affine_conv3x3_padded.cu`.
+  all parts in one float32 accumulator; a second entry of K1's kernel,
+  `csrc/affine_conv3x3.cu`.
 - `temporal_conv_padded` (K4b): K2 over a padded stream, with the ResBlock's
   1x1 skip projection folded in. `csrc/temporal_conv_padded.cu`.
 - `fused_conv_tconv_padded` (K3): K4a then K4b in one pass; the conv output
@@ -110,7 +111,7 @@ KERNELS = {
         replaces="v2a_tpu/ops/resblock_kernels.py:177",
     ),
     "fused_affine_conv3x3_padded": dict(
-        source="v2a_tpu_torch/csrc/affine_conv3x3_padded.cu",
+        source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:902",
     ),
     "temporal_conv_padded": dict(
@@ -278,7 +279,7 @@ def fused_affine_conv3x3_plain(
 
 
 class AffineConvPlan(NamedTuple):
-    """One bf16 K1 launch: pixels per tile (`hop::tile_of`; 128 with sixteen
+    """One bf16 K1 or K4a launch: pixels per tile (`hop::tile_of`; 128 with sixteen
     warps, else eight), output channels
     per CTA, pixel tiles over (N, H, W), CTAs in the grid and shared memory
     per CTA in bytes."""
@@ -290,15 +291,17 @@ class AffineConvPlan(NamedTuple):
 
 
 def affine_conv_plan(n: int, h: int, w: int, c: int, d: int) -> AffineConvPlan:
-    """The launch K1's bf16 body makes at this shape (csrc/affine_conv3x3.cu);
-    it depends on the shape only. A CTA owns P pixels of one sample x NC
-    output channels (128, or 64 where 128 does not divide D); its shared
-    memory holds a 3-stage ring of a tap row's three (32 x NC) weight slabs
-    and a 3-stage ring of (th+2) x (tw+2) x 32 windows with their a, b (the
-    epilogue's P x NC tile aliases them). Of P = 128 (sixteen warps), 64, 32,
-    16 (eight) whose shared memory fits, a larger one only where it needs
-    fewer tiles than the next smaller, the largest whose grid has a CTA per
-    SM (`HOPPER_SMS`), else 16 (the most CTAs)."""
+    """The launch K1's bf16 body makes at this shape (csrc/affine_conv3x3.cu;
+    K4a's launches take it with c the parts' summed channels, since the
+    shared memory does not depend on C); it depends on the shape only. A CTA
+    owns P pixels of one sample x NC output channels (128, or 64 where 128
+    does not divide D); its shared memory holds a 3-stage ring of a tap
+    row's three (32 x NC) weight slabs and a 3-stage ring of (th+2) x (tw+2)
+    x 32 windows with their a, b (the epilogue's P x NC tile aliases them).
+    Of P = 128 (sixteen warps), 64, 32, 16 (eight) whose shared memory fits,
+    a larger one only where it needs fewer tiles than the next smaller, the
+    largest whose grid has a CTA per SM (`HOPPER_SMS`), else 16 (the most
+    CTAs)."""
     if c % 32 or d % 64:
         raise ValueError(f"K1 needs C % 32 == 0 and D % 64 == 0, got C={c} D={d}")
     nc = 128 if d % 128 == 0 else 64
@@ -586,10 +589,16 @@ def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
     hw: the interior (H, W). Returns (N, Hp, Wp, D) in x.dtype: the interior
     and zero pad cols; pad rows are left unwritten.
 
-    Kernel note (csrc/affine_conv3x3_padded.cu): bound by operations at the
-    path's shapes; K1's implicit GEMM with the padded row stride, the
-    interior taken by skipping the loads of halo taps (pad values are never
-    read), and the parts' K loops feeding one float32 accumulator.
+    Kernel note (csrc/affine_conv3x3.cu): bound by operations at the
+    path's shapes. K1's bf16 body and plan (`affine_conv_plan` over the
+    parts' summed C): the window of each 32-channel chunk comes by cp.async
+    from the padded rows with the interior test as its zero-fill predicate
+    (pad values are never loaded), activated once in place, the nine taps
+    read at shifted ldmatrix rows into mma.sync; the step loop walks part
+    0's chunks, then part 1's, into one float32 accumulator, each part's
+    weight slabs by TMA through its own tensor map; bias, one rounding,
+    16-byte stores at padded (h+1, w+1), the edge tiles also writing the
+    zero pad cols. With one part it is bit-equal to K1 on the interior.
     """
     _no_grad_inputs("fused_affine_conv3x3_padded", bias, *_parts_tensors(parts))
     x0 = parts[0][0]
@@ -619,11 +628,12 @@ def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
         cins.append(0)
     bias32 = bias.float().contiguous()
     _check_cuda(x0, bias32)
+    plan = affine_conv_plan(n, h, w, sum(cins), d)
     y = torch.empty((n, hp, wp, d), dtype=x0.dtype, device=x0.device)
-    fn = _lib("affine_conv3x3_padded", "v2a_affine_conv3x3_padded", 10, 9)
+    fn = _lib("affine_conv3x3", "v2a_affine_conv3x3_padded", 10, 10)
     with torch.cuda.device(x0.device):
         rc = fn(*[_ptr(t) for t in args], _ptr(bias32), _ptr(y), n, h, w, wp, cins[0],
-                cins[1], d, int(silu), _DTYPE_CODE[x0.dtype], _stream(x0))
+                cins[1], d, int(silu), plan.pixels, _DTYPE_CODE[x0.dtype], _stream(x0))
     _raise_on(rc, "fused_affine_conv3x3_padded")
     launches["fused_affine_conv3x3_padded"] += 1
     return y
@@ -1393,6 +1403,87 @@ def fused_spatial_attention_padded_plain(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     return out
 
 
+class AttentionGemmPlan(NamedTuple):
+    """One bf16 GEMM of K9 (the QKV or the projection): interior tokens per
+    tile (never two samples), output columns per CTA, warps per CTA, token
+    tiles per sample, CTAs in the grid and shared memory per CTA in bytes."""
+    tokens: int
+    nc: int
+    warps: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+class AttentionPlan(NamedTuple):
+    """The bf16 launches of K9 (csrc/spatial_attention_padded.cu): the QKV
+    GEMM, the attention (a CTA per (tile of `queries`, head, sample), a warp
+    per 16 queries, keys in chunks of `keys` through a double-buffered ring,
+    the head's lanes in slices of `slice` lanes, `slices` of them; its grid
+    and shared memory) and the projection GEMM (whose token tiles are the
+    statistics' partial sums)."""
+    qkv: AttentionGemmPlan
+    queries: int
+    keys: int
+    slice: int
+    slices: int
+    warps: int
+    grid: int
+    smem: int
+    proj: AttentionGemmPlan
+
+
+_ATT_GEMM_ASTAGES = 4  # the GEMMs' token-row ring
+_ATT_KEYS = 64  # keys per chunk
+
+
+def _attention_gemm_plan(n: int, s: int, ldw: int) -> AttentionGemmPlan:
+    """K9's GEMM over n samples of s tokens into ldw columns, as K1 picks
+    its pixel tile: eight warps, NC = 128 where 128 divides ldw, else 64;
+    of P = 64, 32, 16 (shared memory: 3 stages of a step's two weight
+    slabs, 4 of its two chunks' P 64-byte token rows with their a, b; the
+    epilogue's float32 P x (NC + 4) tile aliases them; two CTAs an SM), a
+    larger one only where it needs fewer tiles than the next smaller, the
+    largest whose grid has a CTA per SM, else 16. (128-token tiles with
+    sixteen warps, one CTA an SM, were slower at the release shapes.)"""
+    nc = 128 if ldw % 128 == 0 else 64
+    fits = []
+    for p in (64, 32, 16):
+        tiles = -(-s // p)
+        ring = (_HOP_STAGES * 2 * _HOP_KSTEP * nc * 2 + _ATT_GEMM_ASTAGES * 2 * (p * 64 + 256)
+                + 8 * _HOP_STAGES)
+        smem = _TMA_ALIGN_PAD + max(ring, p * (nc + 4) * 4)
+        if smem <= HOPPER_SMEM and (p == 16 or tiles < -(-s // (p // 2))):
+            fits.append(AttentionGemmPlan(p, nc, 8, tiles, n * tiles * -(-ldw // nc), smem))
+    return next((pl for pl in fits if pl.grid >= HOPPER_SMS), fits[-1])
+
+
+def attention_plan(n: int, h: int, w: int, c: int, ch: int) -> AttentionPlan:
+    """The launches K9's bf16 body makes at this shape; it depends on the
+    shape only. The attention's lane slice is the next of 32, 64, 128 up
+    from the head width ch (128-wide slices past 128); its shared memory
+    holds Q's slices and two K and two V tiles of 64 keys x the slice. Of
+    128, 64, 32 and 16 queries a CTA (a warp per 16) whose shared memory
+    fits, a larger one only where it needs fewer tiles than the next
+    smaller, the most whose grid has a CTA per SM, else the fewest: a
+    larger tile reads each K and V chunk for more queries."""
+    if c % ch or c % 8:
+        raise ValueError(f"K9 needs C % 8 == 0 and a head width that divides C, got C={c} ch={ch}")
+    s = h * w
+    cs = 32 if ch <= 32 else 64 if ch <= 64 else 128
+    slices = -(-ch // cs)
+    fits = []
+    for q in (128, 64, 32, 16):
+        smem = (slices * q + 4 * _ATT_KEYS) * cs * 2
+        if smem <= HOPPER_SMEM and (q == 16 or -(-s // q) < -(-s // (q // 2))):
+            fits.append((q, -(-s // q) * (c // ch) * n, smem))
+    if not fits:
+        raise ValueError(f"K9's attention tiles do not fit shared memory at head width {ch}")
+    q, grid, smem = next((f for f in fits if f[1] >= HOPPER_SMS), fits[-1])
+    return AttentionPlan(_attention_gemm_plan(n, s, 3 * c), q, _ATT_KEYS, cs, slices, q // 16,
+                         grid, smem, _attention_gemm_plan(n, s, c))
+
+
 def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
                                    num_head_channels: int, want_stats: bool = False):
     """Spatial self-attention of a (B*F)-folded padded stream in one call
@@ -1409,18 +1500,20 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
 
     Kernel note (csrc/spatial_attention_padded.cu): bound by operations (at
     16^2 x 512, N = 56: 38 GFLOP, 80% of it the two GEMMs, against 50 MB of
-    stream in and out). The TPU kernel holds one whole sample per grid step;
-    here four launches: a QKV GEMM with the affine in its gather (interior
-    tokens only: pad keys weigh exactly zero after the -1e30 mask, so leaving
-    them out changes no sum), the attention with one (sample, head,
-    64-query) tile per block walking the keys in chunks of 64 through shared
-    memory (pass 1: row max and row sum over all keys; pass 2: ex / sum
-    rounded, as the TPU kernel rounds them, then P @ V; a head's channels
-    in slices of 16-128 lanes, those past the width masked), a projection GEMM
-    whose epilogue adds the bias and the residual in float32 and writes
-    per-tile column sums, and a fixed-order pass over those (deterministic);
-    the pad positions are zeroed by a small fill. The GEMM tiles are masked
-    where C % 64 != 0.
+    stream in and out), and at narrow heads by the softmax's exp and
+    division per logit. The TPU kernel holds one whole sample per grid
+    step; here every phase runs on mma.sync (`attention_plan`): a QKV GEMM
+    over the interior tokens (pad keys weigh exactly zero after the -1e30
+    mask, so leaving them out changes no sum), its token rows by cp.async
+    and activated once in place, its Wqkv slabs by TMA; the attention with
+    one (sample, head, 64-query) tile per CTA, Q's fragments in registers,
+    K and V in bf16 chunks of 64 keys through a double-buffered ring (pass
+    1: row max and row sum over all keys; pass 2: ex / sum rounded, as the
+    TPU kernel rounds them, straight into P @ V's fragments; a head's
+    lanes in slices of 32-128, those past the width zero); a projection
+    GEMM whose epilogue adds the bias and the residual in float32 and
+    writes per-tile column sums, and a fixed-order pass over those
+    (deterministic); the pad positions are zeroed by a small fill.
     """
     _no_grad_inputs("fused_spatial_attention_padded", x, a, b, wqkv, bqkv, wproj, bproj)
     if x.device.type == "cpu":
@@ -1439,12 +1532,16 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     y = torch.empty_like(x)
     qkv = torch.empty((n * s, 3 * c), dtype=dt, device=x.device)
     att = torch.empty((n * s, c), dtype=dt, device=x.device)
-    partial, stats = _stats_buffers(x, n, -(-s // 64), c, want_stats)
-    fn = _lib("spatial_attention_padded", "v2a_spatial_attention_padded", 12, 7)
+    plan = attention_plan(n, h, w, c, num_head_channels)
+    # the projection's token tiles (the float32 body's: 64 tokens)
+    tiles = plan.proj.tiles if dt == torch.bfloat16 else -(-s // 64)
+    partial, stats = _stats_buffers(x, n, tiles, c, want_stats)
+    fn = _lib("spatial_attention_padded", "v2a_spatial_attention_padded", 12, 10)
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(wq), _ptr(bq), _ptr(wo), _ptr(bo), _ptr(y),
                 _ptr(qkv), _ptr(att), _ptr(partial), _ptr(stats), n, h, w, wp, c,
-                num_head_channels, _DTYPE_CODE[dt], _stream(x))
+                num_head_channels, plan.qkv.tokens, plan.queries, plan.proj.tokens,
+                _DTYPE_CODE[dt], _stream(x))
     _raise_on(rc, "fused_spatial_attention_padded")
     launches["fused_spatial_attention_padded"] += 1
     return (y, stats) if want_stats else y

@@ -1,6 +1,7 @@
 """Where the hand-written Hopper kernels spend their time, on the card.
 
-    python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] [--kernels k3,k12,k13,k6,k1,k14]
+    python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] \
+        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
@@ -9,17 +10,24 @@ beside K3 at K3's shapes, and K6 (`wgrad_conv3x3`) at release train-step
 shapes against the library's `conv2d_weight` on the materialised
 activation, K1 (`fused_affine_conv3x3`) at the release serving (B=8 and
 B=1) and train-step (forward and dgrad) shapes against `F.conv2d` on the
-materialised activation, and K14 (`winograd_conv3x3`) at the perf lab's
-three level shapes against K10 and `F.conv2d`; ms by CUDA events over
-chained calls, with each launch's plan. `--ablate` also times copies of the
-kernels with one part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`)
-the activation, the conv products, the temporal epilogue or the whole
-temporal phase; for K6 (`csrc/wgrad_conv3x3.cu`) the activation, the
-products or the refill of the copy ring; for K1 (`csrc/affine_conv3x3.cu`)
-the activation, the products, the refill of the weight ring or of both
-rings; for K14 (`csrc/winograd_conv3x3.cu`) the component transform, the
+materialised activation, K14 (`winograd_conv3x3`) at the perf lab's
+three level shapes against K10 and `F.conv2d`, K4a
+(`fused_affine_conv3x3_padded`) at the padded forward's two largest
+shapes against `F.conv2d` on the activated interiors, and K9
+(`fused_spatial_attention_padded`) at 16^2 x 512 head 32 and 32^2 x 384
+head 64 against the QKV and projection matmuls around
+`scaled_dot_product_attention`; ms by CUDA events over chained calls, with
+each launch's plan. `--ablate` also times copies of the kernels with one
+part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation,
+the conv products, the temporal epilogue or the whole temporal phase; for
+K6 (`csrc/wgrad_conv3x3.cu`) the activation, the products or the refill of
+the copy ring; for K1 and K4a (`csrc/affine_conv3x3.cu`, one body) the
+activation, the products, the refill of the weight ring or of both rings;
+for K14 (`csrc/winograd_conv3x3.cu`) the component transform, the
 products, the refill of the weight ring or all parity adds but one a
-component. The cut copies compute wrong outputs by design; only their
+component; for K9 (`csrc/spatial_attention_padded.cu`) the attention (the
+GEMMs alone) or the two GEMMs. The cut copies compute wrong outputs by
+design; only their
 times mean anything. Cutting the epilogue leaves the temporal products
 unused, so the compiler drops them too: that cut times the epilogue and
 the products together. They are built from copies of `csrc/` under
@@ -56,6 +64,12 @@ K1_CASES = [(56, 16, 16, 512, 512, True, "serve", 10), (56, 8, 8, 640, 640, True
 # K14 at the perf lab's level shapes and K10's most called 16^2 and 8^2 ones (N, H, W, C, D)
 K14_CASES = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (56, 32, 32, 384, 384),
              (56, 16, 16, 512, 512), (56, 8, 8, 640, 640)]
+# K4a at the B=8 padded forward's largest call (two parts) and its most
+# called shape: (N, (H, W), parts' C, D, calls per forward)
+K4A_CASES = [(56, (64, 64), (384, 256), 256, 1), (56, (32, 32), (384,), 384, 6)]
+# K9 at padded_k8_k9's 16^2 level and padded_k8_k9_wide's 32^2 one:
+# (N, (H, W), C, head width, calls per forward)
+K9_CASES = [(56, (16, 16), 512, 32, 5), (56, (32, 32), 384, 64, 5)]
 
 # K1's and K14's weight slabs come by TMA, each stage completing on an
 # mbarrier: a cut of their refill also waits on the first stages alone (a
@@ -80,10 +94,11 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
         "          hop::mma16816(acc[dj][2 * np], af[dj], q[0], q[1]);\n"
         "          hop::mma16816(acc[dj][2 * np + 1], af[dj], q[2], q[3]);\n", "")]),
     "k6_no_refill": (("k6",), [("      issue((j + WSTAGES - 1) % WSTAGES, ic);\n", "")]),
-    "k1_no_activation": (("k1",), [("    if (mode && g + 1 < nch) activate(", "    if (false) activate(")]),
-    "k1_no_products": (("k1",), [(
+    "k1_no_activation": (("k1", "k4a"), [("    if (mode && g + 1 < nch) activate(",
+                                          "    if (false) activate(")]),
+    "k1_no_products": (("k1", "k4a"), [(
         "        hop::mma_slab<MT, NT>(acc, bb + dj * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
-    "k1_no_weight_refill": (("k1",), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
+    "k1_no_weight_refill": (("k1", "k4a"), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
     "k1_no_refill": (("k1",), [
         _K1_FIRST_WAITS, _K1_WEIGHT_REFILL,
         ("    if (di == 0 && g + 2 < nch) issue_window(g + 2, (g + 2) % K1_WSTAGES);\n", "")]),
@@ -101,6 +116,9 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
         "        add_parity<at_sign(1, ca) * at_sign(0, cb)>(yp[2], mab[0]);\n"
         "        add_parity<at_sign(1, ca) * at_sign(1, cb)>(yp[3], mab[0]);\n",
         "        add_parity<1>(yp[0], mab[0]);\n")]),
+    "k9_no_attention": (("k9",), [("  e = attention(qkv, att, N, S, C, ch, s2, Qa, s);\n", "")]),
+    "k9_no_gemms": (("k9",), [("  e = gemm<false>(Pq, qkv_in, s);\n", ""),
+                              ("  e = gemm<true>(Pp, proj_in, s);\n", "")]),
 }
 
 
@@ -210,6 +228,60 @@ def _k14_runs(args):
             lambda: rk.winograd_weights(k).to(x.dtype))
 
 
+def _k4a_args(n, hw, cins, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    parts = [(rk._place(randn(n, *hw, c), *rk.padded_hw(*hw)).bfloat16(),
+              randn(3, 3, c, d, scale=(9 * sum(cins)) ** -0.5), 1 + randn(n, c, scale=0.1),
+              randn(n, c, scale=0.1)) for c in cins]
+    return parts, randn(d, scale=0.1), hw
+
+
+def _k4a_runs(args):
+    """(K4a's call, `F.conv2d` on the activated interiors, channels_last bf16)"""
+    parts, bias, hw = args
+    xa = torch.cat([rk._act(rk._interior(x, hw), a, b, True) for x, _, a, b in parts], -1)
+    xa = xa.permute(0, 3, 1, 2)
+    wl = torch.cat([k for _, k, _, _ in parts], 2).bfloat16().permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bl = bias.bfloat16()
+    return (lambda: rk.fused_affine_conv3x3_padded(parts, bias, hw),
+            lambda: torch.nn.functional.conv2d(xa, wl, bl, padding=1))
+
+
+def _k9_args(n, hw, c, ch, dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x = rk._place(randn(n, *hw, c), *rk.padded_hw(*hw)).bfloat16()
+    return (x, hw, 1 + randn(n, c, scale=0.1), randn(n, c, scale=0.1),
+            randn(c, 3 * c, scale=c ** -0.5), randn(3 * c, scale=0.1),
+            randn(c, c, scale=c ** -0.5), randn(c, scale=0.1), ch)
+
+
+def _k9_runs(args):
+    """(K9's call with statistics, as the path calls it; the QKV and
+    projection matmuls around `scaled_dot_product_attention` on the normed
+    interior tokens)"""
+    x, hw, a, b, wqkv, bqkv, wproj, bproj, ch = args
+    n, c, s = x.shape[0], x.shape[-1], hw[0] * hw[1]
+    xn = rk._act(rk._interior(x, hw).reshape(n, s, c), a, b, False).reshape(n * s, c)
+    wq, wo, bq, bo = wqkv.bfloat16(), wproj.bfloat16(), bqkv.bfloat16(), bproj.bfloat16()
+
+    def library():
+        qkv = torch.matmul(xn, wq) + bq
+        q, k, v = qkv.view(n, s, c // ch, 3, ch).permute(3, 0, 2, 1, 4)
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        return torch.matmul(o.transpose(1, 2).reshape(n * s, c), wo) + bo
+
+    return lambda: rk.fused_spatial_attention_padded(*args, want_stats=True), library
+
+
 def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
     """A copy of `csrc` with `cuts` applied, under `build_dir`."""
     root = os.path.join(build_dir, "variants", name)
@@ -239,7 +311,8 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
-    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14", help="comma-separated kernels")
+    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9",
+                    help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("conv_tconv_probe: needs a CUDA card")
@@ -250,6 +323,8 @@ def main(argv=None) -> List[dict]:
     k6 = [(c, _k6_args(*c[:5], dev)) for c in K6_CASES] if "k6" in kernels else []
     k1 = [(c, _k1_args(*c[:6], dev)) for c in K1_CASES] if "k1" in kernels else []
     k14 = [(c, _k14_args(*c, dev)) for c in K14_CASES] if "k14" in kernels else []
+    k4a = [(c, _k4a_args(*c[:4], dev)) for c in K4A_CASES] if "k4a" in kernels else []
+    k9 = [(c, _k9_args(*c[:4], dev)) for c in K9_CASES] if "k9" in kernels else []
     with torch.no_grad():
         for case, args in cases:
             kernel, b, hw, cins, d = case
@@ -283,6 +358,24 @@ def main(argv=None) -> List[dict]:
                        patches=plan.patches, nc=plan.nc, resident=plan.resident, grid=plan.grid)
             rows.append(row)
             print(row, flush=True)
+        for case, args in k4a:
+            kernel_fn, library = _k4a_runs(args)
+            n, (h, w), cins, d, calls = case
+            plan = rk.affine_conv_plan(n, h, w, sum(cins), d)
+            row = dict(kernel="k4a", shape=case[:4], calls=calls, ms=time_ms(kernel_fn),
+                       library_ms=time_ms(library), pixels=plan.pixels, nc=plan.nc,
+                       grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
+        for case, args in k9:
+            kernel_fn, library = _k9_runs(args)
+            n, (h, w), c, ch, calls = case
+            plan = rk.attention_plan(n, h, w, c, ch)
+            row = dict(kernel="k9", shape=case[:4], calls=calls, ms=time_ms(kernel_fn),
+                       library_ms=time_ms(library), qkv_tokens=plan.qkv.tokens,
+                       queries=plan.queries, slice=plan.slice, proj_tokens=plan.proj.tokens)
+            rows.append(row)
+            print(row, flush=True)
         if opts.ablate:
             csrc, build_dir = _build.CSRC, _build.BUILD_DIR
             try:
@@ -298,9 +391,11 @@ def main(argv=None) -> List[dict]:
                             rows.append(row)
                             print(row, flush=True)
                     for kernel, cases_k, runs in (("k6", k6, _k6_runs), ("k1", k1, _k1_runs),
-                                                  ("k14", k14, _k14_runs)):
+                                                  ("k14", k14, _k14_runs),
+                                                  ("k4a", k4a, _k4a_runs), ("k9", k9, _k9_runs)):
                         for case, args in cases_k if kernel in cut_kernels else ():
-                            row = dict(variant=name, kernel=kernel, shape=case[:5],
+                            shape = case[:4] if kernel in ("k4a", "k9") else case[:5]
+                            row = dict(variant=name, kernel=kernel, shape=shape,
                                        ms=time_ms(runs(args)[0]))
                             rows.append(row)
                             print(row, flush=True)
