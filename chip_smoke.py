@@ -32,10 +32,14 @@ Phases (any failure exits non-zero):
      the plain conv; the output one ulp of the plain temporal conv of it and
      of K4b of it), and against K4a -> K4b within one ulp plus the carried
      conv-half difference; K1-K12 two launches bit-equal; K4a with one part
-     bit-equal to K1 on the interior (it runs K1's body); each K3 / K12 row
-     logs its tile plan (pixels, cluster along D, grid), each K1 and K4a
-     row its `affine_conv_plan`, each K9 row its `attention_plan`, and a
-     B=1 grid of K12, K4a or K9 below one CTA per SM fails.
+     bit-equal to K1 on the interior (it runs K1's body), and K4b with no
+     skip part, on a padded copy of K2's input, bit-equal to K2 at every K2
+     signature (it runs K2's body); each K3 / K12 row logs its tile plan
+     (pixels, cluster along D, grid), each K1 and K4a row its
+     `affine_conv_plan`, each K2 and K4b row its `temporal_conv_plan` (the
+     C side's plan must be the same), each K9 row its `attention_plan`, and
+     a B=1 grid of K12, K4a, K9, K2 or K4b below one CTA per SM fails (K2 /
+     K4b: where a tile larger than 16 pixels was taken).
      Each shape is
      timed on its first input set: kernel, plain version and PyTorch
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
@@ -397,8 +401,20 @@ def check_k1(rk, key, inp, timed):
     return ok, abs_err, rel, None, times, flops, nbytes, f"K1 {n}x{h}x{w}x{c}->{d} {mode}"
 
 
+def _tconv_plan_ok(rk, tag, label, b, f, s, c):
+    """The C side's plan (`v2a_temporal_conv_plan`) is the one the wrapper
+    sizes the statistics by and the row logs."""
+    same = rk.temporal_conv_plan_of_kernel(b, f, s, c) == rk.temporal_conv_plan(b, f, s, c)
+    if not same:
+        log(f"[kernels] {tag} {label}: the kernel's plan is not temporal_conv_plan's")
+    return same
+
+
 def check_k2(rk, key, inp, timed):
-    """K2 at one recorded signature, as `check_k1`."""
+    """K2 at one recorded signature, as `check_k1`; also K4b on a padded copy
+    of the input (NaN pad rows; the residual padded too), bit-equal to K2 on
+    the interior and in the statistics (K4b runs K2's body with K2's plan:
+    the same products in the same order)."""
     _, shape, has_emb, has_res, stats = key
     b, f, c = shape[0], shape[1], shape[-1]
     s = 1
@@ -410,13 +426,24 @@ def check_k2(rk, key, inp, timed):
     emb = inp.randn(b, c).bfloat16() if has_emb else None
     res = inp.randn(*shape).bfloat16() if has_res else None
     got = rk.temporal_conv_fused(x, kern, bias, emb, res, stats)
+    again = rk.temporal_conv_fused(x, kern, bias, emb, res, stats)
     want = rk.temporal_conv_fused_plain(x, kern, bias, emb, res, stats)
+    hw = tuple(shape[2:4])
+    hp, wp = rk.padded_hw(*hw)
+    k4b = rk.temporal_conv_padded(rk._place(x, hp, wp), kern, bias, hw, emb,
+                                  None if res is None else rk._place(res, hp, wp),
+                                  want_stats=stats)
     st_ok, st_err = True, None
     if stats:
-        (got, gst), (want, wst) = got, want
+        (got, gst), (again, ast), (want, wst), (k4b, kst) = got, again, want, k4b
         st_ok, st_err = stats_ok(gst, wst, got, want)
+        st_ok = st_ok and torch.equal(gst, ast) and torch.equal(gst, kst)
+    same, vs_k4b = torch.equal(got, again), torch.equal(rk._interior(k4b, hw), got)
+    log(f"[kernels] K2 {'x'.join(map(str, shape))}: two launches bit-equal: {same}; K4b on its "
+        f"padded copy bit-equal: {vs_k4b}")
     ok, abs_err, rel, _ = within_one_ulp(got, want)
-    ok = ok and st_ok
+    ok = (ok and st_ok and same and vs_k4b
+          and _tconv_plan_ok(rk, "K2", "x".join(map(str, shape)), b, f, s, c))
     times = None
     if timed:
         times = dict(
@@ -498,12 +525,18 @@ def check_k4b(rk, key, inp, timed):
     e, r, skips, sb = inp.tconv_extras(b, f, hw, c, emb, res, skip_cins)
     args = (x, kern, bias, hw, e, r, skips, sb, stats)
     got, want = rk.temporal_conv_padded(*args), rk.temporal_conv_padded_plain(*args)
+    again = rk.temporal_conv_padded(*args)
     st_ok, st_err = True, None
     if stats:
-        (got, gst), (want, wst) = got, want
+        (got, gst), (want, wst), (again, ast) = got, want, again
         st_ok, st_err = stats_ok(gst, wst, rk._interior(got, hw), rk._interior(want, hw))
+        st_ok = st_ok and torch.equal(gst, ast)
+    same = torch.equal(got[:, :, 1:h + 1], again[:, :, 1:h + 1])  # pad rows are not written
+    if not same:
+        log(f"[kernels] K4b {b}x{f}x{h}x{w}x{c}: two launches differ")
     ok, abs_err, rel, _ = check_stream(got, want, hw)
-    ok = ok and st_ok
+    ok = ok and st_ok and same and _tconv_plan_ok(rk, "K4b", f"{b}x{f}x{h}x{w}x{c}", b, f,
+                                                  h * w, c)
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.temporal_conv_padded(*args)),
@@ -1228,6 +1261,15 @@ def _plan_row(rk, key):
         _, n, (h, w), cins, d, _ = key
         plan = rk.affine_conv_plan(n, h, w, sum(cins), d)
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
+    if key[0] in ("k2", "k4b"):
+        if key[0] == "k2":
+            shape = key[1]
+            b, f, s, c = shape[0], shape[1], int(np.prod(shape[2:-1])), shape[-1]
+        else:
+            (b, f), s, c = key[1], key[2][0] * key[2][1], key[3]
+        plan = rk.temporal_conv_plan(b, f, s, c)
+        return dict(pixels=plan.pixels, frames=plan.frames, nc=plan.nc, tiles=plan.tiles,
+                    grid=plan.grid, smem=plan.smem)
     if key[0] == "k9":
         _, n, (h, w), c, ch, _ = key
         plan = rk.attention_plan(n, h, w, c, ch)
@@ -1291,8 +1333,11 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
             bytes_s = nbytes / PEAK_BYTES
             bound_ms = max(ops_s, bytes_s) * 1e3
             plan = _plan_row(rk, key)
-            served_b1 = key[1][0] == 1 if key[0] == "k12" else key[1] == 7
-            if key[0] in ("k12", "k4a", "k9") and served_b1 and plan["grid"] < rk.HOPPER_SMS:
+            served_b1 = key[1][0] == 1 if key[0] in ("k12", "k2", "k4b") else key[1] == 7
+            # K2 / K4b: where a 16-pixel tile gives a CTA per SM (not 8^2 x 512 at B=1)
+            short = plan.get("pixels", 0) > 16 if key[0] in ("k2", "k4b") else True
+            if (key[0] in ("k12", "k4a", "k9", "k2", "k4b") and served_b1 and short
+                    and plan["grid"] < rk.HOPPER_SMS):
                 log(f"[{tag}] {label}: a B=1 grid of {plan['grid']} CTAs leaves SMs idle")
                 ok = False
             rows.append(dict(shape=label, calls=counts, ok=ok, seeds=SEEDS, max_abs_err=abs_err,

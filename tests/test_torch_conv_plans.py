@@ -1,12 +1,12 @@
-"""The launch plans of K1 and K4a (`affine_conv_plan`), K9
-(`attention_plan`) and K14 (`winograd_plan`), on the CPU: at every shape
-the release paths give the kernels (traced on the `meta` device, no
-memory) and at ragged shapes off them, each plan's tiles cover every pixel
-(K14: every 2x2 patch; K9: every token, column and (sample, head, query))
-exactly once, its shared memory fits a CTA, and its grid has a CTA per SM
-wherever its smallest tile allows. The card checks the kernels themselves
-(`tests/test_torch_gpu.py`, `chip_smoke.py`), and that K14's C side plans
-the same.
+"""The launch plans of K1 and K4a (`affine_conv_plan`), K2 and K4b
+(`temporal_conv_plan`), K9 (`attention_plan`) and K14 (`winograd_plan`), on
+the CPU: at every shape the release paths give the kernels (traced on the
+`meta` device, no memory) and at ragged shapes off them, each plan's tiles
+cover every pixel (K14: every 2x2 patch; K9: every token, column and
+(sample, head, query)) exactly once, its shared memory fits a CTA, and its
+grid has a CTA per SM wherever its smallest tile allows. The card checks
+the kernels themselves (`tests/test_torch_gpu.py`, `chip_smoke.py`), and
+that K2/K4b's and K14's C sides plan the same.
 """
 
 import numpy as np
@@ -170,6 +170,137 @@ def test_k4a_plan_fits_every_release_call(monkeypatch, path):
     if path == "mega_off_b8":
         assert plans[(56, 128, 128, 256, 128)].pixels == 128
         assert plans[(56, 128, 128, 384, 128)].pixels == 128
+
+
+def _check_tconv_plan(b, f, s, c):
+    """K2 / K4b's plan: flat P-pixel tiles of each frame's S pixels, each
+    pixel once; ceil(F / T) groups of T frames a sample; C / NC output
+    slices; the shared memory fits; the first (P, T) of `_TCONV_TILES` (a
+    larger P only where it needs fewer tiles than half of it) whose grid has
+    a CTA per SM, else 16-pixel tiles of one frame."""
+    plan = trk.temporal_conv_plan(b, f, s, c)
+    assert plan == trk.temporal_conv_plan(b, f, s, c)
+    nc = 128 if c % 128 == 0 else 64
+    assert plan.nc == nc and plan.tiles == -(-s // plan.pixels) and plan.frames in (1, 2)
+    covered = np.zeros((f, plan.tiles * plan.pixels), np.int32)
+    for g in range(-(-f // plan.frames)):
+        for t in range(plan.tiles):
+            rows, cols = slice(g * plan.frames, (g + 1) * plan.frames), slice(
+                t * plan.pixels, (t + 1) * plan.pixels)
+            covered[rows, cols] += 1
+    assert (covered[:, :s] == 1).all() and plan.tiles * plan.pixels - s < plan.pixels
+    assert plan.grid == b * -(-f // plan.frames) * plan.tiles * (c // nc)
+    assert plan.smem <= SMEM_227_KIB
+    grids = {(p, t): b * -(-f // t) * -(-s // p) * (c // nc) for p, t in trk._TCONV_TILES
+             if p == 16 or -(-s // p) < -(-s // (p // 2))}
+    fits = [pt for pt, g in grids.items() if g >= trk.HOPPER_SMS]
+    assert (plan.pixels, plan.frames) == (fits[0] if fits else (16, 1))
+    return plan
+
+
+def _tconv_calls(monkeypatch, b, **routing):
+    """{(B, F, S, C): calls} of K2 and of K4b (S: the interior's pixels) in
+    one B-sample release forward of a routing, traced on the meta device
+    with every kernel's plain version."""
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    k2, k4b = {}, {}
+
+    def record(calls, x, c, s):
+        key = (x.shape[0], x.shape[1], s, c)
+        calls[key] = calls.get(key, 0) + 1
+
+    def fused(x, kernel, bias, emb=None, residual=None, want_stats=False):
+        record(k2, x, x.shape[-1], int(np.prod(x.shape[2:-1])))
+        return trk.temporal_conv_fused_plain(x, kernel, bias, emb, residual, want_stats)
+
+    def padded(x, kernel, bias, hw, emb=None, residual=None, skip_parts=None, skip_bias=None,
+               want_stats=False):
+        record(k4b, x, x.shape[-1], hw[0] * hw[1])
+        return trk.temporal_conv_padded_plain(x, kernel, bias, hw, emb, residual, skip_parts,
+                                              skip_bias, want_stats)
+
+    monkeypatch.setattr(trk, "temporal_conv_fused", fused)
+    monkeypatch.setattr(trk, "temporal_conv_padded", padded)
+    with torch.device("meta"), torch.no_grad():
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, **routing)(
+            torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
+            torch.randn(b, 77, 512))
+    return k2, k4b
+
+
+# K2's and K4b's calls per release forward: the shipped padded routing at B=8
+# and at a B=1 request, padded_mega_off (K4a -> K4b where K3 would run) and
+# the unpadded routing (K2 only)
+TCONV_PATHS = {"padded_b8": (8, {}, 30, 17), "padded_b1": (1, {}, 30, 17),
+               "mega_off_b8": (8, dict(mega_kernel=False), 30, 33),
+               "unpadded_b8": (8, dict(padded_stream=False), 63, 0)}
+
+
+@pytest.mark.parametrize("path", list(TCONV_PATHS))
+def test_temporal_conv_plan_fits_every_release_call(monkeypatch, path):
+    """`trk.temporal_conv_plan` at every K2 and K4b call: its tiles cover
+    every interior pixel once, its shared memory fits, and its grid has a
+    CTA per SM, a served request's (B*F = 7: 8^2 x 640 on 16-pixel tiles,
+    140 CTAs) included, but for the one call where 16-pixel tiles give
+    fewer (8^2 x 512 at B*F = 7: 112)."""
+    b, routing, n_k2, n_k4b = TCONV_PATHS[path]
+    k2, k4b = _tconv_calls(monkeypatch, b, **routing)
+    assert sum(k2.values()) == n_k2 and sum(k4b.values()) == n_k4b
+    plans = {key: _check_tconv_plan(*key) for key in set(k2) | set(k4b)}
+    short = {key for key, p in plans.items() if p.grid < trk.HOPPER_SMS}
+    if path == "padded_b1":  # 8^2 x 512 (the first up block's tconv): 16-pixel tiles, 112 CTAs
+        assert short == {(1, 7, 64, 512)} and plans[(1, 7, 64, 512)][:2] == (16, 1)
+        assert plans[(1, 7, 64, 640)][:4] == (16, 1, 128, 4) and plans[(1, 7, 64, 640)].grid == 140
+    else:
+        assert not short
+    if path == "padded_b8":  # frame pairs at the forward's 16^2 x 512 and 8^2 x 640
+        assert plans[(8, 7, 256, 512)][:2] == (128, 2) and plans[(8, 7, 64, 640)][:2] == (64, 2)
+
+
+@pytest.mark.parametrize("b,f,s,c", [(2, 3, 240, 192), (1, 1, 35, 64), (2, 1, 1000, 320),
+                                     (3, 1, 1, 128), (8, 7, 16384, 128), (1, 7, 100, 192),
+                                     (4, 2, 1000, 256)])
+def test_temporal_conv_plan_at_ragged_shapes(b, f, s, c):
+    """Off the release paths: S that no tile divides, one pixel, one frame,
+    an even F, C = 192 and 320 (64-wide output slices), C = 64 (one
+    slice)."""
+    _check_tconv_plan(b, f, s, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,hw,c", [(8, 7, (16, 16), 512), (1, 7, (8, 8), 640),
+                                      (2, 3, (12, 20), 192)])
+def test_temporal_conv_wrappers_size_statistics_by_the_plan(monkeypatch, dtype, b, f, hw, c):
+    """K2's and K4b's wrappers, driven to their launch with tensors on the
+    meta device (the device checks, the library and the stream stubbed),
+    call the one source's two entries and size the statistics' per-tile
+    partial sums by the plan's tiles (the float32 body's: 64 pixels)."""
+    import contextlib
+
+    seen = {}
+
+    def fake_lib(name, fn, nptr, nint):
+        def launch(*args):
+            partial = args[6] if fn == "v2a_temporal_conv3" else args[11]
+            seen[fn] = (name, tuple(partial.shape))
+            return 0
+        return launch
+
+    monkeypatch.setattr(trk, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(trk, "_stream", lambda x: 0)
+    monkeypatch.setattr(trk, "_ptr", lambda t: t)
+    monkeypatch.setattr(trk, "_lib", fake_lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    hp, wp = trk.padded_hw(*hw)
+    s = hw[0] * hw[1]
+    with torch.device("meta"):
+        k, bias = torch.empty(3, c, c), torch.empty(c)
+        trk.temporal_conv_fused(torch.empty(b, f, *hw, c, dtype=dtype), k, bias, want_stats=True)
+        trk.temporal_conv_padded(torch.empty(b, f, hp, wp, c, dtype=dtype), k, bias, hw,
+                                 want_stats=True)
+    tiles = trk.temporal_conv_plan(b, f, s, c).tiles if dtype == torch.bfloat16 else -(-s // 64)
+    assert seen == {fn: ("temporal_conv", (b * f * tiles * 2 * c,))
+                    for fn in ("v2a_temporal_conv3", "v2a_temporal_conv_padded")}
 
 
 def _check_attention_plan(n, h, w, c, ch):

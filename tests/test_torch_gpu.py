@@ -472,6 +472,102 @@ def test_padded_stats_are_deterministic(cuda):
     assert torch.equal(*k3) and torch.equal(*k4b)
 
 
+# K2 and K4b at the edges of their plan (`rk.temporal_conv_plan`): (B, F, (H, W), C)
+# and the (pixels, frames) a CTA the plan takes there
+TCONV_EDGES = [
+    ((8, 7, (16, 16), 512), (128, 2)),  # the padded forward's 16^2 level: sixteen warps
+    ((8, 7, (8, 8), 640), (64, 2)),     # its 8^2 level
+    ((8, 7, (8, 8), 512), (32, 2)),     # its 8^2 x 512 call
+    ((1, 7, (16, 16), 512), (16, 2)),   # a served request's 16^2 level
+    ((1, 7, (8, 8), 640), (16, 1)),     # its 8^2 level: 140 CTAs
+    ((8, 2, (3, 43), 640), (128, 1)),   # frames alone: a pair's grid is short of the SMs
+    ((8, 2, (9, 9), 640), (64, 1)),     # S = 81 that no tile divides
+    ((8, 2, (5, 7), 640), (32, 1)),
+    ((2, 7, (32, 32), 192), (128, 2)),  # 64-wide output slices, sixteen warps
+    ((2, 3, (12, 20), 192), (16, 2)),   # 64-wide slices, eight warps over them: one n8 tile each
+    ((1, 1, (5, 7), 64), (16, 1))]      # one frame: no temporal neighbour, one 64-wide slice
+
+
+def _tconv_edge(gen, dev, b, f, hw, c, extras):
+    x = torch.randn(b, f, *hw, c, generator=gen, device=dev).bfloat16()
+    k = torch.randn(3, c, c, generator=gen, device=dev) / (3 * c) ** 0.5
+    bias = torch.randn(c, generator=gen, device=dev) * 0.1
+    emb = torch.randn(b, c, generator=gen, device=dev).bfloat16() if extras else None
+    res = torch.randn(b, f, *hw, c, generator=gen, device=dev).bfloat16() if extras else None
+    return x, k, bias, emb, res
+
+
+@pytest.mark.parametrize("extras", [False, True], ids=["bare", "emb_res_stats"])
+@pytest.mark.parametrize("shape,pixels", TCONV_EDGES)
+def test_temporal_conv_padded_is_k2_at_every_tile(cuda, extras, shape, pixels):
+    """K4b with no skip part on a padded copy of K2's input (NaN pad rows)
+    runs K2's body with K2's plan: the same products in the same order, so
+    its interior and statistics are bit-equal to K2's; an addressing slip
+    shows here before it shows above one ulp. Each tile size of the plan."""
+    b, f, hw, c = shape
+    assert rk.temporal_conv_plan(b, f, hw[0] * hw[1], c)[:2] == pixels
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    x, k, bias, emb, res = _tconv_edge(gen, cuda, b, f, hw, c, extras)
+    hp, wp = rk.padded_hw(*hw)
+    xp = rk._place(x, hp, wp)
+    rp = None if res is None else rk._place(res, hp, wp)
+    k2 = rk.temporal_conv_fused(x, k, bias, emb, res, want_stats=extras)
+    k4b = rk.temporal_conv_padded(xp, k, bias, hw, emb, rp, want_stats=extras)
+    torch.cuda.synchronize()
+    if extras:
+        (k2, s2), (k4b, s4) = k2, k4b
+        assert torch.equal(s2, s4)
+    assert torch.equal(rk._interior(k4b, hw), k2)
+
+
+@pytest.mark.parametrize("shape,pixels", TCONV_EDGES)
+def test_temporal_conv_kernels_at_plan_edges(cuda, shape, pixels):
+    """K2 (emb, residual, statistics) and K4b (emb, residual, two skip
+    parts, statistics, NaN pad rows) at each tile of their plan, within one
+    ulp of their plain versions, statistics within 1e-3 of their scale plus
+    what the outputs' differences move them by, zero pad cols; two launches
+    bit-equal."""
+    b, f, hw, c = shape
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    x, k, bias, emb, res = _tconv_edge(gen, cuda, b, f, hw, c, True)
+    before = rk.launches["temporal_conv_fused"]
+    got, gst = rk.temporal_conv_fused(x, k, bias, emb, res, want_stats=True)
+    again, ast = rk.temporal_conv_fused(x, k, bias, emb, res, want_stats=True)
+    want, wst = rk.temporal_conv_fused_plain(x, k, bias, emb, res, want_stats=True)
+    torch.cuda.synchronize()
+    assert rk.launches["temporal_conv_fused"] == before + 2
+    assert torch.equal(got, again) and torch.equal(gst, ast)
+    ok, rel = _within_ulp(got, want, torch.bfloat16)
+    assert ok, f"K2 max err / std {rel}"
+    pad = lambda t: rk._place(t, *rk.padded_hw(*hw))  # noqa: E731
+    _stats_close(gst, wst, pad(got), pad(want))
+
+    xs = _stream(gen, cuda, torch.bfloat16, (b, f), hw, c)
+    _, e, r, skips, sb = _tconv_extras(gen, cuda, torch.bfloat16, b, f, hw, c, True, True,
+                                       (64, 96))
+    args = (xs, k, bias, hw, e, r, skips, sb, True)
+    before = rk.launches["temporal_conv_padded"]
+    (got, gst), (again, ast) = rk.temporal_conv_padded(*args), rk.temporal_conv_padded(*args)
+    want, wst = rk.temporal_conv_padded_plain(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["temporal_conv_padded"] == before + 2
+    rows = slice(1, hw[0] + 1)  # pad rows are not written
+    assert torch.equal(got[:, :, rows], again[:, :, rows]) and torch.equal(gst, ast)
+    _check_padded(got, want, hw, torch.bfloat16, what="K4b")
+    _stats_close(gst, wst, got, want)
+
+
+def test_temporal_conv_plan_is_the_kernels(cuda):
+    """K2 and K4b's C side (`plan_of`, read through `v2a_temporal_conv_plan`)
+    launches the plan `rk.temporal_conv_plan` logs and sizes the statistics'
+    partial sums by, at the edges' shapes and the release levels'."""
+    shapes = [(b, f, hw[0] * hw[1], c) for (b, f, hw, c), _ in TCONV_EDGES]
+    shapes += [(8, 7, 16384, 128), (8, 7, 4096, 256), (8, 7, 1024, 384), (1, 7, 16384, 128),
+               (1, 7, 1024, 384), (2, 3, 1000, 320), (1, 7, 64, 512)]
+    for shape in shapes:
+        assert rk.temporal_conv_plan_of_kernel(*shape) == rk.temporal_conv_plan(*shape), shape
+
+
 # -- the training path: K6, the autograd Functions, a train_fused U-Net ----------
 
 

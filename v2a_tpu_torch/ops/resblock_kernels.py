@@ -9,7 +9,8 @@ routing runs:
   `csrc/affine_conv3x3.cu`.
 - `temporal_conv_fused` (K2): the 3-tap C x C conv over frames + bias
   [+ emb] [+ residual], optionally with per-(B, F, C) sum / sum of squares
-  of the rounded output. CUDA source `csrc/temporal_conv.cu`.
+  of the rounded output. CUDA source `csrc/temporal_conv.cu`, launch plan
+  `temporal_conv_plan`.
 
 The padded-stream routing (the JAX package's default) keeps the levels
 with H*W > 512 in the (.., Hp, Wp, C) layout of `padded_hw` and runs:
@@ -18,7 +19,8 @@ with H*W > 512 in the (.., Hp, Wp, C) layout of `padded_hw` and runs:
   all parts in one float32 accumulator; a second entry of K1's kernel,
   `csrc/affine_conv3x3.cu`.
 - `temporal_conv_padded` (K4b): K2 over a padded stream, with the ResBlock's
-  1x1 skip projection folded in. `csrc/temporal_conv_padded.cu`.
+  1x1 skip projection folded in; a second entry of K2's kernel,
+  `csrc/temporal_conv.cu`.
 - `fused_conv_tconv_padded` (K3): K4a then K4b in one pass; the conv output
   never reaches device memory. `csrc/conv_tconv_padded.cu`.
 - `fused_upconv3x3_padded` (K5): conv3x3_same(nearest_2x(x)) as four
@@ -115,7 +117,7 @@ KERNELS = {
         replaces="v2a_tpu/ops/resblock_kernels.py:902",
     ),
     "temporal_conv_padded": dict(
-        source="v2a_tpu_torch/csrc/temporal_conv_padded.cu",
+        source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1090",
     ),
     "fused_conv_tconv_padded": dict(
@@ -433,10 +435,16 @@ def temporal_conv_fused(
     Frames are zero-padded on both sides. Returns y in x.dtype [, stats
     (B, F, 2, C) float32 taken from the rounded y].
 
-    Kernel note (csrc/temporal_conv.cu): memory-bound; one pass reads x (and
-    the residual) and writes y, with emb / residual / the statistics in the
-    epilogue, then a small deterministic second pass sums the per-tile
-    statistics.
+    Kernel note (csrc/temporal_conv.cu): bound by operations from C = 256
+    on, by bytes below. An implicit GEMM on mma.sync m16n8k16: a CTA of
+    sixteen (P = 128) or eight warps owns P pixels of T = 2 (or 1)
+    consecutive frames x 128 output channels (64 where 128 does not divide
+    C; `temporal_conv_plan`); a step is the three taps of a 32-channel
+    chunk, its T + 2 A tiles by cp.async and its three weight slabs by TMA
+    into a 3-stage ring, each A tile and slab shared by the frames that take
+    it, a missing neighbour frame neither copied nor multiplied; bias, emb
+    and residual in float32, one rounding, 16-byte stores, the tiles' column
+    sums of the rounded y added by a deterministic second pass.
     """
     _no_grad_inputs("temporal_conv_fused", x, kernel, bias, emb, residual)
     if x.device.type == "cpu":
@@ -456,7 +464,7 @@ def temporal_conv_fused(
         res = residual.expand(x.shape).to(x.dtype).contiguous()
     _check_cuda(x, w2d, bias32, emb32, res)
     y = torch.empty_like(x)
-    partial, stats = _stats_buffers(x, b * f, -(-s // 64), c, want_stats)
+    partial, stats = _stats_buffers(x, b * f, _tconv_tiles(x, b, f, s, c), c, want_stats)
     fn = _lib("temporal_conv", "v2a_temporal_conv3", 8, 5)
     with torch.cuda.device(x.device):
         rc = fn(
@@ -466,6 +474,70 @@ def temporal_conv_fused(
     _raise_on(rc, "temporal_conv_fused")
     launches["temporal_conv_fused"] += 1
     return (y, stats.reshape(b, f, 2, c)) if want_stats else y
+
+
+class TemporalConvPlan(NamedTuple):
+    """One bf16 K2 or K4b launch: pixels per tile (128 with sixteen warps,
+    else eight), consecutive frames per CTA, output channels per CTA, pixel
+    tiles per (b, f) slab, CTAs in the grid and shared memory per CTA in
+    bytes."""
+    pixels: int
+    frames: int
+    nc: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+_TCONV_STAGES = 3  # the ring of a step's A tiles and three weight slabs
+# (pixels, frames) a CTA, from the most work to the least (P * T, frame
+# pairs first at a tie)
+_TCONV_TILES = ((128, 2), (64, 2), (128, 1), (32, 2), (64, 1), (16, 2), (32, 1), (16, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def temporal_conv_plan(b: int, f: int, s: int, c: int) -> TemporalConvPlan:
+    """The launch K2's and K4b's bf16 body makes over B x F frames of s
+    (interior) pixels x c channels (csrc/temporal_conv.cu, whose `plan_of`
+    computes the same; `temporal_conv_plan_of_kernel` reads it back). A CTA
+    owns a flat range of P pixels of T consecutive frames of one sample x NC
+    output channels (128, or 64 where 128 does not divide C); its shared
+    memory holds a 3-stage ring of a step's T + 2 (P x 32) A tiles and three
+    (32 x NC) weight slabs (the epilogue's T (P x NC) tiles and their column
+    sums alias it). Of (P, T) in `_TCONV_TILES` order, a larger P only where
+    it needs fewer tiles than half of it, the first whose grid has a CTA per
+    SM (`HOPPER_SMS`), else (16, 1) (the most CTAs)."""
+    if c % 64:
+        raise ValueError(f"K2 needs C % 64 == 0, got {c}")
+    nc = 128 if c % 128 == 0 else 64
+    plan = None
+    for p, t in _TCONV_TILES:
+        tiles = -(-s // p)
+        if p > 16 and tiles >= -(-s // (p // 2)):
+            continue
+        ring = _TCONV_STAGES * (3 * _HOP_KSTEP * nc * 2 + (t + 2) * p * 64) + 8 * _TCONV_STAGES
+        smem = _TMA_ALIGN_PAD + max(ring, t * (p * nc * 2 + 4 * 2 * nc * 4))
+        plan = TemporalConvPlan(p, t, nc, tiles, b * -(-f // t) * tiles * (c // nc), smem)
+        if plan.grid >= HOPPER_SMS:
+            break
+    return plan
+
+
+def temporal_conv_plan_of_kernel(b: int, f: int, s: int, c: int) -> TemporalConvPlan:
+    """The plan csrc/temporal_conv.cu's own `plan_of` makes (needs the built
+    library, so the card), as a `TemporalConvPlan`."""
+    fn = _build.load("temporal_conv").v2a_temporal_conv_plan
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = _I
+    out = (ctypes.c_longlong * 6)()
+    _raise_on(fn(b, f, s, c, out), "v2a_temporal_conv_plan")
+    return TemporalConvPlan(*(int(v) for v in out))
+
+
+def _tconv_tiles(x: torch.Tensor, b: int, f: int, s: int, c: int) -> int:
+    """Pixel tiles per slab of a K2 / K4b launch: the plan's for bf16, the
+    float32 body's 64-pixel tiles."""
+    return temporal_conv_plan(b, f, s, c).tiles if x.dtype == torch.bfloat16 else -(-s // 64)
 
 
 def temporal_conv_reference(
@@ -708,10 +780,14 @@ def temporal_conv_padded(x, kernel, bias, hw, emb=None, residual=None, skip_part
     residual never reaches device memory. Returns y [, stats (B, F, 2, C)
     float32, the exact interior sum / sum of squares of the rounded y].
 
-    Kernel note (csrc/temporal_conv_padded.cu): bound by operations, narrowly
-    (from C = 256 on); K2's implicit GEMM over interior positions with the
-    padded address map, the skip parts as further K segments of the same
-    accumulator, and K2's deterministic two-pass statistics.
+    Kernel note (csrc/temporal_conv.cu): bound by operations, narrowly
+    (from C = 256 on). K2's bf16 body and plan (`temporal_conv_plan` over B x
+    F frames of H*W interior pixels): the A tiles come by cp.async from the
+    interior's padded rows (pad values are never loaded), the skip parts are
+    further steps of the same float32 accumulators, each part's weight slabs
+    by TMA through its own tensor map; the pixels at w = 0 and w = W - 1
+    also write the zero pad cols. With no skip part it is bit-equal to K2 on
+    a padded copy of K2's input.
     """
     _no_grad_inputs("temporal_conv_padded", x, kernel, bias, emb, residual, skip_bias,
                     *_parts_tensors(skip_parts or ()))
@@ -732,9 +808,8 @@ def temporal_conv_padded(x, kernel, bias, hw, emb=None, residual=None, skip_part
     skips, sb32 = _skip_args(skip_parts, skip_bias, x.shape[:4], c, x.dtype)
     _check_cuda(x, w2d, bias32, emb32, residual, sb32, *[t for s in skips for t in s[:2]])
     y = torch.empty_like(x)
-    tiles = -(-h * w // 64)
-    partial, stats = _stats_buffers(x, b * f, tiles, c, want_stats)
-    fn = _lib("temporal_conv_padded", "v2a_temporal_conv_padded", 13, 9)
+    partial, stats = _stats_buffers(x, b * f, _tconv_tiles(x, b, f, h * w, c), c, want_stats)
+    fn = _lib("temporal_conv", "v2a_temporal_conv_padded", 13, 9)
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(residual),
                 _ptr(skips[0][0]), _ptr(skips[0][1]), _ptr(skips[1][0]), _ptr(skips[1][1]),

@@ -1,7 +1,7 @@
 """Where the hand-written Hopper kernels spend their time, on the card.
 
     python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] \
-        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9]
+        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
@@ -16,9 +16,13 @@ three level shapes against K10 and `F.conv2d`, K4a
 shapes against `F.conv2d` on the activated interiors, and K9
 (`fused_spatial_attention_padded`) at 16^2 x 512 head 32 and 32^2 x 384
 head 64 against the QKV and projection matmuls around
-`scaled_dot_product_attention`; ms by CUDA events over chained calls, with
-each launch's plan. `--ablate` also times copies of the kernels with one
-part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation,
+`scaled_dot_product_attention`, K2 (`temporal_conv_fused`) and K4b
+(`temporal_conv_padded`) at the padded forward's most called and costliest
+signatures (K4b also at padded_mega_off's costliest) against one matmul of
+the frame-stacked (B*F*S, 3C) operand (K4b: and one of its skip parts),
+with the host's ms per call beside the card's; ms by CUDA events over
+chained calls, with each launch's plan. `--ablate` also times copies of
+the kernels with one part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation,
 the conv products, the temporal epilogue or the whole temporal phase; for
 K6 (`csrc/wgrad_conv3x3.cu`) the activation, the products or the refill of
 the copy ring; for K1 and K4a (`csrc/affine_conv3x3.cu`, one body) the
@@ -26,12 +30,13 @@ activation, the products, the refill of the weight ring or of both rings;
 for K14 (`csrc/winograd_conv3x3.cu`) the component transform, the
 products, the refill of the weight ring or all parity adds but one a
 component; for K9 (`csrc/spatial_attention_padded.cu`) the attention (the
-GEMMs alone) or the two GEMMs. The cut copies compute wrong outputs by
-design; only their
-times mean anything. Cutting the epilogue leaves the temporal products
-unused, so the compiler drops them too: that cut times the epilogue and
-the products together. They are built from copies of `csrc/` under
-`_build/variants/`.
+GEMMs alone) or the two GEMMs; for K2 and K4b (`csrc/temporal_conv.cu`,
+one body) the products, the refill of the A tiles or of the weight slabs,
+and the ring at 2 or 4 stages in place of 3. The cut copies compute
+wrong outputs by design; only their times mean anything. Cutting the
+epilogue leaves the temporal products unused, so the compiler drops them
+too: that cut times the epilogue and the products together. They are
+built from copies of `csrc/` under `_build/variants/`.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+import time
 from typing import Dict, List, Tuple
 
 import torch
@@ -70,6 +76,15 @@ K4A_CASES = [(56, (64, 64), (384, 256), 256, 1), (56, (32, 32), (384,), 384, 6)]
 # K9 at padded_k8_k9's 16^2 level and padded_k8_k9_wide's 32^2 one:
 # (N, (H, W), C, head width, calls per forward)
 K9_CASES = [(56, (16, 16), 512, 32, 5), (56, (32, 32), 384, 64, 5)]
+# K2 and K4b at the B=8 padded forward's most called signature and its
+# costliest (calls x ms, `chip_smoke_shapes.json`), and K4b at
+# padded_mega_off's costliest: (kernel, B, (H, W), C, emb, residual, skip
+# parts' C, calls per forward); all with statistics
+TCONV_CASES = [("k2", 8, (8, 8), 640, True, False, (), 7),
+               ("k2", 8, (8, 8), 640, False, True, (), 7),
+               ("k4b", 8, (32, 32), 384, True, False, (), 5),
+               ("k4b", 8, (128, 128), 256, False, False, (), 1),
+               ("k4b", 8, (128, 128), 128, True, False, (), 5)]
 
 # K1's and K14's weight slabs come by TMA, each stage completing on an
 # mbarrier: a cut of their refill also waits on the first stages alone (a
@@ -79,6 +94,11 @@ _K1_FIRST_WAITS = (
     "    if (j < K1_STAGES - 1)\n"
     "      hop::mbar_wait(bar_s + 8 * (j % K1_STAGES), (bph >> (j % K1_STAGES)) & 1);")
 _K1_WEIGHT_REFILL = ("    if (j + K1_STAGES - 1 < nsteps) issue_b(j + K1_STAGES - 1);\n", "")
+
+# K2 / K4b's weight slabs come by TMA too: the same for their refill
+_TC_FIRST_WAITS = (
+    "    hop::mbar_wait(bar_s + 8 * st, (bph >> st) & 1);",
+    "    if (j < TC_STAGES - 1) hop::mbar_wait(bar_s + 8 * st, (bph >> st) & 1);")
 
 # variant -> (the kernels it cuts, [(text in a csrc/ file, its replacement)])
 CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
@@ -119,6 +139,17 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
     "k9_no_attention": (("k9",), [("  e = attention(qkv, att, N, S, C, ch, s2, Qa, s);\n", "")]),
     "k9_no_gemms": (("k9",), [("  e = gemm<false>(Pq, qkv_in, s);\n", ""),
                               ("  e = gemm<true>(Pp, proj_in, s);\n", "")]),
+    "tconv_no_products": (("k2", "k4b"), [
+        ("hop::mma_slab<MT, NT>(acc[e], bb + t * SLAB, kk, af, wn * (NC / WN), lane);", ""),
+        ("hop::mma_slab<MT, NT>(acc[e], bb + u * SLAB, kk, af, wn * (NC / WN), lane);", "")]),
+    "tconv_no_a_refill": (("k2", "k4b"), [("      issue_a(j + TC_STAGES - 1);\n", "")]),
+    "tconv_no_weight_refill": (("k2", "k4b"), [_TC_FIRST_WAITS,
+                                               ("      issue_b(j + TC_STAGES - 1);\n", "")]),
+    # the ring's depth: 2 or 4 stages in place of 3 (the plan's shared memory follows)
+    "tconv_stages_2": (("k2", "k4b"), [("constexpr int TC_STAGES = 3;",
+                                         "constexpr int TC_STAGES = 2;")]),
+    "tconv_stages_4": (("k2", "k4b"), [("constexpr int TC_STAGES = 3;",
+                                         "constexpr int TC_STAGES = 4;")]),
 }
 
 
@@ -133,6 +164,20 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Mean ms per call on the host's clock, without waiting for the card:
+    where it comes near `time_ms`, the host's launches bound the call."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _case_args(b, hw, cins, d, dev, f=7):
@@ -282,6 +327,51 @@ def _k9_runs(args):
     return lambda: rk.fused_spatial_attention_padded(*args, want_stats=True), library
 
 
+def _tconv_args(kernel, b, hw, c, emb, res, skip_cins, dev, f=7):
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def x_of(ch):
+        x = randn(b, f, *hw, ch)
+        return (x if kernel == "k2" else rk._place(x, *rk.padded_hw(*hw))).bfloat16()
+
+    kern, bias = randn(3, c, c, scale=(3 * c) ** -0.5), randn(c, scale=0.1)
+    e = randn(b, c).bfloat16() if emb else None
+    r = x_of(c) if res else None
+    if kernel == "k2":
+        return x_of(c), kern, bias, e, r
+    skips = [(x_of(cs), randn(cs, c, scale=cs ** -0.5)) for cs in skip_cins] or None
+    return x_of(c), kern, bias, hw, e, r, skips, randn(c, scale=0.1) if skips else None
+
+
+def _tconv_runs(kernel, args):
+    """(K2's or K4b's call with statistics, as the path calls them; one matmul
+    of the frame-stacked (B*F*S, 3C) interior and the (3C, C) weights, and
+    for K4b one of its skip parts' (B*F*S, sum C_i) against theirs)"""
+    x, kern = args[:2]
+    b, f, c = x.shape[0], x.shape[1], x.shape[-1]
+    hw = args[3] if kernel == "k4b" else tuple(x.shape[2:4])
+    xi = x if kernel == "k2" else rk._interior(x, hw)
+    xp = torch.nn.functional.pad(xi.reshape(b, f, -1, c), (0, 0, 0, 0, 1, 1))
+    stacked = torch.cat([xp[:, :f], xp[:, 1:f + 1], xp[:, 2:]], -1).reshape(-1, 3 * c)
+    w2d = kern.bfloat16().reshape(3 * c, c)
+    skips = args[6] if kernel == "k4b" else None
+    sx = sk = None
+    if skips:
+        sx = torch.cat([rk._interior(s, hw) for s, _ in skips], -1)
+        sx = sx.reshape(-1, sx.shape[-1])
+        sk = torch.cat([k for _, k in skips], 0).bfloat16()
+    fn = rk.temporal_conv_fused if kernel == "k2" else rk.temporal_conv_padded
+
+    def library():
+        y = torch.matmul(stacked, w2d)
+        return y if sx is None else (y, torch.matmul(sx, sk))
+
+    return lambda: fn(*args, want_stats=True), library
+
+
 def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
     """A copy of `csrc` with `cuts` applied, under `build_dir`."""
     root = os.path.join(build_dir, "variants", name)
@@ -311,7 +401,7 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
-    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9",
+    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b",
                     help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -325,6 +415,7 @@ def main(argv=None) -> List[dict]:
     k14 = [(c, _k14_args(*c, dev)) for c in K14_CASES] if "k14" in kernels else []
     k4a = [(c, _k4a_args(*c[:4], dev)) for c in K4A_CASES] if "k4a" in kernels else []
     k9 = [(c, _k9_args(*c[:4], dev)) for c in K9_CASES] if "k9" in kernels else []
+    tconv = [(c, _tconv_args(*c[:7], dev)) for c in TCONV_CASES if c[0] in kernels]
     with torch.no_grad():
         for case, args in cases:
             kernel, b, hw, cins, d = case
@@ -376,6 +467,15 @@ def main(argv=None) -> List[dict]:
                        queries=plan.queries, slice=plan.slice, proj_tokens=plan.proj.tokens)
             rows.append(row)
             print(row, flush=True)
+        for case, args in tconv:
+            kernel_fn, library = _tconv_runs(case[0], args)
+            kernel, b, (h, w), c, emb, res, skip_cins, calls = case
+            plan = rk.temporal_conv_plan(b, 7, h * w, c)
+            row = dict(kernel=kernel, shape=case[1:7], calls=calls, ms=time_ms(kernel_fn),
+                       host_ms=host_ms(kernel_fn), library_ms=time_ms(library),
+                       pixels=plan.pixels, frames=plan.frames, nc=plan.nc, grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
         if opts.ablate:
             csrc, build_dir = _build.CSRC, _build.BUILD_DIR
             try:
@@ -388,6 +488,12 @@ def main(argv=None) -> List[dict]:
                         if case[0] in cut_kernels:
                             row = dict(variant=name, kernel=case[0], b=case[1], hw=case[2],
                                        ms=time_ms(_runs(case[0], args)[0]))
+                            rows.append(row)
+                            print(row, flush=True)
+                    for case, args in tconv:
+                        if case[0] in cut_kernels:
+                            row = dict(variant=name, kernel=case[0], shape=case[1:7],
+                                       ms=time_ms(_tconv_runs(case[0], args)[0]))
                             rows.append(row)
                             print(row, flush=True)
                     for kernel, cases_k, runs in (("k6", k6, _k6_runs), ("k1", k1, _k1_runs),
