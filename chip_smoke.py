@@ -32,14 +32,17 @@ Phases (any failure exits non-zero):
      the plain conv; the output one ulp of the plain temporal conv of it and
      of K4b of it), and against K4a -> K4b within one ulp plus the carried
      conv-half difference; K1-K12 two launches bit-equal; K4a with one part
-     bit-equal to K1 on the interior (it runs K1's body), and K4b with no
-     skip part, on a padded copy of K2's input, bit-equal to K2 at every K2
-     signature (it runs K2's body); each K3 / K12 row logs its tile plan
-     (pixels, cluster along D, grid), each K1 and K4a row its
-     `affine_conv_plan`, each K2 and K4b row its `temporal_conv_plan` (the
-     C side's plan must be the same), each K9 row its `attention_plan`, and
-     a B=1 grid of K12, K4a, K9, K2 or K4b below one CTA per SM fails (K2 /
-     K4b: where a tile larger than 16 pixels was taken).
+     bit-equal to K1 on the interior (it runs K1's body), K10 bit-equal to
+     K1 without an affine (K1's entry in mode 0), K8's interior bit-equal
+     to K1 on its input's interior at even pixels (K1's body at stride 2),
+     and K4b with no skip part, on a padded copy of K2's input, bit-equal
+     to K2 at every K2 signature (it runs K2's body); each K3 / K12 row
+     logs its tile plan (pixels, cluster along D, grid), each K1, K4a, K10
+     and K8 row its `affine_conv_plan` (K8's at stride 2), each K2 and K4b
+     row its `temporal_conv_plan` (the C side's plan must be the same),
+     each K9 row its `attention_plan`, and a B=1 grid of K12, K4a, K8, K9,
+     K10, K2 or K4b below one CTA per SM fails (K2 / K4b: where a tile
+     larger than 16 pixels was taken).
      Each shape is
      timed on its first input set: kernel, plain version and PyTorch
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
@@ -841,7 +844,9 @@ def check_k7(rk, key, inp, timed):
 
 def check_k8(rk, key, inp, timed):
     """K8 at one recorded signature: NaN pad rows in, exactly zero pad cols
-    out, the interior within one ulp; two launches bit-equal."""
+    out, the interior within one ulp; two launches bit-equal; the interior
+    bit-equal to K1 on the input's interior at even pixels (K8 runs K1's
+    body at stride 2: the same products in the same order)."""
     _, n, hw, c, d, affine, silu = key
     h, w = hw
     x = inp.stream((n,), hw, c)
@@ -854,7 +859,12 @@ def check_k8(rk, key, inp, timed):
     got, again = rk.fused_downconv3x3_padded(*args), rk.fused_downconv3x3_padded(*args)
     ok, abs_err, rel, _ = check_stream(got, rk.fused_downconv3x3_padded_plain(*args),
                                        (h // 2, w // 2))
-    ok = ok and torch.equal(got[:, 1:-1], again[:, 1:-1])  # pad rows are not written
+    same = torch.equal(got[:, 1:-1], again[:, 1:-1])  # pad rows are not written
+    k1 = rk.fused_affine_conv3x3(rk._interior(x, hw).contiguous(), kern, bias, a, b, silu)
+    vs_k1 = torch.equal(rk._interior(got, (h // 2, w // 2)), k1[:, ::2, ::2])
+    log(f"[kernels] K8 {n}x{h}x{w}x{c}->{d}: two launches bit-equal: {same}; bit-equal to K1 "
+        f"at even pixels: {vs_k1}")
+    ok = ok and same and vs_k1
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.fused_downconv3x3_padded(*args)),
@@ -937,14 +947,18 @@ def check_k9(rk, key, inp, timed):
 
 def check_k10(rk, key, inp, timed):
     """K10 at one recorded signature: within one ulp of its plain version,
-    two launches bit-equal."""
+    two launches bit-equal, bit-equal to K1 without an affine (K10 is K1's
+    entry in mode 0)."""
     _, (n, h, w, c), d = key
     x = inp.randn(n, h, w, c).bfloat16()
     kern = inp.randn(3, 3, c, d, scale=(9 * c) ** -0.5)
     bias = inp.randn(d, scale=0.1)
     got, again = rk.spatial_conv3x3(x, kern, bias), rk.spatial_conv3x3(x, kern, bias)
     ok, abs_err, rel, _ = within_one_ulp(got, rk.spatial_conv3x3_plain(x, kern, bias))
-    ok = ok and torch.equal(got, again)
+    same, vs_k1 = torch.equal(got, again), torch.equal(got, rk.fused_affine_conv3x3(x, kern, bias))
+    log(f"[kernels] K10 {n}x{h}x{w}x{c}->{d}: two launches bit-equal: {same}; bit-equal to K1 "
+        f"mode 0: {vs_k1}")
+    ok = ok and same and vs_k1
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.spatial_conv3x3(x, kern, bias)),
@@ -1243,8 +1257,9 @@ def _plan_row(rk, key):
     (pixels per tile, CTAs per cluster along D, CTAs in the grid, shared
     memory per CTA; K13 takes K3's, and its copy route), K6's `wgrad_plan`
     (pixel tile, chunks of tiles, tiles per chunk, grid, shared memory),
-    K1's and K4a's `affine_conv_plan` (pixels per tile, output channels per
-    CTA, grid, shared memory; K4a over its parts' summed C), K9's
+    K1's, K10's, K4a's and K8's `affine_conv_plan` (pixels per tile, output
+    channels per CTA, grid, shared memory; K4a over its parts' summed C, K8
+    at stride 2), K9's
     `attention_plan` (per phase: token tile x columns, warps, grid, shared
     memory; the attention's queries a CTA and lane slices; `grid` the
     smallest phase's) and K14's `winograd_plan` (patches per tile, output
@@ -1254,8 +1269,12 @@ def _plan_row(rk, key):
         plan = rk.wgrad_plan(*key[1], key[2])
         return dict(tile=f"{plan.tile_h}x{plan.tile_w}", chunks=plan.chunks,
                     per_chunk=plan.per_chunk, grid=plan.grid, smem=plan.smem)
-    if key[0] == "k1":
+    if key[0] in ("k1", "k10"):
         plan = rk.affine_conv_plan(*key[1], key[2])
+        return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
+    if key[0] == "k8":
+        _, n, (h, w), c, d, _, _ = key
+        plan = rk.affine_conv_plan(n, h, w, c, d, stride=2)
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
     if key[0] == "k4a":
         _, n, (h, w), cins, d, _ = key
@@ -1333,10 +1352,11 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
             bytes_s = nbytes / PEAK_BYTES
             bound_ms = max(ops_s, bytes_s) * 1e3
             plan = _plan_row(rk, key)
-            served_b1 = key[1][0] == 1 if key[0] in ("k12", "k2", "k4b") else key[1] == 7
+            served_b1 = (key[1][0] == 1 if key[0] in ("k12", "k2", "k4b")
+                         else key[1][0] == 7 if key[0] == "k10" else key[1] == 7)
             # K2 / K4b: where a 16-pixel tile gives a CTA per SM (not 8^2 x 512 at B=1)
             short = plan.get("pixels", 0) > 16 if key[0] in ("k2", "k4b") else True
-            if (key[0] in ("k12", "k4a", "k9", "k2", "k4b") and served_b1 and short
+            if (key[0] in ("k12", "k4a", "k8", "k9", "k10", "k2", "k4b") and served_b1 and short
                     and plan["grid"] < rk.HOPPER_SMS):
                 log(f"[{tag}] {label}: a B=1 grid of {plan['grid']} CTAs leaves SMs idle")
                 ok = False

@@ -1,4 +1,4 @@
-"""The launch plans of K1 and K4a (`affine_conv_plan`), K2 and K4b
+"""The launch plans of K1, K4a, K10 and K8 (`affine_conv_plan`), K2 and K4b
 (`temporal_conv_plan`), K9 (`attention_plan`) and K14 (`winograd_plan`), on
 the CPU: at every shape the release paths give the kernels (traced on the
 `meta` device, no memory) and at ragged shapes off them, each plan's tiles
@@ -73,14 +73,21 @@ def _covered_once(h, w, th, tw, tiles):
     return bool((covered == 1).all())
 
 
-def _check_k1_plan(n, h, w, c, d):
-    plan = trk.affine_conv_plan(n, h, w, c, d)
-    assert plan == trk.affine_conv_plan(n, h, w, c, d)
+def _check_k1_plan(n, h, w, c, d, stride=1):
+    """K1's plan (K8's at stride 2, over the (h/2, w/2) output grid): its
+    tiles cover the output grid once, its shared memory (three weight
+    stages and three windows of `_window_rows` 64-byte rows) fits, and
+    the largest tile with a CTA per SM."""
+    plan = trk.affine_conv_plan(n, h, w, c, d, stride)
+    assert plan == trk.affine_conv_plan(n, h, w, c, d, stride)
+    h, w = h // stride, w // stride
     nc = 128 if d % 128 == 0 else 64
     th, tw, per_image = trk._hop_tile(h, w, plan.pixels)
     assert plan.nc == nc and th * tw <= plan.pixels and plan.tiles == n * per_image
     assert _covered_once(h, w, th, tw, per_image)
     assert plan.grid == plan.tiles * (d // nc) and plan.smem <= SMEM_227_KIB
+    window = (stride * th + 3 - stride) * (stride * tw + 3 - stride) * 64
+    assert plan.smem >= 3 * 3 * 32 * nc * 2 + 3 * window
     # the tiles the plan may take: 16, and each larger one that needs fewer
     # tiles than the next smaller
     tiles = {p: trk._hop_tile(h, w, p)[2] for p in (128, 64, 32, 16)}
@@ -124,10 +131,16 @@ def test_affine_conv_plan_at_ragged_shapes(n, h, w, c, d):
 
 def _padded_calls(monkeypatch, name, b, **routing):
     """{signature: calls} of wrapper `name` (K4a: (N, H, W, C0 + C1, D); K9:
-    (N, H, W, C, head width)) in one B-sample release forward of a routing,
-    traced on the meta device with every kernel's plain version."""
+    (N, H, W, C, head width); K8: (N, H, W, C, D) at its full-size input) in
+    one B-sample release forward of a routing, traced on the meta device
+    with every kernel's plain version."""
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     calls, plain = {}, getattr(trk, name + "_plain")
+
+    def k8(x, kernel, bias, hw, a=None, b=None, silu=False):
+        key = (x.shape[0],) + tuple(hw) + (x.shape[-1], kernel.shape[-1])
+        calls[key] = calls.get(key, 0) + 1
+        return plain(x, kernel, bias, hw, a, b, silu)
 
     def k4a(parts, bias, hw, silu=True):
         key = (parts[0][0].shape[0],) + tuple(hw) + (sum(p[0].shape[-1] for p in parts),
@@ -140,7 +153,8 @@ def _padded_calls(monkeypatch, name, b, **routing):
         calls[key] = calls.get(key, 0) + 1
         return plain(x, hw, a, b, wqkv, bqkv, wproj, bproj, num_head_channels, want_stats)
 
-    monkeypatch.setattr(trk, name, k4a if name == "fused_affine_conv3x3_padded" else k9)
+    monkeypatch.setattr(trk, name, {"fused_affine_conv3x3_padded": k4a,
+                                    "fused_downconv3x3_padded": k8}.get(name, k9))
     with torch.device("meta"), torch.no_grad():
         tvu.VideoUNet(dtype=torch.bfloat16, fused=True, **routing)(
             torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
@@ -170,6 +184,95 @@ def test_k4a_plan_fits_every_release_call(monkeypatch, path):
     if path == "mega_off_b8":
         assert plans[(56, 128, 128, 256, 128)].pixels == 128
         assert plans[(56, 128, 128, 384, 128)].pixels == 128
+
+
+# K8's calls per release forward of padded_k8_k9 and padded_k8_k9_wide, at
+# B=8 and at a B=1 request
+K8_PATHS = {"k8_k9_b8": (8, {}), "k8_k9_b1": (1, {}),
+            "wide_b8": (8, dict(attention_resolutions=(4, 8, 16), num_head_channels=64)),
+            "wide_b1": (1, dict(attention_resolutions=(4, 8, 16), num_head_channels=64))}
+
+
+@pytest.mark.parametrize("path", list(K8_PATHS))
+def test_k8_plan_fits_every_release_call(monkeypatch, path):
+    """K8 takes K1's plan at stride 2 at both of its calls (128^2 x 128 ->
+    64^2 and 64^2 x 256 -> 32^2): its tiles cover the half-size output grid
+    once, the stride-2 windows' shared memory fits, and its grid has a CTA
+    per SM, a served request's (N = 7) included, where the 32^2 output takes
+    64-pixel tiles (7 x 16 x 2 = 224 CTAs)."""
+    b, arch = K8_PATHS[path]
+    calls = _padded_calls(monkeypatch, "fused_downconv3x3_padded", b, downconv=True,
+                          attn_kernel=True, **arch)
+    n = 7 * b
+    assert calls == {(n, 128, 128, 128, 128): 1, (n, 64, 64, 256, 256): 1}
+    plans = {key: _check_k1_plan(*key, stride=2) for key in calls}
+    assert all(p.grid >= trk.HOPPER_SMS for p in plans.values())
+    if b == 8:
+        assert {p.pixels for p in plans.values()} == {128}
+    else:
+        assert (plans[(7, 64, 64, 256, 256)].pixels, plans[(7, 64, 64, 256, 256)].grid) == (64, 224)
+
+
+@pytest.mark.parametrize("n,h,w,c,d", [(2, 24, 40, 128, 128), (3, 10, 14, 64, 64),
+                                       (1, 2, 2, 32, 64), (2, 12, 20, 128, 192),
+                                       (1, 70, 18, 256, 256), (7, 16, 16, 640, 640)])
+def test_k8_plan_at_ragged_shapes(n, h, w, c, d):
+    """Off the release paths: H/2 and W/2 that no tile divides (12 x 20, 5 x
+    7, 35 x 9), W/2 below the tile's cols, one output pixel, 64-wide output
+    slices."""
+    _check_k1_plan(n, h, w, c, d, stride=2)
+
+
+def _driven_to_the_launch(monkeypatch):
+    """Stubs the device checks, the library and the stream so that a wrapper
+    called on meta tensors runs to its launch; returns {entry: [(source,
+    pointer arguments, int arguments)]} of each C entry launched."""
+    import contextlib
+
+    seen = {}
+
+    def fake_lib(name, fn, nptr, nint):
+        def launch(*args):
+            seen.setdefault(fn, []).append((name, args[:nptr], args[nptr:nptr + nint]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(trk, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(trk, "_stream", lambda x: 0)
+    monkeypatch.setattr(trk, "_ptr", lambda t: t)
+    monkeypatch.setattr(trk, "_lib", fake_lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return seen
+
+
+# K8's two B=8 signatures (`test_k8_plan_fits_every_release_call`), a served
+# request's 64^2 one (64-pixel tiles at stride 2, 128 at stride 1) and a ragged one
+K8_CALLS = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (7, 64, 64, 256, 256),
+            (2, 12, 20, 128, 192)]
+
+
+def test_k10_and_k8_wrappers_pass_the_plan(monkeypatch):
+    """K10's wrapper, at each of its 17 signatures, and K8's, at both of its
+    B=8 ones and a ragged one, driven to the launch on meta tensors: each
+    calls its entry of `affine_conv3x3.cu` with the P of `affine_conv_plan`
+    (K8: at stride 2, with the half-size stream's Wp2)."""
+    seen = _driven_to_the_launch(monkeypatch)
+    with torch.device("meta"):
+        for n, h, w, c, d in K10_K14:
+            trk.spatial_conv3x3(torch.empty(n, h, w, c, dtype=torch.bfloat16),
+                                torch.empty(3, 3, c, d), torch.empty(d))
+        for n, h, w, c, d in K8_CALLS:
+            hp, wp = trk.padded_hw(h, w)
+            trk.fused_downconv3x3_padded(torch.empty(n, hp, wp, c, dtype=torch.bfloat16),
+                                         torch.empty(3, 3, c, d), torch.empty(d), (h, w))
+    ints = {fn: [(name,) + tuple(args) for name, _, args in calls] for fn, calls in seen.items()}
+    assert ints["v2a_spatial_conv3x3"] == [
+        ("affine_conv3x3", n, h, w, c, d, trk.affine_conv_plan(n, h, w, c, d).pixels, 1)
+        for n, h, w, c, d in K10_K14]
+    assert ints["v2a_downconv3x3_padded"] == [
+        ("affine_conv3x3", n, h, w, trk.padded_hw(h, w)[1], trk.padded_hw(h // 2, w // 2)[1], c,
+         d, 0, trk.affine_conv_plan(n, h, w, c, d, stride=2).pixels, 1)
+        for n, h, w, c, d in K8_CALLS]
 
 
 def _check_tconv_plan(b, f, s, c):
@@ -275,22 +378,7 @@ def test_temporal_conv_wrappers_size_statistics_by_the_plan(monkeypatch, dtype, 
     meta device (the device checks, the library and the stream stubbed),
     call the one source's two entries and size the statistics' per-tile
     partial sums by the plan's tiles (the float32 body's: 64 pixels)."""
-    import contextlib
-
-    seen = {}
-
-    def fake_lib(name, fn, nptr, nint):
-        def launch(*args):
-            partial = args[6] if fn == "v2a_temporal_conv3" else args[11]
-            seen[fn] = (name, tuple(partial.shape))
-            return 0
-        return launch
-
-    monkeypatch.setattr(trk, "_check_cuda", lambda *a: None)
-    monkeypatch.setattr(trk, "_stream", lambda x: 0)
-    monkeypatch.setattr(trk, "_ptr", lambda t: t)
-    monkeypatch.setattr(trk, "_lib", fake_lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    launched = _driven_to_the_launch(monkeypatch)
     hp, wp = trk.padded_hw(*hw)
     s = hw[0] * hw[1]
     with torch.device("meta"):
@@ -299,6 +387,8 @@ def test_temporal_conv_wrappers_size_statistics_by_the_plan(monkeypatch, dtype, 
         trk.temporal_conv_padded(torch.empty(b, f, hp, wp, c, dtype=dtype), k, bias, hw,
                                  want_stats=True)
     tiles = trk.temporal_conv_plan(b, f, s, c).tiles if dtype == torch.bfloat16 else -(-s // 64)
+    seen = {fn: (name, tuple(ptrs[6 if fn == "v2a_temporal_conv3" else 11].shape))
+            for fn, [(name, ptrs, _)] in launched.items()}
     assert seen == {fn: ("temporal_conv", (b * f * tiles * 2 * c,))
                     for fn in ("v2a_temporal_conv3", "v2a_temporal_conv_padded")}
 

@@ -738,6 +738,53 @@ def test_downconv3x3_padded_kernel_matches_plain(cuda, dtype, mode, n, hw, c, d)
     assert rk.launches["fused_downconv3x3_padded"] == before + 1
     want = rk.fused_downconv3x3_padded_plain(x, k, bias, hw, a, b, mode == "silu")
     _check_padded(got, want, (hw[0] // 2, hw[1] // 2), dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(rk._interior(got, (hw[0] // 2, hw[1] // 2)),
+                           _k1_at_even_pixels(x, k, bias, hw, a, b, mode == "silu"))
+
+
+def _k1_at_even_pixels(x, k, bias, hw, a, b, silu):
+    """K1 on the interior of a padded stream, sampled at even pixels: what
+    K8 computes (the same products in the same order)."""
+    return rk.fused_affine_conv3x3(rk._interior(x, hw).contiguous(), k, bias, a, b,
+                                   silu)[:, ::2, ::2]
+
+
+# K8 at the edges of its plan (`rk.affine_conv_plan(..., stride=2)` over the
+# half-size output grid): each tile size, output grids no tile divides
+K8_EDGES = [
+    (28, (64, 64), 128, 128),   # 128-pixel tiles, sixteen warps
+    (7, (64, 64), 256, 256),    # a served request's 64^2 -> 32^2: 64-pixel tiles, 224 CTAs
+    (7, (32, 32), 512, 512),    # 32-pixel tiles
+    (7, (16, 16), 640, 640),    # 16-pixel tiles, 140 CTAs
+    (2, (12, 20), 128, 192),    # a 6 x 10 output: no tile divides it; 64-wide slices
+    (3, (10, 14), 64, 64)]      # a 5 x 7 output, below the tile's 8 cols
+
+
+@pytest.mark.parametrize("mode", ["plain", "affine", "silu"])
+@pytest.mark.parametrize("n,hw,c,d", K8_EDGES)
+def test_downconv3x3_padded_is_k1_at_even_pixels(cuda, mode, n, hw, c, d):
+    """K8's bf16 body (K1's at stride 2) at its plan's edges, from a stream
+    with NaN pad rows: its interior bit-equal to K1 on the input's interior
+    at even pixels, pad cols exactly zero, two launches bit-equal, within
+    one ulp of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x = _stream(gen, cuda, torch.bfloat16, (n,), hw, c)
+    k = torch.randn(3, 3, c, d, generator=gen, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    a = b = None
+    if mode != "plain":
+        a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    got = rk.fused_downconv3x3_padded(x, k, bias, hw, a, b, mode == "silu")
+    again = rk.fused_downconv3x3_padded(x, k, bias, hw, a, b, mode == "silu")
+    torch.cuda.synchronize()
+    hw2 = (hw[0] // 2, hw[1] // 2)
+    assert torch.equal(got[:, 1:hw2[0] + 1], again[:, 1:hw2[0] + 1])  # pad rows are not written
+    _check_padded(got, rk.fused_downconv3x3_padded_plain(x, k, bias, hw, a, b, mode == "silu"),
+                  hw2, torch.bfloat16)
+    assert torch.equal(rk._interior(got, hw2),
+                       _k1_at_even_pixels(x, k, bias, hw, a, b, mode == "silu"))
 
 
 def _attn_args(gen, dev, dtype, n, hw, c):
@@ -867,9 +914,9 @@ def _refuses_grad(fn, *args):
 @pytest.mark.parametrize("n,h,w,c,d", [(3, 8, 8, 128, 128), (2, 5, 7, 32, 64),
                                        (2, 12, 100, 64, 128), (2, 64, 64, 256, 256)])
 def test_spatial_conv3x3_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
-    """K10 within one ulp of its plain version, two launches bit-equal; the
-    64-pixel tiles cover a row segment (W >= 64), two rows (W = 100) or many
-    rows (W = 7) of the band."""
+    """K10 within one ulp of its plain version, two launches bit-equal, and
+    bit-equal to K1 without an affine (K1's entry in mode 0); W = 7 below
+    the tile's 8 cols, W = 100 that no tile divides."""
     g = torch.Generator(device=cuda).manual_seed(20)
     x = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype)
     k = torch.randn(3, 3, c, d, generator=g, device=cuda) / (9 * c) ** 0.5
@@ -878,7 +925,7 @@ def test_spatial_conv3x3_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
     got, again = rk.spatial_conv3x3(x, k, bias), rk.spatial_conv3x3(x, k, bias)
     torch.cuda.synchronize()
     assert rk.launches["spatial_conv3x3"] == before + 2
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, rk.fused_affine_conv3x3(x, k, bias))
     ok, rel = _within_ulp(got, rk.spatial_conv3x3_plain(x, k, bias), dtype)
     assert ok, f"max err / std {rel}"
 

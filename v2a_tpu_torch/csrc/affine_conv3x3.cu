@@ -1,39 +1,52 @@
-// K1: y = conv3x3_same(act(x)) + bias on (N, H, W, C) -> (N, H, W, D), and
+// K1: y = conv3x3_same(act(x)) + bias on (N, H, W, C) -> (N, H, W, D),
 // K4a: y = sum_i conv3x3_same(act_i(x_i)) + bias over a padded stream,
-// x_i (N, H+2, Wp, C_i) -> y (N, H+2, Wp, D), one or two channel parts.
+// x_i (N, H+2, Wp, C_i) -> y (N, H+2, Wp, D), one or two channel parts,
+// K10: y = conv3x3_same(x) + bias on (N, H, W, C) -> (N, H, W, D), and
+// K8: y = conv3x3_stride2_same(act(x)) + bias between padded streams,
+// x (N, H+2, Wp, C) -> y (N, H/2+2, Wp2, D).
 //
 // Replaces the TPU kernels `fused_affine_conv3x3`
 // (v2a_tpu/ops/resblock_kernels.py:662, bodies `_affine_conv_kernel` :489 and
-// `_affine_conv_banded_kernel` :554) and `fused_affine_conv3x3_padded`
-// (:902, body `_padded_conv_kernel` :815).
+// `_affine_conv_banded_kernel` :554), `fused_affine_conv3x3_padded`
+// (:902, body `_padded_conv_kernel` :815), `spatial_conv3x3` (:2796, body
+// `_spatial3x3_kernel` :2760) and `fused_downconv3x3_padded` (:1514, body
+// `_downconv_kernel` :1413).
 //
 // act(x) = silu(a[n, c] * x + b[n, c]) (mode 2), a[n, c] * x + b[n, c]
-// (mode 1) or x (mode 0, plain conv: the forward's plain convs and every
+// (mode 1) or x (mode 0, plain conv: the forward's plain convs, K10, every
 // dgrad, whose (9 C, D) weights are the flipped, transposed kernel), in
 // float32 with `affine8`'s arithmetic (no FMA, t * (1 / (1 + e^-t)) with
 // __frcp_rn) and rounded to bf16 before the product, as the TPU kernels
 // do. The SAME halo is zero AFTER the activation: set by selection, since
-// act(0) = silu(b) is not zero. K4a runs modes 1 and 2.
+// act(0) = silu(b) is not zero. K4a runs modes 1 and 2, K10 mode 0, K8 all
+// three.
 //
 // What bounds it on the H100: operations (128^2 x 128 -> 128 at N = 28 is
-// 1.1e11 FLOP against ~0.12 GB). One bf16 body serves both: the conv half
-// of the shared mainloop (conv_tconv_hopper.cuh) without the temporal
-// phase, on hopper.cuh's primitives:
+// 1.1e11 FLOP against ~0.12 GB; K8 at 128^2 -> 64^2 is near the balance
+// point, 67.6 GFLOP against 0.3 GB). One bf16 body serves all four: the
+// conv half of the shared mainloop (conv_tconv_hopper.cuh) without the
+// temporal phase, on hopper.cuh's primitives:
 //
-// - A CTA owns a tile of P pixels (`hop::tile_of`: 16 x 8 with sixteen
-//   warps; 8 x 8, 8 x 4 or 4 x 4 with eight) of one sample x NC output
-//   channels (128, or 64 where 128 does not divide D). The launch plan
-//   (`affine_conv_plan` in ops/resblock_kernels.py, over the parts' summed
-//   C for K4a) picks P in {128, 64, 32, 16}: the largest whose grid has a
-//   CTA per SM, so a B = 1 request fills the card too.
+// - A CTA owns a tile of P output pixels (`hop::tile_of`: 16 x 8 with
+//   sixteen warps; 8 x 8, 8 x 4 or 4 x 4 with eight) of one sample x NC
+//   output channels (128, or 64 where 128 does not divide D). The launch
+//   plan (`affine_conv_plan` in ops/resblock_kernels.py, over the parts'
+//   summed C for K4a, with the stride for K8) picks P in {128, 64, 32, 16}:
+//   the largest whose grid has a CTA per SM, so a B = 1 request fills the
+//   card too.
 // - The activation once per element. Per 32-channel chunk, the tile's raw
-//   (th+2) x (tw+2) window (64-byte rows, `row64`) and the chunk's a, b come
-//   by cp.async into a 3-stage ring, positions outside the image
-//   zero-filled by the copy; affine8 runs once per element there, in place,
-//   spread over the three steps of the chunk before it, and rounds to bf16.
-//   Positions outside the image keep the copy's zeros: they are never
-//   activated (selection). Mode 0 needs no pass at all. The nine taps read
-//   the one window through ldmatrix at shifted row addresses.
+//   input window (64-byte rows, `row64`) and the chunk's a, b come by
+//   cp.async into a 3-stage ring, positions outside the image zero-filled
+//   by the copy; affine8 runs once per element there, in place, spread over
+//   the three steps of the chunk before it, and rounds to bf16. Positions
+//   outside the image keep the copy's zeros: they are never activated
+//   (selection). Mode 0 copies no a, b and runs no pass at all; at stride
+//   1 its window is one TMA box a chunk (32 channels x (tw+2) x (th+2) at
+//   (c0, w0 - 1, h0 - 1, n) of a map over the image, which zero-fills what
+//   lies outside it: the SAME halo), with 64-byte swizzle, which is
+//   `row64` on the ring's 512-byte-aligned stages, completing on the
+//   stage's mbarrier. The nine taps read the one window through ldmatrix
+//   at shifted row addresses.
 // - A pipeline step is one tap row of one chunk: three 32-deep products,
 //   their three (32 x NC) weight slabs copied by TMA (one thread, 2-D boxes,
 //   128-byte swizzle) through a 3-stage ring whose stages complete on
@@ -42,6 +55,9 @@
 // - The epilogue adds the bias in float32 to the float32 sum, rounds once,
 //   stages the tile in shared memory (rows' chunks ^ (row & 7)) and writes
 //   it with 16-byte stores.
+//
+// K10 is K1's entry in mode 0: the same launch, so bit-equal to K1 without
+// an affine.
 //
 // K4a is the same body with three differences (`Wp` > 0):
 // - padded addressing: window position (hh, ww) of the interior reads
@@ -58,9 +74,23 @@
 //   w = 0 and w = W - 1 also write the zero pad cols (col 0, cols W + 1 ..
 //   Wp - 1); pad rows are left unwritten.
 //
+// K8 is K4a's addressing with one part at stride 2 (`S` = 2): output
+// interior pixel (i, j) reads interior (2i + di - 1, 2j + dj - 1), K1's
+// SAME conv centred on (2i, 2j). Tiles cover the (H/2, W/2) output grid;
+// per chunk a tile stages its (2 th + 1) x (2 tw + 1) input window as two
+// column-parity planes, the even window cols (tw + 1 wide) then the odd
+// ones (tw wide), the TPU kernel's own parity split: tap dj reads plane
+// dj & 1 at col j + (dj == 2), so the eight output pixels of an ldmatrix
+// read eight consecutive plane rows, conflict-free under `row64` (a
+// stride-2 read of one plane would hit each bank group twice). The steps
+// (chunk, di, dj, kk) and the epilogue are K1's, so K8's interior is
+// bit-equal to K1 on the input's interior at even pixels. The output is
+// the half-size padded stream with its pad cols (`Wp2`) zeroed.
+//
 // The float32 body (tests only) stays the plain CUDA-core implicit GEMM of
-// common.cuh (`Accum<float>`), for both: per (part, tap, 32-channel) step
-// it gathers the shifted, activated rows of a 64-pixel x 64-channel tile.
+// common.cuh (`Accum<float>`), for all four: per (part, tap, 32-channel)
+// step it gathers the shifted (strided), activated rows of a 64-pixel x
+// 64-channel tile.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -74,33 +104,45 @@ __host__ __device__ constexpr int warps_of(int P) { return P == 128 ? 16 : 8; }
 constexpr int K1_STAGES = 3;     // weight ring: one tap row's three slabs a stage (4 and 5: no faster)
 constexpr int K1_WSTAGES = 3;    // window ring: a chunk multiplied, one activated, one in flight
 
-// one window stage: (th+2)(tw+2) 64-byte rows, then the chunk's a[32], b[32]
+// 64-byte rows of one window stage at stride S: (th+2)(tw+2), or
+// (2th+1)(2tw+1) in two column-parity planes
+template <int S>
+__host__ __device__ inline int window_rows(const hop::Tile& t) {
+  return (S * t.th + 3 - S) * (S * t.tw + 3 - S);
+}
+// one window stage: its rows, then the chunk's a[32], b[32], to 512 bytes
+// (the 64-byte swizzle's period, for a TMA box)
+template <int S>
 __host__ __device__ inline int window_bytes(const hop::Tile& t) {
-  return (t.th + 2) * (t.tw + 2) * 64 + 2 * 32 * 4;
+  return (window_rows<S>(t) * 64 + 2 * 32 * 4 + 511) / 512 * 512;
 }
 // the weight ring (TMA: aligned to its swizzle's period), the window ring
-// and the weight ring's mbarriers; the epilogue's P x NC tile aliases them
+// and the two rings' mbarriers; the epilogue's P x NC tile aliases them
+template <int S>
 inline size_t smem_bytes(int P, int NC, const hop::Tile& t) {
   const size_t ring = (size_t)K1_STAGES * 3 * hop::SLAB_ROWS * NC * 2 +
-                      (size_t)K1_WSTAGES * window_bytes(t) + 8 * K1_STAGES;
+                      (size_t)K1_WSTAGES * window_bytes<S>(t) + 8 * (K1_STAGES + K1_WSTAGES);
   const size_t out = (size_t)P * NC * 2;
   return hop::ALIGN_PAD + (ring > out ? ring : out);
 }
 
-// each part's (9 C_i, D) weights in slab boxes (`hop::encode_slabs`)
-struct WeightMaps {
+// each part's (9 C_i, D) weights in slab boxes (`hop::encode_slabs`), and
+// in mode 0 at stride 1 the input image in window boxes
+struct Maps {
   CUtensorMap w[2];
+  CUtensorMap x;
 };
 
 // Parts p0, p1 (p1.C = 0: one part; their `w` unused, the maps carry the
-// weights). Wp = 0: K1's unpadded (N, H, W, C) layout; Wp > 0: K4a's padded
-// stream (N, H+2, Wp, C_i) in and out. Grid: N * tiles * (D / NC) CTAs,
-// the D slices of one tile adjacent.
-template <int P, int NC>
+// weights). Wp = 0: K1's unpadded (N, H, W, C) layout in and out; Wp > 0:
+// the padded stream (N, H+2, Wp, C_i) in and (N, H/S+2, Wp2, D) out. The
+// output grid is (H/S, W/S). Grid: N * tiles * (D / NC) CTAs, the D slices
+// of one tile adjacent.
+template <int P, int NC, int S>
 __global__ void __launch_bounds__(warps_of(P) * 32, P == 128 ? 1 : 2)
 affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __restrict__ bias,
-                    bf16* __restrict__ y, int H, int W, int Wp, int D, int mode,
-                    const __grid_constant__ WeightMaps maps) {
+                    bf16* __restrict__ y, int H, int W, int Wp, int Wp2, int D, int mode,
+                    const __grid_constant__ Maps maps) {
   constexpr int NTHR = warps_of(P) * 32;
   constexpr int WM = P == 128 ? 4 : P >= 32 ? 2 : 1, WN = warps_of(P) / WM;  // warps over rows, cols
   constexpr int MT = P / 16 / WM, NT = NC / 8 / WN;  // m16 and n8 tiles a warp
@@ -108,25 +150,47 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
 
-  const hop::Tile t = hop::tile_of(H, W, P);
+  const int OH = H / S, OW = W / S;  // the output grid
+  const hop::Tile t = hop::tile_of(OH, OW, P);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / WN, wn = warp % WN;
   const int slices = D / NC;
   const int cid = blockIdx.x / slices, n0 = (blockIdx.x % slices) * NC;
   const int n = cid / t.tiles, tile = cid % t.tiles;
   const int h0 = (tile / t.tiles_w) * t.th, w0 = (tile % t.tiles_w) * t.tw;
-  const int tw2 = t.tw + 2, R = (t.th + 2) * tw2, R4 = R * 4;
-  const int wbytes = window_bytes(t);
-  // the layout: pixel (hh, ww) of sample n at row (n * XH + hh + pad) * XW + ww + pad
+  // the window: wr input rows from (S h0 - 1, S w0 - 1); S = 1, rows of pw0 =
+  // tw + 2 pixels; S = 2, the even window cols (pw0 = tw + 1 a row, R0 rows)
+  // then the odd ones (tw a row)
+  const int wr = S * t.th + 3 - S, pw0 = t.tw + 3 - S, R0 = wr * pw0;
+  const int R = window_rows<S>(t), R4 = R * 4;
+  const int ih0 = S * h0 - 1, iw0 = S * w0 - 1;
+  const int wbytes = window_bytes<S>(t);
+  // the layouts: input pixel (hh, ww) of sample n at row (n * XH + hh + pad)
+  // * XW + ww + pad, output pixel (i, j) at (n * YH + i + pad) * YW + j + pad
   const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
+  const int YH = pad ? OH + 2 : OH, YW = pad ? Wp2 : OW;
   const int nch0 = p0.C / 32, nch = nch0 + p1.C / 32, nsteps = nch * 3;
   const uint32_t b_s = hop::smem_u32(smem);
   const uint32_t w_s = b_s + K1_STAGES * 3 * SLAB;
   unsigned char* win = smem + K1_STAGES * 3 * SLAB;
-  // the weight ring's mbarriers, one a stage, and each one's next phase
-  const uint32_t bar_s = w_s + K1_WSTAGES * wbytes;
-  uint32_t bph = 0;
+  // the weight ring's mbarriers, one a stage, then the window ring's, and
+  // each one's next phase
+  const uint32_t bar_s = w_s + K1_WSTAGES * wbytes, wbar_s = bar_s + 8 * K1_STAGES;
+  uint32_t bph = 0, wph = 0;
+  // mode 0 at stride 1: the windows by TMA (`maps.x`, one part)
+  const bool tma_win = S == 1 && mode == 0;
 
+  // the input position (hh, ww) of window row pix
+  auto at = [&](int pix, int& hh, int& ww) {
+    if (S == 1 || pix < R0) {
+      hh = ih0 + pix / pw0;
+      ww = iw0 + S * (pix % pw0);
+    } else {
+      const int q = pix - R0;
+      hh = ih0 + q / t.tw;
+      ww = iw0 + 2 * (q % t.tw) + 1;
+    }
+  };
   // the raw window of chunk g (zero outside the image) and its a, b into
   // window stage ws; chunks past part 0's are part 1's
   auto issue_window = [&](int g, int ws) {
@@ -135,9 +199,17 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
     const int C = q.C, c0 = (second ? g - nch0 : g) * 32;
     const bf16* xn = q.x + (long)n * XH * XW * C;
     const uint32_t base = w_s + ws * wbytes;
+    if (tma_win) {
+      if (tid == 0) {
+        hop::mbar_expect(wbar_s + 8 * ws, R * 64);
+        hop::tma_load_4d(base, &maps.x, c0, w0 - 1, h0 - 1, n, wbar_s + 8 * ws);
+      }
+      return;
+    }
     for (int v = tid; v < R4; v += NTHR) {
       const int pix = v >> 2, ch = v & 3;
-      const int hh = h0 - 1 + pix / tw2, ww = w0 - 1 + pix % tw2;
+      int hh, ww;
+      at(pix, hh, ww);
       const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
       hop::cp_async16_or_zero(base + hop::row64(pix, ch),
                               in ? xn + ((long)(hh + pad) * XW + ww + pad) * C + c0 + ch * 8 : xn,
@@ -154,7 +226,8 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
     const float* ab = reinterpret_cast<const float*>(base + R * 64);
     for (int v = lo + tid; v < hi; v += NTHR) {
       const int pix = v >> 2, ch = v & 3;
-      const int hh = h0 - 1 + pix / tw2, ww = w0 - 1 + pix % tw2;
+      int hh, ww;
+      at(pix, hh, ww);
       if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
       bf16* p = reinterpret_cast<bf16*>(base + hop::row64(pix, ch));
       float v8[8];
@@ -175,12 +248,16 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
     }
   };
 
-  // this lane's ldmatrix row of each m16 tile: its window pixel at tap (0, 0)
-  int apix[MT];
+  // this lane's ldmatrix row of each m16 tile: its window row at tap (0, 0)
+  // (S = 2: in the even-col plane; apix1 in the odd one)
+  int apix[MT], apix1[MT];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int m = wm * (P / WM) + mt * 16 + (lane & 15);
-    apix[mt] = m < t.th * t.tw ? (m / t.tw) * tw2 + m % t.tw : 0;
+    const bool in = m < t.th * t.tw;
+    const int i = in ? m / t.tw : 0, j = in ? m % t.tw : 0;
+    apix[mt] = S * i * pw0 + j;
+    apix1[mt] = R0 + 2 * i * t.tw + j;
   }
   float acc[MT][NT][4];
 #pragma unroll
@@ -191,7 +268,7 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
   if (tid == 0) {
-    for (int i = 0; i < K1_STAGES; ++i) hop::mbar_init(bar_s + 8 * i, 1);
+    for (int i = 0; i < K1_STAGES + K1_WSTAGES; ++i) hop::mbar_init(bar_s + 8 * i, 1);
     hop::fence_mbar_init();
   }
   __syncthreads();
@@ -210,6 +287,10 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
     // before the TMA writes)
     hop::mbar_wait(bar_s + 8 * (j % K1_STAGES), (bph >> (j % K1_STAGES)) & 1);
     bph ^= 1u << (j % K1_STAGES);
+    if (tma_win && di == 0) {
+      hop::mbar_wait(wbar_s + 8 * (g % K1_WSTAGES), (wph >> (g % K1_WSTAGES)) & 1);
+      wph ^= 1u << (g % K1_WSTAGES);
+    }
     hop::cp_wait<1>();
     hop::fence_proxy_async();
     __syncthreads();
@@ -222,13 +303,16 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
     const uint32_t bb = b_s + (j % K1_STAGES) * 3 * SLAB;
 #pragma unroll
     for (int dj = 0; dj < 3; ++dj) {
-      const int off = di * tw2 + dj;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         uint32_t af[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          hop::ldsm_x4(wb + hop::row64(apix[mt] + off, 2 * kk + (lane >> 4)), af[mt]);
+        for (int mt = 0; mt < MT; ++mt) {
+          // tap (di, dj)'s row: S = 2, plane dj & 1 at col j + (dj == 2)
+          const int r = S == 1 ? apix[mt] + di * pw0 + dj
+                        : dj == 1 ? apix1[mt] + di * t.tw : apix[mt] + di * pw0 + dj / 2;
+          hop::ldsm_x4(wb + hop::row64(r, 2 * kk + (lane >> 4)), af[mt]);
+        }
         hop::mma_slab<MT, NT>(acc, bb + dj * SLAB, kk, af, wn * (NC / WN), lane);
       }
     }
@@ -252,74 +336,90 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
       }
   }
   __syncthreads();
-  // padded: the tiles at the image's first and last col also zero the pad cols
+  // padded: the tiles at the output's first and last col also zero the pad cols
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int v = tid; v < P * (NC / 8); v += NTHR) {
     const int m = v / (NC / 8), ch = v % (NC / 8);
-    const int hh = h0 + m / t.tw, ww = w0 + m % t.tw;
-    if (m >= t.th * t.tw || hh >= H || ww >= W) continue;
-    bf16* o = y + (((long)n * XH + hh + pad) * XW + ww + pad) * D + n0 + ch * 8;
+    const int i = h0 + m / t.tw, jj = w0 + m % t.tw;
+    if (m >= t.th * t.tw || i >= OH || jj >= OW) continue;
+    bf16* o = y + (((long)n * YH + i + pad) * YW + jj + pad) * D + n0 + ch * 8;
     *reinterpret_cast<uint4*>(o) =
         *reinterpret_cast<const uint4*>(smem + m * RB + ((ch ^ (m & 7)) << 4));
-    if (pad && ww == 0) *reinterpret_cast<uint4*>(o - D) = zero;
-    if (pad && ww == W - 1)
-      for (int k = 1; k < Wp - W; ++k) *reinterpret_cast<uint4*>(o + (long)k * D) = zero;
+    if (pad && jj == 0) *reinterpret_cast<uint4*>(o - D) = zero;
+    if (pad && jj == OW - 1)
+      for (int k = 1; k < YW - OW; ++k) *reinterpret_cast<uint4*>(o + (long)k * D) = zero;
   }
 }
 
-template <int P, int NC>
+template <int P, int NC, int S>
 cudaError_t launch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
-                        int Wp, int D, int mode, cudaStream_t stream) {
-  const hop::Tile t = hop::tile_of(H, W, P);
-  const size_t smem = smem_bytes(P, NC, t);
+                        int Wp, int Wp2, int D, int mode, cudaStream_t stream) {
+  const hop::Tile t = hop::tile_of(H / S, W / S, P);
+  const size_t smem = smem_bytes<S>(P, NC, t);
   const long grid = (long)N * t.tiles * (D / NC);
   if (smem > 232448 || grid > 0x7fffffffL) return cudaErrorInvalidValue;
-  auto kernel = affine_conv3x3_bf16<P, NC>;
-  WeightMaps maps = {};
+  auto kernel = affine_conv3x3_bf16<P, NC, S>;
+  Maps maps = {};
   for (int i = 0; i < 2; ++i)
     if (p[i].C && hop::encode_slabs(&maps.w[i], p[i].w, (uint64_t)9 * p[i].C, (uint64_t)D))
       return cudaErrorInvalidValue;
+  if (S == 1 && mode == 0) {  // the image of the one part as (C, W, H, N), past any pads
+    const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
+    const uint64_t C = p[0].C;
+    const uint64_t dims[4] = {C, (uint64_t)W, (uint64_t)H, (uint64_t)N};
+    const uint64_t strides[3] = {C * 2, C * 2 * XW, C * 2 * XW * XH};
+    const uint32_t box[4] = {32, (uint32_t)t.tw + 2, (uint32_t)t.th + 2, 1};
+    if (hop::encode_tiled(&maps.x, p[0].x + (pad ? (XW + 1) * C : 0), 4, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_64B))
+      return cudaErrorInvalidValue;
+  }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)grid, warps_of(P) * 32, smem, stream>>>(
-      p[0], p[1], static_cast<const float*>(bias), static_cast<bf16*>(y), H, W, Wp, D, mode, maps);
+      p[0], p[1], static_cast<const float*>(bias), static_cast<bf16*>(y), H, W, Wp, Wp2, D, mode,
+      maps);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
-                        int Wp, int D, int mode, int P, cudaStream_t s) {
+// the instantiation of the plan's P and the NC that D takes
+template <int S>
+cudaError_t dispatch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
+                          int Wp, int Wp2, int D, int mode, int P, cudaStream_t s) {
   if (D % 128 == 0) {
-    if (P == 128) return launch_bf16<128, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
-    if (P == 64) return launch_bf16<64, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
-    if (P == 32) return launch_bf16<32, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
-    if (P == 16) return launch_bf16<16, 128>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 128) return launch_bf16<128, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 64) return launch_bf16<64, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 32) return launch_bf16<32, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 16) return launch_bf16<16, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
   } else {
-    if (P == 128) return launch_bf16<128, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
-    if (P == 64) return launch_bf16<64, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
-    if (P == 32) return launch_bf16<32, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
-    if (P == 16) return launch_bf16<16, 64>(p, bias, y, N, H, W, Wp, D, mode, s);
+    if (P == 128) return launch_bf16<128, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 64) return launch_bf16<64, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 32) return launch_bf16<32, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 16) return launch_bf16<16, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // -- float32 (tests only): a plain CUDA-core implicit GEMM --
 
-// The same parts and layouts as the bf16 body; parts, then taps, then
-// 32-channel chunks, into one accumulator.
+// The same parts, layouts and stride as the bf16 body; parts, then taps,
+// then 32-channel chunks, into one accumulator.
 __global__ void __launch_bounds__(THREADS)
 affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __restrict__ bias,
-                   float* __restrict__ y, int N, int H, int W, int Wp, int D, int mode) {
+                   float* __restrict__ y, int N, int H, int W, int Wp, int Wp2, int D, int mode,
+                   int S) {
   using T = float;
   __shared__ __align__(128) T As[BM][Lds<T>::A];
   __shared__ __align__(128) T Bs[BK][Lds<T>::B];
   __shared__ __align__(128) float Cs[BM][C_LD];
 
-  const long M = (long)N * H * W;
+  const int OH = H / S, OW = W / S;
+  const long M = (long)N * OH * OW;
   const long m0 = (long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
+  const int YH = pad ? OH + 2 : OH, YW = pad ? Wp2 : OW;
 
   // each thread gathers the same two output rows for the whole K loop
   constexpr int SLOTS = (BM * BK) / (THREADS * 8);
@@ -333,10 +433,10 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
     long m = m0 + rrow[s];
     rvalid[s] = m < M;
     long mm = rvalid[s] ? m : 0;
-    rn[s] = (int)(mm / ((long)H * W));
-    int rem = (int)(mm % ((long)H * W));
-    rh[s] = rem / W;
-    rw[s] = rem % W;
+    rn[s] = (int)(mm / ((long)OH * OW));
+    int rem = (int)(mm % ((long)OH * OW));
+    rh[s] = rem / OW;
+    rw[s] = rem % OW;
   }
 
   Accum<T> acc;
@@ -348,7 +448,7 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
       for (int c0 = 0; c0 < q.C; c0 += BK) {
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) {
-          const int hh = rh[s] + di, ww = rw[s] + dj;
+          const int hh = S * rh[s] + di, ww = S * rw[s] + dj;
           T* dst = &As[rrow[s]][rcg[s]];
           if (!rvalid[s] || hh < 0 || hh >= H || ww < 0 || ww >= W) {
             zero8(dst);  // the halo is zero after the activation
@@ -379,37 +479,39 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
     const int r = idx / BN, c = idx % BN;
     const long m = m0 + r;
     if (m >= M) continue;
-    const long n = m / ((long)H * W);
-    const int rem = (int)(m % ((long)H * W));
-    const int h = rem / W, w = rem % W;
-    const long o = ((n * XH + h + pad) * XW + w + pad) * D + n0 + c;
+    const long n = m / ((long)OH * OW);
+    const int rem = (int)(m % ((long)OH * OW));
+    const int i = rem / OW, j = rem % OW;
+    const long o = ((n * YH + i + pad) * YW + j + pad) * D + n0 + c;
     y[o] = Cs[r][c] + bias[n0 + c];
-    if (pad) zero_pad_cols(y, o, w, W, Wp, D);
+    if (pad) zero_pad_cols(y, o, j, OW, Wp2, D);
   }
 }
 
 cudaError_t launch_f32(const Part<float>* p, const void* bias, void* y, int N, int H, int W,
-                       int Wp, int D, int mode, cudaStream_t stream) {
-  const long M = (long)N * H * W;
+                       int Wp, int Wp2, int D, int mode, int S, cudaStream_t stream) {
+  const long M = (long)N * (H / S) * (W / S);
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(D / BN));
   affine_conv3x3_f32<<<grid, THREADS, 0, stream>>>(p[0], p[1], static_cast<const float*>(bias),
-                                                   static_cast<float*>(y), N, H, W, Wp, D, mode);
+                                                   static_cast<float*>(y), N, H, W, Wp, Wp2, D,
+                                                   mode, S);
   return cudaGetLastError();
 }
 
-// both entries: two parts from {x0, a0, b0, w0, x1, a1, b1, w1}
+// every entry: two parts from {x0, a0, b0, w0, x1, a1, b1, w1}
 int launch(const void* const* pa, const int* C, const void* bias, void* y, int N, int H, int W,
-           int Wp, int D, int mode, int P, int dtype, void* stream) {
+           int Wp, int Wp2, int D, int mode, int S, int P, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     Part<float> p[2];
     parts_from(pa, C, p);
-    return (int)launch_f32(p, bias, y, N, H, W, Wp, D, mode, s);
+    return (int)launch_f32(p, bias, y, N, H, W, Wp, Wp2, D, mode, S, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   Part<bf16> p[2];
   parts_from(pa, C, p);
-  return (int)launch_bf16(p, bias, y, N, H, W, Wp, D, mode, P, s);
+  if (S == 2) return (int)dispatch_bf16<2>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
+  return (int)dispatch_bf16<1>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
 }
 
 }  // namespace
@@ -427,7 +529,15 @@ extern "C" int v2a_affine_conv3x3(const void* x, const void* a, const void* b, c
     return (int)cudaErrorInvalidValue;
   const void* pa[8] = {x, a, b, w, nullptr, nullptr, nullptr, nullptr};
   const int Cs[2] = {C, 0};
-  return v2a::launch(pa, Cs, bias, y, N, H, W, 0, D, mode, P, dtype, stream);
+  return v2a::launch(pa, Cs, bias, y, N, H, W, 0, 0, D, mode, 1, P, dtype, stream);
+}
+
+// K10: K1 in mode 0. x (N, H, W, C), w (9 C, D) tap-major, bias (D)
+// float32, y (N, H, W, D); P from `affine_conv_plan(N, H, W, C, D)`.
+extern "C" int v2a_spatial_conv3x3(const void* x, const void* w, const void* bias, void* y,
+                                   int N, int H, int W, int C, int D, int P, int dtype,
+                                   void* stream) {
+  return v2a_affine_conv3x3(x, nullptr, nullptr, w, bias, y, N, H, W, C, D, 0, P, dtype, stream);
 }
 
 // K4a. dtype as K1's. Part i: x_i (N, H+2, Wp, C_i), a_i / b_i (N, C_i)
@@ -445,5 +555,23 @@ extern "C" int v2a_affine_conv3x3_padded(const void* x0, const void* a0, const v
     return (int)cudaErrorInvalidValue;
   const void* pa[8] = {x0, a0, b0, w0, x1, a1, b1, w1};
   const int Cs[2] = {C0, C1};
-  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, D, silu ? 2 : 1, P, dtype, stream);
+  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wp, D, silu ? 2 : 1, 1, P, dtype, stream);
+}
+
+// K8. dtype and mode as K1's. x (N, H+2, Wp, C) at the full size, w (9 C,
+// D), y (N, H/2+2, Wp2, D). P: pixels per tile, from `affine_conv_plan(N,
+// H, W, C, D, stride=2)`. Needs even H and W, C % 32 == 0, D % 64 == 0,
+// Wp % 8 == 0, Wp >= W + 2, Wp2 % 8 == 0, Wp2 >= W/2 + 2, 16-byte aligned
+// contiguous buffers.
+extern "C" int v2a_downconv3x3_padded(const void* x, const void* a, const void* b, const void* w,
+                                      const void* bias, void* y, int N, int H, int W, int Wp,
+                                      int Wp2, int C, int D, int mode, int P, int dtype,
+                                      void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || H % 2 || W % 2 || C <= 0 || C % 32 || D <= 0 || D % 64 ||
+      Wp % 8 || Wp < W + 2 || Wp2 % 8 || Wp2 < W / 2 + 2 || mode < 0 || mode > 2 ||
+      (mode && (!a || !b)))
+    return (int)cudaErrorInvalidValue;
+  const void* pa[8] = {x, a, b, w, nullptr, nullptr, nullptr, nullptr};
+  const int Cs[2] = {C, 0};
+  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wp2, D, mode, 2, P, dtype, stream);
 }

@@ -30,7 +30,8 @@ Two further serving routings of the JAX package add:
 
 - `fused_downconv3x3_padded` (K8): the stride-2 3x3 conv of the Downsample
   from a padded stream into one at half the size (`V2A_DOWNCONV=1` there,
-  `VideoUNet(downconv=True)` here). `csrc/downconv3x3_padded.cu`.
+  `VideoUNet(downconv=True)` here). A fourth entry of K1's kernel,
+  `csrc/affine_conv3x3.cu`, at stride 2.
 - `fused_spatial_attention_padded` (K9): GroupNorm affine, QKV, the legacy
   masked attention, projection and residual in one call, with the output's
   statistics (`V2A_PALLAS_ATTN=1` there, `VideoUNet(attn_kernel=True)`
@@ -43,8 +44,8 @@ Two more serving routings of the JAX package add:
 
 - `spatial_conv3x3` (K10): the plain 3x3 conv + bias of the routing
   without the K1 gate (`V2A_SPATIAL2_MIN_CH=0` with `PERF_PALLAS_SPATIAL`
-  there, `VideoUNet(spatial2=False, pallas_spatial=True)` here).
-  `csrc/spatial_conv3x3.cu`.
+  there, `VideoUNet(spatial2=False, pallas_spatial=True)` here). A third
+  entry of K1's kernel, `csrc/affine_conv3x3.cu`, in its plain-conv mode.
 - `temporal_conv_fused_hw` (K11): K2's function on the (H*W, B, F, C) view
   (`PERF_TCONV_HW` there, `VideoUNet(tconv_hw=True)` here).
   `csrc/temporal_conv_hw.cu`.
@@ -133,7 +134,7 @@ KERNELS = {
         replaces="v2a_tpu/ops/resblock_kernels.py:3329",
     ),
     "fused_downconv3x3_padded": dict(
-        source="v2a_tpu_torch/csrc/downconv3x3_padded.cu",
+        source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1514",
     ),
     "fused_spatial_attention_padded": dict(
@@ -146,7 +147,7 @@ KERNELS = {
         module="v2a_tpu_torch.ops.group_norm",
     ),
     "spatial_conv3x3": dict(
-        source="v2a_tpu_torch/csrc/spatial_conv3x3.cu",
+        source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:2796",
     ),
     "temporal_conv_fused_hw": dict(
@@ -281,10 +282,10 @@ def fused_affine_conv3x3_plain(
 
 
 class AffineConvPlan(NamedTuple):
-    """One bf16 K1 or K4a launch: pixels per tile (`hop::tile_of`; 128 with sixteen
-    warps, else eight), output channels
-    per CTA, pixel tiles over (N, H, W), CTAs in the grid and shared memory
-    per CTA in bytes."""
+    """One bf16 K1, K4a, K10 or K8 launch: pixels per tile (`hop::tile_of`;
+    128 with sixteen warps, else eight), output channels per CTA, pixel tiles
+    over (N, H / stride, W / stride), CTAs in the grid and shared memory per
+    CTA in bytes."""
     pixels: int
     nc: int
     tiles: int
@@ -292,28 +293,40 @@ class AffineConvPlan(NamedTuple):
     smem: int
 
 
-def affine_conv_plan(n: int, h: int, w: int, c: int, d: int) -> AffineConvPlan:
+def _window_rows(th: int, tw: int, stride: int) -> int:
+    """64-byte rows of one K1 window stage (`window_rows` in
+    csrc/affine_conv3x3.cu): (th+2)(tw+2), or at stride 2 (2th+1)(2tw+1)."""
+    return (stride * th + 3 - stride) * (stride * tw + 3 - stride)
+
+
+def affine_conv_plan(n: int, h: int, w: int, c: int, d: int, stride: int = 1) -> AffineConvPlan:
     """The launch K1's bf16 body makes at this shape (csrc/affine_conv3x3.cu;
     K4a's launches take it with c the parts' summed channels, since the
-    shared memory does not depend on C); it depends on the shape only. A CTA
-    owns P pixels of one sample x NC output channels (128, or 64 where 128
-    does not divide D); its shared memory holds a 3-stage ring of a tap
-    row's three (32 x NC) weight slabs and a 3-stage ring of (th+2) x (tw+2)
-    x 32 windows with their a, b (the epilogue's P x NC tile aliases them).
-    Of P = 128 (sixteen warps), 64, 32, 16 (eight) whose shared memory fits,
-    a larger one only where it needs fewer tiles than the next smaller, the
-    largest whose grid has a CTA per SM (`HOPPER_SMS`), else 16 (the most
-    CTAs)."""
+    shared memory does not depend on C; K10's as K1's; K8's with stride 2,
+    (h, w) its full-size input); it depends on the shape only. A CTA owns P
+    output pixels of one sample x NC output channels (128, or 64 where 128
+    does not divide D), tiles over the (h / stride, w / stride) output grid;
+    its shared memory holds a 3-stage ring of a tap row's three (32 x NC)
+    weight slabs and a 3-stage ring of input windows with their a, b
+    (`_window_rows`, each stage 512-byte aligned for a TMA box; the
+    epilogue's P x NC tile aliases them). Of P = 128
+    (sixteen warps), 64, 32, 16 (eight) whose shared memory fits, a larger
+    one only where it needs fewer tiles than the next smaller, the largest
+    whose grid has a CTA per SM (`HOPPER_SMS`), else 16 (the most CTAs)."""
     if c % 32 or d % 64:
         raise ValueError(f"K1 needs C % 32 == 0 and D % 64 == 0, got C={c} D={d}")
+    if stride not in (1, 2) or h % stride or w % stride:
+        raise ValueError(f"stride {stride} needs H and W divisible by it, got {h}x{w}")
+    oh, ow = h // stride, w // stride
     nc = 128 if d % 128 == 0 else 64
     fits = []
     for p in (128, 64, 32, 16):
-        th, tw, tiles = _hop_tile(h, w, p)
-        ring = (_HOP_STAGES * 3 * _HOP_KSTEP * nc * 2 + 3 * ((th + 2) * (tw + 2) * 64 + 256)
-                + 8 * _HOP_STAGES)
+        th, tw, tiles = _hop_tile(oh, ow, p)
+        # three windows with their a, b, each to 512 bytes, and six mbarriers
+        stage = -(-(_window_rows(th, tw, stride) * 64 + 256) // 512) * 512
+        ring = _HOP_STAGES * 3 * _HOP_KSTEP * nc * 2 + 3 * stage + 8 * 2 * _HOP_STAGES
         smem = _TMA_ALIGN_PAD + max(ring, p * nc * 2)
-        if smem <= HOPPER_SMEM and (p == 16 or tiles < _hop_tile(h, w, p // 2)[2]):
+        if smem <= HOPPER_SMEM and (p == 16 or tiles < _hop_tile(oh, ow, p // 2)[2]):
             fits.append(AffineConvPlan(p, nc, n * tiles, n * tiles * (d // nc), smem))
     return next((pl for pl in fits if pl.grid >= HOPPER_SMS), fits[-1])
 
@@ -338,7 +351,8 @@ def fused_affine_conv3x3(
     of K3's mainloop on the unpadded layout: a CTA of sixteen (P = 128) or
     eight warps owns a tile of P pixels x 128 output channels (64 where 128
     does not divide D; `affine_conv_plan`); per 32-channel chunk the raw
-    window with its halo comes by cp.async into a 3-stage ring and is
+    window with its halo comes by cp.async into a 3-stage ring (without a/b:
+    one TMA box, the halo zero-filled by the map's bounds) and is
     activated once in place (positions outside the image selected out), the
     nine taps read it at shifted ldmatrix rows into mma.sync m16n8k16, the
     weight slabs come by TMA through their own 3-stage ring; bias, one
@@ -1220,12 +1234,16 @@ def fused_downconv3x3_padded(x, kernel, bias, hw, a=None, b=None, silu=False):
     cols written, pad rows not. The SAME halo is (1, 1) on both sides, as the
     JAX module's explicit padding.
 
-    Kernel note (csrc/downconv3x3_padded.cu): bound by bytes at 128^2 (at
-    N = 56: 235 MB of interior in, 59 MB out, 67.6 GFLOP) and by operations at 64^2;
-    K4a's implicit
-    GEMM with a stride-2 gather: output pixel (i, j) takes padded (2i + di,
-    2j + dj), the halo taps are skipped (zero after the activation, pad
-    values never read), and the epilogue zeroes the half-size pad cols.
+    Kernel note (csrc/affine_conv3x3.cu): K1's bf16 body at stride 2 on
+    K4a's padded addressing, with K1's plan over the output grid
+    (`affine_conv_plan(..., stride=2)`): output pixel (i, j) is K1's SAME
+    conv centred on interior (2i, 2j). Per 32-channel chunk a tile's
+    (2th+1) x (2tw+1) input window comes by cp.async (the interior test as
+    the zero-fill predicate: pad values are never loaded) into two
+    column-parity planes, so each ldmatrix reads consecutive rows; weight
+    slabs by TMA; K1's steps and epilogue, the edge tiles also writing the
+    half-size zero pad cols. Its interior is bit-equal to K1 on x's interior
+    at even pixels.
     """
     _no_grad_inputs("fused_downconv3x3_padded", x, kernel, bias, a, b)
     if x.device.type == "cpu":
@@ -1244,12 +1262,13 @@ def fused_downconv3x3_padded(x, kernel, bias, hw, a=None, b=None, silu=False):
     w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
     bias32 = bias.float().contiguous()
     _check_cuda(x, w2d, bias32, a32, b32)
+    plan = affine_conv_plan(n, h, w, c, d, stride=2)
     y = torch.empty((n, hp2, wp2, d), dtype=x.dtype, device=x.device)
     mode = 0 if a32 is None else (2 if silu else 1)
-    fn = _lib("downconv3x3_padded", "v2a_downconv3x3_padded", 6, 9)
+    fn = _lib("affine_conv3x3", "v2a_downconv3x3_padded", 6, 10)
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, wp,
-                wp2, c, d, mode, _DTYPE_CODE[x.dtype], _stream(x))
+                wp2, c, d, mode, plan.pixels, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "fused_downconv3x3_padded")
     launches["fused_downconv3x3_padded"] += 1
     return y
@@ -1622,7 +1641,7 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     return (y, stats) if want_stats else y
 
 
-# -- K10: the plain 3x3 conv over halo'd row bands -----------------------------------
+# -- K10: the plain 3x3 conv + bias -------------------------------------------------
 
 
 def spatial_conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -1639,11 +1658,13 @@ def spatial_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -
     x: (N, H, W, C), already normed by the caller; kernel (3, 3, C, D) HWIO;
     bias (D,). Returns (N, H, W, D) in x.dtype.
 
-    Kernel note (csrc/spatial_conv3x3.cu): bound by operations; a block owns
-    64 output pixels x 64 channels and per 32-channel step loads the band of
-    rows (and cols) those pixels need, with its one-pixel halo, into shared
-    memory once, then runs the nine shifted taps out of it on the tensor
-    cores. Out-of-frame taps are zero cells, never a padded copy of x.
+    Kernel note (csrc/affine_conv3x3.cu): bound by operations; K1's bf16
+    body and plan in its plain-conv mode (no a, b copied, no activation
+    pass), so bit-equal to `fused_affine_conv3x3` without an affine: per
+    32-channel chunk a P-pixel tile's window with its one-pixel halo comes
+    as one TMA box (zero-filled outside the frame by the map's bounds, no
+    padded copy of x), the nine taps read it at shifted ldmatrix rows into
+    mma.sync, the weight slabs by TMA; bias, one rounding, 16-byte stores.
     """
     _no_grad_inputs("spatial_conv3x3", x, kernel, bias)
     n, h, w, c = x.shape
@@ -1657,10 +1678,11 @@ def spatial_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -
     w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
     bias32 = bias.float().contiguous()
     _check_cuda(x, w2d, bias32)
+    plan = affine_conv_plan(n, h, w, c, d)
     y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
-    fn = _lib("spatial_conv3x3", "v2a_spatial_conv3x3", 4, 6)
+    fn = _lib("affine_conv3x3", "v2a_spatial_conv3x3", 4, 7)
     with torch.cuda.device(x.device):
-        rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, c, d,
+        rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, c, d, plan.pixels,
                 _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "spatial_conv3x3")
     launches["spatial_conv3x3"] += 1

@@ -1,7 +1,7 @@
 """Where the hand-written Hopper kernels spend their time, on the card.
 
     python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] \
-        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b]
+        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
@@ -20,13 +20,18 @@ head 64 against the QKV and projection matmuls around
 (`temporal_conv_padded`) at the padded forward's most called and costliest
 signatures (K4b also at padded_mega_off's costliest) against one matmul of
 the frame-stacked (B*F*S, 3C) operand (K4b: and one of its skip parts),
-with the host's ms per call beside the card's; ms by CUDA events over
+with the host's ms per call beside the card's, K10 (`spatial_conv3x3`) at
+its costliest and most called signatures of a spatial_k10_k11 forward and
+K8 (`fused_downconv3x3_padded`) at its two of padded_k8_k9, against
+`F.conv2d` (K8: at stride 2 on the interior); ms by CUDA events over
 chained calls, with each launch's plan. `--ablate` also times copies of
 the kernels with one part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation,
 the conv products, the temporal epilogue or the whole temporal phase; for
 K6 (`csrc/wgrad_conv3x3.cu`) the activation, the products or the refill of
-the copy ring; for K1 and K4a (`csrc/affine_conv3x3.cu`, one body) the
-activation, the products, the refill of the weight ring or of both rings;
+the copy ring; for K1, K4a, K10 and K8 (`csrc/affine_conv3x3.cu`, one body) the
+activation, the products, the refill of the weight ring, of the window ring
+or of both rings, or (not a cut) mode 0's window by cp.async in place of
+its TMA box;
 for K14 (`csrc/winograd_conv3x3.cu`) the component transform, the
 products, the refill of the weight ring or all parity adds but one a
 component; for K9 (`csrc/spatial_attention_padded.cu`) the attention (the
@@ -70,6 +75,12 @@ K1_CASES = [(56, 16, 16, 512, 512, True, "serve", 10), (56, 8, 8, 640, 640, True
 # K14 at the perf lab's level shapes and K10's most called 16^2 and 8^2 ones (N, H, W, C, D)
 K14_CASES = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (56, 32, 32, 384, 384),
              (56, 16, 16, 512, 512), (56, 8, 8, 640, 640)]
+# K10 at a B=8 spatial_k10_k11 forward's costliest signature and its two
+# most called: (N, H, W, C, D, calls per forward)
+K10_CASES = [(56, 128, 128, 256, 256, 1), (56, 128, 128, 128, 128, 12), (56, 8, 8, 640, 640, 15)]
+# K8 at its two calls of a B=8 padded_k8_k9 forward, bare as the Downsample
+# calls it: (N, (H, W) of its full-size input, C, D, calls per forward)
+K8_CASES = [(56, (128, 128), 128, 128, 1), (56, (64, 64), 256, 256, 1)]
 # K4a at the B=8 padded forward's largest call (two parts) and its most
 # called shape: (N, (H, W), parts' C, D, calls per forward)
 K4A_CASES = [(56, (64, 64), (384, 256), 256, 1), (56, (32, 32), (384,), 384, 6)]
@@ -94,6 +105,11 @@ _K1_FIRST_WAITS = (
     "    if (j < K1_STAGES - 1)\n"
     "      hop::mbar_wait(bar_s + 8 * (j % K1_STAGES), (bph >> (j % K1_STAGES)) & 1);")
 _K1_WEIGHT_REFILL = ("    if (j + K1_STAGES - 1 < nsteps) issue_b(j + K1_STAGES - 1);\n", "")
+# the window ring's refill: the first two chunks' windows stay, the rest are
+# never copied (mode 0's TMA windows: waited on for those two alone)
+_K1_WINDOW_REFILL = [
+    ("    if (di == 0 && g + 2 < nch) issue_window(g + 2, (g + 2) % K1_WSTAGES);\n", ""),
+    ("    if (tma_win && di == 0) {", "    if (tma_win && di == 0 && g < 2) {")]
 
 # K2 / K4b's weight slabs come by TMA too: the same for their refill
 _TC_FIRST_WAITS = (
@@ -116,12 +132,14 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
     "k6_no_refill": (("k6",), [("      issue((j + WSTAGES - 1) % WSTAGES, ic);\n", "")]),
     "k1_no_activation": (("k1", "k4a"), [("    if (mode && g + 1 < nch) activate(",
                                           "    if (false) activate(")]),
-    "k1_no_products": (("k1", "k4a"), [(
+    "k1_no_products": (("k1", "k4a", "k10", "k8"), [(
         "        hop::mma_slab<MT, NT>(acc, bb + dj * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
-    "k1_no_weight_refill": (("k1", "k4a"), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
-    "k1_no_refill": (("k1",), [
-        _K1_FIRST_WAITS, _K1_WEIGHT_REFILL,
-        ("    if (di == 0 && g + 2 < nch) issue_window(g + 2, (g + 2) % K1_WSTAGES);\n", "")]),
+    "k1_no_weight_refill": (("k1", "k4a", "k10", "k8"), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
+    "k1_no_window_refill": (("k1", "k10", "k8"), _K1_WINDOW_REFILL),
+    "k1_no_refill": (("k1", "k10", "k8"), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL] + _K1_WINDOW_REFILL),
+    # mode 0's window by cp.async, as the other modes copy theirs, in place of its TMA box
+    "k1_window_cp_async": (("k1", "k10"), [("  const bool tma_win = S == 1 && mode == 0;",
+                                            "  const bool tma_win = false;")]),
     "k14_no_transform": (("k14",), [("      if (foff[i] >= 0) {", "      if (false) {")]),
     "k14_no_products": (("k14",), [(
         "        hop::mma_slab<1, NT>(mab, bb + u * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
@@ -273,6 +291,39 @@ def _k14_runs(args):
             lambda: rk.winograd_weights(k).to(x.dtype))
 
 
+def _k10_args(n, h, w, c, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
+    k = torch.randn(3, 3, c, d, generator=gen, device=dev) * (9 * c) ** -0.5
+    return x, k, 0.1 * torch.randn(d, generator=gen, device=dev)
+
+
+def _k10_runs(args):
+    """(K10's call, `F.conv2d` on the same input, channels_last bf16)"""
+    x, k, bias = args
+    wl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    xl, bl = x.permute(0, 3, 1, 2), bias.bfloat16()
+    return (lambda: rk.spatial_conv3x3(*args),
+            lambda: torch.nn.functional.conv2d(xl, wl, bl, padding=1))
+
+
+def _k8_args(n, hw, c, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = rk._place(torch.randn(n, *hw, c, generator=gen, device=dev), *rk.padded_hw(*hw))
+    k = torch.randn(3, 3, c, d, generator=gen, device=dev) * (9 * c) ** -0.5
+    return x.bfloat16(), k, 0.1 * torch.randn(d, generator=gen, device=dev), hw
+
+
+def _k8_runs(args):
+    """(K8's call, `F.conv2d` at stride 2 on the interior, channels_last bf16)"""
+    x, k, bias, hw = args
+    xl = rk._interior(x, hw).contiguous().permute(0, 3, 1, 2)
+    wl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bl = bias.bfloat16()
+    return (lambda: rk.fused_downconv3x3_padded(*args),
+            lambda: torch.nn.functional.conv2d(xl, wl, bl, stride=2, padding=1))
+
+
 def _k4a_args(n, hw, cins, d, dev):
     gen = torch.Generator(device=dev).manual_seed(4)
 
@@ -401,7 +452,7 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
-    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b",
+    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8",
                     help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -414,6 +465,8 @@ def main(argv=None) -> List[dict]:
     k1 = [(c, _k1_args(*c[:6], dev)) for c in K1_CASES] if "k1" in kernels else []
     k14 = [(c, _k14_args(*c, dev)) for c in K14_CASES] if "k14" in kernels else []
     k4a = [(c, _k4a_args(*c[:4], dev)) for c in K4A_CASES] if "k4a" in kernels else []
+    k10 = [(c, _k10_args(*c[:5], dev)) for c in K10_CASES] if "k10" in kernels else []
+    k8 = [(c, _k8_args(*c[:4], dev)) for c in K8_CASES] if "k8" in kernels else []
     k9 = [(c, _k9_args(*c[:4], dev)) for c in K9_CASES] if "k9" in kernels else []
     tconv = [(c, _tconv_args(*c[:7], dev)) for c in TCONV_CASES if c[0] in kernels]
     with torch.no_grad():
@@ -458,6 +511,23 @@ def main(argv=None) -> List[dict]:
                        grid=plan.grid)
             rows.append(row)
             print(row, flush=True)
+        for case, args in k10:
+            kernel_fn, library = _k10_runs(args)
+            plan = rk.affine_conv_plan(*case[:5])
+            row = dict(kernel="k10", shape=case[:5], calls=case[5], ms=time_ms(kernel_fn),
+                       library_ms=time_ms(library), pixels=plan.pixels, nc=plan.nc,
+                       grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
+        for case, args in k8:
+            kernel_fn, library = _k8_runs(args)
+            n, (h, w), c, d, calls = case
+            plan = rk.affine_conv_plan(n, h, w, c, d, stride=2)
+            row = dict(kernel="k8", shape=case[:4], calls=calls, ms=time_ms(kernel_fn),
+                       library_ms=time_ms(library), pixels=plan.pixels, nc=plan.nc,
+                       grid=plan.grid, smem=plan.smem)
+            rows.append(row)
+            print(row, flush=True)
         for case, args in k9:
             kernel_fn, library = _k9_runs(args)
             n, (h, w), c, ch, calls = case
@@ -498,9 +568,10 @@ def main(argv=None) -> List[dict]:
                             print(row, flush=True)
                     for kernel, cases_k, runs in (("k6", k6, _k6_runs), ("k1", k1, _k1_runs),
                                                   ("k14", k14, _k14_runs),
-                                                  ("k4a", k4a, _k4a_runs), ("k9", k9, _k9_runs)):
+                                                  ("k4a", k4a, _k4a_runs), ("k9", k9, _k9_runs),
+                                                  ("k10", k10, _k10_runs), ("k8", k8, _k8_runs)):
                         for case, args in cases_k if kernel in cut_kernels else ():
-                            shape = case[:4] if kernel in ("k4a", "k9") else case[:5]
+                            shape = case[:4] if kernel in ("k4a", "k9", "k8") else case[:5]
                             row = dict(variant=name, kernel=kernel, shape=shape,
                                        ms=time_ms(runs(args)[0]))
                             rows.append(row)
