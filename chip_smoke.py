@@ -35,18 +35,23 @@ Phases (any failure exits non-zero):
      bit-equal to K1 on the interior (it runs K1's body), K10 bit-equal to
      K1 without an affine (K1's entry in mode 0), K8's interior bit-equal
      to K1 on its input's interior at even pixels (K1's body at stride 2),
-     and K4b with no skip part, on a padded copy of K2's input, bit-equal
-     to K2 at every K2 signature (it runs K2's body); each K3 / K12 row
-     logs its tile plan (pixels, cluster along D, grid), each K1, K4a, K10
-     and K8 row its `affine_conv_plan` (K8's at stride 2), each K2 and K4b
-     row its `temporal_conv_plan` (the C side's plan must be the same),
-     each K9 row its `attention_plan`, and a B=1 grid of K12, K4a, K8, K9,
-     K10, K2 or K4b below one CTA per SM fails (K2 / K4b: where a tile
-     larger than 16 pixels was taken).
+     K5's four parity planes each bit-equal to K1 on its input's interior
+     with that parity's collapsed weights at their four taps (K1's body
+     with the parity tap sets), K4b with no skip part, on a padded copy of
+     K2's input, bit-equal to K2 at every K2 signature (it runs K2's body),
+     and K11's output and statistics bit-equal to K2's on the same tensor
+     (K2's launch on x's own memory); each K3 / K12 row logs its tile
+     plan (pixels, cluster along D, grid), each K1, K4a, K10, K8 and K5 row
+     its `affine_conv_plan` (K8's at stride 2, K5's with its parities),
+     each K2, K4b and K11 row its `temporal_conv_plan` (the C side's plan
+     must be the same), each K9
+     row its `attention_plan`, and a B=1 grid of K12, K4a, K8, K9, K10, K5,
+     K2, K4b or K11 below one CTA per SM fails (K2 / K4b / K11: where a
+     tile larger than 16 pixels was taken).
      Each shape is
      timed on its first input set: kernel, plain version and PyTorch
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
-     as K4a -> K4b, at K11's its wrapper's copies;
+     as K4a -> K4b;
   4. one release-width U-Net forward (B=8, F=7, 128^2, bf16) per routing:
      launch counts per kernel, each against the port's bf16 plain path and
      a float32 plain reference, and the eight routings' and the plain
@@ -739,7 +744,24 @@ def check_k13(rk, key, inp, timed):
     return ok and same and vs_k3, abs_err, rel, st_err, times, flops, nbytes, "K13 " + _k3_label(key)
 
 
+def _parity_kernel(rk, kern, p, pp, dt):
+    """K_pp': `upconv_weights(kern)` in the input's dtype at output parity
+    (p, p'), placed at the 3x3 taps (p + a, p' + b), zeros at the other five."""
+    w16 = rk.upconv_weights(kern).to(dt)
+    kk = torch.zeros(3, 3, *kern.shape[2:], dtype=dt, device=kern.device)
+    for a in range(2):
+        for b in range(2):
+            kk[p + a, pp + b] = w16[p, pp, a, b]
+    return kk
+
+
 def check_k5(rk, key, inp, timed):
+    """K5 at one recorded signature: NaN pad rows in, exactly zero pad cols
+    out, the interior within one ulp; two launches bit-equal; each parity
+    plane (p, p') of the interior bit-equal to K1 on the input's interior
+    with the 3x3 kernel K_pp' (K5 runs K1's body with the parity tap sets:
+    the same products in the same order, K1's five zero taps adding exact
+    zeros)."""
     _, n, hw, c, d, affine, silu = key
     h, w = hw
     x = inp.stream((n,), hw, c)
@@ -749,8 +771,18 @@ def check_k5(rk, key, inp, timed):
     if affine:
         a, b = 1 + inp.randn(n, c, scale=0.1), inp.randn(n, c, scale=0.1)
     args = (x, kern, bias, hw, a, b, silu)
-    got, want = rk.fused_upconv3x3_padded(*args), rk.fused_upconv3x3_padded_plain(*args)
+    got, again = rk.fused_upconv3x3_padded(*args), rk.fused_upconv3x3_padded(*args)
+    want = rk.fused_upconv3x3_padded_plain(*args)
     ok, abs_err, rel, _ = check_stream(got, want, (2 * h, 2 * w))
+    same = torch.equal(got[:, 1:2 * h + 1], again[:, 1:2 * h + 1])  # pad rows are not written
+    xi, yi = rk._interior(x, hw).contiguous(), rk._interior(got, (2 * h, 2 * w))
+    vs_k1 = [torch.equal(yi[:, p::2, pp::2],
+                         rk.fused_affine_conv3x3(xi, _parity_kernel(rk, kern, p, pp, x.dtype),
+                                                 bias, a, b, silu))
+             for p in range(2) for pp in range(2)]
+    log(f"[kernels] K5 {n}x{h}x{w}x{c}->{d}: two launches bit-equal: {same}; parity planes "
+        f"bit-equal to K1 with their collapsed taps: {vs_k1}")
+    ok = ok and same and all(vs_k1)
     times = None
     if timed:
         times = dict(ms=time_ms(lambda: rk.fused_upconv3x3_padded(*args)),
@@ -972,10 +1004,10 @@ def check_k10(rk, key, inp, timed):
 
 
 def check_k11(rk, key, inp, timed):
-    """K11 at one recorded signature (the wrapper: the copies into and out
-    of the (S, B, F, C) view and the kernel), as `check_k2`; two launches
-    bit-equal. Also times the copies alone (`copies_ms`): on the TPU they
-    were layout bitcasts."""
+    """K11 at one recorded signature, as `check_k2`; two launches bit-equal;
+    y and its statistics bit-equal to K2's on the same tensor (K11 is K2's
+    launch on x's own memory, the (S, B, F, C) view being only another
+    address map over it); the C side's plan is `temporal_conv_plan`'s."""
     _, shape, has_emb, has_res, stats = key
     b, f, c = shape[0], shape[1], shape[-1]
     s = 1
@@ -988,35 +1020,30 @@ def check_k11(rk, key, inp, timed):
     res = inp.randn(*shape).bfloat16() if has_res else None
     args = (x, kern, bias, emb, res, stats)
     got, again = rk.temporal_conv_fused_hw(*args), rk.temporal_conv_fused_hw(*args)
-    want = rk.temporal_conv_fused_hw_plain(*args)
+    want, k2 = rk.temporal_conv_fused_hw_plain(*args), rk.temporal_conv_fused(*args)
     st_ok, st_err = True, None
     if stats:
-        (got, gst), (again, ast), (want, wst) = got, again, want
+        (got, gst), (again, ast), (want, wst), (k2, kst) = got, again, want, k2
         st_ok, st_err = stats_ok(gst, wst, got, want)
-        st_ok = st_ok and torch.equal(gst, ast)
+        st_ok = st_ok and torch.equal(gst, kst) and torch.equal(gst, ast)
+    same, vs_k2 = torch.equal(got, again), torch.equal(got, k2)
+    log(f"[kernels] K11 {'x'.join(map(str, shape))}: two launches bit-equal: {same}; "
+        f"bit-equal to K2: {vs_k2}")
     ok, abs_err, rel, _ = within_one_ulp(got, want)
-    ok = ok and torch.equal(got, again) and st_ok
+    label = f"{s}x{b}x{f}x{c}"
+    ok = ok and same and vs_k2 and st_ok and _tconv_plan_ok(rk, "K11", label, b, f, s, c)
     times = None
     if timed:
-        yh = rk.hw_major(x)
-
-        def copies():  # the wrapper's copies into and out of the (S, B, F, C) view
-            rk.hw_major(x)
-            if res is not None:
-                rk.hw_major(res)
-            return yh.permute(1, 2, 0, 3).reshape(x.shape)
-
         stacked, w2d = _stacked(x, b, f, c), kern.bfloat16().reshape(3 * c, c)
         times = dict(ms=time_ms(lambda: rk.temporal_conv_fused_hw(*args)),
                      plain_ms=time_ms(lambda: rk.temporal_conv_fused_hw_plain(*args), 3, 1),
-                     copies_ms=time_ms(copies),
-                     # yardstick: the permutes and one matmul of the
-                     # frame-stacked (B*F*S, 3C) x (3C, C) form
-                     library_ms=time_ms(lambda: (copies(), torch.matmul(stacked, w2d))))
+                     # yardstick: one matmul of the frame-stacked (B*F*S, 3C)
+                     # x (3C, C) form, K2's
+                     library_ms=time_ms(lambda: torch.matmul(stacked, w2d)))
     flops = 2.0 * b * s * c * c * (3 * f - 2)  # the padded frame taps multiply zeros
     nbytes = (2 * b * f * s * c * (2 + has_res) + 2 * 3 * c * c + 4 * c
               + (4 * b * c if has_emb else 0) + (8 * b * f * c if stats else 0))
-    label = f"K11 {s}x{b}x{f}x{c} emb={int(has_emb)} res={int(has_res)} stats={int(stats)}"
+    label = f"K11 {label} emb={int(has_emb)} res={int(has_res)} stats={int(stats)}"
     return ok, abs_err, rel, st_err, times, flops, nbytes, label
 
 
@@ -1257,12 +1284,12 @@ def _plan_row(rk, key):
     (pixels per tile, CTAs per cluster along D, CTAs in the grid, shared
     memory per CTA; K13 takes K3's, and its copy route), K6's `wgrad_plan`
     (pixel tile, chunks of tiles, tiles per chunk, grid, shared memory),
-    K1's, K10's, K4a's and K8's `affine_conv_plan` (pixels per tile, output
-    channels per CTA, grid, shared memory; K4a over its parts' summed C, K8
-    at stride 2), K9's
-    `attention_plan` (per phase: token tile x columns, warps, grid, shared
-    memory; the attention's queries a CTA and lane slices; `grid` the
-    smallest phase's) and K14's `winograd_plan` (patches per tile, output
+    K1's, K10's, K4a's, K8's and K5's `affine_conv_plan` (pixels per tile,
+    output channels per CTA, grid, shared memory; K4a over its parts' summed
+    C, K8 at stride 2, K5 with its parities), K2's, K4b's and K11's
+    `temporal_conv_plan`, K9's `attention_plan` (per phase: token tile x
+    columns, warps, grid, shared memory; the attention's queries a CTA and
+    lane slices; `grid` the smallest phase's) and K14's `winograd_plan` (patches per tile, output
     channels per CTA, window resident or streamed, grid, shared memory); {}
     for the other kernels."""
     if key[0] == "k6":
@@ -1272,16 +1299,17 @@ def _plan_row(rk, key):
     if key[0] in ("k1", "k10"):
         plan = rk.affine_conv_plan(*key[1], key[2])
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
-    if key[0] == "k8":
+    if key[0] in ("k8", "k5"):
         _, n, (h, w), c, d, _, _ = key
-        plan = rk.affine_conv_plan(n, h, w, c, d, stride=2)
+        plan = (rk.affine_conv_plan(n, h, w, c, d, stride=2) if key[0] == "k8"
+                else rk.affine_conv_plan(n, h, w, c, d, up=True))
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
     if key[0] == "k4a":
         _, n, (h, w), cins, d, _ = key
         plan = rk.affine_conv_plan(n, h, w, sum(cins), d)
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
-    if key[0] in ("k2", "k4b"):
-        if key[0] == "k2":
+    if key[0] in ("k2", "k4b", "k11"):
+        if key[0] in ("k2", "k11"):
             shape = key[1]
             b, f, s, c = shape[0], shape[1], int(np.prod(shape[2:-1])), shape[-1]
         else:
@@ -1327,7 +1355,7 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
         keys.append(("k2", no_stats[0][1], False, False, False))
     rows, failed = [], []
     agg = {r: {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_s=0.0,
-                          bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0, copies_ms=0.0,
+                          bytes_s=0.0, max_abs_err=0.0, k4a_k4b_ms=0.0,
                           k3_ms=0.0, k10_ms=0.0, weights_ms=0.0)
                for name in rk.KERNELS}
            for r in routing_calls}
@@ -1352,11 +1380,12 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
             bytes_s = nbytes / PEAK_BYTES
             bound_ms = max(ops_s, bytes_s) * 1e3
             plan = _plan_row(rk, key)
-            served_b1 = (key[1][0] == 1 if key[0] in ("k12", "k2", "k4b")
+            served_b1 = (key[1][0] == 1 if key[0] in ("k12", "k2", "k4b", "k11")
                          else key[1][0] == 7 if key[0] == "k10" else key[1] == 7)
-            # K2 / K4b: where a 16-pixel tile gives a CTA per SM (not 8^2 x 512 at B=1)
-            short = plan.get("pixels", 0) > 16 if key[0] in ("k2", "k4b") else True
-            if (key[0] in ("k12", "k4a", "k8", "k9", "k10", "k2", "k4b") and served_b1 and short
+            # K2 / K4b / K11: where a 16-pixel tile gives a CTA per SM (not 8^2 x 512 at B=1)
+            short = plan.get("pixels", 0) > 16 if key[0] in ("k2", "k4b", "k11") else True
+            if (key[0] in ("k12", "k4a", "k8", "k9", "k10", "k5", "k2", "k4b", "k11") and served_b1
+                    and short
                     and plan["grid"] < rk.HOPPER_SMS):
                 log(f"[{tag}] {label}: a B=1 grid of {plan['grid']} CTAs leaves SMs idle")
                 ok = False
@@ -1365,7 +1394,7 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
                              bound_by="operations" if ops_s >= bytes_s else "bytes",
                              **roles.get(key, {}), **plan, **(times or {})))
             extra = {k: v for k, v in (times or {}).items()
-                     if k in ("k4a_k4b_ms", "copies_ms", "k3_ms", "k10_ms", "weights_ms")}
+                     if k in ("k4a_k4b_ms", "k3_ms", "k10_ms", "weights_ms")}
             log(f"[{tag}] {label:56s} x{list(counts.values())} ok={ok} (worst of {SEEDS}) "
                 f"err/std={rel:.2e} " + (f"stats_rel={st_err:.1e} " if st_err is not None else "")
                 + (f"ms={times['ms']:.3f} plain={times['plain_ms']:.3f} "
@@ -1972,9 +2001,7 @@ def main():
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
         "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "
         "over one of padded_k8_k9, K7 over one of plain_k7, K10 and K11 over one of "
-        "spatial_k10_k11 (K11's ms includes its wrapper's copies into and out of the "
-        "(S, B, F, C) view; copies alone in per_forward.spatial_k10_k11), K12 over one of "
-        "padded_k12; K6's are sums over one B=4 release train step (K1's per train step are "
+        "spatial_k10_k11, K12 over one of padded_k12; K6's are sums over one B=4 release train step (K1's per train step are "
         "in chiprun_out/chip_smoke_shapes.json, per_train_step); K13's over K3's calls in one "
         "padded forward, K14's over K10's in one spatial_k10_k11 forward, K15's over the perf "
         "lab's three shapes (per_lab); launches are those of the served requests of the five "

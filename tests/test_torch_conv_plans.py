@@ -1,12 +1,13 @@
-"""The launch plans of K1, K4a, K10 and K8 (`affine_conv_plan`), K2 and K4b
-(`temporal_conv_plan`), K9 (`attention_plan`) and K14 (`winograd_plan`), on
-the CPU: at every shape the release paths give the kernels (traced on the
-`meta` device, no memory) and at ragged shapes off them, each plan's tiles
-cover every pixel (K14: every 2x2 patch; K9: every token, column and
-(sample, head, query)) exactly once, its shared memory fits a CTA, and its
-grid has a CTA per SM wherever its smallest tile allows. The card checks
-the kernels themselves (`tests/test_torch_gpu.py`, `chip_smoke.py`), and
-that K2/K4b's and K14's C sides plan the same.
+"""The launch plans of K1, K4a, K10, K8 and K5 (`affine_conv_plan`), K2,
+K4b and K11 (`temporal_conv_plan`), K9 (`attention_plan`) and K14
+(`winograd_plan`), on the CPU: at every shape the release paths give the
+kernels (traced on the `meta` device, no memory) and at ragged shapes off
+them, each plan's tiles cover every pixel (K5: every output pixel of every
+parity; K14: every 2x2 patch; K9: every token, column and (sample, head,
+query)) exactly once, its shared memory fits a CTA, and its grid has a CTA
+per SM wherever its smallest tile allows. The card checks the kernels
+themselves (`tests/test_torch_gpu.py`, `chip_smoke.py`), and that K2/K4b's
+and K14's C sides plan the same.
 """
 
 import numpy as np
@@ -131,13 +132,14 @@ def test_affine_conv_plan_at_ragged_shapes(n, h, w, c, d):
 
 def _padded_calls(monkeypatch, name, b, **routing):
     """{signature: calls} of wrapper `name` (K4a: (N, H, W, C0 + C1, D); K9:
-    (N, H, W, C, head width); K8: (N, H, W, C, D) at its full-size input) in
-    one B-sample release forward of a routing, traced on the meta device
-    with every kernel's plain version."""
+    (N, H, W, C, head width); K8: (N, H, W, C, D) at its full-size input;
+    K5: (N, H, W, C, D) at its low-res input) in one B-sample release
+    forward of a routing, traced on the meta device with every kernel's
+    plain version."""
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     calls, plain = {}, getattr(trk, name + "_plain")
 
-    def k8(x, kernel, bias, hw, a=None, b=None, silu=False):
+    def k8(x, kernel, bias, hw, a=None, b=None, silu=False):  # and K5
         key = (x.shape[0],) + tuple(hw) + (x.shape[-1], kernel.shape[-1])
         calls[key] = calls.get(key, 0) + 1
         return plain(x, kernel, bias, hw, a, b, silu)
@@ -154,7 +156,8 @@ def _padded_calls(monkeypatch, name, b, **routing):
         return plain(x, hw, a, b, wqkv, bqkv, wproj, bproj, num_head_channels, want_stats)
 
     monkeypatch.setattr(trk, name, {"fused_affine_conv3x3_padded": k4a,
-                                    "fused_downconv3x3_padded": k8}.get(name, k9))
+                                    "fused_downconv3x3_padded": k8,
+                                    "fused_upconv3x3_padded": k8}.get(name, k9))
     with torch.device("meta"), torch.no_grad():
         tvu.VideoUNet(dtype=torch.bfloat16, fused=True, **routing)(
             torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
@@ -223,6 +226,63 @@ def test_k8_plan_at_ragged_shapes(n, h, w, c, d):
     _check_k1_plan(n, h, w, c, d, stride=2)
 
 
+def _check_k5_plan(n, h, w, c, d):
+    """K5's plan (`affine_conv_plan(..., up=True)`): K1's tiles over the
+    low-res (h, w) grid and its shared memory, a CTA per tile and output
+    parity; the grid, decoded as the kernel decodes it (D slices fastest,
+    then the parity, then the tile), writes every pixel of the (2h, 2w)
+    output once; the largest tile whose grid has a CTA per SM."""
+    plan = trk.affine_conv_plan(n, h, w, c, d, up=True)
+    assert plan == trk.affine_conv_plan(n, h, w, c, d, up=True)
+    th, tw, per_image = trk._hop_tile(h, w, plan.pixels)
+    assert plan.nc == (128 if d % 128 == 0 else 64) and plan.smem <= SMEM_227_KIB
+    assert plan.smem >= 3 * 3 * 32 * plan.nc * 2 + 3 * (th + 2) * (tw + 2) * 64
+    slices = d // plan.nc
+    assert plan.tiles == n * per_image and plan.grid == plan.tiles * 4 * slices
+    covered = np.zeros((n, 2 * h, 2 * w), np.int32)
+    tiles_w = -(-w // tw)
+    for cta in range(0, plan.grid, slices):
+        par, cid = cta // slices % 4, cta // slices // 4
+        img, tile = cid // per_image, cid % per_image
+        i0, j0 = (tile // tiles_w) * th, (tile % tiles_w) * tw
+        rows = np.arange(i0, min(i0 + th, h)) * 2 + (par >> 1)
+        cols = np.arange(j0, min(j0 + tw, w)) * 2 + (par & 1)
+        covered[img][np.ix_(rows, cols)] += 1
+    assert (covered == 1).all()
+    tiles = {p: trk._hop_tile(h, w, p)[2] for p in (128, 64, 32, 16)}
+    grids = {p: n * t * 4 * slices for p, t in tiles.items() if p == 16 or t < tiles[p // 2]}
+    if grids[16] >= trk.HOPPER_SMS:
+        assert plan.pixels == max(p for p, g in grids.items() if g >= trk.HOPPER_SMS)
+    return plan
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_k5_plan_fits_every_release_call(monkeypatch, b):
+    """K5 takes K1's plan over its low-res grid x 4 parities at its three
+    calls of the padded forward (16^2 x 512, 32^2 x 384, 64^2 x 256 in, D =
+    C): every output pixel of every parity once, the shared memory fits,
+    and a B=1 request's grid keeps a CTA per SM (16^2: 128-pixel tiles, 7 x
+    2 x 4 parities x 4 slices = 224 CTAs)."""
+    calls = _padded_calls(monkeypatch, "fused_upconv3x3_padded", b)
+    n = 7 * b
+    assert calls == {(n, 16, 16, 512, 512): 1, (n, 32, 32, 384, 384): 1,
+                     (n, 64, 64, 256, 256): 1}
+    plans = {key: _check_k5_plan(*key) for key in calls}
+    assert all(p.grid >= trk.HOPPER_SMS for p in plans.values())
+    assert {p.pixels for p in plans.values()} == {128}
+    if b == 1:
+        assert plans[(7, 16, 16, 512, 512)].grid == 224
+
+
+@pytest.mark.parametrize("n,h,w,c,d", [(2, 12, 20, 128, 192), (3, 5, 7, 64, 64),
+                                       (1, 1, 1, 32, 64), (1, 4, 4, 640, 640)])
+def test_k5_plan_at_ragged_shapes(n, h, w, c, d):
+    """Off the path: low-res grids no tile divides, W below the tile's cols,
+    one pixel, 64-wide output slices, a grid short of the SMs at every
+    tile (16-pixel tiles)."""
+    _check_k5_plan(n, h, w, c, d)
+
+
 def _driven_to_the_launch(monkeypatch):
     """Stubs the device checks, the library and the stream so that a wrapper
     called on meta tensors runs to its launch; returns {entry: [(source,
@@ -251,6 +311,11 @@ K8_CALLS = [(56, 128, 128, 128, 128), (56, 64, 64, 256, 256), (7, 64, 64, 256, 2
             (2, 12, 20, 128, 192)]
 
 
+# K5's three B=8 signatures (low-res in), a B=1 request's 16^2 one and a ragged one
+K5_CALLS = [(56, 16, 16, 512, 512), (56, 32, 32, 384, 384), (56, 64, 64, 256, 256),
+            (7, 16, 16, 512, 512), (2, 12, 20, 128, 192)]
+
+
 def test_k10_and_k8_wrappers_pass_the_plan(monkeypatch):
     """K10's wrapper, at each of its 17 signatures, and K8's, at both of its
     B=8 ones and a ragged one, driven to the launch on meta tensors: each
@@ -273,6 +338,31 @@ def test_k10_and_k8_wrappers_pass_the_plan(monkeypatch):
         ("affine_conv3x3", n, h, w, trk.padded_hw(h, w)[1], trk.padded_hw(h // 2, w // 2)[1], c,
          d, 0, trk.affine_conv_plan(n, h, w, c, d, stride=2).pixels, 1)
         for n, h, w, c, d in K8_CALLS]
+
+
+@pytest.mark.parametrize("silu", [None, False, True], ids=["plain", "affine", "silu"])
+def test_k5_wrapper_passes_the_plan(monkeypatch, silu):
+    """K5's wrapper, at its three B=8 signatures, a B=1 one and a ragged
+    one, driven to the launch on meta tensors in each mode: it calls
+    `v2a_upconv3x3_padded` of `affine_conv3x3.cu` with the double-size
+    stream's Wph, its mode and the P of `affine_conv_plan(..., up=True)`,
+    and the (16 C, D) collapsed weights."""
+    seen = _driven_to_the_launch(monkeypatch)
+    mode = 0 if silu is None else 2 if silu else 1
+    with torch.device("meta"):
+        for n, h, w, c, d in K5_CALLS:
+            hp, wp = trk.padded_hw(h, w)
+            a = b = None if silu is None else torch.empty(n, c)
+            trk.fused_upconv3x3_padded(torch.empty(n, hp, wp, c, dtype=torch.bfloat16),
+                                       torch.empty(3, 3, c, d), torch.empty(d), (h, w), a, b,
+                                       bool(silu))
+    calls = seen["v2a_upconv3x3_padded"]
+    assert [(name,) + tuple(args) for name, _, args in calls] == [
+        ("affine_conv3x3", n, h, w, trk.padded_hw(h, w)[1], trk.padded_hw(2 * h, 2 * w)[1], c,
+         d, mode, trk.affine_conv_plan(n, h, w, c, d, up=True).pixels, 1)
+        for n, h, w, c, d in K5_CALLS]
+    assert [tuple(ptrs[3].shape) for _, ptrs, _ in calls] == [(16 * c, d)
+                                                              for _, _, _, c, d in K5_CALLS]
 
 
 def _check_tconv_plan(b, f, s, c):
@@ -391,6 +481,64 @@ def test_temporal_conv_wrappers_size_statistics_by_the_plan(monkeypatch, dtype, 
             for fn, [(name, ptrs, _)] in launched.items()}
     assert seen == {fn: ("temporal_conv", (b * f * tiles * 2 * c,))
                     for fn in ("v2a_temporal_conv3", "v2a_temporal_conv_padded")}
+
+
+def _k11_calls(monkeypatch, b):
+    """{(B, F, S, C): calls} of K11 in one B-sample spatial_k10_k11 forward,
+    traced on the meta device with every kernel's plain version."""
+    calls = {}
+
+    def record(x, kernel, bias, emb=None, residual=None, want_stats=False):
+        key = trk._fold(x)
+        calls[key] = calls.get(key, 0) + 1
+        return trk.temporal_conv_fused_hw_plain(x, kernel, bias, emb, residual, want_stats)
+
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    monkeypatch.setattr(trk, "temporal_conv_fused_hw", record)
+    with torch.device("meta"), torch.no_grad():
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2=False, pallas_spatial=True,
+                      tconv_hw=True)(torch.randn(b, 7, 128, 128, 6),
+                                     torch.zeros(b, dtype=torch.long), torch.randn(b, 77, 512))
+    return calls
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_k11_plan_fits_every_release_call(monkeypatch, b):
+    """K11 launches K2's kernel with K2's plan: at every K11 call of a
+    spatial_k10_k11 forward (63, at B=8 and at a B=1 request), that plan's
+    tiles cover every pixel of every (sample, frame) once, its shared memory
+    fits, and its grid has a CTA per SM (at B=1 not 8^2 x 512, whose
+    16-pixel tiles give 112 CTAs, the most any tile gives)."""
+    calls = _k11_calls(monkeypatch, b)
+    assert sum(calls.values()) == 63 and len(calls) == 13
+    plans = {key: _check_tconv_plan(*key) for key in calls}
+    short = {key for key, p in plans.items() if p.grid < trk.HOPPER_SMS}
+    assert short == (set() if b == 8 else {(1, 7, 64, 512)})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,hw,c", [(8, 7, (8, 8), 640), (8, 14, (8, 8), 640),
+                                      (1, 7, (16, 16), 512)])
+def test_k11_wrapper_passes_x_and_its_plan(monkeypatch, dtype, b, f, hw, c):
+    """K11's wrapper, driven to its launch on meta tensors, hands K2's entry
+    (`v2a_temporal_conv3` of `temporal_conv.cu`) x's own tensor, a view of
+    the residual (no copy of either) and the y it returns, sizes the
+    statistics' per-tile partial sums by `temporal_conv_plan`'s tiles (the
+    float32 body's: 64 pixels), and counts the launch as K11's, not K2's."""
+    launched = _driven_to_the_launch(monkeypatch)
+    monkeypatch.setattr(trk, "launches", {k: 0 for k in trk.launches})
+    s = hw[0] * hw[1]
+    with torch.device("meta"):
+        x, res = (torch.empty(b, f, *hw, c, dtype=dtype) for _ in range(2))
+        y, _ = trk.temporal_conv_fused_hw(x, torch.empty(3, c, c), torch.empty(c),
+                                          torch.empty(b, c), res, want_stats=True)
+    [(name, ptrs, ints)] = launched["v2a_temporal_conv3"]
+    assert name == "temporal_conv" and tuple(ints) == (b, f, s, c, trk._DTYPE_CODE[dtype])
+    assert ptrs[0] is x and ptrs[4]._base is res and ptrs[5] is y and y.shape == x.shape
+    tiles = (trk.temporal_conv_plan(b, f, s, c).tiles if dtype == torch.bfloat16
+             else -(-s // 64))
+    assert tuple(ptrs[6].shape) == (b * f * tiles * 2 * c,)
+    assert trk.launches["temporal_conv_fused_hw"] == 1 and trk.launches["temporal_conv_fused"] == 0
 
 
 def _check_attention_plan(n, h, w, c, ch):

@@ -460,6 +460,68 @@ def test_upconv3x3_padded_kernel_matches_plain(cuda, dtype, mode, n, hw, c, d):
     _check_padded(got, want, (2 * hw[0], 2 * hw[1]), dtype)
 
 
+def _parity_kernel(k, p, pp, dtype):
+    """K_pp': the collapsed weights `upconv_weights(k)` in x's dtype at output
+    parity (p, p') placed at the 3x3 taps (p + a, p' + b), zeros at the
+    other five: K1 with it on the low-res interior is K5's parity plane."""
+    w16 = rk.upconv_weights(k).to(dtype)
+    kk = torch.zeros(3, 3, *k.shape[2:], dtype=dtype, device=k.device)
+    for a in range(2):
+        for b in range(2):
+            kk[p + a, pp + b] = w16[p, pp, a, b]
+    return kk
+
+
+# K5 at the matching test's shapes and the edges of its plan
+# (`rk.affine_conv_plan(..., up=True)` over the low-res grid x 4 parities):
+# (N, (H, W) low-res, C, D) and its tile
+K5_EDGES = [
+    ((3, (8, 8), 64, 64), 16),
+    ((2, (12, 20), 128, 128), 16),   # no tile divides the grid
+    ((4, (16, 16), 512, 512), 64),
+    ((7, (16, 16), 512, 512), 128),  # a served request's 16^2 call: sixteen warps, 224 CTAs
+    ((2, (12, 20), 128, 192), 64),   # 64-wide output slices
+    ((3, (16, 16), 256, 256), 32),
+    ((3, (5, 7), 64, 64), 16),       # W below the tile's cols
+    ((1, (1, 1), 32, 64), 16)]       # one low-res pixel
+
+
+@pytest.mark.parametrize("mode", ["plain", "affine", "silu"])
+@pytest.mark.parametrize("shape,pixels", K5_EDGES)
+def test_upconv3x3_padded_parities_are_k1(cuda, mode, shape, pixels):
+    """K5's bf16 body (K1's with the parity tap sets) from a stream with
+    NaN pad rows, at its plan's edges: each parity plane (p, p') of its
+    interior bit-equal to K1 on the low-res interior with the 3x3 kernel
+    K_pp' (`_parity_kernel`: the same products in the same order, K1's five
+    zero taps adding exact zeros); pad cols exactly zero, two launches
+    bit-equal, within one ulp of the plain version."""
+    n, hw, c, d = shape
+    assert rk.affine_conv_plan(n, *hw, c, d, up=True).pixels == pixels
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = _stream(gen, cuda, torch.bfloat16, (n,), hw, c)
+    k = torch.randn(3, 3, c, d, generator=gen, device=cuda) / (9 * c) ** 0.5
+    bias = torch.randn(d, generator=gen, device=cuda) * 0.1
+    a = b = None
+    if mode != "plain":
+        a = 1 + 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=gen, device=cuda)
+    silu = mode == "silu"
+    before = rk.launches["fused_upconv3x3_padded"]
+    got = rk.fused_upconv3x3_padded(x, k, bias, hw, a, b, silu)
+    again = rk.fused_upconv3x3_padded(x, k, bias, hw, a, b, silu)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_upconv3x3_padded"] == before + 2
+    hw2 = (2 * hw[0], 2 * hw[1])
+    assert torch.equal(got[:, 1:hw2[0] + 1], again[:, 1:hw2[0] + 1])  # pad rows are not written
+    _check_padded(got, rk.fused_upconv3x3_padded_plain(x, k, bias, hw, a, b, silu), hw2,
+                  torch.bfloat16)
+    xi, yi = rk._interior(x, hw).contiguous(), rk._interior(got, hw2)
+    for p in range(2):
+        for pp in range(2):
+            k1 = rk.fused_affine_conv3x3(xi, _parity_kernel(k, p, pp, x.dtype), bias, a, b, silu)
+            assert torch.equal(yi[:, p::2, pp::2], k1), (p, pp)
+
+
 def test_padded_stats_are_deterministic(cuda):
     gen = torch.Generator(device=cuda).manual_seed(9)
     hw, d = (32, 32), 128
@@ -936,9 +998,9 @@ def test_spatial_conv3x3_kernel_matches_plain(cuda, dtype, n, h, w, c, d):
 @pytest.mark.parametrize("b,f,s,c", [(2, 7, 64, 128), (1, 3, 1000, 256), (2, 2, 16, 64),
                                      (8, 7, 4096, 256)])
 def test_temporal_conv_hw_kernel_matches_plain(cuda, dtype, extras, b, f, s, c):
-    """K11 (with the wrapper's copies into and out of the (S, B, F, C) view)
-    within one ulp of its plain version, statistics within 1e-3, two
-    launches bit-equal."""
+    """K11 (the (S, B, F, C) view read by address in x's own memory) within
+    one ulp of its plain version, statistics within 1e-3, two launches
+    bit-equal."""
     has_emb, has_res, stats = extras
     g = torch.Generator(device=cuda).manual_seed(21)
     x = torch.randn(b, f, s, c, generator=g, device=cuda).to(dtype)
@@ -959,6 +1021,43 @@ def test_temporal_conv_hw_kernel_matches_plain(cuda, dtype, extras, b, f, s, c):
     assert got.shape == x.shape and torch.equal(got, again)
     ok, rel = _within_ulp(got, want, dtype)
     assert ok, f"max err / std {rel}"
+
+
+# K11 against K2: the matching test's shapes, a served request's 8^2 x 640
+# and S = 81 that no tile divides with C = 192, as (B, F, S, C)
+K11_VS_K2 = [(2, 7, 64, 128), (1, 3, 1000, 256), (2, 2, 16, 64), (8, 7, 4096, 256),
+             (1, 7, 64, 640), (3, 5, 81, 192)]
+
+
+@pytest.mark.parametrize("extras", [(False, False, False), (True, True, True),
+                                    (True, False, True)], ids=["bare", "emb_res_stats", "emb_stats"])
+@pytest.mark.parametrize("shape", K11_VS_K2)
+def test_temporal_conv_hw_is_k2(cuda, extras, shape):
+    """K11's y and statistics bit-equal to K2's (`temporal_conv_fused`) on
+    the same tensor, since it is K2's launch on x's own memory; the
+    statistics within 1e-3 of the plain version's, two launches bit-equal,
+    and each wrapper counted on its own counter."""
+    b, f, s, c = shape
+    has_emb, has_res, stats = extras
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn(b, f, s, c, generator=g, device=cuda).bfloat16()
+    k = torch.randn(3, c, c, generator=g, device=cuda) / (3 * c) ** 0.5
+    bias = torch.randn(c, generator=g, device=cuda) * 0.1
+    emb = torch.randn(b, c, generator=g, device=cuda).bfloat16() if has_emb else None
+    res = torch.randn(b, f, s, c, generator=g, device=cuda).bfloat16() if has_res else None
+    args = (x, k, bias, emb, res, stats)
+    before = dict(rk.launches)
+    got, again = rk.temporal_conv_fused_hw(*args), rk.temporal_conv_fused_hw(*args)
+    k2 = rk.temporal_conv_fused(*args)
+    torch.cuda.synchronize()
+    assert rk.launches["temporal_conv_fused_hw"] == before["temporal_conv_fused_hw"] + 2
+    assert rk.launches["temporal_conv_fused"] == before["temporal_conv_fused"] + 1
+    if stats:
+        (got, gst), (again, ast), (k2, kst) = got, again, k2
+        _, wst = rk.temporal_conv_fused_hw_plain(*args)
+        assert torch.equal(gst, ast) and torch.equal(gst, kst)
+        _stats_close(gst, wst)
+    assert torch.equal(got, k2) and torch.equal(got, again)
 
 
 K12_SHAPES = PADDED_SHAPES + [(2, 7, (64, 64), (256,), 256), (2, 7, (32, 32), (384, 384), 384)]

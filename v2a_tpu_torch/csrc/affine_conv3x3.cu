@@ -3,14 +3,17 @@
 // x_i (N, H+2, Wp, C_i) -> y (N, H+2, Wp, D), one or two channel parts,
 // K10: y = conv3x3_same(x) + bias on (N, H, W, C) -> (N, H, W, D), and
 // K8: y = conv3x3_stride2_same(act(x)) + bias between padded streams,
-// x (N, H+2, Wp, C) -> y (N, H/2+2, Wp2, D).
+// x (N, H+2, Wp, C) -> y (N, H/2+2, Wp2, D), and
+// K5: y = conv3x3_same(nearest_2x(act(x))) + bias from a low-res padded
+// stream x (N, H+2, Wp, C) into the high-res one y (N, 2H+2, Wph, D).
 //
 // Replaces the TPU kernels `fused_affine_conv3x3`
 // (v2a_tpu/ops/resblock_kernels.py:662, bodies `_affine_conv_kernel` :489 and
 // `_affine_conv_banded_kernel` :554), `fused_affine_conv3x3_padded`
 // (:902, body `_padded_conv_kernel` :815), `spatial_conv3x3` (:2796, body
-// `_spatial3x3_kernel` :2760) and `fused_downconv3x3_padded` (:1514, body
-// `_downconv_kernel` :1413).
+// `_spatial3x3_kernel` :2760), `fused_downconv3x3_padded` (:1514, body
+// `_downconv_kernel` :1413) and `fused_upconv3x3_padded` (:1314, body
+// `_upconv_kernel` :1222).
 //
 // act(x) = silu(a[n, c] * x + b[n, c]) (mode 2), a[n, c] * x + b[n, c]
 // (mode 1) or x (mode 0, plain conv: the forward's plain convs, K10, every
@@ -18,12 +21,12 @@
 // float32 with `affine8`'s arithmetic (no FMA, t * (1 / (1 + e^-t)) with
 // __frcp_rn) and rounded to bf16 before the product, as the TPU kernels
 // do. The SAME halo is zero AFTER the activation: set by selection, since
-// act(0) = silu(b) is not zero. K4a runs modes 1 and 2, K10 mode 0, K8 all
-// three.
+// act(0) = silu(b) is not zero. K4a runs modes 1 and 2, K10 mode 0, K8 and
+// K5 all three.
 //
 // What bounds it on the H100: operations (128^2 x 128 -> 128 at N = 28 is
 // 1.1e11 FLOP against ~0.12 GB; K8 at 128^2 -> 64^2 is near the balance
-// point, 67.6 GFLOP against 0.3 GB). One bf16 body serves all four: the
+// point, 67.6 GFLOP against 0.3 GB). One bf16 body serves all five: the
 // conv half of the shared mainloop (conv_tconv_hopper.cuh) without the
 // temporal phase, on hopper.cuh's primitives:
 //
@@ -87,10 +90,32 @@
 // bit-equal to K1 on the input's interior at even pixels. The output is
 // the half-size padded stream with its pad cols (`Wp2`) zeroed.
 //
+// K5 is K4a's addressing with one part and the parity tap sets (`UP`).
+// Output pixel (2i + p, 2j + p') of the upsampled conv is a 2x2 conv on the
+// low-res interior: tap (a, b) reads (i - 1 + p + a, j - 1 + p' + b) with
+// the collapsed weights w16[p][p'][a][b] (`upconv_weights` in
+// ops/resblock_kernels.py sums the 3x3 taps that land there in the
+// kernel's dtype, then the wrapper casts the sums to x's). That is K1's
+// SAME conv centred on (i, j) at the taps (di, dj) = (p + a, p' + b). A
+// CTA owns a tile of the low-res grid for ONE parity (a grid axis: the four
+// parities of a tile adjacent, after its D slices) and stages K1's (th+2)
+// x (tw+2) window per chunk; a step is one tap row a of one chunk, its two
+// (32 x NC) slabs w16[p][p'][a][0..1], the window read at rows and cols
+// shifted by (p + a, p' + b). Per output element the steps are (chunk, a,
+// b, kk): K1's (chunk, di, dj, kk) with the five zero taps left out, so a
+// parity plane is bit-equal to K1 on the low-res interior with a 3x3
+// kernel that holds w16[p][p'] at those four taps and zeros at the other
+// five (K1 adds exact zero products there). The epilogue writes pixel
+// (i, j) at padded (2i + p + 1, 2j + p' + 1) of the (N, 2H+2, Wph, D)
+// stream, each pixel's NC channels one 16-byte-store run; parity p' = 0
+// at j = 0 also writes pad col 0, parity p' = 1 at j = W - 1 the pad cols
+// past the interior. Each window is staged once per parity (four times a
+// tile): the probe's window-refill cut says what that costs.
+//
 // The float32 body (tests only) stays the plain CUDA-core implicit GEMM of
-// common.cuh (`Accum<float>`), for all four: per (part, tap, 32-channel)
+// common.cuh (`Accum<float>`), for all five: per (part, tap, 32-channel)
 // step it gathers the shifted (strided), activated rows of a 64-pixel x
-// 64-channel tile.
+// 64-channel tile (K5: the four taps of its parity, grid z).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -135,10 +160,10 @@ struct Maps {
 
 // Parts p0, p1 (p1.C = 0: one part; their `w` unused, the maps carry the
 // weights). Wp = 0: K1's unpadded (N, H, W, C) layout in and out; Wp > 0:
-// the padded stream (N, H+2, Wp, C_i) in and (N, H/S+2, Wp2, D) out. The
-// output grid is (H/S, W/S). Grid: N * tiles * (D / NC) CTAs, the D slices
-// of one tile adjacent.
-template <int P, int NC, int S>
+// the padded stream (N, H+2, Wp, C_i) in and (N, H/S+2, Wp2, D) out (UP:
+// (N, 2H+2, Wp2, D)). The tile grid is (H/S, W/S). Grid: N * tiles * (D /
+// NC) CTAs (UP: x 4 parities), the D slices of one tile adjacent.
+template <int P, int NC, int S, bool UP>
 __global__ void __launch_bounds__(warps_of(P) * 32, P == 128 ? 1 : 2)
 affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __restrict__ bias,
                     bf16* __restrict__ y, int H, int W, int Wp, int Wp2, int D, int mode,
@@ -147,6 +172,9 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
   constexpr int WM = P == 128 ? 4 : P >= 32 ? 2 : 1, WN = warps_of(P) / WM;  // warps over rows, cols
   constexpr int MT = P / 16 / WM, NT = NC / 8 / WN;  // m16 and n8 tiles a warp
   constexpr int SLAB = hop::slab_bytes<NC>(), RB = NC * 2;
+  // steps a chunk and slabs a step: tap rows of three taps, or (UP) the
+  // parity's two tap rows of two
+  constexpr int SPC = UP ? 2 : 3, NSL = UP ? 2 : 3;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
 
@@ -155,7 +183,9 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / WN, wn = warp % WN;
   const int slices = D / NC;
-  const int cid = blockIdx.x / slices, n0 = (blockIdx.x % slices) * NC;
+  const int n0 = (blockIdx.x % slices) * NC;
+  const int par = UP ? blockIdx.x / slices % 4 : 0, pi = par >> 1, pj = par & 1;
+  const int cid = blockIdx.x / slices / (UP ? 4 : 1);
   const int n = cid / t.tiles, tile = cid % t.tiles;
   const int h0 = (tile / t.tiles_w) * t.th, w0 = (tile % t.tiles_w) * t.tw;
   // the window: wr input rows from (S h0 - 1, S w0 - 1); S = 1, rows of pw0 =
@@ -168,8 +198,10 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
   // the layouts: input pixel (hh, ww) of sample n at row (n * XH + hh + pad)
   // * XW + ww + pad, output pixel (i, j) at (n * YH + i + pad) * YW + j + pad
   const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
-  const int YH = pad ? OH + 2 : OH, YW = pad ? Wp2 : OW;
-  const int nch0 = p0.C / 32, nch = nch0 + p1.C / 32, nsteps = nch * 3;
+  // UP: the output grid is twice the tile grid
+  const int OHy = UP ? 2 * OH : OH, OWy = UP ? 2 * OW : OW;
+  const int YH = pad ? OHy + 2 : OHy, YW = pad ? Wp2 : OWy;
+  const int nch0 = p0.C / 32, nch = nch0 + p1.C / 32, nsteps = nch * SPC;
   const uint32_t b_s = hop::smem_u32(smem);
   const uint32_t w_s = b_s + K1_STAGES * 3 * SLAB;
   unsigned char* win = smem + K1_STAGES * 3 * SLAB;
@@ -236,27 +268,31 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
       store8(p, v8);
     }
   };
-  // step j's three weight slabs: taps (di, 0..2) of chunk g, rows
-  // (di * 3 + dj) * C + 32 g .. + 32 of its part's tap-major (9 C, D)
-  // weights, by TMA from one thread, completing on the stage's mbarrier
+  // step j's weight slabs: taps (di, 0..2) of chunk g, rows (di * 3 + dj)
+  // * C + 32 g .. + 32 of its part's tap-major (9 C, D) weights (UP: taps
+  // (a, 0..1) of the parity, rows ((p * 2 + p') * 4 + a * 2 + b) * C + 32 g
+  // of the (16 C, D) w16), by TMA from one thread, completing on the
+  // stage's mbarrier
   auto issue_b = [&](int j) {
     if (tid == 0) {
-      const int g = j / 3, second = g >= nch0, C = second ? p1.C : p0.C;
+      const int g = j / SPC, second = g >= nch0, C = second ? p1.C : p0.C;
+      const int row0 = UP ? (par * 4 + (j % SPC) * 2) * C : (j % SPC) * 3 * C;
       hop::tma_slabs<NC>(b_s + (j % K1_STAGES) * 3 * SLAB, &maps.w[second],
-                         (j % 3) * 3 * C + (second ? g - nch0 : g) * 32, C, 3, n0,
+                         row0 + (second ? g - nch0 : g) * 32, C, NSL, n0,
                          bar_s + 8 * (j % K1_STAGES));
     }
   };
 
   // this lane's ldmatrix row of each m16 tile: its window row at tap (0, 0)
-  // (S = 2: in the even-col plane; apix1 in the odd one)
+  // (S = 2: in the even-col plane; apix1 in the odd one; UP: at tap (p, p'),
+  // the parity's first)
   int apix[MT], apix1[MT];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int m = wm * (P / WM) + mt * 16 + (lane & 15);
     const bool in = m < t.th * t.tw;
     const int i = in ? m / t.tw : 0, j = in ? m % t.tw : 0;
-    apix[mt] = S * i * pw0 + j;
+    apix[mt] = S * i * pw0 + j + (UP ? pi * pw0 + pj : 0);
     apix1[mt] = R0 + 2 * i * t.tw + j;
   }
   float acc[MT][NT][4];
@@ -280,7 +316,7 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
   __syncthreads();
   if (mode) activate(0, 0, R4);
   for (int j = 0; j < nsteps; ++j) {
-    const int g = j / 3, di = j % 3;
+    const int g = j / SPC, di = j % SPC;
     // step j's slabs and chunk g's activated window are in place, and the
     // window a chunk ahead has landed (issued at least two steps ago); the
     // stages step j - 1 read may be refilled (each thread's reads ordered
@@ -298,11 +334,11 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
     if (di == 0 && g + 2 < nch) issue_window(g + 2, (g + 2) % K1_WSTAGES);
     hop::cp_commit();
     // the next chunk's window, a third a step (its raw copy landed a chunk ago)
-    if (mode && g + 1 < nch) activate((g + 1) % K1_WSTAGES, di * R4 / 3, (di + 1) * R4 / 3);
+    if (mode && g + 1 < nch) activate((g + 1) % K1_WSTAGES, di * R4 / SPC, (di + 1) * R4 / SPC);
     const uint32_t wb = w_s + (g % K1_WSTAGES) * wbytes;
     const uint32_t bb = b_s + (j % K1_STAGES) * 3 * SLAB;
 #pragma unroll
-    for (int dj = 0; dj < 3; ++dj) {
+    for (int dj = 0; dj < NSL; ++dj) {
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         uint32_t af[MT][4];
@@ -336,32 +372,35 @@ affine_conv3x3_bf16(const Part<bf16> p0, const Part<bf16> p1, const float* __res
       }
   }
   __syncthreads();
-  // padded: the tiles at the output's first and last col also zero the pad cols
+  // padded: the tiles at the output's first and last col also zero the pad
+  // cols; UP: tile pixel (i, j) is output pixel (2i + p, 2j + p')
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int v = tid; v < P * (NC / 8); v += NTHR) {
     const int m = v / (NC / 8), ch = v % (NC / 8);
     const int i = h0 + m / t.tw, jj = w0 + m % t.tw;
     if (m >= t.th * t.tw || i >= OH || jj >= OW) continue;
-    bf16* o = y + (((long)n * YH + i + pad) * YW + jj + pad) * D + n0 + ch * 8;
+    const int oi = UP ? 2 * i + pi : i, oj = UP ? 2 * jj + pj : jj;
+    bf16* o = y + (((long)n * YH + oi + pad) * YW + oj + pad) * D + n0 + ch * 8;
     *reinterpret_cast<uint4*>(o) =
         *reinterpret_cast<const uint4*>(smem + m * RB + ((ch ^ (m & 7)) << 4));
-    if (pad && jj == 0) *reinterpret_cast<uint4*>(o - D) = zero;
-    if (pad && jj == OW - 1)
-      for (int k = 1; k < YW - OW; ++k) *reinterpret_cast<uint4*>(o + (long)k * D) = zero;
+    if (pad && oj == 0) *reinterpret_cast<uint4*>(o - D) = zero;
+    if (pad && oj == OWy - 1)
+      for (int k = 1; k < YW - OWy; ++k) *reinterpret_cast<uint4*>(o + (long)k * D) = zero;
   }
 }
 
-template <int P, int NC, int S>
+template <int P, int NC, int S, bool UP>
 cudaError_t launch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
                         int Wp, int Wp2, int D, int mode, cudaStream_t stream) {
   const hop::Tile t = hop::tile_of(H / S, W / S, P);
   const size_t smem = smem_bytes<S>(P, NC, t);
-  const long grid = (long)N * t.tiles * (D / NC);
+  const long grid = (long)N * t.tiles * (D / NC) * (UP ? 4 : 1);
   if (smem > 232448 || grid > 0x7fffffffL) return cudaErrorInvalidValue;
-  auto kernel = affine_conv3x3_bf16<P, NC, S>;
+  auto kernel = affine_conv3x3_bf16<P, NC, S, UP>;
   Maps maps = {};
   for (int i = 0; i < 2; ++i)
-    if (p[i].C && hop::encode_slabs(&maps.w[i], p[i].w, (uint64_t)9 * p[i].C, (uint64_t)D))
+    if (p[i].C &&
+        hop::encode_slabs(&maps.w[i], p[i].w, (uint64_t)(UP ? 16 : 9) * p[i].C, (uint64_t)D))
       return cudaErrorInvalidValue;
   if (S == 1 && mode == 0) {  // the image of the one part as (C, W, H, N), past any pads
     const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
@@ -383,31 +422,31 @@ cudaError_t launch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, i
 }
 
 // the instantiation of the plan's P and the NC that D takes
-template <int S>
+template <int S, bool UP>
 cudaError_t dispatch_bf16(const Part<bf16>* p, const void* bias, void* y, int N, int H, int W,
                           int Wp, int Wp2, int D, int mode, int P, cudaStream_t s) {
   if (D % 128 == 0) {
-    if (P == 128) return launch_bf16<128, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
-    if (P == 64) return launch_bf16<64, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
-    if (P == 32) return launch_bf16<32, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
-    if (P == 16) return launch_bf16<16, 128, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 128) return launch_bf16<128, 128, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 64) return launch_bf16<64, 128, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 32) return launch_bf16<32, 128, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 16) return launch_bf16<16, 128, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
   } else {
-    if (P == 128) return launch_bf16<128, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
-    if (P == 64) return launch_bf16<64, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
-    if (P == 32) return launch_bf16<32, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
-    if (P == 16) return launch_bf16<16, 64, S>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 128) return launch_bf16<128, 64, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 64) return launch_bf16<64, 64, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 32) return launch_bf16<32, 64, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
+    if (P == 16) return launch_bf16<16, 64, S, UP>(p, bias, y, N, H, W, Wp, Wp2, D, mode, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // -- float32 (tests only): a plain CUDA-core implicit GEMM --
 
-// The same parts, layouts and stride as the bf16 body; parts, then taps,
-// then 32-channel chunks, into one accumulator.
+// The same parts, layouts, stride and parities (up: grid z) as the bf16
+// body; parts, then taps, then 32-channel chunks, into one accumulator.
 __global__ void __launch_bounds__(THREADS)
 affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __restrict__ bias,
                    float* __restrict__ y, int N, int H, int W, int Wp, int Wp2, int D, int mode,
-                   int S) {
+                   int S, int up) {
   using T = float;
   __shared__ __align__(128) T As[BM][Lds<T>::A];
   __shared__ __align__(128) T Bs[BK][Lds<T>::B];
@@ -419,7 +458,9 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int pad = Wp > 0, XH = pad ? H + 2 : H, XW = pad ? Wp : W;
-  const int YH = pad ? OH + 2 : OH, YW = pad ? Wp2 : OW;
+  const int par = blockIdx.z, pi = par >> 1, pj = par & 1;
+  const int OHy = up ? 2 * OH : OH, OWy = up ? 2 * OW : OW;
+  const int YH = pad ? OHy + 2 : OHy, YW = pad ? Wp2 : OWy;
 
   // each thread gathers the same two output rows for the whole K loop
   constexpr int SLOTS = (BM * BK) / (THREADS * 8);
@@ -443,8 +484,12 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
   acc.zero();
   for (int part = 0; part < 2; ++part) {
     const Part<T> q = part ? p1 : p0;
-    for (int tap = 0; tap < 9 && q.C; ++tap) {
-      const int di = tap / 3 - 1, dj = tap % 3 - 1;
+    for (int tap = 0; tap < (up ? 4 : 9) && q.C; ++tap) {
+      // up: tap (a, b) of parity (p, p') at offset (p + a - 1, p' + b - 1),
+      // row block par * 4 + tap of w16
+      const int di = up ? pi + (tap >> 1) - 1 : tap / 3 - 1;
+      const int dj = up ? pj + (tap & 1) - 1 : tap % 3 - 1;
+      const long wrow = (long)(up ? par * 4 + tap : tap) * q.C;
       for (int c0 = 0; c0 < q.C; c0 += BK) {
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) {
@@ -466,7 +511,7 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
           affine8(v, q.a + aoff, q.b + aoff, mode == 2);
           store8(dst, v);
         }
-        load_b_tile<T>(Bs, q.w, (long)tap * q.C + c0, D, n0);
+        load_b_tile<T>(Bs, q.w, wrow + c0, D, n0);
         __syncthreads();
         acc.step(As, Bs);
         __syncthreads();
@@ -481,37 +526,39 @@ affine_conv3x3_f32(const Part<float> p0, const Part<float> p1, const float* __re
     if (m >= M) continue;
     const long n = m / ((long)OH * OW);
     const int rem = (int)(m % ((long)OH * OW));
-    const int i = rem / OW, j = rem % OW;
+    const int i = up ? 2 * (rem / OW) + pi : rem / OW, j = up ? 2 * (rem % OW) + pj : rem % OW;
     const long o = ((n * YH + i + pad) * YW + j + pad) * D + n0 + c;
     y[o] = Cs[r][c] + bias[n0 + c];
-    if (pad) zero_pad_cols(y, o, j, OW, Wp2, D);
+    if (pad) zero_pad_cols(y, o, j, OWy, Wp2, D);
   }
 }
 
 cudaError_t launch_f32(const Part<float>* p, const void* bias, void* y, int N, int H, int W,
-                       int Wp, int Wp2, int D, int mode, int S, cudaStream_t stream) {
+                       int Wp, int Wp2, int D, int mode, int S, int up, cudaStream_t stream) {
   const long M = (long)N * (H / S) * (W / S);
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(D / BN));
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(D / BN), up ? 4 : 1);
   affine_conv3x3_f32<<<grid, THREADS, 0, stream>>>(p[0], p[1], static_cast<const float*>(bias),
                                                    static_cast<float*>(y), N, H, W, Wp, Wp2, D,
-                                                   mode, S);
+                                                   mode, S, up);
   return cudaGetLastError();
 }
 
-// every entry: two parts from {x0, a0, b0, w0, x1, a1, b1, w1}
+// every entry: two parts from {x0, a0, b0, w0, x1, a1, b1, w1}; up: K5's
+// parity tap sets (one part at stride 1)
 int launch(const void* const* pa, const int* C, const void* bias, void* y, int N, int H, int W,
-           int Wp, int Wp2, int D, int mode, int S, int P, int dtype, void* stream) {
+           int Wp, int Wp2, int D, int mode, int S, int up, int P, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     Part<float> p[2];
     parts_from(pa, C, p);
-    return (int)launch_f32(p, bias, y, N, H, W, Wp, Wp2, D, mode, S, s);
+    return (int)launch_f32(p, bias, y, N, H, W, Wp, Wp2, D, mode, S, up, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   Part<bf16> p[2];
   parts_from(pa, C, p);
-  if (S == 2) return (int)dispatch_bf16<2>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
-  return (int)dispatch_bf16<1>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
+  if (up) return (int)dispatch_bf16<1, true>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
+  if (S == 2) return (int)dispatch_bf16<2, false>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
+  return (int)dispatch_bf16<1, false>(p, bias, y, N, H, W, Wp, Wp2, D, mode, P, s);
 }
 
 }  // namespace
@@ -529,7 +576,7 @@ extern "C" int v2a_affine_conv3x3(const void* x, const void* a, const void* b, c
     return (int)cudaErrorInvalidValue;
   const void* pa[8] = {x, a, b, w, nullptr, nullptr, nullptr, nullptr};
   const int Cs[2] = {C, 0};
-  return v2a::launch(pa, Cs, bias, y, N, H, W, 0, 0, D, mode, 1, P, dtype, stream);
+  return v2a::launch(pa, Cs, bias, y, N, H, W, 0, 0, D, mode, 1, 0, P, dtype, stream);
 }
 
 // K10: K1 in mode 0. x (N, H, W, C), w (9 C, D) tap-major, bias (D)
@@ -555,7 +602,7 @@ extern "C" int v2a_affine_conv3x3_padded(const void* x0, const void* a0, const v
     return (int)cudaErrorInvalidValue;
   const void* pa[8] = {x0, a0, b0, w0, x1, a1, b1, w1};
   const int Cs[2] = {C0, C1};
-  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wp, D, silu ? 2 : 1, 1, P, dtype, stream);
+  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wp, D, silu ? 2 : 1, 1, 0, P, dtype, stream);
 }
 
 // K8. dtype and mode as K1's. x (N, H+2, Wp, C) at the full size, w (9 C,
@@ -573,5 +620,23 @@ extern "C" int v2a_downconv3x3_padded(const void* x, const void* a, const void* 
     return (int)cudaErrorInvalidValue;
   const void* pa[8] = {x, a, b, w, nullptr, nullptr, nullptr, nullptr};
   const int Cs[2] = {C, 0};
-  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wp2, D, mode, 2, P, dtype, stream);
+  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wp2, D, mode, 2, 0, P, dtype, stream);
+}
+
+// K5. dtype and mode as K1's. x (N, H+2, Wp, C) at the low resolution;
+// w16 (16 C, D), row block (p * 2 + p') * 4 + a * 2 + b: the collapsed
+// weights of `upconv_weights`, in x's dtype; y (N, 2H+2, Wph, D). P: pixels
+// per tile of the low-res grid, from `affine_conv_plan(N, H, W, C, D,
+// up=True)`. Needs C % 32 == 0, D % 64 == 0, Wp % 8 == 0, Wp >= W + 2,
+// Wph % 8 == 0, Wph >= 2W + 2, 16-byte aligned contiguous buffers.
+extern "C" int v2a_upconv3x3_padded(const void* x, const void* a, const void* b, const void* w16,
+                                    const void* bias, void* y, int N, int H, int W, int Wp,
+                                    int Wph, int C, int D, int mode, int P, int dtype,
+                                    void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 32 || D <= 0 || D % 64 || Wp % 8 ||
+      Wp < W + 2 || Wph % 8 || Wph < 2 * W + 2 || mode < 0 || mode > 2 || (mode && (!a || !b)))
+    return (int)cudaErrorInvalidValue;
+  const void* pa[8] = {x, a, b, w16, nullptr, nullptr, nullptr, nullptr};
+  const int Cs[2] = {C, 0};
+  return v2a::launch(pa, Cs, bias, y, N, H, W, Wp, Wph, D, mode, 1, 1, P, dtype, stream);
 }

@@ -1,11 +1,12 @@
 // K2: y = temporal_conv3(x) + bias [+ emb] [+ residual] on (B, F, S, C), and
 // K4b: the same on the interior of a padded stream (B, F, H+2, Wp, C) with
 // the ResBlock's 1x1 skip projection folded in; both optionally with the
-// per-(B, F, C) sum / sum of squares of the rounded y.
+// per-(B, F, C) sum / sum of squares of the rounded y. K11 is K2's entry.
 //
 // Replaces the TPU kernels `temporal_conv_fused`
-// (v2a_tpu/ops/resblock_kernels.py:177, body `_tconv_kernel` :95) and
-// `temporal_conv_padded` (:1090, body `_tconv_padded_kernel` :983).
+// (v2a_tpu/ops/resblock_kernels.py:177, body `_tconv_kernel` :95),
+// `temporal_conv_padded` (:1090, body `_tconv_padded_kernel` :983) and
+// `temporal_conv_fused_hw` (:340, body `_tconv_hw_kernel` :266).
 //
 // y[b, f, s] = sum_t x[b, f + t - 1, s] @ W[t] with frames zero-padded on
 // BOTH sides (the conv is not causal) [K4b: + sum_i x_i[b, f, s] @ K_i in
@@ -65,6 +66,13 @@
 // W = S, no padding), the skip parts and the pad-col writes. With no skip
 // part and the same plan, K4b on a padded copy of K2's input runs K2's
 // products in K2's order: the same y and statistics bit for bit.
+//
+// K11 computes K2's function on the (S, B, F, C) view of the same tensor.
+// On the TPU that view was a layout bitcast; here it is only another
+// address map over the caller's (B, F, S, C) memory, so its wrapper
+// (`temporal_conv_fused_hw` in ops/resblock_kernels.py) launches
+// `v2a_temporal_conv3` on x itself: no copy of x, the residual or y, and
+// K2's y and statistics bit for bit.
 //
 // The float32 body (tests only) is the plain CUDA-core implicit GEMM of
 // common.cuh (`Accum<float>`): 64-pixel x 64-channel tiles, per (tap,

@@ -24,7 +24,8 @@ with H*W > 512 in the (.., Hp, Wp, C) layout of `padded_hw` and runs:
 - `fused_conv_tconv_padded` (K3): K4a then K4b in one pass; the conv output
   never reaches device memory. `csrc/conv_tconv_padded.cu`.
 - `fused_upconv3x3_padded` (K5): conv3x3_same(nearest_2x(x)) as four
-  parity convs over the low-res stream. `csrc/upconv3x3_padded.cu`.
+  parity convs over the low-res stream; a fifth entry of K1's kernel,
+  `csrc/affine_conv3x3.cu`, with the parity tap sets.
 
 Two further serving routings of the JAX package add:
 
@@ -47,8 +48,9 @@ Two more serving routings of the JAX package add:
   there, `VideoUNet(spatial2=False, pallas_spatial=True)` here). A third
   entry of K1's kernel, `csrc/affine_conv3x3.cu`, in its plain-conv mode.
 - `temporal_conv_fused_hw` (K11): K2's function on the (H*W, B, F, C) view
-  (`PERF_TCONV_HW` there, `VideoUNet(tconv_hw=True)` here).
-  `csrc/temporal_conv_hw.cu`.
+  (`PERF_TCONV_HW` there, `VideoUNet(tconv_hw=True)` here). K2's launch
+  of `csrc/temporal_conv.cu` on the caller's (B, F, H*W, C) memory, the
+  view being only another address map over it.
 - `fused_conv_tconv_stream` (K12): K3's function without the skip fold,
   frames streamed through a 3-slot ring of conv outputs
   (`V2A_STREAM_KERNEL=1` there, `VideoUNet(stream_kernel=True)` here), taken
@@ -126,7 +128,7 @@ KERNELS = {
         replaces="v2a_tpu/ops/resblock_kernels.py:1978",
     ),
     "fused_upconv3x3_padded": dict(
-        source="v2a_tpu_torch/csrc/upconv3x3_padded.cu",
+        source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1314",
     ),
     "wgrad_conv3x3": dict(
@@ -151,7 +153,7 @@ KERNELS = {
         replaces="v2a_tpu/ops/resblock_kernels.py:2796",
     ),
     "temporal_conv_fused_hw": dict(
-        source="v2a_tpu_torch/csrc/temporal_conv_hw.cu",
+        source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:340",
     ),
     "fused_conv_tconv_stream": dict(
@@ -282,10 +284,10 @@ def fused_affine_conv3x3_plain(
 
 
 class AffineConvPlan(NamedTuple):
-    """One bf16 K1, K4a, K10 or K8 launch: pixels per tile (`hop::tile_of`;
-    128 with sixteen warps, else eight), output channels per CTA, pixel tiles
-    over (N, H / stride, W / stride), CTAs in the grid and shared memory per
-    CTA in bytes."""
+    """One bf16 K1, K4a, K10, K8 or K5 launch: pixels per tile
+    (`hop::tile_of`; 128 with sixteen warps, else eight), output channels
+    per CTA, pixel tiles over (N, H / stride, W / stride), CTAs in the grid
+    (K5: x 4 parities) and shared memory per CTA in bytes."""
     pixels: int
     nc: int
     tiles: int
@@ -299,13 +301,15 @@ def _window_rows(th: int, tw: int, stride: int) -> int:
     return (stride * th + 3 - stride) * (stride * tw + 3 - stride)
 
 
-def affine_conv_plan(n: int, h: int, w: int, c: int, d: int, stride: int = 1) -> AffineConvPlan:
+def affine_conv_plan(n: int, h: int, w: int, c: int, d: int, stride: int = 1,
+                     up: bool = False) -> AffineConvPlan:
     """The launch K1's bf16 body makes at this shape (csrc/affine_conv3x3.cu;
     K4a's launches take it with c the parts' summed channels, since the
     shared memory does not depend on C; K10's as K1's; K8's with stride 2,
-    (h, w) its full-size input); it depends on the shape only. A CTA owns P
-    output pixels of one sample x NC output channels (128, or 64 where 128
-    does not divide D), tiles over the (h / stride, w / stride) output grid;
+    (h, w) its full-size input; K5's with `up`, (h, w) its low-res input,
+    a CTA per tile and output parity); it depends on the shape only. A CTA
+    owns P pixels of one sample x NC output channels (128, or 64 where 128
+    does not divide D), tiles over the (h / stride, w / stride) grid;
     its shared memory holds a 3-stage ring of a tap row's three (32 x NC)
     weight slabs and a 3-stage ring of input windows with their a, b
     (`_window_rows`, each stage 512-byte aligned for a TMA box; the
@@ -315,10 +319,11 @@ def affine_conv_plan(n: int, h: int, w: int, c: int, d: int, stride: int = 1) ->
     whose grid has a CTA per SM (`HOPPER_SMS`), else 16 (the most CTAs)."""
     if c % 32 or d % 64:
         raise ValueError(f"K1 needs C % 32 == 0 and D % 64 == 0, got C={c} D={d}")
-    if stride not in (1, 2) or h % stride or w % stride:
-        raise ValueError(f"stride {stride} needs H and W divisible by it, got {h}x{w}")
+    if stride not in (1, 2) or h % stride or w % stride or (up and stride != 1):
+        raise ValueError(f"stride {stride} (up {up}) needs H and W divisible by it, got {h}x{w}")
     oh, ow = h // stride, w // stride
     nc = 128 if d % 128 == 0 else 64
+    parities = 4 if up else 1
     fits = []
     for p in (128, 64, 32, 16):
         th, tw, tiles = _hop_tile(oh, ow, p)
@@ -327,7 +332,7 @@ def affine_conv_plan(n: int, h: int, w: int, c: int, d: int, stride: int = 1) ->
         ring = _HOP_STAGES * 3 * _HOP_KSTEP * nc * 2 + 3 * stage + 8 * 2 * _HOP_STAGES
         smem = _TMA_ALIGN_PAD + max(ring, p * nc * 2)
         if smem <= HOPPER_SMEM and (p == 16 or tiles < _hop_tile(oh, ow, p // 2)[2]):
-            fits.append(AffineConvPlan(p, nc, n * tiles, n * tiles * (d // nc), smem))
+            fits.append(AffineConvPlan(p, nc, n * tiles, n * tiles * (d // nc) * parities, smem))
     return next((pl for pl in fits if pl.grid >= HOPPER_SMS), fits[-1])
 
 
@@ -463,6 +468,13 @@ def temporal_conv_fused(
     _no_grad_inputs("temporal_conv_fused", x, kernel, bias, emb, residual)
     if x.device.type == "cpu":
         return temporal_conv_fused_plain(x, kernel, bias, emb, residual, want_stats)
+    return _temporal_conv_launch("temporal_conv_fused", x, kernel, bias, emb, residual,
+                                 want_stats)
+
+
+def _temporal_conv_launch(what: str, x, kernel, bias, emb, residual, want_stats):
+    """K2's launch (`v2a_temporal_conv3`) on x's own memory, counted as
+    `launches[what]`: K2's and K11's wrappers on a CUDA tensor."""
     b, f, s, c = _fold(x)
     if tuple(kernel.shape) != (3, c, c):
         raise ValueError(f"temporal kernel must be (3, C, C), got {tuple(kernel.shape)}")
@@ -485,8 +497,8 @@ def temporal_conv_fused(
             _ptr(x), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(res), _ptr(y),
             _ptr(partial), _ptr(stats), b, f, s, c, _DTYPE_CODE[x.dtype], _stream(x),
         )
-    _raise_on(rc, "temporal_conv_fused")
-    launches["temporal_conv_fused"] += 1
+    _raise_on(rc, what)
+    launches[what] += 1
     return (y, stats.reshape(b, f, 2, c)) if want_stats else y
 
 
@@ -1158,10 +1170,21 @@ def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
     pad rows not. The collapsed weights are summed in the kernel's dtype and
     then cast to x.dtype, as the JAX package does.
 
-    Kernel note (csrc/upconv3x3_padded.cu): bound by operations; one
-    implicit GEMM per output parity (grid z) with K = 4 C over the low-res
-    window: 16/36 of the upsampled conv's products, and the upsampled input
-    never exists.
+    Kernel note (csrc/affine_conv3x3.cu): bound by operations; K1's bf16
+    body with K4a's padded addressing (one part) and the parity tap sets,
+    with K1's plan over the low-res grid x 4 parities
+    (`affine_conv_plan(..., up=True)`): a CTA owns a tile of low-res pixels
+    for one output parity (p, p'); per 32-channel chunk the tile's window
+    comes by cp.async (mode 0: one TMA box) with the interior test as the
+    zero-fill predicate (pad values are never loaded) and is activated once
+    in place; a step is one tap row a of the parity's 2x2 taps, its two
+    weight slabs of the collapsed (16 C, D) weights by TMA, the window read
+    at rows and cols shifted by (p + a, p' + b) into mma.sync: 16/36 of the
+    upsampled conv's products, and the upsampled input never exists. Bias,
+    one rounding, 16-byte stores at padded (2i + p + 1, 2j + p' + 1), the
+    edge tiles also writing the zero pad cols. Parity plane (p, p') is
+    bit-equal to K1 on x's interior with a 3x3 kernel holding
+    upconv_weights(kernel)[p, p'] at taps (p + a, p' + b), zeros elsewhere.
     """
     _no_grad_inputs("fused_upconv3x3_padded", x, kernel, bias, a, b)
     if x.device.type == "cpu":
@@ -1181,12 +1204,13 @@ def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
     w16 = upconv_weights(kernel).to(x.dtype).reshape(16 * c, d).contiguous()
     bias32 = bias.float().contiguous()
     _check_cuda(x, w16, bias32, a32, b32)
+    plan = affine_conv_plan(n, h, w, c, d, up=True)
     y = torch.empty((n, hph, wph, d), dtype=x.dtype, device=x.device)
     mode = 0 if a32 is None else (2 if silu else 1)
-    fn = _lib("upconv3x3_padded", "v2a_upconv3x3_padded", 6, 9)
+    fn = _lib("affine_conv3x3", "v2a_upconv3x3_padded", 6, 10)
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(w16), _ptr(bias32), _ptr(y), n, h, w, wp,
-                wph, c, d, mode, _DTYPE_CODE[x.dtype], _stream(x))
+                wph, c, d, mode, plan.pixels, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "fused_upconv3x3_padded")
     launches["fused_upconv3x3_padded"] += 1
     return y
@@ -1904,14 +1928,6 @@ def temporal_conv_fused_hw_plain(x, kernel, bias, emb=None, residual=None, want_
     return out
 
 
-def hw_major(x: torch.Tensor) -> torch.Tensor:
-    """(B, F, ..., C) -> the (S, B, F, C) tensor K11 takes, S the folded
-    spatial size: a copy on the card (the TPU's layout bitcast,
-    `v2a_tpu/ops/resblock_kernels.py:364`)."""
-    b, f, s, c = _fold(x)
-    return x.reshape(b, f, s, c).permute(2, 0, 1, 3).contiguous()
-
-
 def temporal_conv_fused_hw(x, kernel, bias, emb=None, residual=None, want_stats=False):
     """`temporal_conv_fused`'s contract with the kernel on the (H*W, B, F, C)
     view (`v2a_tpu/ops/resblock_kernels.py:340`).
@@ -1920,13 +1936,14 @@ def temporal_conv_fused_hw(x, kernel, bias, emb=None, residual=None, want_stats=
     optional (B, C); residual optional, broadcastable to x. Returns y in
     x.dtype with x's shape [, stats (B, F, 2, C) float32 of the rounded y].
 
-    Kernel note (csrc/temporal_conv_hw.cu): memory-bound; K2's implicit GEMM
-    with the HW-major address map, a block per (b, f) slab x 64 positions x
-    64 channels, emb / residual / statistics in the epilogue, the statistics
-    reduced by a fixed-order second pass. The wrapper copies x (and the
-    residual) into the (S, B, F, C) layout and y back, as the JAX wrapper
-    writes it (:364, :386, :412): on the TPU those were layout bitcasts, on
-    the H100 they are three more passes over the tensor.
+    Kernel note (csrc/temporal_conv.cu): K2's launch. The (S, B, F, C)
+    view, which the JAX wrapper writes as transposes (:364, :386, :412) and
+    the TPU took as layout bitcasts, is only another address map over x's
+    own (B, F, S, C) memory, so this launches K2's kernel
+    (`v2a_temporal_conv3`, K2's plan) on x itself: x, the residual and y are
+    neither copied nor permuted, and y and the statistics are
+    `temporal_conv_fused`'s bit for bit. Its own count is
+    `launches["temporal_conv_fused_hw"]`.
     """
     _no_grad_inputs("temporal_conv_fused_hw", x, kernel, bias, emb, residual)
     b, f, s, c = _fold(x)
@@ -1934,24 +1951,8 @@ def temporal_conv_fused_hw(x, kernel, bias, emb=None, residual=None, want_stats=
         raise ValueError(f"temporal kernel must be (3, C, C), got {tuple(kernel.shape)}")
     if x.device.type == "cpu":
         return temporal_conv_fused_hw_plain(x, kernel, bias, emb, residual, want_stats)
-    if c % 64:
-        raise ValueError(f"K11 needs C % 64 == 0, got {c}")
-    xh = hw_major(x)
-    w2d = kernel.to(x.dtype).reshape(3 * c, c).contiguous()
-    bias32 = bias.float().contiguous()
-    emb32 = None if emb is None else emb.reshape(b, c).float().contiguous()
-    res = None if residual is None else hw_major(residual.expand(x.shape).to(x.dtype))
-    _check_cuda(xh, w2d, bias32, emb32, res)
-    yh = torch.empty_like(xh)
-    partial, stats = _stats_buffers(x, b * f, -(-s // 64), c, want_stats)
-    fn = _lib("temporal_conv_hw", "v2a_temporal_conv_hw", 8, 5)
-    with torch.cuda.device(x.device):
-        rc = fn(_ptr(xh), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(res), _ptr(yh),
-                _ptr(partial), _ptr(stats), b, f, s, c, _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_on(rc, "temporal_conv_fused_hw")
-    launches["temporal_conv_fused_hw"] += 1
-    y = yh.permute(1, 2, 0, 3).reshape(x.shape)  # a copy: back to (B, F, ..., C)
-    return (y, stats.reshape(b, f, 2, c)) if want_stats else y
+    return _temporal_conv_launch("temporal_conv_fused_hw", x, kernel, bias, emb, residual,
+                                 want_stats)
 
 
 # -- K12: K3's function with frames streamed through a 3-slot ring -------------------

@@ -1,7 +1,7 @@
 """Where the hand-written Hopper kernels spend their time, on the card.
 
     python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] \
-        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8]
+        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8,k5,k11]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
@@ -23,21 +23,27 @@ the frame-stacked (B*F*S, 3C) operand (K4b: and one of its skip parts),
 with the host's ms per call beside the card's, K10 (`spatial_conv3x3`) at
 its costliest and most called signatures of a spatial_k10_k11 forward and
 K8 (`fused_downconv3x3_padded`) at its two of padded_k8_k9, against
-`F.conv2d` (K8: at stride 2 on the interior); ms by CUDA events over
-chained calls, with each launch's plan. `--ablate` also times copies of
+`F.conv2d` (K8: at stride 2 on the interior), K5 (`fused_upconv3x3_padded`)
+at its three calls of the padded forward against `F.conv2d` on the
+upsampled interior, and K11 (`temporal_conv_fused_hw`, K2's launch) at
+three signatures of a spatial_k10_k11 forward beside K2 at the same
+signature, the host's ms per call of each wrapper, and one matmul of the
+frame-stacked operand; ms by CUDA events over chained calls,
+with each launch's plan. `--ablate` also times copies of
 the kernels with one part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation,
 the conv products, the temporal epilogue or the whole temporal phase; for
 K6 (`csrc/wgrad_conv3x3.cu`) the activation, the products or the refill of
-the copy ring; for K1, K4a, K10 and K8 (`csrc/affine_conv3x3.cu`, one body) the
-activation, the products, the refill of the weight ring, of the window ring
-or of both rings, or (not a cut) mode 0's window by cp.async in place of
-its TMA box;
+the copy ring; for K1, K4a, K10, K8 and K5 (`csrc/affine_conv3x3.cu`, one
+body) the activation, the products, the refill of the weight ring, of the
+window ring or of both rings, or (not a cut) mode 0's window by cp.async
+in place of its TMA box;
 for K14 (`csrc/winograd_conv3x3.cu`) the component transform, the
 products, the refill of the weight ring or all parity adds but one a
 component; for K9 (`csrc/spatial_attention_padded.cu`) the attention (the
-GEMMs alone) or the two GEMMs; for K2 and K4b (`csrc/temporal_conv.cu`,
-one body) the products, the refill of the A tiles or of the weight slabs,
-and the ring at 2 or 4 stages in place of 3. The cut copies compute
+GEMMs alone) or the two GEMMs; for K2, K4b and K11
+(`csrc/temporal_conv.cu`, one body) the products, the refill of the A
+tiles or of the weight slabs, and (K2, K4b) the ring at 2 or 4 stages in
+place of 3. The cut copies compute
 wrong outputs by design; only their times mean anything. Cutting the
 epilogue leaves the temporal products unused, so the compiler drops them
 too: that cut times the epilogue and the products together. They are
@@ -81,6 +87,15 @@ K10_CASES = [(56, 128, 128, 256, 256, 1), (56, 128, 128, 128, 128, 12), (56, 8, 
 # K8 at its two calls of a B=8 padded_k8_k9 forward, bare as the Downsample
 # calls it: (N, (H, W) of its full-size input, C, D, calls per forward)
 K8_CASES = [(56, (128, 128), 128, 128, 1), (56, (64, 64), 256, 256, 1)]
+# K5 at its three calls of a B=8 padded forward, bare as the Upsample calls
+# it: (N, (H, W) of its low-res input, C, D, calls per forward)
+K5_CASES = [(56, (16, 16), 512, 512, 1), (56, (32, 32), 384, 384, 1),
+            (56, (64, 64), 256, 256, 1)]
+# K11 at a B=8 spatial_k10_k11 forward's costliest 128^2 and 64^2 signatures
+# and its most called 8^2 one, each beside K2: (B, S, C, emb, residual,
+# calls per forward); all with statistics, F = 7
+K11_CASES = [(8, 16384, 128, False, True, 5), (8, 4096, 256, False, True, 5),
+             (8, 64, 640, True, False, 7)]
 # K4a at the B=8 padded forward's largest call (two parts) and its most
 # called shape: (N, (H, W), parts' C, D, calls per forward)
 K4A_CASES = [(56, (64, 64), (384, 256), 256, 1), (56, (32, 32), (384,), 384, 6)]
@@ -132,14 +147,16 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
     "k6_no_refill": (("k6",), [("      issue((j + WSTAGES - 1) % WSTAGES, ic);\n", "")]),
     "k1_no_activation": (("k1", "k4a"), [("    if (mode && g + 1 < nch) activate(",
                                           "    if (false) activate(")]),
-    "k1_no_products": (("k1", "k4a", "k10", "k8"), [(
+    "k1_no_products": (("k1", "k4a", "k10", "k8", "k5"), [(
         "        hop::mma_slab<MT, NT>(acc, bb + dj * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
-    "k1_no_weight_refill": (("k1", "k4a", "k10", "k8"), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
-    "k1_no_window_refill": (("k1", "k10", "k8"), _K1_WINDOW_REFILL),
-    "k1_no_refill": (("k1", "k10", "k8"), [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL] + _K1_WINDOW_REFILL),
+    "k1_no_weight_refill": (("k1", "k4a", "k10", "k8", "k5"),
+                            [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL]),
+    "k1_no_window_refill": (("k1", "k10", "k8", "k5"), _K1_WINDOW_REFILL),
+    "k1_no_refill": (("k1", "k10", "k8", "k5"),
+                     [_K1_FIRST_WAITS, _K1_WEIGHT_REFILL] + _K1_WINDOW_REFILL),
     # mode 0's window by cp.async, as the other modes copy theirs, in place of its TMA box
-    "k1_window_cp_async": (("k1", "k10"), [("  const bool tma_win = S == 1 && mode == 0;",
-                                            "  const bool tma_win = false;")]),
+    "k1_window_cp_async": (("k1", "k10", "k5"), [("  const bool tma_win = S == 1 && mode == 0;",
+                                                  "  const bool tma_win = false;")]),
     "k14_no_transform": (("k14",), [("      if (foff[i] >= 0) {", "      if (false) {")]),
     "k14_no_products": (("k14",), [(
         "        hop::mma_slab<1, NT>(mab, bb + u * SLAB, kk, af, wn * (NC / WN), lane);\n", "")]),
@@ -157,12 +174,12 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
     "k9_no_attention": (("k9",), [("  e = attention(qkv, att, N, S, C, ch, s2, Qa, s);\n", "")]),
     "k9_no_gemms": (("k9",), [("  e = gemm<false>(Pq, qkv_in, s);\n", ""),
                               ("  e = gemm<true>(Pp, proj_in, s);\n", "")]),
-    "tconv_no_products": (("k2", "k4b"), [
+    "tconv_no_products": (("k2", "k4b", "k11"), [
         ("hop::mma_slab<MT, NT>(acc[e], bb + t * SLAB, kk, af, wn * (NC / WN), lane);", ""),
         ("hop::mma_slab<MT, NT>(acc[e], bb + u * SLAB, kk, af, wn * (NC / WN), lane);", "")]),
-    "tconv_no_a_refill": (("k2", "k4b"), [("      issue_a(j + TC_STAGES - 1);\n", "")]),
-    "tconv_no_weight_refill": (("k2", "k4b"), [_TC_FIRST_WAITS,
-                                               ("      issue_b(j + TC_STAGES - 1);\n", "")]),
+    "tconv_no_a_refill": (("k2", "k4b", "k11"), [("      issue_a(j + TC_STAGES - 1);\n", "")]),
+    "tconv_no_weight_refill": (("k2", "k4b", "k11"),
+                               [_TC_FIRST_WAITS, ("      issue_b(j + TC_STAGES - 1);\n", "")]),
     # the ring's depth: 2 or 4 stages in place of 3 (the plan's shared memory follows)
     "tconv_stages_2": (("k2", "k4b"), [("constexpr int TC_STAGES = 3;",
                                          "constexpr int TC_STAGES = 2;")]),
@@ -423,6 +440,47 @@ def _tconv_runs(kernel, args):
     return lambda: fn(*args, want_stats=True), library
 
 
+def _k5_args(n, hw, c, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = rk._place(torch.randn(n, *hw, c, generator=gen, device=dev), *rk.padded_hw(*hw))
+    k = torch.randn(3, 3, c, d, generator=gen, device=dev) * (9 * c) ** -0.5
+    return x.bfloat16(), k, 0.1 * torch.randn(d, generator=gen, device=dev), hw
+
+
+def _k5_runs(args):
+    """(K5's call, `F.conv2d` on the 2x upsampled interior, channels_last bf16)"""
+    x, k, bias, hw = args
+    xu = rk._interior(x, hw).repeat_interleave(2, 1).repeat_interleave(2, 2).permute(0, 3, 1, 2)
+    wl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bl = bias.bfloat16()
+    return (lambda: rk.fused_upconv3x3_padded(*args),
+            lambda: torch.nn.functional.conv2d(xu, wl, bl, padding=1))
+
+
+def _k11_args(b, s, c, emb, res, dev, f=7):
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x = randn(b, f, s, c).bfloat16()
+    return (x, randn(3, c, c, scale=(3 * c) ** -0.5), randn(c, scale=0.1),
+            randn(b, c).bfloat16() if emb else None, randn(b, f, s, c).bfloat16() if res else None)
+
+
+def _k11_runs(args):
+    """(K11's call with statistics, as the path calls it; K2's on the same
+    tensor; one matmul of the frame-stacked (B*F*S, 3C) operand)"""
+    x, kern = args[:2]
+    b, f, c = x.shape[0], x.shape[1], x.shape[-1]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
+    stacked = torch.cat([xp[:, :f], xp[:, 1:f + 1], xp[:, 2:]], -1).reshape(-1, 3 * c)
+    w2d = kern.bfloat16().reshape(3 * c, c)
+    return (lambda: rk.temporal_conv_fused_hw(*args, want_stats=True),
+            lambda: rk.temporal_conv_fused(*args, want_stats=True),
+            lambda: torch.matmul(stacked, w2d))
+
+
 def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
     """A copy of `csrc` with `cuts` applied, under `build_dir`."""
     root = os.path.join(build_dir, "variants", name)
@@ -452,7 +510,7 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
-    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8",
+    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8,k5,k11",
                     help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -467,6 +525,8 @@ def main(argv=None) -> List[dict]:
     k4a = [(c, _k4a_args(*c[:4], dev)) for c in K4A_CASES] if "k4a" in kernels else []
     k10 = [(c, _k10_args(*c[:5], dev)) for c in K10_CASES] if "k10" in kernels else []
     k8 = [(c, _k8_args(*c[:4], dev)) for c in K8_CASES] if "k8" in kernels else []
+    k5 = [(c, _k5_args(*c[:4], dev)) for c in K5_CASES] if "k5" in kernels else []
+    k11 = [(c, _k11_args(*c[:5], dev)) for c in K11_CASES] if "k11" in kernels else []
     k9 = [(c, _k9_args(*c[:4], dev)) for c in K9_CASES] if "k9" in kernels else []
     tconv = [(c, _tconv_args(*c[:7], dev)) for c in TCONV_CASES if c[0] in kernels]
     with torch.no_grad():
@@ -528,6 +588,25 @@ def main(argv=None) -> List[dict]:
                        grid=plan.grid, smem=plan.smem)
             rows.append(row)
             print(row, flush=True)
+        for case, args in k5:
+            kernel_fn, library = _k5_runs(args)
+            n, (h, w), c, d, calls = case
+            plan = rk.affine_conv_plan(n, h, w, c, d, up=True)
+            row = dict(kernel="k5", shape=case[:4], calls=calls, ms=time_ms(kernel_fn),
+                       library_ms=time_ms(library), pixels=plan.pixels, nc=plan.nc,
+                       grid=plan.grid, smem=plan.smem)
+            rows.append(row)
+            print(row, flush=True)
+        for case, args in k11:
+            kernel_fn, k2_fn, library = _k11_runs(args)
+            b, s, c, emb, res, calls = case
+            plan = rk.temporal_conv_plan(b, 7, s, c)
+            row = dict(kernel="k11", shape=case[:5], calls=calls, ms=time_ms(kernel_fn),
+                       k2_ms=time_ms(k2_fn), host_ms=host_ms(kernel_fn),
+                       k2_host_ms=host_ms(k2_fn), library_ms=time_ms(library),
+                       pixels=plan.pixels, frames=plan.frames, nc=plan.nc, grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
         for case, args in k9:
             kernel_fn, library = _k9_runs(args)
             n, (h, w), c, ch, calls = case
@@ -569,9 +648,10 @@ def main(argv=None) -> List[dict]:
                     for kernel, cases_k, runs in (("k6", k6, _k6_runs), ("k1", k1, _k1_runs),
                                                   ("k14", k14, _k14_runs),
                                                   ("k4a", k4a, _k4a_runs), ("k9", k9, _k9_runs),
-                                                  ("k10", k10, _k10_runs), ("k8", k8, _k8_runs)):
+                                                  ("k10", k10, _k10_runs), ("k8", k8, _k8_runs),
+                                                  ("k5", k5, _k5_runs), ("k11", k11, _k11_runs)):
                         for case, args in cases_k if kernel in cut_kernels else ():
-                            shape = case[:4] if kernel in ("k4a", "k9", "k8") else case[:5]
+                            shape = case[:4] if kernel in ("k4a", "k9", "k8", "k5") else case[:5]
                             row = dict(variant=name, kernel=kernel, shape=shape,
                                        ms=time_ms(runs(args)[0]))
                             rows.append(row)
