@@ -45,9 +45,10 @@ Phases (any failure exits non-zero):
      its `affine_conv_plan` (K8's at stride 2, K5's with its parities),
      each K2, K4b and K11 row its `temporal_conv_plan` (the C side's plan
      must be the same), each K9
-     row its `attention_plan`, and a B=1 grid of K12, K4a, K8, K9, K10, K5,
-     K2, K4b or K11 below one CTA per SM fails (K2 / K4b / K11: where a
-     tile larger than 16 pixels was taken).
+     row its `attention_plan`, each K7 row its `group_norm_plan` (threads,
+     lanes, rows and CTAs per sample, grid, shared memory), and a B=1 grid
+     of K12, K4a, K8, K9, K10, K5, K2, K4b, K11 or K7 below one CTA per SM
+     fails (K2 / K4b / K11: where a tile larger than 16 pixels was taken).
      Each shape is
      timed on its first input set: kernel, plain version and PyTorch
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
@@ -94,8 +95,9 @@ Phases (any failure exits non-zero):
      bit-equal, timed in turns with K3, and against K4a -> K4b, its copy
      route logged), K14 at every K10 signature of `spatial_k10_k11` and
      the lab's (one ulp of its plain version; its difference from K10
-     reported), K15 at the lab's three shapes and K9 at head widths 8, 40,
-     80 and 160 (C 640), each on three input sets;
+     reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
+     bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
+     each on three input sets;
   9. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
@@ -842,7 +844,8 @@ def check_k6(rk, key, inp, timed):
 
 def check_k7(rk, key, inp, timed):
     """K7 at one recorded signature: within one ulp of its plain version,
-    two launches bit-equal (fixed-order statistics)."""
+    two launches bit-equal (fixed-order statistics; the second launch also
+    finds the scratch's arrival counters the first left)."""
     from v2a_tpu_torch.ops import group_norm as gn
 
     _, shape, groups, silu = key
@@ -1134,27 +1137,27 @@ def check_k14(rk, key, inp, timed):
 
 def check_k15(rk, key, inp, timed):
     """K15 at one perf-lab shape: within one ulp of its plain version, two
-    launches bit-equal; timed against the lab's yardstick, three stacked
-    `torch.matmul`s summed in float32."""
+    launches bit-equal, and bit-equal to K2 with a zero bias on the same x
+    and w (K15 is K2's launch); timed against one matmul of the
+    frame-stacked (B*F*S, 3C) operand, K2's yardstick."""
     from v2a_tpu_torch.scripts import perf_lab
 
     _, (b, f, s, c) = key
     x = inp.randn(b, f, s, c).bfloat16()
     wt = inp.randn(3 * c, c, scale=(3 * c) ** -0.5)
     got, again = perf_lab.temporal_conv_taps(x, wt), perf_lab.temporal_conv_taps(x, wt)
+    k2 = rk.temporal_conv_fused(x, wt.reshape(3, c, c), torch.zeros(c, device=x.device))
     ok, abs_err, rel, _ = within_one_ulp(got, perf_lab.temporal_conv_taps_plain(x, wt))
-    ok = ok and torch.equal(got, again)
+    same, vs_k2 = torch.equal(got, again), torch.equal(got, k2)
+    log(f"[kernels] K15 {b}x{f}x{s}x{c}: two launches bit-equal: {same}; bit-equal to K2 with "
+        f"a zero bias: {vs_k2}")
+    ok = ok and same and vs_k2
     times = None
     if timed:
-        taps = wt.bfloat16().reshape(3, c, c)
-
-        def library():
-            xp = F.pad(x, (0, 0, 0, 0, 1, 1))
-            return sum(torch.matmul(xp[:, t:t + f], taps[t]).float() for t in range(3))
-
+        stacked, w2d = _stacked(x, b, f, c), wt.bfloat16()
         times = dict(ms=time_ms(lambda: perf_lab.temporal_conv_taps(x, wt)),
                      plain_ms=time_ms(lambda: perf_lab.temporal_conv_taps_plain(x, wt), 3, 1),
-                     library_ms=time_ms(library))
+                     library_ms=time_ms(lambda: torch.matmul(stacked, w2d)))
     flops = 2.0 * b * s * c * c * (3 * f - 2)  # the padded frame taps multiply zeros
     nbytes = 2 * 2 * b * f * s * c + 2 * 3 * c * c
     return ok, abs_err, rel, None, times, flops, nbytes, f"K15 {b}x{f}x{s}x{c}"
@@ -1331,6 +1334,13 @@ def _plan_row(rk, key):
         return dict(patches=f"{plan.patches} ({plan.tile_h}x{plan.tile_w})", nc=plan.nc,
                     window="resident" if plan.resident else "streamed", grid=plan.grid,
                     smem=plan.smem)
+    if key[0] == "k7":
+        from v2a_tpu_torch.ops import group_norm as gn
+
+        shape = key[1]
+        plan = gn.group_norm_plan(shape[0], int(np.prod(shape[1:-1])), shape[-1], key[2])
+        return dict(threads=plan.threads, lanes=plan.lanes, rows=plan.rows, ctas=plan.ctas,
+                    grid=shape[0] * plan.ctas, smem=plan.smem)
     if key[0] not in ("k3", "k12", "k13"):
         return {}
     (b, f), (h, w), d = key[1], key[2], key[4]
@@ -1381,10 +1391,12 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
             bound_ms = max(ops_s, bytes_s) * 1e3
             plan = _plan_row(rk, key)
             served_b1 = (key[1][0] == 1 if key[0] in ("k12", "k2", "k4b", "k11")
-                         else key[1][0] == 7 if key[0] == "k10" else key[1] == 7)
+                         else key[1][0] == 7 if key[0] == "k10"
+                         else key[1][0] in (1, 7) if key[0] == "k7" else key[1] == 7)
             # K2 / K4b / K11: where a 16-pixel tile gives a CTA per SM (not 8^2 x 512 at B=1)
             short = plan.get("pixels", 0) > 16 if key[0] in ("k2", "k4b", "k11") else True
-            if (key[0] in ("k12", "k4a", "k8", "k9", "k10", "k5", "k2", "k4b", "k11") and served_b1
+            if (key[0] in ("k12", "k4a", "k8", "k9", "k10", "k5", "k2", "k4b", "k11", "k7")
+                    and served_b1
                     and short
                     and plan["grid"] < rk.HOPPER_SMS):
                 log(f"[{tag}] {label}: a B=1 grid of {plan['grid']} CTAs leaves SMs idle")

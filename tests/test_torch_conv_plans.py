@@ -1,6 +1,6 @@
 """The launch plans of K1, K4a, K10, K8 and K5 (`affine_conv_plan`), K2,
-K4b and K11 (`temporal_conv_plan`), K9 (`attention_plan`) and K14
-(`winograd_plan`), on the CPU: at every shape the release paths give the
+K4b and K11 (`temporal_conv_plan`), K9 (`attention_plan`), K14
+(`winograd_plan`) and K7 (`group_norm_plan`), on the CPU: at every shape the release paths give the
 kernels (traced on the `meta` device, no memory) and at ragged shapes off
 them, each plan's tiles cover every pixel (K5: every output pixel of every
 parity; K14: every 2x2 patch; K9: every token, column and (sample, head,
@@ -18,6 +18,7 @@ from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_padded import PACKAGE_KERNELS, _counting
 from v2a_tpu_torch.models import video_unet as tvu
 from v2a_tpu_torch.ops import conv_vjp as tcv
+from v2a_tpu_torch.ops import group_norm as tgn
 from v2a_tpu_torch.ops import resblock_kernels as trk
 
 SMEM_227_KIB = 227 * 1024
@@ -291,7 +292,7 @@ def _driven_to_the_launch(monkeypatch):
 
     seen = {}
 
-    def fake_lib(name, fn, nptr, nint):
+    def fake_lib(name, fn, nptr, nint, nfloat=0):
         def launch(*args):
             seen.setdefault(fn, []).append((name, args[:nptr], args[nptr:nptr + nint]))
             return 0
@@ -539,6 +540,107 @@ def test_k11_wrapper_passes_x_and_its_plan(monkeypatch, dtype, b, f, hw, c):
              else -(-s // 64))
     assert tuple(ptrs[6].shape) == (b * f * tiles * 2 * c,)
     assert trk.launches["temporal_conv_fused_hw"] == 1 and trk.launches["temporal_conv_fused"] == 0
+
+
+def _check_k7_plan(b, s, c, itemsize=2, groups=32):
+    """K7's plan, decoded as csrc/group_norm_silu.cu decodes its grid: CTA i
+    of a sample takes chunks i, i + ctas, ... of `rows` rows, thread (v,
+    lane) the rows lane, lane + lanes, ... of each, at most 64 bytes a
+    thread; every row of the sample once, every CTA at least one chunk;
+    threads C / 8 x lanes, at most 1,024; the shared memory (the ring of
+    three chunks, or the statistics' [2][lanes][C] floats) within the
+    opted-in 227 KiB; the scratch the counters, (mean, rstd) and every
+    CTA's partials; the same plan on every call."""
+    plan = tgn.group_norm_plan(b, s, c, groups, itemsize)
+    assert plan == tgn.group_norm_plan.__wrapped__(b, s, c, groups, itemsize)
+    per_lane = 64 // (8 * itemsize)
+    assert plan.threads == c // 8 * plan.lanes <= 1024 and 1 <= plan.rows <= plan.lanes * per_lane
+    covered = np.zeros(s, np.int32)
+    for cta in range(plan.ctas):
+        chunks = range(cta, -(-s // plan.rows), plan.ctas)
+        assert len(chunks) >= 1
+        for ch in chunks:
+            n = min(plan.rows, s - ch * plan.rows)
+            for lane in range(plan.lanes):
+                for u in range(per_lane):
+                    if lane + u * plan.lanes < n:
+                        covered[ch * plan.rows + lane + u * plan.lanes] += 1
+    assert (covered == 1).all()
+    ring = 3 * plan.rows * c * itemsize
+    assert plan.smem == 128 + max(ring, 2 * plan.lanes * c * 4) <= SMEM_227_KIB
+    up4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    assert plan.scratch == up4(b) + up4(2 * groups * b) + 2 * groups * b * up4(plan.ctas)
+    return plan
+
+
+def _k7_calls(monkeypatch, b):
+    """{(x's shape, SiLU): calls} of K7 in one B-sample plain_k7 forward,
+    traced on the meta device with every kernel's plain version."""
+    calls = {}
+
+    def record(x, scale, bias, groups=32, eps=1e-5, with_silu=True):
+        key = (tuple(x.shape), with_silu)
+        calls[key] = calls.get(key, 0) + 1
+        return tgn.fused_group_norm_silu_plain(x, scale, bias, groups, eps, with_silu)
+
+    _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
+    monkeypatch.setattr(tgn, "fused_group_norm_silu", record)
+    with torch.device("meta"), torch.no_grad():
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=False, use_pallas_gn=True)(
+            torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
+            torch.randn(b, 77, 512))
+    return calls
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_group_norm_plan_fits_every_release_call(monkeypatch, b):
+    """`tgn.group_norm_plan` at all 24 K7 signatures of a plain_k7 forward
+    (66 calls), at B=8 and at a B=1 request: every row once, the shared
+    memory and threads as the kernel needs, and a CTA per SM everywhere (a
+    request's 8^2 calls on chunks of three rows, 150 CTAs)."""
+    calls = _k7_calls(monkeypatch, b)
+    assert sum(calls.values()) == 66 and len(calls) == 24
+    for (shape, _), n in calls.items():
+        plan = _check_k7_plan(shape[0], int(np.prod(shape[1:-1])), shape[-1])
+        assert shape[0] * plan.ctas >= trk.HOPPER_SMS, shape
+        if shape[0] * int(np.prod(shape[1:-1])) >= 8 * 7 * 128 * 128:  # 128^2: four CTAs an SM
+            assert shape[0] * plan.ctas == 4 * trk.HOPPER_SMS
+
+
+@pytest.mark.parametrize("b,s,c,itemsize,groups", [
+    (1, 448, 640, 2, 32), (56, 37, 512, 2, 32), (2, 3000, 128, 4, 32), (1, 100000, 64, 2, 32),
+    (2, 21, 8192, 4, 32), (3, 1, 32, 2, 32), (1, 33, 8, 4, 8)])
+def test_group_norm_plan_at_ragged_shapes(b, s, c, itemsize, groups):
+    """Off the path: a last chunk of one row, S < 64, float32 (two rows a
+    lane), 32 lanes, 1,024 threads, one row, one 8-channel vector."""
+    _check_k7_plan(b, s, c, itemsize, groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,silu", [((8, 7, 128, 128, 128), True), ((56, 256, 512), False),
+                                        ((1, 7, 8, 8, 1280), True)])
+def test_k7_wrapper_passes_the_plan(monkeypatch, dtype, shape, silu):
+    """K7's wrapper, driven to its launch on meta tensors, hands its C entry
+    x, y and one float32 scratch of the plan's size (zeroed once, the same
+    tensor on the next call) and `group_norm_plan`'s integers, and counts
+    one K7 launch a call."""
+    launched = _driven_to_the_launch(monkeypatch)
+    monkeypatch.setattr(trk, "launches", {k: 0 for k in trk.launches})
+    monkeypatch.setattr(tgn, "_scratch", {})
+    b, c = shape[0], shape[-1]
+    s = int(np.prod(shape[1:-1]))
+    with torch.device("meta"):
+        x = torch.empty(*shape, dtype=dtype)
+        y = tgn.fused_group_norm_silu(x, torch.empty(c), torch.empty(c), 32, with_silu=silu)
+        tgn.fused_group_norm_silu(x, torch.empty(c), torch.empty(c), 32, with_silu=silu)
+    plan = tgn.group_norm_plan(b, s, c, 32, x.element_size())
+    [(name, ptrs, ints), (_, ptrs2, ints2)] = launched["v2a_group_norm_silu"]
+    assert name == "group_norm_silu" and ints == ints2 == (
+        b, s, c, 32, plan.threads, plan.rows, plan.ctas, int(silu), trk._DTYPE_CODE[dtype])
+    assert ptrs[0] is x and ptrs[4] is y and y.shape == x.shape and y.dtype == dtype
+    assert ptrs[3] is ptrs2[3] and ptrs[3].dtype == torch.float32
+    assert tuple(ptrs[3].shape) == (plan.scratch,)
+    assert trk.launches["fused_group_norm_silu"] == 2
 
 
 def _check_attention_plan(n, h, w, c, ch):

@@ -780,6 +780,36 @@ def test_group_norm_silu_kernel_matches_plain(cuda, dtype, silu, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 7, 8, 8, 1152),     # one lane, 3 rows a CTA, S % rows == 1, 150 CTAs
+    (1, 7, 13, 13, 1280),   # one lane, 296 CTAs, S % rows == 3
+    (56, 64, 640),          # an attention norm's B: 6 CTAs a sample, S % rows == 4
+    (56, 37, 512),          # S < 64, a last CTA of one row
+    (2, 3, 1000, 128),      # 16 lanes, S % rows == 30
+    (8, 7, 12, 12, 384),    # 5 lanes, groups of 12 channels across vectors
+    (1, 100000, 64),        # 32 lanes, 527 CTAs: the fold's longest runs
+    (2, 3, 7, 8192)])       # 1,024 threads, 64 KiB of opted-in shared memory
+def test_group_norm_silu_kernel_at_plan_edges(cuda, dtype, shape):
+    """K7 at the edges of `gn.group_norm_plan` (ragged last CTAs, one and
+    many lanes, B = 1 and 56, C up to 8192) within one ulp of its plain
+    version (float32: 1e-5 relative); two launches bit-equal, the second on
+    the scratch whose arrival counters the first reset."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    scale = 1 + 0.2 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.2 * torch.randn(c, generator=gen, device=cuda)
+    before = rk.launches["fused_group_norm_silu"]
+    got = gn.fused_group_norm_silu(x, scale, bias, 32)
+    again = gn.fused_group_norm_silu(x, scale, bias, 32)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_group_norm_silu"] == before + 2
+    assert torch.equal(got, again)
+    ok, rel = _within_ulp(got, gn.fused_group_norm_silu_plain(x, scale, bias, 32), dtype)
+    assert ok, f"max err / std {rel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode", ["plain", "affine", "silu"])
 @pytest.mark.parametrize("n,hw,c,d", [(3, (8, 8), 64, 64), (2, (12, 20), 128, 128),
                                       (2, (32, 32), 256, 256)])
@@ -1210,6 +1240,26 @@ def test_temporal_conv_taps_kernel_matches_plain(cuda, dtype, b, f, s, c):
     assert ok, f"max err / std {rel}"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,s,c", [(2, 7, 64, 128), (1, 3, 1000, 256), (8, 7, 64, 640)])
+def test_temporal_conv_taps_is_k2(cuda, dtype, b, f, s, c):
+    """K15 is K2's launch with a zero bias: y bit-equal to
+    `temporal_conv_fused` with w as its (3, C, C) kernel and a zero bias on
+    the same x, counted as K15's launch."""
+    from v2a_tpu_torch.scripts import perf_lab
+
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    x = torch.randn(b, f, s, c, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(3 * c, c, generator=gen, device=cuda) / (3 * c) ** 0.5
+    k15, k2 = rk.launches["temporal_conv_taps"], rk.launches["temporal_conv_fused"]
+    got = perf_lab.temporal_conv_taps(x, w)
+    assert rk.launches["temporal_conv_taps"] == k15 + 1
+    assert rk.launches["temporal_conv_fused"] == k2
+    want = rk.temporal_conv_fused(x, w.reshape(3, c, c), torch.zeros(c, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_lab_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from v2a_tpu_torch.scripts import perf_lab
 
@@ -1223,3 +1273,6 @@ def test_lab_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # C % 64
         perf_lab.temporal_conv_taps(torch.zeros(1, 3, 8, 96, device=cuda),
                                     torch.zeros(288, 96, device=cuda))
+    with pytest.raises(ValueError):  # w not (3C, C)
+        perf_lab.temporal_conv_taps(torch.zeros(1, 3, 8, 64, device=cuda),
+                                    torch.zeros(3, 64, 64, device=cuda))

@@ -285,6 +285,48 @@ def test_temporal_conv_taps_plain_matches_pallas(impl):
     _one_ulp(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,s,c", [(8, 7, 16384, 128), (8, 7, 64, 640), (1, 3, 1000, 192)])
+def test_temporal_conv_taps_is_k2s_launch(monkeypatch, dtype, b, f, s, c):
+    """K15's wrapper, driven to its launch on meta tensors (the device
+    checks, the library and the stream stubbed), calls K2's entry
+    (`v2a_temporal_conv3` of `temporal_conv.cu`) with the integers K2's
+    wrapper hands it for the same x, on x itself, with w as the (3C, C)
+    kernel, a cached float32 zero bias of C elements and no emb, residual or
+    statistics, and counts the launch as K15's, not K2's."""
+    import contextlib
+
+    seen = []
+
+    def fake_lib(name, fn, nptr, nint, nfloat=0):
+        def launch(*args):
+            seen.append((name, fn, args[:nptr], args[nptr:nptr + nint]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(trk, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(trk, "_stream", lambda x: 0)
+    monkeypatch.setattr(trk, "_ptr", lambda t: t)
+    monkeypatch.setattr(trk, "_lib", fake_lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(trk, "launches", {k: 0 for k in trk.launches})
+    monkeypatch.setattr(perf_lab, "_zero_bias", {})
+    with torch.device("meta"):
+        x, w = torch.empty(b, f, s, c, dtype=dtype), torch.empty(3 * c, c)
+        y = perf_lab.temporal_conv_taps(x, w)
+        perf_lab.temporal_conv_taps(x, w)
+        zero = perf_lab._zero_bias[(x.device, c)]
+        trk.temporal_conv_fused(x, w.reshape(3, c, c), zero)
+    (name, fn, ptrs, ints), (_, _, ptrs2, _), (_, k2_fn, k2_ptrs, k2_ints) = seen
+    assert (name, fn) == ("temporal_conv", "v2a_temporal_conv3") and k2_fn == fn
+    assert ints == k2_ints == (b, f, s, c, trk._DTYPE_CODE[dtype])
+    assert ptrs[0] is x and ptrs[5] is y and y.shape == x.shape and y.dtype == dtype
+    assert tuple(ptrs[1].shape) == (3 * c, c) and ptrs[1].dtype == dtype
+    assert ptrs[2] is zero is ptrs2[2] and zero.dtype == torch.float32 and zero.shape == (c,)
+    assert ptrs[3] is ptrs[4] is ptrs[6] is ptrs[7] is None
+    assert trk.launches["temporal_conv_taps"] == 2 and trk.launches["temporal_conv_fused"] == 1
+
+
 # -- K9: any head width, any token count ---------------------------------------------
 
 

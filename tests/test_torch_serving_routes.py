@@ -83,9 +83,11 @@ def _zero_pads(got, hw, cols_only=True):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("silu", [True, False])
-@pytest.mark.parametrize("shape", [(2, 3, 4, 4, 64), (3, 48, 128)], ids=["5d", "3d"])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 4, 64), (3, 48, 128), (2, 64, 640),
+                                   (1, 4, 4, 4, 1280)], ids=["5d", "3d", "3d-gw20", "5d-gw40"])
 def test_group_norm_silu_plain_matches_pallas(dtype, silu, shape):
-    """f32: atol 1e-5 (`tests/test_pallas_kernels.py:61`); bf16: one ulp."""
+    """f32: atol 1e-5 (`tests/test_pallas_kernels.py:61`); bf16: one ulp.
+    C 640 and 1280 are the release's widest groups (20 and 40 channels)."""
     rs = np.random.RandomState(20)
     x = (rs.randn(*shape) * 2 + 0.5).astype(np.float32)
     c = shape[-1]

@@ -1,16 +1,12 @@
-// Shared pieces of the hand-written Hopper kernels: the block tile, 8-wide
-// vector loads/stores, and the per-block product of an A tile (BM x BK)
-// with a B tile (BK x BN) accumulated in float32.
-//
-// bf16 runs on the tensor cores through nvcuda::wmma 16x16x16 fragments;
-// float32 runs on the CUDA cores (a 8x4 register micro-tile per thread).
-// Both take the same shared-memory tiles, so the kernels that include this
-// header only write their own A-tile gather and epilogue.
+// Shared pieces of the hand-written Hopper kernels: 8-wide vector
+// loads/stores, the activation's rounding, and the float32 bodies' block
+// tile: the product of an A tile (BM x BK) with a B tile (BK x BN) on the
+// CUDA cores (a 8x4 register micro-tile per thread), so the kernels that
+// include this header only write their own A-tile gather and epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace v2a {
@@ -21,10 +17,6 @@ constexpr int BK = 32;        // reduction depth per shared-memory stage
 constexpr int THREADS = 128;  // four warps, 2 x 2 over the 64 x 64 tile
 
 template <typename T> struct Lds;
-template <> struct Lds<__nv_bfloat16> {
-  static constexpr int A = BK + 8;  // row pads keep wmma rows off one bank
-  static constexpr int B = BN + 8;
-};
 template <> struct Lds<float> {
   static constexpr int A = BK + 4;
   static constexpr int B = BN + 4;
@@ -150,44 +142,6 @@ __device__ __forceinline__ void load_b_tile(T (*Bs)[Lds<T>::B], const T* __restr
 }
 
 template <typename T> struct Accum;
-
-// bf16: each warp owns a 32 x 32 quarter of the tile as 2 x 2 wmma fragments.
-template <> struct Accum<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[2][2];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0.f);
-  }
-  __device__ __forceinline__ void step(T (*As)[Lds<T>::A], T (*Bs)[Lds<T>::B]) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], Lds<T>::A);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wn * 32 + j * 16], Lds<T>::B);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ __forceinline__ void store(float (*Cs)[C_LD]) {
-    const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16], c[i][j], C_LD,
-                                        nvcuda::wmma::mem_row_major);
-  }
-};
 
 // float32: thread (ty, tx) owns rows ty*8..+8 and columns tx*4..+4.
 template <> struct Accum<float> {

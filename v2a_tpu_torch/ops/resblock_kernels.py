@@ -169,9 +169,9 @@ KERNELS = {
         replaces="v2a_tpu/ops/resblock_kernels.py:3163",
     ),
     # the perf lab's temporal conv (a closure there: `make_call` :627, its
-    # pallas_call :674)
+    # pallas_call :674): K2's launch with a zero bias
     "temporal_conv_taps": dict(
-        source="v2a_tpu_torch/csrc/tconv_variants.cu",
+        source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="scripts/perf_lab.py:627",
         module="v2a_tpu_torch.scripts.perf_lab",
     ),
@@ -240,7 +240,10 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The handle of x's device's current stream: the raw getter, which
+    costs a tenth of a microsecond of host time where building a
+    `torch.cuda.Stream` costs about five."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def _stats_buffers(x: torch.Tensor, rows: int, tiles: int, c: int, want: bool):
@@ -474,7 +477,7 @@ def temporal_conv_fused(
 
 def _temporal_conv_launch(what: str, x, kernel, bias, emb, residual, want_stats):
     """K2's launch (`v2a_temporal_conv3`) on x's own memory, counted as
-    `launches[what]`: K2's and K11's wrappers on a CUDA tensor."""
+    `launches[what]`: K2's, K11's and K15's wrappers on a CUDA tensor."""
     b, f, s, c = _fold(x)
     if tuple(kernel.shape) != (3, c, c):
         raise ValueError(f"temporal kernel must be (3, C, C), got {tuple(kernel.shape)}")

@@ -1,7 +1,7 @@
 """Where the hand-written Hopper kernels spend their time, on the card.
 
     python -m v2a_tpu_torch.scripts.conv_tconv_probe [--ablate] \
-        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8,k5,k11]
+        [--kernels k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8,k5,k11,k7,k15]
 
 Times K3 (`fused_conv_tconv_padded`) and K12 (`fused_conv_tconv_stream`) in
 bf16 at release-level shapes (F=7, emb and residual) against the same work
@@ -28,6 +28,11 @@ at its three calls of the padded forward against `F.conv2d` on the
 upsampled interior, and K11 (`temporal_conv_fused_hw`, K2's launch) at
 three signatures of a spatial_k10_k11 forward beside K2 at the same
 signature, the host's ms per call of each wrapper, and one matmul of the
+frame-stacked operand, K7 (`fused_group_norm_silu`) at the plain_k7
+forward's costliest signature, its most called small one and an attention
+norm beside `y.copy_(x)` (the same bytes read and written) and the host's
+ms per call, and K15 (the perf lab's `temporal_conv_taps`) at the lab's
+three shapes beside K2 with a zero bias and one matmul of the
 frame-stacked operand; ms by CUDA events over chained calls,
 with each launch's plan. `--ablate` also times copies of
 the kernels with one part cut out: for K3 / K12 (`csrc/conv_tconv_hopper.cuh`) the activation,
@@ -43,7 +48,8 @@ component; for K9 (`csrc/spatial_attention_padded.cu`) the attention (the
 GEMMs alone) or the two GEMMs; for K2, K4b and K11
 (`csrc/temporal_conv.cu`, one body) the products, the refill of the A
 tiles or of the weight slabs, and (K2, K4b) the ring at 2 or 4 stages in
-place of 3. The cut copies compute
+place of 3; for K7 (`csrc/group_norm_silu.cu`) the statistics pass alone
+and the apply pass alone (also without the SiLU). The cut copies compute
 wrong outputs by design; only their times mean anything. Cutting the
 epilogue leaves the temporal products unused, so the compiler drops them
 too: that cut times the epilogue and the products together. They are
@@ -96,6 +102,12 @@ K5_CASES = [(56, (16, 16), 512, 512, 1), (56, (32, 32), 384, 384, 1),
 # calls per forward); all with statistics, F = 7
 K11_CASES = [(8, 16384, 128, False, True, 5), (8, 4096, 256, False, True, 5),
              (8, 64, 640, True, False, 7)]
+# K7 at a B=8 plain_k7 forward's costliest signature, its most called small
+# one and an attention norm: (x's shape, SiLU, calls per forward)
+K7_CASES = [((8, 7, 128, 128, 128), True, 8), ((8, 7, 8, 8, 640), True, 10),
+            ((56, 256, 512), False, 5)]
+# K15 at the perf lab's three shapes (B, F, S, C)
+K15_CASES = [(8, 7, 128 * 128, 128), (8, 7, 64 * 64, 256), (8, 7, 64, 640)]
 # K4a at the B=8 padded forward's largest call (two parts) and its most
 # called shape: (N, (H, W), parts' C, D, calls per forward)
 K4A_CASES = [(56, (64, 64), (384, 256), 256, 1), (56, (32, 32), (384,), 384, 6)]
@@ -180,6 +192,13 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
     "tconv_no_a_refill": (("k2", "k4b", "k11"), [("      issue_a(j + TC_STAGES - 1);\n", "")]),
     "tconv_no_weight_refill": (("k2", "k4b", "k11"),
                                [_TC_FIRST_WAITS, ("      issue_b(j + TC_STAGES - 1);\n", "")]),
+    # K7's two passes apart: the apply launch cut, or the statistics launch
+    # (the apply pass then reads the statistics an earlier call left)
+    "k7_stats_only": (("k7",), [("  apply<<<grid, threads, smem, stream>>>(",
+                                 "  if (false) apply<<<grid, threads, smem, stream>>>(")]),
+    "k7_apply_only": (("k7",), [("  gn_stats_kernel<T><<<grid, threads, smem, stream>>>(",
+                                 "  if (false) gn_stats_kernel<T><<<grid, threads, smem, "
+                                 "stream>>>(")]),
     # the ring's depth: 2 or 4 stages in place of 3 (the plan's shared memory follows)
     "tconv_stages_2": (("k2", "k4b"), [("constexpr int TC_STAGES = 3;",
                                          "constexpr int TC_STAGES = 2;")]),
@@ -481,6 +500,58 @@ def _k11_runs(args):
             lambda: torch.matmul(stacked, w2d))
 
 
+def _k7_args(shape, silu, dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device=dev) * 2 + 0.5).bfloat16()
+    return (x, 1 + 0.2 * torch.randn(c, generator=gen, device=dev),
+            0.2 * torch.randn(c, generator=gen, device=dev), silu)
+
+
+def _k7_runs(args):
+    """(K7's call as the path makes it; the same without the SiLU;
+    `y.copy_(x)`, the same bytes read and written)"""
+    from v2a_tpu_torch.ops import group_norm as gn
+
+    x, scale, bias, silu = args
+    y = torch.empty_like(x)
+    return (lambda: gn.fused_group_norm_silu(x, scale, bias, 32, with_silu=silu),
+            lambda: gn.fused_group_norm_silu(x, scale, bias, 32, with_silu=False),
+            lambda: y.copy_(x))
+
+
+def _k7_plan(shape):
+    from v2a_tpu_torch.ops import group_norm as gn
+
+    b, c = shape[0], shape[-1]
+    s = 1
+    for dim in shape[1:-1]:
+        s *= dim
+    plan = gn.group_norm_plan(b, s, c)
+    return dict(threads=plan.threads, rows=plan.rows, ctas=plan.ctas, grid=b * plan.ctas)
+
+
+def _k15_args(b, f, s, c, dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return (torch.randn(b, f, s, c, generator=gen, device=dev).bfloat16(),
+            torch.randn(3 * c, c, generator=gen, device=dev) * (3 * c) ** -0.5)
+
+
+def _k15_runs(args):
+    """(K15's call; K2's with a zero bias on the same x and w; one matmul of
+    the frame-stacked (B*F*S, 3C) operand)"""
+    from v2a_tpu_torch.scripts import perf_lab
+
+    x, w = args
+    b, f, c = x.shape[0], x.shape[1], x.shape[-1]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
+    stacked = torch.cat([xp[:, :f], xp[:, 1:f + 1], xp[:, 2:]], -1).reshape(-1, 3 * c)
+    w2d, zero = w.bfloat16(), torch.zeros(c, device=x.device)
+    return (lambda: perf_lab.temporal_conv_taps(x, w),
+            lambda: rk.temporal_conv_fused(x, w.reshape(3, c, c), zero),
+            lambda: torch.matmul(stacked, w2d))
+
+
 def _variant_dir(csrc: str, build_dir: str, name: str, cuts) -> str:
     """A copy of `csrc` with `cuts` applied, under `build_dir`."""
     root = os.path.join(build_dir, "variants", name)
@@ -510,7 +581,8 @@ def _use_sources(csrc: str, build_dir: str) -> None:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ablate", action="store_true", help="also time the cut copies")
-    ap.add_argument("--kernels", default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8,k5,k11",
+    ap.add_argument("--kernels",
+                    default="k3,k12,k13,k6,k1,k14,k4a,k9,k2,k4b,k10,k8,k5,k11,k7,k15",
                     help="comma-separated kernels")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -528,6 +600,8 @@ def main(argv=None) -> List[dict]:
     k5 = [(c, _k5_args(*c[:4], dev)) for c in K5_CASES] if "k5" in kernels else []
     k11 = [(c, _k11_args(*c[:5], dev)) for c in K11_CASES] if "k11" in kernels else []
     k9 = [(c, _k9_args(*c[:4], dev)) for c in K9_CASES] if "k9" in kernels else []
+    k7 = [(c, _k7_args(*c[:2], dev)) for c in K7_CASES] if "k7" in kernels else []
+    k15 = [(c, _k15_args(*c, dev)) for c in K15_CASES] if "k15" in kernels else []
     tconv = [(c, _tconv_args(*c[:7], dev)) for c in TCONV_CASES if c[0] in kernels]
     with torch.no_grad():
         for case, args in cases:
@@ -607,6 +681,23 @@ def main(argv=None) -> List[dict]:
                        pixels=plan.pixels, frames=plan.frames, nc=plan.nc, grid=plan.grid)
             rows.append(row)
             print(row, flush=True)
+        for case, args in k7:
+            kernel_fn, no_silu, copy = _k7_runs(args)
+            shape, silu, calls = case
+            row = dict(kernel="k7", shape=shape, silu=silu, calls=calls, ms=time_ms(kernel_fn),
+                       no_silu_ms=time_ms(no_silu), host_ms=host_ms(kernel_fn),
+                       copy_ms=time_ms(copy), **_k7_plan(shape))
+            rows.append(row)
+            print(row, flush=True)
+        for case, args in k15:
+            kernel_fn, k2_fn, library = _k15_runs(args)
+            plan = rk.temporal_conv_plan(*case)
+            row = dict(kernel="k15", shape=case, ms=time_ms(kernel_fn), k2_ms=time_ms(k2_fn),
+                       host_ms=host_ms(kernel_fn), k2_host_ms=host_ms(k2_fn),
+                       library_ms=time_ms(library), pixels=plan.pixels, frames=plan.frames,
+                       nc=plan.nc, grid=plan.grid)
+            rows.append(row)
+            print(row, flush=True)
         for case, args in k9:
             kernel_fn, library = _k9_runs(args)
             n, (h, w), c, ch, calls = case
@@ -656,6 +747,12 @@ def main(argv=None) -> List[dict]:
                                        ms=time_ms(runs(args)[0]))
                             rows.append(row)
                             print(row, flush=True)
+                    for case, args in k7 if "k7" in cut_kernels else ():
+                        call, no_silu, _ = _k7_runs(args)
+                        row = dict(variant=name, kernel="k7", shape=case[0], silu=case[1],
+                                   ms=time_ms(call), no_silu_ms=time_ms(no_silu))
+                        rows.append(row)
+                        print(row, flush=True)
             finally:
                 _use_sources(csrc, build_dir)
     return rows

@@ -28,6 +28,7 @@ ROUTINGS = {
     "padded": dict(fused=True),
     "unpadded": dict(fused=True, padded_stream=False),
     "spatial_k10_k11": dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
+    "plain_k7": dict(fused=False, use_pallas_gn=True),
 }
 
 

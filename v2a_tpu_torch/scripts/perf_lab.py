@@ -8,10 +8,12 @@ that reach a hand-written kernel.
   through the library conv (`F.conv2d`), K10 (`spatial_conv3x3`) and K14
   (`winograd_conv3x3`), with K14's error relative to the library conv.
 - `tconvbench2` (JAX lab :613-716): the plain 3-tap temporal conv at three
-  level shapes through K15 (`temporal_conv_taps`, this module's kernel) and
-  the library yardstick, three stacked `torch.matmul`s summed in float32.
-  The JAX bench's three TPU schedules of that kernel are TPU tiling
-  experiments and have no counterpart here.
+  level shapes through K15 (`temporal_conv_taps`, this module's wrapper of
+  K2's launch) and the library yardstick, one `torch.matmul` of the
+  frame-stacked (B*F*S, 3C) operand and the (3C, C) weights, the stacking
+  included (the calls are chained, so each stacks its own input). The JAX
+  bench's three TPU schedules of that kernel are TPU tiling experiments
+  and have no counterpart here.
 
 Each prints one line per (shape, implementation): ms per call over chained
 calls (y = fn(y), timed by CUDA events on the card), and TFLOP/s. The JAX
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,37 +54,36 @@ def temporal_conv_taps_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (stacked @ w.to(x.dtype).float()).to(x.dtype)
 
 
+# a float32 zero bias of C elements per (device, C): K15 is K2's launch without one
+_zero_bias: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
 def temporal_conv_taps(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The JAX perf lab's temporal-conv kernel (`scripts/perf_lab.py:627`,
     `tconv_variants_bench.make_call`): y[f] = sum_t x[f + t - 1] @ W_t with
     zero frames outside, no bias. x (B, F, S, C); w (3C, C), rows t*C ..
     t*C + C - 1 for tap t. Returns (B, F, S, C) in x.dtype.
 
-    Kernel note (csrc/tconv_variants.cu): bound by bytes at C = 128, by
-    operations from C = 256 on; K2's implicit GEMM over (b, f, s) rows with
-    K = 3C, one (b, f) slab x 64 positions x 64 channels per block, the frame
-    padding as zero cells, an epilogue that only rounds.
+    Kernel note (csrc/temporal_conv.cu): K2's function with a zero bias, so
+    this is K2's launch (`rk._temporal_conv_launch`: K2's Hopper body and
+    plan, its float32 body for float32) on x's own memory with w as K2's
+    (3, C, C) tap-major kernel, a cached float32 zero bias and no emb,
+    residual or statistics; y is K2's bit for bit (adding +0.0 changes no
+    value). Its own count is `launches["temporal_conv_taps"]`.
     """
     rk._no_grad_inputs("temporal_conv_taps", x, w)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, F, S, C), got {tuple(x.shape)}")
-    b, f, s, c = x.shape
+    c = x.shape[-1]
     if tuple(w.shape) != (3 * c, c):
         raise ValueError(f"w {tuple(w.shape)} vs (3C, C) = {(3 * c, c)}")
     if x.device.type == "cpu":
         return temporal_conv_taps_plain(x, w)
-    if c % 64:
-        raise ValueError(f"K15 needs C % 64 == 0, got {c}")
-    w2d = w.to(x.dtype).contiguous()
-    rk._check_cuda(x, w2d)
-    y = torch.empty_like(x)
-    fn = rk._lib("tconv_variants", "v2a_tconv_variants", 3, 5)
-    with torch.cuda.device(x.device):
-        rc = fn(rk._ptr(x), rk._ptr(w2d), rk._ptr(y), b, f, s, c, rk._DTYPE_CODE[x.dtype],
-                rk._stream(x))
-    rk._raise_on(rc, "temporal_conv_taps")
-    rk.launches["temporal_conv_taps"] += 1
-    return y
+    zero = _zero_bias.get((x.device, c))
+    if zero is None:
+        zero = _zero_bias[(x.device, c)] = torch.zeros(c, dtype=torch.float32, device=x.device)
+    return rk._temporal_conv_launch("temporal_conv_taps", x, w.reshape(3, c, c), zero, None,
+                                    None, False)
 
 
 # -- timing ------------------------------------------------------------------------
@@ -160,21 +161,21 @@ def winobench2(shapes: Sequence = WINO_SHAPES, device=None, chain: int = 10, ite
 def tconvbench2(shapes: Sequence = TCONV_SHAPES, device=None, chain: int = 10, iters: int = 3,
                 out: Callable = print) -> List[dict]:
     """The plain 3-tap temporal conv (bf16) at each (level, B, F, S, C)
-    through K15 and the library yardstick (three stacked `torch.matmul`s
-    summed in float32), chained. Returns a row per (shape, implementation)."""
+    through K15 and the library yardstick (one `torch.matmul` of the
+    frame-stacked operand, which the chained call stacks first), chained.
+    Returns a row per (shape, implementation)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     for name, b, f, s, c in shapes:
         x = torch.randn(b, f, s, c, generator=gen, device=dev).bfloat16()
         w = (torch.randn(3 * c, c, generator=gen, device=dev) * 0.05).bfloat16()
-        taps = w.reshape(3, c, c)
         flops = 2.0 * 3 * c * c * s * b * f
 
         def library(y):
             yp = F.pad(y, (0, 0, 0, 0, 1, 1))
-            return sum(torch.matmul(yp[:, t:t + f], taps[t]).float()
-                       for t in range(3)).to(y.dtype)
+            stacked = torch.cat([yp[:, :f], yp[:, 1:f + 1], yp[:, 2:]], -1)
+            return torch.matmul(stacked.reshape(-1, 3 * c), w).reshape(y.shape)
 
         for label, fn in (("kernel", lambda y: temporal_conv_taps(y, w)),
                           ("stacked-matmul", library)):
