@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port (`v2a_tpu_torch`) through its serving path and
-its video-model train step on one NVIDIA card and holds its hand-written
-kernels against their plain PyTorch versions.
+"""Drives the PyTorch/CUDA port (`v2a_tpu_torch`) through its serving path,
+its train steps and its online training loop on one NVIDIA card and holds
+its hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -87,7 +87,23 @@ Phases (any failure exits non-zero):
   7. trains the policy: `make_train_step(policy.loss, fused_clip_adamw,
      EMAConfig())` at the release batch (64), bf16 compute, one warm-up and
      three timed steps, the peak memory, finite loss and weights;
-  8. the lab kernels: the port's perf lab (`python -m
+  8. the online loop: `train/build.py::build_experiment` from the port's
+     copy of the release config (`config/libero/lb_tk8_65to72.py`, full
+     widths) with the cuts of `ONLINE_OVERRIDES` (the fake env's 8 tasks at
+     128^2, live random episodes, one guided cycle in 8 train steps, smaller
+     replay stores), then `OnlineTrainer.train()`: the cycle's B=8 goal
+     videos through the padded routing (its launches exactly 100 release
+     forwards', nothing launched outside it), the EMA policy's DDIM-8
+     predictions in the rollouts, B=64 train steps from the native store
+     through the prefetcher; the video buffer's episodes, finite losses,
+     `save` and `load` into a fresh trainer bit-equal, the native store's
+     hindsight batch equal to the Python backend's; then the eval entry
+     point (`scripts/eval.py` on the run's workdir: the snapshot's one seed
+     per task and one goal video per episode). Logged with the
+     card's name and power limit: s per cycle and per goal-video call,
+     predictions and ms each, env steps and host ms each, ms per train step
+     and per hindsight batch, peak memory, eval s per episode;
+  9. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
      padded forward, bit for bit (K3's mainloop, its copies by TMA); then
@@ -98,16 +114,17 @@ Phases (any failure exits non-zero):
      reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
      bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
      each on three input sets;
-  9. prints the `kernels` JSON line, then the device line last.
+  10. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
-Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainer
-writes its checkpoints under `logs/chip_smoke_train/` and the script removes
-them.
+Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainers
+write their checkpoints under `logs/chip_smoke_train/` and
+`logs/chip_smoke_online/` and the script removes them.
 """
 
 import contextlib
 import dataclasses
+import gc
 import inspect
 import json
 import os
@@ -204,7 +221,53 @@ K6_SMALL = [((2, 8, 8, 128), 128, False, False), ((2, 8, 8, 128), 128, True, Tru
 # the policy train step: the release batch (`buf_sample_batch_size`) and the
 # timed steps after one warm-up step
 POLICY_B, POLICY_STEPS = 64, 3
+# the online loop (phase 8): the port's copy of the release config with
+# these cuts, each logged with its reason; one guided cycle (step 4) in
+# ONLINE_STEPS train steps
+ONLINE_STEPS = 8
+ONLINE_OVERRIDES = {
+    "dataset": "fake-8tk-v0",
+    "env_backend": "fake",
+    "trainer.rand_explo_type": "live",
+    "trainer.randsam_path": "",
+    "trainer.num_init_rand_ep_per_tk": 2,
+    "explore.act_down_val": -0.1,
+    "trainer.init_rand_steps": 3,
+    "trainer.video_explo_freq": 4,
+    "trainer.rand_explo_freq": 10 ** 9,
+    "trainer.n_train_steps": ONLINE_STEPS,
+    "trainer.save_freq": ONLINE_STEPS,
+    "trainer.log_freq": 1,
+    "trainer.max_episodes_rand": 16,
+    "trainer.max_episodes_vid": 16,
+    "trainer.checkpoint_buffers": True,
+    "eval.n_seeds": 1,
+    "eval.num_vid_pred_per_ep": 1,
+}
+ONLINE_WHY = {
+    "dataset": "FakeEnvList, 8 tasks at 128^2: LIBERO is not installed",
+    "env_backend": "the fake world",
+    "trainer.rand_explo_type": "live random episodes: no H5 file in the repository",
+    "trainer.randsam_path": "no H5 file",
+    "trainer.num_init_rand_ep_per_tk": "one live episode per task before the loop",
+    "explore.act_down_val": "a fixed descent, as in fake_smoke: the per-task table is "
+                            "LIBERO's tuning",
+    "trainer.init_rand_steps": "schedule: the cycle at step 4",
+    "trainer.video_explo_freq": "schedule: one cycle",
+    "trainer.rand_explo_freq": "schedule: no further random round",
+    "trainer.n_train_steps": "8 train steps",
+    "trainer.save_freq": "a checkpoint at steps 1 and 8",
+    "trainer.log_freq": "every step",
+    "trainer.max_episodes_rand": "the native store preallocates max_episodes x 700 "
+                                 "frames (1,200 x 700 x 128^2 x 3 B = 41 GB at release)",
+    "trainer.max_episodes_vid": "likewise (600: 21 GB)",
+    "trainer.checkpoint_buffers": "the buffers go into the checkpoint, for the resume gate",
+    "eval.n_seeds": "the eval: one seed per task",
+    "eval.num_vid_pred_per_ep": "the eval: one goal video per episode",
+}
+ONLINE_BATCH_REPS = 20  # hindsight batches timed per backend
 ROOT = os.path.dirname(os.path.abspath(__file__))
+ONLINE_LOGS = os.path.join(ROOT, "logs", "chip_smoke_online")
 
 
 def _rk():
@@ -1820,8 +1883,244 @@ def train_policy(dev):
     return report
 
 
+def _timed(log_to, fn, sync=True):
+    """`fn` with each call's seconds appended to `log_to` (after a
+    synchronize, so the card's work is inside)."""
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if sync:
+            torch.cuda.synchronize()
+        log_to.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def online_loop(rk, routing_calls, dev, smi):
+    """Phase 8, the online loop: `build_experiment` from the port's copy of
+    the release config with the cuts of `ONLINE_OVERRIDES`, then
+    `OnlineTrainer.train()` (live random episodes, one video-guided cycle:
+    one B=8 goal-video call on the padded routing, then the rollouts with
+    the EMA policy's DDIM-8 predictions; the train steps from the native
+    replay buffers through the prefetcher), `save` and `load` into a fresh
+    trainer, then the eval entry point on the run's workdir (`scripts/eval.py`:
+    the loaded EMA policy, one seed per task, one goal video per episode, from
+    the snapshot). The counts are zeroed just before
+    `train()` and read just after. Returns the report, the launches and the
+    per-kernel errors of any cycle signature phase 3 did not hold."""
+    from v2a_tpu_torch.config import apply_overrides, load_config_module
+    from v2a_tpu_torch.data.replay_buffer import ReplayBuffer
+    from v2a_tpu_torch.scripts import eval as eval_script
+    from v2a_tpu_torch.train.build import build_experiment
+
+    cfg = load_config_module(os.path.join(ROOT, "v2a_tpu_torch", "config", "libero",
+                                          "lb_tk8_65to72.py"))
+    cfg = apply_overrides(cfg, dict(ONLINE_OVERRIDES, logbase=ONLINE_LOGS, exp_name="run"))
+    workdir = cfg.savepath()
+    shutil.rmtree(ONLINE_LOGS, ignore_errors=True)
+    log("[online] cuts of the release config: " + "; ".join(
+        f"{k}={v} ({ONLINE_WHY[k]})" for k, v in ONLINE_OVERRIDES.items()))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, policy, env_list, video_model = build_experiment(cfg)
+    build_s = time.perf_counter() - t0
+    if not (video_model.unet.fused and video_model.unet.padded_stream):
+        fail("online: the video model did not resolve to the padded routing on cuda")
+    if trainer.envBuf_vid.backend != "native" or trainer.cfg.prefetch_depth != 2:
+        fail("online: expected the native replay store and prefetch depth 2")
+    n_tasks = len(env_list.task_list)
+
+    # instrumentation: the cycle, its video call, its predictions and env
+    # steps, the train steps (CUDA events)
+    cycle_s, video_s, predict_s, env_s, steps = [], [], [], [], []
+    in_cycle = {"on": False}
+    sampler = trainer.video_model
+    sampler.sample_u8 = _timed(video_s, sampler.sample_u8)
+    trainer.executor.policy_fn = _timed(predict_s, trainer.executor.policy_fn, sync=False)
+    env_step = env_list.step_an_env
+
+    def timed_env_step(*a, **k):
+        if not in_cycle["on"]:
+            return env_step(*a, **k)
+        t = time.perf_counter()
+        out = env_step(*a, **k)
+        env_s.append(time.perf_counter() - t)
+        return out
+
+    env_list.step_an_env = timed_env_step
+    explore = trainer.video_guided_explore
+    cycle_calls, cycle_launches = {}, {}
+
+    def cycle():
+        in_cycle["on"] = True
+        before = launch_counts()
+        t = time.perf_counter()
+        try:
+            with recording() as calls:
+                explore()
+            torch.cuda.synchronize()
+        finally:
+            in_cycle["on"] = False
+        cycle_s.append(time.perf_counter() - t)
+        cycle_calls.update(calls)
+        cycle_launches.update({n: v - before[n] for n, v in launch_counts().items()})
+
+    trainer.video_guided_explore = cycle
+    inner = trainer._train_step
+
+    def timed_step(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(*a, **k)
+        e1.record()
+        steps.append((e0, e1, out.loss))
+        return out
+
+    trainer._train_step = timed_step
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+
+    # gates: one cycle, its launches exactly 100 B=8 release forwards of
+    # the padded routing, none outside it; the buffer; finite losses
+    n_fwd = cfg.video.sampling_timesteps
+    want = {name: n_fwd * EXPECTED_PER_FORWARD["padded"].get(name, 0) for name in launches}
+    if len(cycle_s) != 1 or trainer.step != ONLINE_STEPS:
+        fail(f"online: {len(cycle_s)} guided cycles over {trainer.step} steps, expected 1 "
+             f"over {ONLINE_STEPS}")
+    if cycle_launches != want or launches != want:
+        fail(f"online: launches {launches} (in the cycle {cycle_launches}), expected {want}")
+    made = {}
+    for key, n in cycle_calls.items():
+        made[key[0]] = made.get(key[0], 0) + n
+    if any(made.get(tag, 0) != want[name] for name, (tag, _, _) in KERNEL_CHECKS.items()):
+        fail(f"online: wrapper calls {made} do not match the launches {want}")
+    lo, hi = trainer.explore_cfg.act_min, trainer.explore_cfg.act_max
+    eps = trainer.envBuf_vid.export_episodes()
+    h, w = cfg.video.image_size
+    if len(eps) != n_tasks or trainer.cnt_vid_rollouts != n_tasks:
+        fail(f"online: {len(eps)} episodes in the video buffer, expected {n_tasks}")
+    for ep in eps:
+        imgs, acts = ep["imgs"], ep["acts"]
+        if (imgs.dtype != np.uint8 or imgs.shape[1:] != (h, w, 3)
+                or len(imgs) != len(acts) + 1 or acts.min() < lo or acts.max() > hi):
+            fail(f"online: a guided episode of {imgs.shape} {imgs.dtype} and "
+                 f"{acts.shape} actions in [{acts.min()}, {acts.max()}]")
+    losses = [float(s[2]) for s in steps]
+    if len(losses) != ONLINE_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"online: losses {losses}")
+    step_ms = [e0.elapsed_time(e1) for e0, e1, _ in steps]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the cycle's kernel signatures: held in phase 3 unless new
+    extra = {k: v for k, v in cycle_calls.items() if k not in routing_calls["padded"]}
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"online": extra}, dev, timed=False,
+                                     tag="online-shapes")
+        extra_agg = extra_agg["online"]
+
+    # save, then load into a fresh trainer: bit-equal state and counters
+    t0 = time.perf_counter()
+    trainer.save()
+    save_s = time.perf_counter() - t0
+    fresh, *_ = build_experiment(cfg, workdir, with_video_model=False, snapshot=False)
+    t0 = time.perf_counter()
+    fresh.load()
+    load_s = time.perf_counter() - t0
+    a, b = trainer.state_dict(), fresh.state_dict()
+    same = (a["step"] == b["step"] and a["opt_state"]["count"] == b["opt_state"]["count"]
+            and all(torch.equal(a[p][k], b[p][k]) for p in ("params", "ema_params")
+                    for k in a[p])
+            and all(torch.equal(x, y) for p in ("mu", "nu")
+                    for x, y in zip(a["opt_state"][p], b["opt_state"][p]))
+            and fresh._counters() == trainer._counters())
+    for name in ("envBuf_rand", "envBuf_vid"):
+        x, y = getattr(trainer, name), getattr(fresh, name)
+        same = same and len(x) == len(y) and (
+            x.cnt_all_history_episodes == y.cnt_all_history_episodes)
+        for ea, eb in zip(x.export_episodes(), y.export_episodes()):
+            same = same and all(np.array_equal(ea[k], eb[k]) for k in ("imgs", "acts"))
+    if not same:
+        fail("online: the loaded trainer differs from the saved one")
+
+    # the hindsight batch: the native store against the Python backend on
+    # the same episodes and generator
+    py = ReplayBuffer(trainer.cfg.max_episodes_vid, trainer.cfg.max_len_uB,
+                      trainer.cfg.min_len_uB, trainer.cfg.model_act_horizon, backend="python")
+    for ep in eps:
+        py.add_episode(ep["task"], ep["cam"], ep["env_idx"], ep["imgs"], ep["acts"],
+                       is_success=ep["is_success"])
+    bs = trainer.cfg.buf_sample_batch_size
+    nat_b = trainer.envBuf_vid.sample_batch(bs, np.random.default_rng(SEED + 7))
+    py_b = py.sample_batch(bs, np.random.default_rng(SEED + 7))
+    if not all(np.array_equal(np.asarray(nat_b[k]), np.asarray(py_b[k])) for k in nat_b):
+        fail("online: the native store's hindsight batch differs from the Python backend's")
+    batch_ms = {}
+    for name, buf in (("native", trainer.envBuf_vid), ("python", py)):
+        rng = np.random.default_rng(SEED)
+        t0 = time.perf_counter()
+        for _ in range(ONLINE_BATCH_REPS):
+            buf.sample_batch(bs, rng)
+        batch_ms[name] = (time.perf_counter() - t0) / ONLINE_BATCH_REPS * 1e3
+    del py
+
+    # the eval entry point on the run's workdir, with the card's memory of
+    # the loop given back first
+    del trainer, fresh, policy, video_model, sampler, explore, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(eval_script.main(["--workdir", workdir, "--vis", "0"])) as fh:
+        result = json.load(fh)
+    eval_s = time.perf_counter() - t0
+    if (result["num_evals"] != n_tasks or len(result["run_times_all"]) != n_tasks
+            or result["epoch"] != ONLINE_STEPS):
+        fail(f"online: eval ran {result['num_evals']} episodes at step {result['epoch']}, "
+             f"expected {n_tasks} at {ONLINE_STEPS}")
+    eval_s_per_episode = float(np.mean(result["run_times_all"]))
+
+    env_steps = sum(int(len(ep["acts"])) for ep in eps)
+    report = dict(
+        card=smi, tasks=n_tasks, build_s=build_s, train_s=train_s, cycle_s=cycle_s[0],
+        video_call_s=video_s[0], predictions=len(predict_s),
+        ms_per_prediction=float(np.mean(predict_s)) * 1e3,
+        env_steps_in_cycle=len(env_s), env_steps_in_episodes=env_steps,
+        host_ms_per_env_step=float(np.mean(env_s)) * 1e3,
+        train_step_ms=step_ms, losses=losses, hindsight_batch_ms=batch_ms, batch=bs,
+        peak_gib=peak, save_s=save_s, load_s=load_s,
+        eval_s=eval_s, eval_s_per_episode=eval_s_per_episode,
+        eval_run_times=result["run_times_all"], eval_suc_rate=result["suc_rate"],
+        launches=cycle_launches, new_signatures=len(extra))
+    log(f"[online] {smi}: train({ONLINE_STEPS}) {train_s:.1f} s; one guided cycle "
+        f"{cycle_s[0]:.2f} s, its goal-video call {video_s[0]:.2f} s (B={n_tasks}, {n_fwd}-step "
+        f"chain), launches {{K1 {want['fused_affine_conv3x3']}, K2 "
+        f"{want['temporal_conv_fused']}, K3 {want['fused_conv_tconv_padded']}, K4a "
+        f"{want['fused_affine_conv3x3_padded']}, K4b {want['temporal_conv_padded']}, K5 "
+        f"{want['fused_upconv3x3_padded']}}}")
+    log(f"[online] {smi}: {len(predict_s)} policy predictions in the cycle (B=1 DDIM-"
+        f"{cfg.policy.num_inference_steps_ddim}, {cfg.policy.dtype}), "
+        f"{report['ms_per_prediction']:.1f} ms each; {len(env_s)} env steps, host "
+        f"{report['host_ms_per_env_step']:.3f} ms each")
+    log(f"[online] {smi}: ms per B={bs} train step {[round(v, 1) for v in step_ms]}, losses "
+        f"{[round(v, 4) for v in losses]}; ms per hindsight batch of {bs}: native "
+        f"{batch_ms['native']:.2f}, python {batch_ms['python']:.2f} (equal batches); peak "
+        f"{peak:.1f} GiB")
+    log(f"[online] {smi}: save {save_s:.1f} s, load {load_s:.1f} s (bit-equal); "
+        f"scripts/eval.py {eval_s:.1f} s in all, {n_tasks} episodes, "
+        f"{eval_s_per_episode:.2f} s per episode, success rate {result['suc_rate']:.3f} "
+        f"(random weights)")
+    gc.collect()
+    shutil.rmtree(ONLINE_LOGS, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report, launches, extra_agg
+
+
 def lab_kernels(rk, routing_calls, dev):
-    """Phase 8, the lab kernels' main paths, then their gates. The port's
+    """Phase 9, the lab kernels' main paths, then their gates. The port's
     perf lab (`winobench2`, `tconvbench2`), the path that launches K14 and
     K15; K13 held against K3 at every K3 signature of the padded forward, on
     K3's first input set, bit for bit (the JAX package's own caller of K13,
@@ -1963,16 +2262,19 @@ def main():
                                           tag="train-shapes", roles=k1_roles)
     # 7. the policy train step
     policy_train = train_policy(dev)
-    # 8. the lab kernels' paths and gates
+    # 8. the online loop
+    online, online_launches, online_agg = online_loop(rk, routing_calls, dev, smi)
+    # 9. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
 
-    # 9. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # 10. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
     # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step,
     # K13 over K3's calls of one padded forward, K14 over K10's of one
     # spatial_k10_k11 forward, K15 over the perf lab's three shapes;
     # launches over every main-path run (the served requests of all five
-    # routings and the K6 routing's train() run; K13-K15: their lab paths)
+    # routings, the K6 routing's train() run and the online loop's train()
+    # run; K13-K15: their lab paths)
     lab_names = ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps")
     source_routing = {"fused_group_norm_silu": "plain_k7",
                       "fused_downconv3x3_padded": "padded_k8_k9",
@@ -1990,8 +2292,10 @@ def main():
             src = agg[source_routing.get(name, "padded")][name]
         errs = [src["max_abs_err"], train_agg["train"][name]["max_abs_err"]]
         errs += [a[name]["max_abs_err"] for a in serve_agg.values()]
+        errs += [online_agg[name]["max_abs_err"]] if online_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
-                    + train_launches[name] + sum(nl[name] for nl in new_launches.values()))
+                    + train_launches[name] + sum(nl[name] for nl in new_launches.values())
+                    + online_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -2006,7 +2310,8 @@ def main():
                        requests_s=req, serve_launches=launches, new_routing_request_s=new_req,
                        new_routing_launches=new_launches, train=train_report,
                        train_launches=train_launches, train_shapes=train_rows,
-                       per_train_step=train_agg, policy_train=policy_train,
+                       per_train_step=train_agg, policy_train=policy_train, online=online,
+                       online_launches=online_launches,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
                        **forward), fh, indent=1)
@@ -2017,8 +2322,8 @@ def main():
         "in chiprun_out/chip_smoke_shapes.json, per_train_step); K13's over K3's calls in one "
         "padded forward, K14's over K10's in one spatial_k10_k11 forward, K15's over the perf "
         "lab's three shapes (per_lab); launches are those of the served requests of the five "
-        "routings plus the K6 routing's train() run, and for K13-K15 those of their lab paths "
-        "(the perf lab's benches; K13 against K3)")
+        "routings plus the K6 routing's train() run plus the online loop's train() run, and "
+        "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

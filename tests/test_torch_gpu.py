@@ -1276,3 +1276,76 @@ def test_lab_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # w not (3C, C)
         perf_lab.temporal_conv_taps(torch.zeros(1, 3, 8, 64, device=cuda),
                                     torch.zeros(3, 64, 64, device=cuda))
+
+
+# -- the online loop (train/trainer.py) ----------------------------------------
+
+
+def test_online_loop_on_the_card(cuda, tmp_path):
+    """The fake_smoke loop on the card: live random episodes, one guided
+    cycle whose goal videos go through the padded routing's kernels (video
+    width 128, the small U-Net of the tests above: K2 needs C % 64 == 0),
+    finite losses, a checkpoint that loads bit for bit into a fresh
+    trainer."""
+    import json
+    import os
+
+    from v2a_tpu_torch.config import apply_overrides, load_config_module
+    from v2a_tpu_torch.train.build import build_experiment
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config_module(os.path.join(root, "v2a_tpu_torch", "config", "fake",
+                                          "fake_smoke.py"))
+    cfg = apply_overrides(cfg, {"video.model_channels": "128", "trainer.n_train_steps": "8",
+                                "logbase": str(tmp_path)})
+    trainer, policy, env_list, video_model = build_experiment(cfg)
+    assert policy.device.type == "cuda" and video_model.unet.fused
+    before = dict(rk.launches)
+    trainer.train()
+    made = {k: v - before[k] for k, v in rk.launches.items() if v != before[k]}
+    torch.cuda.synchronize()
+    assert trainer.step == 8 and trainer.cnt_vid_rollouts == len(env_list.task_list)
+    assert made.get("fused_affine_conv3x3", 0) > 0 and made.get("temporal_conv_fused", 0) > 0
+    for ep in trainer.envBuf_vid.export_episodes():
+        assert ep["imgs"].shape[1:] == (32, 32, 3) and len(ep["imgs"]) == len(ep["acts"]) + 1
+    with open(os.path.join(trainer.workdir, "metrics.jsonl")) as fh:
+        losses = [r["train/loss"] for r in map(json.loads, fh) if "train/loss" in r]
+    assert losses and np.all(np.isfinite(losses))
+    trainer.save()  # fake_smoke saves at steps 1 and 10: this run stops at 8
+    fresh, *_ = build_experiment(cfg, trainer.workdir, with_video_model=False, snapshot=False)
+    fresh.load()
+    a, b = trainer.state_dict(), fresh.state_dict()
+    assert a["step"] == b["step"] == 8
+    for part in ("params", "ema_params"):
+        assert all(torch.equal(a[part][k], b[part][k]) for k in a[part])
+    for part in ("mu", "nu"):
+        assert all(torch.equal(x, y) for x, y in zip(a["opt_state"][part], b["opt_state"][part]))
+
+
+def test_native_store_matches_python_backend(cuda):
+    """The replay store built on this machine samples the Python backend's
+    batches, and a batch reaches the card through the trainer's pinned
+    copier as uint8 scaled there (held against the same scaling on the
+    card: a division by a scalar there is a product by its reciprocal)."""
+    from v2a_tpu_torch.data.replay_buffer import ReplayBuffer
+    from v2a_tpu_torch.parallel.prefetch import PinnedCopier
+
+    rs = np.random.RandomState(0)
+    bufs = [ReplayBuffer(4, 64, 10, 8, backend=b) for b in ("native", "python")]
+    for e in range(6):
+        n = 20 + 7 * e
+        imgs = rs.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
+        acts = rs.uniform(-1, 1, (n - 1, 7)).astype(np.float32)
+        for buf in bufs:
+            buf.add_episode(f"t{e}", "agent", e, imgs, acts)
+    got = [buf.sample_batch(64, np.random.default_rng(5)) for buf in bufs]
+    for k in ("img_obs", "img_goal", "action", "env_idx"):
+        np.testing.assert_array_equal(got[0][k], got[1][k])
+    assert got[0]["task"] == got[1]["task"]
+    copier = PinnedCopier(cuda, n_slots=2, transform=lambda t: {k: v.float() / 255.0
+                                                                for k, v in t.items()})
+    for _ in range(3):  # the ring comes round
+        out = copier.take(copier.put({"img_obs": got[0]["img_obs"]}))
+    torch.cuda.synchronize()
+    want = torch.from_numpy(got[0]["img_obs"]).to(cuda).float() / 255.0
+    assert out["img_obs"].device.type == "cuda" and torch.equal(out["img_obs"], want)

@@ -4,11 +4,12 @@ On the CPU the K1 / K2 wrappers run their plain PyTorch versions; these are
 held against the JAX Pallas kernels in interpret mode (atol 2e-4 /
 rtol 1e-4, float32) on the same numpy inputs. Also: the GroupNorm statistics
 fold, the float32 temporal reference, and the rule that the port imports
-nothing of JAX.
+nothing of JAX and names no path into the JAX package or `native/`.
 """
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -152,18 +153,56 @@ def _port_files():
     return sorted(out)
 
 
-def test_port_imports_nothing_of_jax():
+# a path into the JAX package or the root `native/` directory: "v2a_tpu" or
+# "_native" as a whole string or a path segment, or "native" as a segment
+# ("native/replay", "../native"; the bare word is the replay backend's name,
+# and `v2a_tpu_torch/native/` is the port's own); a `file.py:line` citation
+# is not one
+_PATH_INTO_JAX = re.compile(
+    r"(?<![\w.-])(?<!v2a_tpu_torch/)(?:\.{1,2}/)*"
+    r"(?:(?:v2a_tpu|_native)(?:/|$)|native/|native$(?<=/native))")
+_CITATION = re.compile(r"(?:v2a_tpu|native)/[\w./-]+\.\w+:\d+")
+
+
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    getattr(body[0], "value", None), ast.Constant):
+                out.add(id(body[0].value))
+    return out
+
+
+def jax_imports_and_paths(source, path="<source>"):
+    """The imports of JAX, flax, optax or the JAX package in `source`, and
+    its string literals (docstrings aside) that name a path into
+    `v2a_tpu/` or the root `native/`: the port reads only its own copies."""
     banned = {"jax", "jaxlib", "flax", "optax", "v2a_tpu"}
+    tree = ast.parse(source, path)
+    docs = _docstrings(tree)
+    bad = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in docs):
+            text = _CITATION.sub("", node.value)
+            if _PATH_INTO_JAX.search(text):
+                bad.append(f"{path}:{node.lineno}: string {node.value!r}")
+        bad += [f"{path}: {n}" for n in names if n.split(".")[0] in banned]
+    return bad
+
+
+def test_port_imports_nothing_of_jax():
     bad = []
     for path in _port_files():
         with open(path) as fh:
-            tree = ast.parse(fh.read(), path)
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
-                names = [node.module]
-            bad += [f"{path}: {n}" for n in names if n.split(".")[0] in banned]
+            bad += jax_imports_and_paths(fh.read(), path)
     assert len(_port_files()) > 10
     assert not bad, bad

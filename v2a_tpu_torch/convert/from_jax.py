@@ -84,3 +84,12 @@ def policy_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         sd[f"{stem}.{leaf}"] = _tensor(a)
     return sd
+
+
+def train_state_from_jax(params: Mapping, ema_params: Mapping, step) -> Dict[str, object]:
+    """A JAX `PolicyTrainState`'s trees (numpy) -> {"params", "ema_params":
+    state dicts of the port's `PolicyNets`, "step": int}, what
+    `OnlineTrainer.start_from` takes: the trained and the EMA policy of the
+    port then compute the JAX package's functions."""
+    return {"params": policy_from_jax(params), "ema_params": policy_from_jax(ema_params),
+            "step": int(np.asarray(step))}

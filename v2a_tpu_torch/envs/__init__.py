@@ -1,0 +1,9 @@
+"""Environment layer: the EnvList interface, the deterministic fake backend
+and the name registry (copies of `v2a_tpu/envs/`; the LIBERO backend is not
+ported yet, ROADMAP.md Queue 1)."""
+
+from v2a_tpu_torch.envs.base import EnvList
+from v2a_tpu_torch.envs.fake import FakeEnvList
+from v2a_tpu_torch.envs.registration import make_env_list, register_env_list
+
+__all__ = ["EnvList", "FakeEnvList", "make_env_list", "register_env_list"]

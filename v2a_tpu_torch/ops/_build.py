@@ -7,6 +7,10 @@ covers the source and the shared headers, so an edited source rebuilds).
 Nothing is built at import: the first launch of a kernel builds it, and
 `build_all()` builds every source at once, one `nvcc` process per source,
 all started together.
+
+The host-side C++ in `v2a_tpu_torch/native/` (the replay buffers' episode
+store) builds the same way with g++ (`load_host`), into the same directory,
+keyed by the same kind of hash.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
+NATIVE = os.path.join(os.path.dirname(CSRC), "native")
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -108,4 +114,41 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, st)
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
+        return lib
+
+
+def _host_lib_path(name: str) -> str:
+    h = hashlib.sha256()
+    with open(os.path.join(NATIVE, name + ".cpp"), "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for `v2a_tpu_torch/native/<name>.cpp`, built with
+    g++ on first use; raises with the compiler's output when the build
+    fails."""
+    with _lock:
+        lib = _libs.get("host:" + name)
+        if lib is None:
+            out = _host_lib_path(name)
+            src = os.path.join(NATIVE, name + ".cpp")
+            if not os.path.exists(out):
+                cxx = shutil.which("g++") or shutil.which("c++")
+                if cxx is None:
+                    raise RuntimeError(f"no C++ compiler (g++) to build {src}")
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [cxx] + HOST_FLAGS + ["-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {src}:\n{proc.stdout}")
+                os.replace(tmp, out)
+                build_log[name] = (time.perf_counter() - t0, proc.stdout)
+            lib = ctypes.CDLL(out)
+            _libs["host:" + name] = lib
         return lib

@@ -1,1 +1,2 @@
-"""Training loops of the port: the video-model train step."""
+"""Training loops of the port: the video-model train step, the policy train
+step and the online loop."""

@@ -1,0 +1,117 @@
+"""Experiment factory: config tree -> env list, policy, video model, trainer.
+
+Counterpart of `v2a_tpu/train/build.py` (the composition the reference
+spreads across `scripts/train_libero_dp.py:29-167`): the train entry, the
+eval entry and the tests build experiments identically. The models go to
+`cfg.device` (the card when None).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from v2a_tpu_torch.config.experiment import ExperimentConfig, save_snapshot
+from v2a_tpu_torch.envs.base import EnvList
+from v2a_tpu_torch.models.policy import DiffusionPolicy
+from v2a_tpu_torch.models.video_model import VideoPredModel
+from v2a_tpu_torch.train.trainer import OnlineTrainer
+
+
+def build_env_list(cfg: ExperimentConfig) -> EnvList:
+    """Resolve `cfg.dataset` through the env registry; fall back to a fake
+    list sized like the config when the name is unregistered and the
+    backend is 'fake'."""
+    from v2a_tpu_torch.envs.registration import _REGISTRY, make_env_list
+
+    if cfg.dataset in _REGISTRY:
+        return make_env_list(cfg.dataset)
+    if cfg.env_backend == "fake":
+        from v2a_tpu_torch.envs.fake import FakeEnvList
+
+        return FakeEnvList(num_tasks=2, img_hw=tuple(cfg.policy.image_size))
+    raise KeyError(
+        f"env list {cfg.dataset!r} is not registered and backend is "
+        f"{cfg.env_backend!r}"
+    )
+
+
+def make_video_model(cfg: ExperimentConfig) -> VideoPredModel:
+    """The frozen video model with random weights from `cfg.seed`. A
+    converted checkpoint in `video_ckpt_dir` is not loaded yet: none is in
+    the repository (ROADMAP.md, Queue 1), so finding one raises rather than
+    sampling from weights other than the ones asked for."""
+    ckpt = os.path.join(
+        cfg.video_ckpt_dir, f"jax-model-{cfg.video_ckpt_milestone}.msgpack"
+    )
+    if os.path.exists(ckpt):
+        raise NotImplementedError(
+            f"loading the converted video checkpoint {ckpt} is not ported yet "
+            "(ROADMAP.md, Queue 1)"
+        )
+    return VideoPredModel(cfg.video, device=cfg.device).init(cfg.seed)
+
+
+def build_experiment(
+    cfg: ExperimentConfig,
+    workdir: Optional[str] = None,
+    with_video_model: bool = True,
+    snapshot: bool = True,
+) -> Tuple[OnlineTrainer, DiffusionPolicy, EnvList, Optional[VideoPredModel]]:
+    if cfg.mesh_axes:
+        raise NotImplementedError(
+            "the mesh (data/tensor-parallel) trainer is not ported yet (ROADMAP.md, Queue 1)")
+    if cfg.n_env_workers > 0:
+        raise NotImplementedError(
+            "pool-parallel exploration (n_env_workers) is not ported yet (ROADMAP.md, Queue 1)")
+    workdir = workdir or cfg.savepath()
+    env_list = build_env_list(cfg)
+    policy = DiffusionPolicy.create(cfg.policy, device=cfg.device)
+    video_model = None
+    sampler = None
+    if with_video_model:
+        if cfg.video_model_kind == "oracle":
+            # hermetic scripted goal-frame generator (the learning gate's
+            # stand-in for the frozen pretrained model; fake env only)
+            if cfg.env_backend != "fake":
+                raise ValueError(
+                    "video_model_kind='oracle' requires env_backend='fake'"
+                )
+            from v2a_tpu_torch.envs.fake_oracle import FakeOracleVideoModel
+
+            video_model = sampler = FakeOracleVideoModel(
+                env_list.task_to_task_idx,
+                horizon=cfg.video.video_future_horizon,
+            )
+        else:
+            video_model = make_video_model(cfg)
+            sampler = _VideoSampleAdapter(video_model)
+
+    trainer = OnlineTrainer(
+        policy=policy,
+        env_list=env_list,
+        config=cfg.trainer,
+        workdir=workdir,
+        video_model=sampler,
+        explore_config=cfg.explore,
+        opt_config=cfg.opt,
+        ema_config=cfg.ema,
+        seed=cfg.seed,
+    )
+    if snapshot:
+        save_snapshot(cfg, workdir)
+    return trainer, policy, env_list, video_model
+
+
+class _VideoSampleAdapter:
+    """Adapts `VideoPredModel` to the trainer's video-model protocol
+    (`.sample_u8(generator, imgs01, tasks) -> (B, F, H, W, 3) uint8`, host
+    arrays): one batched call on the model's device, quantized there."""
+
+    def __init__(self, model: VideoPredModel):
+        self.model = model
+
+    def sample_u8(self, generator, imgs01: np.ndarray, tasks):
+        return self.model.sample_u8(imgs01, list(tasks), generator=generator).cpu().numpy()

@@ -169,14 +169,25 @@ class PolicyTrainState:
     """The JAX `TrainState` (:110-126) of a module trained by
     `make_train_step`: the step count, `opt_state` of the transformation and
     the EMA parameters (a copy of the parameters at creation). The
-    parameters are the module's own, in `named_parameters` order."""
+    parameters are the module's own, in `named_parameters` order. With
+    `ema_module` (a module of the same structure) the EMA parameters are
+    that module's own: the module's values are copied into them, and the
+    train step then updates that module in place."""
 
-    def __init__(self, module: torch.nn.Module, tx: GradientTransformation):
+    def __init__(self, module: torch.nn.Module, tx: GradientTransformation,
+                 ema_module: Optional[torch.nn.Module] = None):
         self.names = [k for k, _ in module.named_parameters()]
         self.params = [p for _, p in module.named_parameters()]
         self.step = 0
         self.opt_state = tx.init(self.params)
-        self.ema_params = [p.detach().clone() for p in self.params]
+        if ema_module is None:
+            self.ema_params = [p.detach().clone() for p in self.params]
+        else:
+            ema = dict(ema_module.named_parameters())
+            self.ema_params = [ema[k] for k in self.names]
+            with torch.no_grad():
+                for e, p in zip(self.ema_params, self.params):
+                    e.copy_(p)
 
 
 class StepOutput(NamedTuple):
