@@ -99,10 +99,27 @@ Phases (any failure exits non-zero):
      `save` and `load` into a fresh trainer bit-equal, the native store's
      hindsight batch equal to the Python backend's; then the eval entry
      point (`scripts/eval.py` on the run's workdir: the snapshot's one seed
-     per task and one goal video per episode). Logged with the
-     card's name and power limit: s per cycle and per goal-video call,
+     per task and one goal video per episode). Then the concurrency, each
+     run's counts zeroed just before it and read just after: the eval entry
+     point with `--workers 8` on the same workdir (8 spawned env workers,
+     8 episodes in lock-step, launches exactly one B=8 chain's); a pool
+     cycle (`n_env_workers=8` through `build_experiment`: one B=8 chain,
+     then lock-step rounds of one B=8 DDIM-8 prediction each; launches
+     exactly 100 B=8 forwards', 8 valid episodes, one B=8 call a round); a
+     pipelined and overlapped `train()` over two guided cycles (`PIPELINED_
+     OVERRIDES`: the cycles on a worker thread, each cycle's goal videos a
+     stream started in the cycle before and pumped behind its policy calls;
+     16 episodes, no explore thread or open env left, finite losses, and
+     after the last stream is pumped out exactly 300 B=8 forwards'); and
+     the stream gate (`sample_u8_stream` bit-equal to `sample_u8` on the
+     release U-Net, B=2, a 10-step ancestral chain); the kernels at any
+     signature these runs gave them that phase 3 did not hold. Logged with
+     the card's name and power limit: s per cycle and per goal-video call,
      predictions and ms each, env steps and host ms each, ms per train step
-     and per hindsight batch, peak memory, eval s per episode;
+     and per hindsight batch, peak memory, eval s per episode; the pool
+     cycle's rounds and ms per B=8 prediction beside the serial cycle's, the
+     pipelined cycles' s, join waits and train steps, the parallel eval's
+     wall s beside the serial one's;
   9. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
@@ -117,6 +134,9 @@ Phases (any failure exits non-zero):
   10. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
+The env workers start by `spawn` with the main module hidden, so they do
+not import this file; its top level does no CUDA work all the same, and
+everything runs from `main()`.
 Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainers
 write their checkpoints under `logs/chip_smoke_train/` and
 `logs/chip_smoke_online/` and the script removes them.
@@ -131,8 +151,10 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import zlib
+from unittest import mock
 
 import numpy as np
 import torch
@@ -266,6 +288,30 @@ ONLINE_WHY = {
     "eval.num_vid_pred_per_ep": "the eval: one goal video per episode",
 }
 ONLINE_BATCH_REPS = 20  # hindsight batches timed per backend
+# phase 8's concurrency runs, on the same cut config: a pool cycle on
+# POOL_WORKERS spawned env workers (one per task), a pipelined and
+# overlapped train() over PIPELINED_CYCLES guided cycles (steps 4 and 8),
+# the eval entry point with --workers POOL_WORKERS, and the stream gate: the
+# release U-Net's chain of STREAM_STEPS ancestral steps at B=STREAM_B as a
+# stream against sample_u8 (a 10-step chain keeps the gate cheap)
+POOL_WORKERS = 8
+PIPELINED_CYCLES = 2
+PIPELINED_OVERRIDES = {
+    "n_env_workers": POOL_WORKERS,
+    "trainer.pipeline_explore": True,
+    "trainer.overlap_explore": True,
+    "trainer.n_train_steps": 4 * PIPELINED_CYCLES + 1,
+    "trainer.save_freq": 10 ** 9,
+}
+PIPELINED_WHY = {
+    "n_env_workers": "8 spawned env workers, one per task",
+    "trainer.pipeline_explore": "the next cycle's goal videos as a stream pumped behind the "
+                                "policy calls",
+    "trainer.overlap_explore": "the cycles on a worker thread beside the train steps",
+    "trainer.n_train_steps": "two guided cycles, spawned at steps 4 and 8",
+    "trainer.save_freq": "no checkpoint but step 1's: a save joins the cycle in flight",
+}
+STREAM_STEPS, STREAM_B, STREAM_CHUNKS = 10, 2, 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ONLINE_LOGS = os.path.join(ROOT, "logs", "chip_smoke_online")
 
@@ -2015,14 +2061,6 @@ def online_loop(rk, routing_calls, dev, smi):
     step_ms = [e0.elapsed_time(e1) for e0, e1, _ in steps]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # the cycle's kernel signatures: held in phase 3 unless new
-    extra = {k: v for k, v in cycle_calls.items() if k not in routing_calls["padded"]}
-    extra_agg = {}
-    if extra:
-        _, extra_agg = check_kernels(rk, {"online": extra}, dev, timed=False,
-                                     tag="online-shapes")
-        extra_agg = extra_agg["online"]
-
     # save, then load into a fresh trainer: bit-equal state and counters
     t0 = time.perf_counter()
     trainer.save()
@@ -2094,7 +2132,7 @@ def online_loop(rk, routing_calls, dev, smi):
         peak_gib=peak, save_s=save_s, load_s=load_s,
         eval_s=eval_s, eval_s_per_episode=eval_s_per_episode,
         eval_run_times=result["run_times_all"], eval_suc_rate=result["suc_rate"],
-        launches=cycle_launches, new_signatures=len(extra))
+        launches=cycle_launches)
     log(f"[online] {smi}: train({ONLINE_STEPS}) {train_s:.1f} s; one guided cycle "
         f"{cycle_s[0]:.2f} s, its goal-video call {video_s[0]:.2f} s (B={n_tasks}, {n_fwd}-step "
         f"chain), launches {{K1 {want['fused_affine_conv3x3']}, K2 "
@@ -2113,10 +2151,334 @@ def online_loop(rk, routing_calls, dev, smi):
         f"scripts/eval.py {eval_s:.1f} s in all, {n_tasks} episodes, "
         f"{eval_s_per_episode:.2f} s per episode, success rate {result['suc_rate']:.3f} "
         f"(random weights)")
+
+    # the concurrency: the eval entry point on 8 workers, a pool cycle, the
+    # pipelined and overlapped loop (each its counts zeroed just before and
+    # read just after, added to the loop's), then the stream gate
+    want = {name: n_fwd * EXPECTED_PER_FORWARD["padded"].get(name, 0) for name in launches}
+    runs = [parallel_eval(workdir, n_tasks, want, smi, eval_s),
+            pool_cycle(cfg, want, smi, report),
+            pipelined_run(cfg, want, smi)]
+    for name, run_report, run_launches, _ in runs:
+        report[name] = run_report
+        for k, v in run_launches.items():
+            launches[k] += v
+    report["stream"], stream_calls = stream_gate(cfg, smi)
+    report["launches_with_concurrency"] = dict(launches)
+
+    # the runs' kernel signatures: held in phase 3 unless new (the stream
+    # gate's B=2 chain)
+    seen = [cycle_calls, stream_calls] + [r[3] for r in runs]
+    extra = {}
+    for calls in seen:
+        for k, v in calls.items():
+            if k not in routing_calls["padded"]:
+                extra[k] = extra.get(k, 0) + v
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"online": extra}, dev, timed=False,
+                                     tag="online-shapes")
+        extra_agg = extra_agg["online"]
+    report["new_signatures"] = len(extra)
     gc.collect()
     shutil.rmtree(ONLINE_LOGS, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, launches, extra_agg
+
+
+def _gate_chains(tag, launches, calls, want):
+    """Fail unless `launches` are exactly `want` and the recorded wrapper
+    calls agree with them."""
+    if launches != want:
+        fail(f"{tag}: launches {launches}, expected {want}")
+    made = {}
+    for key, n in calls.items():
+        made[key[0]] = made.get(key[0], 0) + n
+    if any(made.get(tag_, 0) != want[name] for name, (tag_, _, _) in KERNEL_CHECKS.items()):
+        fail(f"{tag}: wrapper calls {made} do not match the launches {want}")
+
+
+def _gate_episodes(tag, eps, n, cfg, explore_cfg):
+    """Fail unless there are `n` guided episodes of uint8 frames at the
+    config's size, one frame more than actions, actions in range."""
+    h, w = cfg.video.image_size
+    if len(eps) != n:
+        fail(f"{tag}: {len(eps)} episodes, expected {n}")
+    for ep in eps:
+        imgs, acts = ep["imgs"], ep["acts"]
+        if (imgs.dtype != np.uint8 or imgs.shape[1:] != (h, w, 3)
+                or len(imgs) != len(acts) + 1 or acts.min() < explore_cfg.act_min
+                or acts.max() > explore_cfg.act_max):
+            fail(f"{tag}: a guided episode of {imgs.shape} {imgs.dtype} and "
+                 f"{acts.shape} actions in [{acts.min()}, {acts.max()}]")
+
+
+def _rounds_of(pool, log_to):
+    """Wraps `pool.map` so that each lock-step round's env stepping (the
+    batched executor's `step_k` calls with done_mode 'last') appends its
+    host seconds to `log_to`."""
+    inner = pool.map
+
+    def timed_map(calls, *a, **k):
+        t = time.perf_counter()
+        out = inner(calls, *a, **k)
+        if calls and calls[0][1] == "step_k" and calls[0][3].get("done_mode") == "last":
+            log_to.append(time.perf_counter() - t)
+        return out
+
+    pool.map = timed_map
+
+
+def _workers_closed(tag, pool, env_list):
+    """Fail if an env is open in a worker or in process, then close the
+    pool and fail if a worker process outlives it."""
+    try:
+        pool.map([(i, "check_no_envs_exist", (), {}) for i in range(len(pool))])
+        env_list.check_no_envs_exist()
+    finally:
+        pool.close()
+    if any(w.alive for w in pool.workers):
+        fail(f"{tag}: an env worker outlived the pool's close()")
+
+
+def parallel_eval(workdir, n_tasks, want, smi, serial_s):
+    """The eval entry point with `--workers 8` on the serial run's workdir:
+    8 episodes (one per task) in lock-step, one B=8 goal-video call (one
+    per episode), B=8 policy calls. Gates: 8 episodes at step 8, launches
+    exactly one B=8 chain's."""
+    from v2a_tpu_torch.scripts import eval as eval_script
+
+    zero_launches()
+    t0 = time.perf_counter()
+    with recording() as calls:
+        with open(eval_script.main(["--workdir", workdir, "--vis", "0",
+                                    "--workers", str(POOL_WORKERS)])) as fh:
+            result = json.load(fh)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if result["num_evals"] != n_tasks or result["epoch"] != ONLINE_STEPS:
+        fail(f"eval --workers: {result['num_evals']} episodes at step {result['epoch']}, "
+             f"expected {n_tasks} at {ONLINE_STEPS}")
+    _gate_chains("eval --workers", launches, calls, want)
+    log(f"[online] {smi}: scripts/eval.py --workers {POOL_WORKERS} {wall_s:.1f} s in all for "
+        f"{n_tasks} episodes (one B={POOL_WORKERS} goal-video call; serial: {serial_s:.1f} s)")
+    return ("parallel_eval", dict(wall_s=wall_s, serial_wall_s=serial_s,
+                                  run_times=result["run_times_all"],
+                                  suc_rate=result["suc_rate"], launches=launches),
+            launches, calls)
+
+
+def pool_cycle(cfg, want, smi, serial):
+    """One guided cycle on 8 spawned env workers (`n_env_workers=8`, built
+    by `build_experiment`): one B=8 goal-video call, then lock-step rounds
+    of one B=8 DDIM-8 prediction each. Gates: launches exactly 100 B=8
+    forwards', none outside the cycle; 8 valid episodes; every policy call
+    at B=8, one per round."""
+    from v2a_tpu_torch.envs import subproc
+    from v2a_tpu_torch.train.build import build_experiment
+
+    starts = []
+
+    class TimedPool(subproc.EnvWorkerPool):
+        """The pool that `build_experiment` starts, timed until every
+        worker answers (spawned with the main module hidden: numpy and the
+        env registry only)."""
+
+        def __init__(self, *a, **k):
+            t = time.perf_counter()
+            super().__init__(*a, **k)
+            self.map([(i, "task_list", (), {}) for i in range(len(self))])
+            starts.append(time.perf_counter() - t)
+
+    pcfg = cfg.replace(n_env_workers=POOL_WORKERS, exp_name="pool")
+    t0 = time.perf_counter()
+    with mock.patch.object(subproc, "EnvWorkerPool", TimedPool):
+        trainer, _, env_list, video_model = build_experiment(pcfg, pcfg.savepath(), snapshot=False)
+    try:
+        spawn_s, start_s = time.perf_counter() - t0, starts[0]
+        if trainer._batched_executor is None or len(trainer.env_pool) != POOL_WORKERS:
+            fail("pool: the trainer did not get a pool of 8 env workers")
+        video_s, predict_s, batches, rounds = [], [], [], []
+        sampler = trainer.video_model
+        sampler.sample_u8 = _timed(video_s, sampler.sample_u8)
+        policy_fn = trainer._batched_executor.policy_fn
+
+        def predict(obs01, goal01):
+            batches.append(len(obs01))
+            return policy_fn(obs01, goal01)
+
+        trainer._batched_executor.policy_fn = _timed(predict_s, predict, sync=False)
+        _rounds_of(trainer.env_pool, rounds)
+        zero_launches()
+        t0 = time.perf_counter()
+        with recording() as calls:
+            trainer.video_guided_explore()
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        launches = launch_counts()
+        eps = trainer.envBuf_vid.export_episodes()
+        _workers_closed("pool", trainer.env_pool, env_list)
+    finally:
+        trainer.env_pool.close()
+    _gate_chains("pool", launches, calls, want)
+    _gate_episodes("pool", eps, POOL_WORKERS, pcfg, trainer.explore_cfg)
+    if set(batches) != {POOL_WORKERS} or len(batches) != len(rounds) or len(video_s) != 1:
+        fail(f"pool: policy calls at B={sorted(set(batches))}, {len(batches)} calls for "
+             f"{len(rounds)} rounds, {len(video_s)} goal-video calls")
+    ms_pred = float(np.mean(predict_s)) * 1e3
+    rep = dict(pool_start_s=start_s, spawn_and_build_s=spawn_s, cycle_s=cycle_s, video_call_s=video_s[0],
+               rounds=len(rounds), ms_per_prediction=ms_pred, predictions_s=float(sum(predict_s)),
+               host_ms_per_round_of_env_steps=float(np.mean(rounds)) * 1e3,
+               env_steps_in_episodes=sum(int(len(ep["acts"])) for ep in eps), launches=launches)
+    log(f"[online] {smi}: pool cycle ({POOL_WORKERS} spawned workers) {cycle_s:.2f} s: its "
+        f"goal-video call {video_s[0]:.2f} s, {len(rounds)} rounds x {ms_pred:.1f} ms per B="
+        f"{POOL_WORKERS} DDIM-8 prediction, env steps {rep['host_ms_per_round_of_env_steps']:.1f}"
+        f" ms per round; serial cycle {serial['cycle_s']:.2f} s: goal-video call "
+        f"{serial['video_call_s']:.2f} s, {serial['predictions']} x "
+        f"{serial['ms_per_prediction']:.1f} ms per B=1 prediction (a pool of "
+        f"{POOL_WORKERS} up and answering {start_s:.1f} s; spawn + build {spawn_s:.1f} s)")
+    del trainer, video_model, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return "pool_cycle", rep, launches, calls
+
+
+def pipelined_run(cfg, want, smi):
+    """`train()` with 8 env workers, `pipeline_explore` and `overlap_explore`
+    over two guided cycles (spawned at steps 4 and 8 on the worker thread,
+    each cycle's goal videos a stream started in the cycle before and pumped
+    behind its policy calls). Gates: 16 episodes committed, no explore
+    thread left, no env open in a worker or in process, finite losses; after
+    the last prefetched stream is pumped to its end, the launches are
+    exactly (cycles + 1) x 100 B=8 forwards'."""
+    from v2a_tpu_torch.config import apply_overrides
+    from v2a_tpu_torch.train.build import build_experiment
+
+    pcfg = apply_overrides(cfg, dict(PIPELINED_OVERRIDES, exp_name="pipelined"))
+    log("[online] pipelined run: " + "; ".join(
+        f"{k}={v} ({PIPELINED_WHY[k]})" for k, v in PIPELINED_OVERRIDES.items()))
+    trainer, _, env_list, video_model = build_experiment(pcfg, pcfg.savepath(), snapshot=False)
+    try:
+        cycle_s, steps, batches, joins = [], [], [], []
+        rollouts = trainer._explore_rollouts
+        # the worker thread's wall per cycle (its reads back bound it)
+        trainer._explore_rollouts = _timed(cycle_s, rollouts, sync=False)
+        policy_fn = trainer._batched_executor.policy_fn
+        trainer._batched_executor.policy_fn = lambda o, g: (batches.append(len(o)),
+                                                            policy_fn(o, g))[1]
+        join = trainer._join_explore
+
+        def timed_join():
+            t = time.perf_counter()
+            busy = trainer._explore_thread is not None
+            join()
+            if busy:
+                joins.append(time.perf_counter() - t)
+
+        trainer._join_explore = timed_join
+        inner = trainer._train_step
+
+        def timed_step(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            out = inner(*a, **k)
+            e1.record()
+            steps.append((e0, e1, out.loss, time.perf_counter() - t))
+            return out
+
+        trainer._train_step = timed_step
+        zero_launches()
+        t0 = time.perf_counter()
+        with recording() as calls:
+            trainer.train()
+            stash = trainer._video_prefetch
+            left = stash.videos.chunks_left if stash is not None else -1
+            if stash is not None:
+                stash.pump(10 ** 9)
+            torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        threads = [t for t in threading.enumerate() if t.name == "v2a-explore"]
+        thread_left = trainer._explore_thread is not None or bool(threads)
+        eps = trainer.envBuf_vid.export_episodes()
+        _workers_closed("pipelined", trainer.env_pool, env_list)
+    finally:
+        trainer.env_pool.close()
+    n_cycles = PIPELINED_CYCLES
+    if stash is None or thread_left or len(cycle_s) != n_cycles:
+        fail(f"pipelined: {len(cycle_s)} cycles, stash {stash is not None}, explore thread "
+             f"left {thread_left}")
+    if trainer.cnt_vid_rollouts != n_cycles * POOL_WORKERS:
+        fail(f"pipelined: {trainer.cnt_vid_rollouts} episodes committed, expected "
+             f"{n_cycles * POOL_WORKERS}")
+    _gate_episodes("pipelined", eps, n_cycles * POOL_WORKERS, pcfg, trainer.explore_cfg)
+    _gate_chains("pipelined", launches, calls,
+                 {k: (n_cycles + 1) * v for k, v in want.items()})
+    losses = [float(st[2]) for st in steps]
+    if len(losses) != pcfg.trainer.n_train_steps or not np.all(np.isfinite(losses)):
+        fail(f"pipelined: losses {losses}")
+    if set(batches) != {POOL_WORKERS}:
+        fail(f"pipelined: policy calls at B={sorted(set(batches))}")
+    step_ms = [e0.elapsed_time(e1) for e0, e1, _, _ in steps]
+    rep = dict(train_s=train_s, cycle_s=cycle_s, join_wait_s=joins,
+               train_step_ms=step_ms, train_step_host_ms=[st[3] * 1e3 for st in steps],
+               losses=losses, predictions=len(batches), chunks_left_at_end=left,
+               episodes=len(eps), launches=launches)
+    log(f"[online] {smi}: pipelined + overlapped train({pcfg.trainer.n_train_steps}) "
+        f"{train_s:.1f} s: {n_cycles} cycles of {[round(c, 2) for c in cycle_s]} s on the "
+        f"worker thread, joins waited {[round(j, 2) for j in joins]} s, "
+        f"{len(batches)} B={POOL_WORKERS} predictions, {left} chunks of the last stream "
+        f"left at the end; ms per train step (CUDA events, the worker's launches "
+        f"interleaved) {[round(v, 1) for v in step_ms]}")
+    del trainer, video_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return "pipelined", rep, launches, calls
+
+
+def stream_gate(cfg, smi):
+    """The release U-Net (bf16, padded routing, the online run's weights)
+    on a chain of `STREAM_STEPS` ancestral steps at B=`STREAM_B`:
+    `sample_u8_stream` pumped in `STREAM_CHUNKS` chunks equals `sample_u8`
+    bit for bit on the card. Returns the report and the recorded calls."""
+    from v2a_tpu_torch.models.video_model import VideoPredModel
+
+    vcfg = dataclasses.replace(cfg.video, timesteps=STREAM_STEPS,
+                               sampling_timesteps=STREAM_STEPS)
+    model = VideoPredModel(vcfg, device=cfg.device).init(cfg.seed)
+    if model.diffusion.is_ddim_sampling or not model.unet.padded_stream:
+        fail("stream gate: expected the ancestral sampler on the padded routing")
+    x = np.random.default_rng(SEED).random((STREAM_B,) + tuple(vcfg.image_size) + (3,),
+                                           np.float32)
+    tasks = TASKS[:STREAM_B]
+    with recording() as calls:
+        t0 = time.perf_counter()
+        ref = model.sample_u8(x, tasks, generator=torch.Generator(model.device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        stream = model.sample_u8_stream(x, tasks, torch.Generator(model.device).manual_seed(SEED),
+                                        n_chunks=STREAM_CHUNKS)
+        t0 = time.perf_counter()
+        chunks = 0
+        while stream.chunks_left:
+            stream.pump(1)
+            chunks += 1
+        got = stream.result_u8()
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    if chunks != STREAM_CHUNKS or not torch.equal(got, ref):
+        fail(f"stream gate: {chunks} chunks; sample_u8_stream differs from sample_u8 in "
+             f"{int((got != ref).sum())} of {ref.numel()} values")
+    log(f"[online] {smi}: sample_u8_stream == sample_u8 bit for bit (B={STREAM_B}, "
+        f"{STREAM_STEPS}-step ancestral chain in {STREAM_CHUNKS} chunks, release U-Net "
+        f"{vcfg.dtype}): "
+        f"{stream_s:.2f} s against {ref_s:.2f} s")
+    del model
+    torch.cuda.empty_cache()
+    return dict(equal=True, b=STREAM_B, steps=STREAM_STEPS, chunks=chunks, stream_s=stream_s,
+                sample_u8_s=ref_s), calls
 
 
 def lab_kernels(rk, routing_calls, dev):
@@ -2273,8 +2635,9 @@ def main():
     # K13 over K3's calls of one padded forward, K14 over K10's of one
     # spatial_k10_k11 forward, K15 over the perf lab's three shapes;
     # launches over every main-path run (the served requests of all five
-    # routings, the K6 routing's train() run and the online loop's train()
-    # run; K13-K15: their lab paths)
+    # routings, the K6 routing's train() run and the online loop's runs:
+    # its train(), the eval with 8 workers, the pool cycle, the pipelined
+    # train(); K13-K15: their lab paths)
     lab_names = ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps")
     source_routing = {"fused_group_norm_silu": "plain_k7",
                       "fused_downconv3x3_padded": "padded_k8_k9",
@@ -2322,7 +2685,8 @@ def main():
         "in chiprun_out/chip_smoke_shapes.json, per_train_step); K13's over K3's calls in one "
         "padded forward, K14's over K10's in one spatial_k10_k11 forward, K15's over the perf "
         "lab's three shapes (per_lab); launches are those of the served requests of the five "
-        "routings plus the K6 routing's train() run plus the online loop's train() run, and "
+        "routings plus the K6 routing's train() run plus the online loop's runs (its train(), "
+        "scripts/eval.py --workers 8, the pool cycle, the pipelined train()), and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1322,6 +1322,50 @@ def test_online_loop_on_the_card(cuda, tmp_path):
         assert all(torch.equal(x, y) for x, y in zip(a["opt_state"][part], b["opt_state"][part]))
 
 
+def test_pool_cycle_on_the_card(cuda, tmp_path):
+    """A guided cycle of fake_smoke on a pool of 2 spawned env workers: one
+    B=2 goal-video chain through the fused routing's kernels, one B=2 DDIM
+    prediction per lock-step round, valid episodes; then the same chain as
+    a `VideoSampleStream` pumped chunk by chunk equals `sample_u8` bit for
+    bit on the card."""
+    import os
+
+    from v2a_tpu_torch.config import apply_overrides, load_config_module
+    from v2a_tpu_torch.train.build import build_experiment
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config_module(os.path.join(root, "v2a_tpu_torch", "config", "fake",
+                                          "fake_smoke.py"))
+    cfg = apply_overrides(cfg, {"video.model_channels": "128", "n_env_workers": "2",
+                                "logbase": str(tmp_path)})
+    trainer, policy, env_list, video_model = build_experiment(cfg)
+    try:
+        assert len(trainer.env_pool) == 2 and video_model.unet.fused
+        batches = []
+        fn = trainer._batched_executor.policy_fn
+        trainer._batched_executor.policy_fn = lambda o, g: (batches.append(len(o)), fn(o, g))[1]
+        before = dict(rk.launches)
+        trainer.video_guided_explore()
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in rk.launches.items() if v != before[k]}
+    finally:
+        trainer.env_pool.close()
+    assert made.get("fused_affine_conv3x3", 0) > 0 and made.get("temporal_conv_fused", 0) > 0
+    assert batches and set(batches) == {2}
+    assert trainer.cnt_vid_rollouts == len(trainer.envBuf_vid) == 2
+    for ep in trainer.envBuf_vid.export_episodes():
+        assert ep["imgs"].shape[1:] == (32, 32, 3) and len(ep["imgs"]) == len(ep["acts"]) + 1
+        assert -1.0 <= ep["acts"].min() and ep["acts"].max() <= 1.0
+    imgs01 = np.random.default_rng(0).random((2, 32, 32, 3), np.float32)
+    tasks = list(env_list.task_list)
+    ref = video_model.sample_u8(imgs01, tasks, generator=torch.Generator(cuda).manual_seed(3))
+    stream = video_model.sample_u8_stream(imgs01, tasks, torch.Generator(cuda).manual_seed(3),
+                                          n_chunks=3)
+    while stream.pump(1):
+        pass
+    assert torch.equal(stream.result_u8(), ref)
+
+
 def test_native_store_matches_python_backend(cuda):
     """The replay store built on this machine samples the Python backend's
     batches, and a batch reaches the card through the trainer's pinned

@@ -19,7 +19,8 @@
 - the port alone: `scripts/train.main` on `fake_smoke` (`--device cpu`),
   resumed into a fresh trainer; `scripts/eval.main` on its workdir; the
   prefetcher flushed around buffer mutations; the options not ported yet
-  raising `NotImplementedError`.
+  (the mesh, H5 ingestion, a converted checkpoint) raising
+  `NotImplementedError`.
 """
 
 import dataclasses
@@ -234,10 +235,10 @@ def _flat(tree, prefix=""):
     return out
 
 
-# fields of one tree only: the JAX trainer's chunked video stream
-# (`pipeline_explore`, not ported) and alternative video backbone, the
-# port's routing switches (the JAX package's environment flags) and device
-JAX_ONLY = {"trainer.pipeline_video_chunks", "video.backbone", "video.cond_channels"}
+# fields of one tree only: the JAX package's alternative video backbone,
+# the port's routing switches (the JAX package's environment flags) and
+# device
+JAX_ONLY = {"video.backbone", "video.cond_channels"}
 PORT_ONLY = {"device", "video.attn_kernel", "video.downconv", "video.mega_kernel",
              "video.padded_stream", "video.pallas_spatial", "video.spatial2",
              "video.stream_kernel", "video.tconv_hw"}
@@ -490,26 +491,22 @@ def test_train_and_eval_entry_points(tmp_path):
 
 def test_left_out_options_raise(tmp_path):
     """Each option of the JAX trainer that is not ported yet raises
-    `NotImplementedError` naming ROADMAP.md."""
+    `NotImplementedError` naming ROADMAP.md: the mesh, H5 ingestion and a
+    converted video checkpoint."""
     cfg = ttrainer.TrainerConfig()
-    for kw in (dict(mesh=object()), dict(env_pool=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.OnlineTrainer(None, None, cfg, str(tmp_path), **kw)
-    for change in (dict(pipeline_explore=True), dict(overlap_explore=True),
-                   dict(randsam_path="data/x.hdf5", rand_explo_type="from_h5")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.OnlineTrainer(None, None, dataclasses.replace(cfg, **change), str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrainer.OnlineTrainer(None, None, cfg, str(tmp_path), mesh=object())
+    change = dict(randsam_path="data/x.hdf5", rand_explo_type="from_h5")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrainer.OnlineTrainer(None, None, dataclasses.replace(cfg, **change), str(tmp_path))
     exp = load_config_module(SMOKE).replace(device="cpu")
-    for change in (dict(mesh_axes=("dp",)), dict(n_env_workers=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild.build_experiment(exp.replace(**change), str(tmp_path), snapshot=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbuild.build_experiment(exp.replace(mesh_axes=("dp",)), str(tmp_path), snapshot=False)
     ckdir = tmp_path / "ckpt"
     ckdir.mkdir()
     (ckdir / f"jax-model-{exp.video_ckpt_milestone}.msgpack").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild.make_video_model(exp.replace(video_ckpt_dir=str(ckdir)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_script.main(["--workdir", str(tmp_path), "--workers", "2"])
 
 
 def test_device_quantize_matches_host():

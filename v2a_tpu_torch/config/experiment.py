@@ -65,8 +65,7 @@ class ExperimentConfig:
     # ported so far.
     mesh_axes: Tuple[str, ...] = ()
     mesh_shape: Tuple[int, ...] = ()
-    # subprocess env workers for pool-parallel exploration (0 = serial; more
-    # is not ported yet)
+    # subprocess env workers for pool-parallel exploration (0 = serial)
     n_env_workers: int = 0
     # where the models run: None = the card ("cuda"), "cpu" when asked
     device: Optional[str] = None

@@ -5,7 +5,8 @@ Counterpart of `v2a_tpu/models/video_model.py` (the reference's
 (B, F, H, W, 3) channels-last; the conditioning frame is tiled over F on the
 channel axis. The sampler runs on the card by default; `device="cpu"` is
 for tests. `loss` is the training objective; `train/video_trainer.py` trains
-the U-Net.
+the U-Net. `sample_u8_stream` is `sample_u8` cut into chunks of the
+denoising chain that a caller dispatches one at a time (`VideoSampleStream`).
 """
 
 from __future__ import annotations
@@ -175,21 +176,12 @@ class VideoPredModel:
         return self.nets.text(torch.as_tensor(ids, device=self.device),
                               torch.as_tensor(mask, device=self.device))
 
-    @torch.no_grad()
     def sample(self, x_conds, tasks: List[str], generator: Optional[torch.Generator] = None,
                init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x_conds float [0, 1] (B, H, W, 3); returns (B, F, H, W, 3) in [0, 1].
-        `init_noise` overrides x_T (reproducible sampling, tests)."""
-        x = torch.as_tensor(x_conds, dtype=torch.float32, device=self.device)
-        if x.shape[0] != len(tasks):
-            raise ValueError("batch size mismatch between frames and tasks")
-        cfg = self.config
-        task_embed = self.encode_batch_text(tasks)
-        h, w = cfg.image_size
-        shape = (x.shape[0], cfg.video_future_horizon, h, w, cfg.channels)
-        x_cond_n = (x * 2.0 - 1.0)[:, None]
-        return self.diffusion.sample(self.unet, shape, x_cond_n, task_embed,
-                                     generator=generator, init_noise=init_noise)
+        """x_conds float [0, 1] (B, H, W, 3); returns (B, F, H, W, 3) in [0, 1]:
+        the whole chain in one chunk. `init_noise` overrides x_T
+        (reproducible sampling, tests)."""
+        return VideoSampleStream(self, x_conds, tasks, generator, 1, init_noise).result()
 
     def loss(self, video01: torch.Tensor, x_cond01: torch.Tensor, task_embed: torch.Tensor,
              t: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
@@ -209,3 +201,86 @@ class VideoPredModel:
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """`sample()` quantized to uint8 on the device (truncating)."""
         return quantize_u8(self.sample(x_conds, tasks, generator))
+
+    def sample_u8_stream(self, x_conds, tasks: List[str],
+                         generator: Optional[torch.Generator], n_chunks: int,
+                         ) -> "VideoSampleStream":
+        """An incrementally dispatched `sample_u8`: the denoising chain cut
+        into `n_chunks` contiguous slices of its steps that the caller pumps
+        one at a time (`VideoSampleStream.pump`), so one card interleaves
+        them with other work (the rollouts' policy calls, the trainer's
+        `pipeline_explore`). `sample` runs the same chain in one chunk, so
+        the stream computes `sample_u8` bit for bit as long as nothing else
+        draws from `generator` meanwhile."""
+        return VideoSampleStream(self, x_conds, tasks, generator, n_chunks)
+
+
+class VideoSampleStream:
+    """One goal-video sampling chain, dispatched chunk by chunk: the only
+    loop over the denoising steps (`VideoPredModel.sample` runs it in one
+    chunk).
+
+    Counterpart of `v2a_tpu/models/video_model.py::VideoSampleStream`. The
+    constructor encodes the tasks and draws x_T (or takes `init_noise`); no
+    denoising step is launched until `pump()`. `result()` pumps any
+    remaining chunks and returns the [0, 1] video on the model's device,
+    `result_u8()` the same quantized."""
+
+    def __init__(self, model: VideoPredModel, x_conds, tasks, generator, n_chunks: int,
+                 init_noise: Optional[torch.Tensor] = None):
+        cfg = model.config
+        x = torch.as_tensor(x_conds, dtype=torch.float32, device=model.device)
+        if x.shape[0] != len(tasks):
+            raise ValueError("batch size mismatch between frames and tasks")
+        self._model = model
+        self._generator = generator
+        with torch.no_grad():
+            self._task_embed = model.encode_batch_text(list(tasks))
+            self._x_cond_n = (x * 2.0 - 1.0)[:, None]
+            if init_noise is None:
+                h, w = cfg.image_size
+                shape = (x.shape[0], cfg.video_future_horizon, h, w, cfg.channels)
+                init_noise = model.diffusion._randn(shape, generator, model.device)
+            self._img = init_noise
+        self._steps = model.diffusion.sample_steps()
+        n_steps = len(self._steps)
+        k = max(1, -(-n_steps // max(n_chunks, 1)))  # ceil
+        self._bounds = [(a, min(a + k, n_steps)) for a in range(0, n_steps, k)]
+        self._next = 0
+        self._result = None
+
+    @property
+    def chunks_left(self) -> int:
+        return len(self._bounds) - self._next
+
+    def pump(self, k: int = 1) -> bool:
+        """Launch up to `k` pending chunks (asynchronous on the card).
+        Returns True while work remains. Runs under `no_grad` itself: grad
+        mode is per thread, and a caller's thread may have it on."""
+        diffusion, unet = self._model.diffusion, self._model.unet
+        with torch.no_grad():
+            while k > 0 and self._next < len(self._bounds):
+                a, b = self._bounds[self._next]
+                for step in self._steps[a:b]:
+                    self._img = diffusion.sample_step(
+                        unet, self._img, step, self._x_cond_n, self._task_embed,
+                        self._generator)
+                self._next += 1
+                k -= 1
+        return self._next < len(self._bounds)
+
+    def result(self) -> torch.Tensor:
+        """Finish the chain; returns the (B, F, H, W, 3) video in [0, 1] on
+        the model's device."""
+        if self._result is None:
+            while self.pump(1):
+                pass
+            with torch.no_grad():
+                self._result = self._model.diffusion.sample_finish(self._img)
+            # drop chain state so buffers free as soon as callers let go
+            self._img = self._task_embed = self._x_cond_n = None
+        return self._result
+
+    def result_u8(self) -> torch.Tensor:
+        """`result()` quantized to uint8 on the device (truncating)."""
+        return quantize_u8(self.result())

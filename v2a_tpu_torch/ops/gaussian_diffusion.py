@@ -4,8 +4,9 @@ noise.
 
 Counterpart of `v2a_tpu/ops/gaussian_diffusion.py` (the reference's
 `GoalGaussianDiffusion`, `goal_diffusion.py:346-733`). The `lax.scan` over
-timesteps becomes a Python loop; randomness comes from an explicit
-`torch.Generator`. Loop math is float32 whatever the model's compute dtype.
+timesteps becomes one step function, `sample_step`, that
+`models/video_model.py::VideoSampleStream` drives over `sample_steps()`;
+randomness comes from an explicit `torch.Generator`. Loop math is float32 whatever the model's compute dtype.
 
 `model_fn(x, t, task_embed) -> out` takes x with the conditioning frame
 already appended on the channel axis.
@@ -14,7 +15,7 @@ already appended on the channel axis.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -189,24 +190,32 @@ class GaussianDiffusion:
             return mean
         return mean + torch.exp(0.5 * log_var) * (noise * self.var_temp)
 
-    @torch.no_grad()
-    def p_sample_loop(
-        self,
-        model_fn: ModelFn,
-        shape: Tuple[int, ...],
-        x_cond: torch.Tensor,
-        task_embed: torch.Tensor,
-        generator: Optional[torch.Generator] = None,
-        init_noise: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """Full ancestral chain over t = T-1..0; returns samples in [0, 1]
-        units (unclamped). `init_noise` overrides x_T."""
-        dev = x_cond.device
-        img = init_noise if init_noise is not None else self._randn(shape, generator, dev)
-        for t in range(self.num_timesteps - 1, -1, -1):
-            noise = self._randn(shape, generator, dev) if t > 0 else None
-            img = self.p_step(model_fn, img, t, x_cond, task_embed, noise)
-        return self._unnormalize(img)
+    # -- the chain step by step: `VideoSampleStream` drives it, holding img
+    # and generator between calls (x_T is `_randn(shape, generator, device)`)
+
+    def sample_steps(self) -> list:
+        """The chain's steps in order: DDIM's (t, t_next) pairs
+        (`goal_diffusion.py:601-641`), else the ancestral t = T-1..0
+        (`goal_diffusion.py:583-599`)."""
+        if self.is_ddim_sampling:
+            return [tuple(p) for p in self.ddim_time_pairs().tolist()]
+        return list(range(self.num_timesteps - 1, -1, -1))
+
+    def sample_step(self, model_fn, img, step, x_cond, task_embed, generator=None):
+        """One entry of `sample_steps()`, its noise drawn from `generator`."""
+        if self.is_ddim_sampling:
+            return self._ddim_step(model_fn, img, step, x_cond, task_embed, generator)
+        return self._ancestral_step(model_fn, img, step, x_cond, task_embed, generator)
+
+    def sample_finish(self, img: torch.Tensor) -> torch.Tensor:
+        """The chain's last state -> samples in [0, 1], clamped
+        (`goal_diffusion.py:644-650`)."""
+        return self._unnormalize(img).clamp(0.0, 1.0)
+
+    def _ancestral_step(self, model_fn, img, t: int, x_cond, task_embed, generator):
+        """One ancestral step, its noise drawn first (none at t=0)."""
+        noise = self._randn(tuple(img.shape), generator, img.device) if t > 0 else None
+        return self.p_step(model_fn, img, t, x_cond, task_embed, noise)
 
     def ddim_time_pairs(self) -> np.ndarray:
         """(S, 2) (t, t_next) pairs, t_next possibly -1 (`goal_diffusion.py:604-606`)."""
@@ -214,52 +223,27 @@ class GaussianDiffusion:
         times = list(reversed(np.linspace(-1, total - 1, s + 1).astype(int).tolist()))
         return np.asarray(list(zip(times[:-1], times[1:])), dtype=np.int64)
 
-    @torch.no_grad()
-    def ddim_sample(
-        self,
-        model_fn: ModelFn,
-        shape: Tuple[int, ...],
-        x_cond: torch.Tensor,
-        task_embed: torch.Tensor,
-        generator: Optional[torch.Generator] = None,
-        init_noise: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """DDIM chain (`goal_diffusion.py:601-641`)."""
-        dev = x_cond.device
+    def _ddim_step(self, model_fn, img, pair, x_cond, task_embed, generator):
+        """One (t, t_next) DDIM step, its noise drawn last."""
+        time, time_next = pair
         acp = self.schedule.alphas_cumprod
         eta = self.ddim_sampling_eta
-        img = init_noise if init_noise is not None else self._randn(shape, generator, dev)
-        for time, time_next in self.ddim_time_pairs().tolist():
-            t = torch.full((img.shape[0],), time, dtype=torch.long, device=dev)
-            pred_noise, x_start = self.model_predictions(
-                model_fn, img, t, x_cond, task_embed,
-                clip_x_start=False, rederive_pred_noise=True,
-            )
-            if time_next < 0:  # the reference returns x_start at the last pair
-                img = x_start
-                continue
-            alpha, alpha_next = acp[time], acp[time_next]
-            sigma = eta * torch.sqrt(
-                (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha)
-            )
-            c = torch.sqrt(torch.clamp(1.0 - alpha_next - sigma**2, min=0.0))
-            img = x_start * torch.sqrt(alpha_next) + c * pred_noise
-            if eta > 0.0:
-                img = img + sigma * self._randn(shape, generator, dev)
-        return self._unnormalize(img)
-
-    def sample(
-        self,
-        model_fn: ModelFn,
-        shape: Tuple[int, ...],
-        x_cond: torch.Tensor,
-        task_embed: torch.Tensor,
-        generator: Optional[torch.Generator] = None,
-        init_noise: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """Sampler dispatch + clamp to [0, 1] (`goal_diffusion.py:644-650`)."""
-        fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
-        return fn(model_fn, shape, x_cond, task_embed, generator, init_noise).clamp(0.0, 1.0)
+        t = torch.full((img.shape[0],), time, dtype=torch.long, device=img.device)
+        pred_noise, x_start = self.model_predictions(
+            model_fn, img, t, x_cond, task_embed,
+            clip_x_start=False, rederive_pred_noise=True,
+        )
+        if time_next < 0:  # the reference returns x_start at the last pair
+            return x_start
+        alpha, alpha_next = acp[time], acp[time_next]
+        sigma = eta * torch.sqrt(
+            (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha)
+        )
+        c = torch.sqrt(torch.clamp(1.0 - alpha_next - sigma**2, min=0.0))
+        img = x_start * torch.sqrt(alpha_next) + c * pred_noise
+        if eta > 0.0:
+            img = img + sigma * self._randn(tuple(img.shape), generator, img.device)
+        return img
 
     # -- training (goal_diffusion.py:690-733) -----------------------------------
 

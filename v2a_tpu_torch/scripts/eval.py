@@ -4,14 +4,17 @@ Counterpart of `scripts/eval.py` (the reference's
 `diffuser/libero/plan_lb.py:26-156`):
 
     python -m v2a_tpu_torch.scripts.eval --workdir logs/<dataset>/diffusion/<exp> \
-        [--n_seeds 25] [--epoch latest] [--vis 1] [--eval_seed 0]
+        [--n_seeds 25] [--epoch latest] [--vis 1] [--eval_seed 0] [--workers N]
 
 Reconstructs the experiment from the config snapshot in the workdir (the
 train->eval contract; its `device` too), loads the chosen checkpoint,
 applies the eval-time overrides of `plan_lb.py:67-74` (policy DDIM steps 8,
 ddpm_var_temp 0.5, 8 actions per prediction), runs the eval protocol with
 the EMA policy, and writes the result JSON + per-episode mp4/png artifacts.
-`--workers N` (the parallel protocol, `eval/parallel.py`) is not ported yet.
+`--workers N` (N > 1) runs the parallel protocol (`eval/parallel.py`): N
+spawned env workers, N episodes in lock-step, one B=N policy call per round
+and B=N goal-video calls; its closures draw from the same one generator as
+the serial ones.
 """
 
 import dataclasses
@@ -35,11 +38,8 @@ def main(argv=None):
     if not workdir:
         raise SystemExit(
             "usage: eval.py --workdir <exp dir> [--n_seeds N] [--epoch E]"
-            " [--vis 0|1] [--eval_seed S]"
+            " [--vis 0|1] [--eval_seed S] [--workers N]"
         )
-    if int(args.get("--workers", 0)) > 1:
-        raise NotImplementedError(
-            "the parallel eval protocol (--workers) is not ported yet (ROADMAP.md, Queue 1)")
     cfg = load_snapshot(workdir)
 
     # eval-time overrides (`plan_lb.py:67-74`)
@@ -64,8 +64,9 @@ def main(argv=None):
     )
     eval_cfg = cfg.eval
 
+    # the trainer only carries the weights here: no exploration pool for it
     trainer, policy, env_list, video_model = build_experiment(
-        cfg, workdir, snapshot=False
+        cfg.replace(n_env_workers=0), workdir, snapshot=False
     )
     label = args.get("--epoch", "latest")
     trainer.load(None if label == "latest" else int(label))
@@ -93,15 +94,41 @@ def main(argv=None):
     save_path = os.path.join(
         workdir, "plans", f"{stamp}-nm{eval_cfg.n_seeds}-evSd{eval_seed}"
     )
-    evaluator = Evaluator(
-        env_list,
-        policy_fn,
-        video_fn,
-        video_horizon=cfg.video.video_future_horizon,
-        config=eval_cfg,
-        save_path=save_path,
-    )
-    results = evaluator.run_evals()
+    n_workers = int(args.get("--workers", 0))
+    if n_workers > 1:
+        # parallel protocol: N episodes in lock-step, batched card calls
+        from v2a_tpu_torch.envs.subproc import EnvWorkerPool
+        from v2a_tpu_torch.eval.parallel import ParallelEvaluator
+
+        def policy_fn_batch(obs01, goal01):
+            out = trainer.ema_policy.predict_action(
+                {
+                    "img_obs_1": torch.as_tensor(obs01, device=dev),
+                    "img_goal_1": torch.as_tensor(goal01, device=dev),
+                },
+                use_ddim=True, generator=gen,
+            )
+            return out["action"].float().cpu().numpy()
+
+        def video_fn_batch(imgs01, tasks):
+            return np.asarray(trainer.video_model.sample_u8(gen, imgs01, list(tasks)))
+
+        with EnvWorkerPool(cfg.dataset, n_workers=n_workers) as pool:
+            results = ParallelEvaluator(
+                pool, policy_fn_batch, video_fn_batch,
+                video_horizon=cfg.video.video_future_horizon,
+                config=eval_cfg,
+            ).run_evals(save_path=save_path)
+    else:
+        evaluator = Evaluator(
+            env_list,
+            policy_fn,
+            video_fn,
+            video_horizon=cfg.video.video_future_horizon,
+            config=eval_cfg,
+            save_path=save_path,
+        )
+        results = evaluator.run_evals()
     path = save_result_json(
         results, save_path, epoch=epoch,
         dp_ds=cfg.policy.num_inference_steps_ddim,

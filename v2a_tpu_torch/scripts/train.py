@@ -11,7 +11,9 @@ Flow: load config module -> apply CLI overrides -> build experiment
 (env list + policy + frozen video model + trainer) -> smoke-test one
 loss/grad on random tensors -> optionally resume -> train. The config
 snapshot written to the workdir is the contract eval reloads from. The
-models run on the card unless `--device cpu` is given.
+models run on the card unless `--device cpu` is given. With
+`--n_env_workers N` the guided cycles run on N spawned env workers in
+lock-step (closed when training ends).
 """
 
 import sys
@@ -64,7 +66,11 @@ def main(argv=None):
         except FileNotFoundError:
             print("[train] no checkpoint found; starting fresh")
 
-    trainer.train()
+    try:
+        trainer.train()
+    finally:
+        if trainer.env_pool is not None:
+            trainer.env_pool.close()
     print(f"[train] done at step {trainer.step}")
     return trainer
 

@@ -3,7 +3,9 @@
 Counterpart of `v2a_tpu/train/build.py` (the composition the reference
 spreads across `scripts/train_libero_dp.py:29-167`): the train entry, the
 eval entry and the tests build experiments identically. The models go to
-`cfg.device` (the card when None).
+`cfg.device` (the card when None). With `cfg.n_env_workers > 0` the trainer
+gets an `EnvWorkerPool` of that many spawned workers (`trainer.env_pool`),
+which the caller closes.
 """
 
 from __future__ import annotations
@@ -63,9 +65,6 @@ def build_experiment(
     if cfg.mesh_axes:
         raise NotImplementedError(
             "the mesh (data/tensor-parallel) trainer is not ported yet (ROADMAP.md, Queue 1)")
-    if cfg.n_env_workers > 0:
-        raise NotImplementedError(
-            "pool-parallel exploration (n_env_workers) is not ported yet (ROADMAP.md, Queue 1)")
     workdir = workdir or cfg.savepath()
     env_list = build_env_list(cfg)
     policy = DiffusionPolicy.create(cfg.policy, device=cfg.device)
@@ -89,6 +88,12 @@ def build_experiment(
             video_model = make_video_model(cfg)
             sampler = _VideoSampleAdapter(video_model)
 
+    env_pool = None
+    if cfg.n_env_workers > 0:
+        from v2a_tpu_torch.envs.subproc import EnvWorkerPool
+
+        env_pool = EnvWorkerPool(cfg.dataset, cfg.n_env_workers)
+
     trainer = OnlineTrainer(
         policy=policy,
         env_list=env_list,
@@ -99,6 +104,7 @@ def build_experiment(
         opt_config=cfg.opt,
         ema_config=cfg.ema,
         seed=cfg.seed,
+        env_pool=env_pool,
     )
     if snapshot:
         save_snapshot(cfg, workdir)
@@ -108,10 +114,16 @@ def build_experiment(
 class _VideoSampleAdapter:
     """Adapts `VideoPredModel` to the trainer's video-model protocol
     (`.sample_u8(generator, imgs01, tasks) -> (B, F, H, W, 3) uint8`, host
-    arrays): one batched call on the model's device, quantized there."""
+    arrays): one batched call on the model's device, quantized there; and
+    `.sample_u8_stream(generator, imgs01, tasks, n_chunks)`, the same chain
+    as a `VideoSampleStream` (its `result_u8()` on the device)."""
 
     def __init__(self, model: VideoPredModel):
         self.model = model
 
     def sample_u8(self, generator, imgs01: np.ndarray, tasks):
         return self.model.sample_u8(imgs01, list(tasks), generator=generator).cpu().numpy()
+
+    def sample_u8_stream(self, generator, imgs01: np.ndarray, tasks, n_chunks: int):
+        return self.model.sample_u8_stream(imgs01, list(tasks), generator=generator,
+                                           n_chunks=n_chunks)

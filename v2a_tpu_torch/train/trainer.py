@@ -3,7 +3,7 @@ video-guided exploration.
 
 Counterpart of `v2a_tpu/train/trainer.py` (the reference's
 `LB_Online_Trainer_V7`, `diffuser/libero/lb_online_trainer_v7.py:29-1347`),
-its serial loop:
+with its concurrency:
 
 - the policy train step of `train/train_state.py` fed by a host->card
   prefetcher (`parallel/prefetch.py`): batches are sampled from the replay
@@ -15,19 +15,33 @@ its serial loop:
 - `GuidedRolloutExecutor` for the exploration control flow
   (`train/explore.py`), acting with the EMA policy: one EMA module beside
   the trained one, updated in place by the train step;
-- checkpoints with milestone bucketing (`train/checkpoint.py`).
+- checkpoints with milestone bucketing (`train/checkpoint.py`);
+- with an `env_pool` (`envs/subproc.py`), lock-step batched rollouts
+  (`train/explore_batched.py`): one B=N DDIM prediction per round for all
+  the pool's envs;
+- `pipeline_explore`: the next cycle's goal videos are started at the top
+  of this one as a `VideoSampleStream` whose chunks are pumped behind the
+  rollouts' policy calls;
+- `overlap_explore`: the cycle runs on a worker thread while training goes
+  on, acting with a snapshot of the EMA policy; its episodes are committed
+  by the main thread at the join.
 
 Random streams: host draws keep the JAX package's seeds and generators
 (`np.random.default_rng(seed)`, shared with the executor). Device draws come
 from `torch.Generator`s on the policy's device: one for the train step, one
 for the policy's DDIM predictions, and one per guidance-video call, seeded
 by (seed, cycle counter), the counterpart of `fold_in(_video_key_base,
-idx)`.
+idx)`. An overlapped cycle draws from its own streams: a private
+prediction generator seeded by (seed, spawn counter) and a numpy generator
+seeded by one draw from the trainer's, as the JAX trainer seeds it.
+
+Both threads of an overlapped cycle launch on the default stream: on the
+card the overlap is of host work (env steps, the policy's launch overhead),
+not of kernels.
 
 Not ported yet (each raises `NotImplementedError`; ROADMAP.md, Queue 1):
-`mesh`, `env_pool` (`explore_batched` + `envs/subproc`),
-`pipeline_explore` (`sample_u8_stream`), `overlap_explore`, and
-`rand_explo_type="from_h5"` with a `randsam_path` (`data/h5_ingest.py`).
+`mesh`, and `rand_explo_type="from_h5"` with a `randsam_path`
+(`data/h5_ingest.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +49,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,8 +78,7 @@ OBS_KEYS = {"img_obs_1": "img_obs", "img_goal_1": "img_goal"}
 class TrainerConfig:
     """The `trainer_dict` surface of the release config
     (`config/libero/lb_tk8_65to72.py:70-133`) plus loop-level knobs: the
-    fields of `v2a_tpu/train/trainer.py::TrainerConfig` but
-    `pipeline_video_chunks`, an option of the pipelined cycle."""
+    fields of `v2a_tpu/train/trainer.py::TrainerConfig`."""
 
     # buffers
     num_init_rand_ep_per_tk: int = 50
@@ -122,12 +136,75 @@ class TrainerConfig:
     prefetch_depth: int = 2
     # also checkpoint the replay buffers
     checkpoint_buffers: bool = False
-    # not ported yet (ROADMAP.md, Queue 1): True raises
+    # Pipeline the exploration cycle: render the NEXT cycle's start frames
+    # at the top of the current cycle and start its goal-video chain in
+    # chunks pumped behind this cycle's policy calls, so the card works
+    # through the chain while the host steps the envs (the reference is
+    # serial, `lb_online_trainer_v7.py:871-938`). Sound because the video
+    # model is frozen: videos depend only on (start frame, task, generator),
+    # and the start frame is pinned by the recorded env seed the rollout
+    # reopens with.
     pipeline_explore: bool = False
+    # denoise-chain chunks per prefetched video (more chunks = finer
+    # interleaving with the policy calls, more launches from the host)
+    pipeline_video_chunks: int = 20
+    # run video-guided exploration on a worker thread while training goes
+    # on, committing episodes and counters at a main-thread join. Deviation
+    # from the reference's interleaved loop (`lb_online_trainer_v7.py:
+    # 504-507`): train steps taken while a cycle is in flight sample the
+    # pre-explore buffers, and the explorer acts with the EMA policy
+    # snapshotted at spawn time. Default off = the reference's interleaving.
     overlap_explore: bool = False
 
     def resolved_label_freq(self) -> int:
         return self.label_freq or max(int(self.n_train_steps // self.n_saves), 1)
+
+
+@dataclasses.dataclass
+class _ExploreSnapshot:
+    """Self-contained policy and randomness for one overlapped explore cycle.
+
+    The EMA policy is a deep copy: the train step updates the live EMA
+    module in place, and the worker must act with the spawn-time weights.
+    The generator and `np_rng` are consumed by the worker thread only; the
+    trainer's own streams stay the main thread's for the whole cycle."""
+
+    ema_policy: DiffusionPolicy
+    generator: torch.Generator
+    np_rng: np.random.Generator
+
+
+@dataclasses.dataclass
+class _VideoPrefetchState:
+    """Next cycle's exploration inputs, prepared ahead of time
+    (`pipeline_explore`): pinned env seeds + start frames + the goal videos
+    as an incrementally pumped chain (`VideoSampleStream`) or a host array
+    for video models without the stream API."""
+
+    assignments: list  # [(task, env_idx)]
+    seeds: list  # env seed per assignment (reopen pins the scene)
+    start_imgs: list  # uint8 start frames rendered at those seeds
+    videos: Any  # VideoSampleStream-like | ndarray
+
+    def pump(self, k: int = 1) -> None:
+        if hasattr(self.videos, "pump"):
+            self.videos.pump(k)
+
+    def videos_u8(self) -> np.ndarray:
+        """The videos on the host (a stream's result is read back here)."""
+        if hasattr(self.videos, "result_u8"):
+            return self.videos.result_u8().cpu().numpy()
+        return np.asarray(self.videos)
+
+
+class ExploreCycleError(RuntimeError):
+    """An exploration cycle failed mid-way. Episodes that completed BEFORE
+    the failure ride along in `.outcomes` so callers can commit them
+    instead of losing finished rollouts."""
+
+    def __init__(self, cause: BaseException, outcomes):
+        super().__init__(f"exploration cycle failed: {cause!r}")
+        self.outcomes = outcomes
 
 
 class IterTypeScheduler:
@@ -215,8 +292,12 @@ class OnlineTrainer:
 
     `video_model` is an object with `.sample_u8(generator, imgs01, tasks) ->
     (B, F, H, W, 3) uint8` (host arrays; `train/build.py::_VideoSampleAdapter`
-    wraps the port's `VideoPredModel`). The policy is initialized from `seed` here, as the
-    JAX trainer initializes its parameters; `start_from` replaces them."""
+    wraps the port's `VideoPredModel`), and optionally `.sample_u8_stream(
+    generator, imgs01, tasks, n_chunks)` for `pipeline_explore`. The policy
+    is initialized from `seed` here, as the JAX trainer initializes its
+    parameters; `start_from` replaces them. `env_pool` (an
+    `envs/subproc.py::EnvWorkerPool`) runs the rollouts in its workers; the
+    caller closes it."""
 
     def __init__(
         self,
@@ -234,12 +315,6 @@ class OnlineTrainer:
     ):
         if mesh is not None:
             raise _not_ported("the mesh (data/tensor-parallel) trainer")
-        if env_pool is not None:
-            raise _not_ported("pool-parallel exploration (env_pool)")
-        if config.pipeline_explore:
-            raise _not_ported("pipeline_explore")
-        if config.overlap_explore:
-            raise _not_ported("overlap_explore")
         if config.randsam_path and config.rand_explo_type == "from_h5":
             raise _not_ported("rand_explo_type='from_h5' (H5 ingestion)")
         self.policy = policy
@@ -264,12 +339,13 @@ class OnlineTrainer:
         self.metrics = MetricsLogger(workdir)
         self.metrics.init_per_task_metrics(env_list.task_list)
         self.np_rng = np.random.default_rng(seed)
-        train_seed, predict_seed, self._video_seed = (
-            int(s) for s in np.random.SeedSequence(seed).generate_state(3)
+        train_seed, predict_seed, self._video_seed, self._explore_seed = (
+            int(s) for s in np.random.SeedSequence(seed).generate_state(4)
         )
         self._train_gen = torch.Generator(device=self.device).manual_seed(train_seed)
         self._predict_gen = torch.Generator(device=self.device).manual_seed(predict_seed)
         self._video_idx = 0
+        self._explore_idx = 0
 
         # the trained policy and its EMA twin: the train step updates both in
         # place; exploration and eval act with the twin
@@ -295,6 +371,16 @@ class OnlineTrainer:
         self.executor = GuidedRolloutExecutor(
             env_list, self._ema_policy_fn, self.explore_cfg, self.np_rng
         )
+        self.env_pool = env_pool
+        self._batched_executor = None
+        self._pool_task_offset = 0
+        if env_pool is not None:
+            from v2a_tpu_torch.train.explore_batched import BatchedGuidedRolloutExecutor
+
+            self._batched_executor = BatchedGuidedRolloutExecutor(
+                env_pool, self._ema_policy_fn_batch, self.explore_cfg,
+                env_list.task_to_task_idx, policy.config.action_dim,
+            )
 
         # host-side counters (checkpointed; `lb_online_trainer_v7.py:367-385`)
         self.num_steps_in_env = 0
@@ -308,6 +394,12 @@ class OnlineTrainer:
         # debug composite
         self._last_rollout = None
         self._prefetch: Optional[PrefetchIterator] = None
+        # pipelined-exploration prefetch (cfg.pipeline_explore)
+        self._video_prefetch: Optional[_VideoPrefetchState] = None
+        # overlapped-exploration state (cfg.overlap_explore)
+        self._explore_thread: Optional[threading.Thread] = None
+        self._explore_outcome: Optional[dict] = None
+        self._explore_snapshot: Optional[_ExploreSnapshot] = None
 
     # -- policy ------------------------------------------------------------
 
@@ -323,15 +415,49 @@ class OnlineTrainer:
             {k: torch.as_tensor(v) for k, v in weights["ema_params"].items()})
         self.state.step = int(weights["step"])
 
-    def _ema_policy_fn(self, img_obs01: np.ndarray, img_goal01: np.ndarray):
-        """Predict `n_action_steps` actions from the EMA weights, DDIM;
-        (1, H, W, 3) float01 frames -> (n_action_steps, Da) on the host."""
+    def _on_explore_worker(self) -> bool:
+        """True iff the caller IS the overlapped-exploration worker thread.
+        Dispatching on thread identity (not snapshot presence) keeps the
+        worker's private streams the worker's: a main-thread caller while a
+        cycle is in flight uses the live EMA policy and the main streams."""
+        return (
+            self._explore_thread is not None
+            and threading.current_thread() is self._explore_thread
+        )
+
+    def _predict_actions(self, img_obs01: np.ndarray, img_goal01: np.ndarray):
+        """One DDIM prediction of the EMA policy, actions read back to the
+        host: on the overlapped worker thread the spawn-time snapshot and
+        its private generator, else the live EMA policy and the main
+        prediction generator."""
+        if self._on_explore_worker():
+            snap = self._explore_snapshot
+            policy, gen = snap.ema_policy, snap.generator
+        else:
+            policy, gen = self.ema_policy, self._predict_gen
         obs = {
             "img_obs_1": torch.as_tensor(img_obs01, device=self.device),
             "img_goal_1": torch.as_tensor(img_goal01, device=self.device),
         }
-        out = self.ema_policy.predict_action(obs, use_ddim=True, generator=self._predict_gen)
-        return out["action"][0].float().cpu().numpy()
+        out = policy.predict_action(obs, use_ddim=True, generator=gen)
+        return out["action"].float().cpu().numpy()
+
+    def _ema_policy_fn(self, img_obs01: np.ndarray, img_goal01: np.ndarray):
+        """Predict `n_action_steps` actions from the EMA weights, DDIM;
+        (1, H, W, 3) float01 frames -> (n_action_steps, Da) on the host."""
+        act = self._predict_actions(img_obs01, img_goal01)[0]
+        # pipelined exploration: one prefetched-video chunk goes in behind
+        # the policy call, after its actions are read back, so it runs while
+        # the host steps the envs and never delays this call's result
+        self._pump_video_prefetch()
+        return act
+
+    def _ema_policy_fn_batch(self, img_obs01: np.ndarray, img_goal01: np.ndarray):
+        """Batched variant: (N,H,W,3)x2 -> (N, n_action_steps, Da), one
+        DDIM chain for all parallel rollouts."""
+        act = self._predict_actions(img_obs01, img_goal01)
+        self._pump_video_prefetch()
+        return act
 
     # -- data -------------------------------------------------------------
 
@@ -406,66 +532,308 @@ class OnlineTrainer:
 
     def _next_video_generator(self) -> torch.Generator:
         """The generator for one guidance-video call: seeded by (seed, cycle
-        counter), independent of every other stream."""
+        counter), independent of every other stream. Consumed by whichever
+        thread runs the cycle: at most one cycle (and one prefetch) is in
+        flight."""
         seed = int(np.random.SeedSequence([self._video_seed, self._video_idx])
                    .generate_state(1)[0])
         self._video_idx += 1
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def video_guided_explore(self):
-        """One exploration cycle over all tasks
-        (`video_guided_explore` `lb_online_trainer_v7.py:859-938`): one
-        batched guidance-video call for all tasks' start frames, then the
-        rollouts, each episode committed as its rollout ends."""
-        if self.video_model is None:
-            raise RuntimeError("no video model attached")
-        self.envs.check_no_envs_exist()
+    def _next_parallel_assignments(self):
+        """Rotate the task window across cycles so every task gets explored
+        even when the pool is smaller than the task list. Advances the
+        rotation: call once per (pre)planned cycle."""
+        tasks = self.envs.task_list
+        n = len(self.env_pool)
+        offset = self._pool_task_offset
+        assignments = []
+        for i in range(n):
+            task = tasks[(offset + i) % len(tasks)]
+            assignments.append((task, self.envs.seed_sets[task][0]))
+        self._pool_task_offset = (offset + n) % len(tasks)
+        return assignments
+
+    # -- pipelined exploration (cfg.pipeline_explore) -----------------------
+
+    def _take_video_prefetch(self) -> Optional[_VideoPrefetchState]:
+        stash, self._video_prefetch = self._video_prefetch, None
+        return stash
+
+    def _pump_video_prefetch(self) -> None:
+        stash = self._video_prefetch
+        if stash is not None:
+            stash.pump(1)
+
+    def _dispatch_videos(self, start_imgs_u8, tasks):
+        """Start one guidance-video chain WITHOUT reading it back: a chunked
+        stream when the model has `sample_u8_stream` (pumped at each rollout
+        policy call), else one eager call."""
+        generator = self._next_video_generator()
+        vm = self.video_model
+        if hasattr(vm, "sample_u8_stream"):
+            imgs01 = np.stack(start_imgs_u8).astype(np.float32) / 255.0
+            return vm.sample_u8_stream(
+                generator, imgs01, list(tasks), n_chunks=self.cfg.pipeline_video_chunks,
+            )
+        return self._sample_videos_u8(generator, start_imgs_u8, tasks)
+
+    def _prefetch_videos(self, assignments) -> _VideoPrefetchState:
+        """Render start frames (serial env path) at freshly drawn seeds and
+        start the guidance-video chain for those frames."""
         cam = self.envs.camera_list[0]
-        metas = [
-            (task, self.envs.seed_sets[task][0])
-            for task in self.envs.task_list
-        ]
-        start_imgs, seeds = [], []
-        for task, env_idx in metas:
+        seeds, start_imgs = [], []
+        for task, env_idx in assignments:
             self.envs.init_1_given_env(task, env_idx, is_rand=True)
             seeds.append(self.envs.actual_env_seeds[(task, env_idx)])
             start_imgs.append(self.envs.render_an_env(task, cam, env_idx))
             self.envs.close_1_given_env(task, env_idx)
+        videos = self._dispatch_videos(start_imgs, [a[0] for a in assignments])
+        return _VideoPrefetchState(list(assignments), seeds, start_imgs, videos)
 
-        videos_u8 = np.asarray(self._sample_videos_u8(
-            self._next_video_generator(), np.stack(start_imgs), [m[0] for m in metas]
-        ))
-
-        for (task, env_idx), video, seed in zip(metas, videos_u8, seeds):
-            # Re-create the env with the SAME seed that produced the frame
-            # the guidance video was conditioned on: the scene (object
-            # placement) depends on the seed, and a fresh one would make the
-            # policy chase goals from another scene than the one it acts in
-            # (`lb_online_trainer_v7.py:877-919` keeps one env alive).
-            self.envs.init_1_given_env(task, env_idx, e_seed=seed)
-            try:
-                img_start = self.envs.render_an_env(task, cam, env_idx)
-                result = self.executor.execute(task, cam, env_idx, img_start, video)
-            finally:
-                # a mid-rollout failure must not leak the env
-                self.envs.close_1_given_env(task, env_idx)
-            self._commit_episode(task, env_idx, result)
-
-    def _commit_episode(self, task, env_idx, result):
-        """One guided episode's side effects: buffer append, counters, the
-        debug composite (`lb_online_trainer_v7.py:919-938`)."""
+    def _prefetch_videos_pool(self, assignments) -> _VideoPrefetchState:
+        """Pool variant of `_prefetch_videos`: render in the workers, then
+        CLOSE the envs (they reopen at the pinned seeds at rollout time, so
+        the envs stay free between cycles)."""
+        pool = self.env_pool
         cam = self.envs.camera_list[0]
-        self._last_rollout = (result.pred_video, result.imgs)
-        self.envBuf_vid.add_episode(
-            task, cam, env_idx, result.imgs, result.acts,
-            is_success=result.is_success,
+        pool.map([
+            (i, "init_1_given_env", (task, env_idx), {"is_rand": True})
+            for i, (task, env_idx) in enumerate(assignments)
+        ])
+        seed_dicts = pool.map([
+            (i, "attr:actual_env_seeds", (), {})
+            for i, _ in enumerate(assignments)
+        ])
+        seeds = [
+            seed_dicts[i][(task, env_idx)]
+            for i, (task, env_idx) in enumerate(assignments)
+        ]
+        start_imgs = pool.map([
+            (i, "render_an_env", (task, cam, env_idx), {})
+            for i, (task, env_idx) in enumerate(assignments)
+        ])
+        pool.map([
+            (i, "close_1_given_env", (task, env_idx), {})
+            for i, (task, env_idx) in enumerate(assignments)
+        ])
+        videos = self._dispatch_videos(start_imgs, [a[0] for a in assignments])
+        return _VideoPrefetchState(list(assignments), seeds, start_imgs, videos)
+
+    def video_guided_explore(self):
+        """One exploration cycle over all tasks
+        (`video_guided_explore` `lb_online_trainer_v7.py:859-938`):
+        rollouts followed by an immediate commit, the reference's
+        synchronous interleaving (`:504-507`). On a mid-cycle failure the
+        episodes that did finish are committed before the error surfaces."""
+        try:
+            outcomes = self._explore_rollouts()
+        except ExploreCycleError as exc:
+            self._commit_explore(exc.outcomes)
+            raise
+        self._commit_explore(outcomes)
+
+    def _explore_rollouts(self):
+        """Run one exploration cycle and return ``[(task, env_idx, result)]``
+        WITHOUT changing buffers or counters (`_commit_explore` does), so
+        `overlap_explore` can run it on a worker thread while training keeps
+        sampling the pre-explore buffers."""
+        if self.video_model is None:
+            raise RuntimeError("no video model attached")
+        if self._batched_executor is not None:
+            return self._explore_rollouts_parallel()
+        self.envs.check_no_envs_exist()
+        cam = self.envs.camera_list[0]
+        assignments = [
+            (task, self.envs.seed_sets[task][0])
+            for task in self.envs.task_list
+        ]
+
+        if self.cfg.pipeline_explore:
+            # this cycle's inputs were prepared last cycle and its chain ran
+            # behind that cycle's policy calls: launch any chunks left,
+            # prepare the NEXT cycle's inputs, then read this cycle's videos
+            stash = self._take_video_prefetch()
+            if stash is None:
+                stash = self._prefetch_videos(assignments)
+            stash.pump(10**9)
+            self._video_prefetch = self._prefetch_videos(assignments)
+            metas = stash.assignments
+            seeds = list(stash.seeds)
+            videos_u8 = stash.videos_u8()
+        else:
+            # one batched goal-video call for all tasks' start frames (the
+            # reference loops bs=1, `:871-877`)
+            start_imgs, seeds = [], []
+            metas = assignments
+            for task, env_idx in metas:
+                self.envs.init_1_given_env(task, env_idx, is_rand=True)
+                seeds.append(self.envs.actual_env_seeds[(task, env_idx)])
+                start_imgs.append(self.envs.render_an_env(task, cam, env_idx))
+                self.envs.close_1_given_env(task, env_idx)
+            videos_u8 = np.asarray(self._sample_videos_u8(
+                self._next_video_generator(), np.stack(start_imgs), [m[0] for m in metas]
+            ))
+
+        # an overlapped cycle gives the executor a private numpy stream so
+        # the trainer's generator stays the main thread's
+        old_ex_rng = None
+        if self._on_explore_worker():
+            old_ex_rng, self.executor.rng = self.executor.rng, self._explore_snapshot.np_rng
+        outcomes = []
+        try:
+            for (task, env_idx), video, seed in zip(metas, videos_u8, seeds):
+                # Re-create the env with the SAME seed that produced the
+                # frame the guidance video was conditioned on: the scene
+                # (object placement) depends on the seed, and a fresh one
+                # would make the policy chase goals from another scene than
+                # the one it acts in (`lb_online_trainer_v7.py:877-919` keeps
+                # one env alive). The seed was captured at render time: with
+                # pipeline_explore another consumer (live rand) may have
+                # re-seeded this env since.
+                self.envs.init_1_given_env(task, env_idx, e_seed=seed)
+                try:
+                    img_start = self.envs.render_an_env(task, cam, env_idx)
+                    result = self.executor.execute(task, cam, env_idx, img_start, video)
+                finally:
+                    # a mid-rollout failure must not leak the env
+                    self.envs.close_1_given_env(task, env_idx)
+                outcomes.append((task, env_idx, result))
+        except Exception as exc:
+            # completed rollouts ride along so callers can commit them
+            raise ExploreCycleError(exc, outcomes) from exc
+        finally:
+            if old_ex_rng is not None:
+                self.executor.rng = old_ex_rng
+        return outcomes
+
+    def _explore_rollouts_parallel(self):
+        """Pool-parallel exploration: every worker owns one task's env; ONE
+        batched goal-video call, then lock-step rollouts with batched policy
+        predictions (`train/explore_batched.py`)."""
+        pool = self.env_pool
+        cam = self.envs.camera_list[0]
+
+        if self.cfg.pipeline_explore:
+            stash = self._take_video_prefetch()
+            if stash is None:
+                stash = self._prefetch_videos_pool(self._next_parallel_assignments())
+            stash.pump(10**9)
+            self._video_prefetch = self._prefetch_videos_pool(self._next_parallel_assignments())
+            assignments = stash.assignments
+            start_imgs = stash.start_imgs
+            videos_u8 = stash.videos_u8()
+            # reopen at the pinned seeds: same scene as the rendered frame
+            pool.map([
+                (i, "init_1_given_env", (task, env_idx), {"e_seed": stash.seeds[i]})
+                for i, (task, env_idx) in enumerate(assignments)
+            ])
+        else:
+            assignments = self._next_parallel_assignments()
+            # concurrent env init + start-frame render in the workers
+            pool.map([
+                (i, "init_1_given_env", (task, env_idx), {"is_rand": True})
+                for i, (task, env_idx) in enumerate(assignments)
+            ])
+            start_imgs = pool.map([
+                (i, "render_an_env", (task, cam, env_idx), {})
+                for i, (task, env_idx) in enumerate(assignments)
+            ])
+            videos_u8 = np.asarray(self._sample_videos_u8(
+                self._next_video_generator(), np.stack(start_imgs), [a[0] for a in assignments]
+            ))
+
+        seed_rng = self._explore_snapshot.np_rng if self._on_explore_worker() else self.np_rng
+        seeds = [int(seed_rng.integers(0, 2**31 - 1)) for _ in range(len(assignments))]
+        results = self._batched_executor.execute_all(
+            assignments, cam, start_imgs, list(videos_u8), seeds
         )
-        self.num_steps_in_env += result.n_env_steps
-        self.cnt_vid_rollouts += 1
-        self.cnt_vid_rout_per_tk[task] += 1
-        if result.is_success:
-            self.cnt_explore_suc += 1
-            self.cnt_explo_suc_per_tk[task] += 1
+        pool.map([
+            (i, "close_1_given_env", (task, env_idx), {})
+            for i, (task, env_idx) in enumerate(assignments)
+        ])
+        return [
+            (task, env_idx, result)
+            for (task, env_idx), result in zip(assignments, results)
+        ]
+
+    def _commit_explore(self, outcomes):
+        """Apply an exploration cycle's side effects: buffer appends,
+        counters, the debug composite (`lb_online_trainer_v7.py:919-938`).
+        MAIN THREAD ONLY: the one place exploration touches state shared
+        with the train loop."""
+        cam = self.envs.camera_list[0]
+        for task, env_idx, result in outcomes:
+            self._last_rollout = (result.pred_video, result.imgs)
+            self.envBuf_vid.add_episode(
+                task, cam, env_idx, result.imgs, result.acts,
+                is_success=result.is_success,
+            )
+            self.num_steps_in_env += result.n_env_steps
+            self.cnt_vid_rollouts += 1
+            self.cnt_vid_rout_per_tk[task] += 1
+            if result.is_success:
+                self.cnt_explore_suc += 1
+                self.cnt_explo_suc_per_tk[task] += 1
+
+    # -- overlapped exploration (cfg.overlap_explore) ----------------------
+
+    def _next_explore_generator(self) -> torch.Generator:
+        """The private prediction generator of one overlapped cycle: seeded
+        by (seed, spawn counter), so the main prediction stream is
+        untouched."""
+        seed = int(np.random.SeedSequence([self._explore_seed, self._explore_idx])
+                   .generate_state(1)[0])
+        self._explore_idx += 1
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _spawn_explore(self):
+        """Start one exploration cycle on a worker thread.
+
+        The worker acts with the EMA policy snapshotted NOW (a deep copy:
+        the train step updates the live EMA module in place) and private
+        random streams; its launches interleave with the train steps' on the
+        card's default stream. Episodes are committed by the main thread at
+        `_join_explore`."""
+        assert self._explore_thread is None, "explore cycle already in flight"
+        self._explore_snapshot = _ExploreSnapshot(
+            ema_policy=dataclasses.replace(
+                self.ema_policy, nets=copy.deepcopy(self.ema_policy.nets)),
+            generator=self._next_explore_generator(),
+            np_rng=np.random.default_rng(int(self.np_rng.integers(0, 2**63 - 1))),
+        )
+        outcome: dict = {}
+        self._explore_outcome = outcome
+
+        def work():
+            try:
+                outcome["res"] = self._explore_rollouts()
+            except BaseException as exc:  # surfaced at the join barrier
+                outcome["err"] = exc
+
+        self._explore_thread = threading.Thread(target=work, name="v2a-explore", daemon=True)
+        self._explore_thread.start()
+
+    def _join_explore(self):
+        """Barrier: wait for an in-flight overlapped cycle and commit its
+        episodes. Flushes the prefetcher first so training only samples
+        post-commit buffers (the synchronous path's contract). No-op when
+        nothing is in flight."""
+        if self._explore_thread is None:
+            return
+        self._explore_thread.join()
+        outcome = self._explore_outcome
+        self._explore_thread = None
+        self._explore_outcome = None
+        self._explore_snapshot = None
+        if "err" in outcome:
+            err = outcome["err"]
+            if isinstance(err, ExploreCycleError) and err.outcomes:
+                self._flush_prefetch()
+                self._commit_explore(err.outcomes)
+            raise err
+        self._flush_prefetch()
+        self._commit_explore(outcome["res"])
 
     # -- debug artifacts ---------------------------------------------------
 
@@ -534,6 +902,9 @@ class OnlineTrainer:
         self.state.step = int(state["step"])
 
     def save(self, label: Optional[int] = None):
+        # a checkpoint taken while an overlapped cycle is in flight would
+        # leave out that cycle's episodes and counters: join first
+        self._join_explore()
         label = label if label is not None else (
             self.step // self.cfg.resolved_label_freq()
             * self.cfg.resolved_label_freq()
@@ -547,6 +918,9 @@ class OnlineTrainer:
             self.envBuf_vid.save(os.path.join(self.workdir, "buf_vid.npz"))
 
     def load(self, label: Optional[int] = None):
+        # a stash prepared before the restore pins seeds and frames of the
+        # aborted run; drop it so the next cycle renders anew
+        self._video_prefetch = None
         state, extra = ckpt.restore_checkpoint(self.workdir, label, map_location=self.device)
         self.load_state_dict(state)
         for key in (
@@ -615,7 +989,12 @@ class OnlineTrainer:
         try:
             self._train_loop(cfg, n_steps, timer)
         finally:
-            self._flush_prefetch()
+            try:
+                # commit (or surface the error of) any in-flight overlapped
+                # cycle so its episodes are not lost on exit
+                self._join_explore()
+            finally:
+                self._flush_prefetch()
 
     def _train_loop(self, cfg, n_steps, timer):
         while self.step < n_steps:
@@ -633,15 +1012,37 @@ class OnlineTrainer:
                 step > cfg.init_rand_steps
                 and step % cfg.rand_explo_freq == 0
                 and self.throttle.explo_type_rand == "explo"
-                and cfg.rand_explo_type == "live"
             )
-            if do_vid_explore or do_rand_explore:
-                # exploration mutates the buffers: drop prefetched batches so
-                # training only sees post-mutation data
+            # overlapped exploration: commit a finished cycle promptly so
+            # training sees fresh episodes at the earliest safe point
+            if (self._explore_thread is not None
+                    and not self._explore_thread.is_alive()):
+                self._join_explore()
+
+            # live rand exploration shares the envs with the explore worker,
+            # so a video cycle must not overlap it this step
+            overlap_vid = (
+                cfg.overlap_explore
+                and do_vid_explore
+                and not (do_rand_explore and cfg.rand_explo_type == "live")
+            )
+
+            if (do_vid_explore and not overlap_vid) or do_rand_explore:
+                # exploration mutates the buffers: join any in-flight cycle
+                # and drop prefetched batches so training only sees
+                # post-mutation data (with 'from_h5' and no H5 file the round
+                # adds nothing, and the JAX loop flushes all the same)
+                self._join_explore()
                 self._flush_prefetch()
+
             if do_vid_explore:
-                self.video_guided_explore()
-            if do_rand_explore:
+                if overlap_vid:
+                    self._join_explore()  # at most one cycle in flight
+                    self._spawn_explore()
+                else:
+                    self.video_guided_explore()
+
+            if do_rand_explore and cfg.rand_explo_type == "live":
                 self.live_rand_explore(cfg.rand_explo_num_ep_per_tk)
 
             self.iter_sched.count()
