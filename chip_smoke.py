@@ -19,9 +19,13 @@ Phases (any failure exits non-zero):
      tokens too), `plain_k7` (the non-fused forward with K7 in its
      GroupNorms), `spatial_k10_k11` (the K1 gate off: K10 at the 3x3 convs,
      K11 at the temporal convs) and `padded_k12` (the padded routing with K12
-     in its convs without a skip fold), and `padded_mega_off` (the shipped
-     routing with `mega_kernel=False`: K4a -> K4b where K3 runs). Every
-     shape on three input sets,
+     in its convs without a skip fold), `padded_mega_off` (the shipped
+     routing with `mega_kernel=False`: K4a -> K4b where K3 runs),
+     `spatial2_deep` (`spatial2_max_s=512`: K1 at 16^2 and 8^2 only, no
+     padded level), `padded_upconv_off` (`upconv=False`: the upsample convs
+     into a padded level through K3 or K4a -> K4b where K5 runs) and
+     `padded_entry_pad` (`entry_pad=True`: the 6-channel entry conv through
+     K3, its channels zero-extended to 32 by the wrapper). Every shape on three input sets,
      each seeded by a stable hash of the shape's signature (`seed_of`), the
      worst case kept. Gates derived from the arithmetic: outputs within one
      bf16 ulp (K3, K12: plus the carried conv-output difference; K9: plus
@@ -54,17 +58,17 @@ Phases (any failure exits non-zero):
      yardstick (`library_ms`); at K3's and K12's shapes also the same work
      as K4a -> K4b;
   4. one release-width U-Net forward (B=8, F=7, 128^2, bf16) per routing:
-     launch counts per kernel, each against the port's bf16 plain path and
-     a float32 plain reference, and the eight routings' and the plain
-     path's times in turns (padded against padded_mega_off: K3 against the
-     split end to end);
+     launch counts per kernel (the JAX package's with the flags set), each
+     against the port's bf16 plain path and a float32 plain reference, and
+     the eleven routings' and the plain path's times in turns (padded
+     against padded_mega_off: K3 against the split end to end);
   5. serves requests through the shipped routing: `VideoPredModel.sample`
      (100-step ancestral chain) per task, then `DiffusionPolicy.
      predict_action` (DDIM-8) on (current frame, first goal frame); then one
      goal-video request through each of `padded_k8_k9`, `plain_k7`,
      `spatial_k10_k11` and `padded_k12` (`VideoModelConfig(downconv=True,
      attn_kernel=True)`, `VideoModelConfig(fused=False,
-     use_pallas_gn=True)`, `VideoModelConfig(spatial2=False,
+     use_pallas_gn=True)`, `VideoModelConfig(spatial2_min_ch=0,
      pallas_spatial=True, tconv_hw=True)`,
      `VideoModelConfig(stream_kernel=True)`); checks shapes, range,
      finiteness and each run's launch counts, then holds every kernel
@@ -120,7 +124,16 @@ Phases (any failure exits non-zero):
      cycle's rounds and ms per B=8 prediction beside the serial cycle's, the
      pipelined cycles' s, join waits and train steps, the parallel eval's
      wall s beside the serial one's;
-  9. the lab kernels: the port's perf lab (`python -m
+  9. the video entry points: `scripts/train_video.py` (`run`, the
+     release width at B=4 on the card, on synthetic clips: the card
+     machine has no h5py) for 2 steps (K1's launches per step phase 6's
+     train_fused step's, finite losses), then `--resume --sample-after` in a
+     fresh call (step, weights, EMA and optimizer state bit-equal; the
+     validation sample on 2 tasks exactly 100 padded B=2 forwards'
+     launches), then `scripts/sample_video.py --smoke 1` (`videos.npy` and
+     the PNG strips); each part's wall time on its own line, and one line
+     saying that the H5 modules are not run here;
+  10. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
      padded forward, bit for bit (K3's mainloop, its copies by TMA); then
@@ -131,15 +144,16 @@ Phases (any failure exits non-zero):
      reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
      bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
      each on three input sets;
-  10. prints the `kernels` JSON line, then the device line last.
+  11. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed; text goes through the offline HashTokenizer.
 The env workers start by `spawn` with the main module hidden, so they do
 not import this file; its top level does no CUDA work all the same, and
 everything runs from `main()`.
 Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainers
-write their checkpoints under `logs/chip_smoke_train/` and
-`logs/chip_smoke_online/` and the script removes them.
+write their checkpoints under `logs/chip_smoke_train/`,
+`logs/chip_smoke_online/` and `logs/chip_smoke_video/` and the script removes
+them.
 """
 
 import contextlib
@@ -175,7 +189,7 @@ ROUTINGS = {
     "unpadded": dict(fused=True, padded_stream=False),
     "padded_k8_k9": dict(fused=True, downconv=True, attn_kernel=True),
     "plain_k7": dict(fused=False, use_pallas_gn=True),
-    "spatial_k10_k11": dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
+    "spatial_k10_k11": dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True),
     "padded_k12": dict(fused=True, stream_kernel=True),
     # padded_k8_k9 with attention also at ds 4 and 64-channel heads: K9 at the
     # padded 32^2 level (1,024 tokens, C 384, 6 heads), 16^2 (C 512, 8 heads)
@@ -185,6 +199,15 @@ ROUTINGS = {
     # the shipped routing with the mega-kernel switch off (V2A_MEGA_KERNEL=0):
     # K4a -> K4b where K3 runs, the split against the fused kernel end to end
     "padded_mega_off": dict(fused=True, mega_kernel=False),
+    # the K1 gate up to H*W 512 (V2A_SPATIAL2_MAX_S=512): K1 at 16^2 and 8^2
+    # only, no padded level, the library's convs and K2 above
+    "spatial2_deep": dict(fused=True, spatial2_max_s=512),
+    # the upsample convs into a padded level without K5 (V2A_UPCONV=0):
+    # nearest-2x, pad, then K3 or K4a -> K4b
+    "padded_upconv_off": dict(fused=True, upconv=False),
+    # the 6-channel entry conv on the padded stream (V2A_ENTRY_PAD=1): K3 at
+    # C=6, its channels zero-extended to 32 by the wrapper
+    "padded_entry_pad": dict(fused=True, entry_pad=True),
 }
 # the routing arguments that change the U-Net's parameters
 ARCH = ("attention_resolutions", "num_head_channels")
@@ -213,6 +236,13 @@ EXPECTED_PER_FORWARD = {
     "padded_mega_off": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30,
                         "fused_affine_conv3x3_padded": 30, "temporal_conv_padded": 33,
                         "fused_upconv3x3_padded": 3},
+    "spatial2_deep": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 63},
+    "padded_upconv_off": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30,
+                          "fused_conv_tconv_padded": 17, "fused_affine_conv3x3_padded": 16,
+                          "temporal_conv_padded": 16},
+    "padded_entry_pad": {"fused_affine_conv3x3": 31, "temporal_conv_fused": 29,
+                         "fused_conv_tconv_padded": 17, "fused_affine_conv3x3_padded": 14,
+                         "temporal_conv_padded": 17, "fused_upconv3x3_padded": 3},
 }
 # the routings served one goal-video request each in phase 5, beside the
 # shipped one
@@ -296,6 +326,11 @@ ONLINE_BATCH_REPS = 20  # hindsight batches timed per backend
 # stream against sample_u8 (a 10-step chain keeps the gate cheap)
 POOL_WORKERS = 8
 PIPELINED_CYCLES = 2
+# phase 9, the video entry points: `scripts/train_video.py` at release width
+# and B=4 on synthetic clips (the card machine has no h5py), this many steps,
+# then resumed with a validation sample per task; `scripts/sample_video.py
+# --smoke 1`
+VIDEO_STEPS = 2
 PIPELINED_OVERRIDES = {
     "n_env_workers": POOL_WORKERS,
     "trainer.pipeline_explore": True,
@@ -314,6 +349,7 @@ PIPELINED_WHY = {
 STREAM_STEPS, STREAM_B, STREAM_CHUNKS = 10, 2, 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ONLINE_LOGS = os.path.join(ROOT, "logs", "chip_smoke_online")
+VIDEO_LOGS = os.path.join(ROOT, "logs", "chip_smoke_video")
 
 
 def _rk():
@@ -615,8 +651,8 @@ def check_k4a(rk, key, inp, timed):
     ok, abs_err, rel, _ = check_stream(got, want, hw)
     same = torch.equal(got[:, 1:h + 1], again[:, 1:h + 1])  # pad rows are not written
     vs_k1 = None
-    if len(cins) == 1:
-        x, k, a, b = parts[0]
+    if len(cins) == 1:  # K1 on the channels K4a computes on (`rk.widen_channels`)
+        x, k, a, b = rk.widen_channels(*parts[0])
         k1 = rk.fused_affine_conv3x3(rk._interior(x, hw).contiguous(), k, bias, a, b, silu)
         vs_k1 = torch.equal(rk._interior(got, hw), k1)
     log(f"[kernels] K4a {n}x{h}x{w}x{'+'.join(map(str, cins))}->{d}: two launches bit-equal: "
@@ -1418,7 +1454,7 @@ def _plan_row(rk, key):
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
     if key[0] == "k4a":
         _, n, (h, w), cins, d, _ = key
-        plan = rk.affine_conv_plan(n, h, w, sum(cins), d)
+        plan = rk.affine_conv_plan(n, h, w, sum(rk.widened(c) for c in cins), d)
         return dict(pixels=plan.pixels, nc=plan.nc, grid=plan.grid, smem=plan.smem)
     if key[0] in ("k2", "k4b", "k11"):
         if key[0] in ("k2", "k11"):
@@ -1721,6 +1757,9 @@ class SyntheticClips:
         self.episodes = rng.integers(0, 256, size=(episodes, length) + tuple(hw) + (3,),
                                      dtype=np.uint8)
 
+    def __len__(self):
+        return len(self.episodes)
+
     def sample_batch(self, batch, rng):
         f, s = self.frames, self.stride
         conds, vids, tasks = [], [], []
@@ -1953,7 +1992,8 @@ def online_loop(rk, routing_calls, dev, smi):
     the loaded EMA policy, one seed per task, one goal video per episode, from
     the snapshot). The counts are zeroed just before
     `train()` and read just after. Returns the report, the launches and the
-    per-kernel errors of any cycle signature phase 3 did not hold."""
+    per-kernel errors and the keys of any cycle signature phase 3 did not
+    hold."""
     from v2a_tpu_torch.config import apply_overrides, load_config_module
     from v2a_tpu_torch.data.replay_buffer import ReplayBuffer
     from v2a_tpu_torch.scripts import eval as eval_script
@@ -2183,7 +2223,7 @@ def online_loop(rk, routing_calls, dev, smi):
     gc.collect()
     shutil.rmtree(ONLINE_LOGS, ignore_errors=True)
     torch.cuda.empty_cache()
-    return report, launches, extra_agg
+    return report, launches, extra_agg, set(extra)
 
 
 def _gate_chains(tag, launches, calls, want):
@@ -2481,8 +2521,134 @@ def stream_gate(cfg, smi):
                 sample_u8_s=ref_s), calls
 
 
+def video_entry_points(rk, held, dev, smi):
+    """Phase 9, the video entry points. `scripts/train_video.run` at release
+    width (its flags' defaults), B=4, the device by default (the card), on
+    `SyntheticClips` (`main` opens an H5 file, and the card machine has no
+    h5py): `VIDEO_STEPS` steps through the train_fused routing, K1's
+    launches exactly phase 6's per step and nothing else, finite losses;
+    then `--resume --sample-after` in a fresh call: the step, weights, EMA
+    and optimizer state bit-equal to the saved run's, the validation sample
+    on the 2 tasks exactly 100 padded B=2 forwards' launches, the videos
+    finite in [0, 1]; then `scripts/sample_video.py --smoke 1`: `videos.npy`
+    uint8 (2, 7, 32, 32, 3) and the PNG strips. Each part's wall time on
+    its own line. Returns the report, the launches of the train and sample
+    runs, and the per-kernel errors of any signature not in `held`."""
+    import importlib.util
+
+    from v2a_tpu_torch.data import img_utils
+    from v2a_tpu_torch.models.video_model import VideoPredModel
+    from v2a_tpu_torch.scripts import sample_video, train_video
+
+    why = ("h5py is not installed on this machine" if importlib.util.find_spec("h5py") is None
+           else "this script reads no H5 file")
+    log(f"[h5] NOT RUN on the card: data/h5_ingest.py, envs/offline.py, scripts/gen_randsam.py, "
+        f"the trainer's from_h5 rounds and train_video's VideoClipDataset ({why}); "
+        f"tests/test_torch_h5.py and tests/test_torch_video_cli.py hold them against the JAX "
+        f"package on the CPU")
+    shutil.rmtree(VIDEO_LOGS, ignore_errors=True)
+    workdir = os.path.join(VIDEO_LOGS, "train")
+    argv = ["--data", "(synthetic clips)", "--workdir", workdir, "--tasks", ",".join(TASKS),
+            "--batch-size", str(TRAIN_B), "--n-steps", str(VIDEO_STEPS),
+            "--save-freq", str(VIDEO_STEPS), "--log-freq", "1"]
+    args = train_video.parse_args(argv)
+    clips = SyntheticClips(args.frames, (args.image_size,) * 2, SEED + 7)
+    report = {}
+    zero_launches()
+    t0 = time.perf_counter()
+    first = train_video.run(args, clips, TASKS)
+    torch.cuda.synchronize()
+    report["train_s"] = time.perf_counter() - t0
+    first.close()
+    launches = launch_counts()
+    want = {k: VIDEO_STEPS * EXPECTED_PER_TRAIN_STEP["library_wgrad"].get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"video: train_video launches {launches}, expected {want}")
+    with open(os.path.join(workdir, "metrics.jsonl")) as fh:
+        losses = [r["video_train/loss"] for r in map(json.loads, fh) if "video_train/loss" in r]
+    if len(losses) != VIDEO_STEPS or not np.all(np.isfinite(losses)) or first.step != VIDEO_STEPS:
+        fail(f"video: train_video ran {first.step} steps, losses {losses}")
+    log(f"[video] scripts/train_video.py, release width, B={TRAIN_B}, {VIDEO_STEPS} steps: "
+        f"{report['train_s']:.1f} s (model build, steps, saves); losses "
+        f"{[round(v, 4) for v in losses]}; K1 {launches['fused_affine_conv3x3']} launches")
+
+    # --resume in a fresh call, with the validation sample on the 2 tasks
+    sample_s = []
+    sample = VideoPredModel.sample
+
+    def timed_sample(self, *a, **k):
+        t = time.perf_counter()
+        out = sample(self, *a, **k)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t)
+        return out
+
+    zero_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(VideoPredModel, "sample", timed_sample), recording() as calls:
+        again = train_video.run(train_video.parse_args(argv + ["--resume", "--sample-after"]),
+                                clips, TASKS)
+    torch.cuda.synchronize()
+    report["resume_s"] = time.perf_counter() - t0 - sum(sample_s)
+    report["sample_after_s"] = sum(sample_s)
+    again.close()
+    sample_launches = launch_counts()
+    a, b = first.state.state_dict(first.train_unet), again.state.state_dict(again.train_unet)
+    same = (a["step"] == b["step"] == VIDEO_STEPS and all(
+        torch.equal(a[part][k], b[part][k]) for part in ("params", "ema_params") for k in a[part])
+        # Adam's `step` stays on the CPU in the trained run, the load puts
+        # it on the card
+        and all(torch.equal(x, b["opt_state"]["state"][i][k].to(x.device))
+                for i, st in a["opt_state"]["state"].items() for k, x in st.items()
+                if isinstance(x, torch.Tensor)))
+    if not same:
+        fail("video: the resumed train_video state is not bit-equal to the saved run's")
+    n_fwd = args.timesteps
+    want = {k: n_fwd * EXPECTED_PER_FORWARD["padded"].get(k, 0) for k in sample_launches}
+    _gate_chains("video: --sample-after", sample_launches, calls, want)
+    vids = np.load(os.path.join(workdir, "validation_videos.npy"))
+    if (vids.shape != (len(TASKS), args.frames, args.image_size, args.image_size, 3)
+            or not np.isfinite(vids).all() or vids.min() < 0 or vids.max() > 1):
+        fail(f"video: validation videos {vids.shape} not finite in [0, 1]")
+    log(f"[video] --resume in a fresh call: {report['resume_s']:.1f} s (model build, load, "
+        f"save), step {again.step}, weights, EMA and optimizer state bit-equal")
+    log(f"[video] --sample-after, {len(TASKS)} tasks (B={len(TASKS)}, {n_fwd}-step ancestral "
+        f"chain): {report['sample_after_s']:.2f} s, launches "
+        f"{ {k: v for k, v in sample_launches.items() if v} } = {n_fwd} padded forwards'")
+    del first, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # sample_video --smoke 1 (a tiny model: no kernel takes its widths)
+    out_dir = os.path.join(VIDEO_LOGS, "samples")
+    t0 = time.perf_counter()
+    sample_video.main(["--smoke", "1", "--n", "2", "--steps", "2", "--out", out_dir])
+    report["sample_video_s"] = time.perf_counter() - t0
+    vids = np.load(os.path.join(out_dir, "videos.npy"))
+    if vids.dtype != np.uint8 or vids.shape != (2, 7, 32, 32, 3):
+        fail(f"video: sample_video wrote {vids.dtype} {vids.shape}")
+    pngs = all(os.path.exists(os.path.join(out_dir, f"video_{i}.png")) for i in range(2))
+    if img_utils.imageio is not None and not pngs:
+        fail("video: sample_video wrote no PNG strips")
+    log(f"[video] scripts/sample_video.py --smoke 1: {report['sample_video_s']:.2f} s, "
+        f"videos.npy uint8 {vids.shape}, PNG strips "
+        + ("written" if pngs else "not written: imageio is not installed on this machine"))
+
+    extra = {k: v for k, v in calls.items() if k not in held}
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"video": extra}, dev, timed=False, tag="video-shapes")
+        extra_agg = extra_agg["video"]
+    report["new_signatures"] = len(extra)
+    log(f"[video] {smi}: {len(extra)} kernel signatures not held before")
+    shutil.rmtree(VIDEO_LOGS, ignore_errors=True)
+    for name, v in sample_launches.items():
+        launches[name] += v
+    return report, launches, extra_agg
+
+
 def lab_kernels(rk, routing_calls, dev):
-    """Phase 9, the lab kernels' main paths, then their gates. The port's
+    """Phase 10, the lab kernels' main paths, then their gates. The port's
     perf lab (`winobench2`, `tconvbench2`), the path that launches K14 and
     K15; K13 held against K3 at every K3 signature of the padded forward, on
     K3's first input set, bit for bit (the JAX package's own caller of K13,
@@ -2625,19 +2791,24 @@ def main():
     # 7. the policy train step
     policy_train = train_policy(dev)
     # 8. the online loop
-    online, online_launches, online_agg = online_loop(rk, routing_calls, dev, smi)
-    # 9. the lab kernels' paths and gates
+    online, online_launches, online_agg, online_keys = online_loop(rk, routing_calls, dev, smi)
+    # 9. the video entry points
+    held = {k for calls in list(routing_calls.values()) + list(served.values()) + [train_calls]
+            for k in calls} | online_keys
+    video, video_launches, video_agg = video_entry_points(rk, held, dev, smi)
+    # 10. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
 
-    # 10. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # 11. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
     # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step,
     # K13 over K3's calls of one padded forward, K14 over K10's of one
     # spatial_k10_k11 forward, K15 over the perf lab's three shapes;
     # launches over every main-path run (the served requests of all five
-    # routings, the K6 routing's train() run and the online loop's runs:
-    # its train(), the eval with 8 workers, the pool cycle, the pipelined
-    # train(); K13-K15: their lab paths)
+    # routings, the K6 routing's train() run, the online loop's runs: its
+    # train(), the eval with 8 workers, the pool cycle, the pipelined
+    # train(); the video entry points' train and sample runs; K13-K15: their
+    # lab paths)
     lab_names = ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps")
     source_routing = {"fused_group_norm_silu": "plain_k7",
                       "fused_downconv3x3_padded": "padded_k8_k9",
@@ -2656,9 +2827,10 @@ def main():
         errs = [src["max_abs_err"], train_agg["train"][name]["max_abs_err"]]
         errs += [a[name]["max_abs_err"] for a in serve_agg.values()]
         errs += [online_agg[name]["max_abs_err"]] if online_agg else []
+        errs += [video_agg[name]["max_abs_err"]] if video_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
                     + train_launches[name] + sum(nl[name] for nl in new_launches.values())
-                    + online_launches[name])
+                    + online_launches[name] + video_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -2674,7 +2846,8 @@ def main():
                        new_routing_launches=new_launches, train=train_report,
                        train_launches=train_launches, train_shapes=train_rows,
                        per_train_step=train_agg, policy_train=policy_train, online=online,
-                       online_launches=online_launches,
+                       online_launches=online_launches, video=video,
+                       video_launches=video_launches,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
                        **forward), fh, indent=1)
@@ -2686,7 +2859,8 @@ def main():
         "padded forward, K14's over K10's in one spatial_k10_k11 forward, K15's over the perf "
         "lab's three shapes (per_lab); launches are those of the served requests of the five "
         "routings plus the K6 routing's train() run plus the online loop's runs (its train(), "
-        "scripts/eval.py --workers 8, the pool cycle, the pipelined train()), and "
+        "scripts/eval.py --workers 8, the pool cycle, the pipelined train()) plus the video "
+        "entry points' runs (train_video's steps, its --sample-after chain), and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

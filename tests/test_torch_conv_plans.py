@@ -497,7 +497,7 @@ def _k11_calls(monkeypatch, b):
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     monkeypatch.setattr(trk, "temporal_conv_fused_hw", record)
     with torch.device("meta"), torch.no_grad():
-        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2=False, pallas_spatial=True,
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2_min_ch=0, pallas_spatial=True,
                       tconv_hw=True)(torch.randn(b, 7, 128, 128, 6),
                                      torch.zeros(b, dtype=torch.long), torch.randn(b, 77, 512))
     return calls
@@ -738,7 +738,7 @@ def _k10_signatures(monkeypatch):
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     monkeypatch.setattr(trk, "spatial_conv3x3", record)
     with torch.device("meta"), torch.no_grad():
-        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2=False, pallas_spatial=True,
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2_min_ch=0, pallas_spatial=True,
                       tconv_hw=True)(torch.randn(8, 7, 128, 128, 6),
                                      torch.zeros(8, dtype=torch.long), torch.randn(8, 77, 512))
     return sorted(sigs)

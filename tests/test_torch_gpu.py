@@ -406,6 +406,54 @@ def test_conv_tconv_padded_kernel_matches_plain(cuda, dtype, emb, res, skip_cins
     _check_conv_tconv(got, gst, conv, parts, kbias, tk, tb, hw, e, r, skips, sb, True, dtype)
 
 
+# the 6-channel entry conv of `entry_pad`, its channels zero-extended to 32
+# by the wrappers (`rk.widen_channels`): the release shape (F = 7, 128^2, D
+# 128) at B = 1 and a small one, with the U-Net's identity affine and random
+# ones, without SiLU as the U-Net calls it and with it
+ENTRY_SHAPES = [(1, 7, (128, 128), 128), (2, 3, (8, 12), 64)]
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k4a"])
+@pytest.mark.parametrize("identity,silu", [(True, False), (False, True)],
+                         ids=["identity", "affine_silu"])
+@pytest.mark.parametrize("b,f,hw,d", ENTRY_SHAPES, ids=["release", "small"])
+def test_entry_conv_kernels_match_plain(cuda, kernel, identity, silu, b, f, hw, d):
+    """K3 and K4a at C = 6 in bf16 against their plain versions on the 6
+    real channels: one ulp (K3 one rounding at a time, `_check_conv_tconv`),
+    pad cols zero, statistics; and bit-equal to the same launch on operands
+    widened by hand (the extension adds exact zeros)."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    dtype = torch.bfloat16
+    parts, kbias, tk, tb, e, r, skips, sb = _conv_tconv_case(gen, cuda, dtype, b, f, hw, (6,), d,
+                                                             False, False, ())
+    if identity:
+        parts = [(x, k, torch.ones_like(a), torch.zeros_like(bb)) for x, k, a, bb in parts]
+    wide = [rk.widen_channels(*p) for p in parts]
+    assert wide[0][0].shape[-1] == 32
+    hp, wp = rk.padded_hw(*hw)
+    if kernel == "k4a":
+        flat = [(x.reshape(b * f, hp, wp, -1), k, a, bb) for x, k, a, bb in parts]
+        before = rk.launches["fused_affine_conv3x3_padded"]
+        got = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu)
+        wflat = [(x.reshape(b * f, hp, wp, -1), k, a, bb) for x, k, a, bb in wide]
+        same = rk.fused_affine_conv3x3_padded(wflat, kbias, hw, silu)
+        torch.cuda.synchronize()
+        assert rk.launches["fused_affine_conv3x3_padded"] == before + 2
+        assert torch.equal(got[:, 1:hw[0] + 1], same[:, 1:hw[0] + 1])
+        _check_padded(got, rk.fused_affine_conv3x3_padded_plain(flat, kbias, hw, silu), hw, dtype)
+        return
+    conv = torch.zeros(b, f, hp, wp, d, dtype=dtype, device=cuda)
+    before = rk.launches["fused_conv_tconv_padded"]
+    got, gst = rk.fused_conv_tconv_padded(parts, kbias, tk, tb, hw, silu=silu, want_stats=True,
+                                          conv_out=conv)
+    same, sst = rk.fused_conv_tconv_padded(wide, kbias, tk, tb, hw, silu=silu, want_stats=True)
+    torch.cuda.synchronize()
+    assert rk.launches["fused_conv_tconv_padded"] == before + 2
+    rows = slice(1, hw[0] + 1)
+    assert torch.equal(got[:, :, rows], same[:, :, rows]) and torch.equal(gst, sst)
+    _check_conv_tconv(got, gst, conv, parts, kbias, tk, tb, hw, e, r, skips, sb, silu, dtype)
+
+
 # the release U-Net's padded levels (K3 and K12 signatures): 128^2 with one
 # and two parts, 64^2, 32^2 with C 384 + 384; F = 7
 RELEASE_LEVELS = [((128, 128), (128,), 128), ((128, 128), (128, 128), 128),
@@ -985,6 +1033,16 @@ def test_padded_k8_k9_unet_matches_plain_on_the_card(cuda):
                       channel_mult=(1, 2, 2), attention_resolutions=(4,))
 
 
+def test_padded_upconv_off_unet_matches_plain_on_the_card(cuda):
+    """64x64, mult (1, 2, 2), attention at ds 4, `upconv=False`: the two
+    upsample convs into the padded 32x32 and 64x64 levels nearest-2x, padded,
+    then K3 where K5 ran (the JAX package's count, traced on the CPU)."""
+    _routing_vs_plain(cuda, 64, dict(upconv=False),
+                      {"fused_affine_conv3x3": 12, "temporal_conv_fused": 13,
+                       "fused_conv_tconv_padded": 14},
+                      channel_mult=(1, 2, 2), attention_resolutions=(4,))
+
+
 def test_plain_k7_unet_matches_plain_on_the_card(cuda):
     """32x32, mult (1, 2), attention at ds 2, the non-fused forward: K7 in
     every GroupNorm without forwarded statistics (8 x 2 + 4 + 1)."""
@@ -1138,7 +1196,7 @@ def test_spatial_k10_k11_unet_matches_plain_on_the_card(cuda):
     """32x32, mult (1, 2), attention at ds 2, the K1 gate off: K10 at every
     3x3 stride-1 conv with 128-multiple channels (one launch per channel
     part), K11 at every temporal conv."""
-    _routing_vs_plain(cuda, 32, dict(spatial2=False, pallas_spatial=True, tconv_hw=True),
+    _routing_vs_plain(cuda, 32, dict(spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True),
                       {"spatial_conv3x3": 21, "temporal_conv_fused_hw": 19},
                       channel_mult=(1, 2), attention_resolutions=(2,))
 

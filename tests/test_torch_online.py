@@ -19,8 +19,8 @@
 - the port alone: `scripts/train.main` on `fake_smoke` (`--device cpu`),
   resumed into a fresh trainer; `scripts/eval.main` on its workdir; the
   prefetcher flushed around buffer mutations; the options not ported yet
-  (the mesh, H5 ingestion, a converted checkpoint) raising
-  `NotImplementedError`.
+  (the mesh, a converted checkpoint) raising `NotImplementedError`, and
+  `from_h5` with a missing file raising the JAX ingestion's error.
 """
 
 import dataclasses
@@ -38,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 from test_torch_kernels import one_torch_thread  # noqa: E402, F401 (autouse)
 from test_torch_policy import random_params  # noqa: E402
 from v2a_tpu import config as jconfig  # noqa: E402
+from v2a_tpu.data import h5_ingest as jh5  # noqa: E402
 from v2a_tpu.config import load_config_module as jload_config  # noqa: E402
 from v2a_tpu.eval import harness as jharness  # noqa: E402
 from v2a_tpu.envs import fake as jfake  # noqa: E402
@@ -239,9 +240,10 @@ def _flat(tree, prefix=""):
 # the port's routing switches (the JAX package's environment flags) and
 # device
 JAX_ONLY = {"video.backbone", "video.cond_channels"}
-PORT_ONLY = {"device", "video.attn_kernel", "video.downconv", "video.mega_kernel",
-             "video.padded_stream", "video.pallas_spatial", "video.spatial2",
-             "video.stream_kernel", "video.tconv_hw"}
+PORT_ONLY = {"device", "video.attn_kernel", "video.downconv", "video.entry_pad",
+             "video.mega_kernel", "video.padded_stream", "video.pallas_spatial",
+             "video.spatial2_max_s", "video.spatial2_min_ch", "video.stream_kernel",
+             "video.tconv_hw", "video.upconv"}
 
 
 def _assert_same_tree(jcfg, tcfg):
@@ -260,8 +262,8 @@ def _assert_same_tree(jcfg, tcfg):
         assert t[k] == j[k] and type(t[k]) is type(j[k]), k
 
 
-@pytest.mark.parametrize("name", ["libero/lb_tk8_65to72.py", "fake/fake_smoke.py",
-                                  "fake/fake_learn.py"])
+@pytest.mark.parametrize("name", ["libero/lb_tk8_65to72.py", "libero/lb_tk8_luotest.py",
+                                  "fake/fake_smoke.py", "fake/fake_learn.py"])
 def test_config_files_match_jax(name, tmp_path):
     """Each of the port's copied config files loads to the JAX tree field by
     field; its experiment name is the JAX one; its snapshot round-trips
@@ -491,15 +493,26 @@ def test_train_and_eval_entry_points(tmp_path):
 
 def test_left_out_options_raise(tmp_path):
     """Each option of the JAX trainer that is not ported yet raises
-    `NotImplementedError` naming ROADMAP.md: the mesh, H5 ingestion and a
-    converted video checkpoint."""
+    `NotImplementedError` naming ROADMAP.md: the mesh and a converted video
+    checkpoint. `from_h5` with a missing file raises where the JAX trainer
+    does, when the first fill opens it: the JAX ingestion's error
+    (`FileNotFoundError` from h5py, `ImportError` without it)."""
     cfg = ttrainer.TrainerConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.OnlineTrainer(None, None, cfg, str(tmp_path), mesh=object())
-    change = dict(randsam_path="data/x.hdf5", rand_explo_type="from_h5")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.OnlineTrainer(None, None, dataclasses.replace(cfg, **change), str(tmp_path))
+    missing = str(tmp_path / "missing.hdf5")
+    with pytest.raises(Exception) as jax_err:
+        jh5.add_episodes_to_buffer(missing, None, ["t"], 0, 1, None, None)
+    assert jax_err.type in (FileNotFoundError, ImportError)
     exp = load_config_module(SMOKE).replace(device="cpu")
+    exp = exp.replace(trainer=dataclasses.replace(exp.trainer, randsam_path=missing,
+                                                  rand_explo_type="from_h5"),
+                      policy=dataclasses.replace(exp.policy, **SMALL_TRUNK))
+    trainer, *_ = tbuild.build_experiment(exp, str(tmp_path / "h5"), with_video_model=False,
+                                          snapshot=False)
+    with pytest.raises(jax_err.type):
+        trainer.train(1)
+    assert trainer.step == 0 and len(trainer.envBuf_rand) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbuild.build_experiment(exp.replace(mesh_axes=("dp",)), str(tmp_path), snapshot=False)
     ckdir = tmp_path / "ckpt"

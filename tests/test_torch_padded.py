@@ -151,6 +151,47 @@ def test_conv_tconv_padded_matches_pallas(res, skip_cins):
     assert torch.equal(got[:, :, 1:-1], two[:, :, 1:-1]) and torch.equal(gst, tst)
 
 
+@pytest.mark.parametrize("kernel", ["k4a", "k3"])
+def test_widened_entry_conv_matches_pallas(kernel):
+    """The 6-channel entry conv of `entry_pad` (identity affine, no SiLU):
+    the operands the wrappers hand the card, zero-extended to 32 channels
+    by `widen_channels` (zero channels, zero kernel rows, zero affine), give
+    through the plain version what the JAX Pallas kernel gives on the 6
+    real channels in interpret mode, as does the plain version on those 6."""
+    rs = np.random.RandomState(44)
+    b, f, d = 2, 3, 64
+    jparts, tparts = _conv_parts(rs, (b, f), b * f, (6,), d)
+    tparts = [(x, k, torch.ones_like(a), torch.zeros_like(bb)) for x, k, a, bb in tparts]
+    jparts = [(x, k, jnp.ones_like(a), jnp.zeros_like(bb)) for x, k, a, bb in jparts]
+    wide = [trk.widen_channels(*p) for p in tparts]
+    x32, k32, a32, b32 = wide[0]
+    assert x32.shape[-1] == k32.shape[2] == a32.shape[-1] == 32 == trk.widened(6)
+    assert not x32[..., 6:].any() and not k32[:, :, 6:].any() and not a32[:, 6:].any()
+    assert not b32[:, 6:].any() and torch.equal(k32[:, :, :6], tparts[0][1])
+    assert trk.widen_channels(*wide[0])[0] is x32  # a multiple of 32 passes as it is
+    kbias = (0.1 * rs.randn(d)).astype(np.float32)
+    hp, wp = trk.padded_hw(*HW)
+    if kernel == "k4a":
+        flat = lambda parts: [(x.reshape(b * f, hp, wp, -1), k, a[:b * f], bb[:b * f])
+                              for x, k, a, bb in parts]
+        want = jrk.fused_affine_conv3x3_padded(flat(jparts), jnp.asarray(kbias), HW, silu=False,
+                                               tile_h=4, interpret=True)
+        for parts in (tparts, wide):
+            _same_stream(trk.fused_affine_conv3x3_padded_plain(flat(parts), _t(kbias), HW,
+                                                               silu=False), want, HW)
+        return
+    tk = (rs.randn(3, d, d) * 0.2).astype(np.float32)
+    tb = (0.1 * rs.randn(d)).astype(np.float32)
+    want, wst = jrk.fused_conv_tconv_padded(jparts, jnp.asarray(kbias), jnp.asarray(tk),
+                                            jnp.asarray(tb), HW, silu=False, tile_h=4,
+                                            want_stats=True, interpret=True)
+    for parts in (tparts, wide):
+        got, gst = trk.fused_conv_tconv_padded_plain(parts, _t(kbias), _t(tk), _t(tb), HW,
+                                                     silu=False, want_stats=True)
+        _same_stream(got, want, HW)
+        np.testing.assert_allclose(gst.numpy(), np.asarray(wst), **STATS_TOL)
+
+
 @pytest.mark.parametrize("affine", [False, True])
 def test_upconv3x3_padded_matches_pallas(affine):
     rs = np.random.RandomState(4)
@@ -248,7 +289,7 @@ def _jax_defaults(monkeypatch):
                         ("PERF_UPCONV", True), ("PERF_STREAM_KERNEL", False),
                         ("PERF_DOWNCONV", False), ("PERF_ENTRY_PAD", False),
                         ("PERF_PALLAS_ATTN", False), ("PERF_PALLAS_SPATIAL2_MIN_CH", 128),
-                        ("PERF_PALLAS_SPATIAL2_MAX_S", 16384)):
+                        ("PERF_PALLAS_SPATIAL2_MAX_S", 16384), ("PERF_ATTN_HMAJOR", False)):
         monkeypatch.setattr(jvu, flag, value)
     monkeypatch.setattr(jrk, "TAPJOIN", "")
     monkeypatch.setattr(jrk, "MEGA_MIN_M", 256)
@@ -322,7 +363,7 @@ def test_padded_unet_reaches_k4a(monkeypatch):
     (dict(use_pallas_gn=True), {"fused_group_norm_silu": 66}),
     # the K1 gate off: K10 at every 3x3 stride-1 conv (a launch per part of
     # the up path's pairs), K11 at every temporal conv
-    (dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
+    (dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True),
      {"spatial_conv3x3": 73, "temporal_conv_fused_hw": 63}),
     # K12 in the 19 padded convs without a skip fold, in place of 11 K3 and
     # 8 K4a -> K4b
@@ -343,8 +384,24 @@ def test_padded_unet_reaches_k4a(monkeypatch):
     (dict(fused=True, mega_kernel=False),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_affine_conv3x3_padded": 30,
       "temporal_conv_padded": 33, "fused_upconv3x3_padded": 3}),
+    # the K1 gate up to H*W 512 (`V2A_SPATIAL2_MAX_S=512`): K1 at 16^2 and 8^2
+    # only, no padded level, K2 at every temporal conv
+    (dict(fused=True, spatial2_max_s=512),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 63}),
+    # the padded routing without K5 (`V2A_UPCONV=0`): its 3 upsample convs
+    # nearest-2x, padded, then K3 (1) or K4a -> K4b (2)
+    (dict(fused=True, upconv=False),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_padded": 17,
+      "fused_affine_conv3x3_padded": 16, "temporal_conv_padded": 16}),
+    # the entry conv on the padded stream (`V2A_ENTRY_PAD=1`): K3 at C=6 in
+    # place of a library conv and K2
+    (dict(fused=True, entry_pad=True),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 29, "fused_conv_tconv_padded": 17,
+      "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 17,
+      "fused_upconv3x3_padded": 3}),
 ], ids=["padded", "unpadded", "padded_k8_k9", "plain_k7", "spatial_k10_k11", "padded_k12",
-        "padded_k8_k9_wide", "padded_mega_off"])
+        "padded_k8_k9_wide", "padded_mega_off", "spatial2_deep", "padded_upconv_off",
+        "padded_entry_pad"])
 def test_release_forward_launch_counts(monkeypatch, routing, counts):
     """The release U-Net (128^2, F=7, mc 128, mult (1,2,3,4,5), 2 res blocks,
     attention at ds 8 / 16, bf16) traced on the meta device: the kernels

@@ -444,19 +444,71 @@ ROUTES = {"padded_k8_k9": (dict(PERF_DOWNCONV=True, PERF_PALLAS_ATTN=True), dict
           "plain_k7": (dict(), dict(use_pallas_gn=True), dict(use_pallas_gn=True)),
           "spatial_k10_k11": (dict(PERF_PALLAS_SPATIAL2_MIN_CH=0, PERF_PALLAS_SPATIAL=True,
                                    PERF_TCONV_HW=True), dict(fused=True),
-                              dict(fused=True, spatial2=False, pallas_spatial=True,
+                              dict(fused=True, spatial2_min_ch=0, pallas_spatial=True,
                                    tconv_hw=True)),
           "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True),
                          dict(fused=True, stream_kernel=True)),
           # the shipped routing with the mega-kernel off: K4a -> K4b where K3 was
           "padded_mega_off": (dict(PERF_MEGA_KERNEL=False), dict(fused=True),
-                              dict(fused=True, mega_kernel=False))}
+                              dict(fused=True, mega_kernel=False)),
+          # the K1 gate up to H*W 512: no padded level
+          "spatial2_deep": (dict(PERF_PALLAS_SPATIAL2_MAX_S=512), dict(fused=True),
+                            dict(fused=True, spatial2_max_s=512)),
+          # the upsample convs into a padded level without K5
+          "padded_upconv_off": (dict(PERF_UPCONV=False), dict(fused=True),
+                                dict(fused=True, upconv=False)),
+          # the 6-channel entry conv on the padded stream
+          "padded_entry_pad": (dict(PERF_ENTRY_PAD=True), dict(fused=True),
+                               dict(fused=True, entry_pad=True))}
 # padded_k8_k9 on the release U-Net with attention at ds 4 / 8 / 16 and
 # 64-channel heads: K9 at the padded 32^2 level (1,024 tokens) too
 WIDE = dict(attention_resolutions=(4, 8, 16), num_head_channels=64)
 ROUTES["padded_k8_k9_wide"] = (ROUTES["padded_k8_k9"][0], dict(fused=True, **WIDE),
                                dict(fused=True, downconv=True, attn_kernel=True, **WIDE))
 ARCH = ("attention_resolutions", "num_head_channels")
+
+
+# each of the U-Net's last serving switches on a small U-Net (mc 128, mult
+# (1, 2), attention at ds 2, 24x24: the smallest square level the padded
+# stream takes, F=2): (JAX flags, JAX VideoUNet kwargs, port kwargs)
+SWITCHES = {
+    # K1 only at 12x12: the 24x24 level neither K1 nor padded
+    "spatial2_max_s": (dict(PERF_PALLAS_SPATIAL2_MAX_S=512), dict(fused=True),
+                       dict(fused=True, spatial2_max_s=512)),
+    # the upsample conv into the padded 24x24 level: nearest-2x, pad, K3
+    "upconv": (dict(PERF_UPCONV=False), dict(fused=True), dict(fused=True, upconv=False)),
+    # the 6-channel entry conv on the padded stream: K3 at C=6
+    "entry_pad": (dict(PERF_ENTRY_PAD=True), dict(fused=True),
+                  dict(fused=True, entry_pad=True)),
+    # the attention's plain path (the non-fused forward): the port's one
+    # path against the JAX module's head-major form and its default form
+    "attn_hmajor": (dict(PERF_ATTN_HMAJOR=True), dict(), dict()),
+    "attn_hmajor_off": (dict(PERF_ATTN_HMAJOR=False), dict(), dict()),
+}
+
+
+@pytest.mark.parametrize("switch", list(SWITCHES))
+def test_switch_unet_matches_jax(monkeypatch, switch):
+    """Each switch of `ConvRouting` / `VideoUNet` added for the JAX flags
+    `V2A_SPATIAL2_MAX_S`, `PERF_UPCONV` and `PERF_ENTRY_PAD`, and the port's
+    one attention path for both values of `PERF_ATTN_HMAJOR`: the port's
+    small U-Net against the JAX module with the flag monkeypatched, the same
+    launches per kernel."""
+    _jax_defaults(monkeypatch)
+    flags, jkw, tkw = SWITCHES[switch]
+    for flag, value in flags.items():
+        monkeypatch.setattr(jvu, flag, value)
+    kw = dict(in_channels=6, model_channels=128, out_channels=3, num_res_blocks=1,
+              attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=32,
+              task_token_dim=64)
+    x, t, tok = _unet_inputs(24, seed=43)
+    params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=43)
+    jcalls = _counting(monkeypatch, _jax_module, ALL)
+    want = japply(jvu.VideoUNet(**jkw, **kw), params, x, t, tok)
+    tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
+    got = _load(tvu.VideoUNet(**tkw, **kw), params)(_t(x), torch.from_numpy(t), _t(tok))
+    assert jcalls == tcalls and (jcalls or switch.startswith("attn_hmajor"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
 
 
 @functools.lru_cache(maxsize=None)

@@ -36,7 +36,7 @@ ALL = PACKAGE_KERNELS
 ROUTES = {
     "spatial_k10_k11": (dict(PERF_PALLAS_SPATIAL2_MIN_CH=0, PERF_PALLAS_SPATIAL=True,
                              PERF_TCONV_HW=True),
-                        dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True)),
+                        dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True)),
     "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True, stream_kernel=True)),
 }
 
@@ -123,7 +123,7 @@ def test_split_conv_sums_its_k10_parts_in_bf16(monkeypatch):
     want = jm.apply(params, tuple(jnp.asarray(p) for p in parts))
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
     tm = _load(tvu.PseudoConv3d(256, 128, dtype=torch.bfloat16, fused=True,
-                                routing=tvu.ConvRouting(spatial2=False, pallas_spatial=True)),
+                                routing=tvu.ConvRouting(spatial2_min_ch=0, pallas_spatial=True)),
                params)
     got = tm(tuple(_t(p) for p in parts))
     assert jcalls == tcalls == {"spatial_conv3x3": 2, "temporal_conv_fused": 1}

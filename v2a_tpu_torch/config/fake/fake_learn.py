@@ -9,8 +9,8 @@ model. `python -m v2a_tpu_torch.scripts.train --config .../fake_learn.py`
 runs the full online loop (live rand phase -> video-guided exploration with
 the grasp heuristic -> hindsight-relabeled mixed-buffer training), after
 which `python -m v2a_tpu_torch.scripts.eval --workdir <savepath>` reports
-the success rate. The port of the learning gates that hold that rate is in
-ROADMAP.md, Queue 1.
+the success rate. `tests/test_torch_learning_closed_loop.py` (`slow`) holds
+that rate against the step-1 checkpoint's.
 """
 
 base = {

@@ -1,10 +1,11 @@
-"""Heuristic random-action episode sampler.
+"""Heuristic random-action episode sampler + offline dataset generator.
 
-A copy of `v2a_tpu/envs/randsam.py` without `generate_randsam_dataset`,
-whose output is the H5 file that `data/h5_ingest.py` reads: H5 ingestion is
-not ported yet (ROADMAP.md, Queue 1).
+A copy of `v2a_tpu/envs/randsam.py`: `generate_randsam_dataset` draws from
+the same `np.random.default_rng(seed)` stream, so one seed gives the JAX
+package's episodes; `data/h5_ingest.py::write_randsam_file` writes them.
 
-Counterpart of `environment/libero/lb_data/lb_randsam_utils.py:5-167`,
+Counterpart of `environment/libero/lb_data/lb_randsam_utils.py:5-167` and
+the generator loop of `environment/libero/lb_data/lb_randsam.py:18-109`,
 re-targeted at the `EnvList` interface so it drives either the Libero
 backend or the fake backend.
 
@@ -24,7 +25,7 @@ Sampling heuristic (identical semantics):
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -127,3 +128,32 @@ def rand_sample_1_ep(
         np.stack(ee_poses, axis=0),
     )
 
+
+def generate_randsam_dataset(
+    envs: EnvList,
+    num_ep_per_task: int,
+    cfg: Optional[RandSamConfig] = None,
+    seed: int = 27,
+    cam: str = "agent",
+    tasks: Optional[Sequence[str]] = None,
+) -> Dict[str, list]:
+    """Offline generation loop (`lb_randsam.py:18-72`): fresh randomly-seeded
+    env per episode, lazy one-at-a-time lifecycle. Returns the episode dict
+    consumed by `data.h5_ingest.write_randsam_file`.
+    """
+    cfg = cfg or RandSamConfig()
+    rng = np.random.default_rng(seed)
+    episodes: Dict[str, list] = {}
+    for task in tasks or envs.task_list:
+        env_idx = envs.seed_sets[task][0]
+        eps = []
+        for _ in range(num_ep_per_task):
+            e_seed = int(rng.integers(0, 99999999))
+            envs.init_1_given_env(task, env_idx, e_seed=e_seed)
+            imgs, acts, ee = rand_sample_1_ep(
+                envs, task, env_idx, cfg, rng, cam
+            )
+            envs.close_1_given_env(task, env_idx)
+            eps.append((imgs, acts, ee))
+        episodes[task] = eps
+    return episodes

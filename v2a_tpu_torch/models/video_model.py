@@ -67,16 +67,22 @@ class VideoModelConfig:
     # without `fused`: the GroupNorms through K7 (the JAX config field)
     use_pallas_gn: bool = False
     # with `fused`, the conv switches of `video_unet.ConvRouting`: the K1
-    # gate (False: V2A_SPATIAL2_MIN_CH=0, and no padded stream), the convs
-    # it leaves through K10 (PERF_PALLAS_SPATIAL), the temporal convs
-    # through K11 (PERF_TCONV_HW), the padded convs without a skip fold
-    # through K12 (V2A_STREAM_KERNEL=1), and K3 where the JAX rule admits it
-    # (False: K4a then K4b there, V2A_MEGA_KERNEL=0)
-    spatial2: bool = True
+    # gate's bounds (V2A_SPATIAL2_MIN_CH, 0 = off and no padded stream;
+    # V2A_SPATIAL2_MAX_S), the convs it leaves through K10
+    # (PERF_PALLAS_SPATIAL), the temporal convs through K11 (PERF_TCONV_HW),
+    # the padded convs without a skip fold through K12 (V2A_STREAM_KERNEL=1),
+    # K3 where the JAX rule admits it (False: K4a then K4b there,
+    # V2A_MEGA_KERNEL=0), K5 for the upsample convs into a padded level
+    # (False: nearest-2x, pad, the padded conv; V2A_UPCONV=0) and the entry
+    # conv on the padded stream (V2A_ENTRY_PAD=1)
+    spatial2_min_ch: int = 128
+    spatial2_max_s: int = 16384
     pallas_spatial: bool = False
     tconv_hw: bool = False
     stream_kernel: bool = False
     mega_kernel: bool = True
+    upconv: bool = True
+    entry_pad: bool = False
 
     @property
     def video_future_horizon(self) -> int:
@@ -134,9 +140,11 @@ class VideoPredModel:
             num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
             dtype=dtype_of(cfg.dtype), fused=fused, padded_stream=cfg.padded_stream,
             train_fused=train_fused, wgrad_kernel=wgrad_kernel, downconv=cfg.downconv,
-            attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn, spatial2=cfg.spatial2,
+            attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn,
+            spatial2_min_ch=cfg.spatial2_min_ch, spatial2_max_s=cfg.spatial2_max_s,
             pallas_spatial=cfg.pallas_spatial, tconv_hw=cfg.tconv_hw,
-            stream_kernel=cfg.stream_kernel, mega_kernel=cfg.mega_kernel,
+            stream_kernel=cfg.stream_kernel, mega_kernel=cfg.mega_kernel, upconv=cfg.upconv,
+            entry_pad=cfg.entry_pad,
         )
 
     @property
@@ -162,6 +170,10 @@ class VideoPredModel:
         """Random weights from one seeded generator on the model's device."""
         init_params(self.nets, torch.Generator(device=self.device).manual_seed(seed))
         return self
+
+    def param_count(self) -> int:
+        """Parameters of the U-Net and the text tower."""
+        return sum(p.numel() for p in self.nets.parameters())
 
     def load_state_dict(self, state_dict) -> "VideoPredModel":
         """Weights as `convert/from_jax.py::video_model_from_jax` returns them."""

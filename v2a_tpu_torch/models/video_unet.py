@@ -18,8 +18,9 @@ Perceiver-pooled CLIP text conditioning.
   applied inside the conv), temporal convs with 128-multiple features
   through K2 (`temporal_conv_fused`, which also adds the embedding /
   residual and emits the next GroupNorm's statistics). Each (activation,
-  statistics) pair travels together through the network. The routing
-  rules are fixed: the JAX defaults (MIN_CH 128, MAX_S 16384).
+  statistics) pair travels together through the network. The K1 gate's
+  bounds are `ConvRouting.spatial2_min_ch` / `spatial2_max_s`, at the JAX
+  defaults (MIN_CH 128, MAX_S 16384).
 - `padded_stream=True` (the default, used only with `fused`) keeps the
   levels with H*W > 512 in the `PaddedStream` layout: their convs run K3
   (`fused_conv_tconv_padded`) or K4a + K4b where the JAX package's rule
@@ -39,15 +40,26 @@ Perceiver-pooled CLIP text conditioning.
   K9, `fused_spatial_attention_padded`), both with `fused`; and
   `use_pallas_gn` (the non-fused forward's GroupNorms without forwarded
   statistics through K7, `ops/group_norm.py`).
-- The conv switches of `ConvRouting`, with `fused`: `spatial2=False` (the
-  JAX package's `V2A_SPATIAL2_MIN_CH=0`) turns the K1 gate off, and with it
-  the padded stream; `pallas_spatial` then sends the 3x3 stride-1 convs
+- The conv switches of `ConvRouting`, with `fused`: `spatial2_min_ch=0`
+  (the JAX package's `V2A_SPATIAL2_MIN_CH=0`) turns the K1 gate off, and
+  with it the padded stream; `spatial2_max_s` bounds the gate's H*W
+  (`V2A_SPATIAL2_MAX_S`: at 512 K1 runs only at 16^2 and 8^2, and no level
+  is padded); `pallas_spatial` sends the 3x3 stride-1 convs the gate leaves
   with 128-multiple channels to K10 (`spatial_conv3x3`, one launch per
   channel part, the parts summed in the compute dtype); `tconv_hw` swaps K2
   for K11 (`temporal_conv_fused_hw`); `stream_kernel` takes K12
   (`fused_conv_tconv_stream`) before K3 in every padded conv without a skip
   fold where `rk.stream_band_rows` admits it; `mega_kernel=False`
-  (`V2A_MEGA_KERNEL=0`) runs K4a then K4b where K3 would run.
+  (`V2A_MEGA_KERNEL=0`) runs K4a then K4b where K3 would run;
+  `upconv=False` (`V2A_UPCONV=0`) runs an upsample conv into a padded level
+  as nearest-2x, pad, then the padded conv (K3, or K4a then K4b) where K5
+  ran; `entry_pad` (`V2A_ENTRY_PAD=1`) runs the 6-channel entry conv on the
+  padded stream (K3, or K4a then K4b), the kernels' wrappers zero-extending
+  its channels to 32.
+- The JAX package's `V2A_ATTN_HMAJOR=1` has no switch here: its head-major
+  attention is the same math with the same roundings as the one plain path
+  below (it only spares XLA some layout copies), and the tests hold that
+  path against the JAX module with the flag on and off.
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
 temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
@@ -69,46 +81,48 @@ from v2a_tpu_torch.ops import conv_vjp
 from v2a_tpu_torch.ops import group_norm as gn
 from v2a_tpu_torch.ops import resblock_kernels as rk
 
-# K1 routing: 3x3 stride-1 convs with 128-multiple channels, H*W <= MAX_S
-SPATIAL2_MIN_CH = 128
-SPATIAL2_MAX_S = 16384
-
-
-def spatial2_eligible(features: int, cins, hw: int, k: int, stride: int) -> bool:
-    """Shape gate for K1 (`v2a_tpu/models/video_unet.py:206`)."""
-    if k != 3 or stride != 1:
-        return False
-    if features % 128 or features < SPATIAL2_MIN_CH or hw > SPATIAL2_MAX_S:
-        return False
-    return all(c % 128 == 0 for c in cins)
-
-
-def padded_eligible(features: int, cins, hw: int) -> bool:
-    """Gate of the padded-stream layout (`v2a_tpu/models/video_unet.py:197`):
-    the K1 gate and H*W > 512, i.e. the 128^2 .. 32^2 levels."""
-    return spatial2_eligible(features, cins, hw, 3, 1) and hw > 512
-
-
 @dataclasses.dataclass(frozen=True)
 class ConvRouting:
     """The fused forward's conv switches, each a module flag of the JAX
-    package (`v2a_tpu/models/video_unet.py:53-137`), each at its JAX default.
+    package (`v2a_tpu/models/video_unet.py:53-161`), each at its JAX default.
 
-    spatial2: the K1 gate (`spatial2_eligible`) and with it the padded
-        stream and `train_fused`; False is `V2A_SPATIAL2_MIN_CH=0`.
+    spatial2_min_ch, spatial2_max_s: the K1 gate (`spatial2_eligible`: 3x3
+        stride-1 convs with 128-multiple channels, features >= MIN_CH, H*W
+        <= MAX_S), and with it the padded stream and `train_fused`; 0 turns
+        it off (`V2A_SPATIAL2_MIN_CH`, `V2A_SPATIAL2_MAX_S`, :103, :108).
     pallas_spatial: K10 for the 3x3 stride-1 convs the K1 gate leaves
         (`PERF_PALLAS_SPATIAL`, :531-577, :679-694).
     tconv_hw: K11 in place of K2 (`PERF_TCONV_HW`, :784).
     stream_kernel: K12 before K3 in the padded conv (`V2A_STREAM_KERNEL=1`,
         :945-979).
     mega_kernel: K3 where `rk.conv_tconv_band_rows` admits it; False runs
-        K4a then K4b there (`PERF_MEGA_KERNEL`, `V2A_MEGA_KERNEL=0`, :981)."""
+        K4a then K4b there (`PERF_MEGA_KERNEL`, `V2A_MEGA_KERNEL=0`, :981).
+    upconv: K5 for the upsample convs into a padded level; False runs
+        nearest-2x, pad, then the padded conv (`PERF_UPCONV`, :130, :1592).
+    entry_pad: the entry conv on the padded stream (`PERF_ENTRY_PAD`, :142,
+        :1737)."""
 
-    spatial2: bool = True
+    spatial2_min_ch: int = 128
+    spatial2_max_s: int = 16384
     pallas_spatial: bool = False
     tconv_hw: bool = False
     stream_kernel: bool = False
     mega_kernel: bool = True
+    upconv: bool = True
+    entry_pad: bool = False
+
+    def spatial2_eligible(self, features: int, cins, hw: int, k: int, stride: int) -> bool:
+        """Shape gate for K1 (`v2a_tpu/models/video_unet.py:206`)."""
+        if not self.spatial2_min_ch or k != 3 or stride != 1:
+            return False
+        if features % 128 or features < self.spatial2_min_ch or hw > self.spatial2_max_s:
+            return False
+        return all(c % 128 == 0 for c in cins)
+
+    def padded_eligible(self, features: int, cins, hw: int) -> bool:
+        """Gate of the padded-stream layout (`v2a_tpu/models/video_unet.py:197`):
+        the K1 gate and H*W > 512, i.e. the 128^2 .. 32^2 levels."""
+        return self.spatial2_eligible(features, cins, hw, 3, 1) and hw > 512
 
 
 class PaddedStream:
@@ -258,7 +272,7 @@ class PseudoConv3d(nn.Module):
         dt, k, feat = self.dtype, self.k, self.features
         kernel, kbias = self.spatial_conv.kernel, self.spatial_conv.bias
         cins = [p.shape[-1] for p in parts]
-        eligible = self.routing.spatial2 and spatial2_eligible(feat, cins, h * w, k, self.stride)
+        eligible = self.routing.spatial2_eligible(feat, cins, h * w, k, self.stride)
         use_k1 = self.fused and eligible
         use_tf = train_fused and not self.fused and len(parts) == 1 and eligible
         # K10: what the K1 gate leaves of the 3x3 stride-1 convs, channels in
@@ -333,10 +347,12 @@ class PseudoConv3d(nn.Module):
         doubled size. Otherwise, with `routing.stream_kernel` and no skip
         fold, K12 where `rk.stream_band_rows` admits it; else, with
         `routing.mega_kernel`, K3 where the JAX package's rule
-        (`rk.conv_tconv_band_rows`) admits it; else K4a then K4b. `skip` is
-        (streams, kernel (C_in, D), bias): the ResBlock's 1x1 skip
-        projection, folded into the temporal conv. Returns a PaddedStream
-        [, stats (B, F, 2, D)]."""
+        (`rk.conv_tconv_band_rows`) admits it; else K4a then K4b. Without
+        `pre_affine` (the entry conv, an upsample conv without K5) the
+        affine is the identity and there is no SiLU. `skip` is (streams,
+        kernel (C_in, D), bias): the ResBlock's 1x1 skip projection, folded
+        into the temporal conv. Returns a PaddedStream [, stats (B, F, 2,
+        D)]."""
         if self.k != 3 or self.stride not in (1, 2):
             raise ValueError("the padded stream takes 3x3 stride-1 or stride-2 convs")
         dt, feat, hw = self.dtype, self.features, parts[0].hw
@@ -363,10 +379,13 @@ class PseudoConv3d(nn.Module):
             out = rk.temporal_conv_padded(y.reshape(b, f, hp, wp, feat), tk, tb, hw, emb=emb,
                                           want_stats=want_stats)
         else:
-            if pre_affine is None:
-                raise ValueError("the padded 3x3 conv takes its GroupNorm as an affine")
+            silu = pre_affine is not None
             pre = pre_affine
-            if not isinstance(pre[0], (tuple, list)):
+            if pre is None:
+                dev = parts[0].x.device
+                pre = [(torch.ones(b, p.x.shape[-1], device=dev),
+                        torch.zeros(b, p.x.shape[-1], device=dev)) for p in parts]
+            elif not isinstance(pre[0], (tuple, list)):
                 pre = [pre]
             mparts, off = [], 0
             for (a0, b0), p in zip(pre, parts):
@@ -392,15 +411,15 @@ class PseudoConv3d(nn.Module):
                 has_res=res is not None, skip_cins=[p[0].shape[-1] for p in skip_parts or ()],
             ) > 0
             if stream:
-                out = rk.fused_conv_tconv_stream(mparts, kbias, tk, tb, hw, emb, res, silu=True,
+                out = rk.fused_conv_tconv_stream(mparts, kbias, tk, tb, hw, emb, res, silu=silu,
                                                  want_stats=want_stats)
             elif mega:
                 out = rk.fused_conv_tconv_padded(mparts, kbias, tk, tb, hw, emb, res, skip_parts,
-                                                 s_bias, silu=True, want_stats=want_stats)
+                                                 s_bias, silu=silu, want_stats=want_stats)
             else:
                 flat = [(x.reshape(b * f, hp, wp, x.shape[-1]), kk, a, bb)
                         for x, kk, a, bb in mparts]
-                y = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu=True)
+                y = rk.fused_affine_conv3x3_padded(flat, kbias, hw, silu=silu)
                 out = rk.temporal_conv_padded(y.reshape(b, f, hp, wp, feat), tk, tb, hw, emb, res,
                                               skip_parts, s_bias, want_stats)
         if want_stats:
@@ -414,9 +433,9 @@ class ResBlock3D(nn.Module):
     the (h, skip) pair of the up path unconcatenated. `train_fused` (without
     `fused`): where C and out_channels pass K1's gate, both GroupNorms hand
     their affine to the differentiable convs of `ops/conv_vjp.py`
-    (`v2a_tpu/models/video_unet.py:1077-1133`). Without the K1 gate
-    (`routing.spatial2` off) the fused norms run as tensor ops before the
-    convs (:1150-1190)."""
+    (`v2a_tpu/models/video_unet.py:1077-1133`). Where the K1 gate
+    (`routing.spatial2_eligible`) fails, the fused norms run as tensor ops
+    before the convs (:1150-1190)."""
 
     def __init__(self, cin: int, out_channels: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
@@ -466,7 +485,7 @@ class ResBlock3D(nn.Module):
         return x + h
 
     def _sp2(self, cins, hw):
-        return self.routing.spatial2 and spatial2_eligible(
+        return self.routing.spatial2_eligible(
             self.out_channels, list(cins) + [self.out_channels], hw, 3, 1)
 
     def _second_half(self, h, h_stats, sp2, x_skip):
@@ -661,19 +680,21 @@ class Downsample3D(nn.Module):
 class Upsample3D(nn.Module):
     """Nearest 2x spatial upsample + pseudo-3D conv (`unet.py:86-116`).
     `padded_out`: K5 from the low-res stream into a PaddedStream at twice
-    the size (`v2a_tpu/models/video_unet.py:1592-1599`); `train_fused`: the
-    conv through `conv_vjp.plain_conv3x3` (:1614-1617)."""
+    the size (`v2a_tpu/models/video_unet.py:1592-1599`), or, with
+    `routing.upconv` off, the upsampled input padded and the padded conv
+    (:1612-1615); `train_fused`: the conv through `conv_vjp.plain_conv3x3`
+    (:1614-1617)."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False,
                  train_fused: bool = False, wgrad_kernel: bool = False,
                  routing: ConvRouting = ConvRouting()):
         super().__init__()
-        self.train_fused = train_fused
+        self.train_fused, self.upconv = train_fused, routing.upconv
         self.conv = PseudoConv3d(c, c, 3, dtype=dtype, fused=fused, wgrad_kernel=wgrad_kernel,
                                  routing=routing)
 
     def forward(self, x, want_stats: bool = False, padded_out: bool = False):
-        if padded_out:
+        if padded_out and self.upconv:
             if not isinstance(x, PaddedStream):
                 x = pad_stream(x)
             return self.conv(x, want_stats=want_stats, upsample2x=True)
@@ -681,6 +702,8 @@ class Upsample3D(nn.Module):
             x = unpad_stream(x)
         b, f, h, w, c = x.shape
         x = x[:, :, :, None, :, None, :].expand(b, f, h, 2, w, 2, c).reshape(b, f, 2 * h, 2 * w, c)
+        if padded_out:
+            x = pad_stream(x)
         return self.conv(x, want_stats=want_stats, train_fused=self.train_fused)
 
 
@@ -696,11 +719,11 @@ class VideoUNet(nn.Module):
     in the JAX package: `downconv` (`V2A_DOWNCONV=1`: with `fused` and the
     padded stream, the downsamples into a padded level run K8),
     `attn_kernel` (`V2A_PALLAS_ATTN=1`: with `fused`, every attention block
-    runs K9) and `use_pallas_gn` (the JAX field: without `fused`, every
-    GroupNorm that has no forwarded statistics runs K7). `spatial2`,
-    `pallas_spatial`, `tconv_hw`, `stream_kernel` and `mega_kernel` are the
-    `ConvRouting` switches (K1 gate, K10, K11, K12, K3), each at its JAX
-    default."""
+    runs K9), `use_pallas_gn` (the JAX field: without `fused`, every
+    GroupNorm that has no forwarded statistics runs K7). `spatial2_min_ch`, `spatial2_max_s`,
+    `pallas_spatial`, `tconv_hw`, `stream_kernel`, `mega_kernel`, `upconv`
+    and `entry_pad` are the `ConvRouting` switches (the K1 gate, K10, K11,
+    K12, K3, K5, the padded entry conv), each at its JAX default."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
@@ -708,16 +731,19 @@ class VideoUNet(nn.Module):
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
                  fused: bool = False, padded_stream: bool = True, train_fused: bool = False,
                  wgrad_kernel: bool = False, downconv: bool = False, attn_kernel: bool = False,
-                 use_pallas_gn: bool = False, spatial2: bool = True, pallas_spatial: bool = False,
-                 tconv_hw: bool = False, stream_kernel: bool = False,
-                 mega_kernel: bool = True):
+                 use_pallas_gn: bool = False, spatial2_min_ch: int = 128,
+                 spatial2_max_s: int = 16384, pallas_spatial: bool = False,
+                 tconv_hw: bool = False, stream_kernel: bool = False, mega_kernel: bool = True,
+                 upconv: bool = True, entry_pad: bool = False):
         super().__init__()
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
         self.padded_stream = padded_stream
-        self.routing = routing = ConvRouting(spatial2, pallas_spatial, tconv_hw, stream_kernel,
-                                             mega_kernel)
+        self.routing = routing = ConvRouting(
+            spatial2_min_ch=spatial2_min_ch, spatial2_max_s=spatial2_max_s,
+            pallas_spatial=pallas_spatial, tconv_hw=tconv_hw, stream_kernel=stream_kernel,
+            mega_kernel=mega_kernel, upconv=upconv, entry_pad=entry_pad)
         self.train_fused = tfused = train_fused and not fused
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
@@ -781,12 +807,16 @@ class VideoUNet(nn.Module):
         def step(out):  # fused blocks return (activation, stats)
             return out if fused else (out, None)
 
-        # the padded-stream layout where `padded_eligible` holds
-        # (`v2a_tpu/models/video_unet.py:1736-1886`); it needs the K1 gate
-        padded = fused and self.padded_stream and self.routing.spatial2
+        # the padded-stream layout where `routing.padded_eligible` holds
+        # (`v2a_tpu/models/video_unet.py:1736-1886`)
+        padded = fused and self.padded_stream
         hh, ww = x.shape[2], x.shape[3]
-        h, st = step(self.in_conv(x.to(dt), want_stats=fused))
-        if padded and padded_eligible(self.mc, [self.mc], hh * ww):
+        l0_padded = padded and self.routing.padded_eligible(self.mc, [self.mc], hh * ww)
+        if l0_padded and self.routing.entry_pad:
+            h, st = step(self.in_conv(pad_stream(x.to(dt)), want_stats=fused))
+        else:
+            h, st = step(self.in_conv(x.to(dt), want_stats=fused))
+        if l0_padded and not isinstance(h, PaddedStream):
             h = pad_stream(h)
         hs = [(h, st)]
         ds, bi = 1, 0
@@ -799,8 +829,8 @@ class VideoUNet(nn.Module):
                 bi += 1
             if level != len(self.channel_mult) - 1:
                 ch, next_ch = mult * self.mc, self.channel_mult[level + 1] * self.mc
-                next_padded = padded and padded_eligible(next_ch, [ch, next_ch],
-                                                         (hh // 2) * (ww // 2))
+                next_padded = padded and self.routing.padded_eligible(
+                    next_ch, [ch, next_ch], (hh // 2) * (ww // 2))
                 h, st = step(getattr(self, f"downsample_{level}")(h, want_stats=fused,
                                                                   padded_out=next_padded))
                 hh, ww = hh // 2, ww // 2
@@ -828,7 +858,7 @@ class VideoUNet(nn.Module):
                     h, st = step(getattr(self, f"up_attn_{bi}")(h, st, fused))
                 if level and i == self.nrb:
                     ch = mult * self.mc
-                    padded_out = padded and padded_eligible(ch, [ch], hh * ww * 4)
+                    padded_out = padded and self.routing.padded_eligible(ch, [ch], hh * ww * 4)
                     h, st = step(getattr(self, f"upsample_{level}")(h, want_stats=fused,
                                                                     padded_out=padded_out))
                     hh, ww = hh * 2, ww * 2

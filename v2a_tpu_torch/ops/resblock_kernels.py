@@ -45,7 +45,7 @@ Two more serving routings of the JAX package add:
 
 - `spatial_conv3x3` (K10): the plain 3x3 conv + bias of the routing
   without the K1 gate (`V2A_SPATIAL2_MIN_CH=0` with `PERF_PALLAS_SPATIAL`
-  there, `VideoUNet(spatial2=False, pallas_spatial=True)` here). A third
+  there, `VideoUNet(spatial2_min_ch=0, pallas_spatial=True)` here). A third
   entry of K1's kernel, `csrc/affine_conv3x3.cu`, in its plain-conv mode.
 - `temporal_conv_fused_hw` (K11): K2's function on the (H*W, B, F, C) view
   (`PERF_TCONV_HW` there, `VideoUNet(tconv_hw=True)` here). K2's launch
@@ -284,6 +284,26 @@ def fused_affine_conv3x3_plain(
     y = F.conv2d(_act(x, a, b, silu).float().permute(0, 3, 1, 2), w, padding=1)
     y = y.permute(0, 2, 3, 1) + bias.float()
     return y.to(x.dtype).contiguous()
+
+
+def widened(c: int) -> int:
+    """The channels K4a (K1's body) and K3's mainloop (K3, K12, K13) compute
+    on: C rounded up to the 32 of one chunk."""
+    return c + (-c % 32)
+
+
+def widen_channels(x: torch.Tensor, kernel: torch.Tensor, a=None, b=None):
+    """One conv part (x (..., C), kernel (3, 3, C, D), a / b (N, C) or None)
+    zero-extended to `widened(C)` channels, on x's device: zero input
+    channels, zero kernel rows, zero affine. Each product they add is an
+    exact 0, so the float32 sums and the rounded output do not change. The
+    U-Net's 6-channel entry conv takes it on the padded stream
+    (`entry_pad`); a part whose C is a multiple of 32 passes as it is."""
+    pad = widened(x.shape[-1]) - x.shape[-1]
+    if not pad:
+        return x, kernel, a, b
+    a, b = (None if t is None else F.pad(t, (0, pad)) for t in (a, b))
+    return F.pad(x, (0, pad)).contiguous(), F.pad(kernel, (0, 0, 0, pad)), a, b
 
 
 class AffineConvPlan(NamedTuple):
@@ -699,7 +719,9 @@ def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
     0's chunks, then part 1's, into one float32 accumulator, each part's
     weight slabs by TMA through its own tensor map; bias, one rounding,
     16-byte stores at padded (h+1, w+1), the edge tiles also writing the
-    zero pad cols. With one part it is bit-equal to K1 on the interior.
+    zero pad cols. With one part it is bit-equal to K1 on the interior. A
+    part's C is zero-extended to a multiple of 32 (`widen_channels`: the
+    6-channel entry conv).
     """
     _no_grad_inputs("fused_affine_conv3x3_padded", bias, *_parts_tensors(parts))
     x0 = parts[0][0]
@@ -713,12 +735,15 @@ def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
     if d % 64:
         raise ValueError(f"K4a needs D % 64 == 0, got {d}")
     args, cins = [], []
-    for x, kernel, a, b in parts:
+    for part in parts:
+        x, kernel = part[:2]
         c = x.shape[-1]
         if tuple(x.shape) != (n, hp, wp, c) or x.dtype != x0.dtype:
             raise ValueError(f"part {tuple(x.shape)} {x.dtype} vs padded {(n, hp, wp)}")
-        if tuple(kernel.shape) != (3, 3, c, d) or c % 32:
-            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c} (C % 32 == 0)")
+        if tuple(kernel.shape) != (3, 3, c, d):
+            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c}")
+        x, kernel, a, b = widen_channels(*part)
+        c = x.shape[-1]
         a32, b32 = _affine32(a, b, n, c)
         w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
         _check_cuda(x, w2d, a32, b32)
@@ -1017,12 +1042,15 @@ def _conv_tconv_args(what: str, parts, kbias, tkernel, tbias, hw, emb, residual,
     if d % 64 or tuple(tkernel.shape) != (3, d, d):
         raise ValueError(f"{what} needs D % 64 == 0 and a (3, D, D) temporal kernel, got D={d}")
     args, cins = [], []
-    for x, kernel, a, bb in parts:
+    for part in parts:
+        x, kernel = part[:2]
         c = x.shape[-1]
         if tuple(x.shape) != (b, f, hp, wp, c) or x.dtype != x0.dtype:
             raise ValueError(f"part {tuple(x.shape)} {x.dtype} vs padded {(b, f, hp, wp)}")
-        if tuple(kernel.shape) != (3, 3, c, d) or c % 32:
-            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c} (C % 32 == 0)")
+        if tuple(kernel.shape) != (3, 3, c, d):
+            raise ValueError(f"kernel {tuple(kernel.shape)} vs C={c}")
+        x, kernel, a, bb = widen_channels(*part)
+        c = x.shape[-1]
         a32, b32 = _affine32(a, bb, b * f, c)
         w2d = kernel.to(x.dtype).reshape(9 * c, d).contiguous()
         _check_cuda(x, w2d, a32, b32)

@@ -27,7 +27,7 @@ import torch
 ROUTINGS = {
     "padded": dict(fused=True),
     "unpadded": dict(fused=True, padded_stream=False),
-    "spatial_k10_k11": dict(fused=True, spatial2=False, pallas_spatial=True, tconv_hw=True),
+    "spatial_k10_k11": dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True),
     "plain_k7": dict(fused=False, use_pallas_gn=True),
 }
 

@@ -39,9 +39,12 @@ Both threads of an overlapped cycle launch on the default stream: on the
 card the overlap is of host work (env steps, the policy's launch overhead),
 not of kernels.
 
-Not ported yet (each raises `NotImplementedError`; ROADMAP.md, Queue 1):
-`mesh`, and `rand_explo_type="from_h5"` with a `randsam_path`
-(`data/h5_ingest.py`).
+The random buffer: with `rand_explo_type="from_h5"` and a `randsam_path`
+it is filled from the H5 file (`data/h5_ingest.py`, `ingest_h5`: the first
+`num_init_rand_ep_per_tk` episodes a task, then a circular sweep over the
+file's `h5_total_num_ep_per_task`), else by the live sampler.
+
+Not ported yet (raises `NotImplementedError`; ROADMAP.md, Queue 1): `mesh`.
 """
 
 from __future__ import annotations
@@ -120,13 +123,13 @@ class TrainerConfig:
     n_saves: int = 5
     label_freq: Optional[int] = None  # default: n_train_steps // n_saves
 
-    # data (the H5 fields wait for H5 ingestion; the release config sets them)
+    # data
     randsam_path: str = ""
     h5_total_num_ep_per_task: int = 500
     is_stop_at_suc: bool = False
-    # 'from_h5' streams pre-generated episodes (not ported yet); 'live' runs
-    # the random-action sampler in the simulator. Without a randsam_path the
-    # initial fill is live either way.
+    # 'from_h5' streams pre-generated episodes from `randsam_path`; 'live'
+    # runs the random-action sampler in the simulator. Without a randsam_path
+    # the initial fill is live either way.
     rand_explo_type: str = "from_h5"
     live_rand_ep_len: int = 120
     # debug image dumps every N steps (0 = off)
@@ -297,7 +300,8 @@ class OnlineTrainer:
     is initialized from `seed` here, as the JAX trainer initializes its
     parameters; `start_from` replaces them. `env_pool` (an
     `envs/subproc.py::EnvWorkerPool`) runs the rollouts in its workers; the
-    caller closes it."""
+    caller closes it. `act_min` / `act_max` bound the H5 file's actions
+    (-1 / 1 by default)."""
 
     def __init__(
         self,
@@ -310,13 +314,13 @@ class OnlineTrainer:
         opt_config: Optional[OptimizerConfig] = None,
         ema_config: Optional[EMAConfig] = None,
         seed: int = 0,
+        act_min: Optional[np.ndarray] = None,
+        act_max: Optional[np.ndarray] = None,
         mesh=None,
         env_pool=None,
     ):
         if mesh is not None:
             raise _not_ported("the mesh (data/tensor-parallel) trainer")
-        if config.randsam_path and config.rand_explo_type == "from_h5":
-            raise _not_ported("rand_explo_type='from_h5' (H5 ingestion)")
         self.policy = policy
         self.device = policy.device
         self.envs = env_list
@@ -381,6 +385,10 @@ class OnlineTrainer:
                 env_pool, self._ema_policy_fn_batch, self.explore_cfg,
                 env_list.task_to_task_idx, policy.config.action_dim,
             )
+
+        a_dim = policy.config.action_dim
+        self.act_min = act_min if act_min is not None else np.full(a_dim, -1.0, np.float32)
+        self.act_max = act_max if act_max is not None else np.full(a_dim, 1.0, np.float32)
 
         # host-side counters (checkpointed; `lb_online_trainer_v7.py:367-385`)
         self.num_steps_in_env = 0
@@ -464,6 +472,23 @@ class OnlineTrainer:
     @property
     def step(self) -> int:
         return int(self.state.step)
+
+    def ingest_h5(self, start: int, end: int):
+        """Episodes [start, end) of every task from `randsam_path` into the
+        random buffer; their env steps count until the whole file has been
+        visited once (`v2a_tpu/train/trainer.py:466-478`)."""
+        if not self.cfg.randsam_path:
+            return
+        from v2a_tpu_torch.data.h5_ingest import add_episodes_to_buffer
+
+        steps = add_episodes_to_buffer(
+            self.cfg.randsam_path, self.envBuf_rand, self.envs.task_list,
+            start, end, self.act_min, self.act_max,
+            cam=self.envs.camera_list[0],
+            env_idx_per_task={tk: self.envs.seed_sets[tk][0] for tk in self.envs.task_list},
+            count_env_steps=not self.is_all_randsam_visited,
+        )
+        self.num_steps_in_env += steps
 
     def live_rand_explore(self, n_ep_per_task: int):
         """Collect random-action episodes directly in the envs (the 'live'
@@ -984,7 +1009,11 @@ class OnlineTrainer:
         timer = Timer()
 
         if len(self.envBuf_rand) == 0:
-            self.live_rand_explore(max(cfg.num_init_rand_ep_per_tk // 25, 1))
+            if cfg.randsam_path and cfg.rand_explo_type == "from_h5":
+                self.ingest_h5(0, cfg.num_init_rand_ep_per_tk)
+                self.h5_randsam_start_idx = cfg.num_init_rand_ep_per_tk
+            else:
+                self.live_rand_explore(max(cfg.num_init_rand_ep_per_tk // 25, 1))
 
         try:
             self._train_loop(cfg, n_steps, timer)
@@ -1028,10 +1057,11 @@ class OnlineTrainer:
             )
 
             if (do_vid_explore and not overlap_vid) or do_rand_explore:
-                # exploration mutates the buffers: join any in-flight cycle
-                # and drop prefetched batches so training only sees
-                # post-mutation data (with 'from_h5' and no H5 file the round
-                # adds nothing, and the JAX loop flushes all the same)
+                # exploration and ingestion mutate the buffers: join any
+                # in-flight cycle and drop prefetched batches so training
+                # only sees post-mutation data (with 'from_h5' and no H5 file
+                # the round adds nothing, and the JAX loop flushes all the
+                # same)
                 self._join_explore()
                 self._flush_prefetch()
 
@@ -1042,8 +1072,18 @@ class OnlineTrainer:
                 else:
                     self.video_guided_explore()
 
-            if do_rand_explore and cfg.rand_explo_type == "live":
-                self.live_rand_explore(cfg.rand_explo_num_ep_per_tk)
+            if do_rand_explore:
+                if cfg.randsam_path and cfg.rand_explo_type == "from_h5":
+                    # circular sweep over the per-task H5 episodes
+                    st = self.h5_randsam_start_idx % cfg.h5_total_num_ep_per_task
+                    n_add = min(cfg.h5_total_num_ep_per_task - st,
+                                cfg.rand_explo_num_ep_per_tk)
+                    self.ingest_h5(st, st + n_add)
+                    self.h5_randsam_start_idx += n_add
+                    if self.h5_randsam_start_idx >= cfg.h5_total_num_ep_per_task:
+                        self.is_all_randsam_visited = True
+                elif cfg.rand_explo_type == "live":
+                    self.live_rand_explore(cfg.rand_explo_num_ep_per_tk)
 
             self.iter_sched.count()
 
