@@ -133,7 +133,21 @@ Phases (any failure exits non-zero):
      launches), then `scripts/sample_video.py --smoke 1` (`videos.npy` and
      the PNG strips); each part's wall time on its own line, and one line
      saying that the H5 modules are not run here;
-  10. the lab kernels: the port's perf lab (`python -m
+  10. the reference checkpoints: a release-schema reference video
+     checkpoint (U-Net only, float32, the trainer layout) from the port's
+     writer, `scripts/convert_ckpt.py --kind video`, `train/build.py::
+     make_video_model` on the release config pointed at the output (the
+     parameters bit-equal to a model given the same f32 values in memory,
+     the load's peak card memory logged and gated), `scripts/sample_video.py
+     --ckpt` (B=1, the 100-step ancestral chain, the shipped padded routing:
+     bit-equal to that model's video with the same generator, its launches
+     exactly 100 padded forwards'), a converted file with CLIP text weights
+     refused without the real tokenizer (and where `transformers` is
+     installed, loaded with it), and a release reference policy checkpoint
+     through `convert_ckpt --kind policy` (one B=1 DDIM-8 `predict_action`
+     equal to the source policy's); each part's seconds beside the card's name and
+     power limit;
+  11. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
      padded forward, bit for bit (K3's mainloop, its copies by TMA); then
@@ -144,16 +158,19 @@ Phases (any failure exits non-zero):
      reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
      bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
      each on three input sets;
-  11. prints the `kernels` JSON line, then the device line last.
+  12. prints the `kernels` JSON line, then the device line last.
 
-Weights are random from a seed; text goes through the offline HashTokenizer.
+Weights are random from a seed (phase 10: the writer's reference
+checkpoints, from the same seed); text goes through the offline
+HashTokenizer.
 The env workers start by `spawn` with the main module hidden, so they do
 not import this file; its top level does no CUDA work all the same, and
 everything runs from `main()`.
 Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainers
 write their checkpoints under `logs/chip_smoke_train/`,
-`logs/chip_smoke_online/` and `logs/chip_smoke_video/` and the script removes
-them.
+`logs/chip_smoke_online/` and `logs/chip_smoke_video/`, phase 10 its
+reference and converted checkpoints under `logs/chip_smoke_ckpt/`, and the
+script removes them.
 """
 
 import contextlib
@@ -350,6 +367,12 @@ STREAM_STEPS, STREAM_B, STREAM_CHUNKS = 10, 2, 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ONLINE_LOGS = os.path.join(ROOT, "logs", "chip_smoke_online")
 VIDEO_LOGS = os.path.join(ROOT, "logs", "chip_smoke_video")
+# phase 10, the reference checkpoints: written, converted and loaded here
+CKPT_LOGS = os.path.join(ROOT, "logs", "chip_smoke_ckpt")
+CKPT_MILESTONE = 180000
+# the load's peak card memory over the parameters' bytes: a second copy of
+# the weights on the card would make it 2
+CKPT_PEAK_SLACK = 1.25
 
 
 def _rk():
@@ -2647,8 +2670,222 @@ def video_entry_points(rk, held, dev, smi):
     return report, launches, extra_agg
 
 
+def reference_checkpoints(rk, held, dev, smi):
+    """Phase 10, the reference checkpoints into the port. The writer
+    (`convert/torch_import.py::synthetic_video_checkpoint`, `SEED`) makes a
+    release-schema reference video checkpoint (U-Net only, the trainer
+    layout, float32); `scripts/convert_ckpt.py --kind video` converts it to
+    `torch-model-{milestone}.pt`; `train/build.py::make_video_model` loads
+    it into the release config's bf16 model (the parameters bit-equal, dtype
+    included, to a model given the same f32 values in memory; the load's
+    peak card memory within `CKPT_PEAK_SLACK` of the parameters' bytes: no
+    second copy on the card); then `scripts/sample_video.py --ckpt` (B=1,
+    the 100-step ancestral chain, the shipped padded routing) gives, bit for
+    bit, the video the in-memory model samples with the same generator, its
+    launches exactly 100 padded B=1 forwards'. A converted file with CLIP
+    text weights is refused without a tokenizer (`RuntimeError`), and with
+    the bundled tokenizer assets where `transformers` is missing
+    (`ImportError`); where it is installed, that file loads with the real
+    tokenizer and encodes the tasks. The policy: a release reference trainer
+    checkpoint, `convert_ckpt --kind policy`, the converted `PolicyNets`
+    bit-equal to the in-memory conversion, and one B=1 DDIM-8
+    `predict_action` equal to the source policy's. Returns the report, the
+    launches of the sample_video run and the per-kernel errors of any
+    signature not in `held`."""
+    import importlib.util
+
+    from v2a_tpu_torch.config import load_config_module
+    from v2a_tpu_torch.convert import from_jax
+    from v2a_tpu_torch.convert import torch_import as ti
+    from v2a_tpu_torch.models.policy import DiffusionPolicy
+    from v2a_tpu_torch.models.video_model import VideoPredModel
+    from v2a_tpu_torch.scripts import convert_ckpt, sample_video
+    from v2a_tpu_torch.train.build import make_video_model
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_LOGS, ignore_errors=True)
+    cfg = load_config_module(os.path.join(ROOT, "v2a_tpu_torch", "config", "libero",
+                                          "lb_tk8_65to72.py"))
+    cfg = cfg.replace(video_ckpt_dir=CKPT_LOGS, video_ckpt_milestone=CKPT_MILESTONE, seed=SEED)
+    vcfg, pcfg = cfg.video, cfg.policy
+    report = {}
+
+    def timed(name, fn):
+        seconds = []
+        out = _timed(seconds, fn)()
+        report[name] = seconds[0]
+        return out
+
+    # the video model: write, convert, load
+    pt = os.path.join(CKPT_LOGS, f"model-{CKPT_MILESTONE}.pt")
+    out = os.path.join(CKPT_LOGS, f"torch-model-{CKPT_MILESTONE}.pt")
+
+    def write_video():
+        ckpt = ti.synthetic_video_checkpoint(vcfg, SEED)
+        os.makedirs(CKPT_LOGS)
+        torch.save(ckpt, pt)
+        return ckpt
+
+    ckpt = timed("video_write_s", write_video)
+    n_video = timed("video_convert_s",
+                    lambda: convert_ckpt.main(["--kind", "video", "--pt", pt, "--out", out]))
+    os.remove(pt)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = timed("video_load_s", lambda: make_video_model(cfg))
+    param_bytes = sum(p.numel() * p.element_size() for p in model.nets.parameters())
+    report["load_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    report["param_gib"] = param_bytes / 2 ** 30
+    if not (model.unet.fused and model.unet.padded_stream) or model.tokenizer.is_real:
+        fail("checkpoints: the loaded model is not the padded routing with the hash tokenizer")
+    if report["load_peak_gib"] > report["param_gib"] * CKPT_PEAK_SLACK:
+        fail(f"checkpoints: the load peaked at {report['load_peak_gib']:.2f} GiB for "
+             f"{report['param_gib']:.2f} GiB of parameters")
+    # the same f32 values given in memory, the text tower of init(SEED)
+    src = VideoPredModel(vcfg, device=dev).init(SEED)
+    src.nets.unet.load_state_dict(from_jax.video_tree(ti.convert_video_unet(
+        ti.extract_unet_state(ckpt), channel_mult=vcfg.channel_mult,
+        num_res_blocks=vcfg.num_res_blocks, attention_resolutions=vcfg.attention_resolutions)))
+    del ckpt
+    got, want = model.nets.state_dict(), src.nets.state_dict()
+    if got.keys() != want.keys() or not all(
+            got[k].dtype == want[k].dtype == torch.float32 and torch.equal(got[k], want[k])
+            for k in want):
+        fail("checkpoints: the loaded parameters are not bit-equal to the source weights")
+    log(f"[ckpt] {smi}: release-schema reference U-Net (U-Net only, f32) written in "
+        f"{report['video_write_s']:.2f} s, converted by scripts/convert_ckpt.py "
+        f"({n_video:,} params) in {report['video_convert_s']:.2f} s, loaded by "
+        f"make_video_model in {report['video_load_s']:.2f} s (peak card memory "
+        f"{report['load_peak_gib']:.3f} GiB for {report['param_gib']:.3f} GiB of parameters); "
+        f"{len(want)} tensors bit-equal to the in-memory conversion, all float32")
+
+    # sample_video --ckpt against the in-memory model's chain
+    chain_s = []
+    sample_dir = os.path.join(CKPT_LOGS, "samples")
+    zero_launches()
+    with mock.patch.object(VideoPredModel, "sample_u8", _timed(chain_s, VideoPredModel.sample_u8)
+                           ), recording() as calls:
+        videos = timed("sample_video_s", lambda: sample_video.main(
+            ["--ckpt", out, "--n", "1", "--steps", str(vcfg.sampling_timesteps), "--seed",
+             str(SEED), "--out", sample_dir]))
+    launches = launch_counts()
+    report["sample_chain_s"] = chain_s[0]
+    n_fwd = vcfg.sampling_timesteps
+    want_l = {k: n_fwd * EXPECTED_PER_FORWARD["padded"].get(k, 0) for k in launches}
+    _gate_chains("checkpoints: sample_video --ckpt", launches, calls, want_l)
+    h, w = vcfg.image_size
+    frame = sample_video.synthetic_frame(h, w).astype(np.float32)[None] / 255.0
+    ref = timed("source_chain_s", lambda: src.sample_u8(
+        frame, ["a robot arm completes the task"],
+        generator=torch.Generator(device=dev).manual_seed(SEED)).cpu().numpy())
+    saved = np.load(os.path.join(sample_dir, "videos.npy"))
+    if videos.shape != (1, vcfg.video_future_horizon, h, w, 3) or not (
+            np.array_equal(saved, videos) and np.array_equal(videos, ref)):
+        diff = (np.abs(videos.astype(np.int32) - ref.astype(np.int32)).max()
+                if videos.shape == ref.shape else None)
+        fail(f"checkpoints: sample_video --ckpt {videos.shape} is not bit-equal to the source "
+             f"model's video (max |diff| {diff})")
+    log(f"[ckpt] {smi}: scripts/sample_video.py --ckpt, B=1, {n_fwd}-step ancestral chain, "
+        f"padded routing: {report['sample_video_s']:.2f} s (model build, load, chain), the "
+        f"chain {report['sample_chain_s']:.2f} s; video bit-equal to the in-memory model's "
+        f"with the same generator (its chain {report['source_chain_s']:.2f} s); launches {({k: v for k, v in launches.items() if v})} = "
+        f"{n_fwd} padded forwards'")
+    del model
+
+    # a converted file with CLIP text weights: refused without the real tokenizer
+    text_dir = os.path.join(CKPT_LOGS, "with_text")
+    ti.save_video_params({"unet": ti.load_video_params(out)["unet"],
+                          "text": {k: v.cpu() for k, v in src.nets.text.state_dict().items()}},
+                         os.path.join(text_dir, f"torch-model-{CKPT_MILESTONE}.pt"))
+    del src
+    torch.cuda.empty_cache()
+    try:
+        VideoPredModel(vcfg, device=dev).load_converted(
+            os.path.join(text_dir, f"torch-model-{CKPT_MILESTONE}.pt"))
+        fail("checkpoints: text weights without a tokenizer were loaded")
+    except RuntimeError as e:
+        if "tokenizer" not in str(e):
+            raise
+    ti.write_synthetic_tokenizer(os.path.join(text_dir, "tokenizer"))
+    has_hf = importlib.util.find_spec("transformers") is not None
+    try:
+        loaded = make_video_model(cfg.replace(video_ckpt_dir=text_dir))
+        if not (has_hf and loaded.tokenizer.is_real):
+            fail("checkpoints: text weights were loaded without the real tokenizer")
+        import transformers
+
+        emb = loaded.encode_batch_text(TASKS)
+        if emb.shape[0] != len(TASKS) or not bool(torch.isfinite(emb).all()):
+            fail("checkpoints: the real tokenizer's text embedding is not finite")
+        text_gate = (f"loaded with the bundled tokenizer (transformers {transformers.__version__}"
+                     f" is installed here), its text embedding of the {len(TASKS)} tasks "
+                     f"{tuple(emb.shape)} finite")
+        del loaded
+    except ImportError as e:
+        if has_hf:
+            raise
+        text_gate = f"refused: {type(e).__name__}: {e}"
+    report["text_weights"] = text_gate
+    log(f"[ckpt] a converted file with CLIP text weights: without a tokenizer refused "
+        f"(RuntimeError); with the bundled tokenizer assets {text_gate}")
+    shutil.rmtree(text_dir)
+    torch.cuda.empty_cache()
+
+    # the policy: write, convert, load, one DDIM-8 prediction
+    ppt = os.path.join(CKPT_LOGS, "policy-model.pt")
+    pout = os.path.join(CKPT_LOGS, "policy.pt")
+
+    def write_policy():
+        pckpt = ti.synthetic_policy_checkpoint(pcfg, SEED)
+        torch.save(pckpt, ppt)
+        return pckpt
+
+    pckpt = timed("policy_write_s", write_policy)
+    n_policy = timed("policy_convert_s",
+                     lambda: convert_ckpt.main(["--kind", "policy", "--pt", ppt, "--out", pout]))
+    policy = timed("policy_load_s", lambda: DiffusionPolicy.create(pcfg, device=dev).load_state_dict(
+        torch.load(pout, map_location="cpu", weights_only=True)))
+    source = DiffusionPolicy.create(pcfg, device=dev).load_state_dict(from_jax.policy_from_jax(
+        ti.convert_policy(ti.extract_policy_state(pckpt), pcfg.obs_keys, pcfg.down_dims)))
+    got, want = policy.nets.state_dict(), source.nets.state_dict()
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want):
+        fail("checkpoints: the converted policy is not bit-equal to the in-memory conversion")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    h, w = pcfg.image_size
+    obs = {k: torch.rand(1, h, w, 3, generator=gen, device=dev) for k in pcfg.obs_keys}
+    preds = []
+    for p in (policy, source):
+        t = time.perf_counter()
+        preds.append(p.predict_action(obs, generator=torch.Generator(device=dev).manual_seed(
+            SEED))["action_pred"])
+        torch.cuda.synchronize()
+        report.setdefault("predict_s", time.perf_counter() - t)
+    if not (torch.equal(preds[0], preds[1]) and bool(torch.isfinite(preds[0]).all())):
+        fail("checkpoints: the converted policy's DDIM-8 prediction differs from the source's")
+    log(f"[ckpt] {smi}: release reference policy checkpoint written in "
+        f"{report['policy_write_s']:.2f} s, converted ({n_policy:,} params, the EMA) in "
+        f"{report['policy_convert_s']:.2f} s, loaded in {report['policy_load_s']:.2f} s; "
+        f"B=1 DDIM-8 predict_action {report['predict_s']:.3f} s, equal to the source "
+        f"policy's")
+    shutil.rmtree(CKPT_LOGS, ignore_errors=True)
+    del policy, source
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+
+    extra = {k: v for k, v in calls.items() if k not in held}
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"ckpt": extra}, dev, timed=False, tag="ckpt-shapes")
+        extra_agg = extra_agg["ckpt"]
+    report["new_signatures"] = len(extra)
+    log(f"[ckpt] {smi}: {len(extra)} kernel signatures not held before; the phase "
+        f"{report['phase_s']:.1f} s")
+    return report, launches, extra_agg
+
+
 def lab_kernels(rk, routing_calls, dev):
-    """Phase 10, the lab kernels' main paths, then their gates. The port's
+    """Phase 11, the lab kernels' main paths, then their gates. The port's
     perf lab (`winobench2`, `tconvbench2`), the path that launches K14 and
     K15; K13 held against K3 at every K3 signature of the padded forward, on
     K3's first input set, bit for bit (the JAX package's own caller of K13,
@@ -2796,10 +3033,12 @@ def main():
     held = {k for calls in list(routing_calls.values()) + list(served.values()) + [train_calls]
             for k in calls} | online_keys
     video, video_launches, video_agg = video_entry_points(rk, held, dev, smi)
-    # 10. the lab kernels' paths and gates
+    # 10. the reference checkpoints: convert, load, serve
+    ckpt, ckpt_launches, ckpt_agg = reference_checkpoints(rk, held, dev, smi)
+    # 11. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
 
-    # 11. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # 12. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
     # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step,
     # K13 over K3's calls of one padded forward, K14 over K10's of one
@@ -2807,8 +3046,8 @@ def main():
     # launches over every main-path run (the served requests of all five
     # routings, the K6 routing's train() run, the online loop's runs: its
     # train(), the eval with 8 workers, the pool cycle, the pipelined
-    # train(); the video entry points' train and sample runs; K13-K15: their
-    # lab paths)
+    # train(); the video entry points' train and sample runs; sample_video
+    # --ckpt on the converted checkpoint; K13-K15: their lab paths)
     lab_names = ("fused_conv_tconv_dma", "winograd_conv3x3", "temporal_conv_taps")
     source_routing = {"fused_group_norm_silu": "plain_k7",
                       "fused_downconv3x3_padded": "padded_k8_k9",
@@ -2828,9 +3067,10 @@ def main():
         errs += [a[name]["max_abs_err"] for a in serve_agg.values()]
         errs += [online_agg[name]["max_abs_err"]] if online_agg else []
         errs += [video_agg[name]["max_abs_err"]] if video_agg else []
+        errs += [ckpt_agg[name]["max_abs_err"]] if ckpt_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
                     + train_launches[name] + sum(nl[name] for nl in new_launches.values())
-                    + online_launches[name] + video_launches[name])
+                    + online_launches[name] + video_launches[name] + ckpt_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -2847,7 +3087,8 @@ def main():
                        train_launches=train_launches, train_shapes=train_rows,
                        per_train_step=train_agg, policy_train=policy_train, online=online,
                        online_launches=online_launches, video=video,
-                       video_launches=video_launches,
+                       video_launches=video_launches, checkpoints=ckpt,
+                       checkpoint_launches=ckpt_launches,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
                        **forward), fh, indent=1)
@@ -2860,7 +3101,8 @@ def main():
         "lab's three shapes (per_lab); launches are those of the served requests of the five "
         "routings plus the K6 routing's train() run plus the online loop's runs (its train(), "
         "scripts/eval.py --workers 8, the pool cycle, the pipelined train()) plus the video "
-        "entry points' runs (train_video's steps, its --sample-after chain), and "
+        "entry points' runs (train_video's steps, its --sample-after chain) plus "
+        "sample_video --ckpt's chain on the converted reference checkpoint, and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

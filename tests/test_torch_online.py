@@ -493,8 +493,9 @@ def test_train_and_eval_entry_points(tmp_path):
 
 def test_left_out_options_raise(tmp_path):
     """Each option of the JAX trainer that is not ported yet raises
-    `NotImplementedError` naming ROADMAP.md: the mesh and a converted video
-    checkpoint. `from_h5` with a missing file raises where the JAX trainer
+    `NotImplementedError` naming ROADMAP.md: the mesh. A video checkpoint
+    directory that holds only the JAX package's converted msgpack raises
+    and names the port's converter. `from_h5` with a missing file raises where the JAX trainer
     does, when the first fill opens it: the JAX ingestion's error
     (`FileNotFoundError` from h5py, `ImportError` without it)."""
     cfg = ttrainer.TrainerConfig()
@@ -518,7 +519,7 @@ def test_left_out_options_raise(tmp_path):
     ckdir = tmp_path / "ckpt"
     ckdir.mkdir()
     (ckdir / f"jax-model-{exp.video_ckpt_milestone}.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="v2a_tpu_torch.scripts.convert_ckpt"):
         tbuild.make_video_model(exp.replace(video_ckpt_dir=str(ckdir)))
 
 

@@ -119,13 +119,15 @@ def test_train_video_left_out_flags_raise(flag, tmp_path):
 
 
 def test_sample_video_smoke(tmp_path):
-    """`--smoke 1` writes what the JAX CLI's test checks; `--ckpt` raises
-    rather than sample from other weights."""
+    """`--smoke 1` writes what the JAX CLI's test checks; `--ckpt` of a file
+    that is not there raises rather than sample from other weights
+    (`tests/test_torch_convert.py` samples from a converted file)."""
     videos = sample_video.main(["--smoke", "1", "--n", "2", "--steps", "2", "--device", "cpu",
                                 "--out", str(tmp_path), "--task", "pick up the bowl"])
     vids = np.load(tmp_path / "videos.npy")
     assert vids.shape == (2, 7, 32, 32, 3) and vids.dtype == np.uint8
     np.testing.assert_array_equal(vids, videos)
     assert (tmp_path / "video_0.png").exists() and (tmp_path / "video_1.png").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_video.main(["--ckpt", str(tmp_path / "model.msgpack"), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        sample_video.main(["--ckpt", str(tmp_path / "model.pt"), "--device", "cpu",
+                           "--out", str(tmp_path)])

@@ -3,8 +3,10 @@
 Counterpart of `v2a_tpu/models/clip_text.py`: the ViT-B/32 text tower
 (vocab 49408, width 512, 12 layers, 8 heads, MLP 2048, 77 positions,
 quick-GELU, causal + padding masks, final LayerNorm in float32), the
-deterministic `HashTokenizer` and the task-string sanitization. The HF BPE
-tokenizer branch is not ported: its assets are not in the repository.
+deterministic `HashTokenizer`, `ClipTokenizerWrapper` (the HF BPE
+`CLIPTokenizer` read from a local directory, such as the `tokenizer/` that
+`scripts/convert_ckpt.py --clip` writes beside converted CLIP weights; it
+needs `transformers`) and the task-string sanitization.
 """
 
 from __future__ import annotations
@@ -118,3 +120,32 @@ class HashTokenizer:
             input_ids[i, : len(s)] = s
             mask[i, : len(s)] = 1
         return input_ids, mask
+
+
+class ClipTokenizerWrapper:
+    """The HF `CLIPTokenizer` from local assets when `local_path` is given,
+    else the `HashTokenizer`. A path that is given must load: without
+    `transformers` it raises `ImportError` rather than tokenize with the
+    hash stand-in, whose ids would not be the ones converted CLIP weights
+    were trained on. Nothing is fetched (`from_pretrained` on a local
+    directory only)."""
+
+    def __init__(self, local_path: Optional[str] = None, max_length: int = MAX_POSITIONS):
+        self.max_length = max_length
+        self._hf = None
+        if local_path:
+            from transformers import CLIPTokenizer
+
+            self._hf = CLIPTokenizer.from_pretrained(local_path, local_files_only=True)
+        self._fallback = HashTokenizer(max_length)
+
+    @property
+    def is_real(self) -> bool:
+        return self._hf is not None
+
+    def __call__(self, texts: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+        if self._hf is None:
+            return self._fallback(texts)
+        out = self._hf(texts, padding=True, truncation=True, max_length=self.max_length,
+                       return_tensors="np")
+        return out["input_ids"].astype(np.int64), out["attention_mask"].astype(np.int64)

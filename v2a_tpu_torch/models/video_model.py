@@ -7,18 +7,23 @@ channel axis. The sampler runs on the card by default; `device="cpu"` is
 for tests. `loss` is the training objective; `train/video_trainer.py` trains
 the U-Net. `sample_u8_stream` is `sample_u8` cut into chunks of the
 denoising chain that a caller dispatches one at a time (`VideoSampleStream`).
+`load_converted` reads a reference checkpoint converted by
+`scripts/convert_ckpt.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from v2a_tpu_torch.device import DeviceLike, dtype_of, resolve_device
-from v2a_tpu_torch.models.clip_text import ClipTextEncoder, HashTokenizer, sanitize_task_strings
+from v2a_tpu_torch.models.clip_text import (
+    ClipTextEncoder, ClipTokenizerWrapper, sanitize_task_strings,
+)
 from v2a_tpu_torch.models.init import init_params
 from v2a_tpu_torch.models.video_unet import VideoUNet
 from v2a_tpu_torch.ops.gaussian_diffusion import GaussianDiffusion
@@ -102,7 +107,7 @@ class VideoPredModel:
     """U-Net + text tower with the diffusion sampler."""
 
     def __init__(self, config: Optional[VideoModelConfig] = None,
-                 tokenizer: Optional[HashTokenizer] = None, device: DeviceLike = None):
+                 tokenizer: Optional[ClipTokenizerWrapper] = None, device: DeviceLike = None):
         self.config = cfg = config or VideoModelConfig()
         self.device = resolve_device(device)
         dt = dtype_of(cfg.dtype)
@@ -111,7 +116,7 @@ class VideoPredModel:
         text = ClipTextEncoder(width=cfg.text_dim, mlp_dim=cfg.text_dim * 4, dtype=dt)
         self.nets = VideoNets(unet, text).to(self.device).eval().requires_grad_(False)
         self._loss_unet: Optional[VideoUNet] = None
-        self.tokenizer = tokenizer or HashTokenizer()
+        self.tokenizer = tokenizer or ClipTokenizerWrapper()
         self.diffusion = GaussianDiffusion(
             schedule=DiffusionSchedule.create(cfg.timesteps, cfg.beta_schedule,
                                               device=self.device),
@@ -179,6 +184,38 @@ class VideoPredModel:
         """Weights as `convert/from_jax.py::video_model_from_jax` returns them."""
         sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
         self.nets.load_state_dict(sd, strict=True)
+        return self
+
+    def load_converted(self, path: str, tokenizer_dir: Optional[str] = None,
+                       seed: int = 0) -> "VideoPredModel":
+        """Load a converted reference checkpoint (`torch-model-*.pt`, written
+        by `scripts/convert_ckpt.py`), refusing the combination that would
+        fail silently: real CLIP text weights need the real BPE tokenizer
+        (the hash tokenizer maps words to unrelated ids, and the
+        conditioning would be garbage with no error). `convert_ckpt --clip`
+        bundles the tokenizer assets under `<out_dir>/tokenizer/`. A U-Net
+        only file keeps the text tower of `init(seed)`, which only the
+        equally hermetic hash tokenizer is consistent with. The load is
+        strict, and the parameters keep their dtype (float32, as `init`
+        leaves them; the config's dtype is the compute dtype): each tensor
+        is read on the host and copied once into the model's parameter on
+        its device."""
+        from v2a_tpu_torch.convert.torch_import import load_video_params
+
+        params = load_video_params(path)
+        if tokenizer_dir and os.path.isdir(tokenizer_dir):
+            self.tokenizer = ClipTokenizerWrapper(local_path=tokenizer_dir)
+        if "text" in params and not self.tokenizer.is_real:
+            raise RuntimeError(
+                f"{path} holds converted CLIP text weights but only the hash tokenizer is "
+                "available — refusing (the text conditioning would be garbage). Bundle the "
+                "tokenizer assets (convert_ckpt --clip writes <out>/tokenizer/) or pass "
+                "tokenizer_dir.")
+        if "text" not in params:
+            self.init(seed)
+            params = dict(params, text=self.nets.text.state_dict())
+        self.nets.load_state_dict(
+            {f"{part}.{k}": v for part, sd in params.items() for k, v in sd.items()}, strict=True)
         return self
 
     @torch.no_grad()

@@ -41,19 +41,29 @@ def build_env_list(cfg: ExperimentConfig) -> EnvList:
 
 
 def make_video_model(cfg: ExperimentConfig) -> VideoPredModel:
-    """The frozen video model with random weights from `cfg.seed`. A
-    converted checkpoint in `video_ckpt_dir` is not loaded yet: none is in
-    the repository (ROADMAP.md, Queue 1), so finding one raises rather than
-    sampling from weights other than the ones asked for."""
-    ckpt = os.path.join(
-        cfg.video_ckpt_dir, f"jax-model-{cfg.video_ckpt_milestone}.msgpack"
-    )
+    """The frozen video model (`lb_get_video_model_gcp_v2`,
+    `diffuser/libero/lb_video_model_utils.py:13-66`): the converted
+    reference checkpoint `<video_ckpt_dir>/torch-model-{milestone}.pt` when
+    the directory holds one (`VideoPredModel.load_converted`, the tokenizer
+    from `<video_ckpt_dir>/tokenizer`), else random weights from
+    `cfg.seed`. A directory that holds only the JAX package's
+    `jax-model-{milestone}.msgpack` raises: the port does not read that
+    file, and the reference `.pt` converts with `python -m
+    v2a_tpu_torch.scripts.convert_ckpt`."""
+    model = VideoPredModel(cfg.video, device=cfg.device)
+    ckpt = os.path.join(cfg.video_ckpt_dir, f"torch-model-{cfg.video_ckpt_milestone}.pt")
+    jax_ckpt = os.path.join(cfg.video_ckpt_dir,
+                            f"jax-model-{cfg.video_ckpt_milestone}.msgpack")
     if os.path.exists(ckpt):
-        raise NotImplementedError(
-            f"loading the converted video checkpoint {ckpt} is not ported yet "
-            "(ROADMAP.md, Queue 1)"
-        )
-    return VideoPredModel(cfg.video, device=cfg.device).init(cfg.seed)
+        return model.load_converted(
+            ckpt, tokenizer_dir=os.path.join(cfg.video_ckpt_dir, "tokenizer"), seed=cfg.seed)
+    if os.path.exists(jax_ckpt):
+        raise FileNotFoundError(
+            f"{cfg.video_ckpt_dir} holds {os.path.basename(jax_ckpt)} but no "
+            f"{os.path.basename(ckpt)}: the port reads its own converted file; convert the "
+            "reference checkpoint with `python -m v2a_tpu_torch.scripts.convert_ckpt --kind "
+            f"video --pt <model-{cfg.video_ckpt_milestone}.pt> --out {ckpt}`")
+    return model.init(cfg.seed)
 
 
 def build_experiment(
