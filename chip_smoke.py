@@ -147,7 +147,22 @@ Phases (any failure exits non-zero):
      through `convert_ckpt --kind policy` (one B=1 DDIM-8 `predict_action`
      equal to the source policy's); each part's seconds beside the card's name and
      power limit;
-  11. the lab kernels: the port's perf lab (`python -m
+  11. the model families: Thor, Bridge and MW-flow (`models/
+     env_variants.py`) at their presets' widths, bf16: a B=8 forward through
+     the shipped routing, `padded_k8_k9`, `plain_k7`, `spatial_k10_k11`,
+     `padded_k12` and the plain path, gated against float32 as phase 4
+     gates the release forward, with `VARIANT_FORWARD`'s launches; one B=1
+     request through `VideoPredModel.sample` (exactly 100 forwards'
+     launches); for Thor and Bridge a B=4 train step through train_fused
+     with K6 against float32 (`VARIANT_TRAIN_STEP`'s launches); every kernel
+     signature these runs gave that no earlier phase held, against its
+     plain version on three input sets with its plan; the xattn backbone at
+     the release widths (a B=8 forward against float32, a B=1 chain,
+     `scripts/train_video.py --backbone xattn` for 2 steps and `--resume
+     --sample-after` bit-equal); the transformer denoiser (B=1 and B=64
+     forwards against float32, a backward and an AdamW step); its wall time
+     on its own line (libero, mw and thor_luo are the release config);
+  12. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
      padded forward, bit for bit (K3's mainloop, its copies by TMA); then
@@ -158,7 +173,7 @@ Phases (any failure exits non-zero):
      reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
      bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
      each on three input sets;
-  12. prints the `kernels` JSON line, then the device line last.
+  13. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed (phase 10: the writer's reference
 checkpoints, from the same seed); text goes through the offline
@@ -169,8 +184,8 @@ everything runs from `main()`.
 Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainers
 write their checkpoints under `logs/chip_smoke_train/`,
 `logs/chip_smoke_online/` and `logs/chip_smoke_video/`, phase 10 its
-reference and converted checkpoints under `logs/chip_smoke_ckpt/`, and the
-script removes them.
+reference and converted checkpoints under `logs/chip_smoke_ckpt/`, phase 11
+its trainers' under `logs/chip_smoke_family/`, and the script removes them.
 """
 
 import contextlib
@@ -373,6 +388,60 @@ CKPT_MILESTONE = 180000
 # the load's peak card memory over the parameters' bytes: a second copy of
 # the weights on the card would make it 2
 CKPT_PEAK_SLACK = 1.25
+# phase 11, the model families: the environment variants whose presets are
+# not the release config (`models/env_variants.py`; libero, mw and thor_luo
+# are, and phases 4-5 run them) under these routings of phase 3, B=8
+# forwards, a B=1 chain, and a B=4 train step for the trained ones; the
+# cross-attention backbone at the release widths; the transformer denoiser
+FAMILY_VARIANTS = ("thor", "bridge", "mw_flow")
+FAMILY_ROUTINGS = ("padded", "padded_k8_k9", "plain_k7", "spatial_k10_k11", "padded_k12")
+FAMILY_B = 8
+FAMILY_LOGS = os.path.join(ROOT, "logs", "chip_smoke_family")
+# launches per forward of each variant and routing (tests/test_torch_variants.py
+# pins the same counts on the meta device and against the JAX package's)
+VARIANT_FORWARD = {
+    "thor": {
+        "padded": {"fused_affine_conv3x3": 22, "temporal_conv_fused": 21,
+                   "fused_conv_tconv_padded": 21, "fused_affine_conv3x3_padded": 7,
+                   "temporal_conv_padded": 9, "fused_upconv3x3_padded": 2},
+        "padded_k8_k9": {"fused_affine_conv3x3": 22, "temporal_conv_fused": 20,
+                         "fused_conv_tconv_padded": 21, "fused_affine_conv3x3_padded": 7,
+                         "temporal_conv_padded": 10, "fused_upconv3x3_padded": 2,
+                         "fused_downconv3x3_padded": 1, "fused_spatial_attention_padded": 8},
+        "plain_k7": {"fused_group_norm_silu": 55},
+        "spatial_k10_k11": {"spatial_conv3x3": 60, "temporal_conv_fused_hw": 51},
+        "padded_k12": {"fused_affine_conv3x3": 22, "temporal_conv_fused": 21,
+                       "fused_conv_tconv_stream": 19, "fused_conv_tconv_padded": 5,
+                       "fused_affine_conv3x3_padded": 4, "temporal_conv_padded": 6,
+                       "fused_upconv3x3_padded": 2},
+    },
+    "bridge": {
+        "padded": {"fused_affine_conv3x3": 19, "temporal_conv_fused": 18,
+                   "fused_affine_conv3x3_padded": 8, "temporal_conv_padded": 9,
+                   "fused_upconv3x3_padded": 1},
+        "padded_k8_k9": {"fused_affine_conv3x3": 19, "temporal_conv_fused": 18,
+                         "fused_affine_conv3x3_padded": 8, "temporal_conv_padded": 9,
+                         "fused_upconv3x3_padded": 1, "fused_spatial_attention_padded": 8},
+        "plain_k7": {"fused_group_norm_silu": 55},
+        "spatial_k10_k11": {"spatial_conv3x3": 20, "temporal_conv_fused_hw": 19},
+        "padded_k12": {"fused_affine_conv3x3": 19, "temporal_conv_fused": 18,
+                       "fused_conv_tconv_stream": 4, "fused_affine_conv3x3_padded": 4,
+                       "temporal_conv_padded": 5, "fused_upconv3x3_padded": 1},
+    },
+    # the release U-Net's counts: neither the 5-channel entry conv nor the
+    # 2-channel output conv takes a kernel
+    "mw_flow": {r: EXPECTED_PER_FORWARD[r] for r in FAMILY_ROUTINGS},
+}
+# launches per B=4 train step through train_fused with K6 (K1's forwards and
+# dgrads together), for the variants phase 11 trains
+VARIANT_TRAIN_STEP = {"thor": {"fused_affine_conv3x3": 96, "wgrad_conv3x3": 48},
+                      "bridge": {"fused_affine_conv3x3": 30, "wgrad_conv3x3": 15}}
+# the xattn backbone's and the transformer's bf16 forward: max |bf16 - f32|
+# over the float32 output's std at most this (the release forward's plain
+# bf16 path strays about 6e-2, PERF.md section 7)
+FAMILY_ERR_BOUND = 0.1
+XATTN_TRAIN_B = 4  # less by one while a step does not fit the card
+TFD_BATCHES = (1, 64)
 
 
 def _rk():
@@ -1598,7 +1667,8 @@ def check_kernels(rk, routing_calls, dev, timed, tag, roles=None):
 
 
 def _unet_kw(vcfg):
-    return dict(model_channels=vcfg.model_channels, channel_mult=vcfg.channel_mult,
+    return dict(in_channels=vcfg.channels + vcfg.cond_ch, out_channels=vcfg.channels,
+                model_channels=vcfg.model_channels, channel_mult=vcfg.channel_mult,
                 num_res_blocks=vcfg.num_res_blocks,
                 attention_resolutions=vcfg.attention_resolutions,
                 num_head_channels=vcfg.num_head_channels, task_token_dim=vcfg.text_dim)
@@ -1609,11 +1679,12 @@ def _arch(routing):
     return {k: v for k, v in ROUTINGS[routing].items() if k in ARCH}
 
 
-def check_forward(rk, nets, inputs, vcfg, dev):
-    """Phase 4: launch counts, each routing vs plain vs float32, times in
-    turns. `nets`: {routing: U-Net}. A routing with its own architecture
-    (`padded_k8_k9_wide`) is held against plain paths of that architecture
-    with its own weights."""
+def check_forward(rk, nets, inputs, vcfg, dev, expected=EXPECTED_PER_FORWARD, tag="forward"):
+    """Phase 4 (and phase 11 for each variant, its counts `expected`):
+    launch counts, each routing vs plain vs float32, times in turns. `nets`:
+    {routing: U-Net}, "padded" among them. A routing with its own
+    architecture (`padded_k8_k9_wide`) is held against plain paths of that
+    architecture with its own weights."""
     from v2a_tpu_torch.models.video_unet import VideoUNet
 
     def fwd(net):
@@ -1626,12 +1697,12 @@ def check_forward(rk, nets, inputs, vcfg, dev):
         outs[routing] = fwd(net)
         torch.cuda.synchronize()
         per_fwd = {k: v for k, v in launch_counts().items() if v}
-        log(f"[forward] {routing} routing, launches per forward: {per_fwd}")
-        if per_fwd != EXPECTED_PER_FORWARD[routing]:
-            fail(f"{routing} launch counts {per_fwd} != {EXPECTED_PER_FORWARD[routing]}")
+        log(f"[{tag}] {routing} routing, launches per forward: {per_fwd}")
+        if per_fwd != expected[routing]:
+            fail(f"{tag}: {routing} launch counts {per_fwd} != {expected[routing]}")
     # the plain bf16 path and the float32 reference of each architecture
     refs, plain16 = {}, None
-    for routing in ("padded", "padded_k8_k9_wide"):
+    for routing in [r for r in ("padded", "padded_k8_k9_wide") if r in nets]:
         kw = dict(_unet_kw(vcfg), **_arch(routing))
         state = nets[routing].state_dict()
         p16 = VideoUNet(dtype=torch.bfloat16, **kw).to(dev).eval()
@@ -1656,21 +1727,24 @@ def check_forward(rk, nets, inputs, vcfg, dev):
 
     errs = {name: err(o, ref_of(name)[1]) for name, o in outs.items() if name in nets}
     errs["plain_bf16"] = err(refs["padded"][0], refs["padded"][1])
-    errs["plain_bf16_wide"] = err(*refs["padded_k8_k9_wide"])
+    if "padded_k8_k9_wide" in refs:
+        errs["plain_bf16_wide"] = err(*refs["padded_k8_k9_wide"])
     errs.update({f"{r}_vs_plain_bf16": err(outs[r], ref_of(r)[0]) for r in nets})
-    log("[forward] err/std (max, mean) vs the float32 plain reference of the routing's "
+    log(f"[{tag}] err/std (max, mean) vs the float32 plain reference of the routing's "
         "architecture: " + "; ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in errs.items()))
     # the fused routings round at other places than the plain bf16 path, but
     # in the same class: each may stray from float32 at most twice as far
     for r in nets:
         e_plain = errs["plain_bf16_wide" if _arch(r) else "plain_bf16"]
         if errs[r][0] > 2 * e_plain[0] or errs[r][1] > 2 * e_plain[1]:
-            fail(f"{r} forward strays further from the float32 reference than the bf16 plain path")
+            fail(f"{tag}: {r} forward strays further from the float32 reference than the bf16 "
+                 "plain path")
     fwd_ms = {name: [] for name in list(nets) + ["plain_bf16"]}
     turns = list(nets.items()) + [("plain_bf16", plain16)]
     for label, net in turns + turns[::-1]:
         fwd_ms[label].append(time_ms(lambda: fwd(net), 2, 1))
-    log(f"[forward] B=8 F=7 128^2 ms (in turns): {fwd_ms}")
+    b, f, h, w = inputs[0].shape[:4]
+    log(f"[{tag}] B={b} F={f} {h}x{w} ms (in turns): {fwd_ms}")
     return dict(forward_ms=fwd_ms, forward_err=errs)
 
 
@@ -1808,18 +1882,15 @@ def _grad_rel(grads, ref):
     return (num / den) ** 0.5, worst
 
 
-def train(rk, model, vcfg, dev):
-    """Phase 6: the video-model train step through `VideoModelTrainer.train`
-    in each routing. Returns the report, the kernels' {signature: calls} of
-    one K6-routing gradient step, the launches of the K6 routing's run, and
-    {K1 signature: its forward and dgrad calls} of that step."""
+def _train_problem(model, vcfg, dev):
+    """A train step's fixed problem: synthetic clips, the U-Net's initial
+    weights, one B=`TRAIN_B` batch and noise draw, and the float32 plain
+    step's loss and gradients on them (the reference of every routing's
+    gradient)."""
     from v2a_tpu_torch.models.video_unet import VideoUNet
-    from v2a_tpu_torch.train import checkpoint as ckpt
-    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
 
     clips = SyntheticClips(vcfg.video_future_horizon, vcfg.image_size, SEED + 2)
     init = {k: v.clone() for k, v in model.unet.state_dict().items()}
-    # one batch and one noise draw for the gradient comparison
     rng = np.random.default_rng(SEED + 3)
     x_cond, video, tasks = clips.sample_batch(TRAIN_B, rng)
     batch = (torch.as_tensor(video, device=dev),
@@ -1829,19 +1900,28 @@ def train(rk, model, vcfg, dev):
              torch.ones(TRAIN_B, device=dev))
     noise = torch.randn(batch[0].shape, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED + 4))
-
-    # the float32 plain step: the reference for every routing's gradient
-    torch.cuda.reset_peak_memory_stats()
     ref = VideoUNet(dtype=torch.float32, **_unet_kw(vcfg)).to(dev)
     ref.load_state_dict(init)
     loss32 = model.diffusion.p_losses(ref, *batch[:3], t=batch[3], sample_weights=batch[4],
                                       noise=noise)
     loss32.backward()
     grads32 = {k: p.grad for k, p in ref.named_parameters()}
+    return clips, init, batch, noise, loss32.item(), grads32
+
+
+def train(rk, model, vcfg, dev):
+    """Phase 6: the video-model train step through `VideoModelTrainer.train`
+    in each routing. Returns the report, the kernels' {signature: calls} of
+    one K6-routing gradient step, the launches of the K6 routing's run, and
+    {K1 signature: its forward and dgrad calls} of that step."""
+    from v2a_tpu_torch.train import checkpoint as ckpt
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    clips, init, batch, noise, loss32, grads32 = _train_problem(model, vcfg, dev)
     peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[train] float32 plain step at B={TRAIN_B}: loss {loss32.item():.6f}, "
+    log(f"[train] float32 plain step at B={TRAIN_B}: loss {loss32:.6f}, "
         f"peak memory {peak32:.1f} GiB")
-    del ref, loss32
     torch.cuda.empty_cache()
 
     report = dict(batch=TRAIN_B, steps_timed=TRAIN_STEPS, float32_peak_gib=peak32,
@@ -2544,6 +2624,19 @@ def stream_gate(cfg, smi):
                 sample_u8_s=ref_s), calls
 
 
+def _same_state(first, again, step):
+    """Two `VideoModelTrainer`s at `step` with bit-equal weights, EMA and
+    optimizer state."""
+    a, b = first.state.state_dict(first.train_unet), again.state.state_dict(again.train_unet)
+    return (a["step"] == b["step"] == step and all(
+        torch.equal(a[part][k], b[part][k]) for part in ("params", "ema_params") for k in a[part])
+        # Adam's `step` stays on the CPU in the trained run, the load puts
+        # it on the card
+        and all(torch.equal(x, b["opt_state"]["state"][i][k].to(x.device))
+                for i, st in a["opt_state"]["state"].items() for k, x in st.items()
+                if isinstance(x, torch.Tensor)))
+
+
 def video_entry_points(rk, held, dev, smi):
     """Phase 9, the video entry points. `scripts/train_video.run` at release
     width (its flags' defaults), B=4, the device by default (the card), on
@@ -2616,15 +2709,7 @@ def video_entry_points(rk, held, dev, smi):
     report["sample_after_s"] = sum(sample_s)
     again.close()
     sample_launches = launch_counts()
-    a, b = first.state.state_dict(first.train_unet), again.state.state_dict(again.train_unet)
-    same = (a["step"] == b["step"] == VIDEO_STEPS and all(
-        torch.equal(a[part][k], b[part][k]) for part in ("params", "ema_params") for k in a[part])
-        # Adam's `step` stays on the CPU in the trained run, the load puts
-        # it on the card
-        and all(torch.equal(x, b["opt_state"]["state"][i][k].to(x.device))
-                for i, st in a["opt_state"]["state"].items() for k, x in st.items()
-                if isinstance(x, torch.Tensor)))
-    if not same:
+    if not _same_state(first, again, VIDEO_STEPS):
         fail("video: the resumed train_video state is not bit-equal to the saved run's")
     n_fwd = args.timesteps
     want = {k: n_fwd * EXPECTED_PER_FORWARD["padded"].get(k, 0) for k in sample_launches}
@@ -2884,8 +2969,361 @@ def reference_checkpoints(rk, held, dev, smi):
     return report, launches, extra_agg
 
 
+def _family_variant(rk, name, dev):
+    """Phase 11, one environment variant at its preset's widths, bf16: (a)
+    a B=8 forward through each of `FAMILY_ROUTINGS` and the plain path,
+    gated and timed as phase 4 gates the release forward, with
+    `VARIANT_FORWARD`'s launches; (c) one B=1 request through
+    `VideoPredModel.sample` (the 100-step ancestral chain, the shipped
+    routing), finite in [0, 1], exactly 100 forwards' launches; (d) for the
+    trained variants, a B=4 `VideoModelTrainer` gradient through the plain
+    path and through train_fused with K6, each against a float32 plain
+    gradient (the K6 routing at most twice as far as the plain bf16 path),
+    then one timed step of each. Returns the report, the kernels'
+    {signature: calls} of these runs and the launches of the chain and the
+    K6 step."""
+    from v2a_tpu_torch.models.env_variants import video_model_variant
+    from v2a_tpu_torch.models.video_unet import VideoUNet
+
+    model = video_model_variant(name, device=dev, dtype="bfloat16").init(SEED)
+    vcfg = model.config
+    if not (model.unet.fused and model.unet.padded_stream):
+        fail(f"{name}: the U-Net did not resolve to the padded-stream routing on cuda")
+    nets = {"padded": model.unet}
+    for routing in FAMILY_ROUTINGS[1:]:
+        net = VideoUNet(dtype=torch.bfloat16, **dict(_unet_kw(vcfg), **ROUTINGS[routing]))
+        net = net.to(dev).eval().requires_grad_(False)
+        net.load_state_dict(model.unet.state_dict())
+        nets[routing] = net
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f, (h, w) = vcfg.video_future_horizon, vcfg.image_size
+    inputs = (torch.randn(FAMILY_B, f, h, w, vcfg.channels + vcfg.cond_ch, generator=gen,
+                          device=dev),
+              torch.randint(0, vcfg.timesteps, (FAMILY_B,), generator=gen, device=dev),
+              model.encode_batch_text((TASKS * 4)[:FAMILY_B]))
+    params = sum(p.numel() for p in model.unet.parameters())
+    log(f"[family] {name}: {h}x{w}, channels {vcfg.channels} on a {vcfg.cond_ch}-channel "
+        f"condition, mc {vcfg.model_channels}, mult {vcfg.channel_mult}, "
+        f"{vcfg.num_res_blocks} res blocks, attention at ds {vcfg.attention_resolutions}; "
+        f"U-Net {params / 1e6:.1f} M params, bf16")
+    calls = {}
+    for routing, net in nets.items():
+        with recording() as c, torch.no_grad():
+            net(*inputs)
+        calls[routing] = c
+    report = check_forward(rk, nets, inputs, vcfg, dev, expected=VARIANT_FORWARD[name],
+                           tag=f"family {name}")
+    report["params"] = params
+    for routing in FAMILY_ROUTINGS[1:]:
+        del nets[routing]
+    torch.cuda.empty_cache()
+
+    # (c) one request through the shipped routing
+    frame = torch.rand(1, h, w, vcfg.cond_ch, generator=gen, device=dev)
+    zero_launches()
+    with recording() as chain_calls:
+        t0 = time.perf_counter()
+        video = model.sample(frame, [TASKS[0]], generator=gen)
+        torch.cuda.synchronize()
+        report["request_s"] = time.perf_counter() - t0
+    chain = launch_counts()
+    _gate_chains(f"{name}: request", chain, chain_calls,
+                 {k: vcfg.sampling_timesteps * VARIANT_FORWARD[name]["padded"].get(k, 0)
+                  for k in chain})
+    if (video.shape != (1, f, h, w, vcfg.channels) or not bool(torch.isfinite(video).all())
+            or video.min() < 0 or video.max() > 1):
+        fail(f"{name}: sampled video {tuple(video.shape)} not finite in [0, 1]")
+    log(f"[family] {name}: one request (B=1, {vcfg.sampling_timesteps}-step ancestral, padded "
+        f"routing): {report['request_s']:.2f} s, launches "
+        f"{ {k: v for k, v in chain.items() if v} }")
+    calls["request"] = chain_calls
+    if name in VARIANT_TRAIN_STEP:
+        train_report, calls["train"], step_launches = _family_train(model, vcfg, dev, name)
+        report["train"] = train_report
+        for k, v in step_launches.items():
+            chain[k] += v
+    del model, nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, calls, chain
+
+
+def _family_train(model, vcfg, dev, name):
+    """(d) of `_family_variant`: returns the report, the K6 routing's
+    {signature: calls} and its step's launches."""
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    clips, init, batch, noise, _, grads32 = _train_problem(model, vcfg, dev)
+    report = dict(batch=TRAIN_B, ms_per_step={}, peak_gib={}, grad_rel_err={})
+    grads, k6_calls, k6_launches = {}, {}, {}
+    for routing, flags in (("plain", dict(train_fused=False)),
+                           ("k6", dict(train_fused=True, wgrad_kernel=True))):
+        cfg = VideoTrainerConfig(batch_size=TRAIN_B, n_train_steps=2, save_freq=10 ** 9,
+                                 log_freq=1, **flags)
+        workdir = os.path.join(FAMILY_LOGS, f"{name}_{routing}")
+        trainer = VideoModelTrainer(model, clips, cfg, workdir=workdir, seed=SEED)
+        zero_launches()
+        with recording() as step_calls:
+            trainer.loss_and_grads(*batch, noise=noise)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        want = VARIANT_TRAIN_STEP[name] if routing == "k6" else {}
+        if launches != want:
+            fail(f"{name}: {routing} train-step launches {launches}, expected {want}")
+        grads[routing] = {k: p.grad.detach().clone()
+                          for k, p in trainer.train_unet.named_parameters()}
+        if routing == "k6":
+            k6_calls, k6_launches = step_calls, launch_counts()
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(2):  # a warm-up step, then the timed one
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss, _ = trainer.train_step(*batch)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            if not np.isfinite(float(loss)):
+                fail(f"{name}: {routing} train step gave a non-finite loss")
+        if not all(bool(torch.isfinite(p).all()) for p in trainer.train_unet.parameters()):
+            fail(f"{name}: {routing} train step left non-finite parameters")
+        report["ms_per_step"][routing] = ms
+        report["peak_gib"][routing] = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    shutil.rmtree(FAMILY_LOGS, ignore_errors=True)
+    model.unet.load_state_dict(init)
+    rel = {r: _grad_rel(g, grads32) for r, g in grads.items()}
+    report["grad_rel_err"] = rel
+    if rel["k6"][0] > 2 * rel["plain"][0] or rel["k6"][1] > 2 * rel["plain"][1]:
+        fail(f"{name}: the K6 routing's gradient strays further from float32 than twice the "
+             "bf16 plain path")
+    log(f"[family] {name}: B={TRAIN_B} train step, ms (warm-up, timed) "
+        + "; ".join(f"{r} {[round(v, 1) for v in m]} peak {report['peak_gib'][r]:.1f} GiB"
+                    for r, m in report["ms_per_step"].items())
+        + "; gradient rel. error vs float32 (whole, worst leaf) "
+        + "; ".join(f"{r} {v[0]:.3e} {v[1]:.3e}" for r, v in rel.items())
+        + f"; K6 routing launches per step {VARIANT_TRAIN_STEP[name]}")
+    return report, k6_calls, k6_launches
+
+
+def _family_xattn(dev):
+    """Phase 11, the cross-attention backbone at the release widths
+    (`VideoModelConfig(backbone="xattn", dtype="bfloat16")`: 128^2, F=7,
+    block channels 128 x (1, 2, 3, 4, 5), 2 layers a block, 8 heads, text
+    512): a B=8 forward against the float32 one (max error over the float32
+    output's std under `FAMILY_ERR_BOUND`, finite), one B=1 100-step chain,
+    then `scripts/train_video.py --backbone xattn` for 2 steps on synthetic
+    clips at `XATTN_TRAIN_B`, or the largest batch below it that fits, and
+    `--resume --sample-after` in a fresh call, bit-equal. It launches no
+    kernel of the port (plain PyTorch: the JAX module is plain XLA)."""
+    from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
+    from v2a_tpu_torch.scripts import train_video
+
+    vcfg = VideoModelConfig(backbone="xattn", dtype="bfloat16")
+    model = VideoPredModel(vcfg, device=dev).init(SEED)
+    with torch.device(dev):
+        ref = VideoPredModel(dataclasses.replace(vcfg, dtype="float32"), device=dev).build_unet()
+    ref.load_state_dict(model.unet.state_dict())
+    ref.eval().requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    f, (h, w) = vcfg.video_future_horizon, vcfg.image_size
+    inputs = (torch.randn(FAMILY_B, f, h, w, 6, generator=gen, device=dev),
+              torch.randint(0, vcfg.timesteps, (FAMILY_B,), generator=gen, device=dev),
+              model.encode_batch_text((TASKS * 4)[:FAMILY_B]))
+    report = dict(params=model.param_count())
+    zero_launches()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        out16 = model.unet(*inputs)
+        report["forward_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out32 = ref(*inputs)
+        report["forward_ms"] = time_ms(lambda: model.unet(*inputs), 2, 1)
+    if out16.shape != (FAMILY_B, f, h, w, 3) or not bool(torch.isfinite(out16).all()):
+        fail("xattn: the bf16 forward is not finite of the expected shape")
+    report["err_over_std"] = float((out16 - out32).abs().max()) / float(out32.std())
+    if not report["err_over_std"] < FAMILY_ERR_BOUND:
+        fail(f"xattn: bf16 forward max error / std {report['err_over_std']:.3e} against float32 "
+             f"is not under {FAMILY_ERR_BOUND}")
+    del ref, out16, out32
+    torch.cuda.empty_cache()
+    frame = torch.rand(1, h, w, 3, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    video = model.sample(frame, [TASKS[0]], generator=gen)
+    torch.cuda.synchronize()
+    report["request_s"] = time.perf_counter() - t0
+    if not bool(torch.isfinite(video).all()) or video.min() < 0 or video.max() > 1:
+        fail("xattn: the sampled video is not finite in [0, 1]")
+    if any(launch_counts().values()):
+        fail(f"xattn: launched kernels {launch_counts()}")
+    log(f"[family] xattn: {report['params'] / 1e6:.1f} M params (U-Net and text), bf16; B=8 "
+        f"forward {report['forward_ms']:.1f} ms, peak "
+        f"{report['forward_peak_gib']:.1f} GiB, max error / std vs float32 "
+        f"{report['err_over_std']:.3e}; one request (B=1, {vcfg.sampling_timesteps}-step "
+        f"ancestral) {report['request_s']:.2f} s")
+    del model, video
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(FAMILY_LOGS, ignore_errors=True)
+    workdir = os.path.join(FAMILY_LOGS, "xattn")
+    clips = SyntheticClips(f, (h, w), SEED + 9)
+    b = XATTN_TRAIN_B
+    while True:
+        argv = ["--data", "(synthetic clips)", "--workdir", workdir, "--tasks", ",".join(TASKS),
+                "--batch-size", str(b), "--n-steps", str(VIDEO_STEPS), "--save-freq",
+                str(VIDEO_STEPS), "--log-freq", "1", "--backbone", "xattn"]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            first = train_video.run(train_video.parse_args(argv), clips, TASKS)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if b == 1:
+                raise
+            log(f"[family] xattn: train_video at B={b} does not fit the card")
+            b -= 1
+            shutil.rmtree(workdir, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    report["train_b"], report["train_s"] = b, time.perf_counter() - t0
+    report["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    first.close()
+    with open(os.path.join(workdir, "metrics.jsonl")) as fh:
+        losses = [r["video_train/loss"] for r in map(json.loads, fh) if "video_train/loss" in r]
+    if len(losses) != VIDEO_STEPS or not np.all(np.isfinite(losses)) or first.step != VIDEO_STEPS:
+        fail(f"xattn: train_video ran {first.step} steps, losses {losses}")
+    t0 = time.perf_counter()
+    again = train_video.run(train_video.parse_args(argv + ["--resume", "--sample-after"]),
+                            clips, TASKS)
+    torch.cuda.synchronize()
+    report["resume_sample_s"] = time.perf_counter() - t0
+    again.close()
+    if not _same_state(first, again, VIDEO_STEPS):
+        fail("xattn: the resumed train_video state is not bit-equal to the saved run's")
+    vids = np.load(os.path.join(workdir, "validation_videos.npy"))
+    if vids.shape != (len(TASKS), f, h, w, 3) or not np.isfinite(vids).all():
+        fail(f"xattn: validation videos {vids.shape} not finite")
+    if any(launch_counts().values()):
+        fail(f"xattn: launched kernels {launch_counts()}")
+    log(f"[family] xattn: scripts/train_video.py --backbone xattn, B={b}, {VIDEO_STEPS} steps "
+        f"{report['train_s']:.1f} s (build, steps, saves), peak {report['train_peak_gib']:.1f} "
+        f"GiB, losses {[round(v, 4) for v in losses]}; --resume --sample-after (B={len(TASKS)}) "
+        f"{report['resume_sample_s']:.1f} s, state bit-equal")
+    del first, again
+    shutil.rmtree(FAMILY_LOGS, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _family_transformer(dev):
+    """Phase 11, `TransformerForDiffusion` at the JAX class's defaults (8
+    layers, 4 heads, n_emb 256, horizon 16) with `causal_attn=True` and
+    `cond_dim` the release policy's `global_cond_dim`: B=1 and B=64 bf16
+    forwards against float32 (max error over the float32 output's std under
+    `FAMILY_ERR_BOUND`), then one backward and one AdamW step (`make_train_step`
+    with `fused_clip_adamw`, the release recipe) at B=64, finite; ms of
+    each by CUDA events."""
+    from v2a_tpu_torch.models.init import init_params
+    from v2a_tpu_torch.models.policy import PolicyConfig
+    from v2a_tpu_torch.models.transformer_policy import TransformerForDiffusion
+    from v2a_tpu_torch.train.train_state import (
+        EMAConfig, OptimizerConfig, PolicyTrainState, fused_clip_adamw, make_train_step)
+
+    kw = dict(cond_dim=PolicyConfig().global_cond_dim, causal_attn=True)
+    net = TransformerForDiffusion(dtype=torch.bfloat16, **kw).to(dev)
+    init_params(net, torch.Generator(device=dev).manual_seed(SEED))
+    ref = TransformerForDiffusion(dtype=torch.float32, **kw).to(dev)
+    ref.load_state_dict(net.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def batch(b):
+        return (torch.randn(b, 16, 7, generator=gen, device=dev),
+                torch.randint(0, 100, (b,), generator=gen, device=dev),
+                torch.randn(b, kw["cond_dim"], generator=gen, device=dev))
+
+    report = dict(params=sum(p.numel() for p in net.parameters()), cond_dim=kw["cond_dim"],
+                  forward_ms={}, err_over_std={})
+    with torch.no_grad():
+        for b in TFD_BATCHES:
+            args = batch(b)
+            out, want = net(*args), ref(*args)
+            err = float((out - want).abs().max()) / float(want.std())
+            if out.shape != (b, 16, 7) or not bool(torch.isfinite(out).all()) or not (
+                    err < FAMILY_ERR_BOUND):
+                fail(f"transformer: B={b} bf16 forward error / std {err:.3e} or shape "
+                     f"{tuple(out.shape)}")
+            report["err_over_std"][b] = err
+            report["forward_ms"][b] = time_ms(lambda: net(*args))
+    x, t, cond = batch(TFD_BATCHES[-1])
+    target = torch.randn(x.shape, generator=gen, device=dev)
+    tx = fused_clip_adamw(OptimizerConfig())
+    state = PolicyTrainState(net, tx)
+    step = make_train_step(lambda bt, g: (net(bt["x"], bt["t"], bt["cond"]) - bt["y"])
+                           .square().mean(), tx, EMAConfig())
+    ms = []
+    for _ in range(2):  # a warm-up step, then the timed one
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(state, dict(x=x, t=t, cond=cond, y=target), gen)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        if not (np.isfinite(float(out.loss)) and np.isfinite(float(out.grad_norm))):
+            fail("transformer: the train step gave a non-finite loss or gradient norm")
+    if not all(bool(torch.isfinite(p).all()) for p in state.params + state.ema_params):
+        fail("transformer: non-finite weights after the AdamW step")
+    report["train_ms"] = ms
+    log(f"[family] transformer: {report['params'] / 1e6:.2f} M params, causal, cond_dim "
+        f"{kw['cond_dim']}; bf16 forward ms {report['forward_ms']} (B), error / std vs float32 "
+        + ", ".join(f"B={b} {e:.3e}" for b, e in report["err_over_std"].items())
+        + f"; B={TFD_BATCHES[-1]} backward + AdamW step ms (warm-up, timed) "
+        f"{[round(v, 2) for v in ms]}")
+    if any(launch_counts().values()):
+        fail(f"transformer: launched kernels {launch_counts()}")
+    return report
+
+
+def model_families(rk, held, dev, smi):
+    """Phase 11, the model families: each of `FAMILY_VARIANTS`
+    (`_family_variant`), then (b) every kernel signature their runs gave
+    that the earlier phases did not hold against its plain version on
+    `SEEDS` input sets, with its plan; then the xattn backbone and the
+    transformer denoiser (no kernel of the port: zero launches). Returns the
+    report, the per-shape rows, the per-kernel errors and the launches of
+    the main-path runs (the requests and the K6 train steps)."""
+    t_phase = time.perf_counter()
+    log("[family] libero, mw and thor_luo are presets equal to the release config, which "
+        "phases 4-5 run; not repeated")
+    report, calls, launches = {}, {}, dict.fromkeys(rk.launches, 0)
+    for name in FAMILY_VARIANTS:
+        report[name], variant_calls, variant_launches = _family_variant(rk, name, dev)
+        for run, c in variant_calls.items():
+            for key, n in c.items():
+                calls[key] = calls.get(key, 0) + n
+        for k, v in variant_launches.items():
+            launches[k] += v
+    extra = {k: v for k, v in calls.items() if k not in held}
+    rows, agg = [], {}
+    if extra:
+        rows, agg = check_kernels(rk, {"family": extra}, dev, timed=False, tag="family-shapes")
+        agg = agg["family"]
+    report["new_signatures"] = len(extra)
+    log(f"[family] {smi}: {len(extra)} kernel signatures not held before, each within its gate")
+    zero_launches()
+    report["xattn"] = _family_xattn(dev)
+    report["transformer"] = _family_transformer(dev)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[family] phase 11 wall time {report['phase_s']:.1f} s ({smi})")
+    return report, rows, agg, launches
+
+
 def lab_kernels(rk, routing_calls, dev):
-    """Phase 11, the lab kernels' main paths, then their gates. The port's
+    """Phase 12, the lab kernels' main paths, then their gates. The port's
     perf lab (`winobench2`, `tconvbench2`), the path that launches K14 and
     K15; K13 held against K3 at every K3 signature of the padded forward, on
     K3's first input set, bit for bit (the JAX package's own caller of K13,
@@ -2982,8 +3420,7 @@ def main():
     nets = {"padded": unet}
     for routing, flags in ROUTINGS.items():
         if routing != "padded":
-            net = VideoUNet(in_channels=2 * vcfg.channels, out_channels=vcfg.channels,
-                            dtype=torch.bfloat16, **dict(_unet_kw(vcfg), **flags))
+            net = VideoUNet(dtype=torch.bfloat16, **dict(_unet_kw(vcfg), **flags))
             net = net.to(dev).eval().requires_grad_(False)
             if _arch(routing):  # more attention blocks: its own weights from the seed
                 init_params(net, torch.Generator(device=dev).manual_seed(SEED))
@@ -2995,8 +3432,8 @@ def main():
     b, (h, w) = 8, vcfg.image_size
     gen = torch.Generator(device=dev).manual_seed(SEED)
     inputs = (
-        torch.randn(b, vcfg.video_future_horizon, h, w, 2 * vcfg.channels, generator=gen,
-                    device=dev),
+        torch.randn(b, vcfg.video_future_horizon, h, w, vcfg.channels + vcfg.cond_ch,
+                    generator=gen, device=dev),
         torch.randint(0, vcfg.timesteps, (b,), generator=gen, device=dev),
         model.encode_batch_text((TASKS * 4)[:b]),
     )
@@ -3035,10 +3472,13 @@ def main():
     video, video_launches, video_agg = video_entry_points(rk, held, dev, smi)
     # 10. the reference checkpoints: convert, load, serve
     ckpt, ckpt_launches, ckpt_agg = reference_checkpoints(rk, held, dev, smi)
-    # 11. the lab kernels' paths and gates
+    # 11. the model families: the env variants, the xattn backbone, the
+    # transformer denoiser
+    family, family_rows, family_agg, family_launches = model_families(rk, held, dev, smi)
+    # 12. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
 
-    # 12. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # 13. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
     # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step,
     # K13 over K3's calls of one padded forward, K14 over K10's of one
@@ -3068,9 +3508,11 @@ def main():
         errs += [online_agg[name]["max_abs_err"]] if online_agg else []
         errs += [video_agg[name]["max_abs_err"]] if video_agg else []
         errs += [ckpt_agg[name]["max_abs_err"]] if ckpt_agg else []
+        errs += [family_agg[name]["max_abs_err"]] if family_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
                     + train_launches[name] + sum(nl[name] for nl in new_launches.values())
-                    + online_launches[name] + video_launches[name] + ckpt_launches[name])
+                    + online_launches[name] + video_launches[name] + ckpt_launches[name]
+                    + family_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -3088,7 +3530,8 @@ def main():
                        per_train_step=train_agg, policy_train=policy_train, online=online,
                        online_launches=online_launches, video=video,
                        video_launches=video_launches, checkpoints=ckpt,
-                       checkpoint_launches=ckpt_launches,
+                       checkpoint_launches=ckpt_launches, families=family,
+                       family_shapes=family_rows, family_launches=family_launches,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
                        **forward), fh, indent=1)
@@ -3102,7 +3545,8 @@ def main():
         "routings plus the K6 routing's train() run plus the online loop's runs (its train(), "
         "scripts/eval.py --workers 8, the pool cycle, the pipelined train()) plus the video "
         "entry points' runs (train_video's steps, its --sample-after chain) plus "
-        "sample_video --ckpt's chain on the converted reference checkpoint, and "
+        "sample_video --ckpt's chain on the converted reference checkpoint plus the model "
+        "families' requests and K6 train steps (Thor, Bridge, MW-flow), and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -236,10 +236,10 @@ def _flat(tree, prefix=""):
     return out
 
 
-# fields of one tree only: the JAX package's alternative video backbone,
-# the port's routing switches (the JAX package's environment flags) and
-# device
-JAX_ONLY = {"video.backbone", "video.cond_channels"}
+# fields of one tree only: the port's routing switches (the JAX package's
+# environment flags) and device; the video backbone and `cond_channels` are
+# in both trees
+JAX_ONLY = set()
 PORT_ONLY = {"device", "video.attn_kernel", "video.downconv", "video.entry_pad",
              "video.mega_kernel", "video.padded_stream", "video.pallas_spatial",
              "video.spatial2_max_s", "video.spatial2_min_ch", "video.stream_kernel",
@@ -247,10 +247,10 @@ PORT_ONLY = {"device", "video.attn_kernel", "video.downconv", "video.entry_pad",
 
 
 def _assert_same_tree(jcfg, tcfg):
-    """The two experiment trees agree on every shared field. The JAX tree's
-    own fields are at the only setting the port builds (the U-Net backbone,
-    `cond_channels` = `channels`), the port's own ones at their defaults,
-    and the JAX `moment_dtype=None` resolves to the port's dtype."""
+    """The two experiment trees agree on every shared field. The config
+    files keep the release model (the U-Net backbone, `cond_channels` =
+    `channels`), the port's own fields are at their defaults, and the JAX
+    `moment_dtype=None` resolves to the port's dtype."""
     j, t = _flat(jcfg.to_dict()), _flat(tcfg.to_dict())
     assert set(j) - set(t) == JAX_ONLY and set(t) - set(j) == PORT_ONLY
     assert (j["video.backbone"], j["video.cond_channels"]) == ("unet", None)

@@ -111,8 +111,10 @@ def test_train_video_trains_saves_and_resumes(clip_h5, tmp_path, capsys):
         torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
 
 
+# the third case: the xattn backbone runs (tests/test_torch_xattn.py), its
+# gradient checkpointing does not
 @pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--use-checkpoint"],
-                                  ["--backbone", "xattn"]])
+                                  ["--backbone", "xattn", "--use-checkpoint"]])
 def test_train_video_left_out_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_video.main(["--data", str(tmp_path / "none.hdf5"), *flag, *TINY])

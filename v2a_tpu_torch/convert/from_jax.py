@@ -56,10 +56,18 @@ def video_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def video_model_from_jax(unet_params: Mapping, text_params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX `VideoPredModel.params['unet']` / `['text']` -> state dict of the
-    port's `VideoPredModel.nets` (`unet.*`, `text.*`)."""
+    port's `VideoPredModel.nets` (`unet.*`, `text.*`), for either backbone:
+    `VideoUNetXAttn` keeps the JAX names and layouts as `VideoUNet` does."""
     sd = video_tree(unet_params, "unet.")
     sd.update(video_tree(text_params, "text."))
     return sd
+
+
+def transformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `TransformerForDiffusion` params -> state dict of the port's
+    module (its layers keep the JAX names, `enc_0`, `dec_0`, ...; LayerNorm
+    `scale` / `bias`; the position embeddings as they are)."""
+    return video_tree(params)
 
 
 def policy_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

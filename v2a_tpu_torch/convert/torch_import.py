@@ -559,7 +559,7 @@ def reference_video_keys(cfg: VideoModelConfig) -> Keys:
     _linear_keys(out, "time_embed.2", ted, ted)
     _perceiver_keys(out, "task_attnpool.0", cfg.text_dim)
     _linear_keys(out, "task_attnpool.1", cfg.text_dim, ted)
-    _conv3d_keys(out, "input_blocks.0.0", 2 * cfg.channels, mc)
+    _conv3d_keys(out, "input_blocks.0.0", cfg.channels + cfg.cond_ch, mc)
     skips, cur, ds, tidx = [mc], mc, 1, 1
     for level, mult in enumerate(cfg.channel_mult):
         ch = mult * mc

@@ -17,6 +17,23 @@ LB_ACTION_MIN = np.full((7,), -1.0, dtype=np.float32)
 LB_ACTION_MAX = np.full((7,), 1.0, dtype=np.float32)
 LB_ACTION_MIN_ORN01 = np.asarray([-1.0] * 3 + [-0.1] * 3 + [-1.0], dtype=np.float32)
 LB_ACTION_MAX_ORN01 = np.asarray([1.0] * 3 + [0.1] * 3 + [1.0], dtype=np.float32)
+# the other environment families' bounds (`diffuser/datasets/__init__.py`):
+# MetaWorld Sawyer (:4-6), iThor's discrete 4-dim (:50-58), Calvin relative
+# and absolute (:62-80), the CLIP task-embedding placeholder (:42-45)
+MW_SAWYER_ACTION_MIN = np.full((4,), -1.0, dtype=np.float32)
+MW_SAWYER_ACTION_MAX = np.full((4,), 1.0, dtype=np.float32)
+THOR_ACTION_MIN_DIM4 = np.full((4,), -1.0, dtype=np.float32)
+THOR_ACTION_MAX_DIM4 = np.full((4,), 1.0, dtype=np.float32)
+CAL_ACTION_MIN = np.full((7,), -1.0, dtype=np.float32)
+CAL_ACTION_MAX = np.full((7,), 1.0, dtype=np.float32)
+CAL_ABS_ACTION_MIN = (
+    np.asarray([-0.20, -0.50, 0.3, -3.15, -0.50, -3.15, -1.0], np.float32) - 0.01
+)
+CAL_ABS_ACTION_MAX = (
+    np.asarray([0.36, 0.12, 0.70, 3.15, 0.30, 3.15, 1.0], np.float32) + 0.01
+)
+TASK_EMBED_MIN = np.zeros((512,), dtype=np.float32)
+TASK_EMBED_MAX = np.ones((512,), dtype=np.float32)
 IMAGE_MIN = np.zeros((3,), dtype=np.float32)
 IMAGE_MAX = np.ones((3,), dtype=np.float32)
 

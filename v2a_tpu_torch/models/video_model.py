@@ -2,13 +2,16 @@
 
 Counterpart of `v2a_tpu/models/video_model.py` (the reference's
 `Video_PredModel`, `diffuser/models/video_model.py:9-85`). Videos are
-(B, F, H, W, 3) channels-last; the conditioning frame is tiled over F on the
-channel axis. The sampler runs on the card by default; `device="cpu"` is
-for tests. `loss` is the training objective; `train/video_trainer.py` trains
-the U-Net. `sample_u8_stream` is `sample_u8` cut into chunks of the
+(B, F, H, W, channels) channels-last; the conditioning frame (cond_channels)
+is tiled over F on the channel axis. The sampler runs on the card by
+default; `device="cpu"` is for tests. `loss` is the training objective;
+`train/video_trainer.py` trains the U-Net. `sample_u8_stream` is `sample_u8` cut into chunks of the
 denoising chain that a caller dispatches one at a time (`VideoSampleStream`).
 `load_converted` reads a reference checkpoint converted by
-`scripts/convert_ckpt.py`.
+`scripts/convert_ckpt.py`. `cond_channels` gives the conditioning frame
+its own channel count (the flow variants of `models/env_variants.py`);
+`backbone="xattn"` builds `models/video_unet_xattn.py` in place of the
+U-Net.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from v2a_tpu_torch.models.clip_text import (
 )
 from v2a_tpu_torch.models.init import init_params
 from v2a_tpu_torch.models.video_unet import VideoUNet
+from v2a_tpu_torch.models.video_unet_xattn import VideoUNetXAttn
 from v2a_tpu_torch.ops.gaussian_diffusion import GaussianDiffusion
 from v2a_tpu_torch.ops.schedules import DiffusionSchedule
 
@@ -59,6 +63,13 @@ class VideoModelConfig:
     num_head_channels: int = 32
     text_dim: int = 512
     dtype: str = "float32"
+    # conditioning-frame channels where they differ from the predicted ones
+    # (the MW flow variants: 2-channel flow on an rgb frame); None = channels
+    cond_channels: Optional[int] = None
+    # 'unet' = `VideoUNet` (Perceiver-pooled additive text conditioning, the
+    # release model); 'xattn' = `VideoUNetXAttn` (cross-attention
+    # conditioning). The routing fields below apply to 'unet' only.
+    backbone: str = "unet"
     # fused kernel routing; None = on when the device is cuda
     fused: Optional[bool] = None
     # with `fused`: the padded-stream routing (K3 / K4 / K5 at the levels
@@ -93,11 +104,15 @@ class VideoModelConfig:
     def video_future_horizon(self) -> int:
         return self.sample_per_seq - 1
 
+    @property
+    def cond_ch(self) -> int:
+        return self.channels if self.cond_channels is None else self.cond_channels
+
 
 class VideoNets(nn.Module):
     """The two networks under one state dict: `unet.*` and `text.*`."""
 
-    def __init__(self, unet: VideoUNet, text: ClipTextEncoder):
+    def __init__(self, unet: nn.Module, text: ClipTextEncoder):
         super().__init__()
         self.unet = unet
         self.text = text
@@ -109,6 +124,8 @@ class VideoPredModel:
     def __init__(self, config: Optional[VideoModelConfig] = None,
                  tokenizer: Optional[ClipTokenizerWrapper] = None, device: DeviceLike = None):
         self.config = cfg = config or VideoModelConfig()
+        if cfg.backbone not in ("unet", "xattn"):
+            raise ValueError(f"unknown backbone {cfg.backbone!r}")
         self.device = resolve_device(device)
         dt = dtype_of(cfg.dtype)
         fused = cfg.fused if cfg.fused is not None else self.device.type == "cuda"
@@ -129,17 +146,25 @@ class VideoPredModel:
         )
 
     @property
-    def unet(self) -> VideoUNet:
+    def unet(self) -> nn.Module:
         return self.nets.unet
 
     def build_unet(self, fused: bool = False, train_fused: bool = False,
-                   wgrad_kernel: bool = False) -> VideoUNet:
-        """A new U-Net of this config with the given routing (parameters
-        uninitialized, on the current default device); every routing takes
-        the same state dict."""
+                   wgrad_kernel: bool = False) -> nn.Module:
+        """A new network of this config's backbone with the given routing
+        (parameters uninitialized, on the current default device); every
+        routing takes the same state dict. The routing applies to the U-Net
+        only: the xattn backbone has none, as the JAX package passes it
+        none (`v2a_tpu/models/video_model.py:129-140`)."""
         cfg = self.config
+        if cfg.backbone == "xattn":
+            return VideoUNetXAttn(
+                in_channels=cfg.channels + cfg.cond_ch, out_channels=cfg.channels,
+                block_out_channels=tuple(cfg.model_channels * m for m in cfg.channel_mult),
+                layers_per_block=cfg.num_res_blocks, context_dim=cfg.text_dim,
+                dtype=dtype_of(cfg.dtype))
         return VideoUNet(
-            in_channels=2 * cfg.channels, model_channels=cfg.model_channels,
+            in_channels=cfg.channels + cfg.cond_ch, model_channels=cfg.model_channels,
             out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
             attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
             num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
@@ -153,13 +178,13 @@ class VideoPredModel:
         )
 
     @property
-    def loss_unet(self) -> VideoUNet:
+    def loss_unet(self) -> nn.Module:
         """The U-Net `loss` evaluates: the non-fused routing on the frozen
         weights, as the JAX package's `_model_fn(for_training=True)` clones
         the U-Net with `fused=False`. Built once, on the meta device, then
         given `unet`'s own Parameter objects (shared, never copied); `unet`
-        itself when that is already non-fused."""
-        if not self.unet.fused:
+        itself when that is already non-fused (and for the xattn backbone)."""
+        if not getattr(self.unet, "fused", False):
             return self.unet
         if self._loss_unet is None:
             with torch.device("meta"):
@@ -227,18 +252,18 @@ class VideoPredModel:
 
     def sample(self, x_conds, tasks: List[str], generator: Optional[torch.Generator] = None,
                init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x_conds float [0, 1] (B, H, W, 3); returns (B, F, H, W, 3) in [0, 1]:
-        the whole chain in one chunk. `init_noise` overrides x_T
-        (reproducible sampling, tests)."""
+        """x_conds float [0, 1] (B, H, W, cond_ch); returns (B, F, H, W,
+        channels) in [0, 1]: the whole chain in one chunk. `init_noise`
+        overrides x_T (reproducible sampling, tests)."""
         return VideoSampleStream(self, x_conds, tasks, generator, 1, init_noise).result()
 
     def loss(self, video01: torch.Tensor, x_cond01: torch.Tensor, task_embed: torch.Tensor,
              t: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The denoising loss (`goal_diffusion.py:690-733`) of target frames
-        video01 (B, F, H, W, 3) in [0, 1] given x_cond01 (B, H, W, 3), the
-        value through `loss_unet`: the frozen weights on the non-fused
-        routing, as the JAX package's `_model_fn(for_training=True)` (the
+        video01 (B, F, H, W, channels) in [0, 1] given x_cond01 (B, H, W,
+        cond_ch), the value through `loss_unet`: the frozen weights on the
+        non-fused routing, as the JAX package's `_model_fn(for_training=True)` (the
         fused routing would round as its kernels do, a different function).
         Gradients come from a trainable U-Net of `build_unet(fused=False)`,
         as `VideoModelTrainer` builds."""
@@ -319,8 +344,8 @@ class VideoSampleStream:
         return self._next < len(self._bounds)
 
     def result(self) -> torch.Tensor:
-        """Finish the chain; returns the (B, F, H, W, 3) video in [0, 1] on
-        the model's device."""
+        """Finish the chain; returns the (B, F, H, W, channels) video in [0,
+        1] on the model's device."""
         if self._result is None:
             while self.pump(1):
                 pass

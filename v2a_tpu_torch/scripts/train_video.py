@@ -5,8 +5,10 @@ model in the AVDC codebase: `GoalGaussianDiffusion` + `Trainer`,
 `flowdiffusion/flowdiffusion/goal_diffusion.py:762-1055`): a
 `VideoClipDataset` over the framework's HDF5 episode files,
 `VideoModelTrainer` (EMA, loss-aware timestep resampling, milestone
-checkpoints, the `train_fused` routing on the card at B <= 4), resume, and
-a validation sample through the padded routing at the end.
+checkpoints, the `train_fused` routing on the card at B <= 4 for the U-Net),
+resume, and a validation sample at the end (the U-Net through the padded
+routing; `--backbone xattn` trains and samples the cross-attention
+backbone, plain PyTorch).
 
 Examples:
     python -m v2a_tpu_torch.scripts.train_video --data clips.hdf5 \
@@ -17,8 +19,8 @@ Examples:
 The models run on the card unless `--device cpu` is given. `main` opens
 `--data` (this needs `h5py`); `run` takes the parsed arguments and any
 dataset with `sample_batch(batch, rng)` and `__len__`. Not ported (each
-raises `NotImplementedError`; ROADMAP.md, Queue 1): `--mesh`,
-`--use-checkpoint` and `--backbone xattn`.
+raises `NotImplementedError`; ROADMAP.md, Queue 1): `--mesh` and
+`--use-checkpoint`.
 """
 
 import argparse
@@ -83,8 +85,7 @@ def build_parser():
 def parse_args(argv=None):
     """The parsed arguments; raises on the options that are not ported."""
     args = build_parser().parse_args(argv)
-    left_out = {"--mesh": bool(args.mesh), "--use-checkpoint": args.use_checkpoint,
-                "--backbone xattn": args.backbone == "xattn"}
+    left_out = {"--mesh": bool(args.mesh), "--use-checkpoint": args.use_checkpoint}
     for flag, given in left_out.items():
         if given:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, Queue 1)")
@@ -110,6 +111,7 @@ def run(args, dataset, tasks):
         ),
         text_dim=args.text_dim,
         dtype=dtype,
+        backbone=args.backbone,
     )
     model = VideoPredModel(vcfg, device=dev).init(0)
     tcfg = VideoTrainerConfig(

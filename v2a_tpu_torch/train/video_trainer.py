@@ -8,7 +8,9 @@ resampling and milestone checkpoints, bf16 compute and float32 parameters.
   forward kernels have no backward) and, on the card at B <= 4, the
   `train_fused` routing (K1 forward and dgrad through `ops/conv_vjp.py`, K6
   as the wgrad with `wgrad_kernel`), loads the model's U-Net weights into it
-  and trains it; the text tower stays frozen. At the end the EMA weights go
+  and trains it; the text tower stays frozen. The xattn backbone has no
+  routing: its one plain path trains, as `train_fused` applies in the JAX
+  trainer only where the network has it (:186). At the end the EMA weights go
   back into `model.unet`.
 - The optimizer is the JAX package's `optax.chain(clip_by_global_norm(c),
   adam(lr, b1, b2))`: the global norm in float32, scale = c / max(norm, c),
