@@ -162,7 +162,24 @@ Phases (any failure exits non-zero):
      --sample-after` bit-equal); the transformer denoiser (B=1 and B=64
      forwards against float32, a backward and an AdamW step); its wall time
      on its own line (libero, mw and thor_luo are the release config);
-  12. the lab kernels: the port's perf lab (`python -m
+  12. the guided image family (`v2a_tpu_torch/guided/`, its seven CLIs in
+     `v2a_tpu_torch/scripts/guided/`), bf16, at the published widths of
+     openai/guided-diffusion's README (the 64x64 model, its classifier, the
+     64 -> 256 upsampler; weights from a seed): the 64x64 model's B=16
+     forward with every parameter drawn against float32 (max error over
+     the float32 output's std under 0.1), then through `main(argv)`:
+     `image_train` (3 steps at B=8, resumed for 1, the restored weights
+     bit-equal to the snapshot), `image_sample` (B=16, 25 respaced steps,
+     ancestral and DDIM), `classifier_train` (2 steps at B=8) and
+     `classifier_sample` (B=8; the first guidance gradient finite and
+     non-zero), `super_res_train` (2 steps at B=4 or the largest that fits,
+     then a step with `--use_checkpoint True`: the same loss, a lower peak),
+     `super_res_sample` on the samples (6 at B=4, 256^2), `image_nll` (4
+     images); finite losses, the npz files' shapes and dtypes, and no
+     kernel of the port launched (the JAX nets reach no Pallas kernel); ms
+     per forward and per step, s per sample batch, peak memory, the
+     phase's wall time;
+  13. the lab kernels: the port's perf lab (`python -m
      v2a_tpu_torch.scripts.perf_lab winobench2 tconvbench2`), the path that
      launches K14 and K15; K13 against K3 at every K3 signature of the
      padded forward, bit for bit (K3's mainloop, its copies by TMA); then
@@ -173,7 +190,7 @@ Phases (any failure exits non-zero):
      reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
      bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
      each on three input sets;
-  13. prints the `kernels` JSON line, then the device line last.
+  14. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed (phase 10: the writer's reference
 checkpoints, from the same seed); text goes through the offline
@@ -185,7 +202,9 @@ Per-shape results go to `chiprun_out/chip_smoke_shapes.json`; the trainers
 write their checkpoints under `logs/chip_smoke_train/`,
 `logs/chip_smoke_online/` and `logs/chip_smoke_video/`, phase 10 its
 reference and converted checkpoints under `logs/chip_smoke_ckpt/`, phase 11
-its trainers' under `logs/chip_smoke_family/`, and the script removes them.
+its trainers' under `logs/chip_smoke_family/`, phase 12 its images,
+snapshots and samples under `logs/chip_smoke_guided/`, and the script
+removes them.
 """
 
 import contextlib
@@ -3322,8 +3341,433 @@ def model_families(rk, held, dev, smi):
     return report, rows, agg, launches
 
 
+# phase 12, the guided image family: the published flag sets of
+# openai/guided-diffusion's README (its "64x64 model", "64x64 classifier" and
+# "64x64 -> 256x256 upsampler"). `--dropout 0.1`, `--use_new_attention_order
+# True` and `--num_heads 4` are left out: neither package has them (heads
+# come from `--num_head_channels 64`)
+GUIDED_MODEL_FLAGS = [
+    "--attention_resolutions", "32,16,8", "--class_cond", "True", "--diffusion_steps", "1000",
+    "--image_size", "64", "--learn_sigma", "True", "--noise_schedule", "cosine",
+    "--num_channels", "192", "--num_head_channels", "64", "--num_res_blocks", "3",
+    "--resblock_updown", "True", "--use_scale_shift_norm", "True"]
+GUIDED_CLASSIFIER_FLAGS = [
+    "--image_size", "64", "--classifier_attention_resolutions", "32,16,8",
+    "--classifier_depth", "4", "--classifier_width", "128", "--classifier_pool", "attention",
+    "--classifier_resblock_updown", "True", "--classifier_use_scale_shift_norm", "True"]
+GUIDED_SR_FLAGS = [
+    "--large_size", "256", "--small_size", "64", "--num_channels", "192",
+    "--num_res_blocks", "2", "--attention_resolutions", "32,16,8", "--class_cond", "True",
+    "--learn_sigma", "True", "--noise_schedule", "linear", "--resblock_updown", "True",
+    "--use_scale_shift_norm", "True"]
+# bf16 compute (the JAX package maps --use_fp16 to bf16), for the classifier too
+GUIDED_FP16 = ["--use_fp16", "True", "--classifier_use_fp16", "True"]
+GUIDED_IMAGES = (64, 64)  # synthetic class-prefixed .npy images, count and side
+GUIDED_CLASSES = 8
+GUIDED_RESPACING = "25"
+# batches: the forward gate, image_train, image_sample, classifier_train and
+# classifier_sample, super_res_train (less by one while it does not fit),
+# super_res_sample, image_nll
+GUIDED_B = dict(forward=16, train=8, sample=16, classifier=8, sr_train=4, sr_sample=4,
+                sr_samples=6, nll=4)
+GUIDED_TRAIN_STEPS = 3
+GUIDED_LOGS = os.path.join(ROOT, "logs", "chip_smoke_guided")
+GUIDED_BUDGET_S = 120
+
+
+def _draw_every_parameter(net, seed):
+    """Every parameter from `seed`: `init_params`, then the layers it keeps
+    at zero drawn as their kind is (lecun-normal), and every vector (norm
+    scales, biases) moved by 0.1 x a normal draw. A fresh image U-Net
+    outputs exactly zero, which no gate can read."""
+    from torch import nn
+
+    from v2a_tpu_torch.models.init import init_params
+
+    dev = next(net.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init_params(net, gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if getattr(m, "zero_init", False):
+                for p in m.parameters(recurse=False):
+                    if p.ndim > 1:
+                        fan_in = p.shape[1] if isinstance(m, nn.Linear) else p[..., 0].numel()
+                        p.normal_(0.0, fan_in ** -0.5, generator=gen)
+        for p in net.parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=dev))
+    return net
+
+
+def _block_errors(net16, net32, args):
+    """Max |bf16 - f32| / std(f32) at the output of every top-level block,
+    in the order they run: where the bf16 error grows."""
+    outs = {}
+
+    def hook(tag, name):
+        def fn(module, inputs, out):
+            outs.setdefault(name, {})[tag] = out.float()
+        return fn
+
+    handles = [m.register_forward_hook(hook(tag, name))
+               for tag, net in (("bf16", net16), ("f32", net32))
+               for name, m in net.named_children()]
+    with torch.no_grad():
+        net16(*args)
+        net32(*args)
+    for h in handles:
+        h.remove()
+    return {name: float((o["bf16"] - o["f32"]).abs().max() / o["f32"].std())
+            for name, o in outs.items() if len(o) == 2}
+
+
+def _device_profile(fn, top=8):
+    """One call of `fn` under `torch.profiler`: the device's busy ms (the
+    kernels' summed time), the host's wall ms around it, and the `top` ops
+    by the device time of the kernels they launch. None where the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    busy = sum(dev_us(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
+    if not busy:
+        return None
+    ops = sorted(((e.key, dev_us(e) / 1e3, e.count) for e in events
+                  if e.key.startswith("aten::") and dev_us(e)), key=lambda r: -r[1])
+    return dict(busy_ms=busy, wall_ms=wall, idle_share=max(0.0, 1 - busy / wall),
+                top=[dict(op=k, ms=ms, calls=n) for k, ms, n in ops[:top]])
+
+
+@contextlib.contextmanager
+def _timed_train_steps(log_to):
+    """`GuidedTrainLoop.run_step` timed by CUDA events: (ms, loss) a step."""
+    from v2a_tpu_torch.guided.train_loop import GuidedTrainLoop
+
+    real = GuidedTrainLoop.run_step
+
+    def run_step(self, x, kwargs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = real(self, x, kwargs)
+        e1.record()
+        torch.cuda.synchronize()
+        log_to.append((e0.elapsed_time(e1), loss))
+        return loss
+
+    with mock.patch.object(GuidedTrainLoop, "run_step", run_step):
+        yield
+
+
+def _npz_ok(path, n, side, labels):
+    with np.load(path) as obj:
+        arr = obj["arr_0"]
+        lab = obj["arr_1"] if "arr_1" in obj.files else None
+    ok = arr.dtype == np.uint8 and arr.shape == (n, side, side, 3)
+    if labels:
+        ok = ok and lab is not None and lab.shape == (n,)
+    if not ok:
+        fail(f"guided: {path} holds {arr.dtype} {arr.shape}, labels "
+             f"{None if lab is None else lab.shape}")
+    return arr
+
+
+def _guided_train(main, argv, b, report, tag):
+    """One train CLI at batch `b`, less by one while it does not fit: its
+    loop; the batch, (ms, loss) per step, wall s and peak GiB in
+    `report[tag]`."""
+    while True:
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with _timed_train_steps(steps):
+                loop = main(argv + ["--batch_size", str(b)])
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if b == 1:
+                raise
+            log(f"[guided] {tag} at B={b} does not fit the card")
+            b -= 1
+            gc.collect()
+            torch.cuda.empty_cache()
+    report[tag] = dict(b=b, ms=[s[0] for s in steps], loss=[s[1] for s in steps],
+                       s=time.perf_counter() - t0,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if not steps or not np.all(np.isfinite([s[1] for s in steps])):
+        fail(f"guided: {tag} losses {[s[1] for s in steps]}")
+    log(f"[guided] {tag}: B={b}, {len(steps)} steps, ms per step (CUDA events) "
+        f"{[round(s[0], 1) for s in steps]}, losses {[round(s[1], 4) for s in steps]}, peak "
+        f"{report[tag]['peak_gib']:.2f} GiB, wall {report[tag]['s']:.1f} s (build, steps, saves)")
+    return loop
+
+
+def _write_guided_images(d):
+    """`GUIDED_IMAGES` uint8 .npy images, class-prefixed file names."""
+    n, side = GUIDED_IMAGES
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    for i in range(n):
+        np.save(os.path.join(d, f"c{i % GUIDED_CLASSES:03d}_{i}.npy"),
+                rng.integers(0, 255, (side, side, 3), np.uint8))
+
+
+def guided_family(dev, smi):
+    """Phase 12, the guided image family through its CLIs (`main(argv)` of
+    `v2a_tpu_torch/scripts/guided/`), bf16, weights from a seed, the README's
+    flag sets: (a) the 64x64 model's B=16 forward with every parameter drawn,
+    bf16 against float32 (max error over the float32 output's std under
+    `FAMILY_ERR_BOUND`; else the error at every block is logged), ms by CUDA
+    events; (b) `image_train` for `GUIDED_TRAIN_STEPS` steps at B=8, then
+    `--resume_checkpoint` for 1 more (finite losses, the snapshot and EMA
+    files, the restored weights bit-equal to the file); (c) `image_sample`
+    from (b)'s snapshot, B=16, 25 respaced steps, ancestral and DDIM; (d)
+    `classifier_train` 2 steps at B=8, then `classifier_sample` (scale 1.0,
+    25 steps, B=8; the first `cond_fn` gradient finite and non-zero); (e)
+    `super_res_train` 2 steps at B=4 (or the largest that fits), then one
+    step with `--use_checkpoint True` (the same first loss, a lower peak);
+    (f) `super_res_sample` on (c)'s samples, 6 at B=4 (the tail padded),
+    (6, 256, 256, 3); (g) `image_nll` on 4 images, 25 steps; (h) no kernel of
+    the port launched in the whole phase (the JAX nets reach no Pallas
+    kernel). Returns the report."""
+    from v2a_tpu_torch.guided import create_model_and_diffusion, model_and_diffusion_defaults
+    from v2a_tpu_torch.guided.script_util import args_subset
+    from v2a_tpu_torch.scripts.guided import (
+        _common, classifier_sample, classifier_train, image_nll, image_sample, image_train,
+        super_res_sample, super_res_train)
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    shutil.rmtree(GUIDED_LOGS, ignore_errors=True)
+    imgs = os.path.join(GUIDED_LOGS, "images")
+    _write_guided_images(imgs)
+    side = GUIDED_IMAGES[1]
+    cuda = ["--device", str(dev)]
+    model_flags = GUIDED_MODEL_FLAGS + GUIDED_FP16[:2] + cuda
+    report = {}
+
+    # (a) the 64x64 model: bf16 against float32, every parameter drawn
+    defaults = model_and_diffusion_defaults()
+    args = _common.parse(model_flags, defaults)
+    net16, _ = create_model_and_diffusion(**args_subset(args, defaults), device=dev)
+    _draw_every_parameter(net16, SEED + 12)
+    args.use_fp16 = False
+    net32, _ = create_model_and_diffusion(**args_subset(args, defaults), device=dev)
+    net32.load_state_dict(net16.state_dict())
+    for net in (net16, net32):
+        net.eval().requires_grad_(False)
+    b = GUIDED_B["forward"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    fwd = (torch.randn(b, side, side, 3, generator=gen, device=dev),
+           torch.randint(0, 1000, (b,), generator=gen, device=dev),
+           torch.randint(0, 1000, (b,), generator=gen, device=dev))
+    report["model_params"] = sum(p.numel() for p in net16.parameters())
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        out16 = net16(*fwd)
+        report["forward_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out32 = net32(*fwd)
+        report["forward_ms"] = time_ms(lambda: net16(*fwd), 5, 2)
+        report["forward_f32_ms"] = time_ms(lambda: net32(*fwd), 3, 1)
+        report["forward_profile"] = _device_profile(lambda: net16(*fwd))
+    if out16.shape != (b, side, side, 6) or not bool(torch.isfinite(out16).all()):
+        fail(f"guided: the bf16 forward gave {tuple(out16.shape)}, finite "
+             f"{bool(torch.isfinite(out16).all())}")
+    report["err_over_std"] = float((out16 - out32).abs().max()) / float(out32.std())
+    log(f"[guided] {smi}: 64x64 model {report['model_params'] / 1e6:.1f} M params, B={b} bf16 "
+        f"forward {report['forward_ms']:.2f} ms (float32 {report['forward_f32_ms']:.2f}), peak "
+        f"{report['forward_peak_gib']:.2f} GiB, max error / std vs float32 "
+        f"{report['err_over_std']:.3e}")
+    prof = report["forward_profile"]
+    if prof is None:
+        log(f"[guided] torch.profiler saw no device time in the B={b} forward")
+    else:
+        log(f"[guided] B={b} bf16 forward under torch.profiler: device busy "
+            f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms wall (idle share "
+            f"{prof['idle_share']:.3f}); by op (device ms, calls): " + ", ".join(
+                f"{r['op']} {r['ms']:.2f} ({r['calls']})" for r in prof["top"]))
+    if not report["err_over_std"] < FAMILY_ERR_BOUND:
+        for name, err in _block_errors(net16, net32, fwd).items():
+            log(f"[guided]   {name}: max error / std {err:.3e}")
+        fail(f"guided: bf16 forward max error / std {report['err_over_std']:.3e} against "
+             f"float32 is not under {FAMILY_ERR_BOUND}")
+    del net16, net32, out16, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) image_train, then a resumed step
+    train_dir = os.path.join(GUIDED_LOGS, "train")
+    train_argv = model_flags + ["--data_dir", imgs, "--out_dir", train_dir, "--log_interval", "1",
+                                "--save_interval", "0", "--lr", "1e-4"]
+    loop = _guided_train(image_train.main, train_argv + ["--max_steps", str(GUIDED_TRAIN_STEPS)],
+                         GUIDED_B["train"], report, "image_train")
+    n = GUIDED_TRAIN_STEPS
+    snap = os.path.join(train_dir, f"model{n:06d}.pt")
+    for path in (snap, os.path.join(train_dir, f"ema_0.9999_{n:06d}.pt")):
+        if not os.path.exists(path):
+            fail(f"guided: image_train wrote no {path}")
+    del loop
+    restored = []
+    real_restore = image_train.init_or_restore
+
+    def restore(model, path, *a, **k):
+        out = real_restore(model, path, *a, **k)
+        restored.append({n_: v.detach().cpu().clone() for n_, v in out.state_dict().items()})
+        return out
+
+    with mock.patch.object(image_train, "init_or_restore", restore):
+        loop = _guided_train(image_train.main, train_argv + [
+            "--max_steps", "1", "--resume_checkpoint", snap], GUIDED_B["train"], report,
+            "image_train_resumed")
+    saved = torch.load(snap, map_location="cpu", weights_only=True)
+    if not (restored and set(restored[0]) == set(saved)
+            and all(torch.equal(restored[0][k], saved[k]) for k in saved)):
+        fail("guided: the resumed image_train weights are not the saved snapshot's")
+    del loop, saved, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[guided] image_train --resume_checkpoint: the restored weights bit-equal to "
+        f"{os.path.basename(snap)}")
+
+    # (c) image_sample, ancestral and DDIM
+    steps = ["--timestep_respacing", GUIDED_RESPACING]
+    b = GUIDED_B["sample"]
+    samples = {}
+    for kind, extra in (("ancestral", []), ("ddim", ["--use_ddim", "True"])):
+        t0 = time.perf_counter()
+        samples[kind] = image_sample.main(model_flags + steps + extra + [
+            "--model_path", snap, "--num_samples", str(b), "--batch_size", str(b),
+            "--out_dir", os.path.join(GUIDED_LOGS, f"sample_{kind}")])
+        report[f"sample_{kind}_s"] = time.perf_counter() - t0
+        _npz_ok(samples[kind], b, side, labels=True)
+    log(f"[guided] image_sample B={b}, {GUIDED_RESPACING} respaced steps: ancestral "
+        f"{report['sample_ancestral_s']:.2f} s, DDIM {report['sample_ddim_s']:.2f} s a batch "
+        f"({smi})")
+
+    # (d) classifier_train, then classifier-guided sampling
+    b = GUIDED_B["classifier"]
+    cls_flags = GUIDED_CLASSIFIER_FLAGS + GUIDED_FP16[2:] + cuda
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cls_ckpt = classifier_train.main(cls_flags + [
+        "--data_dir", imgs, "--batch_size", str(b), "--max_steps", "2", "--save_interval", "0",
+        "--log_interval", "1", "--out_dir", os.path.join(GUIDED_LOGS, "classifier")])
+    torch.cuda.synchronize()
+    report["classifier_train_s"] = time.perf_counter() - t0
+    report["classifier_train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    cls_state = torch.load(cls_ckpt, map_location="cpu", weights_only=True)
+    report["classifier_params"] = sum(v.numel() for v in cls_state.values())
+    if not all(bool(torch.isfinite(v).all()) for v in cls_state.values()):
+        fail("guided: classifier_train wrote non-finite weights")
+    grads = []
+    real_cond = classifier_sample.make_cond_fn
+
+    def recording(classifier, scale):
+        fn = real_cond(classifier, scale)
+
+        def cond_fn(x, t, y=None):
+            g = fn(x, t, y)
+            if not grads:
+                grads.append((bool(torch.isfinite(g).all()), float(g.abs().max())))
+            return g
+        return cond_fn
+
+    t0 = time.perf_counter()
+    with mock.patch.object(classifier_sample, "make_cond_fn", recording):
+        guided = classifier_sample.main(model_flags + cls_flags + steps + [
+            "--model_path", snap, "--classifier_path", cls_ckpt, "--classifier_scale", "1.0",
+            "--num_samples", str(b), "--batch_size", str(b),
+            "--out_dir", os.path.join(GUIDED_LOGS, "classifier_sample")])
+    report["classifier_sample_s"] = time.perf_counter() - t0
+    _npz_ok(guided, b, side, labels=True)
+    if not (grads and grads[0][0] and grads[0][1] > 0):
+        fail(f"guided: the first cond_fn gradient (finite, max |g|) {grads}")
+    report["cond_fn_max_abs"] = grads[0][1]
+    log(f"[guided] classifier_train: {report['classifier_params'] / 1e6:.1f} M params, B={b}, "
+        f"2 steps {report['classifier_train_s']:.1f} s, peak "
+        f"{report['classifier_train_peak_gib']:.2f} GiB; classifier_sample B={b}, "
+        f"{GUIDED_RESPACING} steps {report['classifier_sample_s']:.2f} s, first cond_fn "
+        f"max |grad| {grads[0][1]:.3e}")
+
+    # (e) super_res_train, then a step with --use_checkpoint
+    sr_flags = GUIDED_SR_FLAGS + GUIDED_FP16[:2] + cuda
+    sr_dir = os.path.join(GUIDED_LOGS, "super_res")
+    sr_argv = sr_flags + ["--data_dir", imgs, "--log_interval", "1", "--save_interval", "0"]
+    loop = _guided_train(super_res_train.main, sr_argv + ["--max_steps", "2", "--out_dir", sr_dir],
+                         GUIDED_B["sr_train"], report, "super_res_train")
+    report["sr_params"] = sum(p.numel() for p in loop.model.parameters())
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = report["super_res_train"]
+    loop = _guided_train(super_res_train.main, sr_argv + [
+        "--max_steps", "1", "--use_checkpoint", "True", "--out_dir", sr_dir + "_checkpoint"],
+        plain["b"], report, "super_res_train_checkpoint")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = report["super_res_train_checkpoint"]
+    loss_diff = abs(ckpt["loss"][0] - plain["loss"][0])
+    log(f"[guided] super_res_train: {report['sr_params'] / 1e6:.1f} M params; --use_checkpoint "
+        f"True: first loss {ckpt['loss'][0]!r} against {plain['loss'][0]!r} (difference "
+        f"{loss_diff:.3e}), peak {ckpt['peak_gib']:.2f} against {plain['peak_gib']:.2f} GiB")
+    if loss_diff > 1e-3 * abs(plain["loss"][0]) or not ckpt["peak_gib"] < plain["peak_gib"]:
+        fail("guided: --use_checkpoint changed the loss or did not lower the peak memory")
+
+    # (f) super_res_sample on (c)'s samples
+    n, b = GUIDED_B["sr_samples"], GUIDED_B["sr_sample"]
+    big = int(GUIDED_SR_FLAGS[GUIDED_SR_FLAGS.index("--large_size") + 1])
+    t0 = time.perf_counter()
+    up = super_res_sample.main(sr_flags + steps + [
+        "--model_path", os.path.join(sr_dir, "model000002.pt"),
+        "--base_samples", samples["ancestral"], "--num_samples", str(n), "--batch_size", str(b),
+        "--out_dir", os.path.join(GUIDED_LOGS, "super_res_sample")])
+    report["super_res_sample_s"] = time.perf_counter() - t0
+    _npz_ok(up, n, big, labels=True)
+    log(f"[guided] super_res_sample: {n} images at B={b} ({-(-n // b)} batches, the tail padded), "
+        f"{GUIDED_RESPACING} steps, {report['super_res_sample_s']:.2f} s, ({n}, {big}, {big}, 3)")
+
+    # (g) image_nll
+    b = GUIDED_B["nll"]
+    nll_dir = os.path.join(GUIDED_LOGS, "nll")
+    t0 = time.perf_counter()
+    bpd = image_nll.main(model_flags + steps + [
+        "--data_dir", imgs, "--model_path", snap, "--num_samples", str(b),
+        "--batch_size", str(b), "--out_dir", nll_dir])
+    report["nll_s"], report["bpd"] = time.perf_counter() - t0, bpd
+    for term in ("vb", "mse", "xstart_mse"):
+        with np.load(os.path.join(nll_dir, f"{term}_terms.npz")) as obj:
+            vals = obj["arr_0"]
+        if vals.shape != (int(GUIDED_RESPACING),) or not np.isfinite(vals).all():
+            fail(f"guided: image_nll {term}_terms {vals.shape}, finite {np.isfinite(vals).all()}")
+    if not np.isfinite(bpd):
+        fail(f"guided: image_nll bpd={bpd}")
+    log(f"[guided] image_nll: {b} images, {GUIDED_RESPACING} steps, bpd={bpd:.4f}, "
+        f"{report['nll_s']:.2f} s")
+
+    # (h) no hand kernel
+    if any(launch_counts().values()):
+        fail(f"guided: launched kernels {launch_counts()}")
+    shutil.rmtree(GUIDED_LOGS, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[guided] no kernel of the port launched in the phase; phase 12 wall time "
+        f"{report['phase_s']:.1f} s (budget {GUIDED_BUDGET_S}) ({smi})")
+    return report
+
+
 def lab_kernels(rk, routing_calls, dev):
-    """Phase 12, the lab kernels' main paths, then their gates. The port's
+    """Phase 13, the lab kernels' main paths, then their gates. The port's
     perf lab (`winobench2`, `tconvbench2`), the path that launches K14 and
     K15; K13 held against K3 at every K3 signature of the padded forward, on
     K3's first input set, bit for bit (the JAX package's own caller of K13,
@@ -3475,10 +3919,12 @@ def main():
     # 11. the model families: the env variants, the xattn backbone, the
     # transformer denoiser
     family, family_rows, family_agg, family_launches = model_families(rk, held, dev, smi)
-    # 12. the lab kernels' paths and gates
+    # 12. the guided image family through its CLIs: no kernel of the port
+    guided = guided_family(dev, smi)
+    # 13. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
 
-    # 13. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
+    # 14. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
     # `spatial_k10_k11`, K12 of `padded_k12`, K6 over one B=4 train step,
     # K13 over K3's calls of one padded forward, K14 over K10's of one
@@ -3532,6 +3978,7 @@ def main():
                        video_launches=video_launches, checkpoints=ckpt,
                        checkpoint_launches=ckpt_launches, families=family,
                        family_shapes=family_rows, family_launches=family_launches,
+                       guided=guided,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
                        **forward), fh, indent=1)

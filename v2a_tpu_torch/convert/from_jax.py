@@ -70,6 +70,15 @@ def transformer_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return video_tree(params)
 
 
+def image_net_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `ImageUNet` or `EncoderUNet` params (`models/image_unet.py`) ->
+    state dict of the port's net of the same name, for a strict
+    `load_state_dict`: the port keeps the JAX names and the HWIO conv
+    kernels; dense kernels transpose, `label_emb.embedding` is the
+    embedding's weight."""
+    return video_tree(params)
+
+
 def policy_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX `DiffusionPolicy.init` params -> state dict of the port's
     `PolicyNets`."""

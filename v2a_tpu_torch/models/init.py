@@ -4,7 +4,8 @@ Draws every weight from one `torch.Generator`, with the JAX package's
 initializer scales: lecun-normal (std 1/sqrt(fan_in)) for dense and conv
 weights, zero biases, unit norm scales, and the per-module `init_std` of
 learned embeddings. Parameters a module builds with fixed values (norm
-scales, the identity temporal kernel) keep them.
+scales, the identity temporal kernel) keep them, and a module flagged
+`zero_init` (a layer the JAX package initializes to zero) stays zero.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from torch import nn
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for m in module.modules():
+        if getattr(m, "zero_init", False):
+            for p in m.parameters(recurse=False):
+                p.zero_()
+            continue
         for name, std in getattr(m, "init_std", {}).items():
             getattr(m, name).normal_(0.0, std, generator=generator)
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
