@@ -189,7 +189,14 @@ Phases (any failure exits non-zero):
      the lab's (one ulp of its plain version; its difference from K10
      reported), K15 at the lab's three shapes (bit-equal to K2 with a zero
      bias: K2's launch) and K9 at head widths 8, 40, 80 and 160 (C 640),
-     each on three input sets;
+     each on three input sets; then the perf lab's paths at release width
+     (`LAB_FORWARDS`: the five ablations and four fused routings, each
+     forward's launches against `LAB_PER_FORWARD`, outputs finite;
+     `trace_chain` at `LAB_CHAIN_STEPS` DDIM steps and
+     `trace_vtrain:4:tfused`, each naming every hand kernel its routing
+     launches (`LAB_TRACE_KERNELS`) by its C entry with a nonzero device
+     time, 0 < busy <= wall; `affconvbench`, `megabench:L1`,
+     `tconvbench`);
   14. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed (phase 10: the writer's reference
@@ -234,7 +241,7 @@ TASKS = [
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 PEAK_F32 = 67e12  # H100 SXM float32 rate outside the tensor cores (K7's operations)
-# the U-Net routings of phases 3-5: VideoModelConfig / VideoUNet arguments
+# the U-Net routings of phases 3-5: VideoModelConfig arguments (`_routed_unet`)
 ROUTINGS = {
     "padded": dict(fused=True),
     "unpadded": dict(fused=True, padded_stream=False),
@@ -313,6 +320,25 @@ EXPECTED_PER_TRAIN_STEP = {
 }
 # K9's head widths off the release routings, held in the lab phase
 K9_WIDTHS = (8, 40, 80, 160)
+# phase 13, the perf lab's paths (`v2a_tpu_torch/scripts/perf_lab.py`) at
+# release width: its forward names, their launches per forward (traced on
+# the meta device by tests/test_torch_perf_lab.py), its traces with the hand
+# kernels each routing launches, its benches
+LAB_FORWARDS = ("base", "no_attn", "no_temporal", "no_gn", "conv_only", "fused",
+                "fused_default", "fused_attn", "fused_upconv")
+LAB_PER_FORWARD = dict(
+    {name: {} for name in LAB_FORWARDS[:5]},
+    fused={"temporal_conv_fused": 63},
+    fused_default=EXPECTED_PER_FORWARD["padded"],
+    fused_attn=dict(EXPECTED_PER_FORWARD["padded"], fused_spatial_attention_padded=11),
+    fused_upconv=EXPECTED_PER_FORWARD["padded"])
+LAB_ITERS = 3  # timed forwards after one warm forward
+LAB_CHAIN_STEPS = 4  # DDIM steps of trace_chain
+LAB_TRACE_KERNELS = {
+    "trace_chain": tuple(EXPECTED_PER_FORWARD["padded"]),
+    "trace_vtrain:4:tfused": ("fused_affine_conv3x3", "wgrad_conv3x3"),
+}
+LAB_BENCHES = ("affconvbench", "megabench:L1", "tconvbench")
 # K6 also at small shapes, where a lost pixel or a wrong border tap shows
 # above its gate, and at the edges of its tiling and plan: W below the 8x8
 # tile, H and W not multiples of it, chunk boundaries mid-sample and a
@@ -1698,6 +1724,16 @@ def _arch(routing):
     return {k: v for k, v in ROUTINGS[routing].items() if k in ARCH}
 
 
+def _routed_unet(vcfg, routing):
+    """A bf16 `VideoUNet` of `vcfg` with `ROUTINGS[routing]` (its `fused`,
+    its `ConvRouting` from the config, its architecture), uninitialized."""
+    from v2a_tpu_torch.models.video_unet import VideoUNet
+
+    cfg = dataclasses.replace(vcfg, **ROUTINGS[routing])
+    return VideoUNet(dtype=torch.bfloat16, fused=cfg.fused, routing=cfg.conv_routing(),
+                     **_unet_kw(cfg))
+
+
 def check_forward(rk, nets, inputs, vcfg, dev, expected=EXPECTED_PER_FORWARD, tag="forward"):
     """Phase 4 (and phase 11 for each variant, its counts `expected`):
     launch counts, each routing vs plain vs float32, times in turns. `nets`:
@@ -2132,7 +2168,7 @@ def online_loop(rk, routing_calls, dev, smi):
     t0 = time.perf_counter()
     trainer, policy, env_list, video_model = build_experiment(cfg)
     build_s = time.perf_counter() - t0
-    if not (video_model.unet.fused and video_model.unet.padded_stream):
+    if not (video_model.unet.fused and video_model.unet.routing.padded_stream):
         fail("online: the video model did not resolve to the padded routing on cuda")
     if trainer.envBuf_vid.backend != "native" or trainer.cfg.prefetch_depth != 2:
         fail("online: expected the native replay store and prefetch depth 2")
@@ -2610,7 +2646,7 @@ def stream_gate(cfg, smi):
     vcfg = dataclasses.replace(cfg.video, timesteps=STREAM_STEPS,
                                sampling_timesteps=STREAM_STEPS)
     model = VideoPredModel(vcfg, device=cfg.device).init(cfg.seed)
-    if model.diffusion.is_ddim_sampling or not model.unet.padded_stream:
+    if model.diffusion.is_ddim_sampling or not model.unet.routing.padded_stream:
         fail("stream gate: expected the ancestral sampler on the padded routing")
     x = np.random.default_rng(SEED).random((STREAM_B,) + tuple(vcfg.image_size) + (3,),
                                            np.float32)
@@ -2841,7 +2877,7 @@ def reference_checkpoints(rk, held, dev, smi):
     param_bytes = sum(p.numel() * p.element_size() for p in model.nets.parameters())
     report["load_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     report["param_gib"] = param_bytes / 2 ** 30
-    if not (model.unet.fused and model.unet.padded_stream) or model.tokenizer.is_real:
+    if not (model.unet.fused and model.unet.routing.padded_stream) or model.tokenizer.is_real:
         fail("checkpoints: the loaded model is not the padded routing with the hash tokenizer")
     if report["load_peak_gib"] > report["param_gib"] * CKPT_PEAK_SLACK:
         fail(f"checkpoints: the load peaked at {report['load_peak_gib']:.2f} GiB for "
@@ -3002,16 +3038,14 @@ def _family_variant(rk, name, dev):
     {signature: calls} of these runs and the launches of the chain and the
     K6 step."""
     from v2a_tpu_torch.models.env_variants import video_model_variant
-    from v2a_tpu_torch.models.video_unet import VideoUNet
 
     model = video_model_variant(name, device=dev, dtype="bfloat16").init(SEED)
     vcfg = model.config
-    if not (model.unet.fused and model.unet.padded_stream):
+    if not (model.unet.fused and model.unet.routing.padded_stream):
         fail(f"{name}: the U-Net did not resolve to the padded-stream routing on cuda")
     nets = {"padded": model.unet}
     for routing in FAMILY_ROUTINGS[1:]:
-        net = VideoUNet(dtype=torch.bfloat16, **dict(_unet_kw(vcfg), **ROUTINGS[routing]))
-        net = net.to(dev).eval().requires_grad_(False)
+        net = _routed_unet(vcfg, routing).to(dev).eval().requires_grad_(False)
         net.load_state_dict(model.unet.state_dict())
         nets[routing] = net
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3423,30 +3457,27 @@ def _block_errors(net16, net32, args):
 
 
 def _device_profile(fn, top=8):
-    """One call of `fn` under `torch.profiler`: the device's busy ms (the
-    kernels' summed time), the host's wall ms around it, and the `top` ops
-    by the device time of the kernels they launch. None where the profiler
-    saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """One call of `fn` under `torch.profiler`, read by
+    `utils/profiling.py::rollup`: the device's busy ms (the union of the
+    kernel intervals), their summed ms, the host's wall ms around the call,
+    the idle share against each, and the `top` host ops by the device time
+    of the kernels they launch. Fails where the profiler saw no kernel."""
+    from v2a_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    busy = sum(dev_us(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
-    if not busy:
-        return None
-    ops = sorted(((e.key, dev_us(e) / 1e3, e.count) for e in events
-                  if e.key.startswith("aten::") and dev_us(e)), key=lambda r: -r[1])
-    return dict(busy_ms=busy, wall_ms=wall, idle_share=max(0.0, 1 - busy / wall),
-                top=[dict(op=k, ms=ms, calls=n) for k, ms, n in ops[:top]])
+    res = profiling.rollup(prof, topk=top, wall_ms=wall, out=None)
+    if not res["n_events"] or not 0 < res["busy_ms"] <= wall:
+        fail(f"torch.profiler: {res['n_events']} kernels, busy {res['busy_ms']} ms of "
+             f"{wall} ms wall")
+    return dict(busy_ms=res["busy_ms"], summed_ms=res["summed_ms"], wall_ms=wall,
+                idle_share=res["idle_share"], idle_share_summed=1 - res["summed_ms"] / wall,
+                categories=res["categories"],
+                top=[dict(op=o["op"], ms=o["ms"], calls=o["calls"]) for o in res["ops"]])
 
 
 @contextlib.contextmanager
@@ -3590,13 +3621,12 @@ def guided_family(dev, smi):
         f"{report['forward_peak_gib']:.2f} GiB, max error / std vs float32 "
         f"{report['err_over_std']:.3e}")
     prof = report["forward_profile"]
-    if prof is None:
-        log(f"[guided] torch.profiler saw no device time in the B={b} forward")
-    else:
-        log(f"[guided] B={b} bf16 forward under torch.profiler: device busy "
-            f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms wall (idle share "
-            f"{prof['idle_share']:.3f}); by op (device ms, calls): " + ", ".join(
-                f"{r['op']} {r['ms']:.2f} ({r['calls']})" for r in prof["top"]))
+    log(f"[guided] B={b} bf16 forward under torch.profiler: device busy "
+        f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms wall, idle share "
+        f"{prof['idle_share']:.3f} by the union of the kernel intervals "
+        f"({prof['idle_share_summed']:.3f} by their sum, {prof['summed_ms']:.2f} ms); by op "
+        f"(device ms, calls): " + ", ".join(
+            f"{r['op']} {r['ms']:.2f} ({r['calls']:.0f})" for r in prof["top"]))
     if not report["err_over_std"] < FAMILY_ERR_BOUND:
         for name, err in _block_errors(net16, net32, fwd).items():
             log(f"[guided]   {name}: max error / std {err:.3e}")
@@ -3818,6 +3848,49 @@ def lab_kernels(rk, routing_calls, dev):
     return launches, lab_rows, lab_s, rows, agg
 
 
+def lab_paths(dev, smi):
+    """Phase 13, the perf lab's paths at release width through its `main`:
+    `LAB_FORWARDS` (each forward's launches equal to `LAB_PER_FORWARD`, its
+    output finite), the two traces (each names every hand kernel of
+    `LAB_TRACE_KERNELS` by its C entry with a nonzero device time; 0 < busy
+    <= wall), the benches (finite ms). Returns the rows and seconds."""
+    from v2a_tpu_torch.ops import resblock_kernels as rk
+    from v2a_tpu_torch.scripts import perf_lab
+
+    t0 = time.perf_counter()
+    rows = perf_lab.main(list(LAB_FORWARDS), device=dev, iters=LAB_ITERS)
+    forwards_s = time.perf_counter() - t0
+    for r in rows:
+        if r["launches"] != LAB_PER_FORWARD[r["name"]] or not r["finite"]:
+            fail(f"lab {r['name']}: launches {r['launches']} (want "
+                 f"{LAB_PER_FORWARD[r['name']]}), finite {r['finite']}")
+    traces = perf_lab.main(["trace_chain"], device=dev, chain=LAB_CHAIN_STEPS)
+    traces += perf_lab.main(["trace_vtrain:4:tfused"], device=dev)
+    for r in traces:
+        want = {rk.KERNELS[n]["k"]: rk.KERNELS[n]["entry"] for n in LAB_TRACE_KERNELS[r["bench"]]}
+        got = {k: (h["entry"], h["ms"]) for k, h in r["hand"].items()}
+        missing = [k for k, e in want.items() if k not in got or got[k][0] != e or got[k][1] <= 0]
+        if not r["n_events"] or not 0 < r["busy_ms"] <= r["ms"] or missing:
+            fail(f"lab {r['bench']}: {r['n_events']} kernels, busy {r['busy_ms']} of "
+                 f"{r['ms']} ms wall; hand kernels {got}, missing {missing}")
+        log(f"[lab] {smi}: {r['bench']} per {r['per']}: busy {r['busy_ms']:.3f} of "
+            f"{r['ms']:.3f} ms wall, idle share {r['idle_share']:.3f}; hand kernels "
+            + ", ".join(f"{k} {e} {ms:.3f} ms" for k, (e, ms) in sorted(got.items()))
+            + "; top categories " + ", ".join(f"{c['category']} {c['ms']:.3f}"
+                                              for c in r["categories"][:5]))
+    zero_launches()
+    benches = perf_lab.main(list(LAB_BENCHES), device=dev, chain=10, iters=3)
+    bench_launches = {k: v for k, v in launch_counts().items() if v}
+    if not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in benches):
+        fail("lab benches: a row without a finite time")
+    lab_s = time.perf_counter() - t0
+    log(f"[lab] {smi}: the perf lab's paths in {lab_s:.1f} s (forwards {forwards_s:.1f} s): "
+        + ", ".join(f"{r['name']} {r['ms']:.2f} ms" for r in rows)
+        + f"; the benches' launches {bench_launches}")
+    return dict(forwards=rows, traces=traces, benches=benches, bench_launches=bench_launches,
+                seconds=lab_s)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3843,7 +3916,6 @@ def main():
     # 2. build
     from v2a_tpu_torch.models.init import init_params
     from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
-    from v2a_tpu_torch.models.video_unet import VideoUNet
     from v2a_tpu_torch.ops import _build
     from v2a_tpu_torch.ops import resblock_kernels as rk
 
@@ -3859,13 +3931,12 @@ def main():
     vcfg = VideoModelConfig(dtype="bfloat16")
     model = VideoPredModel(vcfg, device=dev).init(SEED)
     unet = model.unet
-    if not (unet.fused and unet.padded_stream) or unet.train_fused:
+    if not (unet.fused and unet.routing.padded_stream) or unet.train_fused:
         fail("the video U-Net did not resolve to the padded-stream fused routing on cuda")
     nets = {"padded": unet}
-    for routing, flags in ROUTINGS.items():
+    for routing in ROUTINGS:
         if routing != "padded":
-            net = VideoUNet(dtype=torch.bfloat16, **dict(_unet_kw(vcfg), **flags))
-            net = net.to(dev).eval().requires_grad_(False)
+            net = _routed_unet(vcfg, routing).to(dev).eval().requires_grad_(False)
             if _arch(routing):  # more attention blocks: its own weights from the seed
                 init_params(net, torch.Generator(device=dev).manual_seed(SEED))
             else:
@@ -3923,6 +3994,7 @@ def main():
     guided = guided_family(dev, smi)
     # 13. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
+    lab = lab_paths(dev, smi)
 
     # 14. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
@@ -3980,7 +4052,7 @@ def main():
                        family_shapes=family_rows, family_launches=family_launches,
                        guided=guided,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
-                       lab_shapes=lab_rows, per_lab=lab_agg, kernels=kernels,
+                       lab_shapes=lab_rows, per_lab=lab_agg, lab_paths=lab, kernels=kernels,
                        **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
         "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "

@@ -169,8 +169,8 @@ def _padded_calls(monkeypatch, name, b, **routing):
 # K4a's calls per release forward: the shipped padded routing at B=8 and at
 # a B=1 request, and padded_mega_off (K4a -> K4b where K3 would run)
 K4A_PATHS = {"padded_b8": (8, {}, 14), "padded_b1": (1, {}, 14),
-             "mega_off_b8": (8, dict(mega_kernel=False), 30),
-             "mega_off_b1": (1, dict(mega_kernel=False), 30)}
+             "mega_off_b8": (8, dict(routing=tvu.ConvRouting(mega_kernel=False)), 30),
+             "mega_off_b1": (1, dict(routing=tvu.ConvRouting(mega_kernel=False)), 30)}
 
 
 @pytest.mark.parametrize("path", list(K4A_PATHS))
@@ -205,8 +205,8 @@ def test_k8_plan_fits_every_release_call(monkeypatch, path):
     per SM, a served request's (N = 7) included, where the 32^2 output takes
     64-pixel tiles (7 x 16 x 2 = 224 CTAs)."""
     b, arch = K8_PATHS[path]
-    calls = _padded_calls(monkeypatch, "fused_downconv3x3_padded", b, downconv=True,
-                          attn_kernel=True, **arch)
+    calls = _padded_calls(monkeypatch, "fused_downconv3x3_padded", b,
+                          routing=tvu.ConvRouting(downconv=True, attn_kernel=True), **arch)
     n = 7 * b
     assert calls == {(n, 128, 128, 128, 128): 1, (n, 64, 64, 256, 256): 1}
     plans = {key: _check_k1_plan(*key, stride=2) for key in calls}
@@ -426,8 +426,8 @@ def _tconv_calls(monkeypatch, b, **routing):
 # and at a B=1 request, padded_mega_off (K4a -> K4b where K3 would run) and
 # the unpadded routing (K2 only)
 TCONV_PATHS = {"padded_b8": (8, {}, 30, 17), "padded_b1": (1, {}, 30, 17),
-               "mega_off_b8": (8, dict(mega_kernel=False), 30, 33),
-               "unpadded_b8": (8, dict(padded_stream=False), 63, 0)}
+               "mega_off_b8": (8, dict(routing=tvu.ConvRouting(mega_kernel=False)), 30, 33),
+               "unpadded_b8": (8, dict(routing=tvu.ConvRouting(padded_stream=False)), 63, 0)}
 
 
 @pytest.mark.parametrize("path", list(TCONV_PATHS))
@@ -497,9 +497,11 @@ def _k11_calls(monkeypatch, b):
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     monkeypatch.setattr(trk, "temporal_conv_fused_hw", record)
     with torch.device("meta"), torch.no_grad():
-        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2_min_ch=0, pallas_spatial=True,
-                      tconv_hw=True)(torch.randn(b, 7, 128, 128, 6),
-                                     torch.zeros(b, dtype=torch.long), torch.randn(b, 77, 512))
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True,
+                      routing=tvu.ConvRouting(spatial2_min_ch=0, pallas_spatial=True,
+                                              tconv_hw=True))(
+            torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
+            torch.randn(b, 77, 512))
     return calls
 
 
@@ -586,7 +588,8 @@ def _k7_calls(monkeypatch, b):
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     monkeypatch.setattr(tgn, "fused_group_norm_silu", record)
     with torch.device("meta"), torch.no_grad():
-        tvu.VideoUNet(dtype=torch.bfloat16, fused=False, use_pallas_gn=True)(
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=False,
+                      routing=tvu.ConvRouting(use_pallas_gn=True))(
             torch.randn(b, 7, 128, 128, 6), torch.zeros(b, dtype=torch.long),
             torch.randn(b, 77, 512))
     return calls
@@ -698,8 +701,8 @@ def test_attention_plan_fits_every_release_call(monkeypatch, path):
     at a B=1 request: each phase's grid has a CTA per SM (the QKV and
     projection GEMMs take smaller token tiles at N = 7)."""
     b, arch, total = K9_PATHS[path]
-    calls = _padded_calls(monkeypatch, "fused_spatial_attention_padded", b, downconv=True,
-                          attn_kernel=True, **arch)
+    calls = _padded_calls(monkeypatch, "fused_spatial_attention_padded", b,
+                          routing=tvu.ConvRouting(downconv=True, attn_kernel=True), **arch)
     assert sum(calls.values()) == total
     for key in calls:
         plan = _check_attention_plan(*key)
@@ -738,9 +741,11 @@ def _k10_signatures(monkeypatch):
     _counting(monkeypatch, trk.wrapper_module, PACKAGE_KERNELS, via_plain=True)
     monkeypatch.setattr(trk, "spatial_conv3x3", record)
     with torch.device("meta"), torch.no_grad():
-        tvu.VideoUNet(dtype=torch.bfloat16, fused=True, spatial2_min_ch=0, pallas_spatial=True,
-                      tconv_hw=True)(torch.randn(8, 7, 128, 128, 6),
-                                     torch.zeros(8, dtype=torch.long), torch.randn(8, 77, 512))
+        tvu.VideoUNet(dtype=torch.bfloat16, fused=True,
+                      routing=tvu.ConvRouting(spatial2_min_ch=0, pallas_spatial=True,
+                                              tconv_hw=True))(
+            torch.randn(8, 7, 128, 128, 6), torch.zeros(8, dtype=torch.long),
+            torch.randn(8, 77, 512))
     return sorted(sigs)
 
 

@@ -178,7 +178,7 @@ def _fused_vs_plain(cuda, padded_stream):
                            text_dim=64, padded_stream=padded_stream)
     model = VideoPredModel(cfg).init(0)
     assert model.device.type == "cuda" and model.unet.fused
-    assert model.unet.padded_stream == padded_stream
+    assert model.unet.routing.padded_stream == padded_stream
     plain = VideoUNet(model_channels=128, channel_mult=(1, 2), num_res_blocks=1,
                       attention_resolutions=(2,), task_token_dim=64).to(cuda).eval()
     plain.load_state_dict(model.unet.state_dict())

@@ -370,15 +370,25 @@ def test_perf_lab_runs_tiny_on_the_cpu():
     assert all(r["ms"] > 0 for r in rows) and 0 < rows[2]["relerr"] < 2e-2
 
 
-@pytest.mark.parametrize("argv", [["megabench"], ["winobench2", "trace"], []],
+@pytest.mark.parametrize("argv,match", [(["winobench2", "megabench:L9"], "level"),
+                                        (["winobench2", "fused_join_wide"], "tap-join"),
+                                        ([], None)],
                          ids=["other-bench", "one-unported", "default-ablations"])
-def test_perf_lab_refuses_what_it_does_not_port(argv, monkeypatch):
-    """Every name is checked before a bench runs; the message names the
-    ROADMAP queue."""
+def test_perf_lab_refuses_what_it_does_not_port(argv, match, monkeypatch):
+    """Every name is checked before a bench runs: a bad argument of another
+    bench and a name with no counterpart on the card (K3's TPU-only tap
+    join) raise `ValueError` saying why, and nothing runs. With no name the
+    lab runs the JAX lab's default, the five ablations, and no bench."""
     ran = []
     monkeypatch.setattr(perf_lab, "BENCHES", {name: lambda **kw: ran.append(kw)
                                               for name in perf_lab.BENCHES})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(perf_lab, "time_forward", lambda name, *a, **k: ran.append(name)
+                        or dict(bench="forward", name=name, ms=1.0))
+    if match is None:
+        perf_lab.main(argv, device="cpu", out=lambda _: None)
+        assert ran == list(perf_lab.ABLATIONS)
+        return
+    with pytest.raises(ValueError, match=match):
         perf_lab.main(argv, device="cpu")
     assert not ran
 

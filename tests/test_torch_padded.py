@@ -316,7 +316,8 @@ def test_padded_unet_matches_jax_default_routing(monkeypatch):
                                 "fused_upconv3x3_padded": 1}
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
     # one converted state dict drives both routings
-    unpadded = _load(tvu.VideoUNet(fused=True, padded_stream=False, **kw), params)
+    unpadded = _load(tvu.VideoUNet(fused=True, routing=tvu.ConvRouting(padded_stream=False),
+                                   **kw), params)
     assert padded.state_dict().keys() == unpadded.state_dict().keys()
     np.testing.assert_allclose(unpadded(_t(x), torch.from_numpy(t), _t(tok)).numpy(),
                                got.numpy(), **UNET_TOL)
@@ -350,52 +351,53 @@ def test_padded_unet_reaches_k4a(monkeypatch):
     (dict(fused=True), {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30,
                         "fused_conv_tconv_padded": 16, "fused_affine_conv3x3_padded": 14,
                         "temporal_conv_padded": 17, "fused_upconv3x3_padded": 3}),
-    (dict(fused=True, padded_stream=False), {"fused_affine_conv3x3": 73,
-                                             "temporal_conv_fused": 63}),
+    (dict(fused=True, routing=tvu.ConvRouting(padded_stream=False)),
+     {"fused_affine_conv3x3": 73, "temporal_conv_fused": 63}),
     # K8 at the two downsamples into a padded level, whose temporal convs
     # move from K2 to K4b; K9 at the 5 attention blocks at 16^2, 6 at 8^2
-    (dict(fused=True, downconv=True, attn_kernel=True),
+    (dict(fused=True, routing=tvu.ConvRouting(downconv=True, attn_kernel=True)),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 28, "fused_conv_tconv_padded": 16,
       "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 19,
       "fused_upconv3x3_padded": 3, "fused_downconv3x3_padded": 2,
       "fused_spatial_attention_padded": 11}),
     # K7: 27 ResBlocks x 2, 11 attention norms, the output norm
-    (dict(use_pallas_gn=True), {"fused_group_norm_silu": 66}),
+    (dict(routing=tvu.ConvRouting(use_pallas_gn=True)), {"fused_group_norm_silu": 66}),
     # the K1 gate off: K10 at every 3x3 stride-1 conv (a launch per part of
     # the up path's pairs), K11 at every temporal conv
-    (dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True),
+    (dict(fused=True, routing=tvu.ConvRouting(spatial2_min_ch=0, pallas_spatial=True,
+                                              tconv_hw=True)),
      {"spatial_conv3x3": 73, "temporal_conv_fused_hw": 63}),
     # K12 in the 19 padded convs without a skip fold, in place of 11 K3 and
     # 8 K4a -> K4b
-    (dict(fused=True, stream_kernel=True),
+    (dict(fused=True, routing=tvu.ConvRouting(stream_kernel=True)),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_stream": 19,
       "fused_conv_tconv_padded": 5, "fused_affine_conv3x3_padded": 6, "temporal_conv_padded": 9,
       "fused_upconv3x3_padded": 3}),
     # padded_k8_k9 with attention at ds 4 / 8 / 16 and 64-channel heads: K9
     # also at the padded 32^2 level (1,024 tokens, 6 heads), 16 calls
-    (dict(fused=True, downconv=True, attn_kernel=True, attention_resolutions=(4, 8, 16),
-          num_head_channels=64),
+    (dict(fused=True, routing=tvu.ConvRouting(downconv=True, attn_kernel=True),
+          attention_resolutions=(4, 8, 16), num_head_channels=64),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 28, "fused_conv_tconv_padded": 16,
       "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 19,
       "fused_upconv3x3_padded": 3, "fused_downconv3x3_padded": 2,
       "fused_spatial_attention_padded": 16}),
     # the padded routing with the mega-kernel switch off (`V2A_MEGA_KERNEL=0`):
     # K4a -> K4b take K3's 16 calls
-    (dict(fused=True, mega_kernel=False),
+    (dict(fused=True, routing=tvu.ConvRouting(mega_kernel=False)),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_affine_conv3x3_padded": 30,
       "temporal_conv_padded": 33, "fused_upconv3x3_padded": 3}),
     # the K1 gate up to H*W 512 (`V2A_SPATIAL2_MAX_S=512`): K1 at 16^2 and 8^2
     # only, no padded level, K2 at every temporal conv
-    (dict(fused=True, spatial2_max_s=512),
+    (dict(fused=True, routing=tvu.ConvRouting(spatial2_max_s=512)),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 63}),
     # the padded routing without K5 (`V2A_UPCONV=0`): its 3 upsample convs
     # nearest-2x, padded, then K3 (1) or K4a -> K4b (2)
-    (dict(fused=True, upconv=False),
+    (dict(fused=True, routing=tvu.ConvRouting(upconv=False)),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_padded": 17,
       "fused_affine_conv3x3_padded": 16, "temporal_conv_padded": 16}),
     # the entry conv on the padded stream (`V2A_ENTRY_PAD=1`): K3 at C=6 in
     # place of a library conv and K2
-    (dict(fused=True, entry_pad=True),
+    (dict(fused=True, routing=tvu.ConvRouting(entry_pad=True)),
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 29, "fused_conv_tconv_padded": 17,
       "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 17,
       "fused_upconv3x3_padded": 3}),
@@ -443,7 +445,8 @@ def test_conv_tconv_plan_fits_every_release_call(monkeypatch):
     along D dividing the grid, full 64-pixel tiles at B=8, a CTA per SM
     (132) for K12 at B=1; and D=64 (the card tests' width) admitted."""
     k3 = _release_calls(monkeypatch, "fused_conv_tconv_padded")
-    k12 = _release_calls(monkeypatch, "fused_conv_tconv_stream", stream_kernel=True)
+    k12 = _release_calls(monkeypatch, "fused_conv_tconv_stream",
+                         routing=tvu.ConvRouting(stream_kernel=True))
     # the JAX gates: K3 at 128^2 and 64^2 (K4a -> K4b at 32^2), K12 at all three
     assert {(h, d) for *_, h, _, d in k3} == {(128, 128), (64, 256)}
     assert {(h, d) for *_, h, _, d in k12} == {(128, 128), (64, 256), (32, 384)}

@@ -326,7 +326,7 @@ def test_downsample_block_matches_jax(monkeypatch):
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     want, wst = jm.apply(params, jvu.PaddedStream(jx, hw), want_stats=True, padded_out=True)
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
-    tm = _load(tvu.Downsample3D(c, fused=True, downconv=True), params)
+    tm = _load(tvu.Downsample3D(c, fused=True, routing=tvu.ConvRouting(downconv=True)), params)
     got, gst = tm(tvu.PaddedStream(tx, hw), want_stats=True, padded_out=True)
     assert jcalls == tcalls == {"fused_downconv3x3_padded": 1, "temporal_conv_padded": 1}
     assert isinstance(got, tvu.PaddedStream) and got.hw == (4, 4)
@@ -358,7 +358,8 @@ def test_attention_block_kernel_matches_jax(monkeypatch, padded):
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     want, wst = jm.apply(params, jin, jnp.asarray(st.numpy()), want_stats=True)
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
-    got, gst = _load(tvu.SpatialAttentionBlock(c, 32, attn_kernel=True), params)(tin, st, True)
+    got, gst = _load(tvu.SpatialAttentionBlock(c, 32, routing=tvu.ConvRouting(attn_kernel=True)),
+                     params)(tin, st, True)
     assert jcalls == tcalls == {"fused_spatial_attention_padded": 1}
     if padded:
         assert isinstance(got, tvu.PaddedStream) and got.hw == hw
@@ -386,7 +387,7 @@ def test_attn_kernel_unet_matches_jax(monkeypatch):
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     want = japply(jvu.VideoUNet(fused=True, **kw), params, x, t, tok)
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
-    got = _load(tvu.VideoUNet(fused=True, attn_kernel=True, **kw), params)(
+    got = _load(tvu.VideoUNet(fused=True, routing=tvu.ConvRouting(attn_kernel=True), **kw), params)(
         _t(x), torch.from_numpy(t), _t(tok))
     assert jcalls == tcalls == {"fused_affine_conv3x3": 12, "temporal_conv_fused": 12,
                                 "fused_conv_tconv_padded": 6, "temporal_conv_padded": 1,
@@ -409,8 +410,8 @@ def test_pallas_gn_unet_matches_jax(monkeypatch):
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     want = japply(jvu.VideoUNet(use_pallas_gn=True, **kw), params, x, t, tok)
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
-    got = _load(tvu.VideoUNet(use_pallas_gn=True, **kw), params)(_t(x), torch.from_numpy(t),
-                                                                 _t(tok))
+    got = _load(tvu.VideoUNet(routing=tvu.ConvRouting(use_pallas_gn=True), **kw), params)(
+        _t(x), torch.from_numpy(t), _t(tok))
     assert jcalls == tcalls == {"fused_group_norm_silu": 21}
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **UNET_TOL)
 
@@ -430,7 +431,7 @@ def test_downconv_unet_launches_and_output(monkeypatch):
     jcalls = _counting(monkeypatch, _jax_module, ALL)
     jax.eval_shape(jvu.VideoUNet(fused=True, **kw).apply, params, x, t, tok)
     tcalls = _counting(monkeypatch, trk.wrapper_module, ALL)
-    got = _load(tvu.VideoUNet(fused=True, downconv=True, **kw), params)(
+    got = _load(tvu.VideoUNet(fused=True, routing=tvu.ConvRouting(downconv=True), **kw), params)(
         _t(x), torch.from_numpy(t), _t(tok))
     want = _load(tvu.VideoUNet(**kw), params)(_t(x), torch.from_numpy(t), _t(tok))
     assert jcalls == tcalls == {"temporal_conv_fused": 1, "fused_conv_tconv_padded": 16,
@@ -440,31 +441,35 @@ def test_downconv_unet_launches_and_output(monkeypatch):
 
 
 ROUTES = {"padded_k8_k9": (dict(PERF_DOWNCONV=True, PERF_PALLAS_ATTN=True), dict(fused=True),
-                           dict(fused=True, downconv=True, attn_kernel=True)),
-          "plain_k7": (dict(), dict(use_pallas_gn=True), dict(use_pallas_gn=True)),
+                           dict(fused=True,
+                                routing=tvu.ConvRouting(downconv=True, attn_kernel=True))),
+          "plain_k7": (dict(), dict(use_pallas_gn=True),
+                       dict(routing=tvu.ConvRouting(use_pallas_gn=True))),
           "spatial_k10_k11": (dict(PERF_PALLAS_SPATIAL2_MIN_CH=0, PERF_PALLAS_SPATIAL=True,
                                    PERF_TCONV_HW=True), dict(fused=True),
-                              dict(fused=True, spatial2_min_ch=0, pallas_spatial=True,
-                                   tconv_hw=True)),
+                              dict(fused=True, routing=tvu.ConvRouting(
+                                  spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True))),
           "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True),
-                         dict(fused=True, stream_kernel=True)),
+                         dict(fused=True, routing=tvu.ConvRouting(stream_kernel=True))),
           # the shipped routing with the mega-kernel off: K4a -> K4b where K3 was
           "padded_mega_off": (dict(PERF_MEGA_KERNEL=False), dict(fused=True),
-                              dict(fused=True, mega_kernel=False)),
+                              dict(fused=True, routing=tvu.ConvRouting(mega_kernel=False))),
           # the K1 gate up to H*W 512: no padded level
           "spatial2_deep": (dict(PERF_PALLAS_SPATIAL2_MAX_S=512), dict(fused=True),
-                            dict(fused=True, spatial2_max_s=512)),
+                            dict(fused=True, routing=tvu.ConvRouting(spatial2_max_s=512))),
           # the upsample convs into a padded level without K5
           "padded_upconv_off": (dict(PERF_UPCONV=False), dict(fused=True),
-                                dict(fused=True, upconv=False)),
+                                dict(fused=True, routing=tvu.ConvRouting(upconv=False))),
           # the 6-channel entry conv on the padded stream
           "padded_entry_pad": (dict(PERF_ENTRY_PAD=True), dict(fused=True),
-                               dict(fused=True, entry_pad=True))}
+                               dict(fused=True, routing=tvu.ConvRouting(entry_pad=True)))}
 # padded_k8_k9 on the release U-Net with attention at ds 4 / 8 / 16 and
 # 64-channel heads: K9 at the padded 32^2 level (1,024 tokens) too
 WIDE = dict(attention_resolutions=(4, 8, 16), num_head_channels=64)
 ROUTES["padded_k8_k9_wide"] = (ROUTES["padded_k8_k9"][0], dict(fused=True, **WIDE),
-                               dict(fused=True, downconv=True, attn_kernel=True, **WIDE))
+                               dict(fused=True, routing=tvu.ConvRouting(downconv=True,
+                                                                         attn_kernel=True),
+                                    **WIDE))
 ARCH = ("attention_resolutions", "num_head_channels")
 
 
@@ -474,12 +479,13 @@ ARCH = ("attention_resolutions", "num_head_channels")
 SWITCHES = {
     # K1 only at 12x12: the 24x24 level neither K1 nor padded
     "spatial2_max_s": (dict(PERF_PALLAS_SPATIAL2_MAX_S=512), dict(fused=True),
-                       dict(fused=True, spatial2_max_s=512)),
+                       dict(fused=True, routing=tvu.ConvRouting(spatial2_max_s=512))),
     # the upsample conv into the padded 24x24 level: nearest-2x, pad, K3
-    "upconv": (dict(PERF_UPCONV=False), dict(fused=True), dict(fused=True, upconv=False)),
+    "upconv": (dict(PERF_UPCONV=False), dict(fused=True),
+               dict(fused=True, routing=tvu.ConvRouting(upconv=False))),
     # the 6-channel entry conv on the padded stream: K3 at C=6
     "entry_pad": (dict(PERF_ENTRY_PAD=True), dict(fused=True),
-                  dict(fused=True, entry_pad=True)),
+                  dict(fused=True, routing=tvu.ConvRouting(entry_pad=True))),
     # the attention's plain path (the non-fused forward): the port's one
     # path against the JAX module's head-major form and its default form
     "attn_hmajor": (dict(PERF_ATTN_HMAJOR=True), dict(), dict()),
@@ -549,8 +555,10 @@ def test_one_state_dict_loads_into_every_routing():
     state dict loads strictly into all five."""
     kw = dict(model_channels=128, channel_mult=(1, 2), num_res_blocks=1,
               attention_resolutions=(2,), task_token_dim=64)
-    routes = [dict(), dict(fused=True), dict(fused=True, padded_stream=False),
-              dict(fused=True, downconv=True, attn_kernel=True), dict(use_pallas_gn=True)]
+    R = tvu.ConvRouting
+    routes = [dict(), dict(fused=True), dict(fused=True, routing=R(padded_stream=False)),
+              dict(fused=True, routing=R(downconv=True, attn_kernel=True)),
+              dict(routing=R(use_pallas_gn=True))]
     nets = [tvu.VideoUNet(**kw, **r) for r in routes]
     state = nets[0].state_dict()
     for net in nets[1:]:

@@ -36,8 +36,10 @@ ALL = PACKAGE_KERNELS
 ROUTES = {
     "spatial_k10_k11": (dict(PERF_PALLAS_SPATIAL2_MIN_CH=0, PERF_PALLAS_SPATIAL=True,
                              PERF_TCONV_HW=True),
-                        dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True)),
-    "padded_k12": (dict(PERF_STREAM_KERNEL=True), dict(fused=True, stream_kernel=True)),
+                        dict(fused=True, routing=tvu.ConvRouting(
+                            spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True))),
+    "padded_k12": (dict(PERF_STREAM_KERNEL=True),
+                   dict(fused=True, routing=tvu.ConvRouting(stream_kernel=True))),
 }
 
 

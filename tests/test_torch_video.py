@@ -196,7 +196,8 @@ def test_video_unet_fused_routing_matches_jax(mc, hw, n_k1, n_k2, monkeypatch):
     x, t, tok = _unet_inputs(hw, seed=hw)
     params = random_params(jvu.VideoUNet(**kw), x, t, tok, seed=hw)
     want = japply(jvu.VideoUNet(fused=True, **kw), params, x, t, tok)
-    tm = _load(tvu.VideoUNet(fused=True, padded_stream=False, **kw), params)
+    tm = _load(tvu.VideoUNet(fused=True, routing=tvu.ConvRouting(padded_stream=False), **kw),
+               params)
     calls = {"k1": 0, "k2": 0}
     orig1, orig2 = tvu.rk.fused_affine_conv3x3, tvu.rk.temporal_conv_fused
 

@@ -87,6 +87,32 @@ def test_xattn_loss_matches_jax():
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_xattn_bf16_strays_from_float32_as_far_as_jax(seed):
+    """On the same converted weights and inputs, the port's bf16 forward
+    strays from its float32 forward (max |bf16 - f32| / std(f32), the
+    card's gate in `chip_smoke.py` phase 11) no more than 1.5x as far as
+    the JAX package's bf16 forward from its float32 one. JAX forms the
+    logits in float32 and rounds the weights to bf16 before PV; the port
+    calls `F.scaled_dot_product_attention` on bf16 q, k, v. Over these four
+    seeds the port's error ran 0.81-1.10x JAX's."""
+    rs = np.random.RandomState(100 + seed)
+    x = rs.randn(2, 3, 16, 16, 6).astype(np.float32)
+    t, tok = np.array([1, 5]), rs.randn(2, 5, 64).astype(np.float32)
+    kw = dict(in_channels=6, out_channels=3, **NET)
+    params = random_params(jxa.VideoUNetXAttn(**kw), x, t, tok, seed=100 + seed)
+    j32 = np.asarray(japply(jxa.VideoUNetXAttn(**kw), params, x, t, tok))
+    j16 = np.asarray(japply(jxa.VideoUNetXAttn(dtype=jnp.bfloat16, **kw), params, x, t, tok),
+                     np.float32)
+    args = (torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(tok))
+    with torch.no_grad():
+        t32 = _load(txa.VideoUNetXAttn(**kw), params)(*args).numpy()
+        t16 = _load(txa.VideoUNetXAttn(dtype=torch.bfloat16, **kw), params)(*args).numpy()
+    jerr = np.abs(j16 - j32).max() / j32.std()
+    terr = np.abs(t16 - t32).max() / t32.std()
+    assert t16.dtype == np.float32 and 0 < terr <= 1.5 * jerr, (terr, jerr)
+
+
 def test_unknown_backbone_raises():
     for vm in (jvm, tvm):
         with pytest.raises(ValueError, match="unknown backbone"):

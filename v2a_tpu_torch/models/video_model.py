@@ -28,7 +28,7 @@ from v2a_tpu_torch.models.clip_text import (
     ClipTextEncoder, ClipTokenizerWrapper, sanitize_task_strings,
 )
 from v2a_tpu_torch.models.init import init_params
-from v2a_tpu_torch.models.video_unet import VideoUNet
+from v2a_tpu_torch.models.video_unet import ConvRouting, VideoUNet
 from v2a_tpu_torch.models.video_unet_xattn import VideoUNetXAttn
 from v2a_tpu_torch.ops.gaussian_diffusion import GaussianDiffusion
 from v2a_tpu_torch.ops.schedules import DiffusionSchedule
@@ -100,6 +100,17 @@ class VideoModelConfig:
     upconv: bool = True
     entry_pad: bool = False
 
+    def conv_routing(self) -> ConvRouting:
+        """The U-Net's `ConvRouting` of these fields (the perf lab's
+        switches at their defaults)."""
+        return ConvRouting(
+            padded_stream=self.padded_stream, downconv=self.downconv,
+            attn_kernel=self.attn_kernel, use_pallas_gn=self.use_pallas_gn,
+            spatial2_min_ch=self.spatial2_min_ch, spatial2_max_s=self.spatial2_max_s,
+            pallas_spatial=self.pallas_spatial, tconv_hw=self.tconv_hw,
+            stream_kernel=self.stream_kernel, mega_kernel=self.mega_kernel, upconv=self.upconv,
+            entry_pad=self.entry_pad)
+
     @property
     def video_future_horizon(self) -> int:
         return self.sample_per_seq - 1
@@ -150,12 +161,14 @@ class VideoPredModel:
         return self.nets.unet
 
     def build_unet(self, fused: bool = False, train_fused: bool = False,
-                   wgrad_kernel: bool = False) -> nn.Module:
+                   wgrad_kernel: bool = False,
+                   routing: Optional[ConvRouting] = None) -> nn.Module:
         """A new network of this config's backbone with the given routing
-        (parameters uninitialized, on the current default device); every
-        routing takes the same state dict. The routing applies to the U-Net
-        only: the xattn backbone has none, as the JAX package passes it
-        none (`v2a_tpu/models/video_model.py:129-140`)."""
+        (`routing`: the U-Net's `ConvRouting`, the config's `conv_routing()`
+        by default; parameters uninitialized, on the current default
+        device); every routing takes the same state dict. The routing
+        applies to the U-Net only: the xattn backbone has none, as the JAX
+        package passes it none (`v2a_tpu/models/video_model.py:129-140`)."""
         cfg = self.config
         if cfg.backbone == "xattn":
             return VideoUNetXAttn(
@@ -168,13 +181,9 @@ class VideoPredModel:
             out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
             attention_resolutions=cfg.attention_resolutions, channel_mult=cfg.channel_mult,
             num_head_channels=cfg.num_head_channels, task_token_dim=cfg.text_dim,
-            dtype=dtype_of(cfg.dtype), fused=fused, padded_stream=cfg.padded_stream,
-            train_fused=train_fused, wgrad_kernel=wgrad_kernel, downconv=cfg.downconv,
-            attn_kernel=cfg.attn_kernel, use_pallas_gn=cfg.use_pallas_gn,
-            spatial2_min_ch=cfg.spatial2_min_ch, spatial2_max_s=cfg.spatial2_max_s,
-            pallas_spatial=cfg.pallas_spatial, tconv_hw=cfg.tconv_hw,
-            stream_kernel=cfg.stream_kernel, mega_kernel=cfg.mega_kernel, upconv=cfg.upconv,
-            entry_pad=cfg.entry_pad,
+            dtype=dtype_of(cfg.dtype), fused=fused, train_fused=train_fused,
+            wgrad_kernel=wgrad_kernel,
+            routing=cfg.conv_routing() if routing is None else routing,
         )
 
     @property

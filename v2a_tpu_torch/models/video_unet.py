@@ -21,12 +21,12 @@ Perceiver-pooled CLIP text conditioning.
   statistics) pair travels together through the network. The K1 gate's
   bounds are `ConvRouting.spatial2_min_ch` / `spatial2_max_s`, at the JAX
   defaults (MIN_CH 128, MAX_S 16384).
-- `padded_stream=True` (the default, used only with `fused`) keeps the
+- `routing.padded_stream` (on by default, used only with `fused`) keeps the
   levels with H*W > 512 in the `PaddedStream` layout: their convs run K3
   (`fused_conv_tconv_padded`) or K4a + K4b where the JAX package's rule
   says K3 does not fit, the upsample convs into them run K5, and the
-  ResBlocks' 1x1 skip projections fold into K3 / K4b. `padded_stream=False`
-  is the unpadded routing (K1 / K2 only).
+  ResBlocks' 1x1 skip projections fold into K3 / K4b. Off, it is the
+  unpadded routing (K1 / K2 only).
 - `train_fused=True` (without `fused`) is the training routing of the JAX
   package: every ResBlock GN -> SiLU -> conv3x3 half and every upsample
   conv whose channels pass K1's gate runs through the autograd Functions of
@@ -34,36 +34,40 @@ Perceiver-pooled CLIP text conditioning.
   `wgrad_kernel=True`); the GroupNorm reaches them as a per-(B, C) affine.
   Everything else is the plain path. The fused forward kernels have no
   backward; training never takes `fused`.
-- Three more serving routings, each an argument off by default as its JAX
-  flag is: `downconv` (the padded downsamples through K8,
-  `fused_downconv3x3_padded`), `attn_kernel` (the attention blocks through
-  K9, `fused_spatial_attention_padded`), both with `fused`; and
-  `use_pallas_gn` (the non-fused forward's GroupNorms without forwarded
-  statistics through K7, `ops/group_norm.py`).
-- The conv switches of `ConvRouting`, with `fused`: `spatial2_min_ch=0`
-  (the JAX package's `V2A_SPATIAL2_MIN_CH=0`) turns the K1 gate off, and
-  with it the padded stream; `spatial2_max_s` bounds the gate's H*W
-  (`V2A_SPATIAL2_MAX_S`: at 512 K1 runs only at 16^2 and 8^2, and no level
-  is padded); `pallas_spatial` sends the 3x3 stride-1 convs the gate leaves
-  with 128-multiple channels to K10 (`spatial_conv3x3`, one launch per
-  channel part, the parts summed in the compute dtype); `tconv_hw` swaps K2
-  for K11 (`temporal_conv_fused_hw`); `stream_kernel` takes K12
-  (`fused_conv_tconv_stream`) before K3 in every padded conv without a skip
-  fold where `rk.stream_band_rows` admits it; `mega_kernel=False`
-  (`V2A_MEGA_KERNEL=0`) runs K4a then K4b where K3 would run;
-  `upconv=False` (`V2A_UPCONV=0`) runs an upsample conv into a padded level
-  as nearest-2x, pad, then the padded conv (K3, or K4a then K4b) where K5
-  ran; `entry_pad` (`V2A_ENTRY_PAD=1`) runs the 6-channel entry conv on the
-  padded stream (K3, or K4a then K4b), the kernels' wrappers zero-extending
-  its channels to 32.
+- Every switch that picks a path is a field of one `ConvRouting`, which
+  `VideoUNet(routing=...)` takes and hands to every block; each is
+  described there with its JAX flag. The serving switches: `downconv` (the
+  padded downsamples through K8, `fused_downconv3x3_padded`),
+  `attn_kernel` (the attention blocks through K9,
+  `fused_spatial_attention_padded`), both with `fused`; `use_pallas_gn`
+  (the non-fused forward's GroupNorms without forwarded statistics through
+  K7, `ops/group_norm.py`). The conv switches, with `fused`:
+  `spatial2_min_ch=0` (the JAX package's `V2A_SPATIAL2_MIN_CH=0`) turns
+  the K1 gate off, and with it the padded stream; `spatial2_max_s` bounds
+  the gate's H*W (`V2A_SPATIAL2_MAX_S`: at 512 K1 runs only at 16^2 and
+  8^2, and no level is padded); `pallas_spatial` sends the 3x3 stride-1
+  convs the gate leaves with 128-multiple channels to K10
+  (`spatial_conv3x3`, one launch per channel part, the parts summed in the
+  compute dtype); `tconv_hw` swaps K2 for K11 (`temporal_conv_fused_hw`);
+  `stream_kernel` takes K12 (`fused_conv_tconv_stream`) before K3 in every
+  padded conv without a skip fold where `rk.stream_band_rows` admits it;
+  `mega_kernel=False` (`V2A_MEGA_KERNEL=0`) runs K4a then K4b where K3
+  would run; `upconv=False` (`V2A_UPCONV=0`) runs an upsample conv into a
+  padded level as nearest-2x, pad, then the padded conv (K3, or K4a then
+  K4b) where K5 ran; `entry_pad` (`V2A_ENTRY_PAD=1`) runs the 6-channel
+  entry conv on the padded stream (K3, or K4a then K4b), the kernels'
+  wrappers zero-extending its channels to 32. The perf lab's switches
+  (`scripts/perf_lab.py`): `ablate_temporal`, `ablate_gn`,
+  `spatial_im2col`, `fused_min_ch`, `skip1x1_dot` and
+  `tconv_conv2d_min_s`.
 - The JAX package's `V2A_ATTN_HMAJOR=1` has no switch here: its head-major
   attention is the same math with the same roundings as the one plain path
   below (it only spares XLA some layout copies), and the tests hold that
   path against the JAX module with the flag on and off.
 
 Parameters keep the JAX tree's names and layouts (conv kernels HWIO,
-temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Both
-routings take the same parameters.
+temporal kernels (k, C_in, C_out)); dense layers are `nn.Linear`. Every
+routing takes the same parameters, but for the lab's two ablations.
 """
 
 from __future__ import annotations
@@ -83,9 +87,21 @@ from v2a_tpu_torch.ops import resblock_kernels as rk
 
 @dataclasses.dataclass(frozen=True)
 class ConvRouting:
-    """The fused forward's conv switches, each a module flag of the JAX
-    package (`v2a_tpu/models/video_unet.py:53-161`), each at its JAX default.
+    """The U-Net's routing: every switch that picks a path, each a module
+    flag of the JAX package (`v2a_tpu/models/video_unet.py:36-161`), each at
+    its JAX default. One object goes to `VideoUNet` and down to every block;
+    `fused`, `train_fused` and `wgrad_kernel` stay arguments, picked per
+    call (`VideoPredModel.build_unet`).
 
+    padded_stream: with `fused`, the `PaddedStream` layout at the levels
+        `padded_eligible` admits (K3 / K4a + K4b / K5; `PERF_PADDED_STREAM`,
+        :120); False is the unpadded routing (K1 / K2 only).
+    downconv: with `fused` and the padded stream, the downsamples into a
+        padded level through K8 (`PERF_DOWNCONV`, `V2A_DOWNCONV=1`, :138).
+    attn_kernel: with `fused`, the attention blocks through K9
+        (`PERF_PALLAS_ATTN`, `V2A_PALLAS_ATTN=1`, :154).
+    use_pallas_gn: without `fused`, every GroupNorm that has no forwarded
+        statistics through K7 (the JAX `VideoUNet.use_pallas_gn` field, :1636).
     spatial2_min_ch, spatial2_max_s: the K1 gate (`spatial2_eligible`: 3x3
         stride-1 convs with 128-multiple channels, features >= MIN_CH, H*W
         <= MAX_S), and with it the padded stream and `train_fused`; 0 turns
@@ -100,8 +116,31 @@ class ConvRouting:
     upconv: K5 for the upsample convs into a padded level; False runs
         nearest-2x, pad, then the padded conv (`PERF_UPCONV`, :130, :1592).
     entry_pad: the entry conv on the padded stream (`PERF_ENTRY_PAD`, :142,
-        :1737)."""
+        :1737).
+    ablate_temporal, ablate_gn: for the perf lab only, and only without
+        `fused` and `train_fused`: the temporal convs skipped, and every
+        GroupNorm32 as (SiLU of) the identity (`PERF_ABLATE_TEMPORAL`,
+        `PERF_ABLATE_GN`, :40-41, used :257, :725). They change the
+        parameter tree, as in JAX: no `temporal_conv`, no norm
+        `scale` / `bias`.
+    spatial_im2col: the single-input 3x3 stride-1 convs that no kernel
+        takes as an explicit 9-tap patch matrix times the (9C, D) kernel,
+        one `torch.matmul` (`PERF_SPATIAL_IM2COL`, :49, :696;
+        `_im2col_conv` :352).
+    fused_min_ch: with `fused`, K2 (or K11) only at features >= this
+        (`PERF_FUSED_MIN_CH`, :57, :730); 0 = everywhere.
+    skip1x1_dot: the 1x1 convs as one dot (`PERF_SKIP1X1_DOT`, :113, :580,
+        :705); False runs them through `F.conv2d`.
+    tconv_conv2d_min_s: with `fused`, where H*W >= this, the temporal conv
+        as one `F.conv2d` with a (3, 1) kernel over the (B, F, H*W, C) view,
+        the bias / emb / residual adds and the statistics outside it
+        (`PERF_TCONV_XLA2D_MIN_S`, :93, :778; `_tconv_conv2d` :374); 0 =
+        off."""
 
+    padded_stream: bool = True
+    downconv: bool = False
+    attn_kernel: bool = False
+    use_pallas_gn: bool = False
     spatial2_min_ch: int = 128
     spatial2_max_s: int = 16384
     pallas_spatial: bool = False
@@ -110,6 +149,12 @@ class ConvRouting:
     mega_kernel: bool = True
     upconv: bool = True
     entry_pad: bool = False
+    ablate_temporal: bool = False
+    ablate_gn: bool = False
+    spatial_im2col: bool = False
+    fused_min_ch: int = 0
+    skip1x1_dot: bool = True
+    tconv_conv2d_min_s: int = 0
 
     def spatial2_eligible(self, features: int, cins, hw: int, k: int, stride: int) -> bool:
         """Shape gate for K1 (`v2a_tpu/models/video_unet.py:206`)."""
@@ -176,18 +221,23 @@ class GroupNorm32(nn.Module):
     replaces the statistics read; `return_affine` hands back the collapsed
     per-(B, C) scale / shift instead of applying it. `use_pallas`: with
     neither, K7 (`ops/group_norm.py`, output in x.dtype) normalises
-    (`v2a_tpu/models/video_unet.py:297-303`)."""
+    (`v2a_tpu/models/video_unet.py:297-303`). `ablate` (the perf lab's
+    `ConvRouting.ablate_gn`): (SiLU of) the identity, no parameters (:257)."""
 
     def __init__(self, channels: int, with_silu: bool = False, num_groups: int = 32,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, ablate: bool = False):
         super().__init__()
         if channels % num_groups:
             raise ValueError(f"channels {channels} not divisible by groups {num_groups}")
         self.with_silu, self.num_groups, self.use_pallas = with_silu, num_groups, use_pallas
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.ablate = ablate
+        if not ablate:
+            self.scale = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, stats: Optional[torch.Tensor] = None, return_affine: bool = False):
+        if self.ablate:
+            return F.silu(x) if self.with_silu else x
         b, c = x.shape[0], x.shape[-1]
         n_pc = x[0, ..., 0].numel()
         if return_affine or stats is not None:
@@ -237,6 +287,38 @@ class _TemporalConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
 
+def _im2col_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 SAME conv of (N, H, W, C) as one (N*H*W, 9C) x (9C, D)
+    product in x.dtype, no bias (`v2a_tpu/models/video_unet.py:352-371`)."""
+    n, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cat = torch.cat([xp[:, i:i + h, j:j + w] for i in range(3) for j in range(3)], dim=-1)
+    out = cat.reshape(n * h * w, 9 * c) @ kernel.reshape(9 * c, -1).to(x.dtype)
+    return out.reshape(n, h, w, -1)
+
+
+def _tconv_conv2d(y, kernel, bias, emb, residual, want_stats: bool):
+    """The temporal 3-tap conv as one `F.conv2d` with a (3, 1) kernel over
+    the (B, F, H*W, C) view, in y.dtype; the bias / emb / residual adds and
+    the (B, F, 2, C) statistics after it
+    (`v2a_tpu/models/video_unet.py:374-409`)."""
+    b, f, h, w, c = y.shape
+    dt = y.dtype
+    t = y.reshape(b, f, h * w, c).permute(0, 3, 1, 2)
+    wk = kernel.to(dt).permute(2, 1, 0)[..., None]  # (k, C_in, C_out) -> (C_out, C_in, k, 1)
+    out = F.conv2d(t, wk, padding=(kernel.shape[0] // 2, 0)).permute(0, 2, 3, 1)
+    out = out + bias.to(dt)
+    if emb is not None:
+        out = out + emb.reshape(b, 1, 1, c).to(dt)
+    if residual is not None:
+        out = out + residual.expand(y.shape).to(dt).reshape(b, f, h * w, c)
+    y5 = out.reshape(y.shape)
+    if want_stats:
+        of = out.float()
+        return y5, torch.stack([of.sum(2), (of * of).sum(2)], dim=2)
+    return y5
+
+
 class PseudoConv3d(nn.Module):
     """Factorized space-time conv (`nn.py:30-88`): a 2D conv per frame, then
     (kernel_size > 1) a temporal conv over F. Takes a tensor or a tuple of
@@ -245,8 +327,8 @@ class PseudoConv3d(nn.Module):
     inputs take the padded-stream kernels (`_padded`). `train_fused` at the
     call (a single tensor, not `fused`) sends a K1-eligible spatial conv
     through `ops/conv_vjp.py`, with K6 as its wgrad when `wgrad_kernel`
-    (`v2a_tpu/models/video_unet.py:613-657`). `routing`: the K1 gate, K10,
-    K11 and K12 (`ConvRouting`)."""
+    (`v2a_tpu/models/video_unet.py:613-657`). `routing` (`ConvRouting`):
+    the K1 gate, K10, K11, K12 and the perf lab's forms of the convs."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
@@ -256,7 +338,7 @@ class PseudoConv3d(nn.Module):
         self.dtype, self.fused, self.wgrad_kernel = dtype, fused, wgrad_kernel
         self.routing = routing
         self.spatial_conv = _Conv(kernel_size, cin, features)
-        if kernel_size > 1:
+        if kernel_size > 1 and not routing.ablate_temporal:
             self.temporal_conv = _TemporalConv(features, kernel_size)
 
     def forward(self, x, emb=None, residual=None, want_stats: bool = False, pre_affine=None,
@@ -279,6 +361,9 @@ class PseudoConv3d(nn.Module):
         # multiples of 128 (:531-545, :679-685)
         use_k10 = (self.fused and not use_k1 and self.routing.pallas_spatial and k == 3
                    and self.stride == 1 and feat % 128 == 0 and all(c % 128 == 0 for c in cins))
+        # the lab's explicit patch matrix: single-input 3x3 stride-1 convs (:696)
+        im2col = (self.routing.spatial_im2col and not isinstance(x, (tuple, list)) and k == 3
+                  and self.stride == 1)
         if pre_affine is not None and not (use_k1 or use_tf):
             raise ValueError("pre_affine requires the K1-eligible fused path")
         y, off = None, 0
@@ -308,7 +393,9 @@ class PseudoConv3d(nn.Module):
                 # in dtype, rounded after each (:568-577, :599)
                 yp = rk.spatial_conv3x3(x4.contiguous(), wpart,
                                         kbias if y is None else torch.zeros_like(kbias))
-            elif k == 1 and self.stride == 1:
+            elif im2col:
+                yp = _im2col_conv(x4, wpart)
+            elif k == 1 and self.stride == 1 and self.routing.skip1x1_dot:
                 yp = x4 @ wpart.reshape(pc, feat).to(dt)
             else:
                 yp = F.conv2d(
@@ -320,9 +407,12 @@ class PseudoConv3d(nn.Module):
         if not (use_k1 or use_tf or use_k10):
             y = y + kbias.to(dt)
         y = y.reshape(b, f, y.shape[1], y.shape[2], feat)
-        if k > 1:
+        if k > 1 and not self.routing.ablate_temporal:
             tk, tb = self.temporal_conv.kernel, self.temporal_conv.bias
-            if self.fused and feat % 128 == 0:
+            if self.fused and feat % 128 == 0 and feat >= self.routing.fused_min_ch:
+                min_s = self.routing.tconv_conv2d_min_s
+                if min_s and y.shape[2] * y.shape[3] >= min_s:
+                    return _tconv_conv2d(y.to(dt), tk, tb, emb, residual, want_stats)
                 tconv = (rk.temporal_conv_fused_hw if self.routing.tconv_hw
                          else rk.temporal_conv_fused)
                 return tconv(y.to(dt).contiguous(), tk, tb, emb=emb, residual=residual,
@@ -440,22 +530,23 @@ class ResBlock3D(nn.Module):
     def __init__(self, cin: int, out_channels: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
                  train_fused: bool = False, wgrad_kernel: bool = False,
-                 use_pallas_gn: bool = False, routing: ConvRouting = ConvRouting()):
+                 routing: ConvRouting = ConvRouting()):
         super().__init__()
         self.cin, self.out_channels, self.dtype, self.fused = cin, out_channels, dtype, fused
         self.train_fused, self.routing = train_fused, routing
         # K7 only on the non-fused path, as the JAX block (its fused norms
         # pass use_pallas=False, :1168-1176)
-        k7 = use_pallas_gn and not fused
-        self.in_norm = GroupNorm32(cin, with_silu=True, use_pallas=k7)
+        k7 = routing.use_pallas_gn and not fused
+        self.in_norm = GroupNorm32(cin, with_silu=True, use_pallas=k7, ablate=routing.ablate_gn)
         self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused,
                                     wgrad_kernel=wgrad_kernel, routing=routing)
         self.emb_proj = nn.Linear(emb_dim, out_channels)
-        self.out_norm = GroupNorm32(out_channels, with_silu=True, use_pallas=k7)
+        self.out_norm = GroupNorm32(out_channels, with_silu=True, use_pallas=k7,
+                                    ablate=routing.ablate_gn)
         self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused,
                                      wgrad_kernel=wgrad_kernel, routing=routing)
         if cin != out_channels:
-            self.skip_conv = PseudoConv3d(cin, out_channels, 1, dtype=dtype)
+            self.skip_conv = PseudoConv3d(cin, out_channels, 1, dtype=dtype, routing=routing)
 
     def _emb_out(self, emb):
         return _linear(F.silu(emb.to(self.dtype)), self.emb_proj, self.dtype)
@@ -591,20 +682,20 @@ class SpatialAttentionBlock(nn.Module):
     layout: qkv reshaped to heads BEFORE the q/k/v split, q and k each
     scaled by ch^-1/4, softmax in float32.
 
-    `attn_kernel` (the JAX package's `V2A_PALLAS_ATTN=1`,
+    `routing.attn_kernel` (the JAX package's `V2A_PALLAS_ATTN=1`,
     `v2a_tpu/models/video_unet.py:1441-1483`): with forwarded `stats` the
     whole block is K9 (`rk.fused_spatial_attention_padded`), which rounds as
     the TPU kernel does, not as this block's plain path. A PaddedStream
     stays padded (every pad zero); a plain tensor enters the padded layout
-    for the call and leaves it after. `use_pallas_gn`: the norm without
-    forwarded stats is K7."""
+    for the call and leaves it after. `routing.use_pallas_gn`: the norm
+    without forwarded stats is K7."""
 
     def __init__(self, channels: int, num_head_channels: int = 32,
-                 dtype: torch.dtype = torch.float32, attn_kernel: bool = False,
-                 use_pallas_gn: bool = False):
+                 dtype: torch.dtype = torch.float32, routing: ConvRouting = ConvRouting()):
         super().__init__()
-        self.ch, self.dtype, self.attn_kernel = num_head_channels, dtype, attn_kernel
-        self.norm = GroupNorm32(channels, use_pallas=use_pallas_gn)
+        self.ch, self.dtype, self.attn_kernel = num_head_channels, dtype, routing.attn_kernel
+        self.norm = GroupNorm32(channels, use_pallas=routing.use_pallas_gn,
+                                ablate=routing.ablate_gn)
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj_out = nn.Linear(channels, channels)
 
@@ -655,15 +746,15 @@ class SpatialAttentionBlock(nn.Module):
 
 
 class Downsample3D(nn.Module):
-    """Stride-2 pseudo-3D conv (`unet.py:119-145`). `downconv` (the JAX
+    """Stride-2 pseudo-3D conv (`unet.py:119-145`). `routing.downconv` (the JAX
     package's `V2A_DOWNCONV=1`) with `padded_out`: K8 from the full-size
     padded stream into one at half the size, then K4b there
     (`v2a_tpu/models/video_unet.py:1558-1567`)."""
 
     def __init__(self, c: int, dtype: torch.dtype = torch.float32, fused: bool = False,
-                 downconv: bool = False, routing: ConvRouting = ConvRouting()):
+                 routing: ConvRouting = ConvRouting()):
         super().__init__()
-        self.downconv = downconv
+        self.downconv = routing.downconv
         self.conv = PseudoConv3d(c, c, 3, stride=2, dtype=dtype, fused=fused, routing=routing)
 
     def forward(self, x, want_stats: bool = False, padded_out: bool = False):
@@ -715,35 +806,25 @@ class VideoUNet(nn.Module):
     JAX package: `tfused = train_fused and not fused`, :1718);
     `wgrad_kernel` makes its convs' weight gradient K6, as the JAX package's
     `V2A_TRAIN_WGRAD_PALLAS=1` (an argument here, not an environment
-    variable; off by default, as there). Likewise, each off by default as
-    in the JAX package: `downconv` (`V2A_DOWNCONV=1`: with `fused` and the
-    padded stream, the downsamples into a padded level run K8),
-    `attn_kernel` (`V2A_PALLAS_ATTN=1`: with `fused`, every attention block
-    runs K9), `use_pallas_gn` (the JAX field: without `fused`, every
-    GroupNorm that has no forwarded statistics runs K7). `spatial2_min_ch`, `spatial2_max_s`,
-    `pallas_spatial`, `tconv_hw`, `stream_kernel`, `mega_kernel`, `upconv`
-    and `entry_pad` are the `ConvRouting` switches (the K1 gate, K10, K11,
-    K12, K3, K5, the padded entry conv), each at its JAX default."""
+    variable; off by default, as there). `routing` holds every other switch
+    (`ConvRouting`), each at its JAX default. Its two ablations are lab
+    switches of the plain forward: with `fused` or `train_fused` they
+    raise, as the JAX fused paths have no ablated form."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
                  channel_mult: Sequence[int] = (1, 2, 3, 4, 5), num_head_channels: int = 32,
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
-                 fused: bool = False, padded_stream: bool = True, train_fused: bool = False,
-                 wgrad_kernel: bool = False, downconv: bool = False, attn_kernel: bool = False,
-                 use_pallas_gn: bool = False, spatial2_min_ch: int = 128,
-                 spatial2_max_s: int = 16384, pallas_spatial: bool = False,
-                 tconv_hw: bool = False, stream_kernel: bool = False, mega_kernel: bool = True,
-                 upconv: bool = True, entry_pad: bool = False):
+                 fused: bool = False, train_fused: bool = False, wgrad_kernel: bool = False,
+                 routing: ConvRouting = ConvRouting()):
         super().__init__()
+        if (fused or train_fused) and (routing.ablate_temporal or routing.ablate_gn):
+            raise ValueError("ablate_temporal / ablate_gn are perf-lab switches of the plain "
+                             "forward (neither fused nor train_fused)")
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
-        self.padded_stream = padded_stream
-        self.routing = routing = ConvRouting(
-            spatial2_min_ch=spatial2_min_ch, spatial2_max_s=spatial2_max_s,
-            pallas_spatial=pallas_spatial, tconv_hw=tconv_hw, stream_kernel=stream_kernel,
-            mega_kernel=mega_kernel, upconv=upconv, entry_pad=entry_pad)
+        self.routing = routing
         self.train_fused = tfused = train_fused and not fused
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
@@ -755,11 +836,10 @@ class VideoUNet(nn.Module):
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused, tfused, wgrad_kernel,
-                                             use_pallas_gn, routing))
+                                             routing))
 
         def attn(name, c):
-            self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype, attn_kernel,
-                                                        use_pallas_gn))
+            self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype, routing))
 
         skips, cur, ds, bi = [mc], mc, 1, 0
         for level, mult in enumerate(self.channel_mult):
@@ -773,7 +853,7 @@ class VideoUNet(nn.Module):
                 bi += 1
             if level != len(self.channel_mult) - 1:
                 self.add_module(f"downsample_{level}",
-                                Downsample3D(ch, dtype, fused, downconv, routing))
+                                Downsample3D(ch, dtype, fused, routing))
                 skips.append(ch)
                 ds *= 2
         res("mid_res0", cur, cur)
@@ -792,8 +872,10 @@ class VideoUNet(nn.Module):
                                     Upsample3D(ch, dtype, fused, tfused, wgrad_kernel, routing))
                     ds //= 2
                 bi += 1
-        self.out_norm = GroupNorm32(cur, with_silu=True, use_pallas=use_pallas_gn and not fused)
-        self.out_conv = PseudoConv3d(cur, out_channels, 3, dtype=dtype)
+        self.out_norm = GroupNorm32(cur, with_silu=True,
+                                    use_pallas=routing.use_pallas_gn and not fused,
+                                    ablate=routing.ablate_gn)
+        self.out_conv = PseudoConv3d(cur, out_channels, 3, dtype=dtype, routing=routing)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 task_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -809,7 +891,7 @@ class VideoUNet(nn.Module):
 
         # the padded-stream layout where `routing.padded_eligible` holds
         # (`v2a_tpu/models/video_unet.py:1736-1886`)
-        padded = fused and self.padded_stream
+        padded = fused and self.routing.padded_stream
         hh, ww = x.shape[2], x.shape[3]
         l0_padded = padded and self.routing.padded_eligible(self.mc, [self.mc], hh * ww)
         if l0_padded and self.routing.entry_pad:

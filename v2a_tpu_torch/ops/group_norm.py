@@ -176,7 +176,7 @@ def fused_group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     scratch = _scratch_of(x.device, b, plan, groups)
     y = torch.empty_like(xc)
     fn = rk._lib("group_norm_silu", "v2a_group_norm_silu", 5, 9, 1)
-    with torch.cuda.device(x.device):
+    with rk._launching("fused_group_norm_silu", x.device):
         rc = fn(rk._ptr(xc), rk._ptr(scale32), rk._ptr(bias32), rk._ptr(scratch), rk._ptr(y),
                 b, s, c, groups, plan.threads, plan.rows, plan.ctas, int(with_silu),
                 rk._DTYPE_CODE[x.dtype], eps, rk._stream(x))

@@ -31,11 +31,11 @@ Two further serving routings of the JAX package add:
 
 - `fused_downconv3x3_padded` (K8): the stride-2 3x3 conv of the Downsample
   from a padded stream into one at half the size (`V2A_DOWNCONV=1` there,
-  `VideoUNet(downconv=True)` here). A fourth entry of K1's kernel,
+  `ConvRouting(downconv=True)` here). A fourth entry of K1's kernel,
   `csrc/affine_conv3x3.cu`, at stride 2.
 - `fused_spatial_attention_padded` (K9): GroupNorm affine, QKV, the legacy
   masked attention, projection and residual in one call, with the output's
-  statistics (`V2A_PALLAS_ATTN=1` there, `VideoUNet(attn_kernel=True)`
+  statistics (`V2A_PALLAS_ATTN=1` there, `ConvRouting(attn_kernel=True)`
   here). `csrc/spatial_attention_padded.cu`.
 
 K7, the GroupNorm(+SiLU) of the non-fused forward, has its wrapper in
@@ -45,15 +45,15 @@ Two more serving routings of the JAX package add:
 
 - `spatial_conv3x3` (K10): the plain 3x3 conv + bias of the routing
   without the K1 gate (`V2A_SPATIAL2_MIN_CH=0` with `PERF_PALLAS_SPATIAL`
-  there, `VideoUNet(spatial2_min_ch=0, pallas_spatial=True)` here). A third
+  there, `ConvRouting(spatial2_min_ch=0, pallas_spatial=True)` here). A third
   entry of K1's kernel, `csrc/affine_conv3x3.cu`, in its plain-conv mode.
 - `temporal_conv_fused_hw` (K11): K2's function on the (H*W, B, F, C) view
-  (`PERF_TCONV_HW` there, `VideoUNet(tconv_hw=True)` here). K2's launch
+  (`PERF_TCONV_HW` there, `ConvRouting(tconv_hw=True)` here). K2's launch
   of `csrc/temporal_conv.cu` on the caller's (B, F, H*W, C) memory, the
   view being only another address map over it.
 - `fused_conv_tconv_stream` (K12): K3's function without the skip fold,
   frames streamed through a 3-slot ring of conv outputs
-  (`V2A_STREAM_KERNEL=1` there, `VideoUNet(stream_kernel=True)` here), taken
+  (`V2A_STREAM_KERNEL=1` there, `ConvRouting(stream_kernel=True)` here), taken
   before K3 where `stream_band_rows` admits it. `csrc/conv_tconv_stream.cu`.
 
 The padded-stream contract: pad COLS are zero in the output of every conv
@@ -92,6 +92,7 @@ test that wants the plain versions' gradients calls `*_plain` directly.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import importlib
@@ -105,72 +106,89 @@ from v2a_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# what chip_smoke.py reports for each ported kernel
+# what chip_smoke.py reports for each ported kernel: its K-number, the C
+# entry point its wrapper calls, its source and the TPU kernel it replaces
 KERNELS = {
     "fused_affine_conv3x3": dict(
+        k="K1", entry="v2a_affine_conv3x3",
         source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:662",
     ),
     "temporal_conv_fused": dict(
+        k="K2", entry="v2a_temporal_conv3",
         source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:177",
     ),
     "fused_affine_conv3x3_padded": dict(
+        k="K4a", entry="v2a_affine_conv3x3_padded",
         source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:902",
     ),
     "temporal_conv_padded": dict(
+        k="K4b", entry="v2a_temporal_conv_padded",
         source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1090",
     ),
     "fused_conv_tconv_padded": dict(
+        k="K3", entry="v2a_conv_tconv_padded",
         source="v2a_tpu_torch/csrc/conv_tconv_padded.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1978",
     ),
     "fused_upconv3x3_padded": dict(
+        k="K5", entry="v2a_upconv3x3_padded",
         source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1314",
     ),
     "wgrad_conv3x3": dict(
+        k="K6", entry="v2a_wgrad_conv3x3",
         source="v2a_tpu_torch/csrc/wgrad_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:3329",
     ),
     "fused_downconv3x3_padded": dict(
+        k="K8", entry="v2a_downconv3x3_padded",
         source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:1514",
     ),
     "fused_spatial_attention_padded": dict(
+        k="K9", entry="v2a_spatial_attention_padded",
         source="v2a_tpu_torch/csrc/spatial_attention_padded.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:2962",
     ),
     "fused_group_norm_silu": dict(
+        k="K7", entry="v2a_group_norm_silu",
         source="v2a_tpu_torch/csrc/group_norm_silu.cu",
         replaces="v2a_tpu/ops/pallas_kernels.py:111",
         module="v2a_tpu_torch.ops.group_norm",
     ),
     "spatial_conv3x3": dict(
+        k="K10", entry="v2a_spatial_conv3x3",
         source="v2a_tpu_torch/csrc/affine_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:2796",
     ),
     "temporal_conv_fused_hw": dict(
+        k="K11", entry="v2a_temporal_conv3",
         source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:340",
     ),
     "fused_conv_tconv_stream": dict(
+        k="K12", entry="v2a_conv_tconv_stream",
         source="v2a_tpu_torch/csrc/conv_tconv_stream.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:2656",
     ),
     "fused_conv_tconv_dma": dict(
+        k="K13", entry="v2a_conv_tconv_dma",
         source="v2a_tpu_torch/csrc/conv_tconv_dma.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:2377",
     ),
     "winograd_conv3x3": dict(
+        k="K14", entry="v2a_winograd_conv3x3",
         source="v2a_tpu_torch/csrc/winograd_conv3x3.cu",
         replaces="v2a_tpu/ops/resblock_kernels.py:3163",
     ),
     # the perf lab's temporal conv (a closure there: `make_call` :627, its
     # pallas_call :674): K2's launch with a zero bias
     "temporal_conv_taps": dict(
+        k="K15", entry="v2a_temporal_conv3",
         source="v2a_tpu_torch/csrc/temporal_conv.cu",
         replaces="scripts/perf_lab.py:627",
         module="v2a_tpu_torch.scripts.perf_lab",
@@ -232,6 +250,22 @@ def _no_grad_inputs(what: str, *tensors) -> None:
 
 def _parts_tensors(parts):
     return [t for part in parts for t in part]
+
+
+@contextlib.contextmanager
+def _launching(name: str, device: torch.device):
+    """The device of one launch of wrapper `name`; while `torch.profiler`
+    records, also a host op named `name`, to which the profiler links the
+    kernels launched inside it (`utils/profiling.py::rollup` reads them by
+    it). The op is a function-scope record (`_RecordFunctionFast`, as
+    Inductor marks its kernels' launches): a user-scope `record_function`
+    range gets no kernels linked to it."""
+    with torch.cuda.device(device):
+        if torch.autograd._profiler_enabled():
+            with torch._C._profiler._RecordFunctionFast(name):
+                yield
+        else:
+            yield
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -410,7 +444,7 @@ def fused_affine_conv3x3(
     y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
     mode = 0 if a is None else (2 if silu else 1)
     fn = _lib("affine_conv3x3", "v2a_affine_conv3x3", 6, 8)
-    with torch.cuda.device(x.device):
+    with _launching("fused_affine_conv3x3", x.device):
         rc = fn(
             _ptr(x), _ptr(a32), _ptr(b32), _ptr(w2d), _ptr(bias32), _ptr(y),
             n, h, w, c, d, mode, plan.pixels, _DTYPE_CODE[x.dtype], _stream(x),
@@ -515,7 +549,7 @@ def _temporal_conv_launch(what: str, x, kernel, bias, emb, residual, want_stats)
     y = torch.empty_like(x)
     partial, stats = _stats_buffers(x, b * f, _tconv_tiles(x, b, f, s, c), c, want_stats)
     fn = _lib("temporal_conv", "v2a_temporal_conv3", 8, 5)
-    with torch.cuda.device(x.device):
+    with _launching(what, x.device):
         rc = fn(
             _ptr(x), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(res), _ptr(y),
             _ptr(partial), _ptr(stats), b, f, s, c, _DTYPE_CODE[x.dtype], _stream(x),
@@ -757,7 +791,7 @@ def fused_affine_conv3x3_padded(parts, bias: torch.Tensor, hw: Tuple[int, int],
     plan = affine_conv_plan(n, h, w, sum(cins), d)
     y = torch.empty((n, hp, wp, d), dtype=x0.dtype, device=x0.device)
     fn = _lib("affine_conv3x3", "v2a_affine_conv3x3_padded", 10, 10)
-    with torch.cuda.device(x0.device):
+    with _launching("fused_affine_conv3x3_padded", x0.device):
         rc = fn(*[_ptr(t) for t in args], _ptr(bias32), _ptr(y), n, h, w, wp, cins[0],
                 cins[1], d, int(silu), plan.pixels, _DTYPE_CODE[x0.dtype], _stream(x0))
     _raise_on(rc, "fused_affine_conv3x3_padded")
@@ -864,7 +898,7 @@ def temporal_conv_padded(x, kernel, bias, hw, emb=None, residual=None, skip_part
     y = torch.empty_like(x)
     partial, stats = _stats_buffers(x, b * f, _tconv_tiles(x, b, f, h * w, c), c, want_stats)
     fn = _lib("temporal_conv", "v2a_temporal_conv_padded", 13, 9)
-    with torch.cuda.device(x.device):
+    with _launching("temporal_conv_padded", x.device):
         rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(emb32), _ptr(residual),
                 _ptr(skips[0][0]), _ptr(skips[0][1]), _ptr(skips[1][0]), _ptr(skips[1][1]),
                 _ptr(sb32), _ptr(y), _ptr(partial), _ptr(stats), b, f, h, w, wp, c,
@@ -995,7 +1029,7 @@ def fused_conv_tconv_padded(parts, kbias, tkernel, tbias, hw, emb=None, residual
     scratch = _conv_out_buffer(conv_out, a)
     partial, stats = _stats_buffers(x0, b * f, plan.tiles, d, want_stats)
     fn = _lib("conv_tconv_padded", "v2a_conv_tconv_padded", 22, 13)
-    with torch.cuda.device(x0.device):
+    with _launching("fused_conv_tconv_padded", x0.device):
         rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(scratch), _ptr(partial), _ptr(stats),
                 *a["ints"], plan.pixels, int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
     _raise_on(rc, "fused_conv_tconv_padded")
@@ -1139,7 +1173,7 @@ def fused_conv_tconv_dma(parts, kbias, tkernel, tbias, hw, emb=None, residual=No
     scratch = _conv_out_buffer(None, a)
     partial, stats = _stats_buffers(x0, b * f, plan.tiles, d, want_stats)
     fn = _lib("conv_tconv_dma", "v2a_conv_tconv_dma", 22, 13)
-    with torch.cuda.device(x0.device):
+    with _launching("fused_conv_tconv_dma", x0.device):
         rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(scratch), _ptr(partial), _ptr(stats),
                 *a["ints"], plan.pixels, int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
     _raise_on(rc, "fused_conv_tconv_dma")
@@ -1239,7 +1273,7 @@ def fused_upconv3x3_padded(x, kernel, bias, hw_lo, a=None, b=None, silu=False):
     y = torch.empty((n, hph, wph, d), dtype=x.dtype, device=x.device)
     mode = 0 if a32 is None else (2 if silu else 1)
     fn = _lib("affine_conv3x3", "v2a_upconv3x3_padded", 6, 10)
-    with torch.cuda.device(x.device):
+    with _launching("fused_upconv3x3_padded", x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(w16), _ptr(bias32), _ptr(y), n, h, w, wp,
                 wph, c, d, mode, plan.pixels, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "fused_upconv3x3_padded")
@@ -1321,7 +1355,7 @@ def fused_downconv3x3_padded(x, kernel, bias, hw, a=None, b=None, silu=False):
     y = torch.empty((n, hp2, wp2, d), dtype=x.dtype, device=x.device)
     mode = 0 if a32 is None else (2 if silu else 1)
     fn = _lib("affine_conv3x3", "v2a_downconv3x3_padded", 6, 10)
-    with torch.cuda.device(x.device):
+    with _launching("fused_downconv3x3_padded", x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, wp,
                 wp2, c, d, mode, plan.pixels, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "fused_downconv3x3_padded")
@@ -1475,7 +1509,7 @@ def wgrad_conv3x3(
         partial = torch.empty((plan.chunks * 9 * c * d,), dtype=torch.float32, device=x.device)
     mode = 0 if a is None else (2 if silu else 1)
     fn = _lib("wgrad_conv3x3", "v2a_wgrad_conv3x3", 6, 9)
-    with torch.cuda.device(x.device):
+    with _launching("wgrad_conv3x3", x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(g), _ptr(partial), _ptr(out), n, h, w, c, d,
                 plan.chunks, plan.per_chunk, mode, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "wgrad_conv3x3")
@@ -1686,7 +1720,7 @@ def fused_spatial_attention_padded(x, hw, a, b, wqkv, bqkv, wproj, bproj,
     tiles = plan.proj.tiles if dt == torch.bfloat16 else -(-s // 64)
     partial, stats = _stats_buffers(x, n, tiles, c, want_stats)
     fn = _lib("spatial_attention_padded", "v2a_spatial_attention_padded", 12, 10)
-    with torch.cuda.device(x.device):
+    with _launching("fused_spatial_attention_padded", x.device):
         rc = fn(_ptr(x), _ptr(a32), _ptr(b32), _ptr(wq), _ptr(bq), _ptr(wo), _ptr(bo), _ptr(y),
                 _ptr(qkv), _ptr(att), _ptr(partial), _ptr(stats), n, h, w, wp, c,
                 num_head_channels, plan.qkv.tokens, plan.queries, plan.proj.tokens,
@@ -1736,7 +1770,7 @@ def spatial_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -
     plan = affine_conv_plan(n, h, w, c, d)
     y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
     fn = _lib("affine_conv3x3", "v2a_spatial_conv3x3", 4, 7)
-    with torch.cuda.device(x.device):
+    with _launching("spatial_conv3x3", x.device):
         rc = fn(_ptr(x), _ptr(w2d), _ptr(bias32), _ptr(y), n, h, w, c, d, plan.pixels,
                 _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "spatial_conv3x3")
@@ -1924,7 +1958,7 @@ def winograd_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     _check_cuda(x, wt, bias32)
     y = torch.empty((n, h, w, d), dtype=x.dtype, device=x.device)
     fn = _lib("winograd_conv3x3", "v2a_winograd_conv3x3", 4, 6)
-    with torch.cuda.device(x.device):
+    with _launching("winograd_conv3x3", x.device):
         rc = fn(_ptr(x), _ptr(wt), _ptr(bias32), _ptr(y), n, h, w, c, d, _DTYPE_CODE[x.dtype],
                 _stream(x))
     _raise_on(rc, "winograd_conv3x3")
@@ -2060,7 +2094,7 @@ def fused_conv_tconv_stream(parts, kbias, tkernel, tbias, hw, emb=None, residual
     scratch = _conv_out_buffer(conv_out, a)
     partial, stats = _stats_buffers(x0, b * f, plan.tiles, d, want_stats)
     fn = _lib("conv_tconv_stream", "v2a_conv_tconv_stream", 17, 11)
-    with torch.cuda.device(x0.device):
+    with _launching("fused_conv_tconv_stream", x0.device):
         rc = fn(*a["ptrs"], _ptr(a["y"]), _ptr(scratch), _ptr(partial), _ptr(stats),
                 *a["ints"], plan.pixels, int(silu), _DTYPE_CODE[a["dt"]], _stream(x0))
     _raise_on(rc, "fused_conv_tconv_stream")

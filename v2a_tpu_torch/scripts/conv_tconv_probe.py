@@ -68,6 +68,7 @@ import torch
 
 from v2a_tpu_torch.ops import _build
 from v2a_tpu_torch.ops import resblock_kernels as rk
+from v2a_tpu_torch.scripts import perf_lab
 
 # (kernel, B, (H, W), input channel parts, D)
 CASES = [("k3", 8, (128, 128), (128,), 128), ("k3", 8, (32, 32), (384, 384), 384),
@@ -208,16 +209,8 @@ CUTS: Dict[str, Tuple[Tuple[str, ...], List[Tuple[str, str]]]] = {
 
 
 def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms per call by CUDA events (the perf lab's `time_calls`)."""
+    return perf_lab.time_calls(fn, torch.device("cuda"), reps, warm)
 
 
 def host_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -540,8 +533,6 @@ def _k15_args(b, f, s, c, dev):
 def _k15_runs(args):
     """(K15's call; K2's with a zero bias on the same x and w; one matmul of
     the frame-stacked (B*F*S, 3C) operand)"""
-    from v2a_tpu_torch.scripts import perf_lab
-
     x, w = args
     b, f, c = x.shape[0], x.shape[1], x.shape[-1]
     xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))

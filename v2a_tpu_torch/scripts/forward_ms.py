@@ -23,12 +23,15 @@ import sys
 
 import torch
 
+from v2a_tpu_torch.models.video_unet import ConvRouting
+
 # the VideoUNet arguments of chip_smoke.py's fused routings that this times
 ROUTINGS = {
     "padded": dict(fused=True),
-    "unpadded": dict(fused=True, padded_stream=False),
-    "spatial_k10_k11": dict(fused=True, spatial2_min_ch=0, pallas_spatial=True, tconv_hw=True),
-    "plain_k7": dict(fused=False, use_pallas_gn=True),
+    "unpadded": dict(fused=True, routing=ConvRouting(padded_stream=False)),
+    "spatial_k10_k11": dict(fused=True, routing=ConvRouting(spatial2_min_ch=0,
+                                                            pallas_spatial=True, tconv_hw=True)),
+    "plain_k7": dict(fused=False, routing=ConvRouting(use_pallas_gn=True)),
 }
 
 
