@@ -152,14 +152,15 @@ Phases (any failure exits non-zero):
      the shipped routing, `padded_k8_k9`, `plain_k7`, `spatial_k10_k11`,
      `padded_k12` and the plain path, gated against float32 as phase 4
      gates the release forward, with `VARIANT_FORWARD`'s launches; one B=1
-     request through `VideoPredModel.sample` (exactly 100 forwards'
-     launches); for Thor and Bridge a B=4 train step through train_fused
+     request through `VideoPredModel.sample` (`FAMILY_TIMESTEPS` steps,
+     exactly that many forwards' launches); for Thor and Bridge a B=4 train step through train_fused
      with K6 against float32 (`VARIANT_TRAIN_STEP`'s launches); every kernel
      signature these runs gave that no earlier phase held, against its
      plain version on three input sets with its plan; the xattn backbone at
      the release widths (a B=8 forward against float32, a B=1 chain,
-     `scripts/train_video.py --backbone xattn` for 2 steps and `--resume
-     --sample-after` bit-equal); the transformer denoiser (B=1 and B=64
+     `scripts/train_video.py --backbone xattn` for 2 steps at B=3 and
+     `--resume --sample-after` bit-equal; both chains `FAMILY_TIMESTEPS`
+     steps); the transformer denoiser (B=1 and B=64
      forwards against float32, a backward and an AdamW step); its wall time
      on its own line (libero, mw and thor_luo are the release config);
   12. the guided image family (`v2a_tpu_torch/guided/`, its seven CLIs in
@@ -197,6 +198,20 @@ Phases (any failure exits non-zero):
      launches (`LAB_TRACE_KERNELS`) by its C entry with a nonzero device
      time, 0 < busy <= wall; `affconvbench`, `megabench:L1`,
      `tconvbench`);
+  15. (run before 14's lines) the mesh on `torch.distributed` and
+     rematerialisation (`mesh_and_remat`): on a one-rank NCCL group, a B=4
+     train_fused step on a (dp=1, tp=1) mesh bit-equal to the step without
+     a mesh, `shard_for_mesh` + a B=2 chain bit-equal to the chain without
+     (100 padded forwards' launches), one guided cycle through
+     `build_experiment` with `mesh_axes=("auto_dp",)` on phase 8's cut
+     config (100 B=8 forwards', the buffer digest check passed); with more
+     than one card a dp step over 4 (or 2) of them against the single-card
+     step (one line saying it did not run otherwise); the B=4 step under
+     no remat, "blocks", "levels", "mxu" and "blocks" with train_fused (the
+     loss bit-equal, the gradient within `REMAT_GRAD_BOUND`, K1's launches
+     the step's plus the recomputed ResBlock forwards', ms and peak GiB,
+     "blocks" and "levels" below the peak without remat), and
+     `scripts/train_video.py --backbone xattn --use-checkpoint` at B=4;
   14. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed (phase 10: the writer's reference
@@ -372,6 +387,7 @@ ONLINE_OVERRIDES = {
     "trainer.checkpoint_buffers": True,
     "eval.n_seeds": 1,
     "eval.num_vid_pred_per_ep": 1,
+    "eval.eval_n_preds_betw_vframes": 1,
 }
 ONLINE_WHY = {
     "dataset": "FakeEnvList, 8 tasks at 128^2: LIBERO is not installed",
@@ -393,6 +409,8 @@ ONLINE_WHY = {
     "trainer.checkpoint_buffers": "the buffers go into the checkpoint, for the resume gate",
     "eval.n_seeds": "the eval: one seed per task",
     "eval.num_vid_pred_per_ep": "the eval: one goal video per episode",
+    "eval.eval_n_preds_betw_vframes": "the eval: 1 prediction per goal frame (5 in the "
+                                      "release; cut to hold the script's time)",
 }
 ONLINE_BATCH_REPS = 20  # hindsight batches timed per backend
 # phase 8's concurrency runs, on the same cut config: a pool cycle on
@@ -485,7 +503,14 @@ VARIANT_TRAIN_STEP = {"thor": {"fused_affine_conv3x3": 96, "wgrad_conv3x3": 48},
 # over the float32 output's std at most this (the release forward's plain
 # bf16 path strays about 6e-2, PERF.md section 7)
 FAMILY_ERR_BOUND = 0.1
-XATTN_TRAIN_B = 4  # less by one while a step does not fit the card
+# less by one while a step does not fit the card: B=4 runs out of memory
+# without remat, so the run starts at 3; phase 15 trains B=4 with
+# --use-checkpoint
+XATTN_TRAIN_B = 3
+# the depth of phase 11's chains (each family's request, xattn's request and
+# --sample-after): 25 steps of a 25-step schedule, cut from the release's 100
+# to hold the script's time
+FAMILY_TIMESTEPS = 25
 TFD_BATCHES = (1, 64)
 
 
@@ -3029,8 +3054,9 @@ def _family_variant(rk, name, dev):
     a B=8 forward through each of `FAMILY_ROUTINGS` and the plain path,
     gated and timed as phase 4 gates the release forward, with
     `VARIANT_FORWARD`'s launches; (c) one B=1 request through
-    `VideoPredModel.sample` (the 100-step ancestral chain, the shipped
-    routing), finite in [0, 1], exactly 100 forwards' launches; (d) for the
+    `VideoPredModel.sample` (the ancestral chain of `FAMILY_TIMESTEPS` steps,
+    the shipped routing), finite in [0, 1], exactly that many forwards'
+    launches; (d) for the
     trained variants, a B=4 `VideoModelTrainer` gradient through the plain
     path and through train_fused with K6, each against a float32 plain
     gradient (the K6 routing at most twice as far as the plain bf16 path),
@@ -3039,7 +3065,8 @@ def _family_variant(rk, name, dev):
     K6 step."""
     from v2a_tpu_torch.models.env_variants import video_model_variant
 
-    model = video_model_variant(name, device=dev, dtype="bfloat16").init(SEED)
+    model = video_model_variant(name, device=dev, dtype="bfloat16", timesteps=FAMILY_TIMESTEPS,
+                                sampling_timesteps=FAMILY_TIMESTEPS).init(SEED)
     vcfg = model.config
     if not (model.unet.fused and model.unet.routing.padded_stream):
         fail(f"{name}: the U-Net did not resolve to the padded-stream routing on cuda")
@@ -3167,7 +3194,8 @@ def _family_xattn(dev):
     (`VideoModelConfig(backbone="xattn", dtype="bfloat16")`: 128^2, F=7,
     block channels 128 x (1, 2, 3, 4, 5), 2 layers a block, 8 heads, text
     512): a B=8 forward against the float32 one (max error over the float32
-    output's std under `FAMILY_ERR_BOUND`, finite), one B=1 100-step chain,
+    output's std under `FAMILY_ERR_BOUND`, finite), one B=1 chain of
+    `FAMILY_TIMESTEPS` steps,
     then `scripts/train_video.py --backbone xattn` for 2 steps on synthetic
     clips at `XATTN_TRAIN_B`, or the largest batch below it that fits, and
     `--resume --sample-after` in a fresh call, bit-equal. It launches no
@@ -3175,7 +3203,8 @@ def _family_xattn(dev):
     from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
     from v2a_tpu_torch.scripts import train_video
 
-    vcfg = VideoModelConfig(backbone="xattn", dtype="bfloat16")
+    vcfg = VideoModelConfig(backbone="xattn", dtype="bfloat16", timesteps=FAMILY_TIMESTEPS,
+                            sampling_timesteps=FAMILY_TIMESTEPS)
     model = VideoPredModel(vcfg, device=dev).init(SEED)
     with torch.device(dev):
         ref = VideoPredModel(dataclasses.replace(vcfg, dtype="float32"), device=dev).build_unet()
@@ -3227,7 +3256,8 @@ def _family_xattn(dev):
     while True:
         argv = ["--data", "(synthetic clips)", "--workdir", workdir, "--tasks", ",".join(TASKS),
                 "--batch-size", str(b), "--n-steps", str(VIDEO_STEPS), "--save-freq",
-                str(VIDEO_STEPS), "--log-freq", "1", "--backbone", "xattn"]
+                str(VIDEO_STEPS), "--log-freq", "1", "--backbone", "xattn",
+                "--timesteps", str(FAMILY_TIMESTEPS)]
         torch.cuda.reset_peak_memory_stats()
         try:
             t0 = time.perf_counter()
@@ -3891,6 +3921,386 @@ def lab_paths(dev, smi):
                 seconds=lab_s)
 
 
+
+# phase 15, the mesh on torch.distributed and rematerialisation: the
+# world-1 NCCL mesh's train step, sampler and online cycle against the runs
+# without a mesh; on more than one card a dp step over them; the B=4 step
+# under each remat policy against the step without remat
+MESH_LOGS = os.path.join(ROOT, "logs", "chip_smoke_mesh")
+MESH_SAMPLE_B = 2
+MESH_ONLINE_STEPS = 5  # the guided cycle at step 4 (ONLINE_OVERRIDES' schedule)
+REMAT_RUNS = {  # name: (trainer flags, the run its loss and gradients are held against)
+    "none": (dict(train_fused=False), None),
+    "blocks": (dict(train_fused=False, use_checkpoint=True, remat_policy="blocks"), "none"),
+    "levels": (dict(train_fused=False, use_checkpoint=True, remat_policy="levels"), "none"),
+    "mxu": (dict(train_fused=False, use_checkpoint=True, remat_policy="mxu"), "none"),
+    "tfused": (dict(TRAIN_ROUTINGS["k6"]), None),
+    "blocks_tfused": (dict(TRAIN_ROUTINGS["k6"], use_checkpoint=True, remat_policy="blocks"),
+                      "tfused"),
+}
+# a remat step's gradient against the same step without remat: whole-vector
+# relative L2 error (the recomputed forward is the same; the sums into the
+# weight gradients may run in another order)
+REMAT_GRAD_BOUND = 1e-2
+XATTN_REMAT_B = 4
+# dp cards of (b), where the machine has more than one: 4 or 2 (TRAIN_B rows)
+MESH_DP_BOUND = dict(loss_rel=1e-2, param_abs=2e-4)
+
+
+def _k1_in_res_blocks(net):
+    """Counts K1 launches made inside the net's `ResBlock3D` forwards (what a
+    "blocks" recomputation re-runs); returns (counter, hook handles)."""
+    from v2a_tpu_torch.models.video_unet import ResBlock3D
+
+    count, stack, handles = {"k1": 0}, [], []
+    for mod in net.modules():
+        if isinstance(mod, ResBlock3D):
+            handles.append(mod.register_forward_pre_hook(
+                lambda *_: stack.append(launch_counts()["fused_affine_conv3x3"])))
+            handles.append(mod.register_forward_hook(lambda *_: count.__setitem__(
+                "k1", count["k1"] + launch_counts()["fused_affine_conv3x3"] - stack.pop())))
+    return count, handles
+
+
+def _mesh_world1(model, vcfg, dev, smi, clips, batch, report, launches, calls_all):
+    """Phase 15 (a): the world-1 NCCL mesh's train step, sampler and online
+    cycle, each against its run without a mesh."""
+    from v2a_tpu_torch.config import apply_overrides, load_config_module
+    from v2a_tpu_torch.models.video_model import VideoPredModel
+    from v2a_tpu_torch.parallel.mesh import make_mesh
+    from v2a_tpu_torch.train.build import build_experiment
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    mesh = make_mesh(("dp", "tp"), (1, 1))
+    cfg = VideoTrainerConfig(batch_size=TRAIN_B, n_train_steps=1, save_freq=10 ** 9,
+                             log_freq=10 ** 9, **TRAIN_ROUTINGS["k6"])
+    runs = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        trainer = VideoModelTrainer(model, clips, cfg, workdir=os.path.join(MESH_LOGS, name),
+                                    seed=SEED, mesh=m)
+        zero_launches()
+        with recording() as calls:
+            loss, per_sample = trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        runs[name] = (loss, per_sample, {k: v.detach().clone()
+                                         for k, v in trainer.train_unet.state_dict().items()},
+                      {k: v for k, v in launch_counts().items() if v})
+        if m is not None:
+            for k, v in calls.items():
+                calls_all[k] = calls_all.get(k, 0) + v
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    (l0, p0, w0, n0), (l1, p1, w1, n1) = runs["single"], runs["mesh"]
+    want = EXPECTED_PER_TRAIN_STEP["k6"]
+    if n0 != want or n1 != want:
+        fail(f"mesh: train step launches {n1} (without a mesh {n0}), expected {want}")
+    same = torch.equal(l0, l1) and torch.equal(p0, p1) and all(torch.equal(w0[k], w1[k])
+                                                               for k in w0)
+    if not same:
+        fail("mesh: the world-1 mesh train step is not bit-equal to the step without a mesh")
+    for k, v in n1.items():
+        launches[k] += v
+    report["train_step"] = dict(loss=float(l1), launches=n1, bit_equal=True)
+    log(f"[mesh] {smi}: world-1 NCCL mesh (dp=1, tp=1), B={TRAIN_B} train_fused step: loss "
+        f"{float(l1):.6f}, per-sample losses and post-step parameters bit-equal to the step "
+        f"without a mesh, launches {n1}")
+    del runs, w0, w1
+
+    # the sampler: shard_for_mesh, a B=2 chain against the same chain without
+    smodel = VideoPredModel(vcfg, device=dev)
+    smodel.nets.load_state_dict(model.nets.state_dict())
+    h, w = vcfg.image_size
+    frames = torch.rand(MESH_SAMPLE_B, h, w, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 13))
+    tasks = TASKS[:MESH_SAMPLE_B]
+    v0 = smodel.sample(frames, tasks, generator=torch.Generator(device=dev).manual_seed(SEED))
+    smodel.shard_for_mesh(mesh)
+    zero_launches()
+    t0 = time.perf_counter()
+    with recording() as calls:
+        v1 = smodel.sample(frames, tasks, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    got = launch_counts()
+    n_fwd = vcfg.sampling_timesteps
+    _gate_chains("mesh: sampler", got, calls,
+                 {k: n_fwd * EXPECTED_PER_FORWARD["padded"].get(k, 0) for k in got})
+    if not torch.equal(v0, v1):
+        fail("mesh: the sharded sampler's video is not bit-equal to the one without a mesh")
+    for k, v in got.items():
+        launches[k] += v
+    for k, v in calls.items():
+        calls_all[k] = calls_all.get(k, 0) + v
+    report["sampler"] = dict(b=MESH_SAMPLE_B, s=sample_s, bit_equal=True)
+    log(f"[mesh] shard_for_mesh + sample (B={MESH_SAMPLE_B}, {n_fwd}-step ancestral): "
+        f"{sample_s:.2f} s, bit-equal to the sample without a mesh, launches "
+        f"{ {k: v for k, v in got.items() if v} } = {n_fwd} padded forwards'")
+    del smodel, v0, v1
+    torch.cuda.empty_cache()
+
+    # the online loop: build_experiment with mesh_axes=("auto_dp",) on phase
+    # 8's cut config, its env pool, one guided cycle
+    ocfg = load_config_module(os.path.join(ROOT, "v2a_tpu_torch", "config", "libero",
+                                           "lb_tk8_65to72.py"))
+    ocfg = apply_overrides(ocfg, dict(ONLINE_OVERRIDES, logbase=MESH_LOGS, exp_name="online",
+                                      mesh_axes=("auto_dp",), n_env_workers=POOL_WORKERS,
+                                      **{"trainer.n_train_steps": MESH_ONLINE_STEPS}))
+    t0 = time.perf_counter()
+    trainer, _, env_list, video_model = build_experiment(ocfg, snapshot=False)
+    try:
+        if trainer.mesh is None or trainer.mesh.shape != {"dp": 1}:
+            fail(f"mesh: the online trainer's mesh is {trainer.mesh}")
+        checks = []
+        check = trainer.check_buffers_equal
+
+        def counted_check():
+            check()
+            checks.append(trainer.buffer_digest().hex()[:16])
+
+        trainer.check_buffers_equal = counted_check
+        zero_launches()
+        with recording() as calls:
+            trainer.train()
+        torch.cuda.synchronize()
+        online_s = time.perf_counter() - t0
+        got = launch_counts()
+    finally:
+        trainer.env_pool.close()
+    _gate_chains("mesh: online", got, calls,
+                 {k: n_fwd * EXPECTED_PER_FORWARD["padded"].get(k, 0) for k in got})
+    if (trainer.step != MESH_ONLINE_STEPS or trainer.cnt_vid_rollouts != len(env_list.task_list)
+            or len(checks) != 1):
+        fail(f"mesh: online ran {trainer.step} steps, {trainer.cnt_vid_rollouts} guided "
+             f"rollouts, {len(checks)} buffer checks")
+    for k, v in got.items():
+        launches[k] += v
+    for k, v in calls.items():
+        calls_all[k] = calls_all.get(k, 0) + v
+    report["online"] = dict(s=online_s, steps=trainer.step, rollouts=trainer.cnt_vid_rollouts,
+                            digest=checks[0])
+    log(f"[mesh] online loop on the auto_dp mesh ({POOL_WORKERS} env workers): build, "
+        f"{MESH_ONLINE_STEPS} steps and one guided cycle {online_s:.1f} s, "
+        f"{trainer.cnt_vid_rollouts} rollouts, the buffer digest check passed ({checks[0]}), "
+        f"launches {n_fwd} B=8 padded forwards'")
+    del trainer, video_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mesh_cards(model, vcfg, batch, noise, smi, report):
+    """Phase 15 (b): where the machine has more than one card, one dp video
+    train step over 4 (or 2) cards on NCCL against the single-card step."""
+    from v2a_tpu_torch.parallel.dryrun import video_step_rank
+    from v2a_tpu_torch.parallel.multihost import spawn_ranks
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        report["cards"] = None
+        log(f"[mesh] (b) NOT RUN: {n} card on this machine; the dp step over several cards "
+            f"runs where torch.cuda.device_count() > 1 (the world-1 mesh of (a) ran)")
+        return
+    world = 4 if n >= 4 else 2
+    train_kw = dict(batch_size=TRAIN_B, n_train_steps=1, save_freq=10 ** 9, log_freq=10 ** 9,
+                    **TRAIN_ROUTINGS["k6"])
+    out = os.path.join(MESH_LOGS, "cards")
+    os.makedirs(out, exist_ok=True)
+    problem = os.path.join(out, "problem.pt")
+    torch.save(dict(unet=model.unet.state_dict(), batch=batch, noise=noise), problem)
+    single = VideoModelTrainer(model, None, VideoTrainerConfig(**train_kw),
+                               workdir=os.path.join(out, "single"))
+    loss, _ = single.train_step(*batch, noise=noise)
+    want = {k: v.detach() for k, v in single.train_unet.state_dict().items()}
+    t0 = time.perf_counter()
+    spawn_ranks(video_step_rank, world, os.path.join(out, "store"),
+                args=(out, "cuda", dataclasses.asdict(vcfg), train_kw, problem), device="cuda")
+    got = torch.load(os.path.join(out, "dp_step.pt"), weights_only=True)
+    rel = abs(float(got["loss"]) - float(loss)) / abs(float(loss))
+    worst = max(float((got["params"][k].to(v.device) - v).abs().max()) for k, v in want.items())
+    if rel > MESH_DP_BOUND["loss_rel"] or worst > MESH_DP_BOUND["param_abs"]:
+        fail(f"mesh: dp={world} step loss rel. error {rel:.3e}, parameters {worst:.3e} off "
+             f"the single-card step's (bounds {MESH_DP_BOUND})")
+    report["cards"] = dict(world=world, loss_rel=rel, param_abs=worst,
+                           s=time.perf_counter() - t0)
+    log(f"[mesh] {smi}: dp={world} NCCL ranks, one B={TRAIN_B} train_fused step: loss rel. "
+        f"error {rel:.3e}, parameters within {worst:.3e} of the single-card step")
+    single.close()
+
+
+def _remat_steps(model, vcfg, dev, smi, clips, batch, noise, report, launches, calls_all):
+    """Phase 15 (c): the B=4 release step under each remat policy against the
+    step without remat, then the xattn backbone at B=4 with
+    `--use-checkpoint`."""
+    from v2a_tpu_torch.scripts import train_video
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    refs, rows = {}, {}
+    for name, (flags, ref) in REMAT_RUNS.items():
+        cfg = VideoTrainerConfig(batch_size=TRAIN_B, n_train_steps=2, save_freq=10 ** 9,
+                                 log_freq=10 ** 9, **flags)
+        trainer = VideoModelTrainer(model, clips, cfg, workdir=os.path.join(MESH_LOGS, name),
+                                    seed=SEED)
+        counter, hooks = _k1_in_res_blocks(trainer.train_unet)
+        zero_launches()
+        with recording() as calls:
+            loss, _ = trainer.loss_and_grads(*batch, noise=noise)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        for h in hooks:
+            h.remove()
+        grads = {k: p.grad.detach().clone() for k, p in trainer.train_unet.named_parameters()}
+        trainer.apply_gradients()
+        # the timed step: gradients and the update
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        trainer.loss_and_grads(*batch, noise=noise)
+        trainer.apply_gradients()
+        e1.record()
+        torch.cuda.synchronize()
+        row = dict(ms=e0.elapsed_time(e1), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   loss=float(loss), launches=got)
+        if ref is None:
+            refs[name] = (loss, grads, counter["k1"])
+            want = EXPECTED_PER_TRAIN_STEP["k6" if flags.get("train_fused") else "plain"]
+        else:
+            l_ref, g_ref, k1_blocks = refs[ref]
+            if not torch.equal(loss, l_ref):
+                fail(f"remat {name}: loss {float(loss)} is not bit-equal to {ref}'s "
+                     f"{float(l_ref)}")
+            row["grad_rel"], row["grad_rel_worst_leaf"] = _grad_rel(grads, g_ref)
+            if not row["grad_rel"] <= REMAT_GRAD_BOUND:
+                fail(f"remat {name}: gradient rel. error {row['grad_rel']:.3e} against {ref} "
+                     f"over {REMAT_GRAD_BOUND}")
+            want = dict(EXPECTED_PER_TRAIN_STEP["k6" if flags.get("train_fused") else "plain"])
+            if want:  # "blocks" re-runs every ResBlock's K1 forwards in the backward
+                row["k1_recomputed"] = k1_blocks
+                want["fused_affine_conv3x3"] += k1_blocks
+        if got != want:
+            fail(f"remat {name}: launches {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] += v
+        for k, v in calls.items():
+            calls_all[k] = calls_all.get(k, 0) + v
+        rows[name] = row
+        log(f"[remat] {smi}: {name}, B={TRAIN_B}: {row['ms']:.1f} ms per step, peak "
+            f"{row['peak_gib']:.2f} GiB, loss {row['loss']:.6f}"
+            + (f" bit-equal to {ref}'s, gradient rel. error {row['grad_rel']:.3e} (worst leaf "
+               f"{row['grad_rel_worst_leaf']:.3e})" if ref else "")
+            + (f", launches {got} ({row['k1_recomputed']} K1 forwards recomputed)"
+               if "k1_recomputed" in row else (f", launches {got}" if got else "")))
+        trainer.close()
+        del trainer, grads
+        torch.cuda.empty_cache()
+    for name in ("blocks", "levels"):
+        if not rows[name]["peak_gib"] < rows["none"]["peak_gib"]:
+            fail(f"remat {name}: peak {rows[name]['peak_gib']:.2f} GiB is not below the step "
+                 f"without remat ({rows['none']['peak_gib']:.2f} GiB)")
+    log(f"[remat] levels against blocks: {rows['levels']['peak_gib']:.2f} against "
+        f"{rows['blocks']['peak_gib']:.2f} GiB, {rows['levels']['ms']:.1f} against "
+        f"{rows['blocks']['ms']:.1f} ms per step")
+    report["remat"] = rows
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the xattn backbone through the CLI at B=4 with --use-checkpoint
+    workdir = os.path.join(MESH_LOGS, "xattn")
+    f, (h, w) = vcfg.video_future_horizon, vcfg.image_size
+    argv = ["--data", "(synthetic clips)", "--workdir", workdir, "--tasks", ",".join(TASKS),
+            "--batch-size", str(XATTN_REMAT_B), "--n-steps", str(VIDEO_STEPS), "--save-freq",
+            str(VIDEO_STEPS), "--log-freq", "1", "--backbone", "xattn", "--use-checkpoint"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer = train_video.run(train_video.parse_args(argv), SyntheticClips(f, (h, w), SEED + 9),
+                              TASKS)
+    torch.cuda.synchronize()
+    xs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.close()
+    with open(os.path.join(workdir, "metrics.jsonl")) as fh:
+        losses = [r["video_train/loss"] for r in map(json.loads, fh) if "video_train/loss" in r]
+    if (trainer.step != VIDEO_STEPS or len(losses) != VIDEO_STEPS
+            or not np.all(np.isfinite(losses)) or not trainer.train_unet.use_checkpoint):
+        fail(f"xattn --use-checkpoint: {trainer.step} steps, losses {losses}")
+    if any(launch_counts().values()):
+        fail(f"xattn --use-checkpoint: launched kernels {launch_counts()}")
+    report["xattn"] = dict(b=XATTN_REMAT_B, s=xs, peak_gib=peak, losses=losses)
+    log(f"[remat] {smi}: scripts/train_video.py --backbone xattn --use-checkpoint, "
+        f"B={XATTN_REMAT_B}, {VIDEO_STEPS} steps {xs:.1f} s (build, steps, saves), peak "
+        f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_and_remat(rk, held, model, vcfg, dev, smi):
+    """Phase 15: the mesh on `torch.distributed` and rematerialisation, at
+    release width, bf16. (a) A one-rank NCCL process group on an in-memory
+    store: a B=4 train_fused `VideoModelTrainer` step on `make_mesh(("dp",
+    "tp"), (1, 1))` bit-equal to the step without a mesh (loss, per-sample
+    losses, post-step parameters; K1 / K6 launches phase 6's), a B=2
+    `sample` after `shard_for_mesh` bit-equal to the sample without a mesh
+    (exactly 100 padded forwards' launches), and one guided cycle of the
+    online loop through `build_experiment` with `mesh_axes=("auto_dp",)` on
+    phase 8's cut config (its env pool; exactly 100 B=8 forwards'; the
+    buffer digest check run and passed). (b) With more than one card, a dp
+    step over 4 (or 2) NCCL ranks against the single-card step; with one,
+    a line saying it did not run. (c) The B=4 step under each remat policy
+    (`REMAT_RUNS`): the loss bit-equal to the step without remat, the
+    gradient within `REMAT_GRAD_BOUND`, "blocks" with train_fused
+    launching K1 the step's 116 plus the ResBlock forwards it recomputes
+    (counted by hooks on the step without remat), ms and peak GiB per
+    policy, "blocks" and "levels" below the peak without remat; then
+    `train_video --backbone xattn --use-checkpoint` at B=4 for 2 steps.
+    Returns the report, the launches and the per-kernel errors of any
+    signature not in `held`."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_LOGS, ignore_errors=True)
+    report, calls_all = {}, {}
+    launches = {name: 0 for name in rk.KERNELS}
+    clips = SyntheticClips(vcfg.video_future_horizon, vcfg.image_size, SEED + 11)
+    rng = np.random.default_rng(SEED + 12)
+    x_cond, video, tasks = clips.sample_batch(TRAIN_B, rng)
+    batch = (torch.as_tensor(video, device=dev),
+             (torch.as_tensor(x_cond, device=dev) * 2.0 - 1.0)[:, None],
+             model.encode_batch_text(tasks),
+             torch.as_tensor(rng.integers(0, vcfg.timesteps, TRAIN_B), device=dev),
+             torch.ones(TRAIN_B, device=dev))
+    noise = torch.randn(batch[0].shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 14))
+    parts = report["parts_s"] = {}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        _mesh_world1(model, vcfg, dev, smi, clips, batch, report, launches, calls_all)
+    finally:
+        dist.destroy_process_group()
+    parts["world1"], t0 = time.perf_counter() - t0, time.perf_counter()
+    _mesh_cards(model, vcfg, batch, noise, smi, report)
+    parts["cards"], t0 = time.perf_counter() - t0, time.perf_counter()
+    _remat_steps(model, vcfg, dev, smi, clips, batch, noise, report, launches, calls_all)
+    parts["remat_and_xattn"] = time.perf_counter() - t0
+
+    extra = {k: v for k, v in calls_all.items() if k not in held}
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"mesh": extra}, dev, timed=False, tag="mesh-shapes")
+        extra_agg = extra_agg["mesh"]
+    report["new_signatures"] = len(extra)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] {smi}: {len(extra)} kernel signatures not held before; phase 15 wall time "
+        f"{report['phase_s']:.1f} s (world-1 mesh {parts['world1']:.1f} s, the cards "
+        f"{parts['cards']:.1f} s, remat and xattn {parts['remat_and_xattn']:.1f} s)")
+    shutil.rmtree(MESH_LOGS, ignore_errors=True)
+    return report, launches, extra_agg
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3995,6 +4405,8 @@ def main():
     # 13. the lab kernels' paths and gates
     lab_launches, lab_bench, lab_s, lab_rows, lab_agg = lab_kernels(rk, routing_calls, dev)
     lab = lab_paths(dev, smi)
+    # 15. the mesh on torch.distributed and rematerialisation
+    mesh, mesh_launches, mesh_agg = mesh_and_remat(rk, held, model, vcfg, dev, smi)
 
     # 14. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
@@ -4027,10 +4439,11 @@ def main():
         errs += [video_agg[name]["max_abs_err"]] if video_agg else []
         errs += [ckpt_agg[name]["max_abs_err"]] if ckpt_agg else []
         errs += [family_agg[name]["max_abs_err"]] if family_agg else []
+        errs += [mesh_agg[name]["max_abs_err"]] if mesh_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
                     + train_launches[name] + sum(nl[name] for nl in new_launches.values())
                     + online_launches[name] + video_launches[name] + ckpt_launches[name]
-                    + family_launches[name])
+                    + family_launches[name] + mesh_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -4052,7 +4465,8 @@ def main():
                        family_shapes=family_rows, family_launches=family_launches,
                        guided=guided,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
-                       lab_shapes=lab_rows, per_lab=lab_agg, lab_paths=lab, kernels=kernels,
+                       lab_shapes=lab_rows, per_lab=lab_agg, lab_paths=lab, mesh=mesh,
+                       mesh_launches=mesh_launches, kernels=kernels,
                        **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
         "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "
@@ -4065,7 +4479,9 @@ def main():
         "scripts/eval.py --workers 8, the pool cycle, the pipelined train()) plus the video "
         "entry points' runs (train_video's steps, its --sample-after chain) plus "
         "sample_video --ckpt's chain on the converted reference checkpoint plus the model "
-        "families' requests and K6 train steps (Thor, Bridge, MW-flow), and "
+        "families' requests and K6 train steps (Thor, Bridge, MW-flow) plus phase 15's "
+        "mesh and remat runs (the world-1 mesh's train step, sampler and online cycle, the "
+        "remat steps), and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -491,15 +491,18 @@ def test_train_and_eval_entry_points(tmp_path):
             train_script.main(argv[:2] + argv[4:])
 
 
-def test_left_out_options_raise(tmp_path):
-    """Each option of the JAX trainer that is not ported yet raises
-    `NotImplementedError` naming ROADMAP.md: the mesh. A video checkpoint
-    directory that holds only the JAX package's converted msgpack raises
-    and names the port's converter. `from_h5` with a missing file raises where the JAX trainer
-    does, when the first fill opens it: the JAX ingestion's error
-    (`FileNotFoundError` from h5py, `ImportError` without it)."""
+def test_left_out_options_raise(tmp_path, monkeypatch):
+    """The mesh is ported: a mesh object of the wrong type raises
+    `TypeError`, a config whose mesh does not fit the world (one process
+    here) raises `ValueError`, and `mesh_axes=("dp",)` builds a trainer on a
+    one-rank mesh (`tests/test_torch_parallel.py` runs it on two ranks). A
+    video checkpoint directory that holds only the JAX package's converted
+    msgpack raises and names the port's converter. `from_h5` with a missing
+    file raises where the JAX trainer does, when the first fill opens it:
+    the JAX ingestion's error (`FileNotFoundError` from h5py, `ImportError`
+    without it)."""
     cfg = ttrainer.TrainerConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         ttrainer.OnlineTrainer(None, None, cfg, str(tmp_path), mesh=object())
     missing = str(tmp_path / "missing.hdf5")
     with pytest.raises(Exception) as jax_err:
@@ -514,8 +517,17 @@ def test_left_out_options_raise(tmp_path):
     with pytest.raises(jax_err.type):
         trainer.train(1)
     assert trainer.step == 0 and len(trainer.envBuf_rand) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild.build_experiment(exp.replace(mesh_axes=("dp",)), str(tmp_path), snapshot=False)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="#ranks 1"):
+        tbuild.build_experiment(exp.replace(mesh_axes=("dp", "tp"), mesh_shape=(2, 2)),
+                                str(tmp_path), with_video_model=False, snapshot=False)
+    try:
+        meshed, *_ = tbuild.build_experiment(exp.replace(mesh_axes=("dp",)), str(tmp_path),
+                                             with_video_model=False, snapshot=False)
+        assert meshed.mesh.shape == {"dp": 1} and meshed.state.shards is not None
+    finally:
+        torch.distributed.destroy_process_group()
     ckdir = tmp_path / "ckpt"
     ckdir.mkdir()
     (ckdir / f"jax-model-{exp.video_ckpt_milestone}.msgpack").write_bytes(b"")

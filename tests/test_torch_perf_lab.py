@@ -10,8 +10,8 @@ switches of `ConvRouting`, on the CPU.
   seed, the JAX tree through the converter (strict load, so the ablated
   trees convert), the JAX module with the flag set (Pallas in interpret
   mode) against the port with the field set, the same launches per kernel.
-- Every lab name runs on the CPU at small sizes; the names with no
-  counterpart and the remat policies raise `ValueError`.
+- Every lab name runs on the CPU at small sizes, `trace_vtrain`'s remat
+  policies included; the names with no counterpart raise `ValueError`.
 """
 
 import dataclasses
@@ -282,11 +282,26 @@ def test_every_name_runs_on_the_cpu():
 
 @pytest.mark.parametrize("name,match", [
     ("fused_tbudget_512", "VMEM"), ("fused_join_wide", "tap-join"),
-    ("trace_vtrain:4:blocks", "Queue 1 item 7"), ("trace_vtrain:8:levels", "Queue 1 item 7"),
-    ("trace_vtrain:4:mxu", "Queue 1 item 7"), ("trace_vtrain:4:tfused-blocks", "Queue 1 item 7"),
-    ("no_such_name", "unknown"), ("megabench:L7", "level")])
+    ("trace_vtrain:4:all", "not off, tfused"), ("no_such_name", "unknown"),
+    ("megabench:L7", "level")])
 def test_names_without_a_counterpart_raise_before_anything_runs(name, match):
+    """An unknown name or `trace_vtrain` policy, and the TPU-only names,
+    raise before any name of the call runs."""
     lines = []
     with pytest.raises(ValueError, match=match):
         perf_lab.main(["base", name], device="cpu", sizes=TINY, out=lines.append)
     assert not lines
+
+
+@pytest.mark.parametrize("name", ["trace_vtrain:4:blocks", "trace_vtrain:8:levels",
+                                  "trace_vtrain:4:mxu", "trace_vtrain:4:tfused-blocks"])
+def test_vtrain_remat_policies_run(name):
+    """`trace_vtrain`'s remat policies (the JAX lab's `parse_policy`: a
+    policy alone on the plain path, after `tfused-` with train_fused) run
+    one traced step at tiny sizes with the trainer's `use_checkpoint`."""
+    lines = []
+    rows = perf_lab.main([name], device="cpu", sizes=TINY, chain=1, out=lines.append)
+    assert [r["bench"] for r in rows] == [name]
+    assert math.isfinite(rows[0]["ms"]) and rows[0]["ms"] > 0
+    remat = name.rsplit(":", 1)[1].split("-")[-1]
+    assert any(f"remat {remat}" in line for line in lines), lines[:2]

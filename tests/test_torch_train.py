@@ -537,9 +537,18 @@ def test_trainer_checkpoint_and_publish(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """`use_checkpoint` and the mesh are ported (`tests/test_torch_remat.py`,
+    `tests/test_torch_parallel.py`): the trainer builds with checkpointing
+    (its U-Net carries the policy, `train_fused` off by the JAX rule), and
+    refuses an unknown policy and a mesh object of the wrong type."""
     _, tm = _models()
-    with pytest.raises(NotImplementedError):
-        tvt.VideoModelTrainer(tm, None, tvt.VideoTrainerConfig(use_checkpoint=True),
-                              workdir=str(tmp_path))
-    with pytest.raises(NotImplementedError):
+    tr = tvt.VideoModelTrainer(tm, None, tvt.VideoTrainerConfig(use_checkpoint=True),
+                               workdir=str(tmp_path))
+    assert tr.train_unet.use_checkpoint and tr.train_unet.remat_policy == "blocks"
+    assert tr.train_unet.train_fused is False
+    tr.close()
+    with pytest.raises(ValueError, match="remat_policy"):
+        tvt.VideoModelTrainer(tm, None, tvt.VideoTrainerConfig(
+            use_checkpoint=True, remat_policy="none"), workdir=str(tmp_path))
+    with pytest.raises(TypeError, match="Mesh"):
         tvt.VideoModelTrainer(tm, None, workdir=str(tmp_path), mesh=object())

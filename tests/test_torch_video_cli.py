@@ -1,8 +1,8 @@
 """The port's video entry points on the CPU: `scripts/train_video.py` on a
 small H5 clip file (its header line against the JAX package's tasks, clip
 count and parameter count; its `VideoClipDataset` drawing the JAX
-package's batches from one seed; two steps, a save and a resume; the
-options not ported raising) and `scripts/sample_video.py --smoke 1` (the
+package's batches from one seed; two steps, a save and a resume;
+`--use-checkpoint` and `--mesh`) and `scripts/sample_video.py --smoke 1` (the
 outputs `tests/test_config.py::test_sample_video_cli_smoke` checks)."""
 
 import json
@@ -111,13 +111,27 @@ def test_train_video_trains_saves_and_resumes(clip_h5, tmp_path, capsys):
         torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
 
 
-# the third case: the xattn backbone runs (tests/test_torch_xattn.py), its
-# gradient checkpointing does not
 @pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--use-checkpoint"],
                                   ["--backbone", "xattn", "--use-checkpoint"]])
-def test_train_video_left_out_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_video.main(["--data", str(tmp_path / "none.hdf5"), *flag, *TINY])
+def test_train_video_left_out_flags_raise(flag, clip_h5, tmp_path, monkeypatch):
+    """The flags once left out now run: `--use-checkpoint` trains a step
+    with the U-Net's block recomputation and the xattn backbone's per-block
+    one; `--mesh dp=2` in one process with no cluster environment raises
+    before any model is built (the mesh does not fit a world of one; under
+    `torchrun --nproc_per_node 2` it trains, `tests/test_torch_parallel.py`
+    runs the trainer on two ranks), as a malformed mesh spec does."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--data", clip_h5, "--workdir", str(tmp_path / "wd"), "--n-steps", "1", *flag, *TINY]
+    if "--mesh" in flag:
+        with pytest.raises(ValueError, match="#ranks 1"):
+            train_video.main(argv)
+        with pytest.raises(ValueError, match="malformed mesh spec"):
+            train_video.parse_mesh("dp:2", device="cpu")
+        return
+    trainer = train_video.main(argv)
+    assert trainer.step == 1 and trainer.train_unet.use_checkpoint is True
+    assert all(bool(torch.isfinite(p).all()) for p in trainer.train_unet.parameters())
 
 
 def test_sample_video_smoke(tmp_path):

@@ -60,9 +60,9 @@ class ExperimentConfig:
     # fake world (envs/fake_oracle.py) — the hermetic stand-in the
     # learning gate trains against (requires env_backend == "fake")
     video_model_kind: str = "diffusion"
-    # device mesh for multi-device training: axis names + shape, e.g.
-    # ("dp",) / ("dp", "tp"); empty = single device, the only setting
-    # ported so far.
+    # device mesh for multi-card training: axis names + shape, e.g.
+    # ("dp",) / ("dp", "tp") with (2, 2) on four ranks; empty = single
+    # device. "auto_dp" spans the world with one dp axis.
     mesh_axes: Tuple[str, ...] = ()
     mesh_shape: Tuple[int, ...] = ()
     # subprocess env workers for pool-parallel exploration (0 = serial)

@@ -135,7 +135,7 @@ class DiffusionPolicy:
 
     def loss(self, batch: Dict, generator: Optional[torch.Generator] = None,
              timesteps: Optional[torch.Tensor] = None,
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             noise: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
         """The denoising loss (`v2a_tpu/models/policy.py:231-254`): the
         normalized observations through the encoder, the normalized actions
         noised by DDPM at uniform timesteps, and the mean squared error of
@@ -144,18 +144,24 @@ class DiffusionPolicy:
         batch: {"obs": {key: (B, H, W, 3) in [0, 1]}, "action": (B, horizon,
         Da) in action units}. `timesteps` (B,) and `noise` (B, horizon, Da)
         replace the draws from `generator` (timesteps first, as the JAX
-        package draws them), so that a test can hand in the JAX draws.
+        package draws them), so that a test can hand in the JAX draws. With
+        `shard` (a dp `RowShard`) the batch is this rank's rows of the global
+        batch: the draws are the global batch's and this rank keeps its
+        rows, so the dp ranks' mean is the single process's loss.
         Differentiable through `nets` once its parameters require grad."""
         cfg = self.config
         nactions = self.action_norm.normalize(
             torch.as_tensor(batch["action"], device=self.device).float())
         b = nactions.shape[0]
         global_cond = self._encode(batch["obs"])
+        n = b if shard is None else b * shard.count
+        rows = slice(0, b) if shard is None else shard.rows(n)
         if timesteps is None:
-            timesteps = torch.randint(0, cfg.num_train_timesteps, (b,), generator=generator,
-                                      device=self.device)
+            timesteps = torch.randint(0, cfg.num_train_timesteps, (n,), generator=generator,
+                                      device=self.device)[rows]
         if noise is None:
-            noise = torch.randn(nactions.shape, generator=generator, device=self.device)
+            noise = torch.randn((n,) + tuple(nactions.shape[1:]), generator=generator,
+                                device=self.device)[rows]
         timesteps = torch.as_tensor(timesteps, device=self.device)
         noise = torch.as_tensor(noise, device=self.device).float()
         noisy = self.ddpm.add_noise(nactions, noise, timesteps)

@@ -11,11 +11,14 @@ denoising chain that a caller dispatches one at a time (`VideoSampleStream`).
 `scripts/convert_ckpt.py`. `cond_channels` gives the conditioning frame
 its own channel count (the flow variants of `models/env_variants.py`);
 `backbone="xattn"` builds `models/video_unet_xattn.py` in place of the
-U-Net.
+U-Net. `shard_for_mesh` spreads the frozen sampler over a mesh
+(`parallel/`): wide leaves stored tp-sharded and made whole for each chain,
+the batch split over the dp ranks, every rank returning the whole video.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import List, Optional, Tuple
@@ -144,6 +147,8 @@ class VideoPredModel:
         text = ClipTextEncoder(width=cfg.text_dim, mlp_dim=cfg.text_dim * 4, dtype=dt)
         self.nets = VideoNets(unet, text).to(self.device).eval().requires_grad_(False)
         self._loss_unet: Optional[VideoUNet] = None
+        self._mesh = self._shards = None
+        self._whole_users = 0
         self.tokenizer = tokenizer or ClipTokenizerWrapper()
         self.diffusion = GaussianDiffusion(
             schedule=DiffusionSchedule.create(cfg.timesteps, cfg.beta_schedule,
@@ -162,20 +167,23 @@ class VideoPredModel:
 
     def build_unet(self, fused: bool = False, train_fused: bool = False,
                    wgrad_kernel: bool = False,
-                   routing: Optional[ConvRouting] = None) -> nn.Module:
+                   routing: Optional[ConvRouting] = None, use_checkpoint: bool = False,
+                   remat_policy: str = "blocks") -> nn.Module:
         """A new network of this config's backbone with the given routing
         (`routing`: the U-Net's `ConvRouting`, the config's `conv_routing()`
         by default; parameters uninitialized, on the current default
         device); every routing takes the same state dict. The routing
         applies to the U-Net only: the xattn backbone has none, as the JAX
-        package passes it none (`v2a_tpu/models/video_model.py:129-140`)."""
+        package passes it none (`v2a_tpu/models/video_model.py:129-140`).
+        `use_checkpoint` / `remat_policy`: the training recomputation of
+        either backbone (the xattn backbone's is per block)."""
         cfg = self.config
         if cfg.backbone == "xattn":
             return VideoUNetXAttn(
                 in_channels=cfg.channels + cfg.cond_ch, out_channels=cfg.channels,
                 block_out_channels=tuple(cfg.model_channels * m for m in cfg.channel_mult),
                 layers_per_block=cfg.num_res_blocks, context_dim=cfg.text_dim,
-                dtype=dtype_of(cfg.dtype))
+                dtype=dtype_of(cfg.dtype), use_checkpoint=use_checkpoint)
         return VideoUNet(
             in_channels=cfg.channels + cfg.cond_ch, model_channels=cfg.model_channels,
             out_channels=cfg.channels, num_res_blocks=cfg.num_res_blocks,
@@ -184,6 +192,7 @@ class VideoPredModel:
             dtype=dtype_of(cfg.dtype), fused=fused, train_fused=train_fused,
             wgrad_kernel=wgrad_kernel,
             routing=cfg.conv_routing() if routing is None else routing,
+            use_checkpoint=use_checkpoint, remat_policy=remat_policy,
         )
 
     @property
@@ -252,6 +261,36 @@ class VideoPredModel:
             {f"{part}.{k}": v for part, sd in params.items() for k, v in sd.items()}, strict=True)
         return self
 
+    def shard_for_mesh(self, mesh) -> None:
+        """Distribute the frozen sampler over a mesh (`parallel.make_mesh`):
+        wide leaves of both networks are stored tp-sharded (the JAX rule,
+        `parallel/sharding.py`) and gathered whole for each chain, so the
+        kernels see whole weights; `sample()` splits the batch over the dp
+        axes and returns the whole batch on every rank. Call after
+        `init()` / `load_converted()`."""
+        from v2a_tpu_torch.parallel.mesh import check_mesh
+        from v2a_tpu_torch.parallel.sharding import shard_train_state
+
+        self._mesh = check_mesh(mesh)
+        self._shards = shard_train_state(self.nets, mesh)
+
+    @contextlib.contextmanager
+    def whole(self):
+        """The networks' parameters whole inside the block (nested blocks
+        share one gather; a no-op unless `shard_for_mesh` was called)."""
+        if self._shards is None:
+            yield
+            return
+        if self._whole_users == 0:
+            self._shards.gather()
+        self._whole_users += 1
+        try:
+            yield
+        finally:
+            self._whole_users -= 1
+            if self._whole_users == 0:
+                self._shards.release()
+
     @torch.no_grad()
     def encode_batch_text(self, tasks: List[str]) -> torch.Tensor:
         """CLIP last hidden state of the sanitized task strings (float32)."""
@@ -301,7 +340,9 @@ class VideoPredModel:
 class VideoSampleStream:
     """One goal-video sampling chain, dispatched chunk by chunk: the only
     loop over the denoising steps (`VideoPredModel.sample` runs it in one
-    chunk).
+    chunk). On a mesh (`VideoPredModel.shard_for_mesh`) the weights stay
+    whole from the constructor to `result()`, this rank denoises its dp
+    rows (its rows of every global draw) and `result()` all-gathers them.
 
     Counterpart of `v2a_tpu/models/video_model.py::VideoSampleStream`. The
     constructor encodes the tasks and draws x_T (or takes `init_noise`); no
@@ -317,13 +358,25 @@ class VideoSampleStream:
             raise ValueError("batch size mismatch between frames and tasks")
         self._model = model
         self._generator = generator
+        self._shard = None
+        if model._mesh is not None:
+            from v2a_tpu_torch.parallel.sharding import batch_sharding
+
+            self._shard = batch_sharding(model._mesh)
+            rows = self._shard.rows(x.shape[0])
+            x, tasks = x[rows], list(tasks)[rows]
+            if init_noise is not None:
+                init_noise = torch.as_tensor(init_noise)[rows]
+        self._whole = model.whole()
+        self._whole.__enter__()
         with torch.no_grad():
             self._task_embed = model.encode_batch_text(list(tasks))
             self._x_cond_n = (x * 2.0 - 1.0)[:, None]
             if init_noise is None:
                 h, w = cfg.image_size
                 shape = (x.shape[0], cfg.video_future_horizon, h, w, cfg.channels)
-                init_noise = model.diffusion._randn(shape, generator, model.device)
+                init_noise = model.diffusion._randn(shape, generator, model.device,
+                                                    self._shard)
             self._img = init_noise
         self._steps = model.diffusion.sample_steps()
         n_steps = len(self._steps)
@@ -347,7 +400,7 @@ class VideoSampleStream:
                 for step in self._steps[a:b]:
                     self._img = diffusion.sample_step(
                         unet, self._img, step, self._x_cond_n, self._task_embed,
-                        self._generator)
+                        self._generator, self._shard)
                 self._next += 1
                 k -= 1
         return self._next < len(self._bounds)
@@ -360,6 +413,11 @@ class VideoSampleStream:
                 pass
             with torch.no_grad():
                 self._result = self._model.diffusion.sample_finish(self._img)
+            self._whole.__exit__(None, None, None)
+            if self._shard is not None:
+                from v2a_tpu_torch.parallel.sharding import all_gather_rows
+
+                self._result = all_gather_rows(self._result, self._model._mesh)
             # drop chain state so buffers free as soon as callers let go
             self._img = self._task_embed = self._x_cond_n = None
         return self._result

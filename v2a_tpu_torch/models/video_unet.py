@@ -60,6 +60,17 @@ Perceiver-pooled CLIP text conditioning.
   (`scripts/perf_lab.py`): `ablate_temporal`, `ablate_gn`,
   `spatial_im2col`, `fused_min_ch`, `skip1x1_dot` and
   `tconv_conv2d_min_s`.
+- `use_checkpoint` recomputes activations in the backward pass instead of
+  keeping them (the reference's `use_checkpoint`; JAX :1640-1660,
+  1708-1732), on the non-fused path (`train_fused` included) and only
+  while grad mode is on. `remat_policy="blocks"`: each `ResBlock3D` and
+  `SpatialAttentionBlock` under `torch.utils.checkpoint(use_reentrant=
+  False)`, as the JAX `nn.remat`. `"levels"`: only the level-transition
+  tensors stay alive (the entry conv's, each downsample's, the middle's and
+  each upsample's output, the tensors JAX tags `v2a_level`); each level,
+  its skip activations included, is recomputed from its entry in the
+  backward (`_levels_forward`). `"mxu"` leaves the module plain: the
+  trainer wraps the whole call (`train/video_trainer.py`).
 - The JAX package's `V2A_ATTN_HMAJOR=1` has no switch here: its head-major
   attention is the same math with the same roundings as the one plain path
   below (it only spares XLA some layout copies), and the tests hold that
@@ -79,11 +90,14 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from v2a_tpu_torch.models.perceiver import PerceiverResampler, _linear
 from v2a_tpu_torch.ops import conv_vjp
 from v2a_tpu_torch.ops import group_norm as gn
 from v2a_tpu_torch.ops import resblock_kernels as rk
+
+REMAT_POLICIES = ("blocks", "levels", "mxu")
 
 @dataclasses.dataclass(frozen=True)
 class ConvRouting:
@@ -809,15 +823,20 @@ class VideoUNet(nn.Module):
     variable; off by default, as there). `routing` holds every other switch
     (`ConvRouting`), each at its JAX default. Its two ablations are lab
     switches of the plain forward: with `fused` or `train_fused` they
-    raise, as the JAX fused paths have no ablated form."""
+    raise, as the JAX fused paths have no ablated form. `use_checkpoint` /
+    `remat_policy`: the recomputation of the module docstring."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
                  channel_mult: Sequence[int] = (1, 2, 3, 4, 5), num_head_channels: int = 32,
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
                  fused: bool = False, train_fused: bool = False, wgrad_kernel: bool = False,
-                 routing: ConvRouting = ConvRouting()):
+                 routing: ConvRouting = ConvRouting(), use_checkpoint: bool = False,
+                 remat_policy: str = "blocks"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
+        self.use_checkpoint, self.remat_policy = use_checkpoint, remat_policy
         if (fused or train_fused) and (routing.ablate_temporal or routing.ablate_gn):
             raise ValueError("ablate_temporal / ablate_gn are perf-lab switches of the plain "
                              "forward (neither fused nor train_fused)")
@@ -877,17 +896,34 @@ class VideoUNet(nn.Module):
                                     ablate=routing.ablate_gn)
         self.out_conv = PseudoConv3d(cur, out_channels, 3, dtype=dtype, routing=routing)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                task_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt, fused = self.dtype, self.fused
+    def _embed(self, timesteps, task_embed):
+        dt = self.dtype
         emb = _linear(timestep_embedding(timesteps, self.mc).to(dt), self.time_dense0, dt)
         emb = _linear(F.silu(emb), self.time_dense1, dt)
         if task_embed is not None:
             latents = self.task_attnpool(task_embed)
             emb = emb + _linear(latents, self.task_proj, dt).mean(dim=1)
+        return emb
+
+    def _remat(self, policy: str) -> bool:
+        return (self.use_checkpoint and self.remat_policy == policy and not self.fused
+                and torch.is_grad_enabled())
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                task_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt, fused = self.dtype, self.fused
+        emb = self._embed(timesteps, task_embed)
+        if self._remat("levels"):
+            return self._levels_forward(x, emb)
+        blocks = self._remat("blocks")
 
         def step(out):  # fused blocks return (activation, stats)
             return out if fused else (out, None)
+
+        def block(name, *args):  # the module, under checkpoint with "blocks"
+            if blocks:
+                return checkpoint(getattr(self, name), *args, use_reentrant=False)
+            return getattr(self, name)(*args)
 
         # the padded-stream layout where `routing.padded_eligible` holds
         # (`v2a_tpu/models/video_unet.py:1736-1886`)
@@ -904,9 +940,9 @@ class VideoUNet(nn.Module):
         ds, bi = 1, 0
         for level, mult in enumerate(self.channel_mult):
             for _ in range(self.nrb):
-                h, st = step(getattr(self, f"down_res_{bi}")(h, emb, st))
+                h, st = step(block(f"down_res_{bi}", h, emb, st))
                 if ds in self.attention_resolutions:
-                    h, st = step(getattr(self, f"down_attn_{bi}")(h, st, fused))
+                    h, st = step(block(f"down_attn_{bi}", h, st, fused))
                 hs.append((h, st))
                 bi += 1
             if level != len(self.channel_mult) - 1:
@@ -920,9 +956,9 @@ class VideoUNet(nn.Module):
                     h = pad_stream(h)
                 hs.append((h, st))
                 ds *= 2
-        h, st = step(self.mid_res0(h, emb, st))
-        h, st = step(self.mid_attn(h, st, fused))
-        h, st = step(self.mid_res1(h, emb, st))
+        h, st = step(block("mid_res0", h, emb, st))
+        h, st = step(block("mid_attn", h, st, fused))
+        h, st = step(block("mid_res1", h, emb, st))
         bi = 0
         for level, mult in reversed(list(enumerate(self.channel_mult))):
             for i in range(self.nrb + 1):
@@ -935,9 +971,9 @@ class VideoUNet(nn.Module):
                             h = pad_stream(h)
                     h, st = getattr(self, f"up_res_{bi}")((h, skip), emb, (st, skip_st))
                 else:
-                    h = getattr(self, f"up_res_{bi}")(torch.cat([h, skip], dim=-1), emb)
+                    h = block(f"up_res_{bi}", torch.cat([h, skip], dim=-1), emb)
                 if ds in self.attention_resolutions:
-                    h, st = step(getattr(self, f"up_attn_{bi}")(h, st, fused))
+                    h, st = step(block(f"up_attn_{bi}", h, st, fused))
                 if level and i == self.nrb:
                     ch = mult * self.mc
                     padded_out = padded and self.routing.padded_eligible(ch, [ch], hh * ww * 4)
@@ -951,3 +987,65 @@ class VideoUNet(nn.Module):
         st2 = st.sum(1) if st is not None else None
         h = self.out_conv(self.out_norm(h, stats=st2).to(dt))
         return h.float()
+
+    def _down_blocks(self, level: int, h, emb):
+        """Down level `level`'s res (+ attention) blocks from its entry `h`:
+        their outputs, the up path's skips, in order (non-fused path)."""
+        skips = []
+        for j in range(self.nrb):
+            bi = level * self.nrb + j
+            h = getattr(self, f"down_res_{bi}")(h, emb)
+            if 2 ** level in self.attention_resolutions:
+                h = getattr(self, f"down_attn_{bi}")(h, None, False)
+            skips.append(h)
+        return skips
+
+    def _levels_forward(self, x, emb):
+        """The non-fused forward with only the level transitions kept for
+        the backward (`remat_policy="levels"`).
+
+        Down level L is one segment from its entry e_L to its exit (the
+        downsample's output; the last level runs the middle blocks too);
+        up level L is one segment from (h, e_L) to its upsample's output
+        (level 0: to the output). Each runs under the reentrant
+        `torch.utils.checkpoint`, whose forward runs without grad and whose
+        backward recomputes from the segment's inputs. An up segment needs
+        down level L's skips: in the forward it takes the values the down
+        segment left (`stash`, dropped once used), in the backward it
+        recomputes them from e_L, so no skip outlives the forward and the
+        down blocks' gradients flow through both segments. The entry conv
+        is a non-reentrant checkpoint (its input needs no grad)."""
+        n, nrb = len(self.channel_mult), self.nrb
+        stash = {}
+
+        def down(e, emb, level):
+            skips = self._down_blocks(level, e, emb)
+            if not torch.is_grad_enabled():  # the forward, not the recompute
+                stash[level] = skips
+            if level != n - 1:
+                return getattr(self, f"downsample_{level}")(skips[-1])
+            h = self.mid_res0(skips[-1], emb)
+            return self.mid_res1(self.mid_attn(h, None, False), emb)
+
+        def up(h, e, emb, level):
+            if torch.is_grad_enabled():
+                skips = self._down_blocks(level, e, emb)
+            else:
+                skips = stash.pop(level)
+            skips = [e] + skips
+            for i in range(nrb + 1):
+                bi = (n - 1 - level) * (nrb + 1) + i
+                h = getattr(self, f"up_res_{bi}")(torch.cat([h, skips.pop()], dim=-1), emb)
+                if 2 ** level in self.attention_resolutions:
+                    h = getattr(self, f"up_attn_{bi}")(h, None, False)
+            if level:
+                return getattr(self, f"upsample_{level}")(h)
+            return self.out_conv(self.out_norm(h).to(self.dtype)).float()
+
+        entries = [checkpoint(self.in_conv, x.to(self.dtype), use_reentrant=False)]
+        for level in range(n):
+            entries.append(checkpoint(down, entries[-1], emb, level, use_reentrant=True))
+        h = entries.pop()
+        for level in reversed(range(n)):
+            h = checkpoint(up, h, entries[level], emb, level, use_reentrant=True)
+        return h

@@ -12,7 +12,8 @@ through cross-attention, not the Perceiver-pooled additive embedding of
 Plain PyTorch, as the JAX module is plain XLA: its GroupNorms are
 `GroupNorm32` on the plain path (K7 never runs here) and attention is
 `F.scaled_dot_product_attention` (materialized logits of the 128^2 level
-would take 7 x 8 x 16384^2 x 4 B, about 60 GB at B=1). Channels-last;
+would take 7 x 8 x 16384^2 x 4 B, about 60 GB at B=1), in chunks of 2^15
+sequences from 2^16 on, where cuDNN's backward fails. Channels-last;
 GroupNorm and LayerNorm statistics in float32, the rest in the compute
 dtype; the output conv in float32. Parameters keep the JAX tree's names
 and layouts (conv kernels HWIO, temporal kernels (k, C_in, C_out)); dense
@@ -26,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from v2a_tpu_torch.models.perceiver import LayerNorm32, _linear
 from v2a_tpu_torch.models.video_unet import GroupNorm32, _Conv, _TemporalConv, timestep_embedding
@@ -36,6 +38,21 @@ def _conv3x3(x: torch.Tensor, conv: _Conv, dtype: torch.dtype, stride: int = 1) 
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.kernel.to(dtype).permute(3, 2, 0, 1),
                  stride=stride, padding=1).permute(0, 2, 3, 1)
     return y + conv.bias.to(dtype)
+
+
+# cuDNN's attention backward fails from 2^16 sequences on (the temporal
+# attention of a 128^2 level at B=4 has 4 * 128^2): from there the batch goes
+# through in chunks of this many sequences, each sequence its own problem
+_SDPA_CHUNK = 1 << 15
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    n = q.shape[0]
+    if n < 2 * _SDPA_CHUNK:
+        return F.scaled_dot_product_attention(q, k, v)
+    return torch.cat([F.scaled_dot_product_attention(q[i:i + _SDPA_CHUNK], k[i:i + _SDPA_CHUNK],
+                                                     v[i:i + _SDPA_CHUNK])
+                      for i in range(0, n, _SDPA_CHUNK)])
 
 
 def _frames(fn, x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +84,7 @@ class _Attention(nn.Module):
 
         q = heads(_linear(x, self.to_q, dt))
         k, v = heads(_linear(ctx, self.to_k, dt)), heads(_linear(ctx, self.to_v, dt))
-        out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+        out = _sdpa(q, k, v).transpose(1, 2)
         out = out.reshape(x.shape[0], x.shape[1], self.dim)
         return _linear(out, self.to_out, dt)
 
@@ -170,16 +187,17 @@ class ResBlock2p1D(nn.Module):
 class VideoUNetXAttn(nn.Module):
     """The alternative video backbone, with `VideoUNet`'s calling convention:
     (B, F, H, W, in_channels) x timesteps x task tokens -> (B, F, H, W,
-    out_channels) float32. `use_checkpoint` (block-level recomputation in
-    the JAX module) is not ported and raises."""
+    out_channels) float32. `use_checkpoint`: each `ResBlock2p1D`,
+    `SpatialCrossAttnBlock` and `TemporalAttnBlock` recomputed in the
+    backward (`torch.utils.checkpoint(use_reentrant=False)` while grad mode
+    is on; the JAX module's `nn.remat`, :185-199)."""
 
     def __init__(self, in_channels: int = 6, out_channels: int = 3,
                  block_out_channels: Sequence[int] = (64, 128, 256), layers_per_block: int = 1,
                  attn_heads: int = 8, context_dim: int = 512,
                  dtype: torch.dtype = torch.float32, use_checkpoint: bool = False):
         super().__init__()
-        if use_checkpoint:
-            raise NotImplementedError("use_checkpoint (block remat) is not ported")
+        self.use_checkpoint = use_checkpoint
         chans = tuple(block_out_channels)
         self.chans, self.layers, self.dtype = chans, layers_per_block, dtype
         ch0, ctx = chans[0], chans[-1]
@@ -216,10 +234,15 @@ class VideoUNetXAttn(nn.Module):
         self.out_norm = GroupNorm32(cur, with_silu=True)
         self.conv_out = _Conv(3, cur, out_channels)
 
+    def _block(self, mod: nn.Module, *args):
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(mod, *args, use_reentrant=False)
+        return mod(*args)
+
     def _triple(self, name: str, i: int, y, emb, ctx):
-        y = getattr(self, f"{name}_res{i}")(y, emb)
-        y = getattr(self, f"{name}_xattn{i}")(y, ctx)
-        return getattr(self, f"{name}_tattn{i}")(y)
+        y = self._block(getattr(self, f"{name}_res{i}"), y, emb)
+        y = self._block(getattr(self, f"{name}_xattn{i}"), y, ctx)
+        return self._block(getattr(self, f"{name}_tattn{i}"), y)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 task_tokens: torch.Tensor) -> torch.Tensor:
@@ -237,9 +260,9 @@ class VideoUNetXAttn(nn.Module):
                 conv = getattr(self, f"down_{lv}_downsample")
                 y = _frames(lambda t: _conv3x3(t, conv, dt, stride=2), y)
                 skips.append(y)
-        y = self.mid_res0(y, emb)
-        y = self.mid_tattn(self.mid_xattn(y, ctx))
-        y = self.mid_res1(y, emb)
+        y = self._block(self.mid_res0, y, emb)
+        y = self._block(self.mid_tattn, self._block(self.mid_xattn, y, ctx))
+        y = self._block(self.mid_res1, y, emb)
         for lv in reversed(range(len(self.chans))):
             for i in range(self.layers + 1):
                 y = self._triple(f"up_{lv}", i, torch.cat([y, skips.pop()], dim=-1), emb, ctx)

@@ -176,8 +176,16 @@ class GaussianDiffusion:
     # -- samplers --------------------------------------------------------------
 
     @staticmethod
-    def _randn(shape, generator, device):
-        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    def _randn(shape, generator, device, shard=None):
+        """Standard normal of `shape`; with `shard` (a dp `RowShard`: piece
+        `index` of `count`) the draw is the global batch's, count times the
+        rows, and this piece's rows are kept, so a dp rank draws what the
+        single process draws for its rows."""
+        if shard is None:
+            return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        shape = (shape[0] * shard.count,) + tuple(shape[1:])
+        full = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return full[shard.rows(shape[0])]
 
     def p_step(self, model_fn, img, t_scalar: int, x_cond, task_embed, noise):
         """One ancestral step x_t -> x_{t-1} with clipped x0
@@ -201,20 +209,21 @@ class GaussianDiffusion:
             return [tuple(p) for p in self.ddim_time_pairs().tolist()]
         return list(range(self.num_timesteps - 1, -1, -1))
 
-    def sample_step(self, model_fn, img, step, x_cond, task_embed, generator=None):
-        """One entry of `sample_steps()`, its noise drawn from `generator`."""
+    def sample_step(self, model_fn, img, step, x_cond, task_embed, generator=None, shard=None):
+        """One entry of `sample_steps()`, its noise drawn from `generator`
+        (with `shard`, this dp rank's rows of the global draw)."""
         if self.is_ddim_sampling:
-            return self._ddim_step(model_fn, img, step, x_cond, task_embed, generator)
-        return self._ancestral_step(model_fn, img, step, x_cond, task_embed, generator)
+            return self._ddim_step(model_fn, img, step, x_cond, task_embed, generator, shard)
+        return self._ancestral_step(model_fn, img, step, x_cond, task_embed, generator, shard)
 
     def sample_finish(self, img: torch.Tensor) -> torch.Tensor:
         """The chain's last state -> samples in [0, 1], clamped
         (`goal_diffusion.py:644-650`)."""
         return self._unnormalize(img).clamp(0.0, 1.0)
 
-    def _ancestral_step(self, model_fn, img, t: int, x_cond, task_embed, generator):
+    def _ancestral_step(self, model_fn, img, t: int, x_cond, task_embed, generator, shard=None):
         """One ancestral step, its noise drawn first (none at t=0)."""
-        noise = self._randn(tuple(img.shape), generator, img.device) if t > 0 else None
+        noise = self._randn(tuple(img.shape), generator, img.device, shard) if t > 0 else None
         return self.p_step(model_fn, img, t, x_cond, task_embed, noise)
 
     def ddim_time_pairs(self) -> np.ndarray:
@@ -223,7 +232,7 @@ class GaussianDiffusion:
         times = list(reversed(np.linspace(-1, total - 1, s + 1).astype(int).tolist()))
         return np.asarray(list(zip(times[:-1], times[1:])), dtype=np.int64)
 
-    def _ddim_step(self, model_fn, img, pair, x_cond, task_embed, generator):
+    def _ddim_step(self, model_fn, img, pair, x_cond, task_embed, generator, shard=None):
         """One (t, t_next) DDIM step, its noise drawn last."""
         time, time_next = pair
         acp = self.schedule.alphas_cumprod
@@ -242,7 +251,7 @@ class GaussianDiffusion:
         c = torch.sqrt(torch.clamp(1.0 - alpha_next - sigma**2, min=0.0))
         img = x_start * torch.sqrt(alpha_next) + c * pred_noise
         if eta > 0.0:
-            img = img + sigma * self._randn(tuple(img.shape), generator, img.device)
+            img = img + sigma * self._randn(tuple(img.shape), generator, img.device, shard)
         return img
 
     # -- training (goal_diffusion.py:690-733) -----------------------------------

@@ -4,8 +4,9 @@ A copy of `v2a_tpu/ops/resample.py` (the vendored guided-diffusion
 `resample.py:7-124`: uniform and loss-second-moment importance sampling of
 timesteps). The port keeps its own copy: it imports nothing of the JAX
 package. The samplers draw from a numpy generator, so the same seed gives
-the JAX trainer's timesteps and weights. The JAX copy's multi-host `merge`
-hook waits for a multi-host trainer.
+the JAX trainer's timesteps and weights. `merge` folds in the (t, loss)
+pairs of the other dp ranks (the mesh video trainer all-gathers them), so
+every rank keeps the same history.
 """
 
 from __future__ import annotations
@@ -75,6 +76,11 @@ class LossSecondMomentResampler:
             else:
                 self._loss_history[t, self._loss_counts[t]] = loss
                 self._loss_counts[t] += 1
+
+    def merge(self, other_ts: np.ndarray, other_losses: np.ndarray):
+        """Fold in (t, loss) pairs gathered from other ranks: the cross-rank
+        sync of `resample.py:70-98` (`v2a_tpu/ops/resample.py:80-84`)."""
+        self.update_with_losses(other_ts, other_losses)
 
 
 def create_named_schedule_sampler(name: str, num_timesteps: int):

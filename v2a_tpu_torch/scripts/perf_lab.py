@@ -47,9 +47,9 @@ DDIM step), `trace_train[_chain]` (the policy train step at B=64 through
 `make_train_step`, once or 20 chained steps, per step) and
 `trace_vtrain:<B>:<policy>` (the video train step through
 `VideoModelTrainer`, 3 chained steps, per step; `off` the plain path,
-`tfused` train_fused with K6 as the wgrad; the device's peak memory). The
-remat policies (`blocks`, `levels`, `mxu`, `tfused-<remat>`) raise
-`ValueError`: remat is not ported (ROADMAP.md, Queue 1 item 7).
+`tfused` train_fused with K6 as the wgrad, `blocks` / `levels` / `mxu` the
+plain path under that remat policy, `tfused-<remat>` both, as the JAX
+lab's `parse_policy`; the device's peak memory).
 
 Benches (ms per call over chained calls, y = fn(y), by CUDA events on the
 card; one row per line, the card's name on each): `convbench` (`F.conv2d`
@@ -481,18 +481,16 @@ def trace_train(sizes: LabSizes, dev: torch.device, chain: int = 0, topk: int = 
 
 
 def parse_vtrain(name: str) -> Tuple[int, str]:
-    """(batch, policy) of `trace_vtrain[:<B>[:<policy>]]` (:1036-1043);
-    raises `ValueError` for a remat policy or an unknown one."""
+    """(batch, policy) of `trace_vtrain[:<B>[:<policy>]]` (:1036-1043); the
+    policy is `off`, `tfused`, a remat policy or `tfused-<remat>`, else
+    `ValueError`."""
     parts = name.split(":")
     batch = int(parts[1]) if len(parts) > 1 else 4
     policy = parts[2] if len(parts) > 2 else "off"
-    remat = policy.split("-", 1)[1] if policy.startswith("tfused-") else policy
-    if remat in REMAT_POLICIES:
-        raise ValueError(f"perf lab {name!r}: the remat policy {remat!r} is not ported "
-                         "(remat, ROADMAP.md Queue 1 item 7)")
-    if policy not in ("off", "tfused"):
-        raise ValueError(f"perf lab {name!r}: policy {policy!r} is not off, tfused or a remat "
-                         "policy")
+    if policy not in ("off", "tfused") + REMAT_POLICIES + tuple(
+            f"tfused-{r}" for r in REMAT_POLICIES):
+        raise ValueError(f"perf lab {name!r}: policy {policy!r} is not off, tfused, a remat "
+                         f"policy {REMAT_POLICIES} or tfused-<remat>")
     return batch, policy
 
 
@@ -501,19 +499,25 @@ def trace_vtrain(sizes: LabSizes, dev: torch.device, batch: int = 4, policy: str
     """The release video train step (:858) through `VideoModelTrainer`:
     pred_v `p_losses`, backward, clip, Adam, EMA; `chain` steps on one fixed
     batch traced, per step. `off`: the plain path; `tfused`: train_fused
-    with K6 as the wgrad. The device's peak memory over the steps from
-    `device_memory_stats()` (not measured on the CPU)."""
+    with K6 as the wgrad; a remat policy, alone or after `tfused-`, turns
+    the trainer's `use_checkpoint` on with it (the JAX lab's
+    `bench_video_train.parse_policy`). The device's peak memory over the
+    steps from `device_memory_stats()` (not measured on the CPU)."""
     from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
     from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
 
-    tfused = policy == "tfused"
+    tfused = policy.startswith("tfused")
+    remat = policy.split("-", 1)[1] if "-" in policy else (
+        None if policy in ("off", "tfused") else policy)
     vcfg = VideoModelConfig(**dict(sizes.vtrain))
     hw = vcfg.image_size[0]
     model = VideoPredModel(vcfg, device=dev).init(0)
     workdir = tempfile.TemporaryDirectory(prefix="v2a_vtrain_")
     trainer = VideoModelTrainer(model, dataset=None, workdir=workdir.name,
-                                config=VideoTrainerConfig(batch_size=batch, train_fused=tfused,
-                                                          wgrad_kernel=tfused))
+                                config=VideoTrainerConfig(
+                                    batch_size=batch, train_fused=tfused, wgrad_kernel=tfused,
+                                    use_checkpoint=remat is not None,
+                                    remat_policy=remat or "blocks"))
     gen = torch.Generator(device=dev).manual_seed(0)
     f = vcfg.video_future_horizon
     video = torch.rand(batch, f, hw, hw, 3, generator=gen, device=dev)
@@ -533,7 +537,8 @@ def trace_vtrain(sizes: LabSizes, dev: torch.device, batch: int = 4, policy: str
     launches = {k: v / chain for k, v in launch_counts().items()}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    out(f"trace_vtrain: B={batch} {policy} ({'train_fused, K6 wgrad' if tfused else 'plain'}), "
+    out(f"trace_vtrain: B={batch} {policy} ({'train_fused, K6 wgrad' if tfused else 'plain'}"
+        f"{f', remat {remat}' if remat else ''}), "
         f"{chain} steps a run [{_device_label(dev)}], launches per step {launches}")
     res = _traced(run_once, dev, 1, chain, topk, out)
     peak = (profiling.device_memory_stats()[f"cuda:{dev.index or 0}"]["peak_bytes_in_use"]
@@ -887,8 +892,8 @@ TRACE_FORWARDS = {"trace": FORWARDS["fused"], "trace_base": FORWARDS["base"],
 
 def resolve(name: str, dev: torch.device, sizes: LabSizes, chain: Optional[int],
             iters: Optional[int], out: Callable) -> Callable[[], List[dict]]:
-    """The run of one lab name; raises `ValueError` for an unknown name,
-    the names with no counterpart and the remat policies."""
+    """The run of one lab name; raises `ValueError` for an unknown name or
+    `trace_vtrain` policy and the names with no counterpart."""
     kw = {k: v for k, v in (("chain", chain), ("iters", iters)) if v is not None}
     if name in BENCHES:
         return functools.partial(BENCHES[name], device=dev, out=out, **kw)

@@ -14,6 +14,12 @@ snapshot written to the workdir is the contract eval reloads from. The
 models run on the card unless `--device cpu` is given. With
 `--n_env_workers N` the guided cycles run on N spawned env workers in
 lock-step (closed when training ends).
+
+A config whose `mesh_axes` is set trains on a mesh (`("auto_dp",)`: data
+parallel over the world); launch one process per card with
+`torchrun --nproc_per_node N -m v2a_tpu_torch.scripts.train --config ...`.
+The process group starts first (`parallel.multihost.initialize_distributed`;
+one process with no cluster environment runs a one-rank mesh).
 """
 
 import sys
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from v2a_tpu_torch.config import apply_overrides, load_config_module, parse_cli
+from v2a_tpu_torch.parallel.multihost import initialize_distributed
 from v2a_tpu_torch.train.build import build_experiment
 
 
@@ -33,6 +40,8 @@ def main(argv=None):
     if overrides:
         cfg = apply_overrides(cfg, overrides)
 
+    if cfg.mesh_axes:
+        initialize_distributed(device=cfg.device)
     workdir = cfg.savepath()
     print(f"[train] workdir: {workdir}")
     trainer, policy, env_list, video_model = build_experiment(cfg, workdir)
@@ -51,8 +60,9 @@ def main(argv=None):
             -1, 1, (2, cfg.policy.horizon, cfg.policy.action_dim)
         ).astype(np.float32), device=dev),
     }
-    loss = policy.loss(batch, torch.Generator(device=dev).manual_seed(0))
-    grads = torch.autograd.grad(loss, trainer.state.params)
+    with trainer.state.whole():
+        loss = policy.loss(batch, torch.Generator(device=dev).manual_seed(0))
+        grads = torch.autograd.grad(loss, trainer.state.module_params)
     loss = float(loss.detach())
     if not np.isfinite(loss):
         raise RuntimeError("smoke test produced non-finite loss")

@@ -18,9 +18,16 @@ Examples:
 
 The models run on the card unless `--device cpu` is given. `main` opens
 `--data` (this needs `h5py`); `run` takes the parsed arguments and any
-dataset with `sample_batch(batch, rng)` and `__len__`. Not ported (each
-raises `NotImplementedError`; ROADMAP.md, Queue 1): `--mesh` and
-`--use-checkpoint`.
+dataset with `sample_batch(batch, rng)` and `__len__`.
+
+`--mesh dp=N[,tp=M]` trains data (and tensor) parallel, one process a card:
+    torchrun --nproc_per_node 4 -m v2a_tpu_torch.scripts.train_video \
+        --data clips.hdf5 --mesh dp=4 --batch-size 8
+The process group starts first (`parallel.multihost.initialize_distributed`;
+one process with no cluster environment runs a one-rank mesh, and without
+`--mesh` exactly as before). `--use-checkpoint` recomputes activations in
+the backward pass (`--remat-policy blocks|levels`; the xattn backbone's is
+per block).
 """
 
 import argparse
@@ -33,9 +40,27 @@ import torch
 
 from v2a_tpu_torch.device import resolve_device
 from v2a_tpu_torch.models.video_model import VideoModelConfig, VideoPredModel
+from v2a_tpu_torch.parallel.mesh import make_mesh
+from v2a_tpu_torch.parallel.multihost import initialize_distributed
 from v2a_tpu_torch.train.video_trainer import (
     VideoClipDataset, VideoModelTrainer, VideoTrainerConfig,
 )
+
+
+def parse_mesh(spec: str, device=None):
+    """'dp=4,tp=2' -> a mesh of those axes over the world (whose size must
+    be their product); '' -> None (JAX `scripts/train_video.py:28-44`). A
+    malformed spec raises `ValueError`."""
+    if not spec:
+        return None
+    names, sizes = [], []
+    for part in spec.split(","):
+        name, eq, size = part.partition("=")
+        if not eq or not name.strip() or not size.strip().isdigit():
+            raise ValueError(f"malformed mesh spec {spec!r}: want e.g. dp=4 or dp=4,tp=2")
+        names.append(name.strip())
+        sizes.append(int(size))
+    return make_mesh(tuple(names), tuple(sizes), device=device)
 
 
 def build_parser():
@@ -55,11 +80,12 @@ def build_parser():
     p.add_argument("--schedule-sampler", default="uniform",
                    choices=["uniform", "loss-second-moment"])
     p.add_argument("--use-checkpoint", action="store_true",
-                   help="gradient checkpointing (not ported)")
+                   help="gradient checkpointing (recompute activations in the backward pass)")
     p.add_argument("--remat-policy", default="blocks",
                    choices=["blocks", "levels"])
     p.add_argument("--mesh", default="",
-                   help="e.g. dp=4 or dp=4,tp=2 (not ported: one card)")
+                   help="e.g. dp=4 or dp=4,tp=2 (default: one card); one process a rank "
+                        "under torchrun")
     p.add_argument("--resume", action="store_true",
                    help="restore the latest milestone from --workdir")
     p.add_argument("--sample-after", action="store_true",
@@ -83,13 +109,7 @@ def build_parser():
 
 
 def parse_args(argv=None):
-    """The parsed arguments; raises on the options that are not ported."""
-    args = build_parser().parse_args(argv)
-    left_out = {"--mesh": bool(args.mesh), "--use-checkpoint": args.use_checkpoint}
-    for flag, given in left_out.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, Queue 1)")
-    return args
+    return build_parser().parse_args(argv)
 
 
 def run(args, dataset, tasks):
@@ -97,6 +117,11 @@ def run(args, dataset, tasks):
     line, then saves, and with `--sample-after` writes one validation video
     per task. Returns the trainer."""
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:  # first: a rank's card becomes the current device
+        initialize_distributed(device=dev)
+        mesh = parse_mesh(args.mesh, device=dev)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     dtype = args.dtype or ("bfloat16" if dev.type == "cuda" else "float32")
     vcfg = VideoModelConfig(
         image_size=(args.image_size, args.image_size),
@@ -120,15 +145,16 @@ def run(args, dataset, tasks):
         schedule_sampler=args.schedule_sampler,
         use_checkpoint=args.use_checkpoint, remat_policy=args.remat_policy,
     )
-    trainer = VideoModelTrainer(model, dataset, tcfg, workdir=args.workdir)
+    trainer = VideoModelTrainer(model, dataset, tcfg, workdir=args.workdir, mesh=mesh)
     if args.resume:
         trainer.load()
         print(f"resumed at step {trainer.step}", flush=True)
-    print(json.dumps({
-        "tasks": tasks, "clips": len(dataset),
-        "params": model.param_count(), "dtype": dtype,
-        "mesh": args.mesh or None, "workdir": args.workdir,
-    }), flush=True)
+    if rank0:
+        print(json.dumps({
+            "tasks": tasks, "clips": len(dataset),
+            "params": model.param_count(), "dtype": dtype,
+            "mesh": args.mesh or None, "workdir": args.workdir,
+        }), flush=True)
 
     trainer.train(args.n_steps)
     trainer.save()
@@ -138,8 +164,9 @@ def run(args, dataset, tasks):
         out = model.sample(frames, tasks, generator=torch.Generator(device=dev).manual_seed(0))
         out = out.cpu().numpy()
         path = os.path.join(args.workdir, "validation_videos.npy")
-        np.save(path, out)
-        print(f"wrote {path} {tuple(out.shape)}", flush=True)
+        if rank0:
+            np.save(path, out)
+            print(f"wrote {path} {tuple(out.shape)}", flush=True)
     return trainer
 
 

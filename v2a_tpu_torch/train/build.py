@@ -5,7 +5,9 @@ spreads across `scripts/train_libero_dp.py:29-167`): the train entry, the
 eval entry and the tests build experiments identically. The models go to
 `cfg.device` (the card when None). With `cfg.n_env_workers > 0` the trainer
 gets an `EnvWorkerPool` of that many spawned workers (`trainer.env_pool`),
-which the caller closes.
+which the caller closes. With `cfg.mesh_axes` the trainer trains on that
+mesh (`make_experiment_mesh`), and a mesh with a tp axis shards the video
+model's sampler (`VideoPredModel.shard_for_mesh`).
 """
 
 from __future__ import annotations
@@ -72,9 +74,6 @@ def build_experiment(
     with_video_model: bool = True,
     snapshot: bool = True,
 ) -> Tuple[OnlineTrainer, DiffusionPolicy, EnvList, Optional[VideoPredModel]]:
-    if cfg.mesh_axes:
-        raise NotImplementedError(
-            "the mesh (data/tensor-parallel) trainer is not ported yet (ROADMAP.md, Queue 1)")
     workdir = workdir or cfg.savepath()
     env_list = build_env_list(cfg)
     policy = DiffusionPolicy.create(cfg.policy, device=cfg.device)
@@ -98,6 +97,10 @@ def build_experiment(
             video_model = make_video_model(cfg)
             sampler = _VideoSampleAdapter(video_model)
 
+    mesh = make_experiment_mesh(cfg)
+    if mesh is not None and "tp" in mesh.axis_names and isinstance(video_model, VideoPredModel):
+        video_model.shard_for_mesh(mesh)  # the oracle is host-side
+
     env_pool = None
     if cfg.n_env_workers > 0:
         from v2a_tpu_torch.envs.subproc import EnvWorkerPool
@@ -115,10 +118,27 @@ def build_experiment(
         ema_config=cfg.ema,
         seed=cfg.seed,
         env_pool=env_pool,
+        mesh=mesh,
     )
     if snapshot:
         save_snapshot(cfg, workdir)
     return trainer, policy, env_list, video_model
+
+
+def make_experiment_mesh(cfg: ExperimentConfig):
+    """The config's mesh (JAX :90-106): None without `mesh_axes`,
+    `("auto_dp",)` one dp axis over the world, else `make_mesh(mesh_axes,
+    mesh_shape)` on the config's device. The process group is the caller's
+    (`parallel.multihost.initialize_distributed`); a single process makes a
+    one-rank mesh."""
+    if not cfg.mesh_axes:
+        return None
+    from v2a_tpu_torch.parallel.mesh import make_mesh
+
+    if tuple(cfg.mesh_axes) == ("auto_dp",):
+        return make_mesh(("dp",), device=cfg.device)
+    return make_mesh(tuple(cfg.mesh_axes), tuple(cfg.mesh_shape) if cfg.mesh_shape else None,
+                     device=cfg.device)
 
 
 class _VideoSampleAdapter:

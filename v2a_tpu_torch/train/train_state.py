@@ -11,10 +11,22 @@ EMA weights) and the policy step's `PolicyTrainState` (the step count, the
 state of a `fused_clip_adamw` transformation and the EMA weights). The
 parameters stay in their module and are updated in place, as are the Adam
 moments: the JAX step donates its buffers for the same reason.
+
+On a mesh (`parallel/sharding.py::ShardedParams`, explicit collectives, no
+DTensor) the step is the single-process step on the global batch: each dp
+rank's gradients (its rows; the loss draws the global batch's noise and
+keeps its rows) are averaged over the dp group by `all_reduce` before the
+clip; each tp rank keeps the 1/tp slice of every leaf the JAX rule shards,
+and its Adam moments in that slice; the global norm sums a sharded leaf's
+squares over the tp group and counts a replicated leaf once; AdamW runs on
+each rank's slices; `all_gather_into_tensor` makes the parameters whole
+for the forward and backward and for the EMA, which every rank keeps whole
+and equal, and they are released after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -51,7 +63,12 @@ class TrainState:
     """step, optimizer and EMA weights of one module's training.
 
     `ema` starts as a copy of the module's parameters; `update_ema` applies
-    e <- decay * e + (1 - decay) * p after an optimizer step, in place."""
+    e <- decay * e + (1 - decay) * p after an optimizer step, in place. On a
+    mesh (`shards`, the module's `ShardedParams`) the optimizer holds this
+    rank's slices: `state_dict` gathers the parameters and the moments
+    whole, in the layout of a run without a mesh (every rank takes part),
+    and `load_state_dict` slices them, so a checkpoint loads with or
+    without a mesh."""
 
     def __init__(self, module: torch.nn.Module, optimizer: torch.optim.Optimizer):
         self.step = 0
@@ -68,14 +85,30 @@ class TrainState:
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, [params[k].detach() for k in names], alpha=1.0 - decay)
 
-    def state_dict(self, module: torch.nn.Module) -> dict:
-        return dict(step=self.step, params=module.state_dict(),
-                    opt_state=self.optimizer.state_dict(), ema_params=self.ema)
+    def state_dict(self, module: torch.nn.Module, shards=None) -> dict:
+        opt = self.optimizer.state_dict()
+        if shards is None:
+            params = module.state_dict()
+        else:
+            with shards.whole():
+                params = module.state_dict()
+            opt["state"] = {i: {k: (shards.full(i, v) if torch.is_tensor(v) and v.ndim else v)
+                                for k, v in st.items()} for i, st in opt["state"].items()}
+        return dict(step=self.step, params=params, opt_state=opt, ema_params=self.ema)
 
-    def load_state_dict(self, module: torch.nn.Module, state: dict) -> None:
+    def load_state_dict(self, module: torch.nn.Module, state: dict, shards=None) -> None:
         self.step = int(state["step"])
-        module.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        opt = state["opt_state"]
+        if shards is None:
+            module.load_state_dict(state["params"])
+        else:
+            with shards.whole(write_back=True):
+                module.load_state_dict(state["params"])
+            opt = dict(opt, state={i: {k: (shards.slice(i, v).clone()
+                                           if torch.is_tensor(v) and v.ndim else v)
+                                       for k, v in st.items()}
+                                   for i, st in opt["state"].items()})
+        self.optimizer.load_state_dict(opt)
         with torch.no_grad():
             for k, v in state["ema_params"].items():
                 self.ema[k].copy_(v)
@@ -121,10 +154,14 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
-def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_grad_norm(grads: List[torch.Tensor], shards=None) -> torch.Tensor:
     """The global L2 norm, squares summed in float32 whatever the leaves'
-    dtype (:183-190)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    dtype (:183-190). With `shards` (`ShardedParams`) `grads` are this
+    rank's slices: a sharded leaf's squares are summed over the tp group."""
+    squares = [torch.sum(torch.square(g.float())) for g in grads]
+    if shards is not None:
+        squares = shards.tp_sum(squares)
+    return torch.sqrt(sum(squares))
 
 
 def fused_clip_adamw(cfg: OptimizerConfig) -> GradientTransformation:
@@ -142,10 +179,13 @@ def fused_clip_adamw(cfg: OptimizerConfig) -> GradientTransformation:
                          [torch.zeros_like(p, dtype=mdtype) for p in params])
 
     @torch.no_grad()
-    def update(grads, state: AdamState, params):
+    def update(grads, state: AdamState, params, norm=None):
+        """`norm`: the global norm when the caller has it (a mesh step's
+        spans the tp group), else computed from `grads`."""
         if params is None:
             raise ValueError("fused_clip_adamw requires params")
-        norm = global_grad_norm(grads)
+        if norm is None:
+            norm = global_grad_norm(grads)
         clip_scale = cfg.grad_clip / torch.clamp(norm, min=cfg.grad_clip)
         count = state.count + 1
         c1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count
@@ -172,22 +212,33 @@ class PolicyTrainState:
     parameters are the module's own, in `named_parameters` order. With
     `ema_module` (a module of the same structure) the EMA parameters are
     that module's own: the module's values are copied into them, and the
-    train step then updates that module in place."""
+    train step then updates that module in place. With `shards` (the
+    module's `ShardedParams` on a mesh) `params` and the optimizer state are
+    this rank's slices; `module_params` are the module's own either way."""
 
     def __init__(self, module: torch.nn.Module, tx: GradientTransformation,
-                 ema_module: Optional[torch.nn.Module] = None):
+                 ema_module: Optional[torch.nn.Module] = None, shards=None):
         self.names = [k for k, _ in module.named_parameters()]
-        self.params = [p for _, p in module.named_parameters()]
+        self.module_params = [p for _, p in module.named_parameters()]
+        self.shards = shards
+        self.params = self.module_params if shards is None else shards.local
         self.step = 0
         self.opt_state = tx.init(self.params)
-        if ema_module is None:
-            self.ema_params = [p.detach().clone() for p in self.params]
-        else:
-            ema = dict(ema_module.named_parameters())
-            self.ema_params = [ema[k] for k in self.names]
-            with torch.no_grad():
-                for e, p in zip(self.ema_params, self.params):
+        with torch.no_grad(), self.whole():
+            if ema_module is None:
+                self.ema_params = [p.detach().clone() for p in self.module_params]
+            else:
+                ema = dict(ema_module.named_parameters())
+                self.ema_params = [ema[k] for k in self.names]
+                for e, p in zip(self.ema_params, self.module_params):
                     e.copy_(p)
+
+    def whole(self, write_back: bool = False):
+        """The module's parameters whole inside the block (a no-op without
+        a mesh; `ShardedParams.whole`)."""
+        if self.shards is None:
+            return contextlib.nullcontext()
+        return self.shards.whole(write_back)
 
 
 class StepOutput(NamedTuple):
@@ -213,7 +264,7 @@ def make_train_step(loss_fn: Callable, tx: GradientTransformation,
 
     def grads_of(state, batch, generator):
         loss = loss_fn(batch, generator)
-        grads = torch.autograd.grad(loss, state.params)
+        grads = torch.autograd.grad(loss, state.module_params)
         return loss.detach(), [g.to(GRAD_DTYPE) for g in grads]
 
     def micro(batch, i):
@@ -222,25 +273,33 @@ def make_train_step(loss_fn: Callable, tx: GradientTransformation,
         return batch[i]
 
     def train_step(state: PolicyTrainState, batch, generator=None) -> StepOutput:
-        if accumulate == 1:
-            loss, grads = grads_of(state, batch, generator)
-        else:
-            loss = torch.zeros((), dtype=torch.float32, device=state.params[0].device)
-            grads = [torch.zeros_like(p, dtype=GRAD_DTYPE) for p in state.params]
-            for i in range(accumulate):
-                l, g = grads_of(state, micro(batch, i), generator)
-                loss = loss + l.float() / accumulate
-                grads = [a + b / accumulate for a, b in zip(grads, g)]
-        grad_norm = global_grad_norm(grads)
-        updates, state.opt_state = tx.update(grads, state.opt_state, state.params)
+        shards = state.shards
+        with state.whole():
+            if accumulate == 1:
+                loss, grads = grads_of(state, batch, generator)
+            else:
+                loss = torch.zeros((), dtype=torch.float32, device=state.params[0].device)
+                grads = [torch.zeros_like(p, dtype=GRAD_DTYPE) for p in state.module_params]
+                for i in range(accumulate):
+                    l, g = grads_of(state, micro(batch, i), generator)
+                    loss = loss + l.float() / accumulate
+                    grads = [a + b / accumulate for a, b in zip(grads, g)]
+        if shards is not None:  # the dp means, then this rank's slices
+            shards.dp_mean([loss])
+            grads = shards.local_grads(grads)
+        grad_norm = global_grad_norm(grads, shards)
+        updates, state.opt_state = tx.update(grads, state.opt_state, state.params,
+                                             norm=grad_norm)
         with torch.no_grad():
             torch._foreach_add_(state.params, updates)
             state.step += 1
             one = np.float32(1.0)
             do_update = np.float32(state.step % ema_cfg.update_every == 0)
             decay = one - (one - np.float32(ema_decay(state.step, ema_cfg))) * do_update
-            torch._foreach_mul_(state.ema_params, float(decay))
-            torch._foreach_add_(state.ema_params, state.params, alpha=float(one - decay))
+            with state.whole():
+                torch._foreach_mul_(state.ema_params, float(decay))
+                torch._foreach_add_(state.ema_params, state.module_params,
+                                    alpha=float(one - decay))
         return StepOutput(loss, grad_norm)
 
     return train_step

@@ -44,13 +44,29 @@ it is filled from the H5 file (`data/h5_ingest.py`, `ingest_h5`: the first
 `num_init_rand_ep_per_tk` episodes a task, then a circular sweep over the
 file's `h5_total_num_ep_per_task`), else by the live sampler.
 
-Not ported yet (raises `NotImplementedError`; ROADMAP.md, Queue 1): `mesh`.
+`mesh` (`parallel.make_mesh`, JAX :324-349, 534-546): the policy step runs
+data parallel over the dp axes, its wide leaves and their Adam moments
+tp-sharded (`parallel/sharding.py`, `train/train_state.py`); the global
+batch (`buf_sample_batch_size`, divisible by the dp size) is sampled on
+every rank and each rank copies its rows to its card. The port runs one
+process a rank, where JAX has one controller, so every rank's replay
+buffers must stay equal: every rank runs the whole host loop with the same
+seeds (the same env steps, the same EMA policy, equal on every rank, the
+same generators), and the guidance-video call is the collective one of a
+sharded sampler (`VideoPredModel.shard_for_mesh`, which `train/build.py`
+calls when the mesh has a tp axis, as JAX does) or the same call on every
+rank. Broadcasting rank 0's episodes instead would leave every other card
+idle for the whole cycle. After every committed cycle the ranks
+all-gather a digest of both buffers and raise on a mismatch. Only rank 0
+writes checkpoints, metrics and debug images.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import hashlib
 import os
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -286,10 +302,6 @@ class ExploreThrottle:
                 self.explo_type_vid = "explo"
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
-
-
 class OnlineTrainer:
     """Owns the buffers, schedulers, train state, and the env list.
 
@@ -318,9 +330,20 @@ class OnlineTrainer:
         act_max: Optional[np.ndarray] = None,
         mesh=None,
         env_pool=None,
+        tp_min_size: int = 256,
     ):
+        from v2a_tpu_torch.parallel.mesh import check_mesh
+
+        self.mesh = check_mesh(mesh)
+        self._rows = None
         if mesh is not None:
-            raise _not_ported("the mesh (data/tensor-parallel) trainer")
+            from v2a_tpu_torch.parallel.sharding import batch_sharding
+
+            self._rows = batch_sharding(mesh)
+            if config.buf_sample_batch_size % self._rows.count:
+                raise ValueError(f"batch {config.buf_sample_batch_size} not divisible by "
+                                 f"dp={self._rows.count}")
+        self.rank0 = mesh is None or torch.distributed.get_rank() == 0
         self.policy = policy
         self.device = policy.device
         self.envs = env_list
@@ -340,8 +363,9 @@ class OnlineTrainer:
 
         self.iter_sched = IterTypeScheduler(config)
         self.throttle = ExploreThrottle(config)
-        self.metrics = MetricsLogger(workdir)
-        self.metrics.init_per_task_metrics(env_list.task_list)
+        self.metrics = MetricsLogger(workdir) if self.rank0 else None
+        if self.metrics is not None:
+            self.metrics.init_per_task_metrics(env_list.task_list)
         self.np_rng = np.random.default_rng(seed)
         train_seed, predict_seed, self._video_seed, self._explore_seed = (
             int(s) for s in np.random.SeedSequence(seed).generate_state(4)
@@ -359,9 +383,16 @@ class OnlineTrainer:
             policy, nets=copy.deepcopy(policy.nets).requires_grad_(False)
         )
         self.tx = fused_clip_adamw(opt_config or OptimizerConfig())
-        self.state = PolicyTrainState(policy.nets, self.tx, ema_module=self.ema_policy.nets)
+        shards = loss_fn = None
+        if mesh is not None:
+            from v2a_tpu_torch.parallel.sharding import shard_train_state
+
+            shards = shard_train_state(policy.nets, mesh, min_size=tp_min_size)
+            loss_fn = functools.partial(policy.loss, shard=self._rows)
+        self.state = PolicyTrainState(policy.nets, self.tx, ema_module=self.ema_policy.nets,
+                                      shards=shards)
         self._train_step = make_train_step(
-            policy.loss, self.tx, ema_config or EMAConfig(),
+            loss_fn or policy.loss, self.tx, ema_config or EMAConfig(),
             accumulate=config.gradient_accumulate_every,
         )
         self._copier = PinnedCopier(
@@ -417,8 +448,9 @@ class OnlineTrainer:
         `ema_params` (state dicts of `PolicyNets`) and `step`, as
         `convert/from_jax.py::train_state_from_jax` returns them. The
         optimizer state stays as it is."""
-        self.policy.nets.load_state_dict(
-            {k: torch.as_tensor(v) for k, v in weights["params"].items()})
+        with self.state.whole(write_back=True):
+            self.policy.nets.load_state_dict(
+                {k: torch.as_tensor(v) for k, v in weights["params"].items()})
         self.ema_policy.nets.load_state_dict(
             {k: torch.as_tensor(v) for k, v in weights["ema_params"].items()})
         self.state.step = int(weights["step"])
@@ -544,8 +576,10 @@ class OnlineTrainer:
     def to_device_batch(self, host_batch: Dict[str, np.ndarray]):
         """uint8 images -> [0,1] float on the device; the layout consumed by
         `policy.loss` (`to_batch_dict` `lb_online_trainer_v7.py:1296-1310`).
-        The images travel as uint8 and are scaled on the device."""
-        return _as_batch(self._copier.take(self._copier.put(_host_arrays(host_batch))))
+        The images travel as uint8 and are scaled on the device; on a mesh
+        only this rank's rows travel."""
+        arrays = self._local_rows(_host_arrays(host_batch), 0)
+        return _as_batch(self._copier.take(self._copier.put(arrays)))
 
     # -- exploration ------------------------------------------------------
 
@@ -788,6 +822,11 @@ class OnlineTrainer:
         MAIN THREAD ONLY: the one place exploration touches state shared
         with the train loop."""
         cam = self.envs.camera_list[0]
+        self._commit_outcomes(cam, outcomes)
+        if self.mesh is not None:
+            self.check_buffers_equal()
+
+    def _commit_outcomes(self, cam, outcomes):
         for task, env_idx, result in outcomes:
             self._last_rollout = (result.pred_video, result.imgs)
             self.envBuf_vid.add_episode(
@@ -800,6 +839,34 @@ class OnlineTrainer:
             if result.is_success:
                 self.cnt_explore_suc += 1
                 self.cnt_explo_suc_per_tk[task] += 1
+
+    def buffer_digest(self) -> bytes:
+        """SHA-256 over both replay buffers' episodes (frames, actions,
+        metadata, oldest first) and their history counters."""
+        h = hashlib.sha256()
+        for buf in (self.envBuf_rand, self.envBuf_vid):
+            h.update(np.int64([len(buf), buf.cnt_all_history_episodes]).tobytes())
+            for ep in buf.export_episodes():
+                h.update(np.ascontiguousarray(ep["imgs"]).tobytes())
+                h.update(np.ascontiguousarray(ep["acts"]).tobytes())
+                h.update(repr((ep["task"], ep["cam"], int(ep["env_idx"]),
+                               bool(ep["is_success"]))).encode())
+        return h.digest()
+
+    def check_buffers_equal(self) -> None:
+        """All-gather every rank's `buffer_digest` and raise `RuntimeError`
+        unless they are equal (a mesh's ranks must hold the same
+        buffers)."""
+        mine = torch.as_tensor(np.frombuffer(self.buffer_digest(), np.uint8).copy(),
+                               device=self.mesh.device)
+        every = torch.empty(torch.distributed.get_world_size() * mine.numel(),
+                            dtype=mine.dtype, device=mine.device)
+        torch.distributed.all_gather_into_tensor(every, mine)
+        every = every.view(-1, mine.numel())
+        if not bool((every == mine).all()):
+            bad = [r for r in range(every.shape[0]) if not torch.equal(every[r], mine)]
+            raise RuntimeError(f"replay buffers differ across ranks: rank(s) {bad} hold "
+                               "other episodes than this one")
 
     # -- overlapped exploration (cfg.overlap_explore) ----------------------
 
@@ -906,23 +973,39 @@ class OnlineTrainer:
 
     def state_dict(self) -> dict:
         """The JAX `TrainState`'s fields: step, params, opt_state (count
-        and the Adam moments in parameter order), ema_params."""
+        and the Adam moments in parameter order), ema_params. On a mesh
+        every rank takes part: the sharded leaves come whole, in the layout
+        of a run without a mesh."""
         opt = self.state.opt_state
+        shards = self.state.shards
+        mu, nu = list(opt.mu), list(opt.nu)
+        if shards is not None:
+            mu = [shards.full(i, m) for i, m in enumerate(mu)]
+            nu = [shards.full(i, v) for i, v in enumerate(nu)]
+        with self.state.whole():
+            params = self.policy.nets.state_dict()
         return dict(
             step=self.step,
-            params=self.policy.nets.state_dict(),
-            opt_state=dict(count=opt.count, mu=list(opt.mu), nu=list(opt.nu)),
+            params=params,
+            opt_state=dict(count=opt.count, mu=mu, nu=nu),
             ema_params=self.ema_policy.nets.state_dict(),
         )
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Restores `state_dict()`'s fields in place."""
-        self.policy.nets.load_state_dict(state["params"])
+        """Restores `state_dict()`'s fields in place (on a mesh, this rank's
+        slices of them)."""
+        with self.state.whole(write_back=True):
+            self.policy.nets.load_state_dict(state["params"])
         self.ema_policy.nets.load_state_dict(state["ema_params"])
         opt = self.state.opt_state
-        for dst, src in zip(opt.mu + opt.nu, state["opt_state"]["mu"] + state["opt_state"]["nu"]):
-            dst.copy_(src)
+        shards = self.state.shards
+        src = list(state["opt_state"]["mu"]) + list(state["opt_state"]["nu"])
+        if shards is not None:
+            n = len(opt.mu)
+            src = [shards.slice(i % n, t) for i, t in enumerate(src)]
+        for dst, t in zip(opt.mu + opt.nu, src):
+            dst.copy_(t)
         self.state.opt_state = AdamState(int(state["opt_state"]["count"]), opt.mu, opt.nu)
         self.state.step = int(state["step"])
 
@@ -934,13 +1017,17 @@ class OnlineTrainer:
             self.step // self.cfg.resolved_label_freq()
             * self.cfg.resolved_label_freq()
         )
-        ckpt.save_checkpoint(
-            self.workdir, label, self.state_dict(), extra=self._counters(),
-            n_saves=self.cfg.n_saves,
-        )
-        if self.cfg.checkpoint_buffers:
-            self.envBuf_rand.save(os.path.join(self.workdir, "buf_rand.npz"))
-            self.envBuf_vid.save(os.path.join(self.workdir, "buf_vid.npz"))
+        state = self.state_dict()  # every rank: a mesh gathers it whole
+        if self.rank0:
+            ckpt.save_checkpoint(
+                self.workdir, label, state, extra=self._counters(),
+                n_saves=self.cfg.n_saves,
+            )
+            if self.cfg.checkpoint_buffers:
+                self.envBuf_rand.save(os.path.join(self.workdir, "buf_rand.npz"))
+                self.envBuf_vid.save(os.path.join(self.workdir, "buf_vid.npz"))
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def load(self, label: Optional[int] = None):
         # a stash prepared before the restore pins seeds and frames of the
@@ -970,12 +1057,21 @@ class OnlineTrainer:
 
     def _sample_host_arrays(self, np_rng=None) -> Dict[str, np.ndarray]:
         """One batch's host arrays; with gradient accumulation, the
-        micro-batches stacked on a leading axis."""
+        micro-batches stacked on a leading axis. On a mesh the global batch
+        is sampled and this rank keeps its rows (JAX :534-546)."""
         ga = self.cfg.gradient_accumulate_every
         if ga == 1:
-            return _host_arrays(self.sample_from_bufs(np_rng))
+            return self._local_rows(_host_arrays(self.sample_from_bufs(np_rng)), 0)
         micro = [_host_arrays(self.sample_from_bufs(np_rng)) for _ in range(ga)]
-        return {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+        return self._local_rows({k: np.stack([m[k] for m in micro]) for k in micro[0]}, 1)
+
+    def _local_rows(self, arrays: Dict[str, np.ndarray], axis: int) -> Dict[str, np.ndarray]:
+        if self._rows is None:
+            return arrays
+        def rows(v):
+            return np.ascontiguousarray(v[(slice(None),) * axis + (self._rows.rows(v.shape[axis]),)])
+
+        return {k: rows(v) for k, v in arrays.items()}
 
     def _start_prefetch(self):
         if self.cfg.prefetch_depth > 0 and self._prefetch is None:
@@ -1093,10 +1189,10 @@ class OnlineTrainer:
             if new_step % cfg.save_freq == 0 or new_step == 1:
                 self.save()
 
-            if cfg.debug_img_freq and new_step % cfg.debug_img_freq == 0:
+            if self.rank0 and cfg.debug_img_freq and new_step % cfg.debug_img_freq == 0:
                 self.dump_debug_images()
 
-            if new_step % cfg.log_freq == 0 or new_step == 1:
+            if self.rank0 and (new_step % cfg.log_freq == 0 or new_step == 1):
                 metrics = {
                     "train/loss": float(out.loss),
                     "train/grad_norm": float(out.grad_norm),

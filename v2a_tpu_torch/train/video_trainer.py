@@ -18,18 +18,41 @@ resampling and milestone checkpoints, bf16 compute and float32 parameters.
 - Batches, timesteps and weights come from one numpy generator, as in the
   JAX trainer, so one seed gives its batches and timesteps; the diffusion
   noise comes from a `torch.Generator`.
-
-Not ported: `use_checkpoint` / `remat_policy` and the mesh trainer raise
-`NotImplementedError` (ROADMAP).
+- `use_checkpoint` recomputes activations in the backward pass, with the
+  JAX trainer's three policies (:188-217): "blocks" and "levels" are the
+  U-Net's own (`models/video_unet.py`; the xattn backbone's is per block);
+  "mxu" keeps the module plain and runs the whole call under one
+  `torch.utils.checkpoint` whose selective-checkpoint policy saves only
+  the outputs of `aten.convolution` / `aten.mm` / `aten.bmm` /
+  `aten.addmm` and recomputes the rest. The hand kernels of `train_fused`
+  launch through ctypes, below the dispatcher: that policy can neither see
+  nor save them, and recomputes them (the JAX `mxu` is a policy of the
+  plain path).
+- `mesh` (`parallel.make_mesh`): the step is the single-process step on
+  the global batch. Every rank samples the global batch, timesteps,
+  weights and noise from the shared seeds and keeps its dp rows
+  (`parallel/sharding.py`); gradients are averaged over dp before the
+  clip, wide leaves and their Adam moments are tp-sharded
+  (`ShardedParams`), the per-sample losses are all-gathered so every
+  rank's loss-second-moment history folds in the whole batch (`merge`),
+  and the EMA is whole and equal on every rank. Only rank 0 writes
+  checkpoints and metrics; a checkpoint holds whole tensors in the layout
+  of a run without a mesh and loads with or without one. `train_fused`
+  stays off on a mesh unless asked for (the JAX rule, :169-187).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from v2a_tpu_torch.models.video_model import VideoPredModel
 from v2a_tpu_torch.ops.resample import create_named_schedule_sampler
@@ -53,7 +76,8 @@ class VideoTrainerConfig:
     log_freq: int = 100
     n_saves: int = 5
     schedule_sampler: str = "uniform"  # or 'loss-second-moment'
-    use_checkpoint: bool = False  # not ported: raises
+    # gradient checkpointing and its policy: "blocks", "levels" or "mxu"
+    use_checkpoint: bool = False
     remat_policy: str = "blocks"
     # the differentiable K1 routing; None = on when the device is cuda, there
     # is no mesh, batch_size <= 4 and no checkpointing (:169-187)
@@ -106,6 +130,28 @@ class VideoClipDataset:
         self.h5.close()
 
 
+# the ops whose outputs the "mxu" policy saves (the JAX policy's
+# conv_general_dilated / dot_general)
+_MXU_OPS = (torch.ops.aten.convolution, torch.ops.aten.mm, torch.ops.aten.bmm,
+            torch.ops.aten.addmm)
+
+
+def _mxu_policy(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _MXU_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def mxu_checkpointed(net):
+    """`net(x, t, e)` under one checkpoint that keeps only conv / matmul
+    outputs for the backward (the "mxu" policy)."""
+    def apply(x, t, e):
+        return checkpoint(net, x, t, e, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(_mxu_policy))
+
+    return apply
+
+
 class VideoModelTrainer:
     def __init__(
         self,
@@ -117,17 +163,16 @@ class VideoModelTrainer:
         seed: int = 0,
         mesh=None,
     ):
+        from v2a_tpu_torch.parallel.mesh import check_mesh
+
         self.cfg = cfg = config or VideoTrainerConfig()
-        if mesh is not None:
-            raise NotImplementedError("the mesh (data/tensor-parallel) trainer is not ported")
-        if cfg.use_checkpoint:
-            raise NotImplementedError(
-                f"use_checkpoint (remat_policy {cfg.remat_policy!r}) is not ported")
+        self.mesh = check_mesh(mesh)
+        self.rank0 = mesh is None or dist.get_rank() == 0
         self.model = model
         self.dataset = dataset
         self.workdir = workdir
         self.device = model.device
-        self.metrics = MetricsLogger(workdir)
+        self.metrics = MetricsLogger(workdir) if self.rank0 else None
         self.np_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.sampler = create_named_schedule_sampler(
@@ -138,14 +183,34 @@ class VideoModelTrainer:
         if train_fused is None:
             train_fused = (self.device.type == "cuda" and mesh is None and cfg.batch_size <= 4
                            and not cfg.use_checkpoint)
+        ckpt_on = cfg.use_checkpoint
+        if ckpt_on and model.config.backbone == "xattn" and cfg.remat_policy != "blocks":
+            raise ValueError("the xattn backbone recomputes per block: remat_policy 'blocks'")
         with torch.device(self.device):
             unet = model.build_unet(fused=False, train_fused=bool(train_fused),
-                                    wgrad_kernel=cfg.wgrad_kernel)
-        unet.load_state_dict(model.unet.state_dict())
+                                    wgrad_kernel=cfg.wgrad_kernel, use_checkpoint=ckpt_on,
+                                    remat_policy=cfg.remat_policy)
+        with model.whole():
+            unet.load_state_dict(model.unet.state_dict())
         self.train_unet = unet.requires_grad_(True)
-        self._params = list(unet.parameters())
+        self._train_apply = (mxu_checkpointed(unet) if ckpt_on and cfg.remat_policy == "mxu"
+                             else unet)
+        self.shards = self._rows = None
+        if mesh is not None:
+            from v2a_tpu_torch.parallel.sharding import batch_sharding, shard_train_state
+
+            self._rows = batch_sharding(mesh)
+            if cfg.batch_size % self._rows.count:
+                raise ValueError(f"batch {cfg.batch_size} not divisible by dp={self._rows.count}")
+            self.shards = shard_train_state(unet, mesh)
+        self._params = list(unet.parameters()) if self.shards is None else self.shards.local
         optimizer = torch.optim.Adam(self._params, lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=1e-8)
-        self.state = TrainState(unet, optimizer)
+        with self._whole():
+            self.state = TrainState(unet, optimizer)
+
+    def _whole(self):
+        """The trained U-Net's parameters whole inside the block."""
+        return contextlib.nullcontext() if self.shards is None else self.shards.whole()
 
     @property
     def step(self) -> int:
@@ -155,29 +220,66 @@ class VideoModelTrainer:
         """(loss, per-sample losses) of one batch; leaves the pre-clip
         gradients in the parameters' `.grad`. video (B, F, H, W, 3) in
         [0, 1]; x_cond_n (B, 1, H, W, 3) in [-1, 1]; t (B,) int; weights (B,);
-        `noise` overrides the generator's draw."""
+        `noise` overrides the generator's draw. On a mesh the arguments are
+        the global batch: this rank computes its rows (the noise its rows of
+        the global draw); the gradients are its rows' until
+        `apply_gradients`, the loss the dp mean and the per-sample losses
+        the whole batch's, all-gathered."""
         self.state.optimizer.zero_grad(set_to_none=True)
+        self.train_unet.zero_grad(set_to_none=True)  # a mesh's whole parameters
+        shard = self._rows
+        if shard is not None:
+            rows = shard.rows(video.shape[0])
+            video, x_cond_n, task_embed, t, weights = (
+                a[rows] for a in (video, x_cond_n, task_embed, t, weights))
+            if noise is not None:
+                noise = torch.as_tensor(noise)[rows]
+            else:
+                noise = self.model.diffusion._randn(tuple(video.shape), self.generator,
+                                                    video.device, shard)
+            self.shards.gather()
         loss, per_sample = self.model.diffusion.p_losses(
-            self.train_unet, video, x_cond_n, task_embed, t=t, sample_weights=weights,
+            self._train_apply, video, x_cond_n, task_embed, t=t, sample_weights=weights,
             return_per_sample=True, generator=self.generator, noise=noise,
         )
         loss.backward()
-        return loss.detach(), per_sample.detach()
+        loss, per_sample = loss.detach(), per_sample.detach()
+        if shard is not None:
+            from v2a_tpu_torch.parallel.sharding import all_gather_rows
+
+            self.shards.dp_mean([loss])
+            per_sample = all_gather_rows(per_sample, self.mesh)
+        return loss, per_sample
 
     @torch.no_grad()
     def apply_gradients(self) -> None:
         """Clip by the global norm (optax's rule), Adam, then the EMA
-        (`v2a_tpu/train/video_trainer.py:231-240`)."""
-        for p in self._params:
+        (`v2a_tpu/train/video_trainer.py:231-240`). On a mesh: the dp mean
+        of the gradients first, each rank's slices, the norm over the tp
+        group."""
+        module_params = list(self.train_unet.parameters())
+        for p in module_params:
             if p.grad is None:  # optax sees a zero gradient there
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self._params]
-        norm = torch.stack(torch._foreach_norm([g.float() for g in grads])).square().sum().sqrt()
+        grads = [p.grad for p in module_params]
+        if self.shards is not None:
+            grads = self.shards.local_grads(grads)
+            for p in module_params:
+                p.grad = None
+            for lt, g in zip(self.shards.local, grads):
+                lt.grad = g
+        norms = list(torch._foreach_norm([g.float() for g in grads]))
+        if self.shards is not None:  # a sharded leaf's norm over its tp slices
+            summed = self.shards.tp_sum([v.square() for v in norms])
+            norms = [v if d is None else summed[i].sqrt()
+                     for i, (v, d) in enumerate(zip(norms, self.shards.dims))]
+        norm = torch.stack(norms).square().sum().sqrt()
         clip = self.cfg.grad_clip
         torch._foreach_mul_(grads, clip / torch.clamp(norm, min=clip))
         self.state.optimizer.step()
         self.state.step += 1
-        self.state.update_ema(self.train_unet, ema_decay(self.state.step, self.ema_config))
+        with self._whole():
+            self.state.update_ema(self.train_unet, ema_decay(self.state.step, self.ema_config))
 
     def train_step(self, video, x_cond_n, task_embed, t, weights, noise=None):
         """One step, the counterpart of `_train_step` (:220-250): returns
@@ -201,28 +303,47 @@ class VideoModelTrainer:
                 torch.as_tensor(t, dtype=torch.long, device=dev),
                 torch.as_tensor(weights, device=dev),
             )
-            self.sampler.update_with_losses(t, per_sample.cpu().numpy())
+            self._fold_losses(t, per_sample.cpu().numpy())
             step = self.step
             if step % cfg.save_freq == 0 or step == n_steps:
                 self.save()
-            if step % cfg.log_freq == 0 or step == 1:
+            if self.rank0 and (step % cfg.log_freq == 0 or step == 1):
                 self.metrics.log({"video_train/loss": float(loss),
                                   "time/step_interval": timer()}, step)
         self.publish_ema()
+
+    def _fold_losses(self, t: np.ndarray, losses: np.ndarray) -> None:
+        """The whole batch's (t, loss) pairs into the sampler, in row order:
+        this rank's rows by `update_with_losses`, the other dp ranks' by
+        `merge`, so every rank keeps the single process's history."""
+        if self._rows is None:
+            self.sampler.update_with_losses(t, losses)
+            return
+        for r, idx in enumerate(np.split(np.arange(len(t)), self._rows.count)):
+            fold = (self.sampler.update_with_losses if r == self._rows.index
+                    else getattr(self.sampler, "merge", None))
+            if fold is not None:
+                fold(t[idx], losses[idx])
 
     def publish_ema(self) -> None:
         """The trained EMA weights into `model.unet`."""
         self.model.unet.load_state_dict(self.state.ema)
 
     def save(self):
+        """Every rank takes part (a mesh gathers the state whole); rank 0
+        writes."""
         freq = max(self.cfg.n_train_steps // self.cfg.n_saves, 1)
-        ckpt.save_checkpoint(self.workdir, self.step // freq * freq,
-                             self.state.state_dict(self.train_unet), extra={},
-                             n_saves=self.cfg.n_saves)
+        state = self.state.state_dict(self.train_unet, self.shards)
+        if self.rank0:
+            ckpt.save_checkpoint(self.workdir, self.step // freq * freq, state, extra={},
+                                 n_saves=self.cfg.n_saves)
+        if self.mesh is not None:
+            dist.barrier()
 
     def load(self, label: Optional[int] = None):
         state, _ = ckpt.restore_checkpoint(self.workdir, label, map_location=self.device)
-        self.state.load_state_dict(self.train_unet, state)
+        self.state.load_state_dict(self.train_unet, state, self.shards)
 
     def close(self):
-        self.metrics.close()
+        if self.metrics is not None:
+            self.metrics.close()
