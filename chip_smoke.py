@@ -212,6 +212,25 @@ Phases (any failure exits non-zero):
      the step's plus the recomputed ResBlock forwards', ms and peak GiB,
      "blocks" and "levels" below the peak without remat), and
      `scripts/train_video.py --backbone xattn --use-checkpoint` at B=4;
+  16. (run before 14's lines) the last modules (`last_modules`): (a)
+     `python -m v2a_tpu_torch.scripts.evaluate_samples` on phase 12's
+     ancestral `image_sample` batch against its 64 synthetic images, with
+     `--inception` on a synthetic `inception_v3` state dict (an fc head
+     added) and with the random conv trunk, both processes at once (the JAX
+     CLI's keys, finite metrics), the card's Inception features of 8 images
+     within 1e-3 of their std of the CPU forward (TF32 off), ms per B=64
+     float32 Inception forward; (b) the trunk's pools at the release
+     policy's pool input (the packed forward bit-equal to `F.max_pool2d`,
+     its gradient within one bf16 ulp; `mask_bwd` reaching every tied
+     position) and a B=64 policy step per `pool`; (c) the release U-Net
+     with `use_scale_shift_norm` (its own weights): B=8 forwards, unpadded
+     fused (K1 73, K2 63) and plain, within twice the bf16 plain path's
+     error of float32, in turns; the padded routing refuses it; (d) B=4
+     `VideoModelTrainer` steps with K6 at `wgrad_min_s` 0 and 4096, with
+     `train_dgrad_kernel=False` and with `train_tconv_dot=True` (and the
+     plain step): launches per step, gradients through phase 6's gate, ms
+     per step; every kernel signature of (c) and (d) not held before,
+     against its plain version; the phase's wall time (budget 75 s);
   14. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed (phase 10: the writer's reference
@@ -225,8 +244,9 @@ write their checkpoints under `logs/chip_smoke_train/`,
 `logs/chip_smoke_online/` and `logs/chip_smoke_video/`, phase 10 its
 reference and converted checkpoints under `logs/chip_smoke_ckpt/`, phase 11
 its trainers' under `logs/chip_smoke_family/`, phase 12 its images,
-snapshots and samples under `logs/chip_smoke_guided/`, and the script
-removes them.
+snapshots and samples under `logs/chip_smoke_guided/` (its ancestral sample
+batch to `logs/chip_smoke_eval/` for phase 16), and the script removes
+them.
 """
 
 import contextlib
@@ -2092,20 +2112,22 @@ def train(rk, model, vcfg, dev):
     return report, calls, k6_launches, roles
 
 
-def train_policy(dev):
-    """Phase 7: the policy train step at the release batch,
+def train_policy(dev, pool="max", steps=POLICY_STEPS):
+    """Phase 7 (phase 16 (b): each trunk `pool`, `steps` timed steps): the
+    policy train step at the release batch,
     `make_train_step(policy.loss, fused_clip_adamw(cfg), EMAConfig())` on a
     bf16-compute policy with float32 parameters and moments (the release
     recipe: AdamW lr 1e-4, betas (0.95, 0.999), eps 1e-8, wd 1e-6, clip 1.0,
     EMA power 0.75 every step), on a synthetic batch from the seed: one
-    warm-up step, then `POLICY_STEPS` steps timed by CUDA events; the peak
+    warm-up step, then `steps` steps timed by CUDA events; the peak
     memory; finite loss, gradient norm, weights and EMA. It runs no kernel
     of the port (plain PyTorch, as the JAX step runs plain XLA)."""
     from v2a_tpu_torch.models.policy import DiffusionPolicy, PolicyConfig
     from v2a_tpu_torch.train.train_state import (
         EMAConfig, OptimizerConfig, PolicyTrainState, fused_clip_adamw, make_train_step)
 
-    policy = DiffusionPolicy.create(PolicyConfig(dtype="bfloat16"), device=dev).init(SEED)
+    policy = DiffusionPolicy.create(PolicyConfig(dtype="bfloat16", vision_pool=pool),
+                                    device=dev).init(SEED)
     policy.nets.requires_grad_(True)
     cfg = policy.config
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -2121,7 +2143,7 @@ def train_policy(dev):
     step = make_train_step(policy.loss, tx, EMAConfig())
     zero_launches()
     events, outs = [], []
-    for _ in range(1 + POLICY_STEPS):
+    for _ in range(1 + steps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         outs.append(step(state, batch, gen))
@@ -2136,13 +2158,15 @@ def train_policy(dev):
         fail(f"policy train step: non-finite loss {losses} or gradient norm {norms}")
     if not all(bool(torch.isfinite(p).all()) for p in state.params + state.ema_params):
         fail("policy train step: non-finite weights or EMA")
-    if state.step != 1 + POLICY_STEPS or launches:
+    if state.step != 1 + steps or launches:
         fail(f"policy train step: {state.step} steps, kernel launches {launches}")
-    report = dict(batch=POLICY_B, steps_timed=POLICY_STEPS, ms_per_step=ms[1:], warmup_ms=ms[0],
+    report = dict(pool=pool, batch=POLICY_B, steps_timed=steps, ms_per_step=ms[1:],
+                  warmup_ms=ms[0],
                   loss=losses, grad_norm=norms,
                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                   params_m=sum(p.numel() for p in state.params) / 1e6)
-    log(f"[policy-train] B={POLICY_B}, {report['params_m']:.1f} M params, bf16 compute: ms per "
+    log(f"[policy-train] B={POLICY_B}, {report['params_m']:.1f} M params, bf16 compute, pool "
+        f"{pool!r}: ms per "
         f"step {[round(v, 2) for v in ms[1:]]} (warm-up {ms[0]:.1f}), losses "
         f"{[round(v, 4) for v in losses]}, gradient norms {[round(v, 3) for v in norms]}, "
         f"peak {report['peak_gib']:.2f} GiB")
@@ -3574,14 +3598,18 @@ def _guided_train(main, argv, b, report, tag):
     return loop
 
 
+def _guided_images():
+    """The `GUIDED_IMAGES` synthetic uint8 images (N, side, side, 3)."""
+    n, side = GUIDED_IMAGES
+    rng = np.random.default_rng(SEED)
+    return np.stack([rng.integers(0, 255, (side, side, 3), np.uint8) for _ in range(n)])
+
+
 def _write_guided_images(d):
     """`GUIDED_IMAGES` uint8 .npy images, class-prefixed file names."""
-    n, side = GUIDED_IMAGES
     os.makedirs(d, exist_ok=True)
-    rng = np.random.default_rng(SEED)
-    for i in range(n):
-        np.save(os.path.join(d, f"c{i % GUIDED_CLASSES:03d}_{i}.npy"),
-                rng.integers(0, 255, (side, side, 3), np.uint8))
+    for i, img in enumerate(_guided_images()):
+        np.save(os.path.join(d, f"c{i % GUIDED_CLASSES:03d}_{i}.npy"), img)
 
 
 def guided_family(dev, smi):
@@ -3711,6 +3739,9 @@ def guided_family(dev, smi):
             "--out_dir", os.path.join(GUIDED_LOGS, f"sample_{kind}")])
         report[f"sample_{kind}_s"] = time.perf_counter() - t0
         _npz_ok(samples[kind], b, side, labels=True)
+    # phase 16 evaluates the ancestral batch against the synthetic images
+    os.makedirs(EVAL_LOGS, exist_ok=True)
+    shutil.copy(samples["ancestral"], os.path.join(EVAL_LOGS, "sample.npz"))
     log(f"[guided] image_sample B={b}, {GUIDED_RESPACING} respaced steps: ancestral "
         f"{report['sample_ancestral_s']:.2f} s, DDIM {report['sample_ddim_s']:.2f} s a batch "
         f"({smi})")
@@ -4301,6 +4332,355 @@ def mesh_and_remat(rk, held, model, vcfg, dev, smi):
     return report, launches, extra_agg
 
 
+# phase 16, the last modules: sample-quality evaluation on phase 12's
+# samples, the policy trunk's pools, the U-Net's scale-shift norm and the
+# train_fused routing's three switches
+EVAL_LOGS = os.path.join(ROOT, "logs", "chip_smoke_eval")
+# the JAX CLI's JSON keys, in its order (`scripts/evaluate_samples.py:108-117`)
+EVAL_KEYS = ["inception_score", "inception_score_std", "fid", "sfid", "precision", "recall",
+             "inception_calibrated", "n_ref", "n_sample"]
+EVAL_CLI_FLAGS = []  # flags added to both CLI calls (a CPU rehearsal: --device cpu)
+EVAL_CPU_N = 8  # images whose features are held against the CPU forward
+EVAL_FEATURE_BOUND = 1e-3  # of the CPU features' std
+EVAL_REPS = 5  # timed B=64 Inception forwards
+POOL_STEPS = 2  # timed policy steps per pool
+SSS_B = 8
+# the scale-shift U-Net's unpadded fused forward: the unpadded routing's
+# launches (tests/test_torch_left_out_options.py traces the same against JAX
+# at a small size), every K1 without the GroupNorm affine
+SSS_PER_FORWARD = {"fused_affine_conv3x3": 73, "temporal_conv_fused": 63}
+# the train_fused routing's switches: VideoModelConfig fields, K6 as the
+# wgrad in each, and the launches of one B=4 step (traced on the meta device)
+TRAIN_SWITCHES = {
+    "k6": ({}, {"fused_affine_conv3x3": 116, "wgrad_conv3x3": 58}),
+    "k6_min_s_4096": (dict(wgrad_min_s=4096), {"fused_affine_conv3x3": 116,
+                                                "wgrad_conv3x3": 22}),
+    "dgrad_library": (dict(train_dgrad_kernel=False), {"fused_affine_conv3x3": 58,
+                                                       "wgrad_conv3x3": 58}),
+    "tconv_dot": (dict(train_tconv_dot=True), {"fused_affine_conv3x3": 116,
+                                               "wgrad_conv3x3": 58}),
+}
+SWITCH_STEPS = 2  # timed steps after the gradient step
+LAST_BUDGET_S = 75
+
+
+def _run_counted(launches, calls_all, fn):
+    """`fn()` with the counts zeroed before and read after: its launches
+    (also added to `launches`) and its kernels' {signature: calls} (added to
+    `calls_all`)."""
+    zero_launches()
+    with recording() as calls:
+        out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    for k, v in got.items():
+        launches[k] += v
+    for k, v in calls.items():
+        calls_all[k] = calls_all.get(k, 0) + v
+    return out, got
+
+
+def _evaluation(dev, smi):
+    """Phase 16 (a): `python -m v2a_tpu_torch.scripts.evaluate_samples` on
+    phase 12's ancestral `image_sample` batch against the synthetic images
+    it was trained on, once with `--inception` on a synthetic
+    `inception_v3` state dict (an fc head added, for IS) and once with the
+    random conv trunk, both processes at once: the JSON keys in the JAX
+    CLI's order, finite FID / sFID, precision and recall in [0, 1]. Then the
+    Inception net in this process: the card's pooled and sFID features of
+    `EVAL_CPU_N` images within `EVAL_FEATURE_BOUND` of their std of the CPU
+    forward on the same weights (TF32 off), and ms per B=64 float32 forward
+    (CUDA events, the resize to 299 included)."""
+    from v2a_tpu_torch.ops import inception as inc
+
+    sample = os.path.join(EVAL_LOGS, "sample.npz")
+    if not os.path.exists(sample):
+        fail("evaluation: phase 12's image_sample batch is missing")
+    images = _guided_images()
+    ref = os.path.join(EVAL_LOGS, "ref.npz")
+    np.savez(ref, arr_0=images)
+    sd = inc.synthetic_state_dict(SEED)
+    rs = np.random.RandomState(SEED + 1)
+    sd["fc.weight"] = (rs.randn(1000, inc.FEATURE_DIM) * 0.01).astype(np.float32)
+    sd["fc.bias"] = np.zeros(1000, np.float32)
+    weights = os.path.join(EVAL_LOGS, "inception_v3.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, weights)
+    argv = [sys.executable, "-m", "v2a_tpu_torch.scripts.evaluate_samples", ref, sample]
+    runs = {"inception": argv + ["--inception", weights] + EVAL_CLI_FLAGS,
+            "random_trunk": argv + EVAL_CLI_FLAGS}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(a, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True) for name, a in runs.items()}
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode:
+            fail(f"evaluation: evaluate_samples ({name}) exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
+    cli_s = time.perf_counter() - t0
+    n_sample = len(np.load(sample)["arr_0"])
+    for name, res in out.items():
+        calibrated = name == "inception"
+        if (list(res) != EVAL_KEYS or res["inception_calibrated"] is not calibrated
+                or (res["n_ref"], res["n_sample"]) != (len(images), n_sample)
+                or not np.isfinite(res["fid"]) or not 0 <= res["precision"] <= 1
+                or not 0 <= res["recall"] <= 1
+                or (res["sfid"] is not None) is not calibrated
+                or (calibrated and not np.isfinite(res["sfid"]))
+                or (not calibrated and res["inception_score"] is not None)):
+            fail(f"evaluation: evaluate_samples ({name}) printed {res}")
+    log(f"[eval] {smi}: evaluate_samples on image_sample's {n_sample} images against "
+        f"{len(images)} references, both runs at once {cli_s:.1f} s wall: --inception "
+        f"{out['inception']}; random trunk {out['random_trunk']}")
+
+    params = inc.load_inception_params(weights)
+    model = inc.inception_model(params, dev)
+    cpu = inc.inception_model(params, "cpu")
+    x = images[:EVAL_CPU_N].astype(np.float32) / 255.0
+    got = [t.cpu() for t in inc.inception_forward(model, x, return_spatial=True)]
+    want = inc.inception_forward(cpu, x, return_spatial=True)
+    errs = {k: float((g - w).abs().max() / w.std())
+            for k, g, w in zip(("pooled", "sfid"), got, want)}
+    if not all(e <= EVAL_FEATURE_BOUND for e in errs.values()):
+        fail(f"evaluation: the card's Inception features against the CPU's (err/std) {errs}")
+    x64 = torch.as_tensor(images, device=dev).float() / 255.0
+    ms = time_ms(lambda: inc.inception_forward(model, x64), EVAL_REPS, 2)
+    log(f"[eval] {smi}: Inception (float32, TF32 off) B={len(images)} forward {ms:.2f} ms, "
+        f"{len(images) / ms * 1e3:.0f} images/s; the card against the CPU on {EVAL_CPU_N} "
+        f"images, max err/std pooled {errs['pooled']:.2e}, sFID features {errs['sfid']:.2e}")
+    del model, cpu, x64
+    torch.cuda.empty_cache()
+    return dict(cli=out, cli_wall_s=cli_s, inception_ms=ms, batch=len(images),
+                images_per_s=len(images) / ms * 1e3, feature_err_over_std=errs)
+
+
+def _pools(dev, smi):
+    """Phase 16 (b): the trunk's pools at the release policy's pool input
+    (B=64 post-ReLU (64, 64, 64, 64) bf16): "packed" bit-equal to
+    `F.max_pool2d`, its gradient within one bf16 ulp of `F.max_pool2d`'s;
+    "mask_bwd" on a plateau reaching every position (its tie rule), its
+    gradient equal to the CPU's; then a B=64 release policy step per pool
+    (`train_policy`), ms per step."""
+    from v2a_tpu_torch.ops import pool
+
+    def grad(fn, inp, co):
+        inp = inp.clone().requires_grad_(True)
+        (fn(inp).float() * co.float()).sum().backward()
+        return inp.grad
+
+    def library(t):
+        return F.max_pool2d(t, 3, 2, 1)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    x = F.relu(torch.randn(POLICY_B, 64, 64, 64, generator=gen, device=dev)).bfloat16()
+    co = torch.randn(POLICY_B, 64, 32, 32, generator=gen, device=dev).bfloat16()
+    if not torch.equal(pool.max_pool_3x3s2(x).view(torch.int16), library(x).view(torch.int16)):
+        fail("pools: the packed forward is not bit-equal to F.max_pool2d")
+    g_packed = grad(pool.max_pool_3x3s2, x, co)
+    # against the library's bf16 gradient and its float32 one on the same values
+    (ok, g_err, _, _), (ok32, g_err32, _, _) = (
+        within_one_ulp(g_packed, grad(library, x, co)),
+        within_one_ulp(g_packed, grad(library, x.float(), co)))
+    if not (ok and ok32):
+        fail(f"pools: the packed gradient strays beyond one bf16 ulp ({g_err:.3e}; of the "
+             f"float32 gradient {g_err32:.3e})")
+    plateau, ones = torch.zeros(1, 1, 8, 8).bfloat16(), torch.ones(1, 1, 4, 4).bfloat16()
+    g_mask = grad(pool.max_pool_3x3s2_maskbwd, plateau.to(dev), ones.to(dev)).cpu()
+    if not (bool((g_mask > 0).all())
+            and torch.equal(g_mask, grad(pool.max_pool_3x3s2_maskbwd, plateau, ones))):
+        fail(f"pools: mask_bwd's plateau gradient {g_mask}")
+    log(f"[pools] {smi}: packed forward bit-equal to F.max_pool2d at {tuple(x.shape)} bf16, its "
+        f"gradient within one ulp of F.max_pool2d's (max |err| {g_err:.3e}; of its float32 "
+        f"gradient {g_err32:.3e}); mask_bwd reaches all 64 positions of an 8x8 plateau, as on "
+        f"the CPU")
+    steps = {p: train_policy(dev, pool=p, steps=POOL_STEPS) for p in ("max", "packed",
+                                                                     "mask_bwd")}
+    return dict(grad_max_abs_err=g_err, grad_max_abs_err_f32=g_err32,
+                ms_per_step={p: r["ms_per_step"] for p, r in steps.items()},
+                loss={p: r["loss"] for p, r in steps.items()})
+
+
+def _scale_shift(model, vcfg, dev, smi, launches, calls_all):
+    """Phase 16 (c): the release-width U-Net with `use_scale_shift_norm`,
+    bf16, its own weights from the seed: a B=8 forward through the unpadded
+    fused routing (`SSS_PER_FORWARD`'s launches) and the plain path, each
+    within twice the bf16 plain path's error of the float32 plain forward
+    (phase 4's gate), times in turns; the default (padded) routing refuses
+    it with the JAX package's `ValueError`."""
+    from v2a_tpu_torch.models.init import init_params
+    from v2a_tpu_torch.models.video_unet import ConvRouting, VideoUNet
+
+    kw = dict(_unet_kw(vcfg), use_scale_shift_norm=True)
+
+    def net(dtype, **routing):
+        return VideoUNet(dtype=dtype, **routing, **kw).to(dev).eval().requires_grad_(False)
+
+    plain = net(torch.bfloat16)
+    init_params(plain, torch.Generator(device=dev).manual_seed(SEED + 31))
+    state = plain.state_dict()
+    fused = net(torch.bfloat16, fused=True, routing=ConvRouting(padded_stream=False))
+    fused.load_state_dict(state)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    f, (h, w) = vcfg.video_future_horizon, vcfg.image_size
+    inputs = (torch.randn(SSS_B, f, h, w, vcfg.channels + vcfg.cond_ch, generator=gen, device=dev),
+              torch.randint(0, vcfg.timesteps, (SSS_B,), generator=gen, device=dev),
+              model.encode_batch_text((TASKS * SSS_B)[:SSS_B]))
+    with torch.no_grad():
+        y_fused, got = _run_counted(launches, calls_all, lambda: fused(*inputs))
+        if got != SSS_PER_FORWARD:
+            fail(f"scale-shift: the unpadded fused forward launched {got}, "
+                 f"expected {SSS_PER_FORWARD}")
+        y_plain = plain(*inputs)
+        ref32 = net(torch.float32)
+        ref32.load_state_dict(state)
+        y32 = ref32(*inputs)
+        del ref32
+        padded = net(torch.bfloat16, fused=True)
+        padded.load_state_dict(state)
+        try:
+            padded(*inputs)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            fail("scale-shift: the padded stream did not refuse the scale-shift U-Net")
+        del padded
+    if refused != "padded stream: plain-norm dropout-free blocks":
+        fail(f"scale-shift: the padded stream refused with {refused!r}")
+    std = float(y32.std())
+    errs = {name: (float((y - y32).abs().max()) / std, float((y - y32).abs().mean()) / std)
+            for name, y in (("fused", y_fused), ("plain_bf16", y_plain))}
+    if not all(y.shape == y32.shape and bool(torch.isfinite(y).all()) for y in (y_fused, y_plain)):
+        fail("scale-shift: a forward has the wrong shape or non-finite values")
+    if errs["fused"][0] > 2 * errs["plain_bf16"][0] or errs["fused"][1] > 2 * errs["plain_bf16"][1]:
+        fail(f"scale-shift: the fused forward strays further from float32 than twice the bf16 "
+             f"plain path: {errs}")
+    ms = {"plain_bf16": [], "fused": []}
+    for name, m in (("plain_bf16", plain), ("fused", fused), ("fused", fused),
+                    ("plain_bf16", plain)):
+        with torch.no_grad():
+            ms[name].append(time_ms(lambda: m(*inputs), 2, 1))
+    log(f"[scale-shift] {smi}: release U-Net with use_scale_shift_norm "
+        f"({sum(p.numel() for p in plain.parameters()) / 1e6:.1f} M params), B={SSS_B} bf16: "
+        f"unpadded fused {got}, ms (in turns) {ms}; err/std (max, mean) vs float32 {errs}; the "
+        f"padded routing refused it: {refused!r}")
+    del plain, fused
+    torch.cuda.empty_cache()
+    return dict(launches=got, ms=ms, err_over_std=errs, refused=refused)
+
+
+@contextlib.contextmanager
+def _model_config(model, **fields):
+    """`model.config` with `fields` replaced while the block runs (what a
+    user's `VideoModelConfig` gives the trainer it builds)."""
+    saved = model.config
+    model.config = dataclasses.replace(saved, **fields)
+    try:
+        yield
+    finally:
+        model.config = saved
+
+
+def _train_switches(model, vcfg, dev, smi, launches, calls_all):
+    """Phase 16 (d): B=4 release train steps through `VideoModelTrainer`
+    (train_fused, K6 as the wgrad) under each of `TRAIN_SWITCHES`, the
+    `VideoModelConfig` fields set on the model, and the plain step: one
+    gradient step on phase 6's fixed batch and noise (its launches the
+    switch's, its gradient within twice the bf16 plain step's error of the
+    float32 plain step: phase 6's gate), then `SWITCH_STEPS` timed steps
+    (CUDA events)."""
+    from v2a_tpu_torch.train.video_trainer import VideoModelTrainer, VideoTrainerConfig
+
+    clips, init, batch, noise, _, grads32 = _train_problem(model, vcfg, dev)
+    torch.cuda.empty_cache()
+    rows = {}
+    runs = dict(plain=({}, {}), **TRAIN_SWITCHES)
+    try:
+        for name, (fields, want) in runs.items():
+            model.unet.load_state_dict(init)
+            flags = dict(train_fused=True, wgrad_kernel=True) if want else dict(train_fused=False)
+            cfg = VideoTrainerConfig(batch_size=TRAIN_B, n_train_steps=2, save_freq=10 ** 9,
+                                     log_freq=10 ** 9, **flags)
+            with _model_config(model, **fields):
+                trainer = VideoModelTrainer(model, clips, cfg,
+                                            workdir=os.path.join(EVAL_LOGS, name), seed=SEED)
+            routing = trainer.train_unet.routing
+            if any(getattr(routing, k) != v for k, v in fields.items()):
+                fail(f"train switches: {name}: the trainer's routing {routing}")
+            (loss, _), got = _run_counted(
+                launches, calls_all, lambda: trainer.loss_and_grads(*batch, noise=noise))
+            if got != want:
+                fail(f"train switches: {name}: launches per step {got}, expected {want}")
+            grads = {k: p.grad.detach().clone() for k, p in trainer.train_unet.named_parameters()}
+            trainer.apply_gradients()
+            ms = []
+            for _ in range(SWITCH_STEPS):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+                def step():
+                    e0.record()
+                    trainer.loss_and_grads(*batch, noise=noise)
+                    trainer.apply_gradients()
+                    e1.record()
+
+                _run_counted(launches, calls_all, step)
+                ms.append(e0.elapsed_time(e1))
+            if not np.isfinite(float(loss)):
+                fail(f"train switches: {name}: loss {float(loss)}")
+            rel = _grad_rel(grads, grads32)
+            rows[name] = dict(launches_per_step=got, ms=ms, loss=float(loss), grad_rel=rel[0],
+                              grad_rel_worst_leaf=rel[1])
+            log(f"[switches] {smi}: {name}, B={TRAIN_B}: ms per step {[round(v, 1) for v in ms]}, "
+                f"launches per step {got or 'none'}, gradient rel. error vs float32 "
+                f"{rel[0]:.3e} (worst leaf {rel[1]:.3e})")
+            trainer.close()
+            del trainer, grads
+            torch.cuda.empty_cache()
+    finally:
+        model.unet.load_state_dict(init)
+        shutil.rmtree(EVAL_LOGS, ignore_errors=True)
+    plain = rows["plain"]
+    for name, row in rows.items():
+        if (row["grad_rel"] > 2 * plain["grad_rel"]
+                or row["grad_rel_worst_leaf"] > 2 * plain["grad_rel_worst_leaf"]):
+            fail(f"train switches: {name}'s gradient strays further from float32 than twice the "
+                 "bf16 plain step's")
+    return rows
+
+
+def last_modules(rk, held, model, vcfg, dev, smi):
+    """Phase 16, the last modules: (a) `_evaluation`, (b) `_pools`, (c)
+    `_scale_shift`, (d) `_train_switches`; then every kernel signature
+    (c) and (d) gave that no earlier phase held, against its plain version.
+    Returns the report, the launches of (c) and (d) and the per-kernel
+    errors of those signatures."""
+    t_phase = time.perf_counter()
+    report, calls_all = {}, {}
+    launches = {name: 0 for name in rk.KERNELS}
+    parts = report["parts_s"] = {}
+    for name, fn in (("evaluation", lambda: _evaluation(dev, smi)),
+                     ("pools", lambda: _pools(dev, smi)),
+                     ("scale_shift", lambda: _scale_shift(model, vcfg, dev, smi, launches,
+                                                          calls_all)),
+                     ("train_switches", lambda: _train_switches(model, vcfg, dev, smi, launches,
+                                                                calls_all))):
+        t0 = time.perf_counter()
+        report[name] = fn()
+        parts[name] = time.perf_counter() - t0
+    extra = {k: v for k, v in calls_all.items() if k not in held}
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"last": extra}, dev, timed=False, tag="last-shapes")
+        extra_agg = extra_agg["last"]
+    report["new_signatures"] = len(extra)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[last] {smi}: {len(extra)} kernel signatures not held before; phase 16 wall time "
+        f"{report['phase_s']:.1f} s (budget {LAST_BUDGET_S}): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    shutil.rmtree(EVAL_LOGS, ignore_errors=True)
+    return report, launches, extra_agg
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4407,6 +4787,9 @@ def main():
     lab = lab_paths(dev, smi)
     # 15. the mesh on torch.distributed and rematerialisation
     mesh, mesh_launches, mesh_agg = mesh_and_remat(rk, held, model, vcfg, dev, smi)
+    # 16. the last modules: evaluation, the trunk's pools, scale-shift, the
+    # train switches
+    last, last_launches, last_agg = last_modules(rk, held, model, vcfg, dev, smi)
 
     # 14. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
@@ -4440,10 +4823,11 @@ def main():
         errs += [ckpt_agg[name]["max_abs_err"]] if ckpt_agg else []
         errs += [family_agg[name]["max_abs_err"]] if family_agg else []
         errs += [mesh_agg[name]["max_abs_err"]] if mesh_agg else []
+        errs += [last_agg[name]["max_abs_err"]] if last_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
                     + train_launches[name] + sum(nl[name] for nl in new_launches.values())
                     + online_launches[name] + video_launches[name] + ckpt_launches[name]
-                    + family_launches[name] + mesh_launches[name])
+                    + family_launches[name] + mesh_launches[name] + last_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -4466,7 +4850,8 @@ def main():
                        guided=guided,
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, lab_paths=lab, mesh=mesh,
-                       mesh_launches=mesh_launches, kernels=kernels,
+                       mesh_launches=mesh_launches, last=last, last_launches=last_launches,
+                       kernels=kernels,
                        **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
         "forward of the padded-stream routing (per-shape time x calls per forward), K8 and K9 "
@@ -4481,7 +4866,8 @@ def main():
         "sample_video --ckpt's chain on the converted reference checkpoint plus the model "
         "families' requests and K6 train steps (Thor, Bridge, MW-flow) plus phase 15's "
         "mesh and remat runs (the world-1 mesh's train step, sampler and online cycle, the "
-        "remat steps), and "
+        "remat steps) plus phase 16's (the scale-shift U-Net's fused forward, the train "
+        "switches' steps), and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -243,7 +243,8 @@ JAX_ONLY = set()
 PORT_ONLY = {"device", "video.attn_kernel", "video.downconv", "video.entry_pad",
              "video.mega_kernel", "video.padded_stream", "video.pallas_spatial",
              "video.spatial2_max_s", "video.spatial2_min_ch", "video.stream_kernel",
-             "video.tconv_hw", "video.upconv"}
+             "video.tconv_hw", "video.upconv", "video.train_dgrad_kernel",
+             "video.wgrad_min_s", "video.train_tconv_dot", "policy.vision_pool"}
 
 
 def _assert_same_tree(jcfg, tcfg):

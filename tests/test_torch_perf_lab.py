@@ -47,6 +47,8 @@ FLAG_OF = {
     "ablate_temporal": "PERF_ABLATE_TEMPORAL", "ablate_gn": "PERF_ABLATE_GN",
     "spatial_im2col": "PERF_SPATIAL_IM2COL", "fused_min_ch": "PERF_FUSED_MIN_CH",
     "skip1x1_dot": "PERF_SKIP1X1_DOT", "tconv_conv2d_min_s": "PERF_TCONV_XLA2D_MIN_S",
+    "train_dgrad_kernel": "PERF_TRAIN_DGRAD_PALLAS", "wgrad_min_s": "PERF_TRAIN_WGRAD_MIN_S",
+    "train_tconv_dot": "PERF_TRAIN_TCONV_DOT",
 }
 # the lab's pattern names, one or two instances each
 PATTERN_NAMES = ["fused_min256", "fused_spatial2_512", "fused_sp2dot_512", "fused_sp2all",

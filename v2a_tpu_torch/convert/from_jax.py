@@ -14,7 +14,8 @@ Layout changes:
 - policy convs become torch layouts: Conv2d (D, C, kh, kw), Conv1d
   (D, C, k), and the transposed up-conv (C_in, C_out, k) flipped along k
   (flax's ConvTranspose correlates with the unflipped kernel);
-- GroupNorm `scale` -> `weight` in the policy (torch GroupNorm modules).
+- GroupNorm `scale` -> `weight` in the policy (torch GroupNorm modules);
+- the Inception trunk's folded HWIO kernels -> OIHW conv weights.
 """
 
 from __future__ import annotations
@@ -77,6 +78,20 @@ def image_net_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     kernels; dense kernels transpose, `label_emb.embedding` is the
     embedding's weight."""
     return video_tree(params)
+
+
+def inception_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A folded Inception params tree (`ops/inception.py::
+    convert_inception_state_dict` or `load_inception_params`, either
+    package's) -> state dict of the port's `InceptionV3`: each conv's HWIO
+    kernel as an OIHW `weight`, its `bias`, and the optional `fc` head's
+    (2048, n) kernel as a Linear weight (n, 2048)."""
+    sd = {}
+    for name, leaves in params.items():
+        kernel = np.asarray(leaves["kernel"], np.float32)
+        sd[f"{name}.weight"] = _tensor(kernel.T if name == "fc" else kernel.transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _tensor(leaves["bias"])
+    return sd
 
 
 def policy_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

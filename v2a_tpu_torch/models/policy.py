@@ -60,6 +60,10 @@ class PolicyConfig:
     vision_stage_sizes: Tuple[int, ...] = (2, 2, 2, 2)
     vision_stage_features: Tuple[int, ...] = (64, 128, 256, 512)
     ddpm_var_temp: float = 1.0
+    # the trunks' max pool (`models/vision.py::POOLS`): "max" (the
+    # release's), "packed" (bf16 only; V2A_PACKED_POOL=1) or "mask_bwd"
+    # (V2A_POOL_MASK_BWD=1), the JAX package's experiment flags
+    vision_pool: str = "max"
 
     @property
     def global_cond_dim(self) -> int:
@@ -74,7 +78,7 @@ class PolicyNets(nn.Module):
         dt = dtype_of(cfg.dtype)
         self.obs_encoder = MultiImageObsEncoder(
             tuple(cfg.obs_keys), cfg.obs_feature_dim, cfg.num_kp, dt,
-            tuple(cfg.vision_stage_sizes), tuple(cfg.vision_stage_features),
+            tuple(cfg.vision_stage_sizes), tuple(cfg.vision_stage_features), cfg.vision_pool,
         )
         self.unet = ConditionalUnet1D(
             input_dim=cfg.action_dim, global_cond_dim=cfg.global_cond_dim,

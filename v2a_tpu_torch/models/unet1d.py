@@ -4,8 +4,10 @@ Counterpart of `v2a_tpu/models/unet1d.py` (the reference's
 `ConditionalUnet1D`, `conditional_unet1d.py:69-246`): per level two
 FiLM-conditioned residual blocks, strided-conv down / transposed-conv up,
 two mid blocks, skip concatenation, and the reference's quirk that the
-outermost skip is never consumed. Public tensors are (B, T, C); the convs
-run (B, C, T) inside. GroupNorm in float32, convs in the compute dtype.
+outermost skip is never consumed. `no_down_up=True` drops the down and up
+convs (the levels keep T; `v2a_tpu/models/unet1d.py:159,204,230`), and
+with them their parameters. Public tensors are (B, T, C); the convs run
+(B, C, T) inside. GroupNorm in float32, convs in the compute dtype.
 """
 
 from __future__ import annotations
@@ -88,9 +90,10 @@ class ConditionalUnet1D(nn.Module):
     def __init__(self, input_dim: int = 7, global_cond_dim: int = 128,
                  down_dims: Sequence[int] = (256, 512, 1024),
                  diffusion_step_embed_dim: int = 128, kernel_size: int = 5, n_groups: int = 8,
-                 cond_predict_scale: bool = True, dtype: torch.dtype = torch.float32):
+                 cond_predict_scale: bool = True, dtype: torch.dtype = torch.float32,
+                 no_down_up: bool = False):
         super().__init__()
-        self.dtype, self.dsed = dtype, diffusion_step_embed_dim
+        self.dtype, self.dsed, self.no_down_up = dtype, diffusion_step_embed_dim, no_down_up
         dsed = diffusion_step_embed_dim
         cond_dim = dsed + global_cond_dim
         self.time_dense0 = nn.Linear(dsed, dsed * 4)
@@ -106,7 +109,7 @@ class ConditionalUnet1D(nn.Module):
         for idx, (din, dout) in enumerate(in_out):
             res(f"down_{idx}_res0", din, dout)
             res(f"down_{idx}_res1", dout, dout)
-            if idx < len(in_out) - 1:
+            if idx < len(in_out) - 1 and not no_down_up:
                 self.add_module(f"down_{idx}_downsample", nn.Conv1d(dout, dout, 3, 2, 1))
         mid = all_dims[-1]
         res("mid_res0", mid, mid)
@@ -114,7 +117,8 @@ class ConditionalUnet1D(nn.Module):
         for idx, (din, dout) in enumerate(reversed(in_out[1:])):
             res(f"up_{idx}_res0", dout * 2, din)
             res(f"up_{idx}_res1", din, din)
-            self.add_module(f"up_{idx}_upsample", nn.ConvTranspose1d(din, din, 4, 2, 1))
+            if not no_down_up:
+                self.add_module(f"up_{idx}_upsample", nn.ConvTranspose1d(din, din, 4, 2, 1))
         self.final_block = Conv1dBlock(down_dims[0], down_dims[0], kernel_size, n_groups, dtype)
         self.final_conv = nn.Conv1d(down_dims[0], input_dim, 1)
 
@@ -135,14 +139,15 @@ class ConditionalUnet1D(nn.Module):
             x = getattr(self, f"down_{idx}_res0")(x, cond)
             x = getattr(self, f"down_{idx}_res1")(x, cond)
             skips.append(x)
-            if idx < self.n_levels - 1:
+            if idx < self.n_levels - 1 and not self.no_down_up:
                 x = _conv1d(x, getattr(self, f"down_{idx}_downsample"), dt)
         x = self.mid_res1(self.mid_res0(x, cond), cond)
         for idx in range(self.n_levels - 1):  # the level-0 skip is never used
             x = torch.cat([x, skips.pop()], dim=1)
             x = getattr(self, f"up_{idx}_res0")(x, cond)
             x = getattr(self, f"up_{idx}_res1")(x, cond)
-            up = getattr(self, f"up_{idx}_upsample")
-            x = F.conv_transpose1d(x, up.weight.to(dt), up.bias.to(dt), 2, 1)
+            if not self.no_down_up:
+                up = getattr(self, f"up_{idx}_upsample")
+                x = F.conv_transpose1d(x, up.weight.to(dt), up.bias.to(dt), 2, 1)
         x = _conv1d(self.final_block(x), self.final_conv, dt)
         return x.transpose(1, 2).float()

@@ -102,6 +102,13 @@ class VideoModelConfig:
     mega_kernel: bool = True
     upconv: bool = True
     entry_pad: bool = False
+    # the train_fused routing's switches (`video_unet.ConvRouting`): the
+    # dgrad through K1 (False: the library's; PERF_TRAIN_DGRAD_PALLAS), K6
+    # only where H*W >= wgrad_min_s (PERF_TRAIN_WGRAD_MIN_S), the temporal
+    # convs as tap products (PERF_TRAIN_TCONV_DOT)
+    train_dgrad_kernel: bool = True
+    wgrad_min_s: int = 0
+    train_tconv_dot: bool = False
 
     def conv_routing(self) -> ConvRouting:
         """The U-Net's `ConvRouting` of these fields (the perf lab's
@@ -112,7 +119,8 @@ class VideoModelConfig:
             spatial2_min_ch=self.spatial2_min_ch, spatial2_max_s=self.spatial2_max_s,
             pallas_spatial=self.pallas_spatial, tconv_hw=self.tconv_hw,
             stream_kernel=self.stream_kernel, mega_kernel=self.mega_kernel, upconv=self.upconv,
-            entry_pad=self.entry_pad)
+            entry_pad=self.entry_pad, train_dgrad_kernel=self.train_dgrad_kernel,
+            wgrad_min_s=self.wgrad_min_s, train_tconv_dot=self.train_tconv_dot)
 
     @property
     def video_future_horizon(self) -> int:

@@ -149,7 +149,17 @@ class ConvRouting:
         as one `F.conv2d` with a (3, 1) kernel over the (B, F, H*W, C) view,
         the bias / emb / residual adds and the statistics outside it
         (`PERF_TCONV_XLA2D_MIN_S`, :93, :778; `_tconv_conv2d` :374); 0 =
-        off."""
+        off.
+    train_dgrad_kernel, wgrad_min_s, train_tconv_dot: the `train_fused`
+        routing's switches. `train_dgrad_kernel` (`PERF_TRAIN_DGRAD_PALLAS`,
+        :70): the convs' input gradient through K1 with flipped, transposed
+        weights; False takes the library's (`torch.nn.grad.conv2d_input`,
+        the JAX package's XLA path). `wgrad_min_s` (`PERF_TRAIN_WGRAD_MIN_S`,
+        :80, :634-635): with `wgrad_kernel`, K6 only where the conv's H*W >=
+        this, the library wgrad elsewhere. `train_tconv_dot`
+        (`PERF_TRAIN_TCONV_DOT`, :86, :733-760): the temporal convs of the
+        train_fused blocks and upsamples as three tap products summed in the
+        compute dtype (the same parameters)."""
 
     padded_stream: bool = True
     downconv: bool = False
@@ -169,6 +179,9 @@ class ConvRouting:
     fused_min_ch: int = 0
     skip1x1_dot: bool = True
     tconv_conv2d_min_s: int = 0
+    train_dgrad_kernel: bool = True
+    wgrad_min_s: int = 0
+    train_tconv_dot: bool = False
 
     def spatial2_eligible(self, features: int, cins, hw: int, k: int, stride: int) -> bool:
         """Shape gate for K1 (`v2a_tpu/models/video_unet.py:206`)."""
@@ -341,8 +354,11 @@ class PseudoConv3d(nn.Module):
     inputs take the padded-stream kernels (`_padded`). `train_fused` at the
     call (a single tensor, not `fused`) sends a K1-eligible spatial conv
     through `ops/conv_vjp.py`, with K6 as its wgrad when `wgrad_kernel`
-    (`v2a_tpu/models/video_unet.py:613-657`). `routing` (`ConvRouting`):
-    the K1 gate, K10, K11, K12 and the perf lab's forms of the convs."""
+    (`v2a_tpu/models/video_unet.py:613-657`; where H*W >=
+    `routing.wgrad_min_s`), its dgrad K1 or the library's by
+    `routing.train_dgrad_kernel`, and its temporal conv as tap products with
+    `routing.train_tconv_dot`. `routing` (`ConvRouting`): the K1 gate, K10,
+    K11, K12 and the perf lab's forms of the convs."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3, stride: int = 1,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
@@ -391,11 +407,12 @@ class PseudoConv3d(nn.Module):
                 af = a0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
                 bf_ = b0[:, None, :].expand(b, f, pc).reshape(b * f, pc)
             if use_tf:
+                grads = dict(wgrad_kernel=self.wgrad_kernel and h * w >= self.routing.wgrad_min_s,
+                             dgrad_kernel=self.routing.train_dgrad_kernel)
                 if af is not None:
-                    yp = conv_vjp.affine_silu_conv3x3(x4, wpart, kbias, af, bf_,
-                                                      wgrad_kernel=self.wgrad_kernel)
+                    yp = conv_vjp.affine_silu_conv3x3(x4, wpart, kbias, af, bf_, **grads)
                 else:
-                    yp = conv_vjp.plain_conv3x3(x4, wpart, kbias, wgrad_kernel=self.wgrad_kernel)
+                    yp = conv_vjp.plain_conv3x3(x4, wpart, kbias, **grads)
             elif use_k1:
                 # only the first part carries the bias; parts sum in dtype
                 yp = rk.fused_affine_conv3x3(
@@ -431,10 +448,17 @@ class PseudoConv3d(nn.Module):
                          else rk.temporal_conv_fused)
                 return tconv(y.to(dt).contiguous(), tk, tb, emb=emb, residual=residual,
                              want_stats=want_stats)
-            # zero-padded frames, the three taps as one (3C, C) product
+            # zero-padded frames, the three taps as one (3C, C) product, or
+            # (train_tconv_dot) three products summed in dt (:738-760)
             yp = F.pad(y, (0, 0, 0, 0, 0, 0, 1, 1))
-            cat = torch.cat([yp[:, 0:f], yp[:, 1:f + 1], yp[:, 2:f + 2]], dim=-1)
-            y = cat @ tk.to(dt).reshape(3 * feat, feat) + tb.to(dt)
+            if train_fused and self.routing.train_tconv_dot:
+                out = yp[:, 0:f] @ tk[0].to(dt)
+                for t in (1, 2):
+                    out = out + yp[:, t:t + f] @ tk[t].to(dt)
+                y = out + tb.to(dt)
+            else:
+                cat = torch.cat([yp[:, 0:f], yp[:, 1:f + 1], yp[:, 2:f + 2]], dim=-1)
+                y = cat @ tk.to(dt).reshape(3 * feat, feat) + tb.to(dt)
         if emb is not None:
             y = y + emb.reshape(b, 1, 1, 1, feat).to(y.dtype)
         if residual is not None:
@@ -532,31 +556,41 @@ class PseudoConv3d(nn.Module):
 
 
 class ResBlock3D(nn.Module):
-    """`ResBlock` (`unet.py:148-262`), plain-norm and dropout-free as the
-    release config runs it. The fused form returns (out, out_stats) and takes
-    the (h, skip) pair of the up path unconcatenated. `train_fused` (without
-    `fused`): where C and out_channels pass K1's gate, both GroupNorms hand
-    their affine to the differentiable convs of `ops/conv_vjp.py`
-    (`v2a_tpu/models/video_unet.py:1077-1133`). Where the K1 gate
-    (`routing.spatial2_eligible`) fails, the fused norms run as tensor ops
-    before the convs (:1150-1190)."""
+    """`ResBlock` (`unet.py:148-262`). The fused form returns (out,
+    out_stats) and takes the (h, skip) pair of the up path unconcatenated.
+    `train_fused` (without `fused`): where C and out_channels pass K1's
+    gate, both GroupNorms hand their affine to the differentiable convs of
+    `ops/conv_vjp.py` (`v2a_tpu/models/video_unet.py:1077-1133`). Where the
+    K1 gate (`routing.spatial2_eligible`) fails, the fused norms run as
+    tensor ops before the convs (:1150-1190).
+
+    `use_scale_shift_norm`: the emb dense doubles and the second half is
+    silu(norm(h) * (1 + scale) + shift) (:1104-1116); `dropout` (p) before
+    the out conv (:1126-1127), drawn only when the block is handed a
+    `dropout_seed` (the U-Net's `deterministic=False`). Either takes the
+    block off the affine-handing routes (K1 with the norm inside, the
+    train_fused convs) to the plain norms, as the JAX block does (:1080,
+    :1164, :1360), and the padded stream refuses it (:1225, :1274)."""
 
     def __init__(self, cin: int, out_channels: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
                  train_fused: bool = False, wgrad_kernel: bool = False,
-                 routing: ConvRouting = ConvRouting()):
+                 routing: ConvRouting = ConvRouting(), dropout: float = 0.0,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
         self.cin, self.out_channels, self.dtype, self.fused = cin, out_channels, dtype, fused
         self.train_fused, self.routing = train_fused, routing
+        self.dropout, self.use_scale_shift_norm = dropout, use_scale_shift_norm
+        self.plain_norm = not use_scale_shift_norm and dropout == 0
         # K7 only on the non-fused path, as the JAX block (its fused norms
         # pass use_pallas=False, :1168-1176)
         k7 = routing.use_pallas_gn and not fused
         self.in_norm = GroupNorm32(cin, with_silu=True, use_pallas=k7, ablate=routing.ablate_gn)
         self.in_conv = PseudoConv3d(cin, out_channels, 3, dtype=dtype, fused=fused,
                                     wgrad_kernel=wgrad_kernel, routing=routing)
-        self.emb_proj = nn.Linear(emb_dim, out_channels)
-        self.out_norm = GroupNorm32(out_channels, with_silu=True, use_pallas=k7,
-                                    ablate=routing.ablate_gn)
+        self.emb_proj = nn.Linear(emb_dim, out_channels * (2 if use_scale_shift_norm else 1))
+        self.out_norm = GroupNorm32(out_channels, with_silu=not use_scale_shift_norm,
+                                    use_pallas=k7, ablate=routing.ablate_gn)
         self.out_conv = PseudoConv3d(out_channels, out_channels, 3, dtype=dtype, fused=fused,
                                      wgrad_kernel=wgrad_kernel, routing=routing)
         if cin != out_channels:
@@ -565,44 +599,70 @@ class ResBlock3D(nn.Module):
     def _emb_out(self, emb):
         return _linear(F.silu(emb.to(self.dtype)), self.emb_proj, self.dtype)
 
-    def forward(self, x, emb: torch.Tensor, stats=None):
+    def forward(self, x, emb: torch.Tensor, stats=None, dropout_seed: Optional[int] = None):
         if self.fused:
             if isinstance(x, tuple):
                 if isinstance(x[0], PaddedStream):
                     return self._fused_split_padded(x, emb, stats)
-                return self._fused_split(x, emb, stats)
+                return self._fused_split(x, emb, stats, dropout_seed)
             if isinstance(x, PaddedStream):
                 return self._fused_padded(x, emb, stats)
-            return self._fused(x, emb, stats)
+            return self._fused(x, emb, stats, dropout_seed)
         dt = self.dtype
         tf = self.train_fused and self._sp2([x.shape[-1]], x.shape[2] * x.shape[3])
         if tf:  # the normed tensor is never built: the conv applies the affine
             h = self.in_conv(x, pre_affine=self.in_norm(x, return_affine=True), train_fused=True)
         else:
             h = self.in_conv(self.in_norm(x).to(dt))
-        h = h + self._emb_out(emb)[:, None, None, None, :]
-        if tf:
-            h = self.out_conv(h, pre_affine=self.out_norm(h, return_affine=True), train_fused=True)
+        emb_out = self._emb_out(emb)[:, None, None, None, :]
+        pre2 = None
+        if self.use_scale_shift_norm:
+            h = self._scale_shift(self.out_norm(h), emb_out)
+        elif tf:
+            h = h + emb_out
+            pre2 = self.out_norm(h, return_affine=True)
         else:
-            h = self.out_conv(self.out_norm(h).to(dt))
+            h = self.out_norm(h + emb_out).to(dt)
+        h = self.out_conv(self._drop(h, dropout_seed), pre_affine=pre2, train_fused=tf)
         if self.cin != self.out_channels:
             x = self.skip_conv(x)
         return x + h
 
     def _sp2(self, cins, hw):
-        return self.routing.spatial2_eligible(
+        """The affine-handing routes: a plain-norm dropout-free block whose
+        convs pass K1's gate."""
+        return self.plain_norm and self.routing.spatial2_eligible(
             self.out_channels, list(cins) + [self.out_channels], hw, 3, 1)
 
-    def _second_half(self, h, h_stats, sp2, x_skip):
+    def _scale_shift(self, normed, emb_out):
+        """silu(norm(h) * (1 + scale) + shift) in the compute dtype."""
+        scale, shift = emb_out.chunk(2, dim=-1)
+        return F.silu(normed * (1 + scale) + shift).to(self.dtype)
+
+    def _drop(self, h, seed: Optional[int]):
+        """Dropout with probability `self.dropout`, kept units scaled by
+        1 / (1 - p) (flax `nn.Dropout`), its mask drawn from a generator
+        seeded by `seed`; the identity without a seed."""
+        if self.dropout == 0 or seed is None:
+            return h
+        gen = torch.Generator(device=h.device).manual_seed(seed)
+        keep = torch.rand(h.shape, generator=gen, device=h.device) < 1.0 - self.dropout
+        return torch.where(keep, h / (1.0 - self.dropout), torch.zeros((), dtype=h.dtype,
+                                                                       device=h.device))
+
+    def _second_half(self, h, h_stats, sp2, x_skip, emb_out, seed):
         st2 = h_stats.sum(1)  # (B, 2, C) over frames
         pre2 = None
-        if sp2:
+        if self.use_scale_shift_norm:
+            h = self._scale_shift(self.out_norm(h, stats=st2), emb_out[:, None, None, None, :])
+        elif sp2:
             pre2 = self.out_norm(h, stats=st2, return_affine=True)
         else:
             h = self.out_norm(h, stats=st2).to(self.dtype)
-        return self.out_conv(h, residual=x_skip, want_stats=True, pre_affine=pre2)
+        return self.out_conv(self._drop(h, seed), residual=x_skip, want_stats=True,
+                             pre_affine=pre2)
 
-    def _fused(self, x, emb, stats):
+    def _fused(self, x, emb, stats, seed):
         c = x.shape[-1]
         st_in = stats.sum(1) if stats is not None else None
         sp2 = self._sp2([c], x.shape[2] * x.shape[3])
@@ -610,12 +670,14 @@ class ResBlock3D(nn.Module):
             pre1, h = self.in_norm(x, stats=st_in, return_affine=True), x
         else:
             pre1, h = None, self.in_norm(x, stats=st_in).to(self.dtype)
-        h, h_stats = self.in_conv(h, emb=self._emb_out(emb), want_stats=True, pre_affine=pre1)
+        emb_out = self._emb_out(emb)
+        h, h_stats = self.in_conv(h, emb=None if self.use_scale_shift_norm else emb_out,
+                                  want_stats=True, pre_affine=pre1)
         if c != self.out_channels:
             x = self.skip_conv(x)
-        return self._second_half(h, h_stats, sp2, x)
+        return self._second_half(h, h_stats, sp2, x, emb_out, seed)
 
-    def _fused_split(self, parts, emb, part_stats):
+    def _fused_split(self, parts, emb, part_stats, seed):
         """GroupNorm collapses to per-channel affines applied per part; the
         in / skip convs run as channel-split sums, so the concatenation is
         never built."""
@@ -640,11 +702,13 @@ class ResBlock3D(nn.Module):
                 bc = (p.shape[0],) + (1,) * (p.ndim - 2) + (pc,)
                 conv_in.append(F.silu(p.float() * ai.reshape(bc) + bi.reshape(bc)).to(self.dtype))
             off += pc
+        emb_out = self._emb_out(emb)
         h, h_stats = self.in_conv(
-            parts if sp2 else tuple(conv_in), emb=self._emb_out(emb), want_stats=True,
+            parts if sp2 else tuple(conv_in),
+            emb=None if self.use_scale_shift_norm else emb_out, want_stats=True,
             pre_affine=pre1 if sp2 else None,
         )
-        return self._second_half(h, h_stats, sp2, self.skip_conv(parts))
+        return self._second_half(h, h_stats, sp2, self.skip_conv(parts), emb_out, seed)
 
     # -- the padded stream: both norms collapse to affines from exact interior
     # statistics (n_pc = F*H*W of the interior, never of the padded tensor),
@@ -655,8 +719,13 @@ class ResBlock3D(nn.Module):
         sc = self.skip_conv.spatial_conv
         return tuple(streams), sc.kernel.reshape(cin, self.out_channels), sc.bias
 
+    def _refuse_padded(self):
+        if not self.plain_norm:
+            raise ValueError("padded stream: plain-norm dropout-free blocks")
+
     def _fused_padded(self, x: PaddedStream, emb, stats):
         """`_fused` on a padded stream (`v2a_tpu/models/video_unet.py:1217`)."""
+        self._refuse_padded()
         f, c = x.x.shape[1], x.x.shape[-1]
         n_pc = f * x.hw[0] * x.hw[1]
         st_in = stats.sum(1) if stats is not None else _channel_stats(unpad_stream(x))
@@ -671,6 +740,7 @@ class ResBlock3D(nn.Module):
     def _fused_split_padded(self, parts, emb, part_stats):
         """`_fused_split` on padded streams (`v2a_tpu/models/video_unet.py:1268`):
         the (h, skip) pair goes into one conv call as two parts."""
+        self._refuse_padded()
         if part_stats is None:
             part_stats = (None,) * len(parts)
         f = parts[0].x.shape[1]
@@ -824,7 +894,13 @@ class VideoUNet(nn.Module):
     (`ConvRouting`), each at its JAX default. Its two ablations are lab
     switches of the plain forward: with `fused` or `train_fused` they
     raise, as the JAX fused paths have no ablated form. `use_checkpoint` /
-    `remat_policy`: the recomputation of the module docstring."""
+    `remat_policy`: the recomputation of the module docstring.
+    `use_scale_shift_norm` and `dropout` (:1633-1634) go to every ResBlock
+    (see `ResBlock3D`): with `fused`, the padded stream refuses them, so
+    they run with `ConvRouting(padded_stream=False)` or without `fused`.
+    `forward(..., deterministic=False, generator=g)` draws the dropout masks:
+    one seed per ResBlock from `g`, each block's mask from its seed, so a
+    recomputing backward (`use_checkpoint`) draws the same masks."""
 
     def __init__(self, in_channels: int = 6, model_channels: int = 128, out_channels: int = 3,
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 16),
@@ -832,7 +908,8 @@ class VideoUNet(nn.Module):
                  task_token_dim: int = 512, dtype: torch.dtype = torch.float32,
                  fused: bool = False, train_fused: bool = False, wgrad_kernel: bool = False,
                  routing: ConvRouting = ConvRouting(), use_checkpoint: bool = False,
-                 remat_policy: str = "blocks"):
+                 remat_policy: str = "blocks", dropout: float = 0.0,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
@@ -843,7 +920,7 @@ class VideoUNet(nn.Module):
         mc = model_channels
         ted = mc * 4
         self.mc, self.nrb, self.dtype, self.fused = mc, num_res_blocks, dtype, fused
-        self.routing = routing
+        self.routing, self.dropout = routing, dropout
         self.train_fused = tfused = train_fused and not fused
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
@@ -855,7 +932,7 @@ class VideoUNet(nn.Module):
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock3D(cin, cout, ted, dtype, fused, tfused, wgrad_kernel,
-                                             routing))
+                                             routing, dropout, use_scale_shift_norm))
 
         def attn(name, c):
             self.add_module(name, SpatialAttentionBlock(c, num_head_channels, dtype, routing))
@@ -909,12 +986,26 @@ class VideoUNet(nn.Module):
         return (self.use_checkpoint and self.remat_policy == policy and not self.fused
                 and torch.is_grad_enabled())
 
+    def _dropout_seeds(self, deterministic: bool, generator: Optional[torch.Generator]):
+        """{ResBlock name: seed} for the dropout masks; empty when none is
+        drawn (`deterministic`, or no dropout)."""
+        if deterministic or not self.dropout:
+            return {}
+        if generator is None:
+            raise ValueError("dropout with deterministic=False draws from a generator: pass one")
+        names = [n for n, m in self.named_children() if isinstance(m, ResBlock3D)]
+        seeds = torch.randint(0, 2 ** 62, (len(names),), generator=generator,
+                              device=generator.device).tolist()
+        return dict(zip(names, seeds))
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                task_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                task_embed: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt, fused = self.dtype, self.fused
         emb = self._embed(timesteps, task_embed)
+        seeds = self._dropout_seeds(deterministic, generator)
         if self._remat("levels"):
-            return self._levels_forward(x, emb)
+            return self._levels_forward(x, emb, seeds)
         blocks = self._remat("blocks")
 
         def step(out):  # fused blocks return (activation, stats)
@@ -940,7 +1031,7 @@ class VideoUNet(nn.Module):
         ds, bi = 1, 0
         for level, mult in enumerate(self.channel_mult):
             for _ in range(self.nrb):
-                h, st = step(block(f"down_res_{bi}", h, emb, st))
+                h, st = step(block(f"down_res_{bi}", h, emb, st, seeds.get(f"down_res_{bi}")))
                 if ds in self.attention_resolutions:
                     h, st = step(block(f"down_attn_{bi}", h, st, fused))
                 hs.append((h, st))
@@ -956,9 +1047,9 @@ class VideoUNet(nn.Module):
                     h = pad_stream(h)
                 hs.append((h, st))
                 ds *= 2
-        h, st = step(block("mid_res0", h, emb, st))
+        h, st = step(block("mid_res0", h, emb, st, seeds.get("mid_res0")))
         h, st = step(block("mid_attn", h, st, fused))
-        h, st = step(block("mid_res1", h, emb, st))
+        h, st = step(block("mid_res1", h, emb, st, seeds.get("mid_res1")))
         bi = 0
         for level, mult in reversed(list(enumerate(self.channel_mult))):
             for i in range(self.nrb + 1):
@@ -969,9 +1060,11 @@ class VideoUNet(nn.Module):
                             skip = pad_stream(skip)
                         else:
                             h = pad_stream(h)
-                    h, st = getattr(self, f"up_res_{bi}")((h, skip), emb, (st, skip_st))
+                    h, st = getattr(self, f"up_res_{bi}")((h, skip), emb, (st, skip_st),
+                                                          seeds.get(f"up_res_{bi}"))
                 else:
-                    h = block(f"up_res_{bi}", torch.cat([h, skip], dim=-1), emb)
+                    h = block(f"up_res_{bi}", torch.cat([h, skip], dim=-1), emb, None,
+                              seeds.get(f"up_res_{bi}"))
                 if ds in self.attention_resolutions:
                     h, st = step(block(f"up_attn_{bi}", h, st, fused))
                 if level and i == self.nrb:
@@ -988,19 +1081,19 @@ class VideoUNet(nn.Module):
         h = self.out_conv(self.out_norm(h, stats=st2).to(dt))
         return h.float()
 
-    def _down_blocks(self, level: int, h, emb):
+    def _down_blocks(self, level: int, h, emb, seeds):
         """Down level `level`'s res (+ attention) blocks from its entry `h`:
         their outputs, the up path's skips, in order (non-fused path)."""
         skips = []
         for j in range(self.nrb):
             bi = level * self.nrb + j
-            h = getattr(self, f"down_res_{bi}")(h, emb)
+            h = getattr(self, f"down_res_{bi}")(h, emb, None, seeds.get(f"down_res_{bi}"))
             if 2 ** level in self.attention_resolutions:
                 h = getattr(self, f"down_attn_{bi}")(h, None, False)
             skips.append(h)
         return skips
 
-    def _levels_forward(self, x, emb):
+    def _levels_forward(self, x, emb, seeds):
         """The non-fused forward with only the level transitions kept for
         the backward (`remat_policy="levels"`).
 
@@ -1019,23 +1112,24 @@ class VideoUNet(nn.Module):
         stash = {}
 
         def down(e, emb, level):
-            skips = self._down_blocks(level, e, emb)
+            skips = self._down_blocks(level, e, emb, seeds)
             if not torch.is_grad_enabled():  # the forward, not the recompute
                 stash[level] = skips
             if level != n - 1:
                 return getattr(self, f"downsample_{level}")(skips[-1])
-            h = self.mid_res0(skips[-1], emb)
-            return self.mid_res1(self.mid_attn(h, None, False), emb)
+            h = self.mid_res0(skips[-1], emb, None, seeds.get("mid_res0"))
+            return self.mid_res1(self.mid_attn(h, None, False), emb, None, seeds.get("mid_res1"))
 
         def up(h, e, emb, level):
             if torch.is_grad_enabled():
-                skips = self._down_blocks(level, e, emb)
+                skips = self._down_blocks(level, e, emb, seeds)
             else:
                 skips = stash.pop(level)
             skips = [e] + skips
             for i in range(nrb + 1):
                 bi = (n - 1 - level) * (nrb + 1) + i
-                h = getattr(self, f"up_res_{bi}")(torch.cat([h, skips.pop()], dim=-1), emb)
+                h = getattr(self, f"up_res_{bi}")(torch.cat([h, skips.pop()], dim=-1), emb,
+                                                  None, seeds.get(f"up_res_{bi}"))
                 if 2 ** level in self.attention_resolutions:
                     h = getattr(self, f"up_attn_{bi}")(h, None, False)
             if level:

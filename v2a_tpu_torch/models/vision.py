@@ -6,11 +6,18 @@ BatchNorm) -> `SpatialSoftmax` (32 keypoints) -> flatten -> Linear(64), one
 encoder per image key, concatenated in sorted-key order. Public inputs are
 channels-last (B, H, W, 3); the trunk runs NCHW inside. GroupNorm in
 float32, convs in the compute dtype.
+
+The trunk's max pool (`pool`): "max" is `F.max_pool2d` (the release's);
+"packed" and "mask_bwd" are the two pools of `ops/pool.py`, the
+counterparts of the JAX trunk's `V2A_PACKED_POOL=1` and
+`V2A_POOL_MASK_BWD=1` (`v2a_tpu/models/vision.py:86-100`). As there,
+"packed" applies only to a bf16 trunk (a float32 trunk pools with
+`F.max_pool2d`), and "mask_bwd" changes the gradient at ties.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +25,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from v2a_tpu_torch.models.perceiver import _linear
+from v2a_tpu_torch.ops.pool import max_pool_3x3s2, max_pool_3x3s2_maskbwd
+from v2a_tpu_torch.ops.resize import resize_bilinear
+
+POOLS = ("max", "packed", "mask_bwd")
 
 
 def _conv(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -54,15 +65,26 @@ class BasicBlock(nn.Module):
         return F.relu(y + x)
 
 
+def _max_pool(x: torch.Tensor, pool: str) -> torch.Tensor:
+    """The trunk's 3x3 stride-2 pad-1 max pool by `pool` (`POOLS`)."""
+    if pool == "packed" and x.dtype == torch.bfloat16:
+        return max_pool_3x3s2(x)
+    if pool == "mask_bwd":
+        return max_pool_3x3s2_maskbwd(x)
+    return F.max_pool2d(x, 3, 2, 1)  # pads with -inf, like flax max_pool
+
+
 class ResNet18Conv(nn.Module):
     """ResNet-18 trunk (`vision_nets.py:9-63`): NCHW (B, 3, H, W) ->
-    (B, 512, H/32, W/32)."""
+    (B, 512, H/32, W/32). `pool`: the max pool after the stem (`POOLS`)."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
-                 stage_features: Sequence[int] = (64, 128, 256, 512)):
+                 stage_features: Sequence[int] = (64, 128, 256, 512), pool: str = "max"):
         super().__init__()
-        self.dtype = dtype
+        if pool not in POOLS:
+            raise ValueError(f"pool {pool!r} not in {POOLS}")
+        self.dtype, self.pool = dtype, pool
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.norm1 = nn.GroupNorm(64 // 16, 64, eps=1e-5)
         self.blocks = []
@@ -78,7 +100,7 @@ class ResNet18Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = F.relu(_gn(_conv(x, self.conv1, dt), self.norm1, dt))
-        x = F.max_pool2d(x, 3, 2, 1)  # pads with -inf, like flax max_pool
+        x = _max_pool(x, self.pool)
         for name in self.blocks:
             x = getattr(self, name)(x)
         return x
@@ -111,10 +133,10 @@ class VisualCore(nn.Module):
     def __init__(self, feature_dimension: int = 64, num_kp: int = 32,
                  dtype: torch.dtype = torch.float32,
                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
-                 stage_features: Sequence[int] = (64, 128, 256, 512)):
+                 stage_features: Sequence[int] = (64, 128, 256, 512), pool: str = "max"):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNet18Conv(dtype, stage_sizes, stage_features)
+        self.backbone = ResNet18Conv(dtype, stage_sizes, stage_features, pool)
         self.pool = SpatialSoftmax(stage_features[-1], num_kp, dtype=dtype)
         self.proj = nn.Linear(num_kp * 2, feature_dimension)
 
@@ -123,24 +145,52 @@ class VisualCore(nn.Module):
         return _linear(x.reshape(x.shape[0], -1), self.proj, self.dtype)
 
 
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
 class MultiImageObsEncoder(nn.Module):
     """One VisualCore per rgb key (not shared), concatenated in sorted-key
     order (`multi_image_obs_encoder.py:130,144-196`). Inputs (B, H, W, 3)
-    already in [-1, 1]; output (B, n_keys * feature_dimension). The release
-    config disables resize, crop and ImageNet normalization."""
+    already in [-1, 1]; output (B, n_keys * feature_dimension).
+
+    The reference encoder's optional preprocessing
+    (`multi_image_obs_encoder.py:79-124`; the JAX `_preprocess`,
+    `v2a_tpu/models/vision.py:205-218`), all off in the release config:
+    `resize_shape` (bilinear, anti-aliased when shrinking, as
+    `jax.image.resize`), `crop_shape` (the centre crop), `imagenet_norm`
+    ((x - mean) / std, for inputs in [0, 1]), in that order."""
 
     def __init__(self, rgb_keys: Tuple[str, ...] = ("img_goal_1", "img_obs_1"),
                  feature_dimension: int = 64, num_kp: int = 32,
                  dtype: torch.dtype = torch.float32,
                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
-                 stage_features: Sequence[int] = (64, 128, 256, 512)):
+                 stage_features: Sequence[int] = (64, 128, 256, 512), pool: str = "max",
+                 resize_shape: Optional[Tuple[int, int]] = None,
+                 crop_shape: Optional[Tuple[int, int]] = None, imagenet_norm: bool = False):
         super().__init__()
         self.rgb_keys, self.dtype = tuple(sorted(rgb_keys)), dtype
+        self.resize_shape, self.crop_shape = resize_shape, crop_shape
+        self.imagenet_norm = imagenet_norm
         for key in self.rgb_keys:
             self.add_module(f"enc_{key}", VisualCore(feature_dimension, num_kp, dtype,
-                                                     stage_sizes, stage_features))
+                                                     stage_sizes, stage_features, pool))
+
+    def _preprocess(self, img: torch.Tensor) -> torch.Tensor:
+        if self.resize_shape is not None:
+            img = resize_bilinear(img, self.resize_shape).to(img.dtype)
+        if self.crop_shape is not None:
+            ch, cw = self.crop_shape
+            top, left = (img.shape[1] - ch) // 2, (img.shape[2] - cw) // 2
+            img = img[:, top:top + ch, left:left + cw, :]
+        if self.imagenet_norm:
+            mean = torch.tensor(_IMAGENET_MEAN, device=img.device)
+            std = torch.tensor(_IMAGENET_STD, device=img.device)
+            img = ((img - mean) / std).to(img.dtype)
+        return img
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         return torch.cat(
-            [getattr(self, f"enc_{k}")(obs[k].to(self.dtype)) for k in self.rgb_keys], dim=-1
+            [getattr(self, f"enc_{k}")(self._preprocess(obs[k].to(self.dtype)))
+             for k in self.rgb_keys], dim=-1
         )

@@ -8,7 +8,10 @@ and whose backward is a kernel too:
 - the elementwise front is recomputed in float32 from the saved raw x:
   z = a*x + b, s = silu(z), silu'(z) = sig(z) * (1 + z * (1 - sig(z)));
 - ds = conv3x3_same(g, rot180(W)^T): K1 in plain-conv mode with the flipped,
-  transposed weights (the JAX package's default dgrad);
+  transposed weights (the JAX package's default dgrad); with
+  `dgrad_kernel=False` the library's conv input gradient
+  (`torch.nn.grad.conv2d_input`) on g rounded to x.dtype, as the JAX
+  package's `dgrad_pallas=False` (its XLA conv backward);
 - dW: K6 (`rk.wgrad_conv3x3`, the activation recomputed in the kernel) when
   `wgrad_kernel`, else the library's conv weight gradient on s rounded to
   x.dtype, as the JAX package's default XLA path;
@@ -16,8 +19,8 @@ and whose backward is a kernel too:
   dz * x and dz; dbias = the (N, H, W) sum of g in float32.
 
 Gradient dtypes: dx in x.dtype, the rest float32 (`tests/test_conv_vjp.py:58-70`).
-The library wgrad is the JAX package's XLA path ported; it is not a
-fallback for a kernel. The kernels' wrappers run inside `forward` and
+The library wgrad and dgrad are the JAX package's XLA paths ported, each
+picked by its caller's routing; neither is a fallback for a kernel. The kernels' wrappers run inside `forward` and
 `backward`, where grad mode is off.
 """
 
@@ -61,12 +64,27 @@ def _dgrad_kernel(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return rk.fused_affine_conv3x3(g, wt, kernel.new_zeros(kernel.shape[2]))
 
 
+def _library_dgrad(g: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """d input of `_conv_nhwc(s, kernel)` for an s of `dtype` by the
+    library's conv backward, the cotangent cast to `dtype` (the JAX
+    package's `jax.vjp` of its XLA conv); (N, H, W, C) in `dtype`."""
+    n, h, w, _ = g.shape
+    wt = kernel.to(dtype).permute(3, 2, 0, 1)  # OIHW
+    ds = torch.nn.grad.conv2d_input((n, kernel.shape[2], h, w), wt,
+                                    g.to(dtype).permute(0, 3, 1, 2), padding=1)
+    return ds.permute(0, 2, 3, 1)
+
+
+def _dgrad(g, kernel, dtype, dgrad_kernel: bool):
+    return _dgrad_kernel(g, kernel) if dgrad_kernel else _library_dgrad(g, kernel, dtype)
+
+
 class _AffineSiluConv3x3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kernel, bias, a, b, wgrad_kernel):
+    def forward(ctx, x, kernel, bias, a, b, wgrad_kernel, dgrad_kernel):
         x = x.contiguous()
         ctx.save_for_backward(x, kernel, a, b)
-        ctx.wgrad_kernel = wgrad_kernel
+        ctx.wgrad_kernel, ctx.dgrad_kernel = wgrad_kernel, dgrad_kernel
         return rk.fused_affine_conv3x3(x, kernel, bias, a, b, silu=True)
 
     @staticmethod
@@ -79,20 +97,21 @@ class _AffineSiluConv3x3(torch.autograd.Function):
             dkernel = rk.wgrad_conv3x3(x, g, a, b, silu=True)
         else:  # on the forward's effective conv operand
             dkernel = _library_wgrad((z * sig).to(x.dtype), kernel, g)
-        dz = _dgrad_kernel(g, kernel).float() * (sig * (1.0 + z * (1.0 - sig)))
+        ds = _dgrad(g, kernel, x.dtype, ctx.dgrad_kernel)
+        dz = ds.float() * (sig * (1.0 + z * (1.0 - sig)))
         dx = (dz * a[:, None, None, :]).to(x.dtype)
         da = (dz * xf).sum((1, 2)).to(a.dtype)
         db = dz.sum((1, 2)).to(b.dtype)
         dbias = g.float().sum((0, 1, 2))
-        return dx, dkernel.to(kernel.dtype), dbias, da, db, None
+        return dx, dkernel.to(kernel.dtype), dbias, da, db, None, None
 
 
 class _PlainConv3x3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kernel, bias, wgrad_kernel):
+    def forward(ctx, x, kernel, bias, wgrad_kernel, dgrad_kernel):
         x = x.contiguous()
         ctx.save_for_backward(x, kernel)
-        ctx.wgrad_kernel = wgrad_kernel
+        ctx.wgrad_kernel, ctx.dgrad_kernel = wgrad_kernel, dgrad_kernel
         return rk.fused_affine_conv3x3(x, kernel, bias)
 
     @staticmethod
@@ -103,31 +122,33 @@ class _PlainConv3x3(torch.autograd.Function):
             dkernel = rk.wgrad_conv3x3(x, g)
         else:
             dkernel = _library_wgrad(x, kernel, g)
-        dx = _dgrad_kernel(g, kernel)
+        dx = _dgrad(g, kernel, x.dtype, ctx.dgrad_kernel)
         dbias = g.float().sum((0, 1, 2))
-        return dx.to(x.dtype), dkernel.to(kernel.dtype), dbias, None
+        return dx.to(x.dtype), dkernel.to(kernel.dtype), dbias, None, None
 
 
 def affine_silu_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                         a: torch.Tensor, b: torch.Tensor,
-                        wgrad_kernel: bool = False) -> torch.Tensor:
+                        wgrad_kernel: bool = False, dgrad_kernel: bool = True) -> torch.Tensor:
     """y = conv3x3_same(silu(a*x + b), kernel) + bias with K1 forward
-    (`v2a_tpu/ops/conv_vjp.py:73`).
+    (`v2a_tpu/ops/conv_vjp.py:73`); the input gradient by K1
+    (`dgrad_kernel`) or the library, the weight gradient by K6
+    (`wgrad_kernel`) or the library.
 
     x: (N, H, W, C); kernel: (3, 3, C, D) float32 parameter; bias: (D,);
     a, b: (N, C) float32 per-sample channel affine (the collapsed GroupNorm).
     Returns (N, H, W, D) in x.dtype. Eligibility (K1's channel gate) is the
     caller's job, as in the JAX package.
     """
-    return _AffineSiluConv3x3.apply(x, kernel, bias, a, b, wgrad_kernel)
+    return _AffineSiluConv3x3.apply(x, kernel, bias, a, b, wgrad_kernel, dgrad_kernel)
 
 
 def plain_conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                  wgrad_kernel: bool = False) -> torch.Tensor:
+                  wgrad_kernel: bool = False, dgrad_kernel: bool = True) -> torch.Tensor:
     """y = conv3x3_same(x, kernel) + bias with K1 forward, the no-affine
     variant for convs with no norm before them, the upsample conv
     (`v2a_tpu/ops/conv_vjp.py:156`)."""
-    return _PlainConv3x3.apply(x, kernel, bias, wgrad_kernel)
+    return _PlainConv3x3.apply(x, kernel, bias, wgrad_kernel, dgrad_kernel)
 
 
 def affine_silu_conv3x3_reference(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
