@@ -231,6 +231,25 @@ Phases (any failure exits non-zero):
      plain step): launches per step, gradients through phase 6's gate, ms
      per step; every kernel signature of (c) and (d) not held before,
      against its plain version; the phase's wall time (budget 75 s);
+  17. (run after 16, before 14's lines) the last entry points
+     (`last_entry_points`): (a) `python -m
+     v2a_tpu_torch.scripts.verify_onchip`'s three gates through its
+     functions: the release U-Net with N(0, 0.02) weights under its four
+     routings (`unfused`, `fused_nopad`, `default`, `pallas_attn`), a B=8
+     forward each (launches `VERIFY_PER_FORWARD`) and a 100-step ancestral
+     chain each at B=2 (`ENTRY_CHAIN_B`, not the CLI's 8: the script's time
+     limit; exactly 100 forwards' launches), through the JAX script's gates;
+     `--train` (the release policy's gradients at B=16, three clip + AdamW
+     updates: `fused_clip_adamw` against `torch.optim` and host float64);
+     `--train-fused` with the library wgrad and with K6 (launches
+     `VERIFY_TRAIN_FUSED`); every kernel signature these runs gave that no
+     earlier phase held, against its plain version on three input sets;
+     (b) `python -m v2a_tpu_torch.scripts.bringup --synthetic
+     --torch-oracle` (the release parameter schema) in this process, every
+     step PASS and no kernel launched, then `--pt <missing>`: one step,
+     `assets` FAIL naming the path; (c) one line saying that the LIBERO
+     backend is not run, with its import error; the phase's wall time
+     (budget 60 s);
   14. prints the `kernels` JSON line, then the device line last.
 
 Weights are random from a seed (phase 10: the writer's reference
@@ -245,14 +264,15 @@ write their checkpoints under `logs/chip_smoke_train/`,
 reference and converted checkpoints under `logs/chip_smoke_ckpt/`, phase 11
 its trainers' under `logs/chip_smoke_family/`, phase 12 its images,
 snapshots and samples under `logs/chip_smoke_guided/` (its ancestral sample
-batch to `logs/chip_smoke_eval/` for phase 16), and the script removes
-them.
+batch to `logs/chip_smoke_eval/` for phase 16), phase 17 its bring-up
+assets under `logs/chip_smoke_bringup/`, and the script removes them.
 """
 
 import contextlib
 import dataclasses
 import gc
 import inspect
+import io
 import json
 import os
 import shutil
@@ -4324,6 +4344,7 @@ def mesh_and_remat(rk, held, model, vcfg, dev, smi):
         _, extra_agg = check_kernels(rk, {"mesh": extra}, dev, timed=False, tag="mesh-shapes")
         extra_agg = extra_agg["mesh"]
     report["new_signatures"] = len(extra)
+    held.update(extra)  # the later phases need not hold them again
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"[mesh] {smi}: {len(extra)} kernel signatures not held before; phase 15 wall time "
         f"{report['phase_s']:.1f} s (world-1 mesh {parts['world1']:.1f} s, the cards "
@@ -4673,11 +4694,193 @@ def last_modules(rk, held, model, vcfg, dev, smi):
         _, extra_agg = check_kernels(rk, {"last": extra}, dev, timed=False, tag="last-shapes")
         extra_agg = extra_agg["last"]
     report["new_signatures"] = len(extra)
+    held.update(extra)  # the later phases need not hold them again
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"[last] {smi}: {len(extra)} kernel signatures not held before; phase 16 wall time "
         f"{report['phase_s']:.1f} s (budget {LAST_BUDGET_S}): "
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     shutil.rmtree(EVAL_LOGS, ignore_errors=True)
+    return report, launches, extra_agg
+
+
+# phase 17, the last entry points: verify_onchip's gates, the bring-up
+# pipeline, the LIBERO line
+ENTRY_CHAIN_B = 2  # the chains' batch (the CLI's is 8): the script's time limit
+VERIFY_KW = {}  # run_configs arguments (a CPU rehearsal: smaller sizes)
+# launches per forward of verify_onchip's routings (tests/test_torch_padded.py
+# traces the same on the meta device, `pallas_attn` among its cases)
+VERIFY_PER_FORWARD = {
+    "unfused": {},
+    "fused_nopad": EXPECTED_PER_FORWARD["unpadded"],
+    "default": EXPECTED_PER_FORWARD["padded"],
+    "pallas_attn": dict(EXPECTED_PER_FORWARD["padded"], fused_spatial_attention_padded=11),
+}
+# launches of one loss-and-gradients of --train-fused's U-Net: 25 convs, K1
+# forward and dgrad [and K6] (tests/test_torch_verify_onchip.py, meta device)
+VERIFY_TRAIN_FUSED = {"library_wgrad": {"fused_affine_conv3x3": 50},
+                      "k6_wgrad": {"fused_affine_conv3x3": 50, "wgrad_conv3x3": 25}}
+BRINGUP_LOGS = os.path.join(ROOT, "logs", "chip_smoke_bringup")
+BRINGUP_STEPS = ["assets", "convert", "load", "tokenizer", "parity", "sample", "eval"]
+BRINGUP_FLAGS = []  # flags added to both bringup calls (a CPU rehearsal: --device cpu)
+ENTRY_BUDGET_S = 60
+
+
+def _verify_parity(dev, smi, launches, calls_all):
+    """Phase 17 (a), the main gate: `verify_onchip.run_configs` with every
+    forward and chain counted (`VERIFY_PER_FORWARD`; a chain exactly its
+    steps' forwards), then `parity_report`, the JAX script's gates."""
+    from v2a_tpu_torch.scripts import verify_onchip as vo
+
+    counts, steps = {}, VERIFY_KW.get("steps", vo.STEPS)
+
+    def around(name, part, fn):
+        out, counts[(name, part)] = _run_counted(launches, calls_all, fn)
+        return out
+
+    t0 = time.perf_counter()
+    outs = vo.run_configs(dev, chain_batch=ENTRY_CHAIN_B, around=around, log=log,
+                          **VERIFY_KW)
+    wall = time.perf_counter() - t0
+    for name, want in VERIFY_PER_FORWARD.items():
+        fwd, chain = counts[(name, "forward")], counts[(name, "chain")]
+        if fwd != want or chain != {k: steps * v for k, v in want.items()}:
+            fail(f"verify_onchip: {name} launched {fwd} per forward and {chain} per "
+                 f"{steps}-step chain, expected {want} per forward")
+    report, ok = vo.parity_report(outs)
+    deltas = vo.video_deltas(outs)
+    log(f"[verify] {smi}: the release U-Net, N(0, 0.02) weights, bf16, B="
+        f"{VERIFY_KW.get('batch', vo.BATCH)} forwards and {steps}-step chains at B="
+        f"{ENTRY_CHAIN_B} (the CLI's chains are at B={vo.BATCH}; cut for the script's time), "
+        f"the four routings in {wall:.1f} s: {json.dumps(report)}; the videos against "
+        f"unfused, unrounded: {json.dumps(deltas)}")
+    if not ok:
+        fail(f"verify_onchip: the parity gate failed: {report}")
+    return dict(report=report, video_deltas=deltas, wall_s=wall, chain_batch=ENTRY_CHAIN_B,
+                steps=steps, launches={f"{n}/{p}": c for (n, p), c in counts.items()})
+
+
+def _verify_train(dev, smi, launches, calls_all):
+    """Phase 17 (a): `--train` (no kernel: the policy is plain PyTorch) and
+    `--train-fused` with the library wgrad and with K6
+    (`VERIFY_TRAIN_FUSED`'s launches), each through the JAX script's gates."""
+    from v2a_tpu_torch.scripts import verify_onchip as vo
+
+    t0 = time.perf_counter()
+    out, got = _run_counted(launches, calls_all, lambda: vo.train_gate(dev))
+    train_s = time.perf_counter() - t0
+    opt = out["train_step_optimizer_gate"]
+    log(f"[verify] {smi}: --train, the release policy ({opt['params'] / 1e6:.1f} M params) at "
+        f"B={vo.POLICY_BATCH}, {vo.OPT_STEPS} updates in {train_s:.1f} s: {json.dumps(opt)}")
+    if not out["pass"] or got:
+        fail(f"verify_onchip --train: {opt}, launches {got}")
+    t0 = time.perf_counter()
+    state = vo.train_fused_state(dev)
+    plain, got = _run_counted(launches, calls_all,
+                              lambda: vo.train_fused_grads(dev, state, False))
+    if got:
+        fail(f"verify_onchip --train-fused: the plain path launched {got}")
+    fused = {}
+    for label, wgrad in (("library_wgrad", False), ("k6_wgrad", True)):
+        grads, got = _run_counted(launches, calls_all,
+                                  lambda: vo.train_fused_grads(dev, state, True, wgrad))
+        report, ok = vo.grad_report(*plain, *grads)
+        fused[label] = dict(report, launches=got)
+        log(f"[verify] {smi}: --train-fused, {label}: launches {got}, {json.dumps(report)}")
+        if got != VERIFY_TRAIN_FUSED[label] or not ok:
+            fail(f"verify_onchip --train-fused ({label}): launches {got}, expected "
+                 f"{VERIFY_TRAIN_FUSED[label]}; {report}")
+    return dict(train=opt, train_s=train_s, train_fused=fused,
+                train_fused_s=time.perf_counter() - t0)
+
+
+def _bringup(smi):
+    """Phase 17 (b): `bringup --synthetic --torch-oracle` in this process
+    (its output kept to the step lines), every step PASS and no kernel
+    launched; then `--pt <missing>` failing at its first step."""
+    from v2a_tpu_torch.scripts import bringup
+
+    def run(argv, out_dir):
+        buf = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bringup.main(argv + BRINGUP_FLAGS + ["--out-dir", out_dir])
+        wall = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            if line.startswith("["):
+                log(f"[bringup] {line}")
+        with open(os.path.join(out_dir, "bringup_manifest.json")) as fh:
+            return rc, json.load(fh), wall, {k: v for k, v in launch_counts().items() if v}
+
+    try:
+        rc, manifest, wall, got = run(["--synthetic", "--torch-oracle"],
+                                      os.path.join(BRINGUP_LOGS, "oracle"))
+        steps = manifest["steps"]
+        if (rc != 0 or not manifest["pass"] or [s["step"] for s in steps] != BRINGUP_STEPS
+                or any(s["status"] != "PASS" for s in steps) or got):
+            fail(f"bringup --torch-oracle: exit {rc}, launches {got}, manifest {manifest}")
+        missing = os.path.join(BRINGUP_LOGS, "nope", "model-180000.pt")
+        rc_m, manifest_m, wall_m, _ = run(["--pt", missing], os.path.join(BRINGUP_LOGS, "nope"))
+        first = manifest_m["steps"]
+        if (rc_m == 0 or manifest_m["pass"] or len(first) != 1 or first[0]["step"] != "assets"
+                or first[0]["status"] != "FAIL" or missing not in first[0]["error"]):
+            fail(f"bringup --pt <missing>: exit {rc_m}, manifest {manifest_m}")
+    finally:
+        shutil.rmtree(BRINGUP_LOGS, ignore_errors=True)
+    info = {s["step"]: {k: v for k, v in s.items() if k not in ("step", "status")}
+            for s in steps}
+    log(f"[bringup] {smi}: --synthetic --torch-oracle (the release schema, "
+        f"{info['convert']['params'] / 1e6:.1f} M converted params) all seven steps PASS in "
+        f"{wall:.1f} s ({', '.join(f'{k} {v['seconds']} s' for k, v in info.items())}), parity "
+        f"max |err| {info['parity']['max_abs_err']:.3e}, no kernel launched; --pt <missing> "
+        f"exit {rc_m} in {wall_m:.2f} s: {first[0]['error']}")
+    return dict(steps=info, wall_s=wall, missing=dict(exit=rc_m, wall_s=wall_m,
+                                                      error=first[0]["error"]))
+
+
+def _libero_line():
+    """Phase 17 (c): the LIBERO backend is not run here; its import error."""
+    from v2a_tpu_torch.envs.registration import make_env_list
+
+    try:
+        make_env_list("libero-1tk-65-v3")
+    except ImportError as e:
+        msg = f"{e} ({type(e.__cause__).__name__}: {e.__cause__})"
+    else:
+        msg = "LIBERO imports here, but no phase drives it"
+    log(f"[libero] the LIBERO env backend (v2a_tpu_torch/envs/libero.py) is not run: {msg}")
+    return msg
+
+
+def last_entry_points(rk, held, dev, smi):
+    """Phase 17, the last entry points: (a) `_verify_parity`,
+    `_verify_train`, (b) `_bringup`, (c) `_libero_line`; then every kernel
+    signature (a) gave that no earlier phase held, against its plain
+    version. Returns the report, the launches of (a) and the per-kernel
+    errors of those signatures."""
+    t_phase = time.perf_counter()
+    report, calls_all = {}, {}
+    launches = {name: 0 for name in rk.KERNELS}
+    parts = report["parts_s"] = {}
+    for name, fn in (("verify_parity", lambda: _verify_parity(dev, smi, launches, calls_all)),
+                     ("verify_train", lambda: _verify_train(dev, smi, launches, calls_all)),
+                     ("bringup", lambda: _bringup(smi)),
+                     ("libero", _libero_line)):
+        t0 = time.perf_counter()
+        report[name] = fn()
+        parts[name] = time.perf_counter() - t0
+    extra = {k: v for k, v in calls_all.items() if k not in held}
+    t0 = time.perf_counter()
+    extra_agg = {}
+    if extra:
+        _, extra_agg = check_kernels(rk, {"entry": extra}, dev, timed=False, tag="entry-shapes")
+        extra_agg = extra_agg["entry"]
+    parts["new_signatures"] = time.perf_counter() - t0
+    report["new_signatures"] = len(extra)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[entry] {smi}: {len(extra)} kernel signatures not held before; phase 17 wall time "
+        f"{report['phase_s']:.1f} s (budget {ENTRY_BUDGET_S}): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     return report, launches, extra_agg
 
 
@@ -4790,6 +4993,8 @@ def main():
     # 16. the last modules: evaluation, the trunk's pools, scale-shift, the
     # train switches
     last, last_launches, last_agg = last_modules(rk, held, model, vcfg, dev, smi)
+    # 17. the last entry points: verify_onchip's gates, bringup, the LIBERO line
+    entry_pts, entry_launches, entry_agg = last_entry_points(rk, held, dev, smi)
 
     # 14. report: K1-K5 sums over one B=8 forward of the shipped routing, K8
     # and K9 of `padded_k8_k9`, K7 of `plain_k7`, K10 and K11 of
@@ -4824,10 +5029,12 @@ def main():
         errs += [family_agg[name]["max_abs_err"]] if family_agg else []
         errs += [mesh_agg[name]["max_abs_err"]] if mesh_agg else []
         errs += [last_agg[name]["max_abs_err"]] if last_agg else []
+        errs += [entry_agg[name]["max_abs_err"]] if entry_agg else []
         n_launch = (lab_launches[name] if name in lab_names else launches[name]
                     + train_launches[name] + sum(nl[name] for nl in new_launches.values())
                     + online_launches[name] + video_launches[name] + ckpt_launches[name]
-                    + family_launches[name] + mesh_launches[name] + last_launches[name])
+                    + family_launches[name] + mesh_launches[name] + last_launches[name]
+                    + entry_launches[name])
         return dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                     launches=n_launch,
                     max_abs_err=max(errs), ms=src["ms"], plain_ms=src["plain_ms"],
@@ -4851,6 +5058,7 @@ def main():
                        lab_launches=lab_launches, lab_bench=lab_bench, lab_bench_s=lab_s,
                        lab_shapes=lab_rows, per_lab=lab_agg, lab_paths=lab, mesh=mesh,
                        mesh_launches=mesh_launches, last=last, last_launches=last_launches,
+                       entry_points=entry_pts, entry_launches=entry_launches,
                        kernels=kernels,
                        **forward), fh, indent=1)
     log("[report] K1-K5 ms / plain_ms / bound_ms / library_ms are sums over one B=8 release "
@@ -4867,7 +5075,8 @@ def main():
         "families' requests and K6 train steps (Thor, Bridge, MW-flow) plus phase 15's "
         "mesh and remat runs (the world-1 mesh's train step, sampler and online cycle, the "
         "remat steps) plus phase 16's (the scale-shift U-Net's fused forward, the train "
-        "switches' steps), and "
+        "switches' steps) plus phase 17's (verify_onchip's B=8 forwards and B=2 chains of "
+        "its three fused routings, its two --train-fused gradients), and "
         "for K13-K15 those of their lab paths (the perf lab's benches; K13 against K3)")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi)

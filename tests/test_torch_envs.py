@@ -4,6 +4,8 @@ sequence (the oracle's grasp included), the seed sets and the registry, the
 random-action sampler, and the scripted oracle. Host-side numpy on both
 sides, so every comparison is exact."""
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -74,7 +76,7 @@ def test_fake_env_steps_like_jax(env_kw):
         envs[1].init_1_given_env(other, envs[1].seed_sets[other][0], e_seed=1)
 
 
-def test_seed_sets_registry_and_tables():
+def test_seed_sets_registry_and_tables(monkeypatch):
     tasks = [f"t{i}" for i in range(5)]
     assert tbase.make_seed_sets(tasks, 100, 3) == jbase.make_seed_sets(tasks, 100, 3)
     assert sorted(treg._REGISTRY) == sorted(jreg._REGISTRY)
@@ -83,8 +85,14 @@ def test_seed_sets_registry_and_tables():
         for attr in ("task_list", "camera_list", "seed_sets", "task_to_task_idx", "img_hw",
                      "step_scale", "grasp_radius", "obj_window_xy", "action_dim"):
             assert getattr(j, attr) == getattr(t, attr), (name, attr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.make_env_list("libero-8tk-65to72-v3")
+    # without LIBERO both registries raise the JAX package's ImportError
+    monkeypatch.setitem(sys.modules, "libero", None)
+    errors = []
+    for reg in (jreg, treg):
+        with pytest.raises(ImportError) as e:
+            reg.make_env_list("libero-8tk-65to72-v3")
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] and "LIBERO is not installed" in errors[0]
     with pytest.raises(KeyError):
         treg.make_env_list("no-such-list")
     assert tconst.MW_INTERACTION_TYPES == jconst.MW_INTERACTION_TYPES

@@ -401,9 +401,16 @@ def test_padded_unet_reaches_k4a(monkeypatch):
      {"fused_affine_conv3x3": 31, "temporal_conv_fused": 29, "fused_conv_tconv_padded": 17,
       "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 17,
       "fused_upconv3x3_padded": 3}),
+    # the shipped routing with K9 in every attention block and no K8
+    # (`V2A_PALLAS_ATTN=1`, verify_onchip's `pallas_attn`): K9's 11 calls
+    # beside the padded counts
+    (dict(fused=True, routing=tvu.ConvRouting(attn_kernel=True)),
+     {"fused_affine_conv3x3": 31, "temporal_conv_fused": 30, "fused_conv_tconv_padded": 16,
+      "fused_affine_conv3x3_padded": 14, "temporal_conv_padded": 17,
+      "fused_upconv3x3_padded": 3, "fused_spatial_attention_padded": 11}),
 ], ids=["padded", "unpadded", "padded_k8_k9", "plain_k7", "spatial_k10_k11", "padded_k12",
         "padded_k8_k9_wide", "padded_mega_off", "spatial2_deep", "padded_upconv_off",
-        "padded_entry_pad"])
+        "padded_entry_pad", "pallas_attn"])
 def test_release_forward_launch_counts(monkeypatch, routing, counts):
     """The release U-Net (128^2, F=7, mc 128, mult (1,2,3,4,5), 2 res blocks,
     attention at ds 8 / 16, bf16) traced on the meta device: the kernels

@@ -1,6 +1,6 @@
-"""Environment layer: the EnvList interface, the deterministic fake backend
-and the name registry (copies of `v2a_tpu/envs/`; the LIBERO backend is not
-ported yet, ROADMAP.md Queue 1)."""
+"""Environment layer: the EnvList interface, the deterministic fake backend,
+the LIBERO/MuJoCo adapter (`envs/libero.py`, imported only when a LIBERO
+list is built) and the name registry (copies of `v2a_tpu/envs/`)."""
 
 from v2a_tpu_torch.envs.base import EnvList
 from v2a_tpu_torch.envs.fake import FakeEnvList

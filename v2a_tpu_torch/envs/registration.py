@@ -1,10 +1,10 @@
 """Environment registry.
 
 A copy of `v2a_tpu/envs/registration.py`: configs refer to env lists by
-name and the trainer calls `make_env_list(name)`. The fake lists are
-registered under the same names; the LIBERO suites are registered too, but
-their factory raises until the LIBERO backend is ported (ROADMAP.md,
-Queue 1: it waits on LIBERO and the H5 data being in the repository).
+name and the trainer calls `make_env_list(name)`. The fake lists and the
+LIBERO suites are registered under the same names; a LIBERO suite builds
+the port's `envs/libero.py::LiberoEnvList`, imported when the list is
+built, which raises `ImportError` where LIBERO is not installed.
 """
 
 from __future__ import annotations
@@ -31,10 +31,10 @@ def make_env_list(name: str, **overrides):
 
 
 def _libero(**kwargs):
-    raise NotImplementedError(
-        "the LIBERO env backend is not ported yet (ROADMAP.md, Queue 1); use a "
-        "fake env list (env_backend='fake')"
-    )
+    # constructed lazily so the LIBERO import only happens if actually requested
+    from v2a_tpu_torch.envs.libero import LiberoEnvList
+
+    return LiberoEnvList(**kwargs)
 
 
 def _register_defaults():
